@@ -1,12 +1,14 @@
-"""JAX params / index arrays → torch tensors.
+"""JAX params / index arrays → torch tensors, and back.
 
 ``params_from_jax`` takes the pytree that ``sse_tpu.models.sse.init_params``
 returns (or restored ``inference_params``), with leaves as numpy arrays or
 anything ``np.asarray`` accepts, and returns the same nesting of dicts and
 lists with torch tensors. Layouts are kept as they are: the fused RNN
 weight stays [(in+H), G·H] with gate order (z, r, n) for the GRU, so the
-port's ``_split_weights`` reads it exactly like the JAX one. This module
-imports no JAX: callers hand it host arrays.
+port's ``_split_weights`` reads it exactly like the JAX one.
+``params_to_numpy`` is the inverse, so that the JAX package can load and
+evaluate params the port trained. This module imports no JAX: callers
+hand it, and get back, host arrays.
 """
 
 from __future__ import annotations
@@ -36,3 +38,25 @@ def params_from_jax(tree: Any, device: torch.device | str = "cpu") -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return array_from_jax(tree, device)
+
+
+def array_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor → host array of the same dtype. bf16 travels as its
+    uint16 bits and comes back as ``ml_dtypes.bfloat16`` (numpy's bf16,
+    which JAX reads), the inverse of ``array_from_jax``."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only where a bf16 tensor appears
+
+        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Convert a params tree (dicts, lists, tuples of tensors) to host
+    arrays, keeping its nesting."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    return array_to_numpy(tree)

@@ -69,12 +69,27 @@ def init_params(
     return params
 
 
-def encode_source(params: Params, cfg: SSEConfig, tokens, lengths) -> torch.Tensor:
-    """Source text → [B, D] normalized embeddings."""
-    return towers.encode_raw(params["src_tower"], cfg.src_tower, tokens, lengths)
+def encode_source(
+    params: Params,
+    cfg: SSEConfig,
+    tokens,
+    lengths,
+    dropout_generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Source text → [B, D] normalized embeddings. ``dropout_generator``
+    enables the tower's train-time dropout; eval and serving pass none."""
+    return towers.encode_raw(
+        params["src_tower"], cfg.src_tower, tokens, lengths, dropout_generator
+    )
 
 
-def encode_target(params: Params, cfg: SSEConfig, tokens, lengths) -> torch.Tensor:
+def encode_target(
+    params: Params,
+    cfg: SSEConfig,
+    tokens,
+    lengths,
+    dropout_generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
     """Target text → [B, D] normalized embeddings (tower modes only)."""
     if cfg.mode == NetworkMode.SOURCE_ENCODER_ONLY:
         raise ValueError(
@@ -83,9 +98,11 @@ def encode_target(params: Params, cfg: SSEConfig, tokens, lengths) -> torch.Tens
         )
     if cfg.mode == NetworkMode.SHARED_ENCODER:
         return towers.encode_raw(
-            params["src_tower"], cfg.src_tower, tokens, lengths
+            params["src_tower"], cfg.src_tower, tokens, lengths, dropout_generator
         )
-    return towers.encode_raw(params["tgt_tower"], cfg.tgt_tower, tokens, lengths)
+    return towers.encode_raw(
+        params["tgt_tower"], cfg.tgt_tower, tokens, lengths, dropout_generator
+    )
 
 
 def target_embeddings(
@@ -94,6 +111,7 @@ def target_embeddings(
     tokens: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,
     rows: Optional[torch.Tensor] = None,
+    dropout_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Normalized target-side embeddings: rows of the learned table in
     source-encoder-only mode (all rows if ``rows`` is None), otherwise
@@ -107,7 +125,7 @@ def target_embeddings(
         )
     if tokens is None or lengths is None:
         raise ValueError("tower modes need target tokens + lengths")
-    emb = encode_target(params, cfg, tokens, lengths)
+    emb = encode_target(params, cfg, tokens, lengths, dropout_generator)
     if rows is not None:
         emb = emb[rows]
     return emb

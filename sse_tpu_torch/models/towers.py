@@ -2,8 +2,9 @@
 ``sse_tpu/models/towers.py``).
 
 Ported: the GRU cell (fused-reset form), stacked layers with optional
-identity residuals, the final-state readout, the tanh projection and the
-L2 norm. Other cells (lstm, transformer, bow) and readouts (mean,
+identity residuals, the final-state readout, the tanh projection, the L2
+norm and the train-only dropout. Every layer goes through
+``rnn.RNNLayer``, so the tower is differentiable end to end. Other cells (lstm, transformer, bow) and readouts (mean,
 attention) raise ``NotImplementedError``; ROADMAP.md §1 queues them.
 
 Precision policy, as in the JAX package: matmul operands are bfloat16,
@@ -20,6 +21,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from sse_tpu_torch.ops import rnn
 from sse_tpu_torch.ops.rnn import bf16_matmul, gru_cell
@@ -116,25 +118,43 @@ def _split_weights(layer: Params, cell: str):
     return layer["w"][:in_dim], layer["w"][in_dim:], layer["b"]
 
 
+def _dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """Inverted dropout (scale-at-train, identity-at-eval), as
+    ``towers.py:576-580``; the keep mask is drawn from ``gen``."""
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=gen, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 def encode_raw(
     params: Params,
     cfg: TowerConfig,
     tokens: torch.Tensor,  # [B, L] int
     lengths: torch.Tensor,  # [B] int
+    dropout_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Token ids → L2-normalized [B, encoding_dim] float32 embeddings.
-    Each recurrent layer is one ``rnn.rnn_layer`` call: the hand-written
-    GRU kernel on a CUDA device, its plain version on the CPU."""
+    Each recurrent layer is one ``rnn.RNNLayer`` call: the hand-written
+    GRU kernels on a CUDA device, their plain versions on the CPU.
+
+    ``dropout_generator`` (a ``torch.Generator`` on the tokens' device)
+    turns on ``cfg.dropout`` on the embeddings and on the readout
+    features (training only); None, what eval and serving pass, keeps the
+    forward deterministic."""
     _check_supported(cfg)
+    train = dropout_generator is not None and cfg.dropout > 0.0
     L = tokens.shape[1]
-    emb = params["embed"][tokens.long()]  # [B, L, E] fp32
+    with record_function("sse.tower.embed"):
+        emb = params["embed"][tokens.long()]  # [B, L, E] fp32
+        if train:
+            emb = _dropout(emb, cfg.dropout, dropout_generator)
     pos = torch.arange(L, device=tokens.device)[None, :]
     valid = (pos < lengths[:, None]).float()  # [B, L]
     xs = emb.transpose(0, 1).to(_COMPUTE_DTYPE).contiguous()  # [L, B, E]
     mask = valid.T[:, None, :].contiguous()  # [L, 1, B]
     final = None
     for li, layer in enumerate(params["layers"]):
-        ys, fin = rnn.rnn_layer(xs, mask, *_split_weights(layer, cfg.cell), cfg.cell)
+        ys, fin = rnn.RNNLayer.apply(xs, mask, *_split_weights(layer, cfg.cell))
         if cfg.residual and li > 0:
             # identity skip; carry-freezing makes the stream's last step
             # each row's value at its own length (towers.py:628-637)
@@ -142,6 +162,8 @@ def encode_raw(
             xs = xs + ys
         else:
             final, xs = fin, ys
+    if train:
+        final = _dropout(final, cfg.dropout, dropout_generator)
     out = torch.tanh(bf16_matmul(final, params["proj_w"]) + params["proj_b"])
     return out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-6)
 

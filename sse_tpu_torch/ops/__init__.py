@@ -3,7 +3,13 @@
 is compiled on the first launch (``sse_tpu_torch.ops._build``)."""
 
 from sse_tpu_torch.ops import rnn, topk
-from sse_tpu_torch.ops.rnn import rnn_layer, rnn_layer_reference
+from sse_tpu_torch.ops.rnn import (
+    RNNLayer,
+    rnn_layer,
+    rnn_layer_bwd,
+    rnn_layer_bwd_reference,
+    rnn_layer_reference,
+)
 from sse_tpu_torch.ops.topk import (
     fused_score_topk,
     fused_score_topk_twophase,
@@ -24,12 +30,15 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "RNNLayer",
     "fused_score_topk",
     "fused_score_topk_twophase",
     "launch_counts",
     "quantize_queries_int8",
     "reset_launch_counts",
     "rnn_layer",
+    "rnn_layer_bwd",
+    "rnn_layer_bwd_reference",
     "rnn_layer_reference",
     "topk_reference",
 ]

@@ -5,7 +5,14 @@ Run on the card with ``python -m pytest tests/test_torch_gpu_kernels.py``;
 
 Tolerances: top-k rows and values bit-identical (exact-dot inputs make
 every float32 sum exact, int8 sums are exact integers); GRU fin to atol
-2e-3 / rtol 1e-3, bf16 ys to one bf16 ulp (rtol 2^-7).
+2e-3 / rtol 1e-3, bf16 ys to one bf16 ulp (rtol 2^-7). GRU backward, as
+``chip_smoke.check_gru_bwd`` states and explains: dWx, dWh, db to 1e-3
+of each tensor's max-abs; dxs to one bf16 ulp plus 1e-4 of its max-abs
+where the dh chain is short (T = 1, and the step t = T-1), and to 1e-2
+of its max-abs over all T=50 steps; at each rounding point (the plain
+chain driven by the kernels' dgates_b) to one bf16 ulp and 1e-5 of
+max-abs; tower gradients to 3e-2 of each leaf's max-abs (the pin of
+tests/test_ops_rnn.py).
 """
 
 import pytest
@@ -99,3 +106,128 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
         topk.fused_score_topk(q, emb, 5, 256)
     with pytest.raises(ValueError, match="k <= 128"):
         topk.fused_score_topk(q[:, :64].contiguous(), emb[:, :64].contiguous(), 200, 256)
+
+
+def _gru_bwd_args(gen, T, B, E=128, H=128, dead_rows=()):
+    from sse_tpu_torch.ops import rnn
+
+    wx = (torch.randn((E, 3 * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    wh = (torch.randn((H, 3 * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    b = torch.randn((3 * H,), generator=gen, device="cuda") * 0.05
+    xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
+    lens = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
+    mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :]
+    mask[:, :, list(dead_rows)] = 0.0
+    mask = mask.contiguous()
+    ys, _ = rnn.rnn_layer(xs, mask, wx, wh, b)
+    dys = (torch.randn((T, B, H), generator=gen, device="cuda") * 0.1).bfloat16()
+    dfin = torch.randn((B, H), generator=gen, device="cuda")
+    return xs, ys, mask, wx, wh, b, dys, dfin
+
+
+def _check_bwd(got, want, T):
+    gx, wx = got[0].float(), want[0].float()
+    ulp = dict(atol=1e-4 * float(wx.abs().max()), rtol=2.0**-7)
+    if T == 1:
+        torch.testing.assert_close(gx, wx, **ulp)
+    else:
+        torch.testing.assert_close(gx[-1], wx[-1], **ulp)
+    assert float((gx - wx).abs().max()) <= 1e-2 * float(wx.abs().max())
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32
+        assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("T", [1, 50])
+@pytest.mark.parametrize("B", [1, 33, 384])
+def test_gru_bwd_kernel_matches_plain(cuda, T, B):
+    from sse_tpu_torch.ops import rnn
+
+    args = _gru_bwd_args(cuda, T, B)
+    n = rnn.launches["gru_bwd"]
+    got = rnn.rnn_layer_bwd(*args)
+    torch.cuda.synchronize()
+    assert rnn.launches["gru_bwd"] == n + 1
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == args[0].shape
+    _check_bwd(got, rnn.rnn_layer_bwd_reference(*args), T)
+
+
+def test_gru_bwd_rounding_points(cuda):
+    """chip_smoke's pinned check at T=50, B=384: the plain chain fed the
+    kernels' gates and driven by their dgates_b matches that dgates_b,
+    and the products of it match dxs, dWx, dWh (bounds of
+    chip_smoke.held_to_one_ulp; 1e-5 of max-abs for the fp32 tensors)."""
+    from chip_smoke import held_to_one_ulp
+    from sse_tpu_torch.ops import rnn
+
+    args = _gru_bwd_args(cuda, 50, 384)
+    xs, ys, mask, wx, wh, b, dys, dfin = args
+    dxs, dwx, dwh, db, gates, dgb = rnn.gru_bwd_launch(*args)
+    h_prev = rnn._h_prev(ys)
+    dgb_r, db_r = rnn.gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin, drive=dgb)
+    dxs_r, dwx_r, dwh_r = rnn.gru_bwd_products(xs, h_prev, wx, dgb)
+    held_to_one_ulp("dgates_b", dgb_r, dgb)
+    held_to_one_ulp("dxs", dxs, dxs_r)
+    for g, w in ((gates, rnn.gru_gates(xs, h_prev, wx, wh, b)), (dwx, dwx_r),
+                 (dwh, dwh_r), (db, db_r)):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_gru_bwd_fully_masked_rows(cuda):
+    """Rows masked at every step get no input gradient (dgates = 0, the
+    dh chain passes through) and leave the rest as the plain version."""
+    from sse_tpu_torch.ops import rnn
+
+    args = _gru_bwd_args(cuda, 20, 70, dead_rows=(0, 31, 32, 69))
+    got = rnn.rnn_layer_bwd(*args)
+    assert not got[0][:, [0, 31, 32, 69]].float().abs().any()
+    _check_bwd(got, rnn.rnn_layer_bwd_reference(*args), 20)
+    dead = args[2].clone()
+    dead.zero_()
+    got = rnn.rnn_layer_bwd(args[0], args[1], dead, *args[3:])
+    assert not (got[0].float().abs().any() or got[1].any() or got[2].any() or got[3].any())
+
+
+def test_tower_gradients_match_plain(cuda):
+    """A 2-layer residual GRU tower: every parameter's gradient from the
+    kernels (CUDA) against the plain versions (the same params on the
+    CPU), two forward and two backward launches."""
+    from sse_tpu_torch.models import towers
+    from sse_tpu_torch.ops import rnn
+    from sse_tpu_torch.train.loop import tree_leaves
+
+    cfg = towers.TowerConfig(vocab_size=500, embed_dim=128, hidden=128, num_layers=2,
+                             encoding_dim=64, residual=True)
+    base = towers.init_tower(cfg, torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(2, 500, (48, 20), generator=g)
+    lens = torch.randint(1, 21, (48,), generator=g)
+    w = torch.randn((48, 64), generator=g)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [p.to(dev).requires_grad_(True) for p in tree_leaves(base)]
+        params = {"embed": leaves[0], "layers": [{"b": leaves[1], "w": leaves[2]},
+                                                 {"b": leaves[3], "w": leaves[4]}],
+                  "proj_b": leaves[5], "proj_w": leaves[6]}
+        before = dict(rnn.launches)
+        out = towers.encode_raw(params, cfg, toks.to(dev), lens.to(dev))
+        (out * w.to(dev)).sum().backward()
+        fired = {k: rnn.launches[k] - before[k] for k in before}
+        assert fired == ({"gru_fwd": 2, "gru_bwd": 2} if dev == "cuda" else {"gru_fwd": 0, "gru_bwd": 0})
+        grads[dev] = [p.grad.cpu().double() for p in leaves]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert float((got - want).abs().max()) <= 3e-2 * float(want.abs().max())
+
+
+def test_gru_bwd_raises_on_bad_input(cuda):
+    from sse_tpu_torch.ops import rnn
+
+    args = list(_gru_bwd_args(cuda, 4, 8))
+    bad_dfin = args[:7] + [args[7].bfloat16()]
+    with pytest.raises(ValueError, match="dfin"):
+        rnn.rnn_layer_bwd(*bad_dfin)
+    strided = args[0].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="xs"):
+        rnn.rnn_layer_bwd(strided, *args[1:])
+    with pytest.raises(ValueError, match="wh"):
+        rnn.rnn_layer_bwd(*args[:4], args[4].cpu(), *args[5:])

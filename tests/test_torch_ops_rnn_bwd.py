@@ -1,0 +1,194 @@
+"""GRU layer backward parity: the PyTorch port's plain backward (what
+``rnn_layer_bwd`` and ``RNNLayer`` run on CPU tensors) against the JAX
+package's fused Pallas backward in interpret mode, and autograd through
+the port against ``jax.grad`` of the Pallas layer.
+
+Tolerances (each test says which it uses):
+- ``dxs`` is bf16: one bf16 ulp (rtol 2^-7, atol 1e-6). The two versions
+  sum the same bf16 products in float32 in another order.
+- ``dWx``, ``dWh``, ``db`` (float32): rtol 1e-4, atol 1e-5. The runs
+  show at most ~1e-6 absolute on values up to ~10.
+- Autograd through whole stacks: max |port - jax| / max |jax| < 3e-2 per
+  gradient, the pin of tests/test_ops_rnn.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sse_tpu.ops import pallas_rnn
+from sse_tpu_torch.convert import array_from_jax
+from sse_tpu_torch.ops import rnn
+
+ULP = dict(atol=1e-6, rtol=2.0**-7)
+
+
+def _inputs(seed, T, B, E, H, all_masked_rows=()):
+    rng = np.random.default_rng(seed)
+    wx = (rng.normal(size=(E, 3 * H)) * 0.05).astype(np.float32)
+    wh = (rng.normal(size=(H, 3 * H)) * 0.05).astype(np.float32)
+    b = (rng.normal(size=(3 * H,)) * 0.01).astype(np.float32)
+    xs = rng.normal(size=(T, B, E)).astype(np.float32)
+    lens = rng.integers(1, T + 1, B)
+    mask = (np.arange(T)[:, None] < lens[None, :]).astype(np.float32)[:, None, :]
+    mask[:, :, list(all_masked_rows)] = 0.0
+    dys = rng.normal(size=(T, B, H)).astype(np.float32)
+    dfin = rng.normal(size=(B, H)).astype(np.float32)
+    return xs, mask, wx, wh, b, dys, dfin
+
+
+@pytest.mark.parametrize("T,B,masked", [(6, 8, ()), (8, 16, (3, 7))])
+def test_bwd_reference_matches_pallas(T, B, masked):
+    """dxs to one bf16 ulp; dW, db to rtol 1e-4 / atol 1e-5."""
+    E = H = 128  # the Pallas kernel's lane alignment
+    xs, mask, wx, wh, b, dys, dfin = _inputs(T * B, T, B, E, H, masked)
+    ys, _, _ = pallas_rnn._layer_fwd_pallas(
+        jnp.asarray(xs), jnp.asarray(mask), jnp.asarray(wx), jnp.asarray(wh),
+        jnp.asarray(b), "gru", interpret=True,
+    )
+    dys_b = jnp.asarray(dys).astype(jnp.bfloat16)
+    want = pallas_rnn._layer_bwd_pallas(
+        jnp.asarray(xs), ys, None, jnp.asarray(mask), jnp.asarray(wx), jnp.asarray(wh),
+        jnp.asarray(b), dys_b, jnp.asarray(dfin), "gru", interpret=True,
+    )
+    got = rnn.rnn_layer_bwd(
+        torch.from_numpy(xs).bfloat16(), array_from_jax(np.asarray(ys)),
+        torch.from_numpy(mask), torch.from_numpy(wx), torch.from_numpy(wh),
+        torch.from_numpy(b), array_from_jax(np.asarray(dys_b)), torch.from_numpy(dfin),
+    )
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == (T, B, E)
+    np.testing.assert_allclose(
+        got[0].float().numpy(), np.asarray(want[0], np.float32), **ULP
+    )
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
+    # a row masked at every step gets no gradient into its inputs
+    for r in masked:
+        assert not got[0][:, r].float().abs().any()
+
+
+def test_driven_chain_follows_the_drive():
+    """gru_bwd_chain driven by its own dgates_b is bit-identical to the
+    undriven chain; driven by a dgates_b changed at one step s, only the
+    steps before s change (the drive enters dh after step s's rounding)."""
+    T, B, E, H = 6, 5, 16, 16
+    xs, mask, wx, wh, b, dys, dfin = (torch.from_numpy(a) for a in _inputs(7, T, B, E, H))
+    xs, dys = xs.bfloat16(), dys.bfloat16()
+    ys, _ = rnn.rnn_layer(xs, mask, wx, wh, b)
+    h_prev = rnn._h_prev(ys)
+    gates = rnn.gru_gates(xs, h_prev, wx, wh, b)
+    dgb, db = rnn.gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin)
+    again, db_again = rnn.gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin, drive=dgb)
+    assert torch.equal(again, dgb) and torch.equal(db_again, db)
+    s = 3
+    drive = dgb.clone()
+    drive[s] = (drive[s].float() * 1.5).bfloat16()
+    moved, _ = rnn.gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin, drive=drive)
+    assert torch.equal(moved[s:], dgb[s:])
+    assert not torch.equal(moved[:s], dgb[:s])
+    want = rnn.rnn_layer_bwd_reference(xs, ys, mask, wx, wh, b, dys, dfin)
+    assert all(torch.equal(g, w) for g, w in
+               zip((*rnn.gru_bwd_products(xs, h_prev, wx, dgb), db), want))
+
+
+def _jax_stack_loss(xs, mask, layers, residual):
+    x, final = xs.astype(jnp.bfloat16), None
+    for li, (wx, wh, b) in enumerate(layers):
+        ys, fin = pallas_rnn.rnn_layer(x, mask, wx, wh, b, "gru", True)
+        if residual and li > 0:
+            final, x = fin + x[-1].astype(jnp.float32), x + ys
+        else:
+            final, x = fin, ys
+    # touch BOTH outputs so the dys and dfin paths are exercised
+    return (final ** 2).sum() + (x.astype(jnp.float32) ** 3).sum()
+
+
+def _torch_stack_loss(xs, mask, layers, residual):
+    x, final = xs.to(torch.bfloat16), None
+    for li, (wx, wh, b) in enumerate(layers):
+        ys, fin = rnn.RNNLayer.apply(x, mask, wx, wh, b)
+        if residual and li > 0:
+            final, x = fin + x[-1].float(), x + ys
+        else:
+            final, x = fin, ys
+    return (final ** 2).sum() + (x.float() ** 3).sum()
+
+
+@pytest.mark.parametrize("num_layers", [1, 2])
+def test_autograd_matches_jax_grad(num_layers):
+    """Gradients of a loss on ys and fin through 1 layer and through 2
+    stacked layers with the identity residual: max |port - jax| /
+    max |jax| < 3e-2 for dxs and every weight."""
+    T, B, E = 6, 8, 128
+    rng = np.random.default_rng(num_layers)
+    xs, mask = _inputs(5, T, B, E, E)[:2]
+    layers = [
+        tuple(a.astype(np.float32) for a in (
+            rng.normal(size=(E, 3 * E)) * 0.05,
+            rng.normal(size=(E, 3 * E)) * 0.05,
+            rng.normal(size=(3 * E,)) * 0.01,
+        ))
+        for _ in range(num_layers)
+    ]
+    residual = num_layers > 1
+    jm = jnp.asarray(mask)
+    gj = jax.grad(lambda x, ls: _jax_stack_loss(x, jm, ls, residual), (0, 1))(
+        jnp.asarray(xs), [tuple(jnp.asarray(a) for a in l) for l in layers]
+    )
+    xt = torch.from_numpy(xs).requires_grad_(True)
+    lt = [tuple(torch.from_numpy(a).requires_grad_(True) for a in l) for l in layers]
+    before = dict(rnn.launches)
+    _torch_stack_loss(xt, torch.from_numpy(mask), lt, residual).backward()
+    assert rnn.launches == before  # CPU tensors never reach a kernel
+    pairs = [("dxs", xt.grad, gj[0])]
+    for li, (tl, jl) in enumerate(zip(lt, gj[1])):
+        pairs += [(f"l{li}.{n}", t.grad, j) for n, t, j in zip(("wx", "wh", "b"), tl, jl)]
+    for name, g, want in pairs:
+        assert g.dtype == torch.float32, name
+        want = np.asarray(want, np.float64)
+        rel = np.abs(g.double().numpy() - want).max() / (np.abs(want).max() + 1e-6)
+        assert rel < 3e-2, (name, rel)
+
+
+def test_weight_grads_are_float32_and_unrounded():
+    """The bf16 cast sits inside RNNLayer: dWx comes back as the float32
+    sum, not rounded to bf16 (the trap of casting outside the Function)."""
+    xs, mask, wx, wh, b, dys, dfin = (torch.from_numpy(a) for a in _inputs(9, 4, 5, 16, 16))
+    wx, wh, b = (t.requires_grad_(True) for t in (wx, wh, b))
+    ys, fin = rnn.RNNLayer.apply(xs.bfloat16(), mask, wx, wh, b)
+    (ys.float() * dys).sum().backward(retain_graph=True)
+    want = rnn.rnn_layer_bwd_reference(
+        xs.bfloat16(), ys, mask, wx.detach(), wh.detach(), b.detach(),
+        dys.bfloat16(), torch.zeros_like(dfin),
+    )
+    assert wx.grad.dtype == torch.float32
+    assert not torch.equal(wx.grad, wx.grad.bfloat16().float())
+    torch.testing.assert_close(wx.grad, want[1], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(b.grad, want[3], rtol=1e-5, atol=1e-6)
+
+
+def test_fin_only_loss_gets_zero_dys():
+    """A lone final-readout layer: autograd leaves dys undefined, which
+    the backward takes as zeros."""
+    xs, mask, wx, wh, b, _, dfin = (torch.from_numpy(a) for a in _inputs(4, 5, 3, 16, 16))
+    x = xs.clone().requires_grad_(True)
+    ys, fin = rnn.RNNLayer.apply(x, mask, wx, wh, b)
+    (fin * dfin).sum().backward()
+    want = rnn.rnn_layer_bwd_reference(
+        xs.bfloat16(), ys, mask, wx, wh, b, torch.zeros_like(ys), dfin
+    )
+    assert x.grad.dtype == torch.float32  # cast back to the dtype xs came in
+    torch.testing.assert_close(x.grad, want[0].float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T,B", [(0, 4), (5, 0)])
+def test_empty_shapes_give_zero_grads(T, B):
+    xs, mask, wx, wh, b, dys, dfin = (torch.from_numpy(a) for a in _inputs(1, max(T, 1), max(B, 1), 16, 16))
+    xs, mask, dys, dfin = xs[:T, :B], mask[:T, :, :B], dys[:T, :B], dfin[:B]
+    ys = torch.zeros((T, B, 16), dtype=torch.bfloat16)
+    dxs, dwx, dwh, db = rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin)
+    assert dxs.shape == (T, B, 16) and dwx.shape == (16, 48) and dwh.shape == (16, 48)
+    assert not (dwx.any() or dwh.any() or db.any())

@@ -1,0 +1,448 @@
+"""Training-path parity: the PyTorch port (on CPU tensors, so its plain
+kernels) against the JAX package on the same inputs, made with numpy.
+
+Tolerances, by test:
+- losses: values and gradients w.r.t. the embeddings to 1e-5 (both sides
+  compute in float32 on the CPU; only summation order differs);
+- mined hard negatives: identical rows on tie-free inputs;
+- clip + Adam / identity: updates to rtol 1e-6, atol 1e-7 against optax;
+- one train step against JAX ``make_train_step`` (lax.scan towers): loss,
+  accuracy and grad_norm to 1e-3 relative; gradients and the parameter
+  change of three SGD steps to max |port - jax| / max |jax| < 3e-2 (the
+  port's GRU backward multiplies bf16-rounded dgates, XLA's autodiff of
+  the scan does not);
+- train() against JAX train(): the same log steps, epochs and lr decay
+  sequence, the same chunking, the same mining-refresh steps and the same
+  resume skip (control flow, compared exactly; lr to 1e-7);
+- Evaluator: equal metrics on converted params;
+- TaskConfig, presets and recipes: equal; params_to_numpy: exact bits.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from sse_tpu import configs as jconfigs
+from sse_tpu.data import synthetic
+from sse_tpu.data.corpus import build_vocab, encode_pairs, encode_target_space
+from sse_tpu.evals import recall as jrecall
+from sse_tpu.models import sse as jsse
+from sse_tpu.models import towers as jtowers
+from sse_tpu.train import loop as jloop
+from sse_tpu.train import losses as jlosses
+from sse_tpu_torch import configs as tconfigs
+from sse_tpu_torch.convert import params_from_jax, params_to_numpy
+from sse_tpu_torch.evals import recall as trecall
+from sse_tpu_torch.models import sse as tsse
+from sse_tpu_torch.models import towers as ttowers
+from sse_tpu_torch.ops import rnn
+from sse_tpu_torch.train import loop as tloop
+from sse_tpu_torch.train import losses as tlosses
+
+
+def _unit(rng, n, d):
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _close(a, b, tol, what=""):
+    np.testing.assert_allclose(np.asarray(a, np.float64), np.asarray(b, np.float64),
+                               rtol=tol, atol=tol, err_msg=what)
+
+
+# ------------------------------------------------------------- losses
+LOSS_CASES = [
+    ("full", dict()),
+    ("full", dict(margin=0.2)),
+    ("full", dict(multi=True)),
+    ("cand", dict()),
+    ("cand", dict(margin=0.2)),
+    ("cand", dict(bidirectional=True)),
+    ("cand", dict(multi=True, margin=0.1, bidirectional=True)),
+]
+
+
+@pytest.mark.parametrize("kind,opt", LOSS_CASES)
+def test_losses_match_jax(kind, opt):
+    """Loss, accuracy and d loss / d embeddings to 1e-5."""
+    rng = np.random.default_rng(len(str(opt)) + (kind == "full"))
+    B, D, T = 6, 16, 12
+    src = _unit(rng, B, D)
+    labels = rng.integers(0, T, B).astype(np.int32)
+    labels[1] = labels[0]  # a duplicate positive: a false negative to mask
+    weight = np.ones(B, np.float32)
+    weight[-1] = 0.0  # a padding row
+    lm = None
+    if opt.get("multi"):
+        lm = np.full((B, 3), -1, np.int32)
+        lm[:, 0] = labels
+        lm[0, 1] = (labels[0] + 1) % T
+        lm[2, 1:] = [(labels[2] + 2) % T, (labels[2] + 3) % T]
+    margin, bidir = opt.get("margin", 0.0), opt.get("bidirectional", False)
+    if kind == "full":
+        other = _unit(rng, T, D)
+        jfn = lambda s, o: jlosses.full_softmax_loss(  # noqa: E731
+            s, o, jnp.asarray(labels), jnp.asarray(weight), 20.0, margin,
+            None if lm is None else jnp.asarray(lm))
+        tfn = lambda s, o: tlosses.full_softmax_loss(  # noqa: E731
+            s, o, torch.from_numpy(labels), torch.from_numpy(weight), 20.0, margin,
+            None if lm is None else torch.from_numpy(lm))
+    else:
+        negs = rng.integers(0, T, 5).astype(np.int32)
+        negs[0] = labels[3]  # a sampled row that is example 3's positive
+        rows = np.concatenate([labels, negs])
+        other = _unit(rng, len(rows), D)
+        jfn = lambda s, o: jlosses.candidate_softmax_loss(  # noqa: E731
+            s, o, jnp.asarray(rows), jnp.asarray(labels), jnp.asarray(weight), 20.0,
+            margin, bidir, None if lm is None else jnp.asarray(lm))
+        tfn = lambda s, o: tlosses.candidate_softmax_loss(  # noqa: E731
+            s, o, torch.from_numpy(rows), torch.from_numpy(labels), torch.from_numpy(weight),
+            20.0, margin, bidir, None if lm is None else torch.from_numpy(lm))
+    (jl, ja), jg = jax.value_and_grad(jfn, (0, 1), has_aux=True)(jnp.asarray(src), jnp.asarray(other))
+    ts, to = torch.from_numpy(src).requires_grad_(True), torch.from_numpy(other).requires_grad_(True)
+    tl, ta = tfn(ts, to)
+    tl.backward()
+    _close(tl.item(), jl, 1e-5, "loss")
+    _close(ta.item(), ja, 1e-5, "accuracy")
+    _close(ts.grad.numpy(), jg[0], 1e-5, "d src")
+    _close(to.grad.numpy(), jg[1], 1e-5, "d other")
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_mined_hard_negatives_match_jax(multi):
+    """Identical rows (tie-free random cosines)."""
+    rng = np.random.default_rng(3)
+    src, cache = _unit(rng, 5, 16), _unit(rng, 20, 16)
+    labels = rng.integers(0, 20, 5).astype(np.int32)
+    lm = None
+    if multi:
+        lm = np.full((5, 2), -1, np.int32)
+        lm[:, 0] = labels
+        lm[1, 1] = (labels[1] + 1) % 20
+    want = jlosses.mine_hard_negative_rows(
+        jnp.asarray(src), jnp.asarray(cache), jnp.asarray(labels), 4,
+        None if lm is None else jnp.asarray(lm))
+    got = tlosses.mine_hard_negative_rows(
+        torch.from_numpy(src), torch.from_numpy(cache), torch.from_numpy(labels), 4,
+        None if lm is None else torch.from_numpy(lm))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_similarity_loss_dispatch():
+    rng = np.random.default_rng(4)
+    src, tgt = torch.from_numpy(_unit(rng, 3, 8)), torch.from_numpy(_unit(rng, 5, 8))
+    labels, w = torch.tensor([0, 2, 4]), torch.ones(3)
+    full = tlosses.similarity_loss(tlosses.LossConfig(kind="full"), src, labels, w, tgt_all=tgt)
+    torch.testing.assert_close(full[0], tlosses.full_softmax_loss(src, tgt, labels, w, 20.0)[0])
+    with pytest.raises(ValueError):
+        tlosses.similarity_loss(tlosses.LossConfig(kind="sampled"), src, labels, w)
+
+
+def test_negative_rows_come_from_the_generator():
+    g = lambda: torch.Generator().manual_seed(7)  # noqa: E731
+    a = tlosses.sample_negative_rows(g(), 50, 16)
+    assert torch.equal(a, tlosses.sample_negative_rows(g(), 50, 16))
+    assert a.dtype == torch.int64 and int(a.min()) >= 0 and int(a.max()) < 50
+
+
+# ------------------------------------------------------------ optimizer
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_clip_and_adam_match_optax(optimizer):
+    """Five gradient trees, some above the clip norm: updates to rtol
+    1e-6 / atol 1e-7, and the same Adam moments and count."""
+    rng = np.random.default_rng(11)
+    cfg = tloop.TrainConfig(optimizer=optimizer, max_gradient_norm=1.5)
+    shapes = {"b": (7,), "a": {"w": (4, 3), "v": (2,)}}
+    params = jax.tree.map(lambda s: np.zeros(s, np.float32), shapes,
+                          is_leaf=lambda x: isinstance(x, tuple))
+    tx = jloop.make_optimizer(jloop.TrainConfig(optimizer=optimizer, max_gradient_norm=1.5))
+    jstate = tx.init(jax.tree.map(jnp.asarray, params))
+    opt = tloop.make_optimizer(cfg)
+    tstate = opt.init(params_from_jax(params))
+    for i, scale in enumerate((0.1, 3.0, 0.5, 10.0, 1e-4)):
+        grads = jax.tree.map(lambda p: (rng.normal(size=p.shape) * scale).astype(np.float32), params)
+        ju, jstate = tx.update(jax.tree.map(jnp.asarray, grads), jstate)
+        tu, tstate, gnorm = opt.update(params_from_jax(grads), tstate)
+        _close(gnorm.item(), optax.global_norm(grads), 1e-6, "global norm")
+        for got, want in zip(tloop.tree_leaves(tu), jax.tree.leaves(ju)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+    if optimizer == "adam":
+        adam = jstate[1]
+        assert tstate.count == int(adam.count) == 5
+        for got, want in zip(tloop.tree_leaves(tstate.nu), jax.tree.leaves(adam.nu)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-12)
+
+
+# ------------------------------------------------------------ one step
+V, L, NT, BS, NEG = 120, 6, 40, 8, 8
+
+
+def _model_cfgs(mode):
+    tower = dict(vocab_size=V, embed_dim=32, hidden=32, encoding_dim=16)
+    jt, tt = jtowers.TowerConfig(**tower), ttowers.TowerConfig(**tower)
+    extra = {}
+    if mode == "dual-encoder":
+        extra = dict(tgt_tower=dataclasses.replace(jt, hidden=48))
+    if mode == "source-encoder-only":
+        extra = dict(num_targets=NT)
+    jcfg = jsse.SSEConfig(mode=jsse.NetworkMode(mode), src_tower=jt, **extra)
+    if "tgt_tower" in extra:
+        extra = dict(tgt_tower=dataclasses.replace(tt, hidden=48))
+    return jcfg, tsse.SSEConfig(mode=tsse.NetworkMode(mode), src_tower=tt, **extra)
+
+
+def _batch(seed):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(2, V, (BS, L)).astype(np.int32)
+    src_len = rng.integers(1, L + 1, BS).astype(np.int32)
+    labels = rng.permutation(NT)[:BS].astype(np.int32)
+    labels[1] = labels[0]
+    weight = np.ones(BS, np.float32)
+    weight[-1] = 0.0
+    return src, src_len, labels, weight
+
+
+@pytest.mark.parametrize("mode,kind", [
+    ("dual-encoder", "sampled"),
+    ("shared-encoder", "sampled"),  # the merged scan
+    ("source-encoder-only", "full"),
+])
+def test_train_step_matches_jax(mode, kind):
+    """Three SGD steps (lr 0.5, clip 1e9 so that the update is the raw
+    gradient) with the negatives JAX drew injected: step 1's loss,
+    accuracy, grad_norm to 1e-3 relative and its gradients to 3e-2 of
+    each leaf's max-abs; the parameter change after 3 steps to 3e-2."""
+    jcfg, tcfg = _model_cfgs(mode)
+    loss = dict(kind=kind, num_negatives=NEG)
+    train = dict(batch_size=BS, learning_rate=0.5, optimizer="sgd", max_gradient_norm=1e9)
+    jtc = jloop.TrainConfig(loss=jlosses.LossConfig(**loss), **train)
+    ttc = tloop.TrainConfig(loss=tlosses.LossConfig(**loss), **train)
+    rng = np.random.default_rng(2)
+    tgt_tokens = rng.integers(2, V, (NT, L)).astype(np.int32)
+    tgt_lens = rng.integers(1, L + 1, NT).astype(np.int32)
+
+    def jax_negs(step, n, k):
+        key = jax.random.fold_in(jax.random.PRNGKey(jtc.seed), step)
+        return torch.from_numpy(np.array(jlosses.sample_negative_rows(key, n, k)))
+
+    js = jloop.init_train_state(jax.random.PRNGKey(0), jcfg, jtc)
+    p0 = params_from_jax(jax.device_get(js.params))  # the same weights
+    ts = tloop.TrainState(params=p0, opt_state=None, step=0, lr=torch.tensor(0.5))
+    jstep = jloop.make_train_step(jcfg, jtc, donate=False)
+    tstep = tloop.make_train_step(tcfg, ttc, sample_negatives=jax_negs)
+    for s in range(3):
+        b = _batch(10 + s)
+        js, jm = jstep(js, *map(jnp.asarray, b), jnp.asarray(tgt_tokens), jnp.asarray(tgt_lens))
+        ts, tm = tstep(ts, *map(torch.from_numpy, b), torch.from_numpy(tgt_tokens),
+                       torch.from_numpy(tgt_lens))
+        assert ts.step == s + 1
+        if s == 0:
+            for k in ("loss", "accuracy", "grad_norm"):
+                _close(tm[k].item(), jm[k], 1e-3, k)
+            _check_deltas(ts.params, js.params, p0, scale=1 / 0.5, what="step-1 gradient")
+    _check_deltas(ts.params, js.params, p0, scale=1.0, what="3-step change")
+
+
+def _check_deltas(tparams, jparams, start, scale, what):
+    """(start - params)·scale of both sides, leaf by leaf: max |port -
+    jax| <= 3e-2 of max |jax|."""
+    for got, want, p0 in zip(tloop.tree_leaves(tparams), jax.tree.leaves(jparams),
+                             tloop.tree_leaves(start)):
+        dg = (p0 - got).double().numpy() * scale
+        dw = (p0.double().numpy() - np.asarray(want, np.float64)) * scale
+        assert np.abs(dg - dw).max() <= 3e-2 * (np.abs(dw).max() + 1e-9), (what, p0.shape)
+
+
+# ------------------------------------------------------------ train()
+def _corpus(num_targets=8, train_per_target=5, seed=0):
+    rows, evrows, targets = synthetic.make_corpus(
+        task="ranking", num_targets=num_targets, train_per_target=train_per_target, seed=seed
+    )
+    vocab = build_vocab(300, rows, targets)
+    tspace = encode_target_space(vocab, targets, 10)
+    return vocab, tspace, encode_pairs(vocab, rows, tspace, 10), encode_pairs(vocab, evrows, tspace, 10)
+
+
+def _recording(real, calls):
+    """Wrap make_train_step so that every call of the step it returns
+    records (steps in the call, the hard-negative cache it was given)."""
+    def factory(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        def wrapped(state, packed, tgt_tokens, tgt_lens, tgt_emb_cache=None):
+            calls.append((int(packed.shape[0]) if packed.ndim == 3 else 1, tgt_emb_cache))
+            return fn(state, packed, tgt_tokens, tgt_lens, tgt_emb_cache=tgt_emb_cache)
+
+        return wrapped
+    return factory
+
+
+def _control_flow(calls, records, start):
+    """(steps at which the mining cache changed, log steps and epochs,
+    lrs) of one train() run."""
+    step, refreshed, prev = start, [], None
+    for n, cache in calls:
+        if prev is not None and cache is not prev:
+            refreshed.append(step)
+        prev = cache
+        step += n
+    return refreshed, [(r["step"], r["epoch"]) for r in records], [r["lr"] for r in records]
+
+
+def test_train_driver_matches_jax(monkeypatch):
+    """Same mining-refresh steps, log steps/epochs, plateau-decayed lr
+    sequence and resume skip from step 7. JAX chains steps_per_dispatch=3
+    steps per dispatch, clamped at checkpoint and refresh boundaries; the
+    port runs one step per batch, so both must act at the same steps."""
+    _, tspace, pairs, _ = _corpus()
+    tower = dict(vocab_size=300, embed_dim=16, hidden=16, encoding_dim=16)
+    jm = jsse.SSEConfig(mode=jsse.NetworkMode.DUAL_ENCODER,
+                        src_tower=jtowers.TowerConfig(**tower), tgt_tower=jtowers.TowerConfig(**tower))
+    tm = tsse.SSEConfig(mode=tsse.NetworkMode.DUAL_ENCODER,
+                        src_tower=ttowers.TowerConfig(**tower), tgt_tower=ttowers.TowerConfig(**tower))
+    loss = dict(kind="sampled", num_negatives=4, num_hard_negatives=2)
+    train = dict(batch_size=8, steps_per_checkpoint=4, steps_per_dispatch=3, max_epochs=4,
+                 hard_negative_refresh=6, learning_rate=0.01)
+    jtc = jloop.TrainConfig(loss=jlosses.LossConfig(**loss), **train)
+    ttc = tloop.TrainConfig(loss=tlosses.LossConfig(**loss), **train)
+    scores = [0.2, 0.5, 0.4, 0.4, 0.6]
+
+    def scripted():
+        it = iter(scores * 4)
+        return lambda params: {"recall@1": next(it)}
+
+    ts0 = tloop.init_train_state(tm, ttc)
+    for start in (0, 7):
+        js0 = jloop.init_train_state(jax.random.PRNGKey(0), jm, jtc)  # train() donates it
+        flows = []
+        for mod, run in (
+            (jloop, lambda log: jloop.train(
+                jm, jtc, pairs, tspace, eval_fn=scripted(), log_fn=log,
+                state=dataclasses.replace(js0, step=jnp.asarray(start, jnp.int32)))),
+            (tloop, lambda log: tloop.train(
+                tm, ttc, pairs, tspace, eval_fn=scripted(), log_fn=log,
+                state=dataclasses.replace(ts0, step=start))),
+        ):
+            calls, records = [], []
+            monkeypatch.setattr(mod, "make_train_step", _recording(mod.make_train_step, calls))
+            final = run(records.append)
+            monkeypatch.undo()
+            assert int(final.step) == 20  # 40 pairs / batch 8 x 4 epochs
+            flows.append(_control_flow(calls, records, start))
+        (jr, jl, jlr), (tr, tl, tlr) = flows
+        assert tr == jr and tl == jl, (start, flows)
+        assert len(jr) > 1 and len(jl) > 1  # refreshes and logs to compare
+        np.testing.assert_allclose(tlr, jlr, rtol=1e-7)
+        assert len(set(tlr)) > 1  # the plateau decay fired
+
+
+def test_train_driver_is_single_process():
+    _, tspace, pairs, _ = _corpus()
+    tm = tsse.SSEConfig(mode=tsse.NetworkMode.SHARED_ENCODER,
+                        src_tower=ttowers.TowerConfig(vocab_size=300, embed_dim=16, hidden=16))
+    for kw in ({"process_count": 2}, {"mesh": object()}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tloop.train(tm, tloop.TrainConfig(), pairs, tspace, **kw)
+
+
+# ------------------------------------------------------------ Evaluator
+@pytest.mark.parametrize("mode,sample", [("dual-encoder", None), ("dual-encoder", 5),
+                                         ("source-encoder-only", None)])
+def test_evaluator_matches_jax(mode, sample):
+    """Equal recall@k and MRR on converted params."""
+    _, tspace, _, evpairs = _corpus(num_targets=12, seed=1)
+    tower = dict(vocab_size=300, embed_dim=16, hidden=16, encoding_dim=16)
+    extra = {"num_targets": tspace.num_targets} if mode == "source-encoder-only" else {}
+    jm = jsse.SSEConfig(mode=jsse.NetworkMode(mode), src_tower=jtowers.TowerConfig(**tower),
+                        tgt_tower=jtowers.TowerConfig(**tower), **extra)
+    tm = tsse.SSEConfig(mode=tsse.NetworkMode(mode), src_tower=ttowers.TowerConfig(**tower),
+                        tgt_tower=ttowers.TowerConfig(**tower), **extra)
+    jp = jsse.init_params(jax.random.PRNGKey(3), jm)
+    kw = dict(batch_size=16, ks=(1, 3, 10), sample_targets=sample)
+    want = jrecall.Evaluator(jm, evpairs, tspace, **kw).evaluate(jp)
+    got = trecall.Evaluator(tm, evpairs, tspace, **kw).evaluate(
+        params_from_jax(jax.tree.map(np.asarray, jp))
+    )
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k] == pytest.approx(want[k], abs=1e-12), k
+
+
+def test_recall_at_k_matches_jax():
+    top = np.array([[3, 1, 2], [0, 4, 5], [7, 8, 9]])
+    sets = [(1,), (9, 0), (6,)]
+    assert trecall.recall_at_k(top, sets, (1, 2)) == jrecall.recall_at_k(top, sets, (1, 2))
+
+
+# ------------------------------------------------------------ configs
+def test_task_configs_match_jax():
+    """Fields, defaults, presets, recipes and the configs they build."""
+    assert dataclasses.asdict(tconfigs.TaskConfig()) == dataclasses.asdict(jconfigs.TaskConfig())
+    assert tconfigs.RECIPES == jconfigs.RECIPES
+    assert tconfigs.PRESETS.keys() == jconfigs.PRESETS.keys()
+    for name in jconfigs.PRESETS:
+        for recipe in (None, *jconfigs.RECIPES):
+            t = tconfigs.preset(name, recipe, batch_size=32)
+            j = jconfigs.preset(name, recipe, batch_size=32)
+            assert dataclasses.asdict(t) == dataclasses.asdict(j)
+            assert dataclasses.asdict(t.train_config()) == dataclasses.asdict(j.train_config())
+            tm, jm = t.model_config(500, 40), j.model_config(500, 40)
+            assert tm.mode.value == jm.mode.value and tm.num_targets == jm.num_targets
+            for tt, jt in ((tm.src_tower, jm.src_tower), (tm.tgt_tower, jm.tgt_tower)):
+                assert (tt is None) == (jt is None)
+                if tt is not None:
+                    assert dataclasses.asdict(tt) == dataclasses.asdict(jt)
+    assert dataclasses.asdict(tloop.TrainConfig()) == dataclasses.asdict(jloop.TrainConfig())
+
+
+# ------------------------------------------------------------ convert
+def test_params_to_numpy_round_trips_bf16_bits():
+    bits = torch.arange(-32768, 32768, 7, dtype=torch.int32).to(torch.int16)
+    tree = {"a": [bits.view(torch.bfloat16), torch.linspace(-1, 1, 5)], "b": torch.arange(4)}
+    host = params_to_numpy(tree)
+    assert host["a"][0].dtype.name == "bfloat16" and host["b"].dtype == np.int64
+    assert jnp.asarray(host["a"][0]).dtype == jnp.bfloat16  # JAX reads it as bf16
+    back = params_from_jax(host)
+    assert torch.equal(back["a"][0].view(torch.int16), bits)
+    assert torch.equal(back["a"][1], tree["a"][1]) and torch.equal(back["b"], tree["b"])
+
+
+def test_port_trained_params_evaluate_in_jax():
+    """Params the port trained load into the JAX Evaluator and score as
+    they do in the port's."""
+    vocab, tspace, pairs, evpairs = _corpus(seed=2)
+    task = tconfigs.preset("ranking", embed_dim=16, hidden=16, encoding_dim=16,
+                           max_seq_length=10, batch_size=8, max_epochs=2,
+                           steps_per_checkpoint=5, num_negatives=4, num_hard_negatives=0)
+    tm = task.model_config(vocab.vocab_size, tspace.num_targets)
+    state = tloop.train(tm, task.train_config(), pairs, tspace)
+    params = tloop.inference_params(state)
+    jm = jconfigs.preset("ranking", embed_dim=16, hidden=16, encoding_dim=16).model_config(
+        vocab.vocab_size, tspace.num_targets)
+    want = trecall.Evaluator(tm, evpairs, tspace).evaluate(params)
+    got = jrecall.Evaluator(jm, evpairs, tspace).evaluate(
+        jax.tree.map(jnp.asarray, params_to_numpy(params)))
+    assert got == pytest.approx(want, abs=1e-12)
+
+
+# ------------------------------------------------------------ dropout
+def test_dropout_is_train_only_and_seeded():
+    cfg = ttowers.TowerConfig(vocab_size=40, embed_dim=16, hidden=16, encoding_dim=8, dropout=0.3)
+    params = ttowers.init_tower(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(2, 40, (6, 5)).astype(np.int32))
+    lens = torch.from_numpy(rng.integers(1, 6, 6).astype(np.int32))
+    enc = lambda gen, c=cfg: ttowers.encode_raw(params, c, toks, lens, gen)  # noqa: E731
+    gen = lambda: torch.Generator().manual_seed(5)  # noqa: E731
+    assert torch.equal(enc(gen()), enc(gen()))  # the generator decides the mask
+    assert not torch.allclose(enc(gen()), enc(None))
+    assert torch.equal(enc(gen(), dataclasses.replace(cfg, dropout=0.0)), enc(None))
+    x = torch.ones(20_000)
+    kept = ttowers._dropout(x, 0.3, gen())
+    assert abs(float((kept == 0).float().mean()) - 0.3) < 0.02
+    assert kept.unique().tolist() == pytest.approx([0.0, 1 / 0.7])
