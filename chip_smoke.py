@@ -1,39 +1,51 @@
-"""Smoke run of the PyTorch port on one CUDA GPU: serving and training.
+"""Smoke run of the PyTorch port on one CUDA GPU: serving and training,
+GRU and LSTM towers.
 
     python3 chip_smoke.py            # needs one CUDA card; no network
 
 1. Device check: a CUDA card is required (no CPU branch); prints the
    card's name and power limit (nvidia-smi) and the kernel build time.
 2. Each Hopper kernel against its plain PyTorch version at the shapes of
-   the paths below: the GRU layer forward (T=50, B=8 and 4096, ragged
-   lengths; fin to atol 2e-3 / rtol 1e-3, bf16 ys to one bf16 ulp), the
-   GRU layer backward (T=50, E=H=128, B=128, 256, 384 and 2,304, ragged
-   lengths, random dys and dfin; end to end and at each rounding point;
-   tolerances in check_gru_bwd), the streaming
-   top-k (B=8, the served interactive batch, and B=256) and the
+   the paths below (T=50, E=H=128, ragged lengths): the GRU layer forward
+   (B=8 and 4096) and the LSTM layer forward (B=8, 256 and 4096; fin to
+   atol 2e-3 / rtol 1e-3, bf16 ys and cs to one bf16 ulp); the scan over
+   precomputed pre-activations, GRU and LSTM (B=4096, the same bounds);
+   the GRU and LSTM layer backward (B=128, 256, 384 and 2,304; end to
+   end and at each rounding point, tolerances in check_bwd); the
+   streaming top-k (B=8, the served interactive batch, and B=256) and the
    two-phase top-k phases (B=4096) on the 1,249,280 x 128 index, in bf16
    and int8, on exact-dot inputs so that rows and values must match bit
    for bit.
-3. The served slice at the bench width (shared-encoder 1-layer GRU,
-   E=H=D=128, vocab 8000, L=50, random weights from a seed): build_index
-   of 1,248,280 synthetic documents on the GPU in bf16, QueryEngine and
-   warmup, the HTTP server on a free localhost port, GET and bulk POST
-   queries, the rows served to both held against topk_reference, and
-   every kernel's launch count from that run.
-4. The trained slice: (a) the train bench's configuration (dual-encoder
+3. The served slices (E=H=D=128, vocab 8000, L=50, random weights from a
+   seed), each building the 1,249,280-row bf16 index on the GPU from the
+   same 1,248,280 synthetic documents: (a) the bench model, a
+   shared-encoder 1-layer GRU; (b) the ``qna`` configuration, a
+   dual-encoder LSTM with the attention readout. QueryEngine and warmup,
+   the HTTP server on a free localhost port, GET (B=8 tier) and bulk POST
+   queries (1,024 and 4,096 texts), the rows served held against
+   topk_reference, and every kernel's launch count from each run.
+4. The trained slices: (a) the train bench's configuration (dual-encoder
    1-layer GRU, E=H=D=128, vocab 8000, L=50, batch 256, 128 sampled
-   negatives over 10,000 random targets, Adam): warm ms/step and the
-   step's device time split by the profiler range or op that launched
-   each kernel (step_split), two GRU forward and two
-   backward launches a step; (b) the ``ranking`` task preset trained by
-   ``sse_tpu_torch.train.train`` on the ranking demo corpus with the
-   Evaluator as its eval_fn: finite, falling loss, rising recall@1, and
-   its EMA params serve one query through QueryEngine whose rows match
-   topk_reference.
+   negatives over 10,000 random targets, Adam) and (b) the
+   ``compositional`` recipe's towers (3-layer residual LSTM, dropout 0.1)
+   at the same shape: warm ms/step, the step's device time split by the
+   profiler range or op that launched each kernel (step_split), and the
+   layer forward and backward launches a step (2 + 2 GRU; 6 + 6 LSTM);
+   (c) the ``ranking`` and (d) the ``qna`` task presets trained by
+   ``sse_tpu_torch.train.train`` on their demo corpora with the Evaluator
+   as eval_fn: finite, falling loss, rising recall@1, and their EMA params
+   serve one query through QueryEngine whose rows match topk_reference.
+
+Every kernel's bound (the least time the card could take for the same
+work: the larger of its bytes over 3.35 TB/s and its tensor-core
+operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8) is computed from
+this run's inputs. The cuDNN LSTM (``torch.nn.LSTM`` in bf16, the +1
+forget bias folded into its bias, full lengths) is timed beside the LSTM
+kernels as their library yardstick; the port never calls it.
 
 Any failure raises (non-zero exit). The line before the last is a JSON
-object with each kernel's launches, error and times; the last line is
-{"ok": true, "device": {...}}.
+object with each kernel's launches, error, times and bound; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -107,33 +119,87 @@ def same(name, got, want) -> float:
     return float((gv - wv).abs().max()) if gv.numel() else 0.0
 
 
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and dense tensor-core
+# operations/s by operand type
+PEAK = {"bytes": 3.35e12, "bf16": 989e12, "int8": 1979e12}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, ops: float, kind: str = "bf16") -> dict:
+    """The least time the card could take: each input read once and each
+    output written once (``moved`` bytes) at the HBM rate, against the
+    tensor-core operations at the peak rate of their type."""
+    t_bytes = moved / PEAK["bytes"] * 1e3
+    t_ops = ops / PEAK[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ragged_mask(T: int, B: int, gen) -> torch.Tensor:
+    lens = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
+    return (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :].contiguous()
+
+
+def layer_weights(E: int, H: int, G: int, gen):
+    wx = (torch.randn((E, G * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    wh = (torch.randn((H, G * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    b = torch.randn((G * H,), generator=gen, device="cuda") * 0.05
+    return wx, wh, b
+
+
+def hold_layer(name: str, got, want) -> tuple:
+    """fin (float32) within the JAX package's tolerance; ys and cs are
+    bfloat16, so a float32 carry that differs in its last bits by the
+    order of the sums may round to the neighbouring bf16 value: one bf16
+    ulp. Returns (max |d fin|, max |d bf16|, bf16 values that differ)."""
+    (ys, fin, *cs), (rys, rfin, *rcs) = got, want
+    torch.testing.assert_close(fin, rfin, atol=2e-3, rtol=1e-3, msg=lambda m: f"{name}: {m}")
+    e_b, flips = 0.0, 0
+    for g, w in ((ys, rys), *zip(cs, rcs)):
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-3, rtol=2.0**-7,
+                                   msg=lambda m: f"{name}: {m}")
+        e_b = max(e_b, float((g.float() - w.float()).abs().max()))
+        flips += int((g != w).sum())
+    return float((fin - rfin).abs().max()), e_b, flips
+
+
+def cudnn_lstm(wx, wh, b) -> torch.nn.LSTM:
+    """The library yardstick: torch.nn.LSTM (cuDNN) in bf16 with the same
+    weights, gate order (i, f, g, o) and the +1 forget bias folded into
+    its bias. It runs every row to full length (no mask)."""
+    E, H = wx.shape[0], wh.shape[0]
+    lstm = torch.nn.LSTM(E, H).to(device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wx.t())
+        lstm.weight_hh_l0.copy_(wh.t())
+        bias = b.clone()
+        bias[H : 2 * H] += 1.0
+        lstm.bias_ih_l0.copy_(bias)
+        lstm.bias_hh_l0.zero_()
+    # cuDNN packs bf16 weights anew at every call (its flat buffer takes
+    # fp16/fp32 only): a 0.26 MB copy inside each timed call
+    return lstm
+
+
 # ------------------------------------------------------------ phase 2
 def check_gru(card: str, results: dict) -> None:
+    """The GRU layer forward against its plain version at T=50, E=H=128,
+    B = 8 and 4096 (hold_layer)."""
     from sse_tpu_torch.ops import rnn
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     T, E, H = 50, 128, 128
-    wx = torch.randn((E, 3 * H), generator=gen, device="cuda") * 0.08
-    wh = torch.randn((H, 3 * H), generator=gen, device="cuda") * 0.08
-    b = torch.randn((3 * H,), generator=gen, device="cuda") * 0.05
+    wx, wh, b = layer_weights(E, H, 3, gen)
     err = 0.0
     for B in (8, 4096):
-        xs = torch.randn((T, B, E), generator=gen, device="cuda").to(torch.bfloat16)
-        lens = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
-        mask = (torch.arange(T, device="cuda")[:, None] < lens[None, :]).float()[:, None, :]
-        mask = mask.contiguous()
-        args = (xs, mask, wx.bfloat16(), wh.bfloat16(), b)
+        xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
+        args = (xs, ragged_mask(T, B, gen), wx, wh, b)
         ys, fin = rnn.rnn_layer(*args)
-        rys, rfin = rnn.rnn_layer_reference(*args)
         torch.cuda.synchronize()
-        # fin (float32) within the JAX package's tolerance; ys is bfloat16,
-        # so a float32 carry that differs in its last bits by the order of
-        # the sums may round to the neighbouring bf16 value: one bf16 ulp
-        torch.testing.assert_close(fin, rfin, atol=2e-3, rtol=1e-3)
-        torch.testing.assert_close(ys.float(), rys.float(), atol=2e-3, rtol=2.0**-7)
-        e = float((fin - rfin).abs().max())
-        e_ys = float((ys.float() - rys.float()).abs().max())
-        flips = int((ys != rys).sum())
+        e, e_ys, flips = hold_layer(f"gru_fwd B={B}", (ys, fin), rnn.rnn_layer_reference(*args))
         err = max(err, e, e_ys)
         ms = cuda_ms(lambda: rnn.rnn_layer(*args))
         plain = cuda_ms(lambda: rnn.rnn_layer_reference(*args), reps=3)
@@ -141,8 +207,78 @@ def check_gru(card: str, results: dict) -> None:
             f"{flips} of {ys.numel()} bf16 ys values differ (max {e_ys:.3g}, one ulp); "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]")
         if B == 4096:
-            results["gru_fwd"].update(ms=ms, plain_ms=plain)
+            results["gru_fwd"].update(
+                ms=ms, plain_ms=plain, library_ms=None,
+                **bound(nbytes(*args, ys, fin), 2.0 * T * B * (E + H) * 3 * H))
     results["gru_fwd"]["max_abs_err"] = err
+
+
+def check_lstm(card: str, results: dict) -> None:
+    """The LSTM layer forward (x-product, then the scan) against its
+    plain version at T=50, E=H=128, B = 8, 256 and 4096: ys, fin and cs
+    (hold_layer), and the x-product it hands the scan to 1e-5 of its
+    max-abs (fp32 sums of the same bf16 products in another order)."""
+    from sse_tpu_torch.ops import rnn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    T, E, H = 50, 128, 128
+    wx, wh, b = layer_weights(E, H, 4, gen)
+    err = 0.0
+    for B in (8, 256, 4096):
+        xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
+        mask = ragged_mask(T, B, gen)
+        args = (xs, mask, wx, wh, b)
+        ys, fin, cs, ax = rnn.lstm_fwd_launch(*args)
+        torch.cuda.synchronize()
+        e, e_b, flips = hold_layer(f"lstm_fwd B={B}", (ys, fin, cs),
+                                   rnn.rnn_layer_reference(*args, "lstm"))
+        ax_r = rnn._x_product(xs, wx, b)
+        e_ax = float((ax - ax_r).abs().max()) / float(ax_r.abs().max())
+        check(e_ax <= 1e-5, f"lstm_fwd B={B}: x-product {e_ax:.3g} of max-abs (bound 1e-5)")
+        err = max(err, e, e_b)
+        ms = cuda_ms(lambda: rnn.rnn_layer(*args, cell="lstm"))
+        plain = cuda_ms(lambda: rnn.rnn_layer_reference(*args, "lstm"), reps=3)
+        lstm = cudnn_lstm(wx, wh, b)
+        with torch.no_grad():
+            lib = cuda_ms(lambda: lstm(xs))
+        log(f"lstm_fwd T={T} B={B} E=H={H}: fin max_abs_err {e:.3g} (atol 2e-3, rtol 1e-3), "
+            f"{flips} of {2 * ys.numel()} bf16 ys/cs values differ (max {e_b:.3g}, one ulp), "
+            f"x-product {e_ax:.2g} of max-abs; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"cuDNN LSTM (full lengths) {lib:.4f} ms [{card}]")
+        if B == 4096:
+            results["lstm_fwd"].update(
+                ms=ms, plain_ms=plain, library_ms=lib,
+                **bound(nbytes(*args, ys, cs, fin), 2.0 * T * B * (E + H) * 4 * H))
+    results["lstm_fwd"]["max_abs_err"] = err
+
+
+def check_scan(card: str, results: dict) -> None:
+    """The scan over precomputed pre-activations (kernel 1), GRU and LSTM,
+    at T=50, H=128, B=4096, against its plain version (hold_layer)."""
+    from sse_tpu_torch.ops import rnn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    T, B, H = 50, 4096, 128
+    err = 0.0
+    for cell, G in (("gru", 3), ("lstm", 4)):
+        ax = torch.randn((T, B, G * H), generator=gen, device="cuda")
+        wh = (torch.randn((H, G * H), generator=gen, device="cuda") * 0.08).bfloat16()
+        mask = ragged_mask(T, B, gen)
+        ys, fin = rnn.scan_layer(ax, mask, wh, cell)
+        torch.cuda.synchronize()
+        e, e_b, flips = hold_layer(f"rnn_scan {cell}", (ys, fin),
+                                   rnn.scan_layer_reference(ax, mask, wh, cell))
+        err = max(err, e, e_b)
+        ms = cuda_ms(lambda: rnn.scan_layer(ax, mask, wh, cell))
+        plain = cuda_ms(lambda: rnn.scan_layer_reference(ax, mask, wh, cell), reps=3)
+        log(f"rnn_scan {cell} T={T} B={B} H={H}: fin max_abs_err {e:.3g}, {flips} of "
+            f"{ys.numel()} bf16 ys values differ (max {e_b:.3g}, one ulp); kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms [{card}]")
+        if cell == "lstm":
+            results["rnn_scan"].update(
+                ms=ms, plain_ms=plain, library_ms=None,
+                **bound(nbytes(ax, mask, wh, ys, fin), 2.0 * T * B * H * G * H))
+    results["rnn_scan"]["max_abs_err"] = err
 
 
 def bf16_order(x: torch.Tensor) -> torch.Tensor:
@@ -166,25 +302,27 @@ def held_to_one_ulp(name: str, got: torch.Tensor, want: torch.Tensor) -> str:
     return f"{name} {share:.3g} differ (max {int(ulps.max())} ulp)"
 
 
-def check_gru_bwd(card: str, results: dict) -> None:
-    """The GRU backward kernels against the plain version, at the main
-    path's shapes (T=50, E=H=128: B=128 and 2,304, the ranking preset's
-    source and target towers; B=256 and 384, the train bench's) and two
-    short ones (T=1, B=1; T=3, B=33).
+def check_bwd(card: str, results: dict, cell: str) -> None:
+    """The GRU or LSTM backward kernels against the plain version, at the
+    main path's shapes (T=50, E=H=128: B=128 and 2,304, the ranking and
+    qna presets' source and target towers; B=256 and 384, the train
+    bench's) and two short ones (T=1, B=1; T=3, B=33). The forward that
+    feeds them is the kernel's (ys, and the LSTM's bf16 cs).
 
     End to end (rnn_layer_bwd against rnn_layer_bwd_reference): dWx, dWh
     and db to at most 1e-3 of each tensor's max-abs; dxs to one bf16 ulp
     plus 1e-4 of its max-abs at every step when T <= 3, at the reverse
     loop's first step (t = T-1) at T=50, and to 1e-2 of its max-abs over
-    all T=50 steps. The looser bound at T=50 is the dh chain's: both
+    all T=50 steps. The looser bound at T=50 is the chain's: both
     versions round dgates to bf16 at every step from fp32 sums taken in
     another order, a value at a rounding edge goes the other way, and the
-    chain carries that difference to every earlier step.
+    dh (and the LSTM's dc) chain carries that difference to every earlier
+    step.
 
-    Rounding points, at T=50 (gru_bwd_launch also returns the kernels'
-    gates and dgates_b): the plain version's gate recompute against the
-    kernel's gates to 1e-5 of max-abs; the plain chain, fed the kernel's
-    gates and driven by its dgates_b (rnn.gru_bwd_chain's ``drive``),
+    Rounding points, at T=50 (the *_bwd_launch wrappers also return the
+    kernels' gates and dgates_b): the plain version's gate recompute
+    against the kernel's gates to 1e-5 of max-abs; the plain chain, fed
+    the kernel's gates and driven by its dgates_b (the chain's ``drive``),
     against the kernel's dgates_b, and bf16(dgates_b·Wxᵀ) of the kernel's
     dgates_b against its dxs, each held_to_one_ulp; xsᵀ·dgates_b,
     h_prevᵀ·dgates_b and the chain's db against the kernel's to 1e-5 of
@@ -194,26 +332,29 @@ def check_gru_bwd(card: str, results: dict) -> None:
     while the end-to-end bounds let the dh and db cases through."""
     from sse_tpu_torch.ops import rnn
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    lstm = cell == "lstm"
+    G, name = (4 if lstm else 3), f"{cell}_bwd"
+    report_b = 256 if lstm else 384
+    gen = torch.Generator(device="cuda").manual_seed(SEED + (7 if lstm else 3))
     E = H = 128
     worst = {"dxs": 0.0, "dwx": 0.0, "dwh": 0.0, "db": 0.0}
     pinned = {}
     err = 0.0
     for T, B in ((1, 1), (3, 33), (50, 128), (50, 256), (50, 384), (50, 2304)):
-        wx = (torch.randn((E, 3 * H), generator=gen, device="cuda") * 0.08).bfloat16()
-        wh = (torch.randn((H, 3 * H), generator=gen, device="cuda") * 0.08).bfloat16()
-        b = torch.randn((3 * H,), generator=gen, device="cuda") * 0.05
+        wx, wh, b = layer_weights(E, H, G, gen)
         xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
-        lens = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
-        mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :].contiguous()
-        ys, _ = rnn.rnn_layer(xs, mask, wx, wh, b)
+        mask = ragged_mask(T, B, gen)
+        if lstm:
+            ys, _, cs, _ = rnn.lstm_fwd_launch(xs, mask, wx, wh, b)
+        else:
+            (ys, _), cs = rnn.rnn_layer(xs, mask, wx, wh, b), None
         dys = (torch.randn((T, B, H), generator=gen, device="cuda") * 0.1).bfloat16()
         dfin = torch.randn((B, H), generator=gen, device="cuda")
         args = (xs, ys, mask, wx, wh, b, dys, dfin)
-        out = rnn.gru_bwd_launch(*args)
+        out = rnn.lstm_bwd_launch(xs, ys, cs, *args[2:]) if lstm else rnn.gru_bwd_launch(*args)
         torch.cuda.synchronize()
         got, (gates, dgb) = out[:4], out[4:]
-        want = rnn.rnn_layer_bwd_reference(*args)
+        want = rnn.rnn_layer_bwd_reference(*args, cs, cell)
         gx, wx_ = got[0].float(), want[0].float()
         ulp = dict(atol=1e-4 * float(wx_.abs().max()), rtol=2.0**-7)
         if T <= 3:
@@ -221,47 +362,65 @@ def check_gru_bwd(card: str, results: dict) -> None:
         else:
             torch.testing.assert_close(gx[-1], wx_[-1], **ulp)
         line = []
-        for name, g, w in zip(("dxs", "dwx", "dwh", "db"), got, want):
+        for part, g, w in zip(("dxs", "dwx", "dwh", "db"), got, want):
             e = float((g.float() - w.float()).abs().max())
             rel = e / max(float(w.float().abs().max()), 1e-30)
-            check(rel <= (1e-2 if name == "dxs" else 1e-3),
-                  f"gru_bwd T={T} B={B} {name}: max_abs_err {e} is {rel:.3g} of max-abs")
-            worst[name] = max(worst[name], rel)
+            check(rel <= (1e-2 if part == "dxs" else 1e-3),
+                  f"{name} T={T} B={B} {part}: max_abs_err {e} is {rel:.3g} of max-abs")
+            worst[part] = max(worst[part], rel)
             err = max(err, e)
-            line.append(f"{name} {e:.3g} ({rel:.2g} of max-abs)")
-        msg = f"gru_bwd T={T} B={B} E=H={H}: " + ", ".join(line)
+            line.append(f"{part} {e:.3g} ({rel:.2g} of max-abs)")
+        msg = f"{name} T={T} B={B} E=H={H}: " + ", ".join(line)
         if T == 50:
             h_prev = rnn._h_prev(ys)
-            dgb_r, db_r = rnn.gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin, drive=dgb)
-            dxs_r, dwx_r, dwh_r = rnn.gru_bwd_products(xs, h_prev, wx, dgb)
+            if lstm:
+                dgb_r, db_r = rnn.lstm_bwd_chain(gates, rnn._h_prev(cs), mask, wh, dys, dfin,
+                                                 drive=dgb)
+            else:
+                dgb_r, db_r = rnn.gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin, drive=dgb)
+            dxs_r, dwx_r, dwh_r = rnn.bwd_products(xs, h_prev, wx, dgb)
             rels = {}
-            for name, g, w in (("gates", gates, rnn.gru_gates(xs, h_prev, wx, wh, b)),
+            for part, g, w in (("gates", gates, rnn.layer_gates(xs, h_prev, wx, wh, b)),
                                ("dwx", got[1], dwx_r), ("dwh", got[2], dwh_r), ("db", got[3], db_r)):
-                rels[name] = float((g - w).abs().max()) / float(w.abs().max())
-                check(rels[name] <= 1e-5,
-                      f"gru_bwd T={T} B={B} pinned {name}: {rels[name]:.3g} of max-abs (bound 1e-5)")
-                pinned[name] = max(pinned.get(name, 0.0), rels[name])
+                rels[part] = float((g - w).abs().max()) / float(w.abs().max())
+                check(rels[part] <= 1e-5,
+                      f"{name} T={T} B={B} pinned {part}: {rels[part]:.3g} of max-abs (bound 1e-5)")
+                pinned[part] = max(pinned.get(part, 0.0), rels[part])
             msg += ("; pinned: " + held_to_one_ulp(f"dgates_b B={B}", dgb_r, dgb) + ", "
                     + held_to_one_ulp(f"dxs B={B}", got[0], dxs_r) + ", "
                     + ", ".join(f"{k} {v:.2g} of max-abs" for k, v in rels.items()))
-            ms = cuda_ms(lambda: rnn.rnn_layer_bwd(*args))
-            plain = cuda_ms(lambda: rnn.rnn_layer_bwd_reference(*args), reps=2)
+            run = lambda: rnn.rnn_layer_bwd(*args, cs=cs, cell=cell)  # noqa: E731
+            ms = cuda_ms(run)
+            plain = cuda_ms(lambda: rnn.rnn_layer_bwd_reference(*args, cs, cell), reps=2)
             msg += f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
-            if B == 384:
-                results["gru_bwd"].update(ms=ms, plain_ms=plain, cuda_kernels=bwd_split(args))
+            lib = None
+            if lstm:
+                lstm_mod = cudnn_lstm(wx, wh, b)
+                x_l = xs.clone().requires_grad_(True)
+                y_l, _ = lstm_mod(x_l)
+                inputs = [x_l, *lstm_mod.parameters()]
+                lib = cuda_ms(lambda: torch.autograd.grad(y_l, inputs, dys, retain_graph=True))
+                msg += f", cuDNN LSTM backward (full lengths) {lib:.4f} ms"
+            if B == report_b:
+                ops = 2.0 * T * B * G * H * 3 * (E + H)
+                moved = nbytes(*args, *([cs] if lstm else []), *got)
+                results[name].update(ms=ms, plain_ms=plain, library_ms=lib,
+                                     cuda_kernels=bwd_split(run, cell), **bound(moved, ops))
         log(msg + f" [{card}]")
-    results["gru_bwd"].update(max_abs_err=err, rel_err=worst, pinned_rel_err=pinned)
-    log(f"gru_bwd kernels at T=50, B=384 (torch.profiler, ms per backward): "
-        f"{json.dumps(results['gru_bwd']['cuda_kernels'])}")
+    results[name].update(max_abs_err=err, rel_err=worst, pinned_rel_err=pinned)
+    log(f"{name} kernels at T=50, B={report_b} (torch.profiler, ms per backward): "
+        f"{json.dumps(results[name]['cuda_kernels'])}")
 
 
-BWD_KERNELS = {  # CUDA kernel of csrc/gru_bwd.cu → what it computes
-    "gemm_kernel<false, false, 0>": "gates",
-    "gru_bwd_dh_kernel": "dh_loop",
-    "gemm_kernel<false, false, 1>": "dxs",
-    "gemm_kernel<true, true, 2>": "dw",
-    "gru_bwd_reduce_kernel": "reduce",
-}
+def bwd_kernels(cell: str) -> dict:
+    """CUDA kernel of csrc/{gru,lstm}_bwd.cu → what it computes."""
+    return {
+        "gemm_kernel<false, false, 0>": "gates",
+        f"{cell}_bwd_dh_kernel": "dh_loop",
+        "gemm_kernel<false, false, 1>": "dxs",
+        "gemm_kernel<true, true, 2>": "dw",
+        "bwd_reduce_kernel": "reduce",
+    }
 
 
 def device_times(prof) -> dict:
@@ -281,20 +440,20 @@ def device_times(prof) -> dict:
     return out
 
 
-def bwd_split(args, reps: int = 5) -> dict:
-    """Device ms of each CUDA kernel of one backward, from torch.profiler."""
-    from sse_tpu_torch.ops import rnn
-
+def bwd_split(run, cell: str, reps: int = 5) -> dict:
+    """Device ms of each CUDA kernel of one backward (``run()``), from
+    torch.profiler."""
+    kernels = bwd_kernels(cell)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            rnn.rnn_layer_bwd(*args)
+            run()
         torch.cuda.synchronize()
     split = {}
     for key, ms in device_times(prof).items():
-        for pat, name in BWD_KERNELS.items():
+        for pat, part in kernels.items():
             if pat in key:
-                split[name] = split.get(name, 0.0) + ms / reps
-    check(set(split) == set(BWD_KERNELS.values()), f"gru_bwd kernels seen: {split}")
+                split[part] = split.get(part, 0.0) + ms / reps
+    check(set(split) == set(kernels.values()), f"{cell}_bwd kernels seen: {split}")
     return split
 
 
@@ -328,7 +487,8 @@ def check_topk(card: str, results: dict) -> None:
             r = results["topk_stream"]
             r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
             if dtype == "bf16" and B == 8:
-                r.update(ms=ms, plain_ms=plain)
+                r.update(ms=ms, plain_ms=plain, library_ms=None,
+                         **bound(nbytes(q, emb, *got), 2.0 * B * nr * D))
         q = q_all[:8].contiguous()
         for small_nr in (0, 5):  # fully padded, and fewer real rows than k
             v, rows = topk.fused_score_topk(q, emb, K, small_nr)
@@ -376,8 +536,18 @@ def check_topk(card: str, results: dict) -> None:
             check(torch.isfinite(v).all() and (v[:, small_nr:] < -1e37).all(),
                   f"twophase {dtype} num_real={small_nr}: sinks must be finite")
         if dtype == "bf16":
-            results["twophase_p1"].update(ms=ms1, plain_ms=plain1)
-            results["twophase_p2"].update(ms=ms2, plain_ms=plain2)
+            # phase 2's work is this run's valid (query, block) pairs, each
+            # a bt-row block against one query; it reads each block once
+            tile_ok = (tb >= 0)[:, None] & (tq.view(tb.shape[0], -1) >= 0)
+            pairs = int(tile_ok.sum())
+            blocks = int(torch.unique(tb[tb >= 0]).numel())
+            results["twophase_p1"].update(
+                ms=ms1, plain_ms=plain1, library_ms=None,
+                **bound(nbytes(q, emb, p1), 2.0 * q.shape[0] * nr * D))
+            results["twophase_p2"].update(
+                ms=ms2, plain_ms=plain2, library_ms=None,
+                **bound(nbytes(q, tq, tb, p2) + blocks * bt * D * emb.element_size(),
+                        2.0 * pairs * bt * D))
         del emb, q_all
         torch.cuda.empty_cache()
 
@@ -398,17 +568,13 @@ def http_json(url: str, body=None):
         return json.loads(r.read())
 
 
-def served_slice() -> dict:
-    """Build, serve and query the bench-width model; returns the kernels'
-    launch counts from this run (reset just before it)."""
-    from sse_tpu.data import synthetic
-    from sse_tpu.data.corpus import build_vocab, encode_target_space
-    from sse_tpu_torch import ops
-    from sse_tpu_torch.index import build_index
-    from sse_tpu_torch.models import sse
-    from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
-    from sse_tpu_torch.models.towers import TowerConfig
-    from sse_tpu_torch.serve import QueryEngine, serve_http
+def served_corpus():
+    """The served slices' documents: the ranking demo corpus' 1,024
+    targets plus random word strings up to T_PAD - 1000 rows, encoded at
+    L=50 (host work, shared by both served slices). Returns (vocab,
+    target space, eval pairs)."""
+    from sse_tpu_torch.data import synthetic
+    from sse_tpu_torch.data.corpus import build_vocab, encode_target_space
 
     t0 = time.perf_counter()
     train, evalp, targets = synthetic.make_corpus(task="ranking", num_targets=1024, seed=SEED)
@@ -422,24 +588,33 @@ def served_slice() -> dict:
     tspace = encode_target_space(vocab, docs, 50)
     log(f"corpus: {len(docs)} documents, vocab {vocab.vocab_size}, "
         f"token width {tspace.tokens.shape[1]} ({time.perf_counter() - t0:.1f} s host)")
-    cfg = SSEConfig(
-        mode=NetworkMode.SHARED_ENCODER,
-        src_tower=TowerConfig(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1,
-                              encoding_dim=128, cell="gru"),
-    )
-    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    return vocab, tspace, evalp
 
+
+def served_slice(label: str, cfg, corpus, n_post: int) -> dict:
+    """Build the 1,249,280-row bf16 index with ``cfg``'s seeded weights,
+    serve it over HTTP, send four GET queries (the B=8 tier) and one POST
+    of ``n_post`` texts (one bulk dispatch), and hold the served rows
+    against topk_reference. Returns the kernels' launch counts from this
+    run (reset just before it)."""
+    from sse_tpu_torch import ops
+    from sse_tpu_torch.index import build_index
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.serve import QueryEngine, serve_http
+
+    vocab, tspace, evalp = corpus
+    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     index = build_index(params, cfg, tspace, batch_size=4096, dtype=torch.bfloat16,
                         capacity=T_PAD)
     torch.cuda.synchronize()
-    check(index.padded_size == T_PAD and index.num_real == len(docs), "index geometry")
-    log(f"build_index: {index.num_real} rows in a {index.padded_size}-row bf16 index, "
+    check(index.padded_size == T_PAD and index.num_real == tspace.num_targets, "index geometry")
+    log(f"{label} build_index: {index.num_real} rows in a {index.padded_size}-row bf16 index, "
         f"{time.perf_counter() - t0:.2f} s")
     engine = QueryEngine(params, cfg, vocab, index, max_seq_length=50, max_batch=8, k=K,
                          bulk_batch=4096)
-    log(f"warmup: {engine.warmup():.2f} s")
+    log(f"{label} warmup: {engine.warmup():.2f} s")
     server = serve_http(engine, port=free_port(), block=False)
     base = f"http://127.0.0.1:{server.server_address[1]}"
     known = set(index.ids[: index.num_real])
@@ -452,24 +627,26 @@ def served_slice() -> dict:
             hits = http_json(url)["results"]
             check(len(hits) == K and all(h["targetId"] in known for h in hits), f"GET: {hits}")
             got.append(hits)
-        texts = [s for s, _ in evalp[:1024]]
+        texts = [s for s, _ in evalp[:n_post]]
+        check(len(texts) == n_post, f"{label}: {len(texts)} eval texts, want {n_post}")
         t0 = time.perf_counter()
         served = http_json(base + "/api/query", {"queries": texts})["results"]
-        log(f"POST /api/query with {len(texts)} texts: {time.perf_counter() - t0:.3f} s")
+        log(f"{label} POST /api/query with {len(texts)} texts: {time.perf_counter() - t0:.3f} s")
         stats = http_json(base + "/api/stats")
     finally:
         server.shutdown()
         server.server_close()
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    log(f"launches during the served run: {counts}; server stats: queries={stats['queries']}")
+    log(f"{label} launches during the served run: {counts}; server stats: "
+        f"queries={stats['queries']}")
     check(len(served) == len(texts), "POST: one result list per query")
     for hits in served:
         check(len(hits) == K and all(h["targetId"] in known for h in hits), f"POST: {hits}")
 
     for name, tx, res in (("GET", get_texts, got), ("POST", texts, served)):
         n = same_as_reference(engine, params, cfg, index, tx, res)
-        log(f"served rows == topk_reference for {len(tx)} {name} queries "
+        log(f"{label}: served rows == topk_reference for {len(tx)} {name} queries "
             f"({n} positions differ, each within one key bucket)")
     return counts
 
@@ -498,7 +675,9 @@ def same_as_reference(engine, params, cfg, index, texts, served) -> int:
 
 
 # ------------------------------------------------------------ phase 4
-OWN_OPS = {"RNNLayer": "gru_fwd", "RNNLayerBackward": "gru_bwd"}  # autograd op → part
+# autograd op → part (the port's recurrent layer: GRU or LSTM kernels)
+OWN_OPS = {"RNNLayer": "RNNLayer (layer forward)",
+           "RNNLayerBackward": "RNNLayerBackward (layer backward)"}
 OUTSIDE = "outside the ranges"
 
 
@@ -509,7 +688,7 @@ def step_split(prof) -> tuple:
 
     A kernel belongs to the innermost op that launched it (the profiler's
     correlation). Walking up from that op, the first of these decides:
-    the port's GRU op (``RNNLayer``, ``RNNLayerBackward``) is its own
+    the port's recurrent layer op (``RNNLayer``, ``RNNLayerBackward``) is its own
     part; a ``sse.*`` profiler range is the part; a backward node stands
     for the forward op of its sequence number (autograd runs a CUDA
     backward on its own thread, outside ``sse.train.backward``), and the
@@ -545,22 +724,25 @@ def step_split(prof) -> tuple:
     return split, {p: n for p, n in names.items() if OUTSIDE in p or "no forward" in p}
 
 
-def train_bench_slice(card: str) -> dict:
-    """The train bench's configuration (sse_tpu/bench.py:231-263), random
-    tokens: warm ms/step over 24 steps, two GRU forward and two GRU
-    backward launches a step, the step's split (step_split). Returns the
-    launch counts of the timed steps (reset just before them)."""
+def train_bench_slice(card: str, label: str, tower_kw: dict, lr: float, per_step: dict) -> dict:
+    """The train bench's shape (sse_tpu/bench.py:231-263: dual-encoder,
+    E=H=D=128, vocab 8000, L=50, batch 256, 128 sampled negatives over
+    10,000 random targets, Adam at ``lr``) with the towers of
+    ``tower_kw``, random tokens: warm ms/step over 24 steps, the layer
+    kernels' launches a step (``per_step``), the step's split
+    (step_split). Returns the launch counts of the timed steps (reset
+    just before them)."""
     from sse_tpu_torch import ops
     from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
     from sse_tpu_torch.models.towers import TowerConfig
     from sse_tpu_torch.train import LossConfig, TrainConfig, init_train_state, make_train_step
 
     batch, num_targets, L = 256, 10_000, 50
-    tower = TowerConfig(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1,
-                        encoding_dim=128, cell="gru")
+    tower = TowerConfig(vocab_size=8000, embed_dim=128, hidden=128, encoding_dim=128, **tower_kw)
     mc = SSEConfig(mode=NetworkMode.DUAL_ENCODER, src_tower=tower, tgt_tower=tower)
-    cfg = TrainConfig(batch_size=batch, loss=LossConfig(kind="sampled", num_negatives=128))
-    state = init_train_state(mc, cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    cfg = TrainConfig(batch_size=batch, learning_rate=lr,
+                      loss=LossConfig(kind="sampled", num_negatives=128))
+    state = init_train_state(mc, cfg, torch.Generator().manual_seed(SEED))
     step_fn = make_train_step(mc, cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     tgt_tokens = torch.randint(2, 8000, (num_targets, L), generator=g, device="cuda")
@@ -592,9 +774,9 @@ def train_bench_slice(card: str) -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     ms_step = start.elapsed_time(end) / n
-    check(counts["gru_fwd"] == 2 * n and counts["gru_bwd"] == 2 * n,
-          f"train bench: {n} steps launched {counts}, want 2 gru_fwd and 2 gru_bwd a step")
-    check(bool(torch.isfinite(torch.stack(losses)).all()), "train bench: non-finite loss")
+    check(all(counts[k] == v * n for k, v in per_step.items()),
+          f"{label}: {n} steps launched {counts}, want {per_step} a step")
+    check(bool(torch.isfinite(torch.stack(losses)).all()), f"{label}: non-finite loss")
 
     prof_steps = 8
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -610,27 +792,30 @@ def train_bench_slice(card: str) -> dict:
     split = {k: v / prof_steps for k, v in split.items()}
     linked = sum(split.values())
     split["not linked to an op"] = busy - linked
-    per_step = lambda d: json.dumps(  # noqa: E731
+    per_step_json = lambda d: json.dumps(  # noqa: E731
         {k[:70]: round(v, 4) for k, v in sorted(d.items(), key=lambda kv: -kv[1])})
-    log(f"train bench (dual-encoder GRU E=H=D=128, vocab 8000, L=50, B=256, 128 sampled "
+    log(f"{label} (dual-encoder, E=H=D=128, vocab 8000, L=50, B=256, 128 sampled "
         f"negatives, 10,000 targets, Adam): {ms_step:.4f} ms/step over {n} warm steps "
         f"(CUDA events); launches {counts} [{card}]")
-    log(f"train step split (torch.profiler, {prof_steps} steps, ms per step): wall {wall:.4f}, "
-        f"device busy {busy:.4f} ({100.0 * busy / wall:.1f}%), host/idle {wall - busy:.4f}; "
-        f"by the range or op that launched each kernel (step_split): " + per_step(split))
+    log(f"{label} step split (torch.profiler, {prof_steps} steps, ms per step): wall "
+        f"{wall:.4f}, device busy {busy:.4f} ({100.0 * busy / wall:.1f}%), host/idle "
+        f"{wall - busy:.4f}; by the range or op that launched each kernel (step_split): "
+        + per_step_json(split))
     for part, kernels in by_name.items():
         top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
-        log(f"kernels of '{part}' (ms per step): " + per_step({k: v / prof_steps for k, v in top.items()}))
+        log(f"kernels of '{part}' (ms per step): "
+            + per_step_json({k: v / prof_steps for k, v in top.items()}))
     return counts
 
 
-def ranking_slice(card: str) -> dict:
-    """The ``ranking`` task preset trained through train() on the ranking
-    demo corpus, the Evaluator as eval_fn; then its EMA params serve one
-    query through QueryEngine. Returns the launch counts of the training
-    run (reset just before it)."""
-    from sse_tpu.data import synthetic
-    from sse_tpu.data.corpus import build_vocab, encode_pairs, encode_target_space
+def preset_slice(card: str, task_name: str, layer: str) -> dict:
+    """A task preset trained through train() on its demo corpus at the
+    preset's widths, the Evaluator as eval_fn; then its EMA params serve
+    one query through QueryEngine. ``layer`` is the preset's cell (gru |
+    lstm), whose forward and backward kernels must launch. Returns the
+    launch counts of the training run (reset just before it)."""
+    from sse_tpu_torch.data import synthetic
+    from sse_tpu_torch.data.corpus import build_vocab, encode_pairs, encode_target_space
     from sse_tpu_torch import configs, ops
     from sse_tpu_torch.evals import Evaluator
     from sse_tpu_torch.index import build_index
@@ -638,17 +823,18 @@ def ranking_slice(card: str) -> dict:
     from sse_tpu_torch.train import inference_params, init_train_state, train
 
     # 640 pairs / batch 128 = 5 steps an epoch: 60 epochs = 300 steps
-    task = configs.preset("ranking", max_epochs=60, steps_per_checkpoint=50)
-    rows, evrows, targets = synthetic.make_corpus(task="ranking", seed=SEED)
+    task = configs.preset(task_name, max_epochs=60, steps_per_checkpoint=50)
+    rows, evrows, targets = synthetic.make_corpus(task=task_name, seed=SEED)
     vocab = build_vocab(task.vocab_size, rows, targets,
                         max_subtoken_length=task.max_subtoken_length, vocab_mode=task.vocab_mode)
     tspace = encode_target_space(vocab, targets, task.max_seq_length)
     pairs = encode_pairs(vocab, rows, tspace, task.max_seq_length)
     evpairs = encode_pairs(vocab, evrows, tspace, task.max_seq_length)
     mc = task.model_config(vocab.vocab_size, tspace.num_targets)
+    check(mc.src_tower.cell == layer, f"{task_name}: cell {mc.src_tower.cell}")
     tc = task.train_config()
     evaluator = Evaluator(mc, evpairs, tspace)
-    state = init_train_state(mc, tc, device="cuda")
+    state = init_train_state(mc, tc)
     before = evaluator.evaluate(inference_params(state))
     records = []
     ops.reset_launch_counts()
@@ -658,17 +844,18 @@ def ranking_slice(card: str) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
-    check(counts["gru_fwd"] > 0 and counts["gru_bwd"] > 0, f"ranking: launches {counts}")
-    check(all(math.isfinite(r["loss"]) for r in records), f"ranking: loss {records}")
+    check(counts[f"{layer}_fwd"] > 0 and counts[f"{layer}_bwd"] > 0,
+          f"{task_name}: launches {counts}")
+    check(all(math.isfinite(r["loss"]) for r in records), f"{task_name}: loss {records}")
     first, last = records[0], records[-1]
-    check(last["loss"] < first["loss"], f"ranking: loss did not fall: {first} -> {last}")
+    check(last["loss"] < first["loss"], f"{task_name}: loss did not fall: {first} -> {last}")
     check(last["recall@1"] > before["recall@1"],
-          f"ranking: recall@1 {before['recall@1']} at step 0 -> {last['recall@1']}")
-    log(f"ranking preset: {state.step} steps in {secs:.2f} s (evals included), window loss "
-        f"{first['loss']:.4f} (step {first['step']}) -> {last['loss']:.4f} (step {last['step']}), "
-        f"recall@1 {before['recall@1']:.4f} (step 0) -> {last['recall@1']:.4f}, recall@10 "
-        f"{before['recall@10']:.4f} -> {last['recall@10']:.4f}, lr {last['lr']:.6g}; "
-        f"launches {counts} [{card}]")
+          f"{task_name}: recall@1 {before['recall@1']} at step 0 -> {last['recall@1']}")
+    log(f"{task_name} preset ({layer}, {mc.src_tower.readout} readout): {state.step} steps in "
+        f"{secs:.2f} s (evals included), window loss {first['loss']:.4f} (step {first['step']}) "
+        f"-> {last['loss']:.4f} (step {last['step']}), recall@1 {before['recall@1']:.4f} "
+        f"(step 0) -> {last['recall@1']:.4f}, recall@10 {before['recall@10']:.4f} -> "
+        f"{last['recall@10']:.4f}, lr {last['lr']:.6g}; launches {counts} [{card}]")
 
     params = inference_params(state)
     index = build_index(params, mc, tspace, batch_size=256, dtype=torch.bfloat16)
@@ -676,11 +863,23 @@ def ranking_slice(card: str) -> dict:
                          max_batch=8, k=K)
     text = evrows[0][0]
     hits = engine.query([text])
-    check(len(hits) == 1 and len(hits[0]) == K, f"ranking query: {hits}")
+    check(len(hits) == 1 and len(hits[0]) == K, f"{task_name} query: {hits}")
     n = same_as_reference(engine, params, mc, index, [text], hits)
-    log(f"ranking EMA params served {text!r}: top-{K} rows == topk_reference "
+    log(f"{task_name} EMA params served {text!r}: top-{K} rows == topk_reference "
         f"({n} positions differ, each within one key bucket); top hit {hits[0][0]['targetId']}")
     return counts
+
+
+KERNELS = {  # name → (source, the TPU kernel it replaces)
+    "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
+    "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
+    "lstm_fwd": ("sse_tpu_torch/csrc/rnn_scan.cu", "sse_tpu/ops/pallas_rnn.py:337"),
+    "lstm_bwd": ("sse_tpu_torch/csrc/lstm_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
+    "rnn_scan": ("sse_tpu_torch/csrc/rnn_scan.cu", "sse_tpu/ops/pallas_rnn.py:102"),
+    "topk_stream": ("sse_tpu_torch/csrc/topk_stream.cu", "sse_tpu/ops/fused_topk.py:1056"),
+    "twophase_p1": ("sse_tpu_torch/csrc/topk_twophase.cu", "sse_tpu/ops/fused_topk.py:762"),
+    "twophase_p2": ("sse_tpu_torch/csrc/topk_twophase.cu", "sse_tpu/ops/fused_topk.py:850"),
+}
 
 
 def main() -> None:
@@ -691,38 +890,62 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
+    from sse_tpu_torch.models.towers import TowerConfig
     from sse_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     _build.library()
     log(f"kernel build: {_build.build_info['seconds']:.1f} s")
-    sources = {
-        "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
-        "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
-        "topk_stream": ("sse_tpu_torch/csrc/topk_stream.cu", "sse_tpu/ops/fused_topk.py:1056"),
-        "twophase_p1": ("sse_tpu_torch/csrc/topk_twophase.cu", "sse_tpu/ops/fused_topk.py:762"),
-        "twophase_p2": ("sse_tpu_torch/csrc/topk_twophase.cu", "sse_tpu/ops/fused_topk.py:850"),
-    }
-    results = {name: {} for name in sources}
+    results = {name: {} for name in KERNELS}
     check_gru(card, results)
-    check_gru_bwd(card, results)
+    check_lstm(card, results)
+    check_scan(card, results)
+    check_bwd(card, results, "gru")
+    check_bwd(card, results, "lstm")
     check_topk(card, results)
-    served = served_slice()
-    missing = [n for n in ("gru_fwd", "topk_stream", "twophase_p1", "twophase_p2")
-               if served.get(n, 0) < 1]
-    check(not missing, f"kernels never launched on the served path: {missing}")
-    trained = [train_bench_slice(card), ranking_slice(card)]
-    for counts in trained:
-        missing = [n for n in ("gru_fwd", "gru_bwd") if counts.get(n, 0) < 1]
-        check(not missing, f"kernels never launched on the trained path: {missing}")
-    launches = {n: sum(c.get(n, 0) for c in [served, *trained]) for n in sources}
+
+    corpus = served_corpus()
+    width = dict(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1, encoding_dim=128)
+    gru = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(cell="gru", **width))
+    qna_tower = TowerConfig(cell="lstm", readout="attention", **width)
+    qna = SSEConfig(mode=NetworkMode.DUAL_ENCODER, src_tower=qna_tower, tgt_tower=qna_tower)
+    runs = {
+        "served GRU": served_slice("served GRU", gru, corpus, 1024),
+        "served qna": served_slice("served qna", qna, corpus, 4096),
+        "GRU train bench": train_bench_slice(card, "GRU train bench", {"cell": "gru"}, 0.5,
+                                             {"gru_fwd": 2, "gru_bwd": 2}),
+        "compositional train bench": train_bench_slice(
+            card, "compositional train bench",
+            {"cell": "lstm", "num_layers": 3, "residual": True, "dropout": 0.1}, 0.003,
+            {"lstm_fwd": 6, "lstm_bwd": 6}),
+        "ranking preset": preset_slice(card, "ranking", "gru"),
+        "qna preset": preset_slice(card, "qna", "lstm"),
+    }
+    need = {
+        "served GRU": ("gru_fwd", "topk_stream", "twophase_p1", "twophase_p2"),
+        "served qna": ("lstm_fwd", "rnn_scan", "topk_stream", "twophase_p1", "twophase_p2"),
+        "GRU train bench": ("gru_fwd", "gru_bwd"),
+        "compositional train bench": ("lstm_fwd", "lstm_bwd", "rnn_scan"),
+        "ranking preset": ("gru_fwd", "gru_bwd"),
+        "qna preset": ("lstm_fwd", "lstm_bwd", "rnn_scan"),
+    }
+    for run, names in need.items():
+        missing = [n for n in names if runs[run].get(n, 0) < 1]
+        check(not missing, f"kernels never launched on the {run} path: {missing}")
+    launches = {n: sum(c.get(n, 0) for c in runs.values()) for n in KERNELS}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **results[name]}
-        for name, (src, rep) in sources.items()
+        for name, (src, rep) in KERNELS.items()
     ]
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for k in kernels:
+        check(all(key in k for key in keys), f"kernel line misses a key: {k}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

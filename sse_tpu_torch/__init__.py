@@ -9,13 +9,13 @@ with ``nvcc`` on first CUDA use (``sse_tpu_torch.ops._build``). On CPU
 tensors each kernel wrapper runs its plain PyTorch version instead; on a
 CUDA tensor it launches the kernel or raises — there is no fallback.
 
-Ported so far: the serving path (GRU tower → index → fused top-k →
-HTTP) and the training path (differentiable GRU tower whose backward is
-a hand-written kernel, losses, clip-then-Adam, the train loop, the
-recall Evaluator, the task presets). What is still to port is listed in
-ROADMAP.md.
+Ported so far: the serving path (GRU or LSTM tower with the final,
+mean or attention readout → index → fused top-k → HTTP) and the training
+path (differentiable recurrent towers whose backward is a hand-written
+kernel, losses, clip-then-Adam, the train loop, the recall Evaluator,
+the task presets). What is still to port is listed in ROADMAP.md.
 
-The JAX-free host layers are reused by import, never copied:
-``sse_tpu.text``, ``sse_tpu.data`` and ``sse_tpu.native``. Nothing in
-this package imports ``jax``.
+The host layers (``text``, ``data``) are the port's own copies of
+``sse_tpu.text`` and ``sse_tpu.data``: nothing in this package imports
+``jax`` or any module of ``sse_tpu``.
 """

@@ -4,8 +4,11 @@
 returns (or restored ``inference_params``), with leaves as numpy arrays or
 anything ``np.asarray`` accepts, and returns the same nesting of dicts and
 lists with torch tensors. Layouts are kept as they are: the fused RNN
-weight stays [(in+H), G·H] with gate order (z, r, n) for the GRU, so the
-port's ``_split_weights`` reads it exactly like the JAX one.
+weight stays [(in+H), G·H] with gate order (z, r, n) for the GRU and
+(i, f, g, o) for the LSTM, and the attention readout keeps ``attn_w``
+[H, H], ``attn_b`` and ``attn_v`` [H], so the port's
+``ops.rnn.split_weights`` reads a layer exactly like the JAX
+``_split_weights``.
 ``params_to_numpy`` is the inverse, so that the JAX package can load and
 evaluate params the port trained. This module imports no JAX: callers
 hand it, and get back, host arrays.

@@ -1,5 +1,5 @@
 // Shared device helpers for the port's Hopper kernels: warp-level
-// tensor-core products (mma.sync) and a 32-bit load.
+// tensor-core products (mma.sync), a 32-bit load and the logistic function.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +35,8 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
 template <typename T>
 __device__ __forceinline__ uint32_t ld32(const T* p) {

@@ -30,8 +30,6 @@ constexpr int BM = 32;    // batch rows per block: two m16 tiles
 constexpr int WH = 16;    // hidden units per warp (two n8 tiles per gate)
 constexpr int KPAD = 8;   // bf16 row padding: spreads fragment loads over banks
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
 __global__ void gru_fwd_kernel(const __nv_bfloat16* __restrict__ xs,
                                const float* __restrict__ mask,
                                const __nv_bfloat16* __restrict__ wx,
@@ -156,8 +154,8 @@ __global__ void gru_fwd_kernel(const __nv_bfloat16* __restrict__ xs,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = half * 2 + e;
-            const float z = sigmoid(acc[mi][0][nj][c]);
-            const float rg = sigmoid(acc[mi][1][nj][c]);
+            const float z = sse::sigmoid(acc[mi][0][nj][c]);
+            const float rg = sse::sigmoid(acc[mi][1][nj][c]);
             const float n = tanhf(acc[mi][2][nj][c] * rg);
             const float hnew = (1.f - z) * n + z * h[mi][nj][c];
             h[mi][nj][c] = m * hnew + (1.f - m) * h[mi][nj][c];

@@ -12,7 +12,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sse_tpu.data.corpus import EncodedPairs, TargetSpace
+from sse_tpu_torch.data.corpus import EncodedPairs, TargetSpace
 from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
 

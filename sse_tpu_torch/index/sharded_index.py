@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from sse_tpu.data.corpus import TargetSpace
+from sse_tpu_torch.data.corpus import TargetSpace
 from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
 
@@ -131,7 +131,7 @@ def from_embeddings(
     texts: Sequence[str],
     dtype: torch.dtype = torch.float32,
     capacity: Optional[int] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> ShardedIndex:
     """Wrap embeddings [T, D] (numpy or tensor) into a padded index."""
     emb = torch.as_tensor(emb).float()

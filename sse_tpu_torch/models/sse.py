@@ -50,8 +50,12 @@ class SSEConfig:
 def init_params(
     cfg: SSEConfig,
     generator: Optional[torch.Generator] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Params:
+    """Random params of every tower of ``cfg`` on ``device`` (the card
+    unless the caller asks for another), in the JAX checkpoint layout:
+    fused ``[(in+H), G·H]`` layer weights with gate order (z, r, n) for
+    the GRU and (i, f, g, o) for the LSTM (``towers.init_tower``)."""
     gen = generator if generator is not None else torch.Generator()
     params: Params = {
         "src_tower": towers.init_tower(cfg.src_tower, gen, device)

@@ -1,17 +1,20 @@
 """Encoder towers → fixed-size L2-normalized vectors (port of
 ``sse_tpu/models/towers.py``).
 
-Ported: the GRU cell (fused-reset form), stacked layers with optional
-identity residuals, the final-state readout, the tanh projection, the L2
-norm and the train-only dropout. Every layer goes through
-``rnn.RNNLayer``, so the tower is differentiable end to end. Other cells (lstm, transformer, bow) and readouts (mean,
-attention) raise ``NotImplementedError``; ROADMAP.md §1 queues them.
+Ported: the recurrent towers — the GRU cell (fused-reset form) and the
+LSTM cell (+1 forget bias), stacked layers with optional identity
+residuals — with the final, mean and attention readouts, the tanh
+projection, the L2 norm and the train-only dropout. Every layer goes
+through ``rnn.RNNLayer``, so the tower is differentiable end to end. The
+transformer and bag-of-subwords towers raise ``NotImplementedError``;
+ROADMAP.md §1 queues them.
 
 Precision policy, as in the JAX package: matmul operands are bfloat16,
 accumulation and the recurrent carry are float32. A plain product of
-bf16-rounded operands is written ``a.bfloat16().float() @ b...``: a bf16
-``torch.matmul`` would round its result to bf16 and lose the float32
-accumulation.
+bf16-rounded operands is written ``bf16_matmul``: a bf16 ``torch.matmul``
+would round its result to bf16 and lose the float32 accumulation. The
+attention readout's two einsums take float32 operands in full float32,
+as the JAX package's default-precision ``einsum`` does on the CPU.
 """
 
 from __future__ import annotations
@@ -24,12 +27,13 @@ import torch
 from torch.profiler import record_function
 
 from sse_tpu_torch.ops import rnn
-from sse_tpu_torch.ops.rnn import bf16_matmul, gru_cell
+from sse_tpu_torch.ops.rnn import bf16_matmul, gru_cell, lstm_cell, split_weights
 
 Params = Dict[str, Any]
 
 _COMPUTE_DTYPE = torch.bfloat16
 _NOT_PORTED = "not ported yet (see ROADMAP.md §1)"
+_READOUTS = ("final", "mean", "attention")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,10 +59,12 @@ class TowerConfig:
 
 
 def _check_supported(cfg: TowerConfig) -> None:
-    if cfg.cell != "gru":
+    if cfg.cell in ("transformer", "bow"):
         raise NotImplementedError(f"cell={cfg.cell!r} is {_NOT_PORTED}")
-    if cfg.readout != "final":
-        raise NotImplementedError(f"readout={cfg.readout!r} is {_NOT_PORTED}")
+    if cfg.cell not in ("gru", "lstm"):
+        raise ValueError(f"unknown cell {cfg.cell!r}")
+    if cfg.readout not in _READOUTS:
+        raise ValueError(f"unknown readout {cfg.readout!r}")
 
 
 def _glorot(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -71,13 +77,16 @@ def _glorot(gen: torch.Generator, shape, device) -> torch.Tensor:
 def init_tower(
     cfg: TowerConfig,
     generator: Optional[torch.Generator] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Params:
     """Random tower params in the JAX checkpoint layout: ``embed``
-    [V, E], ``proj_w`` [H, D], ``proj_b`` [D], and per layer one fused
-    ``w`` [(in+H), 3H] over [x; h] with ``b`` [3H] (gate order z, r, n).
-    The numbers differ from ``sse_tpu``'s init for the same seed; parity
-    tests convert JAX params with ``sse_tpu_torch.convert`` instead."""
+    [V, E], ``proj_w`` [H, D], ``proj_b`` [D]; per layer one fused ``w``
+    [(in+H), G·H] over [x; h] with ``b`` [G·H], gate order (z, r, n) for
+    the GRU (G=3) and (i, f, g, o) for the LSTM (G=4); with the attention
+    readout ``attn_w`` [H, H], ``attn_b`` [H] and ``attn_v`` [H]
+    (``towers.py:195-227``). The numbers differ from ``sse_tpu``'s init
+    for the same seed; parity tests convert JAX params with
+    ``sse_tpu_torch.convert`` instead."""
     _check_supported(cfg)
     gen = generator if generator is not None else torch.Generator()
     p: Params = {
@@ -91,31 +100,27 @@ def init_tower(
         "proj_w": _glorot(gen, (cfg.hidden, cfg.encoding_dim), device),
         "proj_b": torch.zeros((cfg.encoding_dim,), device=device),
     }
+    if cfg.readout == "attention":
+        p["attn_w"] = _glorot(gen, (cfg.hidden, cfg.hidden), device)
+        p["attn_b"] = torch.zeros((cfg.hidden,), device=device)
+        p["attn_v"] = (
+            torch.randn((cfg.hidden,), generator=gen, dtype=torch.float32) * 0.05
+        ).to(device)
+    n = (3 if cfg.cell == "gru" else 4) * cfg.hidden
     layers = []
     for l in range(cfg.num_layers):
         in_dim = cfg.embed_dim if l == 0 else cfg.hidden
         layers.append(
             {
                 "w": torch.cat(
-                    [
-                        _glorot(gen, (in_dim, 3 * cfg.hidden), device),
-                        _glorot(gen, (cfg.hidden, 3 * cfg.hidden), device),
-                    ],
+                    [_glorot(gen, (in_dim, n), device), _glorot(gen, (cfg.hidden, n), device)],
                     dim=0,
                 ),
-                "b": torch.zeros((3 * cfg.hidden,), device=device),
+                "b": torch.zeros((n,), device=device),
             }
         )
     p["layers"] = layers
     return p
-
-
-def _split_weights(layer: Params, cell: str):
-    """The fused [(in+H), G·H] kernel → (x-part, h-part, bias)."""
-    n_gates = 3 if cell == "gru" else 4
-    h = layer["w"].shape[1] // n_gates
-    in_dim = layer["w"].shape[0] - h
-    return layer["w"][:in_dim], layer["w"][in_dim:], layer["b"]
 
 
 def _dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
@@ -124,6 +129,26 @@ def _dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor
     keep = 1.0 - rate
     u = torch.rand(x.shape, generator=gen, device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def _masked_mean(states: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """states [B, L, H], valid [B, L] → [B, H] (``towers.py:529-532``)."""
+    denom = torch.clamp(valid.sum(1, keepdim=True), min=1.0)
+    return (states * valid[:, :, None]).sum(1) / denom
+
+
+def _attention_readout(
+    p: Params, states: torch.Tensor, valid: torch.Tensor, residual: torch.Tensor
+) -> torch.Tensor:
+    """Self-attentive pooling with the pooled-summary residual
+    (``towers.py:535-561``): ``score_t = v·tanh(W·h_t + b)`` (W·h_t on bf16
+    operands, float32 sums), masked softmax over the valid steps, the
+    weighted sum of the float32 states, plus ``residual``."""
+    proj = torch.tanh(bf16_matmul(states, p["attn_w"]) + p["attn_b"])  # [B, L, H]
+    scores = torch.einsum("blh,h->bl", proj, p["attn_v"])
+    scores = torch.where(valid > 0, scores, torch.finfo(torch.float32).min)
+    alpha = torch.softmax(scores, dim=-1)  # [B, L]
+    return torch.einsum("bl,blh->bh", alpha, states) + residual
 
 
 def encode_raw(
@@ -135,7 +160,8 @@ def encode_raw(
 ) -> torch.Tensor:
     """Token ids → L2-normalized [B, encoding_dim] float32 embeddings.
     Each recurrent layer is one ``rnn.RNNLayer`` call: the hand-written
-    GRU kernels on a CUDA device, their plain versions on the CPU.
+    kernels on a CUDA device, their plain versions on the CPU; the
+    readout is plain tensor code (XLA in the JAX package, not Pallas).
 
     ``dropout_generator`` (a ``torch.Generator`` on the tokens' device)
     turns on ``cfg.dropout`` on the embeddings and on the readout
@@ -154,7 +180,7 @@ def encode_raw(
     mask = valid.T[:, None, :].contiguous()  # [L, 1, B]
     final = None
     for li, layer in enumerate(params["layers"]):
-        ys, fin = rnn.RNNLayer.apply(xs, mask, *_split_weights(layer, cfg.cell))
+        ys, fin = rnn.RNNLayer.apply(xs, mask, *split_weights(layer, cfg.cell), cfg.cell)
         if cfg.residual and li > 0:
             # identity skip; carry-freezing makes the stream's last step
             # each row's value at its own length (towers.py:628-637)
@@ -162,15 +188,25 @@ def encode_raw(
             xs = xs + ys
         else:
             final, xs = fin, ys
+    if cfg.readout == "final":
+        feats = final  # [B, H] fp32: the state at each row's own length
+    else:
+        with record_function("sse.tower.readout"):
+            states = xs.transpose(0, 1).float()  # [B, L, H]
+            if cfg.readout == "mean":
+                feats = _masked_mean(states, valid)
+            else:
+                feats = _attention_readout(params, states, valid, final)
     if train:
-        final = _dropout(final, cfg.dropout, dropout_generator)
-    out = torch.tanh(bf16_matmul(final, params["proj_w"]) + params["proj_b"])
+        feats = _dropout(feats, cfg.dropout, dropout_generator)
+    out = torch.tanh(bf16_matmul(feats, params["proj_w"]) + params["proj_b"])
     return out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-6)
 
 
 __all__ = [
     "TowerConfig",
-    "init_tower",
-    "gru_cell",
     "encode_raw",
+    "gru_cell",
+    "init_tower",
+    "lstm_cell",
 ]

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Every ``sse_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, which is
-loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds.
-The build happens on the first CUDA launch, never at import, and is
-cached in ``build/sse_tpu_torch/`` under a hash of the sources and flags.
-A failed build raises with nvcc's stderr.
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into ONE shared library with a plain C interface,
+which is loaded with ``ctypes`` — no PyTorch headers, so a build takes
+seconds. The build happens on the first CUDA launch, never at import,
+and is cached in ``build/sse_tpu_torch/`` under a hash of the sources
+and flags. A failed build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -25,11 +26,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sse_tpu_torch")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -64,6 +62,41 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> None:
+    """Wait for every (command, process); keep their output in
+    ``build_info["log"]`` and raise on the first that failed."""
+    failed = None
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        build_info["log"] += stdout + stderr
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, stderr)
+    if failed is not None:
+        cmd, rc, stderr = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{stderr}")
+
+
+def _compile_and_link(out: str) -> None:
+    """One nvcc per source, all at once, then one link into ``out``."""
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    build_info["log"] = ""
+    objs, procs = [], []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    _run(procs)
+    tmp = f"{out}.{tag}"
+    cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True))])
+    for obj in objs:
+        os.remove(obj)
+    os.replace(tmp, out)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
@@ -75,17 +108,9 @@ def library() -> ctypes.CDLL:
         if os.path.exists(out):
             build_info["seconds"] = 0.0
         else:
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
             t0 = time.perf_counter()
-            r = subprocess.run(cmd, capture_output=True, text=True)
+            _compile_and_link(out)
             build_info["seconds"] = time.perf_counter() - t0
-            build_info["log"] = r.stdout + r.stderr
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{r.stderr}"
-                )
-            os.replace(tmp, out)
         _lib = ctypes.CDLL(out)
         return _lib
 

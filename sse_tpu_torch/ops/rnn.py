@@ -1,42 +1,68 @@
-"""One fused GRU layer, forward and backward (port of
-``sse_tpu/ops/pallas_rnn.py`` ``rnn_layer``: the ``_layer_fwd_pallas`` →
-``_fwd_gru_kernel`` forward and the ``_layer_bwd_pallas`` → ``_bwd_kernel``
-backward, GRU branch).
+"""Recurrent layers, forward and backward: GRU and LSTM (port of
+``sse_tpu/ops/pallas_rnn.py``).
 
-Forward, per step: ``gates_t = xs_t·Wx + b + bf16(h_{t-1})·Wh`` (bf16
-operands, float32 sums), the fused-reset GRU cell, and the masked carry
-freeze ``h = m·h_new + (1-m)·h``. Returns ``(ys [T,B,H] bf16, fin [B,H]
-fp32)``. Backward: reverse time, gates recomputed from ``xs`` and the
-bf16 ``ys``; ``dxs`` in bf16, ``dWx``, ``dWh``, ``db`` in fp32.
-``RNNLayer`` is the ``torch.autograd.Function`` that joins the two, as
-``jax.custom_vjp`` does in the JAX package.
+Four TPU kernels have their Hopper counterparts here:
 
-On a CUDA tensor ``rnn_layer`` and ``rnn_layer_bwd`` launch
-``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu`` (built on first use) or
-raise; on a CPU tensor they run ``rnn_layer_reference`` and
-``rnn_layer_bwd_reference``, the plain PyTorch versions of the same
-functions. See the kernel sources for what bounds them on the H100.
+* ``rnn_layer`` — one fused layer forward (``_layer_fwd_pallas``): per
+  step ``gates_t = xs_t·Wx + b + bf16(h_{t-1})·Wh`` (bf16 operands,
+  float32 sums), the cell, and the masked carry freeze ``h = m·h_new +
+  (1-m)·h`` (and ``c`` likewise for the LSTM). Returns ``(ys [T,B,H]
+  bf16, fin [B,H] fp32)``; the LSTM also keeps ``cs = bf16(c)`` for its
+  backward. GRU: ``csrc/gru_fwd.cu``; LSTM: ``csrc/rnn_scan.cu``
+  ``sse_lstm_fwd`` (x-product, then the scan).
+* ``scan_layer`` — the recurrence over precomputed x-side pre-activations
+  ``ax`` (``scan_layer``, kernel 1), either cell: ``csrc/rnn_scan.cu``.
+  ``rnn_encode`` stacks it into a forward-only multi-layer encode.
+* ``rnn_layer_bwd`` — one layer backward (``_layer_bwd_pallas`` →
+  ``_bwd_kernel``): reverse time, gates recomputed from ``xs`` and the
+  bf16 ``ys`` (and ``cs``); ``dxs`` in bf16, ``dWx``, ``dWh``, ``db`` in
+  fp32. GRU: ``csrc/gru_bwd.cu``; LSTM: ``csrc/lstm_bwd.cu``.
+* ``RNNLayer`` is the ``torch.autograd.Function`` that joins forward and
+  backward, as ``jax.custom_vjp`` does in the JAX package.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain PyTorch version of the same function
+(``*_reference``, ``*_chain``). See the kernel sources for what bounds
+them on the H100.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from sse_tpu_torch.ops import _build
 
 # Launches of each CUDA kernel wrapper (incremented only where it launches).
-launches = {"gru_fwd": 0, "gru_bwd": 0}
+# ``rnn_scan`` counts every launch of the scan kernel: ``scan_layer``'s and
+# the one inside each LSTM layer forward (``sse_lstm_fwd`` runs it after
+# the x-product).
+launches = {"gru_fwd": 0, "gru_bwd": 0, "lstm_fwd": 0, "lstm_bwd": 0, "rnn_scan": 0}
 
 _MAX_SMEM = 232_448  # opt-in dynamic shared memory per block on sm_90
+_GATES = {"gru": 3, "lstm": 4}
+
+
+def _n_gates(cell: str) -> int:
+    if cell not in _GATES:
+        raise ValueError(f"unknown recurrent cell {cell!r} (gru | lstm)")
+    return _GATES[cell]
 
 
 def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b on bf16-rounded operands, summed in float32 (a bf16
     ``torch.matmul`` would round its result to bf16)."""
     return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+
+
+def split_weights(layer, cell: str):
+    """The fused [(in+H), G·H] kernel of the checkpoint layout → (x-part,
+    h-part, bias), as ``towers.py:301-307``."""
+    h = layer["w"].shape[1] // _n_gates(cell)
+    in_dim = layer["w"].shape[0] - h
+    return layer["w"][:in_dim], layer["w"][in_dim:], layer["b"]
 
 
 def gru_cell(gates: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -50,80 +76,145 @@ def gru_cell(gates: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return (1.0 - z) * n + z * h
 
 
+def lstm_cell(
+    gates: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Elementwise LSTM update from combined pre-activations [B, 4H], gate
+    order (i, f, g, o), the forget gate biased by +1 (``towers.py:293-298``).
+    Returns (h_new, c_new)."""
+    i, f, g, o = torch.chunk(gates, 4, dim=-1)
+    c_new = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+# ------------------------------------------------------------ plain forward
+def _scan_reference(ax, mask, wh, cell):
+    """(ys bf16, fin fp32, cs bf16 | None): the recurrence of kernel 1 and
+    of the fused layer forward, ``gates_t = ax_t + bf16(h)·Wh``."""
+    _n_gates(cell)
+    T, B, _ = ax.shape
+    H = wh.shape[0]
+    h = torch.zeros((B, H), dtype=torch.float32, device=ax.device)
+    c = torch.zeros_like(h)
+    ys, cs = [], []
+    for t in range(T):
+        gates = ax[t].float() + bf16_matmul(h, wh)
+        m = mask[t, 0][:, None].float()
+        if cell == "gru":
+            h = m * gru_cell(gates, h) + (1.0 - m) * h
+        else:
+            h_new, c_new = lstm_cell(gates, h, c)
+            h = m * h_new + (1.0 - m) * h
+            c = m * c_new + (1.0 - m) * c
+            cs.append(c.to(torch.bfloat16))
+        ys.append(h.to(torch.bfloat16))
+    empty = torch.empty((0, B, H), dtype=torch.bfloat16, device=ax.device)
+    ys = torch.stack(ys) if ys else empty
+    if cell == "gru":
+        return ys, h, None
+    return ys, h, torch.stack(cs) if cs else empty
+
+
+def scan_layer_reference(
+    ax: torch.Tensor,  # [T, B, G·H] fp32
+    mask: torch.Tensor,  # [T, 1, B] float 1/0
+    wh: torch.Tensor,  # [H, G·H]
+    cell: str = "gru",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch kernel 1 (``pallas_rnn.scan_layer``); any device.
+    Returns (ys [T,B,H] bf16, fin [B,H] fp32)."""
+    return _scan_reference(ax, mask, wh, cell)[:2]
+
+
+def _x_product(xs, wx, b) -> torch.Tensor:
+    """ax = bf16(xs)·bf16(Wx) + b over all T·B rows, [T, B, G·H] fp32."""
+    T, B, E = xs.shape
+    return (bf16_matmul(xs.reshape(T * B, E), wx) + b.float()).reshape(T, B, wx.shape[1])
+
+
 def rnn_layer_reference(
     xs: torch.Tensor,  # [T, B, E]
     mask: torch.Tensor,  # [T, 1, B] float 1/0
-    wx: torch.Tensor,  # [E, 3H]
-    wh: torch.Tensor,  # [H, 3H]
-    b: torch.Tensor,  # [3H]
+    wx: torch.Tensor,  # [E, G·H]
+    wh: torch.Tensor,  # [H, G·H]
+    b: torch.Tensor,  # [G·H]
     cell: str = "gru",
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch GRU layer with the kernel's numerics; any device."""
-    if cell != "gru":
-        raise NotImplementedError(f"cell={cell!r} is not ported yet (see ROADMAP.md)")
-    T, B, _ = xs.shape
-    H = wh.shape[0]
-    ax = bf16_matmul(xs.reshape(T * B, -1), wx).reshape(T, B, -1) + b.float()
-    h = torch.zeros((B, H), dtype=torch.float32, device=xs.device)
-    ys = []
-    for t in range(T):
-        h_new = gru_cell(ax[t] + bf16_matmul(h, wh), h)
-        m = mask[t, 0][:, None].float()
-        h = m * h_new + (1.0 - m) * h
-        ys.append(h.to(torch.bfloat16))
-    return torch.stack(ys), h
+):
+    """Plain PyTorch layer forward with the kernels' numerics; any device.
+    GRU: (ys, fin); LSTM: (ys, fin, cs), as ``_layer_fwd_pallas`` emits.
+    Summed as ``(xs·Wx + b) + h·Wh``, the fp32 order of ``_fwd_core``."""
+    ys, fin, cs = _scan_reference(_x_product(xs, wx, b), mask, wh, cell)
+    return (ys, fin) if cell == "gru" else (ys, fin, cs)
 
 
-def _check_cuda_args(xs, mask, wx, wh, b):
-    T, B, E = xs.shape
-    H = wh.shape[0]
-    want = {
-        "xs": (xs, torch.bfloat16, (T, B, E)),
-        "mask": (mask, torch.float32, (T, 1, B)),
-        "wx": (wx, torch.bfloat16, (E, 3 * H)),
-        "wh": (wh, torch.bfloat16, (H, 3 * H)),
-        "b": (b, torch.float32, (3 * H,)),
-    }
-    for name, (t, dtype, shape) in want.items():
-        if not t.is_cuda or t.device != xs.device:
-            raise ValueError(f"gru_fwd: {name} must be on {xs.device}")
+# ------------------------------------------------------------ CUDA launches
+def _check_args(kernel: str, args) -> None:
+    """Raise unless every (tensor, dtype, shape) of ``args`` is on the first
+    one's CUDA device, of that dtype and shape, contiguous and 16-byte
+    aligned."""
+    dev = next(iter(args.values()))[0].device
+    for name, (t, dtype, shape) in args.items():
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{kernel}: {name} must be on {dev}")
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
-                f"gru_fwd: {name} must be contiguous {dtype} {shape}, got "
+                f"{kernel}: {name} must be contiguous {dtype} {shape}, got "
                 f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
             )
-    if E % 16 or H % 16 or H > 512:
-        raise ValueError(f"gru_fwd: needs E, H multiples of 16 and H <= 512 (E={E}, H={H})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
 
 
-def rnn_layer(
-    xs: torch.Tensor,
-    mask: torch.Tensor,
-    wx: torch.Tensor,
-    wh: torch.Tensor,
-    b: torch.Tensor,
-    cell: str = "gru",
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One GRU layer: the Hopper kernel on CUDA tensors, the plain
-    version on CPU tensors."""
-    if not xs.is_cuda:
-        return rnn_layer_reference(xs, mask, wx, wh, b, cell)
-    if cell != "gru":
-        raise NotImplementedError(f"cell={cell!r} is not ported yet (see ROADMAP.md)")
-    xs = xs.to(torch.bfloat16).contiguous()
-    mask = mask.to(torch.float32).contiguous()
-    wx = wx.to(torch.bfloat16).contiguous()
-    wh = wh.to(torch.bfloat16).contiguous()
-    b = b.to(torch.float32).reshape(-1).contiguous()
-    _check_cuda_args(xs, mask, wx, wh, b)
+def _smem(kernel: str, fn: str, *dims: int) -> None:
+    """Raise if the kernel's shared memory (the library's ``fn(*dims)``)
+    exceeds the opt-in limit."""
+    f = getattr(_build.library(), fn)
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_int] * len(dims)
+    need = f(*dims)
+    if need > _MAX_SMEM:
+        raise ValueError(f"{kernel}: {dims} needs {need} B of shared memory (> {_MAX_SMEM})")
+
+
+def _scan_fits(kernel: str, G: int, H: int) -> None:
+    """Raise unless the scan kernel takes G gates of H units: its shared
+    memory, and its 2H threads against what its registers allow."""
+    _smem(kernel, "sse_rnn_scan_smem_bytes", G, H)
+    f = _build.library().sse_rnn_scan_max_threads
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_int]
+    if 2 * H > f(G):
+        raise ValueError(f"{kernel}: H={H} needs {2 * H} threads a block, above the "
+                         f"{f(G)} the scan kernel's registers allow")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, contiguous and starting on a 16-byte boundary (copied if not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _layer_args(xs, mask, wx, wh, b, G):
     T, B, E = xs.shape
     H = wh.shape[0]
-    smem_bytes = _build.library().sse_gru_fwd_smem_bytes
-    smem_bytes.restype = ctypes.c_int
-    smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem = smem_bytes(E, H)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"gru_fwd: E={E}, H={H} needs {smem} B of shared memory")
+    return {
+        "xs": (xs, torch.bfloat16, (T, B, E)),
+        "mask": (mask, torch.float32, (T, 1, B)),
+        "wx": (wx, torch.bfloat16, (E, G * H)),
+        "wh": (wh, torch.bfloat16, (H, G * H)),
+        "b": (b, torch.float32, (G * H,)),
+    }
+
+
+def gru_fwd_launch(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/gru_fwd.cu`` on CUDA tensors (contiguous, 16-byte aligned:
+    xs, wx, wh bf16; mask, b fp32) → (ys, fin)."""
+    _check_args("gru_fwd", _layer_args(xs, mask, wx, wh, b, 3))
+    T, B, E = xs.shape
+    H = wh.shape[0]
+    if E % 16 or H % 16 or H > 512:
+        raise ValueError(f"gru_fwd: needs E, H multiples of 16 and H <= 512 (E={E}, H={H})")
+    _smem("gru_fwd", "sse_gru_fwd_smem_bytes", E, H)
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=xs.device)
     fin = torch.empty((B, H), dtype=torch.float32, device=xs.device)
     if T == 0 or B == 0:
@@ -137,21 +228,148 @@ def rnn_layer(
     return ys, fin
 
 
+def lstm_fwd_launch(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, ...]:
+    """``csrc/rnn_scan.cu`` ``sse_lstm_fwd`` on CUDA tensors (contiguous,
+    16-byte aligned: xs, wx, wh bf16; mask, b fp32): the x-product, then
+    the scan. Returns (ys, fin, cs, ax [T,B,4H] fp32), the last the
+    x-product the scan consumed."""
+    _check_args("lstm_fwd", _layer_args(xs, mask, wx, wh, b, 4))
+    T, B, E = xs.shape
+    H = wh.shape[0]
+    if E % 16 or H % 16:
+        raise ValueError(f"lstm_fwd: needs E, H multiples of 16 (E={E}, H={H})")
+    _scan_fits("lstm_fwd", 4, H)
+    dev = xs.device
+    ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+    cs = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+    fin = torch.empty((B, H), dtype=torch.float32, device=dev)
+    ax = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    if T == 0 or B == 0:
+        return ys, fin.zero_(), cs, ax
+    wxt = wx.t().contiguous()  # Wxᵀ [4H, E]: its rows are the B fragments
+    _build.launch(
+        "sse_lstm_fwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4, dev,
+        xs.data_ptr(), mask.data_ptr(), wxt.data_ptr(), wh.data_ptr(), b.data_ptr(),
+        ax.data_ptr(), ys.data_ptr(), fin.data_ptr(), cs.data_ptr(), T, B, E, H,
+    )
+    launches["lstm_fwd"] += 1
+    launches["rnn_scan"] += 1
+    return ys, fin, cs, ax
+
+
+def rnn_scan_launch(ax, mask, wh, cell: str = "gru") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/rnn_scan.cu`` ``sse_rnn_scan`` on CUDA tensors (ax, mask fp32;
+    wh bf16; contiguous, 16-byte aligned) → (ys, fin)."""
+    G = _n_gates(cell)
+    T, B, _ = ax.shape
+    H = wh.shape[0]
+    _check_args("rnn_scan", {
+        "ax": (ax, torch.float32, (T, B, G * H)),
+        "mask": (mask, torch.float32, (T, 1, B)),
+        "wh": (wh, torch.bfloat16, (H, G * H)),
+    })
+    if H % 16:
+        raise ValueError(f"rnn_scan: needs H a multiple of 16 (H={H})")
+    _scan_fits("rnn_scan", G, H)
+    dev = ax.device
+    ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+    fin = torch.empty((B, H), dtype=torch.float32, device=dev)
+    if T == 0 or B == 0:
+        return ys, fin.zero_()
+    _build.launch(
+        "sse_rnn_scan", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4, dev,
+        ax.data_ptr(), mask.data_ptr(), wh.data_ptr(), ys.data_ptr(), fin.data_ptr(),
+        T, B, H, G,
+    )
+    launches["rnn_scan"] += 1
+    return ys, fin
+
+
+# ------------------------------------------------------------ forward wrappers
+def _layer_fwd(xs, mask, wx, wh, b, cell):
+    """(ys, fin, cs | None): the kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    if not xs.is_cuda:
+        return _scan_reference(_x_product(xs, wx, b), mask, wh, cell)
+    if _n_gates(cell) == 3:
+        return (*gru_fwd_launch(xs, mask, wx, wh, b), None)
+    return lstm_fwd_launch(xs, mask, wx, wh, b)[:3]
+
+
+def _cast_layer(xs, mask, wx, wh, b):
+    """The kernels' operand types, contiguous and 16-byte aligned."""
+    return (
+        _aligned(xs.to(torch.bfloat16)),
+        _aligned(mask.to(torch.float32)),
+        _aligned(wx.to(torch.bfloat16)),
+        _aligned(wh.to(torch.bfloat16)),
+        _aligned(b.to(torch.float32).reshape(-1)),
+    )
+
+
+def rnn_layer(
+    xs: torch.Tensor,
+    mask: torch.Tensor,
+    wx: torch.Tensor,
+    wh: torch.Tensor,
+    b: torch.Tensor,
+    cell: str = "gru",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent layer forward → (ys bf16, fin fp32): the Hopper kernel
+    on CUDA tensors, the plain version on CPU tensors."""
+    return _layer_fwd(*_cast_layer(xs, mask, wx, wh, b), cell)[:2]
+
+
+def scan_layer(
+    ax: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, cell: str = "gru"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 1: the recurrence over precomputed ``ax`` [T,B,G·H] fp32 →
+    (ys bf16, fin fp32); the scan kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if not ax.is_cuda:
+        return scan_layer_reference(ax, mask, wh, cell)
+    return rnn_scan_launch(
+        _aligned(ax.to(torch.float32)), _aligned(mask.to(torch.float32)),
+        _aligned(wh.to(torch.bfloat16)), cell,
+    )
+
+
+def rnn_encode(params, cfg, emb: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Forward-only multi-layer encode → final hidden [B, H] fp32 (port of
+    ``pallas_rnn.py:484-517``): per layer the x-product over all T·B rows
+    (a plain bf16-operand product, as the JAX package leaves it to XLA)
+    and ``scan_layer``; identity residuals between stacked layers when
+    ``cfg.residual``. emb [B, L, E] fp32, valid [B, L] 1/0."""
+    xs = emb.transpose(0, 1).to(torch.bfloat16)  # [L, B, E]
+    mask = valid.T[:, None, :].float().contiguous()  # [L, 1, B]
+    fin = None
+    for li, layer in enumerate(params["layers"]):
+        wx, wh, b = split_weights(layer, cfg.cell)
+        ys, f = scan_layer(_x_product(xs, wx, b), mask, wh, cfg.cell)
+        if cfg.residual and li > 0:
+            fin = f + xs[-1].float()
+            xs = xs + ys
+        else:
+            fin, xs = f, ys
+    return fin
+
+
+# ------------------------------------------------------------ plain backward
 def _h_prev(ys: torch.Tensor) -> torch.Tensor:
-    """[h_{-1}=0, ys[0], ..., ys[T-2]] as float32: the bf16 state each
-    step's forward matmul consumed."""
+    """[0, ys[0], ..., ys[T-2]] as float32: the bf16 state each step's
+    forward consumed (h_{t-1} from ys, c_{t-1} from cs)."""
     return torch.cat([torch.zeros_like(ys[:1]), ys[:-1]]).float()
 
 
-def gru_gates(xs, h_prev, wx, wh, b) -> torch.Tensor:
-    """The recomputed pre-activations ``xs_t·Wx + b + h_{t-1}·Wh`` [T, B, 3H]
-    fp32 (bf16 operands), with ``h_prev`` as ``_h_prev`` gives it."""
+def layer_gates(xs, h_prev, wx, wh, b) -> torch.Tensor:
+    """The recomputed pre-activations ``xs_t·Wx + b + h_{t-1}·Wh`` [T, B,
+    G·H] fp32 (bf16 operands), with ``h_prev`` as ``_h_prev`` gives it."""
     T, B, E = xs.shape
     H = wh.shape[0]
     return (
         bf16_matmul(xs.reshape(T * B, E), wx) + b.float()
         + bf16_matmul(h_prev.reshape(T * B, H), wh)
-    ).reshape(T, B, 3 * H)
+    ).reshape(T, B, wh.shape[1])
 
 
 def gru_bwd_chain(
@@ -163,10 +381,10 @@ def gru_bwd_chain(
     dfin: torch.Tensor,  # [B, H]
     drive: torch.Tensor | None = None,  # [T, B, 3H] bf16
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The serial reverse loop of the backward: returns (dgates_b [T,B,3H]
-    bf16, db [3H] fp32). Each step's fp32 dgates come from the cell's
-    backward at ``dh_t = dh + dys_t``, ``g = m·dh_t``; dgates_b rounds
-    them and ``dh = (1-m)·dh_t + g·z + dgates_b·Whᵀ``; db sums the
+    """The serial reverse loop of the GRU backward: returns (dgates_b
+    [T,B,3H] bf16, db [3H] fp32). Each step's fp32 dgates come from the
+    cell's backward at ``dh_t = dh + dys_t``, ``g = m·dh_t``; dgates_b
+    rounds them and ``dh = (1-m)·dh_t + g·z + dgates_b·Whᵀ``; db sums the
     unrounded dgates.
 
     ``drive`` replaces this loop's own dgates_b in the dh product. Given
@@ -201,11 +419,61 @@ def gru_bwd_chain(
     return dgb, db
 
 
-def gru_bwd_products(
+def lstm_bwd_chain(
+    gates: torch.Tensor,  # [T, B, 4H] fp32
+    c_prev: torch.Tensor,  # [T, B, H]: bf16 cs[t-1], 0 at t = 0
+    mask: torch.Tensor,  # [T, 1, B]
+    wh: torch.Tensor,  # [H, 4H]
+    dys: torch.Tensor,  # [T, B, H]
+    dfin: torch.Tensor,  # [B, H]
+    drive: torch.Tensor | None = None,  # [T, B, 4H] bf16
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The serial reverse loop of the LSTM backward (``pallas_rnn.py:
+    266-289``): returns (dgates_b [T,B,4H] bf16, db [4H] fp32). The dh
+    carry starts at dfin, the dc carry at 0. Per step, with ``dh_t = dh +
+    dys_t``, ``g = m·dh_t`` and c_new recomputed from the bf16 c_{t-1}:
+    ``dc_new = m·dc + g·σ(o)·(1-tanh²(c_new))``, the fp32 dgates (i, f, g,
+    o), dgates_b = bf16(dgates), ``dh = (1-m)·dh_t + dgates_b·Whᵀ`` (no
+    direct term) and ``dc = (1-m)·dc + dc_new·σ(f+1)``; db sums the
+    unrounded dgates. ``drive`` as in ``gru_bwd_chain``."""
+    T, B, N = gates.shape
+    wh_t = wh.to(torch.bfloat16).float().t()
+    dh = dfin.float()
+    dc = torch.zeros_like(dh)
+    db = torch.zeros((N,), dtype=torch.float32, device=gates.device)
+    dgb = torch.empty(gates.shape, dtype=torch.bfloat16, device=gates.device)
+    for t in range(T - 1, -1, -1):
+        m = mask[t, 0][:, None].float()
+        dh_t = dh + dys[t].float()
+        g = m * dh_t  # d h_new
+        i_pre, f_pre, g_pre, o_pre = torch.chunk(gates[t], 4, dim=-1)
+        si = torch.sigmoid(i_pre)
+        sf = torch.sigmoid(f_pre + 1.0)
+        tg = torch.tanh(g_pre)
+        so = torch.sigmoid(o_pre)
+        cp = c_prev[t].float()
+        tc = torch.tanh(sf * cp + si * tg)
+        dc_new = m * dc + g * so * (1.0 - tc * tc)
+        dgates = torch.cat([
+            dc_new * tg * si * (1.0 - si),
+            dc_new * cp * sf * (1.0 - sf),
+            dc_new * si * (1.0 - tg * tg),
+            g * tc * so * (1.0 - so),
+        ], dim=1)
+        dgb[t] = dgates.to(torch.bfloat16)
+        dg_t = dgb[t] if drive is None else drive[t]
+        dh = (1.0 - m) * dh_t + dg_t.float() @ wh_t
+        dc = (1.0 - m) * dc + dc_new * sf
+        db += dgates.sum(0)
+    return dgb, db
+
+
+def bwd_products(
     xs: torch.Tensor, h_prev: torch.Tensor, wx: torch.Tensor, dgb: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The products over all T·B rows: (dxs = bf16(dgates_b·Wxᵀ) [T,B,E],
-    dWx = xsᵀ·dgates_b [E,3H], dWh = h_prevᵀ·dgates_b [H,3H]), fp32 sums."""
+    """The products over all T·B rows, either cell: (dxs =
+    bf16(dgates_b·Wxᵀ) [T,B,E], dWx = xsᵀ·dgates_b [E,G·H], dWh =
+    h_prevᵀ·dgates_b [H,G·H]), fp32 sums."""
     T, B, E = xs.shape
     dg = dgb.float().reshape(T * B, dgb.shape[2])
     dxs = (dg @ wx.to(torch.bfloat16).float().t()).to(torch.bfloat16).reshape(T, B, E)
@@ -218,44 +486,110 @@ def rnn_layer_bwd_reference(
     xs: torch.Tensor,  # [T, B, E]
     ys: torch.Tensor,  # [T, B, H] bf16, the forward's output
     mask: torch.Tensor,  # [T, 1, B]
-    wx: torch.Tensor,  # [E, 3H]
-    wh: torch.Tensor,  # [H, 3H]
-    b: torch.Tensor,  # [3H]
+    wx: torch.Tensor,  # [E, G·H]
+    wh: torch.Tensor,  # [H, G·H]
+    b: torch.Tensor,  # [G·H]
     dys: torch.Tensor,  # [T, B, H]
     dfin: torch.Tensor,  # [B, H]
+    cs: Optional[torch.Tensor] = None,  # [T, B, H] bf16, the LSTM's c stream
+    cell: str = "gru",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch GRU layer backward with ``_bwd_kernel``'s numerics
-    (``pallas_rnn.py:217-265, 290-314``); any device. Returns (dxs [T,B,E]
-    bf16, dWx [E,3H], dWh [H,3H], db [3H] fp32).
+    """Plain PyTorch layer backward with ``_bwd_kernel``'s numerics
+    (``pallas_rnn.py:217-314``); any device. Returns (dxs [T,B,E] bf16,
+    dWx [E,G·H], dWh [H,G·H], db [G·H] fp32).
 
-    Gates are recomputed from ``xs`` and the bf16 ``ys[t-1]``; the
-    products (dh, dxs, dWx, dWh) take ``dgates_b = bf16(dgates)`` and sum
-    in fp32; ``db`` sums the unrounded fp32 ``dgates``."""
+    Gates are recomputed from ``xs`` and the bf16 ``ys[t-1]`` (and, for
+    the LSTM, c_{t-1} from the bf16 ``cs[t-1]``); the products (dh, dxs,
+    dWx, dWh) take ``dgates_b = bf16(dgates)`` and sum in fp32; ``db``
+    sums the unrounded fp32 ``dgates``."""
+    if _n_gates(cell) == 4 and cs is None:
+        raise ValueError("lstm backward: needs cs, the forward's bf16 c stream")
     h_prev = _h_prev(ys.to(torch.bfloat16))  # [T, B, H]
-    gates = gru_gates(xs, h_prev, wx, wh, b)
-    dgb, db = gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin)
-    dxs, dwx, dwh = gru_bwd_products(xs, h_prev, wx, dgb)
+    gates = layer_gates(xs, h_prev, wx, wh, b)
+    if cell == "gru":
+        dgb, db = gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin)
+    else:
+        c_prev = _h_prev(cs.to(torch.bfloat16))
+        dgb, db = lstm_bwd_chain(gates, c_prev, mask, wh, dys, dfin)
+    dxs, dwx, dwh = bwd_products(xs, h_prev, wx, dgb)
     return dxs, dwx, dwh, db
 
 
-def _check_bwd_args(args) -> None:
-    xs = args["xs"][0]
-    for name, (t, dtype, shape) in args.items():
-        if not t.is_cuda or t.device != xs.device:
-            raise ValueError(f"gru_bwd: {name} must be on {xs.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"gru_bwd: {name} must be contiguous {dtype} {shape}, got "
-                f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
-            )
-        if t.data_ptr() % 16:
-            raise ValueError(f"gru_bwd: {name} must start on a 16-byte boundary")
-
-
+# ------------------------------------------------------------ CUDA backward
 def _dw_splits(rows: int) -> int:
     """Slices of the T·B reduction for the dW product: ~2048 rows each, at
     most 16, so that T=50, B=256..384 gives 7-10 x 24 output tiles."""
     return max(1, min(16, -(-rows // 2048)))
+
+
+def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Tensor, ...]:
+    """``csrc/{gru,lstm}_bwd.cu`` on CUDA tensors → (dxs, dWx, dWh, db,
+    gates [T,B,G·H] fp32, dgates_b [T,B,G·H] bf16)."""
+    G = _n_gates(cell)
+    name = f"{cell}_bwd"
+    T, B, E = xs.shape
+    H = wh.shape[0]
+    N = G * H
+    args = {
+        "xs": (xs, torch.bfloat16, (T, B, E)),
+        "ys": (ys, torch.bfloat16, (T, B, H)),
+        "mask": (mask, torch.float32, (T, 1, B)),
+        "wx": (wx, torch.bfloat16, (E, N)),
+        "wh": (wh, torch.bfloat16, (H, N)),
+        "b": (b, torch.float32, (N,)),
+        "dys": (dys, torch.bfloat16, (T, B, H)),
+        "dfin": (dfin, torch.float32, (B, H)),
+    }
+    if cell == "lstm":
+        if cs is None:
+            raise ValueError("lstm backward: needs cs, the forward's bf16 c stream")
+        args["cs"] = (cs, torch.bfloat16, (T, B, H))
+    _check_args(name, args)
+    if E % 16 or H % 16:
+        raise ValueError(f"{name}: needs E, H multiples of 16 (E={E}, H={H})")
+    _smem(name, f"sse_{name}_smem_bytes", H)
+    lib = _build.library()
+    rows_fn = getattr(lib, f"sse_{name}_block_rows")
+    rows_fn.restype = ctypes.c_int
+    rows_fn.argtypes = []
+    dev = xs.device
+    dxs = torch.empty((T, B, E), dtype=torch.bfloat16, device=dev)
+    dw = torch.empty((E + H, N), dtype=torch.float32, device=dev)  # [dWx; dWh]
+    db = torch.empty((N,), dtype=torch.float32, device=dev)
+    M = T * B
+    gates = torch.empty((T, B, N), dtype=torch.float32, device=dev)
+    dgb = torch.empty((T, B, N), dtype=torch.bfloat16, device=dev)
+    if M == 0:
+        return dxs, dw[:E].zero_(), dw[E:].zero_(), db.zero_(), gates, dgb
+    nblk = -(-B // rows_fn())
+    splits = _dw_splits(M)
+    # scratch: the db and dW partial sums
+    db_part = torch.empty((nblk, N), dtype=torch.float32, device=dev)
+    w_part = torch.empty((splits, E + H, N), dtype=torch.float32, device=dev)
+    wt = torch.cat([wx, wh]).t().contiguous()  # [Wx;Wh]ᵀ, as the TPU kernel's wxᵀ/whᵀ
+    ptrs = [xs, ys, *([cs] if cell == "lstm" else []), mask, wt, wx, wh, b, dys, dfin,
+            gates, dgb, db_part, w_part, dxs, dw, db]
+    _build.launch(
+        f"sse_{name}", [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5, dev,
+        *(p.data_ptr() for p in ptrs), T, B, E, H, splits,
+    )
+    launches[name] += 1
+    return dxs, dw[:E], dw[E:], db, gates, dgb
+
+
+def gru_bwd_launch(xs, ys, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Tensor, ...]:
+    """The GRU backward on CUDA tensors (contiguous, 16-byte aligned: xs,
+    ys, dys, wx, wh bf16; mask, b, dfin fp32), which also returns the
+    kernels' intermediates: (dxs, dWx, dWh, db, gates [T,B,3H] fp32,
+    dgates_b [T,B,3H] bf16), for checks that hold each rounding point."""
+    return _bwd_launch("gru", xs, ys, None, mask, wx, wh, b, dys, dfin)
+
+
+def lstm_bwd_launch(xs, ys, cs, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Tensor, ...]:
+    """The LSTM backward on CUDA tensors (as ``gru_bwd_launch``, plus cs
+    bf16) → (dxs, dWx, dWh, db, gates [T,B,4H] fp32, dgates_b [T,B,4H]
+    bf16)."""
+    return _bwd_launch("lstm", xs, ys, cs, mask, wx, wh, b, dys, dfin)
 
 
 def rnn_layer_bwd(
@@ -267,100 +601,39 @@ def rnn_layer_bwd(
     b: torch.Tensor,
     dys: torch.Tensor,
     dfin: torch.Tensor,
+    cs: Optional[torch.Tensor] = None,
+    cell: str = "gru",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One GRU layer backward: the Hopper kernels on CUDA tensors (which
-    must be contiguous and 16-byte aligned: xs, ys, dys, wx, wh bf16;
-    mask, b, dfin fp32), the plain version on CPU tensors. Returns (dxs
-    bf16, dWx, dWh, db fp32)."""
+    """One layer backward: the Hopper kernels on CUDA tensors (which must
+    be contiguous and 16-byte aligned: xs, ys, cs, dys, wx, wh bf16; mask,
+    b, dfin fp32), the plain version on CPU tensors. ``cs`` is the LSTM's
+    c stream. Returns (dxs bf16, dWx, dWh, db fp32)."""
     if not xs.is_cuda:
-        return rnn_layer_bwd_reference(xs, ys, mask, wx, wh, b, dys, dfin)
-    return gru_bwd_launch(xs, ys, mask, wx, wh, b, dys, dfin)[:4]
-
-
-def gru_bwd_launch(xs, ys, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Tensor, ...]:
-    """``rnn_layer_bwd`` on CUDA tensors, which also returns the kernels'
-    intermediates: (dxs, dWx, dWh, db, gates [T,B,3H] fp32, dgates_b
-    [T,B,3H] bf16), for checks that hold each rounding point."""
-    T, B, E = xs.shape
-    H = wh.shape[0]
-    N = 3 * H
-    _check_bwd_args({
-        "xs": (xs, torch.bfloat16, (T, B, E)),
-        "ys": (ys, torch.bfloat16, (T, B, H)),
-        "mask": (mask, torch.float32, (T, 1, B)),
-        "wx": (wx, torch.bfloat16, (E, N)),
-        "wh": (wh, torch.bfloat16, (H, N)),
-        "b": (b, torch.float32, (N,)),
-        "dys": (dys, torch.bfloat16, (T, B, H)),
-        "dfin": (dfin, torch.float32, (B, H)),
-    })
-    if E % 16 or H % 16:
-        raise ValueError(f"gru_bwd: needs E, H multiples of 16 (E={E}, H={H})")
-    lib = _build.library()
-    lib.sse_gru_bwd_smem_bytes.restype = ctypes.c_int
-    lib.sse_gru_bwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.sse_gru_bwd_block_rows.restype = ctypes.c_int
-    lib.sse_gru_bwd_block_rows.argtypes = []
-    smem = lib.sse_gru_bwd_smem_bytes(H)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"gru_bwd: H={H} needs {smem} B of shared memory")
-    dev = xs.device
-    dxs = torch.empty((T, B, E), dtype=torch.bfloat16, device=dev)
-    dw = torch.empty((E + H, N), dtype=torch.float32, device=dev)  # [dWx; dWh]
-    db = torch.empty((N,), dtype=torch.float32, device=dev)
-    M = T * B
-    gates = torch.empty((T, B, N), dtype=torch.float32, device=dev)
-    dgb = torch.empty((T, B, N), dtype=torch.bfloat16, device=dev)
-    if M == 0:
-        return dxs, dw[:E].zero_(), dw[E:].zero_(), db.zero_(), gates, dgb
-    nblk = -(-B // lib.sse_gru_bwd_block_rows())
-    splits = _dw_splits(M)
-    # scratch: the db and dW partial sums
-    db_part = torch.empty((nblk, N), dtype=torch.float32, device=dev)
-    w_part = torch.empty((splits, E + H, N), dtype=torch.float32, device=dev)
-    wt = torch.cat([wx, wh]).t().contiguous()  # [Wx;Wh]ᵀ, as the TPU kernel's wxᵀ/whᵀ
-    _build.launch(
-        "sse_gru_bwd", [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5, dev,
-        xs.data_ptr(), ys.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-        wx.data_ptr(), wh.data_ptr(), b.data_ptr(), dys.data_ptr(),
-        dfin.data_ptr(), gates.data_ptr(), dgb.data_ptr(), db_part.data_ptr(),
-        w_part.data_ptr(), dxs.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        T, B, E, H, splits,
-    )
-    launches["gru_bwd"] += 1
-    return dxs, dw[:E], dw[E:], db, gates, dgb
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t, contiguous and starting on a 16-byte boundary (copied if not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+        return rnn_layer_bwd_reference(xs, ys, mask, wx, wh, b, dys, dfin, cs, cell)
+    return _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin)[:4]
 
 
 class RNNLayer(torch.autograd.Function):
-    """Differentiable GRU layer: ``RNNLayer.apply(xs, mask, wx, wh, b)`` →
-    (ys bf16, fin fp32). Forward is ``rnn_layer``, backward
-    ``rnn_layer_bwd`` (port of the ``jax.custom_vjp`` at
-    ``pallas_rnn.py:441-466``). The float32 weights are cast to bf16
-    inside, so their gradients come back in float32, unrounded; ``dxs``
-    is bf16 and is cast to the dtype ``xs`` came in; ``mask`` gets none."""
+    """Differentiable recurrent layer: ``RNNLayer.apply(xs, mask, wx, wh,
+    b, cell="gru")`` → (ys bf16, fin fp32). Forward is ``rnn_layer``,
+    backward ``rnn_layer_bwd`` (port of the ``jax.custom_vjp`` at
+    ``pallas_rnn.py:441-466``); the LSTM saves its bf16 c stream for the
+    backward. The float32 weights are cast to bf16 inside, so their
+    gradients come back in float32, unrounded; ``dxs`` is bf16 and is
+    cast to the dtype ``xs`` came in; ``mask`` gets none."""
 
     @staticmethod
-    def forward(ctx, xs, mask, wx, wh, b):
-        ctx.xs_dtype, ctx.b_shape = xs.dtype, b.shape
-        xs_c = _aligned(xs.to(torch.bfloat16))
-        mask = mask.to(torch.float32).contiguous()
-        wx_c = _aligned(wx.to(torch.bfloat16))
-        wh_c = _aligned(wh.to(torch.bfloat16))
-        b_c = _aligned(b.to(torch.float32).reshape(-1))
-        ys, fin = rnn_layer(xs_c, mask, wx_c, wh_c, b_c)
-        ctx.save_for_backward(xs_c, ys, mask, wx_c, wh_c, b_c)
+    def forward(ctx, xs, mask, wx, wh, b, cell="gru"):
+        ctx.xs_dtype, ctx.b_shape, ctx.cell = xs.dtype, b.shape, cell
+        args = _cast_layer(xs, mask, wx, wh, b)
+        ys, fin, cs = _layer_fwd(*args, cell)
+        ctx.save_for_backward(*args, ys, cs)
         return ys, fin
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dys, dfin):
-        xs, ys, mask, wx, wh, b = ctx.saved_tensors
+        xs, mask, wx, wh, b, ys, cs = ctx.saved_tensors
         # an output that fed nothing (ys of a lone final-readout layer)
         if dys is None:
             dys = torch.zeros_like(ys)
@@ -369,21 +642,32 @@ class RNNLayer(torch.autograd.Function):
         dxs, dwx, dwh, db = rnn_layer_bwd(
             xs, ys, mask, wx, wh, b,
             _aligned(dys.to(torch.bfloat16)), _aligned(dfin.to(torch.float32)),
+            cs, ctx.cell,
         )
-        return dxs.to(ctx.xs_dtype), None, dwx, dwh, db.reshape(ctx.b_shape)
+        return dxs.to(ctx.xs_dtype), None, dwx, dwh, db.reshape(ctx.b_shape), None
 
 
 __all__ = [
     "RNNLayer",
     "bf16_matmul",
+    "bwd_products",
     "gru_bwd_chain",
     "gru_bwd_launch",
-    "gru_bwd_products",
     "gru_cell",
-    "gru_gates",
+    "gru_fwd_launch",
     "launches",
+    "layer_gates",
+    "lstm_bwd_chain",
+    "lstm_bwd_launch",
+    "lstm_cell",
+    "lstm_fwd_launch",
+    "rnn_encode",
     "rnn_layer",
     "rnn_layer_bwd",
     "rnn_layer_bwd_reference",
     "rnn_layer_reference",
+    "rnn_scan_launch",
+    "scan_layer",
+    "scan_layer_reference",
+    "split_weights",
 ]

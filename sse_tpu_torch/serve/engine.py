@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from sse_tpu.text.subword import SubwordVocab
+from sse_tpu_torch.text.subword import SubwordVocab
 from sse_tpu_torch.index.sharded_index import ShardedIndex
 from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
@@ -117,8 +117,8 @@ class QueryEngine:
 
     def encode_queries(self, texts: Sequence[str]):
         """Tokenize and pad a query batch to a batch tier and length
-        bucket (host side; the C++ encoder when available)."""
-        from sse_tpu.data.corpus import batch_encode
+        bucket (host side, pure Python)."""
+        from sse_tpu_torch.data.corpus import batch_encode
 
         b = next((t for t in self._batch_tiers() if t >= len(texts)), self.max_dispatch)
         padded = list(texts[:b]) + [""] * (b - min(len(texts), b))
@@ -138,7 +138,7 @@ class QueryEngine:
                 "source-encoder-only targets are learned table rows; "
                 "adding documents requires a tower mode"
             )
-        from sse_tpu.data.corpus import batch_encode
+        from sse_tpu_torch.data.corpus import batch_encode
 
         tokens, lengths = batch_encode(self.vocab, list(texts), self.max_seq_length)
         with torch.no_grad():

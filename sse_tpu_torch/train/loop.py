@@ -36,8 +36,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from sse_tpu.data.batching import Batch, BatchIterator
-from sse_tpu.data.corpus import EncodedPairs, TargetSpace
+from sse_tpu_torch.data.batching import Batch, BatchIterator
+from sse_tpu_torch.data.corpus import EncodedPairs, TargetSpace
 from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
 from sse_tpu_torch.train import losses as losses_lib
@@ -198,7 +198,7 @@ def init_train_state(
     model_cfg: SSEConfig,
     cfg: TrainConfig,
     generator: Optional[torch.Generator] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> TrainState:
     """Fresh params (from ``generator``, else one seeded with cfg.seed),
     optimizer state, step 0, lr = cfg.learning_rate, and an EMA copy of
@@ -414,7 +414,7 @@ def train(
     process_index: int = 0,
     process_count: int = 1,
     mesh=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> TrainState:
     """The training driver, with ``sse_tpu.train.loop.train``'s semantics:
     resume skip (a restored state's step implies the epoch and the batches

@@ -4,9 +4,10 @@ Run on the card with ``python -m pytest tests/test_torch_gpu_kernels.py``;
 ``chip_smoke.py`` makes the same comparisons at the serving shapes.
 
 Tolerances: top-k rows and values bit-identical (exact-dot inputs make
-every float32 sum exact, int8 sums are exact integers); GRU fin to atol
-2e-3 / rtol 1e-3, bf16 ys to one bf16 ulp (rtol 2^-7). GRU backward, as
-``chip_smoke.check_gru_bwd`` states and explains: dWx, dWh, db to 1e-3
+every float32 sum exact, int8 sums are exact integers); GRU and LSTM fin
+to atol 2e-3 / rtol 1e-3, bf16 ys and cs to one bf16 ulp (rtol 2^-7), the
+same for the scan kernel. GRU and LSTM backward, as
+``chip_smoke.check_bwd`` states and explains: dWx, dWh, db to 1e-3
 of each tensor's max-abs; dxs to one bf16 ulp plus 1e-4 of its max-abs
 where the dh chain is short (T = 1, and the step t = T-1), and to 1e-2
 of its max-abs over all T=50 steps; at each rounding point (the plain
@@ -165,10 +166,10 @@ def test_gru_bwd_rounding_points(cuda):
     dxs, dwx, dwh, db, gates, dgb = rnn.gru_bwd_launch(*args)
     h_prev = rnn._h_prev(ys)
     dgb_r, db_r = rnn.gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin, drive=dgb)
-    dxs_r, dwx_r, dwh_r = rnn.gru_bwd_products(xs, h_prev, wx, dgb)
+    dxs_r, dwx_r, dwh_r = rnn.bwd_products(xs, h_prev, wx, dgb)
     held_to_one_ulp("dgates_b", dgb_r, dgb)
     held_to_one_ulp("dxs", dxs, dxs_r)
-    for g, w in ((gates, rnn.gru_gates(xs, h_prev, wx, wh, b)), (dwx, dwx_r),
+    for g, w in ((gates, rnn.layer_gates(xs, h_prev, wx, wh, b)), (dwx, dwx_r),
                  (dwh, dwh_r), (db, db_r)):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
@@ -188,35 +189,49 @@ def test_gru_bwd_fully_masked_rows(cuda):
     assert not (got[0].float().abs().any() or got[1].any() or got[2].any() or got[3].any())
 
 
-def test_tower_gradients_match_plain(cuda):
-    """A 2-layer residual GRU tower: every parameter's gradient from the
-    kernels (CUDA) against the plain versions (the same params on the
-    CPU), two forward and two backward launches."""
+def _tower_gradients(cfg, want_fired):
+    """Every parameter's gradient of a tower from the kernels (CUDA)
+    against the plain versions (the same params on the CPU), and the
+    kernel launches of one forward and backward."""
     from sse_tpu_torch.models import towers
     from sse_tpu_torch.ops import rnn
-    from sse_tpu_torch.train.loop import tree_leaves
+    from sse_tpu_torch.train.loop import tree_leaves, tree_map
 
-    cfg = towers.TowerConfig(vocab_size=500, embed_dim=128, hidden=128, num_layers=2,
-                             encoding_dim=64, residual=True)
-    base = towers.init_tower(cfg, torch.Generator().manual_seed(1))
+    base = towers.init_tower(cfg, torch.Generator().manual_seed(1), device="cpu")
     g = torch.Generator().manual_seed(2)
     toks = torch.randint(2, 500, (48, 20), generator=g)
     lens = torch.randint(1, 21, (48,), generator=g)
     w = torch.randn((48, 64), generator=g)
     grads = {}
     for dev in ("cuda", "cpu"):
-        leaves = [p.to(dev).requires_grad_(True) for p in tree_leaves(base)]
-        params = {"embed": leaves[0], "layers": [{"b": leaves[1], "w": leaves[2]},
-                                                 {"b": leaves[3], "w": leaves[4]}],
-                  "proj_b": leaves[5], "proj_w": leaves[6]}
+        params = tree_map(lambda p: p.to(dev).requires_grad_(True), base)
         before = dict(rnn.launches)
         out = towers.encode_raw(params, cfg, toks.to(dev), lens.to(dev))
         (out * w.to(dev)).sum().backward()
-        fired = {k: rnn.launches[k] - before[k] for k in before}
-        assert fired == ({"gru_fwd": 2, "gru_bwd": 2} if dev == "cuda" else {"gru_fwd": 0, "gru_bwd": 0})
-        grads[dev] = [p.grad.cpu().double() for p in leaves]
+        fired = {k: rnn.launches[k] - before[k] for k in before if rnn.launches[k] != before[k]}
+        assert fired == (want_fired if dev == "cuda" else {})
+        grads[dev] = [p.grad.cpu().double() for p in tree_leaves(params)]
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert float((got - want).abs().max()) <= 3e-2 * float(want.abs().max())
+
+
+def test_tower_gradients_match_plain(cuda):
+    """A 2-layer residual GRU tower: two forward and two backward launches."""
+    from sse_tpu_torch.models import towers
+
+    cfg = towers.TowerConfig(vocab_size=500, embed_dim=128, hidden=128, num_layers=2,
+                             encoding_dim=64, residual=True)
+    _tower_gradients(cfg, {"gru_fwd": 2, "gru_bwd": 2})
+
+
+def test_lstm_tower_gradients_match_plain(cuda):
+    """The qna tower at two residual layers (LSTM, attention readout): two
+    LSTM forward launches (each runs the scan kernel) and two backward."""
+    from sse_tpu_torch.models import towers
+
+    cfg = towers.TowerConfig(vocab_size=500, embed_dim=128, hidden=128, num_layers=2,
+                             encoding_dim=64, residual=True, cell="lstm", readout="attention")
+    _tower_gradients(cfg, {"lstm_fwd": 2, "rnn_scan": 2, "lstm_bwd": 2})
 
 
 def test_gru_bwd_raises_on_bad_input(cuda):
@@ -231,3 +246,118 @@ def test_gru_bwd_raises_on_bad_input(cuda):
         rnn.rnn_layer_bwd(strided, *args[1:])
     with pytest.raises(ValueError, match="wh"):
         rnn.rnn_layer_bwd(*args[:4], args[4].cpu(), *args[5:])
+
+
+# ------------------------------------------------------------ LSTM and scan
+@pytest.mark.parametrize("B", [8, 300])
+def test_lstm_kernel_matches_plain(cuda, B):
+    from sse_tpu_torch.ops import rnn
+
+    T, E, H = 20, 128, 128
+    xs = torch.randn((T, B, E), generator=cuda, device="cuda").bfloat16()
+    lens = torch.randint(1, T + 1, (B,), generator=cuda, device="cuda")
+    mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :].contiguous()
+    wx = (torch.randn((E, 4 * H), generator=cuda, device="cuda") * 0.08).bfloat16()
+    wh = (torch.randn((H, 4 * H), generator=cuda, device="cuda") * 0.08).bfloat16()
+    b = torch.randn((4 * H,), generator=cuda, device="cuda") * 0.05
+    before = dict(rnn.launches)
+    ys, fin, cs, ax = rnn.lstm_fwd_launch(xs, mask, wx, wh, b)
+    assert rnn.launches["lstm_fwd"] == before["lstm_fwd"] + 1
+    assert rnn.launches["rnn_scan"] == before["rnn_scan"] + 1
+    rys, rfin, rcs = rnn.rnn_layer_reference(xs, mask, wx, wh, b, "lstm")
+    torch.testing.assert_close(fin, rfin, atol=2e-3, rtol=1e-3)
+    for g, w in ((ys, rys), (cs, rcs)):
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-3, rtol=2.0**-7)
+    ax_r = rnn._x_product(xs, wx, b)
+    assert float((ax - ax_r).abs().max()) <= 1e-5 * float(ax_r.abs().max())
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_scan_kernel_matches_plain(cuda, cell):
+    from sse_tpu_torch.ops import rnn
+
+    T, B, H = 20, 100, 128
+    G = 3 if cell == "gru" else 4
+    ax = torch.randn((T, B, G * H), generator=cuda, device="cuda")
+    wh = (torch.randn((H, G * H), generator=cuda, device="cuda") * 0.08).bfloat16()
+    lens = torch.randint(1, T + 1, (B,), generator=cuda, device="cuda")
+    mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :].contiguous()
+    n = rnn.launches["rnn_scan"]
+    ys, fin = rnn.scan_layer(ax, mask, wh, cell)
+    assert rnn.launches["rnn_scan"] == n + 1
+    rys, rfin = rnn.scan_layer_reference(ax, mask, wh, cell)
+    torch.testing.assert_close(fin, rfin, atol=2e-3, rtol=1e-3)
+    torch.testing.assert_close(ys.float(), rys.float(), atol=2e-3, rtol=2.0**-7)
+
+
+def _lstm_bwd_args(gen, T, B, E=128, H=128):
+    from sse_tpu_torch.ops import rnn
+
+    wx = (torch.randn((E, 4 * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    wh = (torch.randn((H, 4 * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    b = torch.randn((4 * H,), generator=gen, device="cuda") * 0.05
+    xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
+    lens = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
+    mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :].contiguous()
+    ys, _, cs, _ = rnn.lstm_fwd_launch(xs, mask, wx, wh, b)
+    dys = (torch.randn((T, B, H), generator=gen, device="cuda") * 0.1).bfloat16()
+    dfin = torch.randn((B, H), generator=gen, device="cuda")
+    return (xs, ys, mask, wx, wh, b, dys, dfin), cs
+
+
+@pytest.mark.parametrize("T", [1, 50])
+@pytest.mark.parametrize("B", [1, 33, 256])
+def test_lstm_bwd_kernel_matches_plain(cuda, T, B):
+    from sse_tpu_torch.ops import rnn
+
+    args, cs = _lstm_bwd_args(cuda, T, B)
+    n = rnn.launches["lstm_bwd"]
+    got = rnn.rnn_layer_bwd(*args, cs=cs, cell="lstm")
+    torch.cuda.synchronize()
+    assert rnn.launches["lstm_bwd"] == n + 1
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == args[0].shape
+    _check_bwd(got, rnn.rnn_layer_bwd_reference(*args, cs, "lstm"), T)
+
+
+def test_lstm_bwd_rounding_points(cuda):
+    """chip_smoke's pinned check for the LSTM at T=50, B=256."""
+    from chip_smoke import held_to_one_ulp
+    from sse_tpu_torch.ops import rnn
+
+    args, cs = _lstm_bwd_args(cuda, 50, 256)
+    xs, ys, mask, wx, wh, b, dys, dfin = args
+    dxs, dwx, dwh, db, gates, dgb = rnn.lstm_bwd_launch(xs, ys, cs, *args[2:])
+    h_prev = rnn._h_prev(ys)
+    dgb_r, db_r = rnn.lstm_bwd_chain(gates, rnn._h_prev(cs), mask, wh, dys, dfin, drive=dgb)
+    dxs_r, dwx_r, dwh_r = rnn.bwd_products(xs, h_prev, wx, dgb)
+    held_to_one_ulp("dgates_b", dgb_r, dgb)
+    held_to_one_ulp("dxs", dxs, dxs_r)
+    for g, w in ((gates, rnn.layer_gates(xs, h_prev, wx, wh, b)), (dwx, dwx_r),
+                 (dwh, dwh_r), (db, db_r)):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_lstm_wrappers_raise_on_what_they_do_not_take(cuda):
+    """No fallback: a missing c stream and a CPU weight raise; so does
+    H=144, above what the LSTM scan's registers allow (288 threads of ~240
+    registers) and the LSTM backward's shared memory (242,944 B)."""
+    from sse_tpu_torch.ops import rnn
+
+    args, cs = _lstm_bwd_args(cuda, 3, 8)
+    with pytest.raises(ValueError, match="needs cs"):
+        rnn.rnn_layer_bwd(*args, cell="lstm")
+    with pytest.raises(ValueError, match="wh"):
+        rnn.lstm_fwd_launch(args[0], args[2], args[3], args[4].cpu(), args[5])
+    T, B, E, H = 3, 8, 128, 144
+    xs, mask = args[0], args[2]
+    wx = torch.zeros((E, 4 * H), device="cuda", dtype=torch.bfloat16)
+    wh = torch.zeros((H, 4 * H), device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros((4 * H,), device="cuda")
+    ys = torch.zeros((T, B, H), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="threads"):
+        rnn.lstm_fwd_launch(xs, mask, wx, wh, b)
+    with pytest.raises(ValueError, match="threads"):
+        rnn.scan_layer(torch.zeros((T, B, 4 * H), device="cuda"), mask, wh, "lstm")
+    with pytest.raises(ValueError, match="shared memory"):
+        rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, ys, torch.zeros((B, H), device="cuda"),
+                          cs=ys, cell="lstm")

@@ -1,4 +1,4 @@
-"""GRU layer backward parity: the PyTorch port's plain backward (what
+"""Layer backward parity, GRU and LSTM: the PyTorch port's plain backward (what
 ``rnn_layer_bwd`` and ``RNNLayer`` run on CPU tensors) against the JAX
 package's fused Pallas backward in interpret mode, and autograd through
 the port against ``jax.grad`` of the Pallas layer.
@@ -25,11 +25,11 @@ from sse_tpu_torch.ops import rnn
 ULP = dict(atol=1e-6, rtol=2.0**-7)
 
 
-def _inputs(seed, T, B, E, H, all_masked_rows=()):
+def _inputs(seed, T, B, E, H, all_masked_rows=(), G=3):
     rng = np.random.default_rng(seed)
-    wx = (rng.normal(size=(E, 3 * H)) * 0.05).astype(np.float32)
-    wh = (rng.normal(size=(H, 3 * H)) * 0.05).astype(np.float32)
-    b = (rng.normal(size=(3 * H,)) * 0.01).astype(np.float32)
+    wx = (rng.normal(size=(E, G * H)) * 0.05).astype(np.float32)
+    wh = (rng.normal(size=(H, G * H)) * 0.05).astype(np.float32)
+    b = (rng.normal(size=(G * H,)) * 0.01).astype(np.float32)
     xs = rng.normal(size=(T, B, E)).astype(np.float32)
     lens = rng.integers(1, T + 1, B)
     mask = (np.arange(T)[:, None] < lens[None, :]).astype(np.float32)[:, None, :]
@@ -79,7 +79,7 @@ def test_driven_chain_follows_the_drive():
     xs, dys = xs.bfloat16(), dys.bfloat16()
     ys, _ = rnn.rnn_layer(xs, mask, wx, wh, b)
     h_prev = rnn._h_prev(ys)
-    gates = rnn.gru_gates(xs, h_prev, wx, wh, b)
+    gates = rnn.layer_gates(xs, h_prev, wx, wh, b)
     dgb, db = rnn.gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin)
     again, db_again = rnn.gru_bwd_chain(gates, h_prev, mask, wh, dys, dfin, drive=dgb)
     assert torch.equal(again, dgb) and torch.equal(db_again, db)
@@ -91,13 +91,13 @@ def test_driven_chain_follows_the_drive():
     assert not torch.equal(moved[:s], dgb[:s])
     want = rnn.rnn_layer_bwd_reference(xs, ys, mask, wx, wh, b, dys, dfin)
     assert all(torch.equal(g, w) for g, w in
-               zip((*rnn.gru_bwd_products(xs, h_prev, wx, dgb), db), want))
+               zip((*rnn.bwd_products(xs, h_prev, wx, dgb), db), want))
 
 
-def _jax_stack_loss(xs, mask, layers, residual):
+def _jax_stack_loss(xs, mask, layers, residual, cell="gru"):
     x, final = xs.astype(jnp.bfloat16), None
     for li, (wx, wh, b) in enumerate(layers):
-        ys, fin = pallas_rnn.rnn_layer(x, mask, wx, wh, b, "gru", True)
+        ys, fin = pallas_rnn.rnn_layer(x, mask, wx, wh, b, cell, True)
         if residual and li > 0:
             final, x = fin + x[-1].astype(jnp.float32), x + ys
         else:
@@ -106,10 +106,10 @@ def _jax_stack_loss(xs, mask, layers, residual):
     return (final ** 2).sum() + (x.astype(jnp.float32) ** 3).sum()
 
 
-def _torch_stack_loss(xs, mask, layers, residual):
+def _torch_stack_loss(xs, mask, layers, residual, cell="gru"):
     x, final = xs.to(torch.bfloat16), None
     for li, (wx, wh, b) in enumerate(layers):
-        ys, fin = rnn.RNNLayer.apply(x, mask, wx, wh, b)
+        ys, fin = rnn.RNNLayer.apply(x, mask, wx, wh, b, cell)
         if residual and li > 0:
             final, x = fin + x[-1].float(), x + ys
         else:
@@ -117,31 +117,33 @@ def _torch_stack_loss(xs, mask, layers, residual):
     return (final ** 2).sum() + (x.float() ** 3).sum()
 
 
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("num_layers", [1, 2])
-def test_autograd_matches_jax_grad(num_layers):
+def test_autograd_matches_jax_grad(num_layers, cell):
     """Gradients of a loss on ys and fin through 1 layer and through 2
     stacked layers with the identity residual: max |port - jax| /
     max |jax| < 3e-2 for dxs and every weight."""
     T, B, E = 6, 8, 128
+    G = 3 if cell == "gru" else 4
     rng = np.random.default_rng(num_layers)
     xs, mask = _inputs(5, T, B, E, E)[:2]
     layers = [
         tuple(a.astype(np.float32) for a in (
-            rng.normal(size=(E, 3 * E)) * 0.05,
-            rng.normal(size=(E, 3 * E)) * 0.05,
-            rng.normal(size=(3 * E,)) * 0.01,
+            rng.normal(size=(E, G * E)) * 0.05,
+            rng.normal(size=(E, G * E)) * 0.05,
+            rng.normal(size=(G * E,)) * 0.01,
         ))
         for _ in range(num_layers)
     ]
     residual = num_layers > 1
     jm = jnp.asarray(mask)
-    gj = jax.grad(lambda x, ls: _jax_stack_loss(x, jm, ls, residual), (0, 1))(
+    gj = jax.grad(lambda x, ls: _jax_stack_loss(x, jm, ls, residual, cell), (0, 1))(
         jnp.asarray(xs), [tuple(jnp.asarray(a) for a in l) for l in layers]
     )
     xt = torch.from_numpy(xs).requires_grad_(True)
     lt = [tuple(torch.from_numpy(a).requires_grad_(True) for a in l) for l in layers]
     before = dict(rnn.launches)
-    _torch_stack_loss(xt, torch.from_numpy(mask), lt, residual).backward()
+    _torch_stack_loss(xt, torch.from_numpy(mask), lt, residual, cell).backward()
     assert rnn.launches == before  # CPU tensors never reach a kernel
     pairs = [("dxs", xt.grad, gj[0])]
     for li, (tl, jl) in enumerate(zip(lt, gj[1])):
@@ -192,3 +194,101 @@ def test_empty_shapes_give_zero_grads(T, B):
     dxs, dwx, dwh, db = rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin)
     assert dxs.shape == (T, B, 16) and dwx.shape == (16, 48) and dwh.shape == (16, 48)
     assert not (dwx.any() or dwh.any() or db.any())
+
+
+# ------------------------------------------------------------ LSTM
+def _lstm_fwd_bwd_inputs(T, B, masked):
+    E = H = 128  # the Pallas kernel's lane alignment
+    xs, mask, wx, wh, b, dys, dfin = _inputs(T * B + 1, T, B, E, H, masked, G=4)
+    ys, _, cs = pallas_rnn._layer_fwd_pallas(
+        jnp.asarray(xs), jnp.asarray(mask), jnp.asarray(wx), jnp.asarray(wh),
+        jnp.asarray(b), "lstm", interpret=True,
+    )
+    return xs, ys, cs, mask, wx, wh, b, jnp.asarray(dys).astype(jnp.bfloat16), dfin
+
+
+@pytest.mark.parametrize("T,B,masked", [(6, 8, ()), (8, 16, (3, 7))])
+def test_lstm_bwd_reference_matches_pallas(T, B, masked):
+    """The plain LSTM backward against ``_layer_bwd_pallas(..., "lstm")``
+    on the Pallas forward's own ys and cs. The two sum the same products
+    in float32 in another order, so a dgates value at a bf16 rounding edge
+    can round the other way, and the dh and dc chains carry that flip to
+    every earlier step (at (6, 8) one such flip moves 14 of 6,144 dxs
+    values, by at most 2.4e-3 of max-abs, and dWx by 7e-5 of max-abs; at
+    (8, 16) none happens and everything agrees within 2e-7 of max-abs).
+    Bounds: dxs at the first reverse step (t = T-1, before any chain) to
+    one bf16 ulp; over all steps at most 1% of the values beyond one ulp
+    and every value within 1e-2 of max-abs; dWx, dWh, db within 2e-4 of
+    each one's max-abs."""
+    xs, ys, cs, mask, wx, wh, b, dys_b, dfin = _lstm_fwd_bwd_inputs(T, B, masked)
+    want = pallas_rnn._layer_bwd_pallas(
+        jnp.asarray(xs), ys, cs, jnp.asarray(mask), jnp.asarray(wx), jnp.asarray(wh),
+        jnp.asarray(b), dys_b, jnp.asarray(dfin), "lstm", interpret=True,
+    )
+    before = dict(rnn.launches)
+    got = rnn.rnn_layer_bwd(
+        torch.from_numpy(xs).bfloat16(), array_from_jax(np.asarray(ys)),
+        torch.from_numpy(mask), torch.from_numpy(wx), torch.from_numpy(wh),
+        torch.from_numpy(b), array_from_jax(np.asarray(dys_b)), torch.from_numpy(dfin),
+        cs=array_from_jax(np.asarray(cs)), cell="lstm",
+    )
+    assert rnn.launches == before
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == xs.shape
+    g0, w0 = got[0].float().numpy(), np.asarray(want[0], np.float32)
+    np.testing.assert_allclose(g0[-1], w0[-1], **ULP)
+    beyond_ulp = np.abs(g0 - w0) > ULP["atol"] + ULP["rtol"] * np.abs(w0)
+    assert beyond_ulp.mean() <= 1e-2
+    assert np.abs(g0 - w0).max() <= 1e-2 * np.abs(w0).max()
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 2e-4 * np.abs(w).max()
+    for r in masked:
+        assert not got[0][:, r].float().abs().any()
+
+
+def test_lstm_driven_chain_follows_the_drive():
+    """lstm_bwd_chain driven by its own dgates_b is bit-identical to the
+    undriven chain; driven by a dgates_b changed at step s, only the steps
+    before s change; gates + chain + products are rnn_layer_bwd_reference."""
+    T, B, E, H = 6, 5, 16, 16
+    xs, mask, wx, wh, b, dys, dfin = (torch.from_numpy(a) for a in _inputs(11, T, B, E, H, G=4))
+    xs, dys = xs.bfloat16(), dys.bfloat16()
+    ys, _, cs = rnn.rnn_layer_reference(xs, mask, wx, wh, b, "lstm")
+    h_prev, c_prev = rnn._h_prev(ys), rnn._h_prev(cs)
+    gates = rnn.layer_gates(xs, h_prev, wx, wh, b)
+    dgb, db = rnn.lstm_bwd_chain(gates, c_prev, mask, wh, dys, dfin)
+    again, db_again = rnn.lstm_bwd_chain(gates, c_prev, mask, wh, dys, dfin, drive=dgb)
+    assert torch.equal(again, dgb) and torch.equal(db_again, db)
+    s = 3
+    drive = dgb.clone()
+    drive[s] = (drive[s].float() * 1.5).bfloat16()
+    moved, _ = rnn.lstm_bwd_chain(gates, c_prev, mask, wh, dys, dfin, drive=drive)
+    assert torch.equal(moved[s:], dgb[s:])
+    assert not torch.equal(moved[:s], dgb[:s])
+    want = rnn.rnn_layer_bwd_reference(xs, ys, mask, wx, wh, b, dys, dfin, cs, "lstm")
+    assert all(torch.equal(g, w) for g, w in
+               zip((*rnn.bwd_products(xs, h_prev, wx, dgb), db), want))
+
+
+def test_lstm_layer_saves_its_c_stream():
+    """RNNLayer with cell="lstm" hands the forward's bf16 cs to the
+    backward: the autograd gradients equal rnn_layer_bwd_reference on
+    that cs bit for bit."""
+    xs, mask, wx, wh, b, dys, dfin = (torch.from_numpy(a) for a in _inputs(12, 5, 4, 16, 16, G=4))
+    x = xs.clone().requires_grad_(True)
+    w = [t.clone().requires_grad_(True) for t in (wx, wh, b)]
+    ys, fin = rnn.RNNLayer.apply(x, mask, *w, "lstm")
+    (ys.float() * dys).sum().add((fin * dfin).sum()).backward()
+    _, _, cs = rnn.rnn_layer_reference(xs, mask, wx, wh, b, "lstm")
+    want = rnn.rnn_layer_bwd_reference(xs.bfloat16(), ys, mask, wx, wh, b,
+                                       dys.bfloat16(), dfin, cs, "lstm")
+    for g, wv in zip((x.grad, *(t.grad for t in w)), (want[0].float(), *want[1:])):
+        torch.testing.assert_close(g, wv, rtol=0, atol=0)
+
+
+def test_lstm_bwd_needs_cs():
+    xs, mask, wx, wh, b, dys, dfin = (torch.from_numpy(a) for a in _inputs(2, 3, 2, 16, 16, G=4))
+    ys, _, _ = rnn.rnn_layer_reference(xs, mask, wx, wh, b, "lstm")
+    with pytest.raises(ValueError, match="needs cs"):
+        rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin, cell="lstm")

@@ -9,7 +9,10 @@ where the two encoders' last-bit differences move a score across an
 relative) of each other.
 """
 
+import glob
 import json
+import os
+import re
 import socket
 import subprocess
 import sys
@@ -158,7 +161,7 @@ def test_engine_query_add_delete(setup):
 def test_engine_k_grows_with_the_index(setup):
     vocab, tspace, _, tcfg, _, tparams, _ = setup
     idx = tindex.from_embeddings(np.eye(3, 16, dtype=np.float32), ["a", "b", "c"],
-                                 ["x", "y", "z"], capacity=16)
+                                 ["x", "y", "z"], capacity=16, device="cpu")
     eng = QueryEngine(tparams, tcfg, vocab, idx, max_seq_length=L, max_batch=2, k=5)
     assert eng.k == 3 and len(eng.query(["x"])[0]) == 3
     eng.add_documents(["d", "e", "f"], ["one", "two", "three"])
@@ -210,12 +213,15 @@ def test_http_api(setup):
 
 
 def test_port_never_imports_jax():
+    """Importing every module of the port and chip_smoke.py loads neither
+    ``jax`` nor any module of the JAX package ``sse_tpu``, and no source
+    line of them (imports inside functions included) imports ``sse_tpu``."""
     code = (
         "import importlib, pkgutil, sys, sse_tpu_torch\n"
         "for m in pkgutil.walk_packages(sse_tpu_torch.__path__, 'sse_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.'))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'sse_tpu'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('sse_tpu_torch.')]))\n"
     )
@@ -225,3 +231,9 @@ def test_port_never_imports_jax():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 10
+    pattern = re.compile(r"^\s*(from|import) (sse_tpu|jax)(\.|\s|$)", re.M)
+    sources = glob.glob(os.path.join(root, "sse_tpu_torch", "**", "*.py"), recursive=True)
+    for path in [*sources, os.path.join(root, "chip_smoke.py")]:
+        with open(path) as f:
+            found = pattern.findall(f.read())
+        assert not found, (path, found)

@@ -6,11 +6,13 @@ Tolerances, by test:
   compute in float32 on the CPU; only summation order differs);
 - mined hard negatives: identical rows on tie-free inputs;
 - clip + Adam / identity: updates to rtol 1e-6, atol 1e-7 against optax;
-- one train step against JAX ``make_train_step`` (lax.scan towers): loss,
-  accuracy and grad_norm to 1e-3 relative; gradients and the parameter
-  change of three SGD steps to max |port - jax| / max |jax| < 3e-2 (the
-  port's GRU backward multiplies bf16-rounded dgates, XLA's autodiff of
+- one train step against JAX ``make_train_step`` (lax.scan towers; GRU,
+  and the qna preset's LSTM with the attention readout): loss, accuracy
+  and grad_norm to 1e-3 relative; gradients and the parameter change of
+  three SGD steps to max |port - jax| / max |jax| < 3e-2 (the port's
+  recurrent backward multiplies bf16-rounded dgates, XLA's autodiff of
   the scan does not);
+- the qna preset through train(): finite loss that falls;
 - train() against JAX train(): the same log steps, epochs and lr decay
   sequence, the same chunking, the same mining-refresh steps and the same
   resume skip (control flow, compared exactly; lr to 1e-7);
@@ -182,8 +184,8 @@ def test_clip_and_adam_match_optax(optimizer):
 V, L, NT, BS, NEG = 120, 6, 40, 8, 8
 
 
-def _model_cfgs(mode):
-    tower = dict(vocab_size=V, embed_dim=32, hidden=32, encoding_dim=16)
+def _model_cfgs(mode, **tower_kw):
+    tower = dict(vocab_size=V, embed_dim=32, hidden=32, encoding_dim=16, **tower_kw)
     jt, tt = jtowers.TowerConfig(**tower), ttowers.TowerConfig(**tower)
     extra = {}
     if mode == "dual-encoder":
@@ -217,7 +219,19 @@ def test_train_step_matches_jax(mode, kind):
     gradient) with the negatives JAX drew injected: step 1's loss,
     accuracy, grad_norm to 1e-3 relative and its gradients to 3e-2 of
     each leaf's max-abs; the parameter change after 3 steps to 3e-2."""
-    jcfg, tcfg = _model_cfgs(mode)
+    _step_parity(*_model_cfgs(mode), kind)
+
+
+def test_lstm_attention_train_step_matches_jax():
+    """test_train_step_matches_jax on the ``qna`` preset's model: a
+    dual-encoder of 2-layer residual LSTM towers with the attention
+    readout (the target tower wider), sampled softmax, same tolerances."""
+    jcfg, tcfg = _model_cfgs("dual-encoder", cell="lstm", readout="attention",
+                             num_layers=2, residual=True)
+    _step_parity(jcfg, tcfg, "sampled")
+
+
+def _step_parity(jcfg, tcfg, kind):
     loss = dict(kind=kind, num_negatives=NEG)
     train = dict(batch_size=BS, learning_rate=0.5, optimizer="sgd", max_gradient_norm=1e9)
     jtc = jloop.TrainConfig(loss=jlosses.LossConfig(**loss), **train)
@@ -316,7 +330,7 @@ def test_train_driver_matches_jax(monkeypatch):
         it = iter(scores * 4)
         return lambda params: {"recall@1": next(it)}
 
-    ts0 = tloop.init_train_state(tm, ttc)
+    ts0 = tloop.init_train_state(tm, ttc, device="cpu")
     for start in (0, 7):
         js0 = jloop.init_train_state(jax.random.PRNGKey(0), jm, jtc)  # train() donates it
         flows = []
@@ -347,7 +361,7 @@ def test_train_driver_is_single_process():
                         src_tower=ttowers.TowerConfig(vocab_size=300, embed_dim=16, hidden=16))
     for kw in ({"process_count": 2}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tloop.train(tm, tloop.TrainConfig(), pairs, tspace, **kw)
+            tloop.train(tm, tloop.TrainConfig(), pairs, tspace, device="cpu", **kw)
 
 
 # ------------------------------------------------------------ Evaluator
@@ -412,6 +426,30 @@ def test_params_to_numpy_round_trips_bf16_bits():
     assert torch.equal(back["a"][1], tree["a"][1]) and torch.equal(back["b"], tree["b"])
 
 
+def test_qna_preset_trains():
+    """The ``qna`` preset (dual-encoder LSTM, attention readout, sampled
+    softmax with mined hard negatives) at small widths, trained through
+    train() on the port's own qna demo corpus: finite loss that falls."""
+    from sse_tpu_torch.data import corpus as tcorpus
+    from sse_tpu_torch.data import synthetic as tsynthetic
+
+    rows, _, targets = tsynthetic.make_corpus(task="qna", num_targets=8, train_per_target=6,
+                                              seed=3)
+    vocab = tcorpus.build_vocab(300, rows, targets)
+    tspace = tcorpus.encode_target_space(vocab, targets, 12)
+    pairs = tcorpus.encode_pairs(vocab, rows, tspace, 12)
+    task = tconfigs.preset("qna", embed_dim=16, hidden=16, encoding_dim=16, max_seq_length=12,
+                           batch_size=8, max_epochs=8, steps_per_checkpoint=6,
+                           num_negatives=4, num_hard_negatives=2)
+    tm = task.model_config(vocab.vocab_size, tspace.num_targets)
+    assert tm.src_tower.cell == "lstm" and tm.src_tower.readout == "attention"
+    records = []
+    tloop.train(tm, task.train_config(), pairs, tspace, log_fn=records.append, device="cpu")
+    losses = [r["loss"] for r in records]
+    assert len(losses) >= 3 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+
+
 def test_port_trained_params_evaluate_in_jax():
     """Params the port trained load into the JAX Evaluator and score as
     they do in the port's."""
@@ -420,7 +458,7 @@ def test_port_trained_params_evaluate_in_jax():
                            max_seq_length=10, batch_size=8, max_epochs=2,
                            steps_per_checkpoint=5, num_negatives=4, num_hard_negatives=0)
     tm = task.model_config(vocab.vocab_size, tspace.num_targets)
-    state = tloop.train(tm, task.train_config(), pairs, tspace)
+    state = tloop.train(tm, task.train_config(), pairs, tspace, device="cpu")
     params = tloop.inference_params(state)
     jm = jconfigs.preset("ranking", embed_dim=16, hidden=16, encoding_dim=16).model_config(
         vocab.vocab_size, tspace.num_targets)
@@ -433,7 +471,7 @@ def test_port_trained_params_evaluate_in_jax():
 # ------------------------------------------------------------ dropout
 def test_dropout_is_train_only_and_seeded():
     cfg = ttowers.TowerConfig(vocab_size=40, embed_dim=16, hidden=16, encoding_dim=8, dropout=0.3)
-    params = ttowers.init_tower(cfg, torch.Generator().manual_seed(0))
+    params = ttowers.init_tower(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(2, 40, (6, 5)).astype(np.int32))
     lens = torch.from_numpy(rng.integers(1, 6, 6).astype(np.int32))
