@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one CUDA GPU: serving and training,
-GRU and LSTM towers.
+GRU and LSTM towers, both top-k variants, and the model-dir CLI.
 
     python3 chip_smoke.py            # needs one CUDA card; no network
 
@@ -14,16 +14,19 @@ GRU and LSTM towers.
    end and at each rounding point, tolerances in check_bwd); the
    streaming top-k (B=8, the served interactive batch, and B=256) and the
    two-phase top-k phases (B=4096) on the 1,249,280 x 128 index, in bf16
-   and int8, on exact-dot inputs so that rows and values must match bit
-   for bit.
+   and int8; the exact top-k variant (B=8, 256 and 4096, bf16, int8 and
+   f32, num_real 0 and 5, -0.0 products); all on exact-dot inputs, so
+   that rows and values must match bit for bit.
 3. The served slices (E=H=D=128, vocab 8000, L=50, random weights from a
    seed), each building the 1,249,280-row bf16 index on the GPU from the
    same 1,248,280 synthetic documents: (a) the bench model, a
    shared-encoder 1-layer GRU; (b) the ``qna`` configuration, a
-   dual-encoder LSTM with the attention readout. QueryEngine and warmup,
-   the HTTP server on a free localhost port, GET (B=8 tier) and bulk POST
-   queries (1,024 and 4,096 texts), the rows served held against
-   topk_reference, and every kernel's launch count from each run.
+   dual-encoder LSTM with the attention readout; (c) the GRU model with
+   ``QueryEngine(pallas_variant="exact")``, which streams every batch.
+   QueryEngine and warmup, the HTTP server on a free localhost port, GET
+   (B=8 tier) and bulk POST queries (1,024 and 4,096 texts), the rows
+   served held against topk_reference of the engine's variant, and every
+   kernel's launch count from each run.
 4. The trained slices: (a) the train bench's configuration (dual-encoder
    1-layer GRU, E=H=D=128, vocab 8000, L=50, batch 256, 128 sampled
    negatives over 10,000 random targets, Adam) and (b) the
@@ -35,6 +38,10 @@ GRU and LSTM towers.
    ``sse_tpu_torch.train.train`` on their demo corpora with the Evaluator
    as eval_fn: finite, falling loss, rising recall@1, and their EMA params
    serve one query through QueryEngine whose rows match topk_reference.
+5. The model-dir path, each command a ``python -m sse_tpu_torch.cli``
+   subprocess (cli_slice): demo-data, train (ranking preset), index,
+   eval, eval --use_index, visualize, serve with /api/add, /api/save, a
+   second train and /api/reload.
 
 Every kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
@@ -552,6 +559,68 @@ def check_topk(card: str, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def check_topk_exact(card: str, results: dict) -> None:
+    """The exact variant (kernel 6, counter topk_exact) against
+    topk_reference(variant="exact") on the 1,249,280-row index in bf16,
+    int8 and f32, num_real = T_pad - 1000, on exact-dot inputs (float
+    indexes: multiples of 1/16; int8: exact integer sums), so rows and
+    values must match bit for bit: B = 8 and 256, B = 4096 on a 512-query
+    subset of the plain version, a sparse query whose products are all
+    -0.0, and num_real in {0, 5} (sinks exactly float32(-3e38), row 0)."""
+    from sse_tpu_torch.index.sharded_index import quantize_rows
+    from sse_tpu_torch.ops import topk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    nr = T_PAD - 1000
+    ex = dict(variant="exact")
+    r = results["topk_exact"]
+    for dtype in ("bf16", "int8", "f32"):
+        if dtype == "int8":
+            emb = quantize_rows(unit_rows(T_PAD, gen), torch.int8)
+            q_all = topk.quantize_queries_int8(unit_rows(4096, gen))
+        else:
+            emb, q_all = exact_dot((T_PAD, D), gen), exact_dot((4096, D), gen)
+            if dtype == "f32":
+                emb, q_all = emb.float(), q_all.float()
+        times = []
+        for B in (8, 256, 4096):
+            q = q_all[:B].contiguous()
+            got = topk.fused_score_topk(q, emb, K, nr, **ex)
+            sub = slice(0, min(B, 512))  # the full [4096, T] reference would be 20 GB
+            want = topk.topk_reference(q[sub], emb, K, nr, **ex)
+            err = same(f"topk_exact {dtype} B={B}", (got[0][sub], got[1][sub]), want)
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+            ms = cuda_ms(lambda: topk.fused_score_topk(q, emb, K, nr, **ex), reps=5 if B < 4096 else 2)
+            times.append(f"B={B} {ms:.4f} ms")
+            if B == 8:
+                plain = cuda_ms(lambda: topk.topk_reference(q, emb, K, nr, **ex), reps=2)
+                times[-1] += f" (plain {plain:.4f})"
+                if dtype == "bf16":
+                    r.update(ms=ms, plain_ms=plain, library_ms=None,
+                             **bound(nbytes(q, emb, *got), 2.0 * B * nr * D))
+        for small_nr in (0, 5):  # fully padded, and fewer real rows than k
+            v, rows = topk.fused_score_topk(q_all[:8].contiguous(), emb, K, small_nr, **ex)
+            same(f"topk_exact {dtype} num_real={small_nr}", (v, rows),
+                 topk.topk_reference(q_all[:8], emb, K, small_nr, **ex))
+            check(bool((v[:, small_nr:] == -3.0e38).all()) and bool((rows[:, small_nr:] == 0).all()),
+                  f"topk_exact {dtype} num_real={small_nr}: sinks must be float32(-3e38), row 0")
+        if dtype != "int8":  # q·e made of -0.0 products: ties with +0.0, lower row first
+            qz = torch.zeros((8, D), device="cuda", dtype=emb.dtype)
+            qz[:, 0] = -1.0
+            ez = torch.full((4096, D), -0.5, device="cuda", dtype=emb.dtype)
+            ez[:, 0] = 0.0
+            ez[77, 0] = -0.25
+            got = topk.fused_score_topk(qz, ez, K, 4096, **ex)
+            same(f"topk_exact {dtype} -0.0 products", got, topk.topk_reference(qz, ez, K, 4096, **ex))
+            check(got[1][0].tolist() == [77] + list(range(K - 1)), "-0.0 ties: lower rows first")
+        log(f"topk_exact {dtype} T={T_PAD} num_real={nr} k={K}: bit-identical to plain "
+            f"(B=4096 on a 512-query subset), num_real 0/5 sinks exactly -3e38 with row 0"
+            f"{', -0.0 products tie to the lower row' if dtype != 'int8' else ''}; kernel "
+            + ", ".join(times) + f" [{card}]")
+        del emb, q_all
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phase 3
 def free_port() -> int:
     with socket.socket() as s:
@@ -591,12 +660,13 @@ def served_corpus():
     return vocab, tspace, evalp
 
 
-def served_slice(label: str, cfg, corpus, n_post: int) -> dict:
+def served_slice(label: str, cfg, corpus, n_post: int, variant: str = "packed") -> dict:
     """Build the 1,249,280-row bf16 index with ``cfg``'s seeded weights,
-    serve it over HTTP, send four GET queries (the B=8 tier) and one POST
-    of ``n_post`` texts (one bulk dispatch), and hold the served rows
-    against topk_reference. Returns the kernels' launch counts from this
-    run (reset just before it)."""
+    serve it over HTTP with the engine's top-k ``variant``, send four GET
+    queries (the B=8 tier) and one POST of ``n_post`` texts (one bulk
+    dispatch), and hold the served rows against topk_reference of that
+    variant. Returns the kernels' launch counts from this run (reset just
+    before it)."""
     from sse_tpu_torch import ops
     from sse_tpu_torch.index import build_index
     from sse_tpu_torch.models import sse
@@ -613,7 +683,7 @@ def served_slice(label: str, cfg, corpus, n_post: int) -> dict:
     log(f"{label} build_index: {index.num_real} rows in a {index.padded_size}-row bf16 index, "
         f"{time.perf_counter() - t0:.2f} s")
     engine = QueryEngine(params, cfg, vocab, index, max_seq_length=50, max_batch=8, k=K,
-                         bulk_batch=4096)
+                         bulk_batch=4096, pallas_variant=variant)
     log(f"{label} warmup: {engine.warmup():.2f} s")
     server = serve_http(engine, port=free_port(), block=False)
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -644,33 +714,39 @@ def served_slice(label: str, cfg, corpus, n_post: int) -> dict:
     for hits in served:
         check(len(hits) == K and all(h["targetId"] in known for h in hits), f"POST: {hits}")
 
+    if variant == "exact":
+        check(counts["topk_exact"] > 0 and counts["twophase_p1"] == counts["twophase_p2"]
+              == counts["topk_stream"] == 0,
+              f"{label}: the exact engine must stream every batch: {counts}")
+    tol = "within 2e-6" if variant == "exact" else "each within one key bucket"
     for name, tx, res in (("GET", get_texts, got), ("POST", texts, served)):
-        n = same_as_reference(engine, params, cfg, index, tx, res)
-        log(f"{label}: served rows == topk_reference for {len(tx)} {name} queries "
-            f"({n} positions differ, each within one key bucket)")
+        n = same_as_reference(engine, params, cfg, index, tx, res, variant)
+        log(f"{label}: served rows == topk_reference(variant={variant!r}) for {len(tx)} "
+            f"{name} queries ({n} positions differ, the two rows' scores {tol})")
     return counts
 
 
-def same_as_reference(engine, params, cfg, index, texts, served) -> int:
+def same_as_reference(engine, params, cfg, index, texts, served, variant="packed") -> int:
     """Served rows against topk_reference on the same query encodings and
     index. The kernel and the reference sum in different orders, so a
     differing position is allowed only where the two rows' scores lie
-    within one key bucket (2^-11 relative). Returns the count of such."""
+    within one key bucket (2^-11 relative; packed variant) or within 2e-6
+    (exact variant, full float32 keys). Returns the count of such."""
     from sse_tpu_torch.models import sse
     from sse_tpu_torch.ops import topk
 
     tokens, lengths = engine.encode_queries(texts)
     with torch.no_grad():
         q = sse.encode_source(params, cfg, tokens, lengths)[: len(texts)]
-    _, ref_rows = topk.topk_reference(q, index.emb, K, index.num_real)
+    _, ref_rows = topk.topk_reference(q, index.emb, K, index.num_real, variant)
     rows = torch.tensor([[h["row"] for h in hits] for hits in served], device="cuda")
     diff = (rows != ref_rows).nonzero().tolist()
     qb = q.to(torch.bfloat16).double()
     for i, j in diff:
         a = float(qb[i] @ index.emb[rows[i, j]].double())
         b = float(qb[i] @ index.emb[ref_rows[i, j]].double())
-        check(abs(a - b) <= 2.0**-11 * max(abs(a), abs(b)),
-              f"served row {i},{j} differs beyond one key bucket: {a} vs {b}")
+        ok = abs(a - b) <= (2e-6 if variant == "exact" else 2.0**-11 * max(abs(a), abs(b)))
+        check(ok, f"served row {i},{j} differs beyond the {variant} tolerance: {a} vs {b}")
     return len(diff)
 
 
@@ -870,6 +946,121 @@ def preset_slice(card: str, task_name: str, layer: str) -> dict:
     return counts
 
 
+# Runs ``python -m sse_tpu_torch.cli <args>`` and, as the process exits,
+# prints one log line with the kernels it launched.
+CLI_RUNNER = (
+    "import atexit, json, runpy, sys\n"
+    "from sse_tpu_torch import ops\n"
+    "atexit.register(lambda: print('[launches] ' + json.dumps(ops.launch_counts()), flush=True))\n"
+    "sys.argv = ['sse_tpu_torch.cli', *sys.argv[1:]]\n"
+    "runpy.run_module('sse_tpu_torch.cli', run_name='__main__', alter_sys=True)\n"
+)
+
+
+def cli_launches(stdout: str) -> dict:
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("[launches] ")]
+    check(len(lines) == 1, f"no launch-count line in the CLI output:\n{stdout[-2000:]}")
+    return json.loads(lines[0][len("[launches] "):])
+
+
+def cli_slice(card: str) -> dict:
+    """The model-dir path on the card, each command a subprocess of
+    ``python -m sse_tpu_torch.cli`` (CLI_RUNNER): demo-data (ranking),
+    train with the ranking preset at its own widths, index (with live-add
+    headroom and a TSV export), eval, eval --use_index, visualize; then
+    serve on a free port: a GET, POST /api/add, /api/save, a second train
+    into the same model dir, /api/reload (its num_targets counts the added
+    document, read back from the saved index) and a GET after it. Checks
+    each command's exit code and output line; returns the kernels'
+    launches summed over the commands, each counted by the process itself."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "cli_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = {k: v for k, v in os.environ.items() if k != "SSE_PLATFORM"}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    total: dict = {}
+    secs = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def run(*args, want: str) -> str:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", CLI_RUNNER, *args], cwd=work, env=env,
+                             capture_output=True, text=True, timeout=300)
+        secs[args[0]] = secs.get(args[0], 0.0) + time.perf_counter() - t0
+        check(out.returncode == 0, f"cli {' '.join(args)}: exit {out.returncode}\n{out.stderr[-3000:]}")
+        check(want in out.stdout, f"cli {args[0]}: no {want!r} in\n{out.stdout[-2000:]}")
+        add(cli_launches(out.stdout))
+        return out.stdout
+
+    def last_json(out: str) -> dict:
+        return json.loads([ln for ln in out.splitlines() if ln.startswith("[sse] {")][-1][6:])
+
+    t_all = time.perf_counter()
+    run("demo-data", "--task", "ranking", "--out_dir", "data", want="[sse] wrote 1536 TrainPairs")
+    train = ("train", "--data_dir", "data", "--model_dir", "run")
+    out = run(*train, "--task_type", "ranking", "--max_epochs", "20",
+              "--steps_per_checkpoint", "60", want="[sse] final eval: ")
+    final = json.loads(out.split("[sse] final eval: ")[1].splitlines()[0])
+    check(0.0 <= final["recall@1"] <= 1.0, f"final eval {final}")
+    run("index", "--model_dir", "run", "--data_dir", "data", "--capacity", "128",
+        "--export_tsv", "run/idx.tsv", want="[sse] built index: 64 targets, dim 128")
+    plain = last_json(run("eval", "--model_dir", "run", "--data_dir", "data", want="recall@1"))
+    via = last_json(run("eval", "--model_dir", "run", "--data_dir", "data", "--use_index",
+                        want="recall@1"))
+    run("visualize", "--model_dir", "run", "--out_dir", "viz", want="[sse] wrote 64x128 embeddings")
+
+    port = free_port()
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        [sys.executable, "-c", CLI_RUNNER, "serve", "--model_dir", "run", "--port", str(port)],
+        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    base = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            if server.poll() is not None:
+                raise AssertionError(f"cli serve exited: {server.communicate()[1][-3000:]}")
+            check(time.perf_counter() - t0 < 300, "cli serve: not up after 300 s")
+            try:
+                if http_json(base + "/healthz")["status"] == "ok":
+                    break
+            except OSError:
+                time.sleep(0.5)
+        up = time.perf_counter() - t0
+        hits = http_json(base + "/api/query?keywords=" + urllib.request.quote("alpha beta"))["results"]
+        check(len(hits) == K, f"cli serve GET: {hits}")
+        added = http_json(base + "/api/add", [{"targetId": "smoke1", "targetText": "smoke doc"}])
+        check(added["num_targets"] == 65, f"/api/add: {added}")
+        saved = http_json(base + "/api/save", {})
+        check(saved["num_targets"] == 65, f"/api/save: {saved}")
+        run(*train, "--max_epochs", "25", want="[sse] final eval: ")
+        reloaded = http_json(base + "/api/reload", {})
+        check(reloaded["num_targets"] == 65, f"/api/reload: {reloaded}")
+        hits = http_json(base + "/api/query?keywords=" + urllib.request.quote("smoke doc"))["results"]
+        check(len(hits) == K, f"GET after reload: {hits}")
+        check(http_json(base + "/api/stats")["index_num_targets"] == 65, "stats after reload")
+    finally:
+        server.terminate()
+        stdout, stderr = server.communicate(timeout=120)
+    check(server.returncode == 0, f"cli serve: exit {server.returncode}\n{stderr[-3000:]}")
+    check("[sse] serving 64 targets" in stdout, f"cli serve output:\n{stdout[-2000:]}")
+    add(cli_launches(stdout))
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"cli path (python -m sse_tpu_torch.cli, ranking preset E=H=D=128): final eval {final}, "
+        f"eval {plain}, eval --use_index {via}; serve up in {up:.1f} s, GET, /api/add, "
+        f"/api/save, a second train, /api/reload (num_targets 65), GET after it; seconds by "
+        f"command {json.dumps({k: round(v, 1) for k, v in secs.items()})}, whole path "
+        f"{time.perf_counter() - t_all:.1f} s; launches {total} [{card}]")
+    return total
+
+
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
     "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
@@ -877,6 +1068,8 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
     "lstm_bwd": ("sse_tpu_torch/csrc/lstm_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
     "rnn_scan": ("sse_tpu_torch/csrc/rnn_scan.cu", "sse_tpu/ops/pallas_rnn.py:102"),
     "topk_stream": ("sse_tpu_torch/csrc/topk_stream.cu", "sse_tpu/ops/fused_topk.py:1056"),
+    "topk_exact": ("sse_tpu_torch/csrc/topk_stream.cu",
+                   'sse_tpu/ops/fused_topk.py:1056 (variant="exact")'),
     "twophase_p1": ("sse_tpu_torch/csrc/topk_twophase.cu", "sse_tpu/ops/fused_topk.py:762"),
     "twophase_p2": ("sse_tpu_torch/csrc/topk_twophase.cu", "sse_tpu/ops/fused_topk.py:850"),
 }
@@ -907,6 +1100,7 @@ def main() -> None:
     check_bwd(card, results, "gru")
     check_bwd(card, results, "lstm")
     check_topk(card, results)
+    check_topk_exact(card, results)
 
     corpus = served_corpus()
     width = dict(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1, encoding_dim=128)
@@ -916,6 +1110,7 @@ def main() -> None:
     runs = {
         "served GRU": served_slice("served GRU", gru, corpus, 1024),
         "served qna": served_slice("served qna", qna, corpus, 4096),
+        "served exact": served_slice("served exact", gru, corpus, 4096, variant="exact"),
         "GRU train bench": train_bench_slice(card, "GRU train bench", {"cell": "gru"}, 0.5,
                                              {"gru_fwd": 2, "gru_bwd": 2}),
         "compositional train bench": train_bench_slice(
@@ -924,6 +1119,7 @@ def main() -> None:
             {"lstm_fwd": 6, "lstm_bwd": 6}),
         "ranking preset": preset_slice(card, "ranking", "gru"),
         "qna preset": preset_slice(card, "qna", "lstm"),
+        "cli": cli_slice(card),
     }
     need = {
         "served GRU": ("gru_fwd", "topk_stream", "twophase_p1", "twophase_p2"),
@@ -932,6 +1128,8 @@ def main() -> None:
         "compositional train bench": ("lstm_fwd", "lstm_bwd", "rnn_scan"),
         "ranking preset": ("gru_fwd", "gru_bwd"),
         "qna preset": ("lstm_fwd", "lstm_bwd", "rnn_scan"),
+        "served exact": ("gru_fwd", "topk_exact"),
+        "cli": ("gru_fwd", "gru_bwd", "topk_stream"),
     }
     for run, names in need.items():
         missing = [n for n in names if runs[run].get(n, 0) < 1]

@@ -3,8 +3,10 @@
 The same ``TaskConfig`` (fields and defaults), the same four task
 ``PRESETS`` and named ``RECIPES``, with ``model_config()`` and
 ``train_config()`` building the port's ``SSEConfig`` and
-``TrainConfig``. This loader imports no JAX (the JAX one imports the JAX
-models). A preset whose tower is not ported yet (qna's LSTM, the
+``TrainConfig``, and the same ``config.json`` format (``to_json``,
+``from_json``, ``save``, ``load``): a file written by either package
+loads in the other. This loader imports no JAX (the JAX one imports the
+JAX models). A preset whose tower is not ported yet (qna's LSTM, the
 ``compositional`` and ``transformer`` recipes) still builds its configs;
 encoding with them raises ``NotImplementedError``. See
 ``sse_tpu/configs/__init__.py`` for where each preset's numbers were
@@ -14,6 +16,7 @@ measured (TPU runs of the JAX package).
 from __future__ import annotations
 
 import dataclasses
+import json
 
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
 from sse_tpu_torch.models.towers import TowerConfig
@@ -114,6 +117,26 @@ class TaskConfig:
             shuffle_window=self.shuffle_window if self.streaming else 0,
             ema_decay=self.ema_decay,
         )
+
+    # -------------------------------------------------------------- persist
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "TaskConfig":
+        """Unknown keys are dropped, missing ones take their defaults."""
+        raw = json.loads(text)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in raw.items() if k in known})
+
+    def save(self, path: str) -> None:
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(self.to_json())
+
+    @classmethod
+    def load(cls, path: str) -> "TaskConfig":
+        with open(path, "r", encoding="utf-8") as f:
+            return cls.from_json(f.read())
 
 
 CLASSIFICATION = TaskConfig(

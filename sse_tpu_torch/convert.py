@@ -10,8 +10,10 @@ weight stays [(in+H), G·H] with gate order (z, r, n) for the GRU and
 ``ops.rnn.split_weights`` reads a layer exactly like the JAX
 ``_split_weights``.
 ``params_to_numpy`` is the inverse, so that the JAX package can load and
-evaluate params the port trained. This module imports no JAX: callers
-hand it, and get back, host arrays.
+evaluate params the port trained. ``train_state_from_jax`` maps a whole
+JAX TrainState (restored from an Orbax checkpoint by ``sse_tpu``) onto the
+port's, which ``sse_tpu_torch.train.checkpoint`` then saves. This module
+imports no JAX: callers hand it, and get back, host arrays.
 """
 
 from __future__ import annotations
@@ -41,6 +43,31 @@ def params_from_jax(tree: Any, device: torch.device | str = "cpu") -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return array_from_jax(tree, device)
+
+
+def train_state_from_jax(state: Any, device: torch.device | str = "cpu"):
+    """A JAX ``TrainState`` (``params``, ``opt_state`` = optax
+    ``(clip state, ScaleByAdamState | EmptyState)``, ``step``, ``lr``,
+    ``ema_params``; leaves as anything ``np.asarray`` takes) → the port's
+    ``TrainState`` on ``device``."""
+    from sse_tpu_torch.train.loop import ScaleByAdamState, TrainState
+
+    adam = state.opt_state[-1] if isinstance(state.opt_state, (list, tuple)) else None
+    opt = None
+    if adam is not None and hasattr(adam, "mu"):
+        opt = ScaleByAdamState(
+            count=int(np.asarray(adam.count)),
+            mu=params_from_jax(adam.mu, device),
+            nu=params_from_jax(adam.nu, device),
+        )
+    ema = state.ema_params
+    return TrainState(
+        params=params_from_jax(state.params, device),
+        opt_state=opt,
+        step=int(np.asarray(state.step)),
+        lr=torch.tensor(float(np.asarray(state.lr)), dtype=torch.float32, device=device),
+        ema_params=None if ema is None else params_from_jax(ema, device),
+    )
 
 
 def array_to_numpy(t: torch.Tensor) -> np.ndarray:

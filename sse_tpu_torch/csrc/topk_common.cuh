@@ -6,6 +6,9 @@
 //   float index: key = to_sortable(score) & ~0xFFF  (11 mantissa bits)
 //   int8 index:  key = clip(score_i32, ±(2^18-1)) << 12  (exact)
 //   order: key descending, then global row ascending.
+// The exact variant (EX = true) keys on the full float32 score instead:
+//   key = to_sortable(score + 0.0f), all 32 bits; for int8 the score is
+//   float(score_i32) * float32(1/127²), the value the JAX kernel selects on.
 // One signed 64-bit composite carries both orders:
 //   comp = (int64)key << 32 | (0xFFFFFFFF - row)
 // so a plain max picks (key desc, row asc), and every composite of one
@@ -22,6 +25,7 @@ constexpr int kIdxMask = 0xFFF;
 constexpr int kIntClip = (1 << 18) - 1;
 constexpr long long kEmpty = (long long)0x8000000000000000ULL;
 constexpr long long kFull64 = 0x7FFFFFFFFFFFFFFFLL;
+constexpr float kInt8Inv = 0x1.040c2p-14f;  // float32(1 / 127²)
 
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -43,6 +47,12 @@ __device__ __forceinline__ int enc_key(float s) { return to_sortable(s) & ~kIdxM
 __device__ __forceinline__ int enc_key(int s) {
   return (s < -kIntClip ? -kIntClip : (s > kIntClip ? kIntClip : s)) * (1 << 12);
 }
+
+// Exact-variant keys. __fadd_rn(s, 0) turns -0.0 into +0.0 (and is never
+// folded away), so a tie between the two goes to the lower row, as the
+// JAX kernel's (scores == max) pass treats it.
+__device__ __forceinline__ int exact_key(float s) { return to_sortable(__fadd_rn(s, 0.0f)); }
+__device__ __forceinline__ int exact_key(int s) { return to_sortable(__fmul_rn((float)s, kInt8Inv)); }
 
 __device__ __forceinline__ long long make_comp(int key, int row) {
   return (long long)(((unsigned long long)(unsigned)key << 32) |
@@ -135,7 +145,7 @@ __host__ __device__ inline int range_topk_smem(int QB, int k) {
   return QB * (k * 8 + kTileRows * 8 + 8 + 4 + 4);
 }
 
-// Exact top-k of the block's QB = 16·MT queries over index rows
+// Top-k of the block's QB = 16·MT queries over index rows
 // [row_lo, row_hi) ∩ [0, min(T, num_real)). qid[i] is the global query
 // row of local query i (negative = none). Writes each local query's k
 // composites, best first, to out + i·out_stride (empty slots kEmpty).
@@ -146,8 +156,9 @@ __host__ __device__ inline int range_topk_smem(int QB, int k) {
 // buffer in shared memory (at most 64 per step, so it never overflows);
 // a step that produced any is followed by one warp-per-query merge of
 // buffer and list. On random data the threshold rises fast and almost
-// every step is scores + one compare + one __syncthreads_or.
-template <int DT, int KS, int MT>
+// every step is scores + one compare + one __syncthreads_or. EX picks
+// the exact variant's key (exact_key) over the packed one (enc_key).
+template <int DT, int KS, int MT, bool EX = false>
 __device__ void range_topk(const void* qv, const int* qid_in, int qbase, int B,
                            const void* embv, int D, int T, int num_real, int row_lo,
                            int row_hi, int k, long long* out, long long out_stride,
@@ -206,7 +217,8 @@ __device__ void range_topk(const void* qv, const int* qid_in, int qbase, int B,
         const int row = rbase + 8 * j + 2 * tig + (c & 1);
         const bool hi = c >> 1;
         if ((hi ? q1 : q0) < 0 || row >= lim) continue;
-        const long long comp = make_comp(enc_key(acc[j][c]), row);
+        const int key = EX ? exact_key(acc[j][c]) : enc_key(acc[j][c]);
+        const long long comp = make_comp(key, row);
         if (comp > (hi ? t1 : t0)) {
           const int ql = hi ? ql1 : ql0;
           buf[ql * kTileRows + atomicAdd(&cnt[ql], 1)] = comp;

@@ -1,7 +1,8 @@
 """Exact top-k of q·embᵀ without a [B, T] score matrix (port of
 ``sse_tpu/ops/fused_topk.py``).
 
-Selection contract of the packed variant, which both entry points keep:
+Selection contract of the packed variant (``variant="packed"``, the
+default), which both entry points keep:
 
 * float index: key = ``to_sortable(score) & ~0xFFF`` (11 mantissa bits);
   value = ``from_sortable(key)``;
@@ -12,11 +13,19 @@ Selection contract of the packed variant, which both entry points keep:
   real rows than k the remaining slots hold a finite sink value (< -1e37)
   with row 0.
 
+The exact variant (``variant="exact"``, streaming only; the JAX
+``_kernel`` + ``_topk_passes``) selects on the full-precision float32
+scores: key = ``to_sortable(score + 0.0)`` with no bits cleared (``+ 0.0``
+maps -0.0 to +0.0, a tie to the lower row as JAX's ``scores == max``
+treats it); for int8 the score is ``float(int32 sum) * float32(1/127²)``
+with 127-quantized queries. Values are those scores; with fewer real rows
+than k the remaining slots hold exactly ``float32(-3e38)`` with row 0.
+
 Both orders ride one signed int64 composite, ``key << 32 | (0xFFFFFFFF -
 row)``: one max picks (key desc, row asc), and the plain versions get the
 contract's tie order from ``torch.topk`` over the composites.
 
-``fused_score_topk`` (streaming, ``csrc/topk_stream.cu``) and
+``fused_score_topk`` (streaming, either variant, ``csrc/topk_stream.cu``) and
 ``fused_score_topk_twophase`` (``csrc/topk_twophase.cu``, phase 1 and
 phase 2; the mid-pass and the merge are plain torch, as the JAX package
 does them in plain XLA) launch the Hopper kernels on CUDA tensors or raise,
@@ -57,7 +66,8 @@ _TILE_ROWS = 64  # index rows per kernel step
 _REF_ELEMS = 1 << 26  # score elements per chunk of the plain versions
 
 # Launches of each CUDA kernel wrapper (incremented only where it launches).
-launches = {"topk_stream": 0, "twophase_p1": 0, "twophase_p2": 0}
+launches = {"topk_stream": 0, "topk_exact": 0, "twophase_p1": 0, "twophase_p2": 0}
+VARIANTS = ("packed", "exact")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -111,17 +121,37 @@ def _scores(q: torch.Tensor, emb: torch.Tensor, int_exact: bool) -> torch.Tensor
     return q.float() @ emb.float().T
 
 
+def _exact_scores(q: torch.Tensor, emb: torch.Tensor, int_exact: bool) -> torch.Tensor:
+    """The exact variant's float32 scores (``_block_scores``): int8 sums
+    times float32(1/127²), float32 sums otherwise; -0.0 becomes +0.0."""
+    s = _scores(q, emb, int_exact)
+    if int_exact:
+        s = s.to(torch.float32) * torch.tensor(_INT8_INV, dtype=torch.float32, device=s.device)
+    return torch.where(s == 0, torch.zeros((), dtype=s.dtype, device=s.device), s)
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+
+
 def _composite(key: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return key.to(torch.int64) * (1 << 32) + (_LOW32 - rows.to(torch.int64))
 
 
-def decode(comp: torch.Tensor, int_exact: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Composites → (float32 values, int32 rows); empty slots → sinks."""
+def decode(
+    comp: torch.Tensor, int_exact: bool, exact: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Composites → (float32 values, int32 rows); empty slots → sinks
+    (row 0; the exact variant's sink value is float32(-3e38))."""
     empty = comp == _EMPTY
     key = (comp >> 32).to(torch.int32)
+    rows = torch.where(empty, 0, (_LOW32 - (comp & _LOW32)).to(torch.int32))
+    if exact:
+        neg = torch.tensor(NEG, dtype=torch.float32, device=comp.device)
+        return torch.where(empty, neg, from_sortable(key)), rows
     key = torch.where(empty, _INT_SINK if int_exact else _NEG_SINK, key)
-    rows = (_LOW32 - (comp & _LOW32)).to(torch.int32)
-    return dec_val(key, int_exact), torch.where(empty, 0, rows)
+    return dec_val(key, int_exact), rows
 
 
 def _topk_desc(comp: torch.Tensor, k: int) -> torch.Tensor:
@@ -140,19 +170,26 @@ def _query_chunk(t: int) -> int:
 
 # ------------------------------------------------------- plain reference
 def topk_reference(
-    q: torch.Tensor, emb: torch.Tensor, k: int, num_real: int
+    q: torch.Tensor, emb: torch.Tensor, k: int, num_real: int, variant: str = "packed"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of both kernels' contract, on any device:
-    all scores in float32 (exact int32 on int8), the composite key, and
-    ``torch.topk``. Chunked over queries, so it never holds more than
-    ~64M scores at once."""
+    """The plain PyTorch version of the kernels' contract, on any device:
+    all scores in float32 (exact int32 on int8), the variant's composite
+    key (packed: low 12 bits cleared; exact: the full key of the float32
+    score), and ``torch.topk``. Chunked over queries, so it never holds
+    more than ~64M scores at once."""
+    _check_variant(variant)
+    exact = variant == "exact"
     q, int_exact = _prep_queries(q, emb)
     t = emb.shape[0]
     nr = max(0, min(int(num_real), t))
     low = torch.arange(t, device=emb.device)
     out = []
     for lo in range(0, q.shape[0], _query_chunk(t)):
-        key = enc_key(_scores(q[lo : lo + _query_chunk(t)], emb, int_exact), int_exact)
+        qc = q[lo : lo + _query_chunk(t)]
+        if exact:
+            key = to_sortable(_exact_scores(qc, emb, int_exact))
+        else:
+            key = enc_key(_scores(qc, emb, int_exact), int_exact)
         comp = _composite(key, low)
         comp[:, nr:] = _EMPTY
         out.append(_topk_desc(comp, k))
@@ -160,7 +197,7 @@ def topk_reference(
         comp = torch.empty((0, k), dtype=torch.int64, device=emb.device)
     else:
         comp = torch.cat(out)
-    return decode(comp, int_exact)
+    return decode(comp, int_exact, exact)
 
 
 # ------------------------------------------------------------ CUDA glue
@@ -200,7 +237,8 @@ def _split(n: int, b: int, qb: int, device: torch.device) -> Tuple[int, int]:
 
 def _select(comp: torch.Tensor, k: int, mode: int):
     """CUDA warp select of the k best composites per row (see
-    topk_stream.cu: mode 0 composites, 1/2 decoded float/int8)."""
+    topk_stream.cu: mode 0 composites, 1/2 decoded float/int8 packed
+    keys, 3 decoded exact keys)."""
     r, n = comp.shape
     dev = comp.device
     out = torch.empty((r, k), dtype=torch.int64, device=dev) if mode == 0 else None
@@ -222,12 +260,16 @@ def fused_score_topk(
     emb: torch.Tensor,  # [T_pad, D] index rows: float32, bfloat16 or int8
     k: int,
     num_real: int,  # rows >= num_real are padding
+    variant: str = "packed",  # packed | exact (see the module doc)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k (float32 values [B, k], int32 rows [B, k]) of q·embᵀ: one
-    streaming kernel launch plus the split merge on CUDA tensors, the plain
+    streaming kernel launch plus the split merge on CUDA tensors (counter
+    ``topk_stream``, or ``topk_exact`` for the exact variant), the plain
     version on CPU tensors."""
+    _check_variant(variant)
     if not emb.is_cuda:
-        return topk_reference(q, emb, k, num_real)
+        return topk_reference(q, emb, k, num_real, variant)
+    exact = variant == "exact"
     q, int_exact = _prep_queries(q, emb)
     q = q.contiguous()
     _check_cuda(q, emb, k, "fused_score_topk")
@@ -235,17 +277,19 @@ def fused_score_topk(
     t = emb.shape[0]
     nr = max(0, min(int(num_real), t))
     if b == 0 or k == 0:
-        return decode(torch.empty((b, k), dtype=torch.int64, device=emb.device), int_exact)
+        empty = torch.empty((b, k), dtype=torch.int64, device=emb.device)
+        return decode(empty, int_exact, exact)
     qb = _queries_per_block(b)
     tiles_per_split, splits = _split(max(1, -(-t // _TILE_ROWS)), b, qb, emb.device)
     partial = torch.empty((b, splits, k), dtype=torch.int64, device=emb.device)
     _build.launch(
-        "sse_topk_stream", [_P, _P] + [_I] * 9 + [_P], emb.device,
-        q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr, k,
+        "sse_topk_stream", [_P, _P] + [_I] * 10 + [_P], emb.device,
+        q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr, k, int(exact),
         qb, splits, tiles_per_split * _TILE_ROWS, partial.data_ptr(),
     )
-    launches["topk_stream"] += 1
-    return _select(partial.reshape(b, splits * k), k, 2 if int_exact else 1)
+    launches["topk_exact" if exact else "topk_stream"] += 1
+    mode = 3 if exact else (2 if int_exact else 1)
+    return _select(partial.reshape(b, splits * k), k, mode)
 
 
 # ------------------------------------------------------------- two-phase
@@ -446,6 +490,7 @@ __all__ = [
     "PAIR_TILE",
     "TWOPHASE_BLOCK_T",
     "TWOPHASE_MIN_BATCH",
+    "VARIANTS",
     "dec_val",
     "decode",
     "enc_key",

@@ -3,10 +3,13 @@
 single GPU).
 
 Routing carried over from the JAX package and NOT yet measured on the
-H100: batches of ``TWOPHASE_MIN_BATCH`` (1024) or more go to the
-two-phase kernels when the index has room for them, smaller batches to
-one streaming launch. The JAX package's TPU tuning (512-row batch
-chunking, DMA spans, block-size pickers) is not carried over.
+H100: with the default ``pallas_variant="packed"``, batches of
+``TWOPHASE_MIN_BATCH`` (1024) or more go to the two-phase kernels when the
+index has room for them, smaller batches to one streaming launch; with
+``"exact"`` (full float32 selection keys) every batch streams, as in JAX
+(``pick_twophase_block_t`` takes only the packed variant). The JAX
+package's TPU tuning (512-row batch chunking, DMA spans, block-size
+pickers) is not carried over.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
 from sse_tpu_torch.ops.topk import (
     TWOPHASE_MIN_BATCH,
+    VARIANTS,
     fused_score_topk,
     fused_score_topk_twophase,
     twophase_block_t,
@@ -29,20 +33,28 @@ from sse_tpu_torch.ops.topk import (
 
 
 def build_fused_query_fn(
-    model_cfg: SSEConfig, k: int, num_real: Optional[int] = None
+    model_cfg: SSEConfig,
+    k: int,
+    num_real: Optional[int] = None,
+    pallas_variant: str = "packed",
 ) -> Callable:
     """fused(params, emb, tokens, lengths[, num_real]) → (vals [B, k]
     float32, rows [B, k] int32). ``num_real`` is a runtime argument, so a
-    growing or shrinking index needs no new function."""
+    growing or shrinking index needs no new function. ``pallas_variant``:
+    ``packed`` (11-bit float keys, exact int8 keys) or ``exact`` (full
+    float32 keys; always the streaming kernel)."""
+    if pallas_variant not in VARIANTS:
+        raise ValueError(f"pallas_variant must be one of {VARIANTS}, got {pallas_variant!r}")
 
     def fused(params, emb, tokens, lengths, nr=None):
         nr = num_real if nr is None else nr
         with torch.no_grad():
             q = sse.encode_source(params, model_cfg, tokens, lengths)
-            bt = twophase_block_t(emb.shape[0], k)
-            if q.shape[0] >= TWOPHASE_MIN_BATCH and bt is not None and 0 < k <= 128:
-                return fused_score_topk_twophase(q, emb, k, nr, block_t=bt)
-            return fused_score_topk(q, emb, k, nr)
+            if pallas_variant == "packed":
+                bt = twophase_block_t(emb.shape[0], k)
+                if q.shape[0] >= TWOPHASE_MIN_BATCH and bt is not None and 0 < k <= 128:
+                    return fused_score_topk_twophase(q, emb, k, nr, block_t=bt)
+            return fused_score_topk(q, emb, k, nr, variant=pallas_variant)
 
     return fused
 
@@ -62,6 +74,7 @@ class QueryEngine:
         max_batch: int = 8,
         k: int = 10,
         bulk_batch: Optional[int] = None,
+        pallas_variant: str = "packed",
     ):
         self.params = params
         self.model_cfg = model_cfg
@@ -76,7 +89,14 @@ class QueryEngine:
         # what the caller asked for: k rises toward it as the index grows
         self.requested_k = k
         self.k = min(k, index.num_real)
-        self._fused = build_fused_query_fn(model_cfg, k=self.k, num_real=index.num_real)
+        self.pallas_variant = pallas_variant
+        self._fused = self._build_fused(self.k)
+
+    def _build_fused(self, k: int) -> Callable:
+        return build_fused_query_fn(
+            self.model_cfg, k=k, num_real=self.index.num_real,
+            pallas_variant=self.pallas_variant,
+        )
 
     # --------------------------------------------------------------- host
     # Length buckets: a batch is padded to the smallest bucket that holds
@@ -151,7 +171,7 @@ class QueryEngine:
         new_k = min(self.requested_k, self.index.num_real)
         if new_k != self.k:
             # warm the wider function before publishing it
-            new_fused = build_fused_query_fn(self.model_cfg, k=new_k, num_real=self.index.num_real)
+            new_fused = self._build_fused(new_k)
             self.warmup(fused=new_fused)
             self.k, self._fused = new_k, new_fused
         return self.index.num_real

@@ -1,9 +1,10 @@
 """HTTP front end over the port's QueryEngine (port of
 ``sse_tpu/serve/http.py``). stdlib only (ThreadingHTTPServer): GET and
 POST /api/query, GET /healthz, /api/stats (JSON), /metrics (Prometheus
-text), POST /api/add and /api/delete. POST /api/save and /api/reload need
-index persistence and the workspace, which are not ported yet (ROADMAP.md
-§1); they answer 501."""
+text), POST /api/add and /api/delete; POST /api/save (persist live adds
+and deletes to ``index_dir``) and POST /api/reload (rebuild the engine
+from ``model_dir``'s latest checkpoint and saved index, swapped in while
+queries keep running on the old one)."""
 
 from __future__ import annotations
 
@@ -43,8 +44,13 @@ _DEMO_PAGE = """<!doctype html>
 </body></html>"""
 
 
-def make_handler(engine):
-    """`engine` is a QueryEngine or a MicroBatcher wrapping one."""
+def make_handler(
+    engine,
+    index_dir: Optional[str] = None,
+    model_dir: Optional[str] = None,
+):
+    """`engine` is a QueryEngine or a MicroBatcher wrapping one.
+    `index_dir` enables POST /api/save, `model_dir` POST /api/reload."""
     from sse_tpu_torch.serve.batcher import MicroBatcher
 
     batcher = engine if isinstance(engine, MicroBatcher) else None
@@ -52,6 +58,31 @@ def make_handler(engine):
         engine = batcher.engine
     lock = threading.Lock()  # non-batched fallback: serialize device access
     stats = ServingStats()
+    reload_lock = threading.Lock()  # serializes concurrent /api/reload
+
+    def reload_engine():
+        """Build a fresh engine from what is on disk in model_dir (latest
+        checkpoint, saved index) and swap it in. The build and warmup run
+        outside the handler lock, so queries and mutations keep flowing on
+        the old engine; only the swap takes the lock. In-flight queries
+        finish on the old engine; live adds and deletes not saved with
+        POST /api/save are discarded (disk is the source of truth)."""
+        nonlocal engine
+        from sse_tpu_torch.workspace import Workspace  # lazy: avoids the cycle
+
+        with reload_lock:
+            ws = Workspace.open(model_dir, device=engine.device)
+            new_engine = ws.engine(
+                k=engine.requested_k,
+                max_batch=engine.max_batch,
+                bulk_batch=engine.bulk_batch,
+            )
+            new_engine.warmup()
+            with lock:  # atomic swap only
+                if batcher is not None:
+                    batcher.engine = new_engine  # _loop reads it per batch
+                engine = new_engine
+        return new_engine
 
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, body: bytes, ctype: str):
@@ -222,12 +253,56 @@ def make_handler(engine):
                     "application/json",
                 )
                 return
-            if url.path in ("/api/save", "/api/reload"):
+            if url.path == "/api/save":
+                # persist live adds/deletes (they are otherwise volatile)
+                if index_dir is None:
+                    self._send(
+                        400,
+                        b'{"error": "server started without an index_dir"}',
+                        "application/json",
+                    )
+                    return
+                try:
+                    with lock:
+                        engine.index.save(index_dir)
+                        n = engine.index.num_real
+                except Exception as e:
+                    self._send(
+                        500,
+                        json.dumps({"error": str(e)}).encode(),
+                        "application/json",
+                    )
+                    return
                 self._send(
-                    501,
-                    json.dumps(
-                        {"error": f"{url.path} is not ported yet (see ROADMAP.md)"}
-                    ).encode(),
+                    200,
+                    json.dumps({"saved": index_dir, "num_targets": n}).encode(),
+                    "application/json",
+                )
+                return
+            if url.path == "/api/reload":
+                # hot model/index reload: retrain and rebuild offline, then
+                # POST /api/reload; connections are never dropped
+                if model_dir is None:
+                    self._send(
+                        400,
+                        b'{"error": "server started without a model_dir"}',
+                        "application/json",
+                    )
+                    return
+                try:
+                    new_engine = reload_engine()  # locks internally
+                    n = new_engine.index.num_real
+                except Exception as e:
+                    self._send(
+                        500,
+                        json.dumps({"error": f"reload failed: {e}"}).encode(),
+                        "application/json",
+                    )
+                    return
+                stats.record_reload()
+                self._send(
+                    200,
+                    json.dumps({"reloaded": model_dir, "num_targets": n}).encode(),
                     "application/json",
                 )
                 return
@@ -338,6 +413,8 @@ def serve_http(
     port: int = 8080,
     block: bool = True,
     micro_batch: bool = True,
+    index_dir: Optional[str] = None,  # enables POST /api/save
+    model_dir: Optional[str] = None,  # enables POST /api/reload
 ) -> Optional[ThreadingHTTPServer]:
     """`micro_batch=True` coalesces concurrent requests into device
     batches (sse_tpu_torch.serve.batcher) — the production default."""
@@ -347,7 +424,7 @@ def serve_http(
         engine = MicroBatcher(engine)
     server = ThreadingHTTPServer(
         (host, port),
-        make_handler(engine),
+        make_handler(engine, index_dir=index_dir, model_dir=model_dir),
     )
     if block:
         # SIGTERM == Ctrl-C for container/orchestrator deployments: stop

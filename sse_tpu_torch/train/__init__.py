@@ -1,5 +1,5 @@
-"""Training layer: losses, train step, the training driver, metrics (port
-of ``sse_tpu.train``; checkpointing is not ported yet, see ROADMAP.md)."""
+"""Training layer: losses, train step, the training driver, metrics and
+checkpoints (``train.checkpoint``) (port of ``sse_tpu.train``)."""
 
 from sse_tpu_torch.train.losses import LossConfig, similarity_loss
 from sse_tpu_torch.train.loop import (

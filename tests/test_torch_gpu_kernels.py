@@ -98,6 +98,50 @@ def _check_topk(cuda, dtype, B, num_real, d):
     )
 
 
+@pytest.mark.parametrize("dtype,d", [("bf16", 128), ("int8", 128), ("f32", 128), ("bf16", 64),
+                                     ("int8", 256)])
+@pytest.mark.parametrize("B,num_real", [(8, 20000), (100, 19000), (64, 5), (8, 0)])
+def test_topk_exact_kernel_matches_plain(cuda, dtype, d, B, num_real):
+    """The exact variant (counter topk_exact) bit-identical to its plain
+    version on exact-dot inputs; sinks exactly float32(-3e38), row 0."""
+    from sse_tpu_torch.index.sharded_index import quantize_rows
+    from sse_tpu_torch.ops import topk
+
+    t, k = 20480, 10
+    if dtype == "int8":
+        x = torch.randn((t, d), generator=cuda, device="cuda")
+        emb = quantize_rows(x / x.norm(dim=1, keepdim=True), torch.int8)
+        q = torch.randn((B, d), generator=cuda, device="cuda")
+        q = q / q.norm(dim=1, keepdim=True)
+    else:
+        emb, q = _exact((t, d), cuda), _exact((B, d), cuda)
+        if dtype == "f32":
+            emb, q = emb.float(), q.float()
+    n = topk.launches["topk_exact"]
+    got = topk.fused_score_topk(q, emb, k, num_real, variant="exact")
+    assert topk.launches["topk_exact"] == n + 1
+    want = topk.topk_reference(q, emb, k, num_real, variant="exact")
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    real = min(num_real, k)
+    assert (got[0][:, real:] == -3.0e38).all() and (got[1][:, real:] == 0).all()
+
+
+def test_topk_exact_negative_zero(cuda):
+    """Products that are all -0.0 score +0.0 in the kernel and the plain
+    version alike: ties to the lower row."""
+    from sse_tpu_torch.ops import topk
+
+    q = torch.zeros((8, 64), device="cuda", dtype=torch.bfloat16)
+    q[:, 0] = -1.0
+    emb = torch.full((4096, 64), -0.5, device="cuda", dtype=torch.bfloat16)
+    emb[:, 0] = 0.0
+    emb[77, 0] = -0.25
+    got = topk.fused_score_topk(q, emb, 10, 4096, variant="exact")
+    want = topk.topk_reference(q, emb, 10, 4096, variant="exact")
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert got[1][0].tolist() == [77] + list(range(9))
+
+
 def test_cuda_wrappers_raise_on_bad_input(cuda):
     from sse_tpu_torch.ops import topk
 

@@ -261,3 +261,116 @@ def test_cpu_tensors_never_launch_kernels():
     ttopk.fused_score_topk(tq, te, 5, 500)
     ttopk.fused_score_topk_twophase(tq, te, 5, 500, block_t=64)
     assert ttopk.launches == before
+
+
+# ------------------------------------------------------------- exact variant
+# Held against JAX fused_score_topk(variant="exact") in interpret mode
+# (_kernel + _topk_passes). On exact-dot inputs (multiples of 1/16 for the
+# float indexes, whose float32 sums are exact in any order; int8 sums are
+# exact integers) rows and values must be bit-identical. With fewer real
+# rows than k the real slots must be equal, the sinks exactly
+# float32(-3e38) and their rows in range.
+
+
+def _exact_dot(seed, b, d, t):
+    rng = np.random.default_rng(seed)
+    grid = lambda n: (rng.integers(-16, 17, size=(n, d)) / 16.0).astype(np.float32)  # noqa: E731
+    return grid(b), grid(t)
+
+
+def _jax_exact(q, je, k, num_real, block_t=256):
+    return jtopk.fused_score_topk(
+        jnp.asarray(q), je, k, num_real, block_t=block_t, interpret=True, variant="exact"
+    )
+
+
+def _assert_exact(port, ref, num_real, t):
+    pv, pi = (x.numpy() for x in port)
+    rv, ri = (np.asarray(x) for x in ref)
+    real = min(num_real, pi.shape[1])
+    np.testing.assert_array_equal(pi[:, :real], ri[:, :real])
+    np.testing.assert_array_equal(pv[:, :real].view(np.int32), rv[:, :real].view(np.int32))
+    assert (pv[:, real:] == np.float32(ttopk.NEG)).all() and (rv[:, real:] == pv[:, real:]).all()
+    assert ((pi >= 0) & (pi < t)).all()
+
+
+@pytest.mark.parametrize("num_real_of", [lambda t: t, lambda t: t - 100, lambda t: 5, lambda t: 0],
+                         ids=["T", "T-100", "5", "0"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_exact_matches_pallas(dtype, num_real_of):
+    b, d, t = 8, 32, 1024
+    num_real = num_real_of(t)
+    if dtype == "int8":
+        q, emb = _inputs(20, b, d, t)
+    else:
+        q, emb = _exact_dot(20, b, d, t)
+    je, te = _index(dtype, emb)
+    ref = _jax_exact(q, je, 10, num_real)
+    got = ttopk.fused_score_topk(torch.from_numpy(q), te, 10, num_real, variant="exact")
+    _assert_exact(got, ref, num_real, t)
+    ref_port = ttopk.topk_reference(torch.from_numpy(q), te, 10, num_real, variant="exact")
+    assert all(torch.equal(a, b) for a, b in zip(got, ref_port))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_exact_random_rows_within_1e6(dtype):
+    """Random unit rows: float32 sums in another order. Values within
+    1e-6; a differing row only where the two rows' scores lie within
+    1e-6 of each other."""
+    b, d, t = 8, 32, 1024
+    q, emb = _inputs(21, b, d, t)
+    je, te = _index(dtype, emb)
+    rv, ri = (np.asarray(x) for x in _jax_exact(q, je, 10, t - 3))
+    pv, pi = (x.numpy() for x in ttopk.topk_reference(torch.from_numpy(q), te, 10, t - 3,
+                                                      variant="exact"))
+    np.testing.assert_allclose(pv, rv, atol=1e-6, rtol=0)
+    exact = q.astype(np.float64) @ emb.astype(np.float64).T
+    for i, j in zip(*np.nonzero(pi != ri)):
+        assert abs(exact[i, pi[i, j]] - exact[i, ri[i, j]]) <= 1e-6, (i, j)
+
+
+def test_exact_massive_ties():
+    """±1 rows (tests/test_ops.py:213): many exactly equal scores within
+    and across blocks go to the lower row, as JAX's passes order them."""
+    b, d, t = 8, 16, 768
+    rng = np.random.default_rng(7)
+    q = np.sign(rng.normal(size=(b, d))).astype(np.float32)
+    emb = np.sign(rng.normal(size=(t, d))).astype(np.float32)
+    ref = _jax_exact(q, jnp.asarray(emb), 10, t)
+    got = ttopk.fused_score_topk(torch.from_numpy(q), torch.from_numpy(emb), 10, t,
+                                 variant="exact")
+    _assert_exact(got, ref, t, t)
+    for r in got[1].numpy():
+        assert len(set(r)) == 10
+
+
+def test_exact_sparse_query_negative_zero(monkeypatch):
+    """A sparse query whose every product with most rows is -0.0: those
+    scores tie with +0.0 and go to the lower row, as JAX's ``scores ==
+    max`` treats them; the plain key maps -0.0 to +0.0 (the kernel adds
+    +0.0)."""
+    d, t = 16, 256
+    q = np.zeros((8, d), np.float32)
+    q[:, 0] = -1.0
+    emb = np.zeros((t, d), np.float32)
+    emb[:, 1:] = -0.5  # q·e: -1·0 and 0·(-0.5), all -0.0 products
+    emb[40, 0] = -0.25  # one positive score
+    emb[9] = 0.0  # a zero row: +0.0 products
+    ref = _jax_exact(q, jnp.asarray(emb), 10, t, block_t=64)
+    got = ttopk.fused_score_topk(torch.from_numpy(q), torch.from_numpy(emb), 10, t,
+                                 variant="exact")
+    _assert_exact(got, ref, t, t)
+    assert list(got[1][0].numpy()) == [40] + list(range(9))
+    # no CPU matmul here makes a -0.0 sum; hand the plain version one
+    monkeypatch.setattr(ttopk, "_scores", lambda q, e, i: torch.tensor([[-0.0, 0.0, -0.0, 1.0]]))
+    s = ttopk._exact_scores(None, None, False)
+    assert not torch.signbit(s).any() and ttopk.to_sortable(s)[0, :3].unique().numel() == 1
+
+
+def test_exact_variant_validation():
+    q, emb = torch.zeros((2, 8)), torch.zeros((16, 8))
+    with pytest.raises(ValueError, match="variant"):
+        ttopk.fused_score_topk(q, emb, 2, 16, variant="fast")
+    before = dict(ttopk.launches)
+    ttopk.fused_score_topk(q, emb, 2, 16, variant="exact")
+    assert ttopk.launches == before

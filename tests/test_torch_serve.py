@@ -6,9 +6,12 @@ Tolerances: index rows to atol 2e-3 / rtol 1e-3 (encoder tolerance,
 tests/test_ops_rnn.py). Query rows from the same tokens: identical, or —
 where the two encoders' last-bit differences move a score across an
 11-bit key bucket — the two rows' scores lie within one bucket (2^-11
-relative) of each other.
+relative) of each other. With the exact variant (full float32 keys) a
+differing row's scores lie within 1e-5 of each other, and values agree
+to 1e-5.
 """
 
+import dataclasses
 import glob
 import json
 import os
@@ -36,6 +39,7 @@ from sse_tpu_torch.convert import params_from_jax
 from sse_tpu_torch.index import sharded_index as tindex
 from sse_tpu_torch.models import sse as tsse
 from sse_tpu_torch.models import towers as ttowers
+from sse_tpu_torch.ops import topk
 from sse_tpu_torch.serve import QueryEngine, engine as tengine, serve_http
 
 L = 12
@@ -117,6 +121,112 @@ def test_fused_query_fn_matches_pallas(setup, dtype):
         a, b = (float(qq[i] @ temb[r].double()) for r in (ji[i, j], ti[i, j]))
         assert abs(a - b) <= 2.0**-11 * max(abs(a), abs(b)), (i, j, a, b)
     assert (ji == ti).mean() > 0.9
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_fused_query_fn_exact_matches_pallas(setup, dtype):
+    """pallas_variant="exact": the port's fused function against the JAX
+    program with the exact Pallas kernel (interpret mode), same params and
+    index. A differing row must have scores within 1e-5 of each other
+    (the two encoders differ in their last bits)."""
+    _, _, jcfg, tcfg, jparams, tparams, _ = setup
+    rng = np.random.default_rng(4)
+    emb = rng.normal(size=(512, 16)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    jd = {"f32": jnp.float32, "bf16": jnp.bfloat16, "int8": jnp.int8}[dtype]
+    td = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    jemb = jindex.quantize_rows(emb, jd)
+    temb = torch.from_numpy(np.asarray(jemb).astype(np.float32)).to(td)
+    toks = rng.integers(2, tcfg.src_tower.vocab_size, size=(8, L)).astype(np.int32)
+    lens = rng.integers(1, L + 1, size=(8,)).astype(np.int32)
+    jv, ji = jax_fused_fn(
+        jcfg, k=5, num_real=500, use_pallas=True, interpret=True, emb_dtype=jd,
+        pallas_variant="exact",
+    )(jparams, jemb, jnp.asarray(toks), jnp.asarray(lens))
+    fused = tengine.build_fused_query_fn(tcfg, k=5, num_real=500, pallas_variant="exact")
+    tv, ti = fused(tparams, temb, torch.from_numpy(toks), torch.from_numpy(lens))
+    ji, ti = np.asarray(ji), ti.numpy()
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5, rtol=0)
+    q = tsse.encode_source(tparams, tcfg, torch.from_numpy(toks), torch.from_numpy(lens))
+    qq = q.to(td).double() if dtype != "int8" else torch.round(q * 127).double()
+    for i, j in zip(*np.nonzero(ji != ti)):
+        a, b = (float(qq[i] @ temb[r].double()) for r in (ji[i, j], ti[i, j]))
+        scale = 1.0 / 127**2 if dtype == "int8" else 1.0
+        assert abs(a - b) * scale <= 1e-5, (i, j, a, b)
+    assert (ji == ti).mean() > 0.9
+
+
+def test_exact_engine_always_streams(setup, monkeypatch):
+    """An exact engine at B >= TWOPHASE_MIN_BATCH streams (never the
+    two-phase route, as in JAX); its rows are topk_reference(exact)'s, and
+    add_documents' k rebuild keeps the variant."""
+    vocab, tspace, _, tcfg, _, tparams, ev = setup
+    calls = []
+    monkeypatch.setattr(tengine, "TWOPHASE_MIN_BATCH", 4)
+    monkeypatch.setattr(tengine, "twophase_block_t", lambda t, k: 8)
+    monkeypatch.setattr(tengine, "fused_score_topk_twophase", lambda *a, **kw: calls.append(1))
+    index = tindex.build_index(tparams, tcfg, tspace, batch_size=16, capacity=40)
+    eng = QueryEngine(tparams, tcfg, vocab, index, max_seq_length=L, max_batch=4, k=5,
+                      pallas_variant="exact")
+    texts = [s for s, _ in ev[:4]]
+    res = eng.query(texts)
+    assert not calls and eng.pallas_variant == "exact"
+    tokens, lengths = eng.encode_queries(texts)
+    q = tsse.encode_source(tparams, tcfg, tokens, lengths)
+    _, rows = topk.topk_reference(q, index.emb, 5, index.num_real, variant="exact")
+    assert [[h["row"] for h in hits] for hits in res] == rows.tolist()
+    small = tindex.from_embeddings(np.eye(3, 16, dtype=np.float32), ["a", "b", "c"],
+                                   ["x", "y", "z"], capacity=16, device="cpu")
+    eng = QueryEngine(tparams, tcfg, vocab, small, max_seq_length=L, max_batch=4, k=5,
+                      pallas_variant="exact")
+    eng.add_documents(["d", "e", "f"], ["one", "two", "three"])
+    assert eng.k == 5 and len(eng.query(["x"] * 4)[0]) == 5 and not calls
+    with pytest.raises(ValueError, match="pallas_variant"):
+        tengine.build_fused_query_fn(tcfg, k=5, pallas_variant="fast")
+
+
+def test_http_save_and_reload(tmp_path):
+    """/api/save persists a live add to the workspace's index; a second
+    train into the same model dir, then /api/reload, serves the new
+    checkpoint with the saved index (the added document included), and
+    queries keep working after the swap."""
+    from sse_tpu_torch import configs as tconfigs
+    from sse_tpu_torch.data import synthetic as tsynthetic
+    from sse_tpu_torch.train.checkpoint import CheckpointManager
+    from sse_tpu_torch.workspace import Workspace
+
+    data = str(tmp_path / "data")
+    tsynthetic.write_corpus(data, *tsynthetic.make_corpus(task="ranking", num_targets=12,
+                                                          train_per_target=4, seed=2))
+    cfg = tconfigs.preset("ranking", embed_dim=16, hidden=16, encoding_dim=16, vocab_size=200,
+                          max_seq_length=L, batch_size=16, max_epochs=1, num_negatives=4,
+                          num_hard_negatives=0)
+    ws = Workspace.create(str(tmp_path / "run"), cfg, device="cpu")
+    ws.train(data)
+    ws.build_index(data, capacity=32)
+    engine = ws.engine(k=5)
+    server = serve_http(engine, port=_free_port(), block=False, index_dir=ws.index_dir,
+                        model_dir=ws.model_dir)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        code, body = _call(base + "/api/add", [{"targetId": "n1", "targetText": "tab\tnew doc"}])
+        assert code == 200 and json.loads(body)["num_targets"] == 13
+        code, body = _call(base + "/api/save", {})
+        assert code == 200 and json.loads(body) == {"saved": ws.index_dir, "num_targets": 13}
+        saved = tindex.ShardedIndex.load(ws.index_dir, device="cpu")
+        assert saved.ids[-1] == "n1" and saved.texts[-1] == "tab\tnew doc"
+        first = CheckpointManager(ws.ckpt_dir).latest_step()
+        Workspace.create(ws.model_dir, dataclasses.replace(cfg, max_epochs=2), "cpu").train(data)
+        assert CheckpointManager(ws.ckpt_dir).latest_step() > first
+        code, body = _call(base + "/api/reload", {})
+        assert code == 200 and json.loads(body) == {"reloaded": ws.model_dir, "num_targets": 13}
+        code, body = _call(base + "/api/query?keywords=new+doc")
+        assert code == 200 and len(json.loads(body)["results"]) == 5
+        stats = json.loads(_call(base + "/api/stats")[1])
+        assert stats["reloads"] == 1 and stats["index_num_targets"] == 13
+    finally:
+        server.shutdown()
+        server.server_close()
 
 
 def test_twophase_route_equals_streaming(setup, monkeypatch):
@@ -202,7 +312,11 @@ def test_http_api(setup):
         code, body = _call(base + "/api/delete", ["n1"])
         assert code == 200 and json.loads(body)["num_targets"] == 24
         assert _call(base + "/api/delete", ["missing"])[0] == 400
-        assert _call(base + "/api/save", {})[0] == 501
+        # started without index_dir / model_dir: the JAX package's 400s
+        assert _call(base + "/api/save", {}) == (
+            400, b'{"error": "server started without an index_dir"}')
+        assert _call(base + "/api/reload", {}) == (
+            400, b'{"error": "server started without a model_dir"}')
         assert _call(base + "/api/query?keywords=")[0] == 400
         stats = json.loads(_call(base + "/api/stats")[1])
         assert stats["queries"] == 10 and stats["index_num_targets"] == 24
