@@ -2,13 +2,20 @@
 GRU and LSTM towers, both top-k variants, and the model-dir CLI.
 
     python3 chip_smoke.py            # needs one CUDA card; no network
+    python3 chip_smoke.py --costs    # only the GRU recurrences' per-step costs
+
+``--costs`` times the ``sse_tpu_torch`` beside this file (gru_fwd_costs,
+gru_bwd_costs): a copy of this file in another checkout measures that
+checkout's kernels, so two commits compare in one run, taken in turns.
 
 1. Device check: a CUDA card is required (no CPU branch); prints the
    card's name and power limit (nvidia-smi) and the kernel build time.
 2. Each Hopper kernel against its plain PyTorch version at the shapes of
    the paths below (T=50, E=H=128, ragged lengths): the GRU layer forward
-   (B=8 and 4096) and the LSTM layer forward (B=8, 256 and 4096; fin to
-   atol 2e-3 / rtol 1e-3, bf16 ys and cs to one bf16 ulp); the scan over
+   (B=8, 256, 384 and 4096) and the LSTM layer forward (B=8, 256 and 4096;
+   fin to atol 2e-3 / rtol 1e-3, bf16 ys and cs to one bf16 ulp), and the
+   GRU recurrences' cost per step (gru_fwd_costs, gru_bwd_costs: the
+   slope over T=1, 2, 50 of the kernels' device time); the scan over
    precomputed pre-activations, GRU and LSTM (B=4096, the same bounds);
    the GRU and LSTM layer backward (B=128, 256, 384 and 2,304; end to
    end and at each rounding point, tolerances in check_bwd); the
@@ -191,17 +198,118 @@ def cudnn_lstm(wx, wh, b) -> torch.nn.LSTM:
     return lstm
 
 
+def slope_line(name: str, ms_by_t: dict) -> str:
+    """The per-step cost and the fixed cost of a recurrence from its times
+    at T=1 and T=50 (least squares over every T given): slope = ms per
+    step, intercept = staging plus launch."""
+    ts = sorted(ms_by_t)
+    n = len(ts)
+    mt, mm = sum(ts) / n, sum(ms_by_t.values()) / n
+    slope = (sum((t - mt) * (ms_by_t[t] - mm) for t in ts)
+             / sum((t - mt) ** 2 for t in ts))
+    times = ", ".join(f"T={t} {ms_by_t[t]:.4f}" for t in ts)
+    return (f"{name}: {times} ms; {1000.0 * slope:.3f} us a step, intercept "
+            f"{mm - slope * mt:.4f} ms")
+
+
+def kernel_ms(run, pattern: str, reps: int = 10) -> float:
+    """Mean device ms that one run() spends in the kernels whose name holds
+    ``pattern`` (torch.profiler, after a warm run)."""
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    return sum(ms for k, ms in device_times(prof).items() if pattern in k) / reps
+
+
+def gru_fwd_costs(card: str, Bs=(8, 256, 384, 4096), Ts=(1, 2, 50)) -> dict:
+    """The GRU layer forward (``rnn.rnn_layer``, E=H=128, full lengths) at
+    each (B, T): the kernel's device time (kernel_ms) and the whole call's
+    (CUDA events, which at small T time the host's launch path); logs
+    each B's per-step slope and intercept of both, and the bound at the
+    largest T. Returns {B: {T: (kernel ms, call ms)}}."""
+    from sse_tpu_torch.ops import rnn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    E = H = 128
+    wx, wh, b = layer_weights(E, H, 3, gen)
+    out = {}
+    for B in Bs:
+        xs_all = torch.randn((max(Ts), B, E), generator=gen, device="cuda").bfloat16()
+        out[B] = {}
+        for T in Ts:
+            xs = xs_all[:T].contiguous()
+            mask = torch.ones((T, 1, B), device="cuda")
+            run = lambda: rnn.rnn_layer(xs, mask, wx, wh, b)  # noqa: E731
+            out[B][T] = (kernel_ms(run, "gru_fwd_kernel"), cuda_ms(run, reps=20))
+        ys, fin = run()
+        bnd = bound(nbytes(xs, mask, wx, wh, b, ys, fin), 2.0 * T * B * (E + H) * 3 * H)
+        log(slope_line(f"gru_fwd B={B} E=H={H} kernel", {t: v[0] for t, v in out[B].items()})
+            + "; whole call: " + slope_line("call", {t: v[1] for t, v in out[B].items()})
+            + f"; bound at T={T} {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
+    return out
+
+
+def gru_bwd_costs(card: str, Bs=(8, 256, 384, 2304, 4096), Ts=(1, 2, 50)) -> dict:
+    """The GRU layer backward (``rnn.gru_bwd_launch``, E=H=128, full
+    lengths) at each (B, T): whole backward (CUDA events), its kernels'
+    device time and its dh loop kernel alone (torch.profiler, bwd_split);
+    logs each B's slopes and the bound at the largest T. Returns {B: {T:
+    (ms, dh ms, kernels ms)}}."""
+    from sse_tpu_torch.ops import rnn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    E = H = 128
+    wx, wh, b = layer_weights(E, H, 3, gen)
+    out = {}
+    for B in Bs:
+        out[B] = {}
+        for T in Ts:
+            xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
+            mask = torch.ones((T, 1, B), device="cuda")
+            ys, _ = rnn.rnn_layer(xs, mask, wx, wh, b)
+            dys = (torch.randn((T, B, H), generator=gen, device="cuda") * 0.1).bfloat16()
+            dfin = torch.randn((B, H), generator=gen, device="cuda")
+            run = lambda: rnn.gru_bwd_launch(xs, ys, mask, wx, wh, b, dys, dfin)  # noqa: E731
+            split = bwd_split(run, "gru")
+            out[B][T] = (cuda_ms(run, reps=20), split["dh_loop"], sum(split.values()))
+        bnd = bound(nbytes(xs, ys, mask, wx, wh, b, dys, dfin, *run()[:4]),
+                    2.0 * T * B * 3 * H * 3 * (E + H))
+        log(slope_line(f"gru_bwd B={B} E=H={H}", {t: v[0] for t, v in out[B].items()})
+            + f"; its kernels' device time at T={T} {out[B][T][2]:.4f} ms, of it the dh loop: "
+            + slope_line("dh", {t: v[1] for t, v in out[B].items()})
+            + f"; bound at T={T} {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
+    return out
+
+
 # ------------------------------------------------------------ phase 2
+def ptxas_report(log_text: str, pattern: str) -> list:
+    """nvcc's -Xptxas -v report of each kernel whose (mangled) name holds
+    ``pattern``: registers, stack and spill bytes, one line each."""
+    out, name = [], None
+    for line in log_text.splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+            out.append([name, ""])
+        elif name and pattern in name and ("spill" in line or "Used " in line):
+            out[-1][1] += " " + line.split(":", 1)[-1].strip()
+    return [f"{n}:{r}" for n, r in out if pattern in n]
+
+
 def check_gru(card: str, results: dict) -> None:
     """The GRU layer forward against its plain version at T=50, E=H=128,
-    B = 8 and 4096 (hold_layer)."""
+    B = 8 and 4096 (the served tiers), 256 and 384 (the train bench's
+    source and target towers) (hold_layer); then its per-step cost
+    (gru_fwd_costs)."""
     from sse_tpu_torch.ops import rnn
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     T, E, H = 50, 128, 128
     wx, wh, b = layer_weights(E, H, 3, gen)
     err = 0.0
-    for B in (8, 4096):
+    for B in (8, 256, 384, 4096):
         xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
         args = (xs, ragged_mask(T, B, gen), wx, wh, b)
         ys, fin = rnn.rnn_layer(*args)
@@ -209,15 +317,17 @@ def check_gru(card: str, results: dict) -> None:
         e, e_ys, flips = hold_layer(f"gru_fwd B={B}", (ys, fin), rnn.rnn_layer_reference(*args))
         err = max(err, e, e_ys)
         ms = cuda_ms(lambda: rnn.rnn_layer(*args))
+        dev = kernel_ms(lambda: rnn.rnn_layer(*args), "gru_fwd_kernel")
         plain = cuda_ms(lambda: rnn.rnn_layer_reference(*args), reps=3)
         log(f"gru_fwd T={T} B={B} E=H={H}: fin max_abs_err {e:.3g} (atol 2e-3, rtol 1e-3), "
             f"{flips} of {ys.numel()} bf16 ys values differ (max {e_ys:.3g}, one ulp); "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]")
+            f"kernel {ms:.4f} ms (its device time {dev:.4f}), plain {plain:.4f} ms [{card}]")
         if B == 4096:
             results["gru_fwd"].update(
-                ms=ms, plain_ms=plain, library_ms=None,
+                ms=ms, device_ms=dev, plain_ms=plain, library_ms=None,
                 **bound(nbytes(*args, ys, fin), 2.0 * T * B * (E + H) * 3 * H))
     results["gru_fwd"]["max_abs_err"] = err
+    gru_fwd_costs(card)
 
 
 def check_lstm(card: str, results: dict) -> None:
@@ -710,6 +820,10 @@ def served_slice(label: str, cfg, corpus, n_post: int, variant: str = "packed") 
     counts = ops.launch_counts()
     log(f"{label} launches during the served run: {counts}; server stats: "
         f"queries={stats['queries']}")
+    split = query_split(engine, get_texts[0])
+    log(f"{label} one query at the B=8 tier (engine.query, torch.profiler, ms per query): "
+        f"device {sum(split.values()):.4f}; "
+        + json.dumps({k[:60]: round(v, 4) for k, v in sorted(split.items(), key=lambda kv: -kv[1])}))
     check(len(served) == len(texts), "POST: one result list per query")
     for hits in served:
         check(len(hits) == K and all(h["targetId"] in known for h in hits), f"POST: {hits}")
@@ -724,6 +838,17 @@ def served_slice(label: str, cfg, corpus, n_post: int, variant: str = "packed") 
         log(f"{label}: served rows == topk_reference(variant={variant!r}) for {len(tx)} "
             f"{name} queries ({n} positions differ, the two rows' scores {tol})")
     return counts
+
+
+def query_split(engine, text: str, reps: int = 5) -> dict:
+    """Device ms of each kernel and copy of one served query, from
+    torch.profiler over ``reps`` queries after a warm one."""
+    engine.query([text])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            engine.query([text])
+        torch.cuda.synchronize()
+    return {k: v / reps for k, v in device_times(prof).items()}
 
 
 def same_as_reference(engine, params, cfg, index, texts, served, variant="packed") -> int:
@@ -1093,11 +1218,18 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     _build.library()
     log(f"kernel build: {_build.build_info['seconds']:.1f} s")
+    for line in ptxas_report(_build.build_info["log"], "gru_"):
+        log(f"ptxas: {line}")
+    if "--costs" in sys.argv[1:]:
+        gru_fwd_costs(card)
+        gru_bwd_costs(card)
+        return
     results = {name: {} for name in KERNELS}
     check_gru(card, results)
     check_lstm(card, results)
     check_scan(card, results)
     check_bwd(card, results, "gru")
+    gru_bwd_costs(card)
     check_bwd(card, results, "lstm")
     check_topk(card, results)
     check_topk_exact(card, results)

@@ -22,8 +22,8 @@
 // dW product into fixed partials, (5) their in-order sum with the loop's
 // per-block db partials (gemm_tiles.cuh). No float atomics.
 //
-// What bounds it on the H100: the serial loop, latency-bound like
-// gru_bwd's (T steps of a [32, 4H]·[4H, H] product per block and one
+// What bounds it on the H100: the serial loop, latency-bound (T steps of
+// a [32, 4H]·[4H, H] product per block and one
 // barrier a step, on ceil(B/32) SMs: 8 at B=256); the products are ~4/3
 // of the GRU's FLOPs on the same untuned mma.sync tiles; the gates buffer
 // costs 2·T·B·4H·4 bytes of traffic (52 MB at T=50, B=256).

@@ -15,10 +15,12 @@
 //     ax + bf16(h)·Wh is _fwd_core's (xs·Wx + b) + h·Wh.
 //
 // Why two launches for the LSTM, where gru_fwd.cu fuses its layer: that
-// design keeps [Wx;Wh]ᵀ in shared memory, which with four gates is
-// (4·128·(256+8) + 2·32·136)·2 = 287,744 B at E=H=128, above the
-// 232,448-byte opt-in limit. The scan keeps only Whᵀ: (4·128·136 +
-// 2·32·136)·2 = 156,672 B. The price is the ax round trip through device
+// design keeps Wxᵀ in shared memory and each warp's Whᵀ fragments in
+// registers (96 a thread at E=H=128, 180 registers in all). With four
+// gates Whᵀ alone would be 128 registers a thread, beside a cell that
+// also carries c, and [Wx;Wh]ᵀ all in shared memory is 4·128·(256+8)·2 =
+// 270,336 B, above the 232,448-byte opt-in limit. The scan keeps only
+// Whᵀ: (4·128·136 + 2·32·136)·2 = 156,672 B. The price is the ax round trip through device
 // memory, 2·T·B·4H·4 bytes: 0.84 GB at B=4096, T=50, ~0.25 ms at
 // 3.35 TB/s. A fused design (a thread-block cluster sharing the weights
 // through distributed shared memory, or Wx streamed from L2) is later work.

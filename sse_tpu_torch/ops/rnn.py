@@ -206,12 +206,24 @@ def _layer_args(xs, mask, wx, wh, b, G):
     }
 
 
-def gru_fwd_launch(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_weight_t(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """[Wx;Wh]ᵀ [G·H, E+H], contiguous: the weight layout the GRU forward
+    kernel copies into shared memory row by row and the backward's gate
+    recompute reads (the TPU kernel's wxᵀ/whᵀ)."""
+    return torch.cat([wx, wh]).t().contiguous()
+
+
+def gru_fwd_launch(xs, mask, wx, wh, b, wt=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``csrc/gru_fwd.cu`` on CUDA tensors (contiguous, 16-byte aligned:
-    xs, wx, wh bf16; mask, b fp32) → (ys, fin)."""
+    xs, wx, wh bf16; mask, b fp32) → (ys, fin). ``wt`` is
+    ``fused_weight_t(wx, wh)`` where the caller has it (built here if
+    not)."""
     _check_args("gru_fwd", _layer_args(xs, mask, wx, wh, b, 3))
     T, B, E = xs.shape
     H = wh.shape[0]
+    wt = fused_weight_t(wx, wh) if wt is None else wt
+    _check_args("gru_fwd", {"xs": (xs, torch.bfloat16, (T, B, E)),
+                            "wt": (wt, torch.bfloat16, (3 * H, E + H))})
     if E % 16 or H % 16 or H > 512:
         raise ValueError(f"gru_fwd: needs E, H multiples of 16 and H <= 512 (E={E}, H={H})")
     _smem("gru_fwd", "sse_gru_fwd_smem_bytes", E, H)
@@ -220,9 +232,9 @@ def gru_fwd_launch(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
     if T == 0 or B == 0:
         return ys, fin.zero_()
     _build.launch(
-        "sse_gru_fwd", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4, xs.device,
-        xs.data_ptr(), mask.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-        b.data_ptr(), ys.data_ptr(), fin.data_ptr(), T, B, E, H,
+        "sse_gru_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4, xs.device,
+        xs.data_ptr(), mask.data_ptr(), wt.data_ptr(), b.data_ptr(), ys.data_ptr(),
+        fin.data_ptr(), T, B, E, H,
     )
     launches["gru_fwd"] += 1
     return ys, fin
@@ -286,13 +298,14 @@ def rnn_scan_launch(ax, mask, wh, cell: str = "gru") -> Tuple[torch.Tensor, torc
 
 
 # ------------------------------------------------------------ forward wrappers
-def _layer_fwd(xs, mask, wx, wh, b, cell):
+def _layer_fwd(xs, mask, wx, wh, b, cell, wt=None):
     """(ys, fin, cs | None): the kernel on CUDA tensors, the plain version
-    on CPU tensors."""
+    on CPU tensors. ``wt``: ``fused_weight_t(wx, wh)``, if the caller has
+    it (the GRU kernel takes it)."""
     if not xs.is_cuda:
         return _scan_reference(_x_product(xs, wx, b), mask, wh, cell)
     if _n_gates(cell) == 3:
-        return (*gru_fwd_launch(xs, mask, wx, wh, b), None)
+        return (*gru_fwd_launch(xs, mask, wx, wh, b, wt), None)
     return lstm_fwd_launch(xs, mask, wx, wh, b)[:3]
 
 
@@ -522,9 +535,10 @@ def _dw_splits(rows: int) -> int:
     return max(1, min(16, -(-rows // 2048)))
 
 
-def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Tensor, ...]:
+def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None) -> Tuple[torch.Tensor, ...]:
     """``csrc/{gru,lstm}_bwd.cu`` on CUDA tensors → (dxs, dWx, dWh, db,
-    gates [T,B,G·H] fp32, dgates_b [T,B,G·H] bf16)."""
+    gates [T,B,G·H] fp32, dgates_b [T,B,G·H] bf16). ``wt``:
+    ``fused_weight_t(wx, wh)`` where the caller has it."""
     G = _n_gates(cell)
     name = f"{cell}_bwd"
     T, B, E = xs.shape
@@ -545,6 +559,8 @@ def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Ten
             raise ValueError("lstm backward: needs cs, the forward's bf16 c stream")
         args["cs"] = (cs, torch.bfloat16, (T, B, H))
     _check_args(name, args)
+    wt = fused_weight_t(wx, wh) if wt is None else wt
+    _check_args(name, {"xs": args["xs"], "wt": (wt, torch.bfloat16, (N, E + H))})
     if E % 16 or H % 16:
         raise ValueError(f"{name}: needs E, H multiples of 16 (E={E}, H={H})")
     _smem(name, f"sse_{name}_smem_bytes", H)
@@ -566,7 +582,6 @@ def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Ten
     # scratch: the db and dW partial sums
     db_part = torch.empty((nblk, N), dtype=torch.float32, device=dev)
     w_part = torch.empty((splits, E + H, N), dtype=torch.float32, device=dev)
-    wt = torch.cat([wx, wh]).t().contiguous()  # [Wx;Wh]ᵀ, as the TPU kernel's wxᵀ/whᵀ
     ptrs = [xs, ys, *([cs] if cell == "lstm" else []), mask, wt, wx, wh, b, dys, dfin,
             gates, dgb, db_part, w_part, dxs, dw, db]
     _build.launch(
@@ -577,12 +592,12 @@ def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Ten
     return dxs, dw[:E], dw[E:], db, gates, dgb
 
 
-def gru_bwd_launch(xs, ys, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Tensor, ...]:
+def gru_bwd_launch(xs, ys, mask, wx, wh, b, dys, dfin, wt=None) -> Tuple[torch.Tensor, ...]:
     """The GRU backward on CUDA tensors (contiguous, 16-byte aligned: xs,
     ys, dys, wx, wh bf16; mask, b, dfin fp32), which also returns the
     kernels' intermediates: (dxs, dWx, dWh, db, gates [T,B,3H] fp32,
     dgates_b [T,B,3H] bf16), for checks that hold each rounding point."""
-    return _bwd_launch("gru", xs, ys, None, mask, wx, wh, b, dys, dfin)
+    return _bwd_launch("gru", xs, ys, None, mask, wx, wh, b, dys, dfin, wt)
 
 
 def lstm_bwd_launch(xs, ys, cs, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Tensor, ...]:
@@ -603,14 +618,17 @@ def rnn_layer_bwd(
     dfin: torch.Tensor,
     cs: Optional[torch.Tensor] = None,
     cell: str = "gru",
+    wt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer backward: the Hopper kernels on CUDA tensors (which must
     be contiguous and 16-byte aligned: xs, ys, cs, dys, wx, wh bf16; mask,
     b, dfin fp32), the plain version on CPU tensors. ``cs`` is the LSTM's
-    c stream. Returns (dxs bf16, dWx, dWh, db fp32)."""
+    c stream; ``wt`` is ``fused_weight_t(wx, wh)`` where the caller has it
+    (the kernels build it otherwise). Returns (dxs bf16, dWx, dWh, db
+    fp32)."""
     if not xs.is_cuda:
         return rnn_layer_bwd_reference(xs, ys, mask, wx, wh, b, dys, dfin, cs, cell)
-    return _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin)[:4]
+    return _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt)[:4]
 
 
 class RNNLayer(torch.autograd.Function):
@@ -618,7 +636,9 @@ class RNNLayer(torch.autograd.Function):
     b, cell="gru")`` → (ys bf16, fin fp32). Forward is ``rnn_layer``,
     backward ``rnn_layer_bwd`` (port of the ``jax.custom_vjp`` at
     ``pallas_rnn.py:441-466``); the LSTM saves its bf16 c stream for the
-    backward. The float32 weights are cast to bf16 inside, so their
+    backward. ``fused_weight_t`` is built once per forward: the GRU
+    forward kernel takes it, and it is saved for the backward's gate
+    recompute. The float32 weights are cast to bf16 inside, so their
     gradients come back in float32, unrounded; ``dxs`` is bf16 and is
     cast to the dtype ``xs`` came in; ``mask`` gets none."""
 
@@ -626,14 +646,15 @@ class RNNLayer(torch.autograd.Function):
     def forward(ctx, xs, mask, wx, wh, b, cell="gru"):
         ctx.xs_dtype, ctx.b_shape, ctx.cell = xs.dtype, b.shape, cell
         args = _cast_layer(xs, mask, wx, wh, b)
-        ys, fin, cs = _layer_fwd(*args, cell)
-        ctx.save_for_backward(*args, ys, cs)
+        wt = fused_weight_t(args[2], args[3])
+        ys, fin, cs = _layer_fwd(*args, cell, wt)
+        ctx.save_for_backward(*args, ys, cs, wt)
         return ys, fin
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dys, dfin):
-        xs, mask, wx, wh, b, ys, cs = ctx.saved_tensors
+        xs, mask, wx, wh, b, ys, cs, wt = ctx.saved_tensors
         # an output that fed nothing (ys of a lone final-readout layer)
         if dys is None:
             dys = torch.zeros_like(ys)
@@ -642,7 +663,7 @@ class RNNLayer(torch.autograd.Function):
         dxs, dwx, dwh, db = rnn_layer_bwd(
             xs, ys, mask, wx, wh, b,
             _aligned(dys.to(torch.bfloat16)), _aligned(dfin.to(torch.float32)),
-            cs, ctx.cell,
+            cs, ctx.cell, wt,
         )
         return dxs.to(ctx.xs_dtype), None, dwx, dwh, db.reshape(ctx.b_shape), None
 
@@ -651,6 +672,7 @@ __all__ = [
     "RNNLayer",
     "bf16_matmul",
     "bwd_products",
+    "fused_weight_t",
     "gru_bwd_chain",
     "gru_bwd_launch",
     "gru_cell",

@@ -35,23 +35,67 @@ def _exact(shape, gen):
     return (torch.randint(-16, 17, shape, generator=gen, device="cuda") / 16).bfloat16()
 
 
-@pytest.mark.parametrize("B", [8, 300])
-def test_gru_kernel_matches_plain(cuda, B):
+def _check_gru_fwd(gen, T, B, E, H):
+    """The GRU layer forward kernel against its plain version on ragged
+    lengths, with row 0 masked at every step and, where T > 1, step 1
+    masked for every row."""
     from sse_tpu_torch.ops import rnn
 
-    T, E, H = 20, 128, 128
-    xs = torch.randn((T, B, E), generator=cuda, device="cuda").bfloat16()
-    lens = torch.randint(1, T + 1, (B,), generator=cuda, device="cuda")
-    mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :].contiguous()
-    wx = (torch.randn((E, 3 * H), generator=cuda, device="cuda") * 0.08).bfloat16()
-    wh = (torch.randn((H, 3 * H), generator=cuda, device="cuda") * 0.08).bfloat16()
-    b = torch.randn((3 * H,), generator=cuda, device="cuda") * 0.05
+    xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
+    lens = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
+    mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :]
+    mask[:, :, 0] = 0.0
+    if T > 1:
+        mask[1] = 0.0
+    mask = mask.contiguous()
+    wx = (torch.randn((E, 3 * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    wh = (torch.randn((H, 3 * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    b = torch.randn((3 * H,), generator=gen, device="cuda") * 0.05
     n = rnn.launches["gru_fwd"]
     ys, fin = rnn.rnn_layer(xs, mask, wx, wh, b)
     assert rnn.launches["gru_fwd"] == n + 1
     rys, rfin = rnn.rnn_layer_reference(xs, mask, wx, wh, b)
     torch.testing.assert_close(fin, rfin, atol=2e-3, rtol=1e-3)
     torch.testing.assert_close(ys.float(), rys.float(), atol=2e-3, rtol=2.0**-7)
+    assert not (fin[0].any() or ys[:, 0].float().any())  # the dead row never moves
+    if T > 1:
+        assert torch.equal(ys[1], ys[0])  # a step masked for all rows carries h over
+
+
+# B: one 16-row tile and its edges (1, 15, 16, 17, 33), the served B=8, a
+# training-sized batch, and 2113 (133 tiles: more than one wave of SMs)
+@pytest.mark.parametrize("T", [1, 2, 20])
+@pytest.mark.parametrize("B", [1, 8, 15, 16, 17, 33, 300, 2113])
+def test_gru_kernel_matches_plain(cuda, T, B):
+    _check_gru_fwd(cuda, T, B, 128, 128)
+
+
+# widths other than E=H=128 take the generic instance ([Wx;Wh]ᵀ in shared
+# memory, xs read from global memory): H=176 is its widest, (272, 96) its
+# largest [Wx;Wh]ᵀ
+@pytest.mark.parametrize("E,H", [(64, 96), (16, 176), (272, 96)])
+def test_gru_kernel_other_widths(cuda, E, H):
+    _check_gru_fwd(cuda, 20, 40, E, H)
+
+
+def test_gru_fwd_takes_the_fused_weight(cuda):
+    """gru_fwd_launch with the caller's [Wx;Wh]ᵀ (what RNNLayer hands it)
+    gives what it gives when it builds that layout itself; a wrongly
+    shaped one raises."""
+    from sse_tpu_torch.ops import rnn
+
+    T, B, E, H = 6, 20, 128, 128
+    xs = torch.randn((T, B, E), generator=cuda, device="cuda").bfloat16()
+    mask = torch.ones((T, 1, B), device="cuda")
+    wx = (torch.randn((E, 3 * H), generator=cuda, device="cuda") * 0.08).bfloat16()
+    wh = (torch.randn((H, 3 * H), generator=cuda, device="cuda") * 0.08).bfloat16()
+    b = torch.randn((3 * H,), generator=cuda, device="cuda") * 0.05
+    wt = rnn.fused_weight_t(wx, wh)
+    got = rnn.gru_fwd_launch(xs, mask, wx, wh, b, wt)
+    want = rnn.gru_fwd_launch(xs, mask, wx, wh, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="wt"):
+        rnn.gru_fwd_launch(xs, mask, wx, wh, b, wt.t().contiguous())
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "int8", "f32"])
@@ -184,7 +228,7 @@ def _check_bwd(got, want, T):
 
 
 @pytest.mark.parametrize("T", [1, 50])
-@pytest.mark.parametrize("B", [1, 33, 384])
+@pytest.mark.parametrize("B", [1, 16, 17, 33, 384])
 def test_gru_bwd_kernel_matches_plain(cuda, T, B):
     from sse_tpu_torch.ops import rnn
 
@@ -218,19 +262,34 @@ def test_gru_bwd_rounding_points(cuda):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
-def test_gru_bwd_fully_masked_rows(cuda):
+# the tile edges of the 16-row dh blocks, and the train bench's B=384
+@pytest.mark.parametrize("B", [1, 16, 17, 33, 384])
+def test_gru_bwd_fully_masked_rows(cuda, B):
     """Rows masked at every step get no input gradient (dgates = 0, the
     dh chain passes through) and leave the rest as the plain version."""
     from sse_tpu_torch.ops import rnn
 
-    args = _gru_bwd_args(cuda, 20, 70, dead_rows=(0, 31, 32, 69))
+    dead = sorted({0, B // 2, B - 1})
+    args = _gru_bwd_args(cuda, 20, B, dead_rows=dead)
     got = rnn.rnn_layer_bwd(*args)
-    assert not got[0][:, [0, 31, 32, 69]].float().abs().any()
+    assert not got[0][:, dead].float().abs().any()
     _check_bwd(got, rnn.rnn_layer_bwd_reference(*args), 20)
     dead = args[2].clone()
     dead.zero_()
     got = rnn.rnn_layer_bwd(args[0], args[1], dead, *args[3:])
     assert not (got[0].float().abs().any() or got[1].any() or got[2].any() or got[3].any())
+
+
+# the dh loop's generic instance (one input stage): H=96, and H=176, the
+# widest the backward's shared memory takes
+@pytest.mark.parametrize("E,H", [(64, 96), (16, 176)])
+def test_gru_bwd_other_widths(cuda, E, H):
+    from sse_tpu_torch.ops import rnn
+
+    args = _gru_bwd_args(cuda, 20, 40, E, H, dead_rows=(3,))
+    got = rnn.rnn_layer_bwd(*args)
+    assert not got[0][:, 3].float().abs().any()
+    _check_bwd(got, rnn.rnn_layer_bwd_reference(*args), 20)
 
 
 def _tower_gradients(cfg, want_fired):

@@ -52,6 +52,53 @@ def test_rnn_layer_matches_pallas(T, B):
     )
 
 
+@pytest.mark.parametrize("T,B", [(7, 8), (8, 16)])
+def test_rnn_layer_function_matches_pallas(T, B):
+    """The GRU layer through ``RNNLayer`` (what the towers call: it builds
+    the fused weight and saves it) against ``_layer_fwd_pallas`` in
+    interpret mode, to the same bounds as ``rnn_layer``."""
+    E = H = 128
+    args = _layer_inputs(2 * T + B, T, B, E, H)
+    ys_j, fin_j, _ = pallas_rnn._layer_fwd_pallas(*(jnp.asarray(a) for a in args), "gru",
+                                                  interpret=True)
+    xs, mask, wx, wh, b = (torch.from_numpy(a) for a in args)
+    ys_t, fin_t = rnn.RNNLayer.apply(xs, mask, wx.requires_grad_(True), wh, b)
+    np.testing.assert_allclose(fin_t.detach().numpy(), _np(fin_j), **FIN)
+    np.testing.assert_allclose(ys_t.detach().float().numpy(), _np(ys_j), **BF16)
+
+
+def test_fused_weight_layout():
+    """[Wx;Wh]ᵀ, the weight the GRU forward kernel copies into shared
+    memory row by row: row n is column n of Wx followed by column n of Wh."""
+    E, H = 16, 32
+    rng = np.random.default_rng(11)
+    wx = torch.from_numpy(rng.normal(size=(E, 3 * H)).astype(np.float32))
+    wh = torch.from_numpy(rng.normal(size=(H, 3 * H)).astype(np.float32))
+    wt = rnn.fused_weight_t(wx, wh)
+    assert wt.shape == (3 * H, E + H) and wt.is_contiguous()
+    assert torch.equal(wt, torch.cat([wx, wh]).t())
+    for n in (0, 7, 3 * H - 1):
+        assert torch.equal(wt[n, :E], wx[:, n]) and torch.equal(wt[n, E:], wh[:, n])
+
+
+def test_rnn_layer_hands_the_fused_weight_to_the_forward(monkeypatch):
+    """RNNLayer hands the layer forward (on the card, the GRU kernel) the
+    bf16 [Wx;Wh]ᵀ of the weights it casts: torch.cat([wx, wh]).t()."""
+    seen = {}
+    layer_fwd = rnn._layer_fwd
+
+    def spy(xs, mask, wx, wh, b, cell, wt=None):
+        seen.update(wx=wx, wh=wh, wt=wt)
+        return layer_fwd(xs, mask, wx, wh, b, cell, wt)
+
+    monkeypatch.setattr(rnn, "_layer_fwd", spy)
+    xs, mask, wx, wh, b = (torch.from_numpy(a) for a in _layer_inputs(12, 4, 3, 16, 16))
+    rnn.RNNLayer.apply(xs, mask, wx, wh, b)
+    assert seen["wt"].dtype == torch.bfloat16 and seen["wt"].is_contiguous()
+    assert torch.equal(seen["wt"], torch.cat([seen["wx"], seen["wh"]]).t())
+    assert torch.equal(seen["wt"], torch.cat([wx, wh]).t().bfloat16())
+
+
 def test_rnn_layer_cpu_runs_the_plain_version():
     args = [torch.from_numpy(a) for a in _layer_inputs(3, 5, 4, 16, 16)]
     before = dict(rnn.launches)

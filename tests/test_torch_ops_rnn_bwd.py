@@ -172,6 +172,30 @@ def test_weight_grads_are_float32_and_unrounded():
     torch.testing.assert_close(b.grad, want[3], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_rnn_layer_saves_one_fused_weight(monkeypatch, cell):
+    """RNNLayer saves one transposed weight, bf16 [Wx;Wh]ᵀ, and hands that
+    same tensor to the backward (whose gate recompute reads it), so the
+    transpose is built once per layer forward."""
+    G = 3 if cell == "gru" else 4
+    xs, mask, wx, wh, b, dys, dfin = (torch.from_numpy(a) for a in _inputs(13, 4, 3, 16, 16, G=G))
+    w = [t.clone().requires_grad_(True) for t in (wx, wh, b)]
+    ys, fin = rnn.RNNLayer.apply(xs, mask, *w, cell)
+    want = torch.cat([wx, wh]).t().bfloat16()
+    saved = [t for t in ys.grad_fn.saved_tensors if t is not None and t.shape == want.shape]
+    assert len(saved) == 1 and torch.equal(saved[0], want)
+    seen = {}
+    layer_bwd = rnn.rnn_layer_bwd
+
+    def spy(*args, **kwargs):
+        seen["wt"] = args[-1] if len(args) == 11 else kwargs.get("wt")
+        return layer_bwd(*args, **kwargs)
+
+    monkeypatch.setattr(rnn, "rnn_layer_bwd", spy)
+    (ys.float() * dys).sum().add((fin * dfin).sum()).backward()
+    assert seen["wt"] is not None and seen["wt"].data_ptr() == saved[0].data_ptr()
+
+
 def test_fin_only_loss_gets_zero_dys():
     """A lone final-readout layer: autograd leaves dys undefined, which
     the backward takes as zeros."""
