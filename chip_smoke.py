@@ -3,10 +3,12 @@ GRU and LSTM towers, both top-k variants, and the model-dir CLI.
 
     python3 chip_smoke.py            # needs one CUDA card; no network
     python3 chip_smoke.py --costs    # only the GRU recurrences' per-step costs
+    python3 chip_smoke.py --twophase # only the two-phase top-k's costs
 
-``--costs`` times the ``sse_tpu_torch`` beside this file (gru_fwd_costs,
-gru_bwd_costs): a copy of this file in another checkout measures that
-checkout's kernels, so two commits compare in one run, taken in turns.
+``--costs`` (gru_fwd_costs, gru_bwd_costs) and ``--twophase``
+(twophase_costs) time the ``sse_tpu_torch`` beside this file: a copy of
+this file in another checkout measures that checkout's kernels, so two
+commits compare in one run, taken in turns.
 
 1. Device check: a CUDA card is required (no CPU branch); prints the
    card's name and power limit (nvidia-smi) and the kernel build time.
@@ -20,10 +22,16 @@ checkout's kernels, so two commits compare in one run, taken in turns.
    the GRU and LSTM layer backward (B=128, 256, 384 and 2,304; end to
    end and at each rounding point, tolerances in check_bwd); the
    streaming top-k (B=8, the served interactive batch, and B=256) and the
-   two-phase top-k phases (B=4096) on the 1,249,280 x 128 index, in bf16
-   and int8; the exact top-k variant (B=8, 256 and 4096, bf16, int8 and
-   f32, num_real 0 and 5, -0.0 products); all on exact-dot inputs, so
-   that rows and values must match bit for bit.
+   two-phase top-k phases (B=4096; B=1 and 1500; num_real 0, 5, 2047,
+   2048, 2049 and T-1000; zero and -0.0 query rows) on the 1,249,280 x
+   128 index, in bf16 and int8, the whole two-phase call under
+   ``torch.cuda.set_sync_debug_mode("error")``, its device time by part,
+   against streaming at B=256 to 4096, and one engine bulk batch at
+   B=4096 by kernel (twophase_costs); the exact top-k variant (B=8, 256
+   and 4096, bf16, int8 and f32, num_real 0 and 5, -0.0 products); all on
+   exact-dot inputs, so that rows and values must match bit for bit. On
+   random unit rows it logs how many B=4096 query rows the two-phase and
+   streaming routes rank apart.
 3. The served slices (E=H=D=128, vocab 8000, L=50, random weights from a
    seed), each building the 1,249,280-row bf16 index on the GPU from the
    same 1,248,280 synthetic documents: (a) the bench model, a
@@ -574,8 +582,143 @@ def bwd_split(run, cell: str, reps: int = 5) -> dict:
     return split
 
 
-def check_topk(card: str, results: dict) -> None:
+def twophase_data(dtype: str, gen, b: int = 4096):
+    """The two-phase checks' index and queries: exact-dot bf16 rows (every
+    float32 sum exact, in any order) or int8 unit rows (exact integer
+    sums) with 127-quantized unit queries."""
     from sse_tpu_torch.index.sharded_index import quantize_rows
+    from sse_tpu_torch.ops import topk
+
+    if dtype == "bf16":
+        return exact_dot((T_PAD, D), gen), exact_dot((b, D), gen)
+    return (quantize_rows(unit_rows(T_PAD, gen), torch.int8),
+            topk.quantize_queries_int8(unit_rows(b, gen)))
+
+
+# kernel-name patterns of the two-phase call's parts on the device timeline
+TWOPHASE_PARTS = {"blockmax_kernel": "phase 1", "topk_select_kernel": "select",
+                  "pairs_kernel": "phase 2"}
+
+
+def twophase_split(q, emb, nr: int, bt: int, reps: int = 5) -> dict:
+    """Device ms of one fused_score_topk_twophase call by part
+    (torch.profiler): phase 1, its select (mode 0), the mid-pass
+    (pair_schedule, profiled alone), phase 2, and the merge (the rest of
+    the call's device time); "call" is the sum."""
+    from sse_tpu_torch.ops import topk
+
+    def parts(run) -> dict:
+        run()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        out = {}
+        for key, ms in device_times(prof).items():
+            part = next((p for pat, p in TWOPHASE_PARTS.items() if pat in key), "rest")
+            out[part] = out.get(part, 0.0) + ms / reps
+        return out
+
+    split = parts(lambda: topk.fused_score_topk_twophase(q, emb, K, nr, block_t=bt))
+    p1 = topk.twophase_phase1(q, emb, K, nr, bt)
+    mid = sum(parts(lambda: topk.pair_schedule(p1, emb.shape[0] // bt)).values())
+    rest = split.pop("rest", 0.0)
+    split.update({"mid-pass": mid, "merge": rest - mid})
+    split["call"] = sum(split.values())
+    return split
+
+
+def fmt(split: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+
+
+def twophase_costs(card: str) -> None:
+    """The two-phase route's device time at B=4096 by part (bf16 and
+    int8), cuBLAS's bf16 product alone as phase 1's yardstick, the route
+    against streaming at B = 256 to 4096 (the crossover), and one
+    engine bulk query at B=4096 with its GRU encode, split by kernel.
+    Uses only the package's public two-phase functions, so a copy of this
+    file in an older checkout measures that checkout."""
+    from sse_tpu_torch.ops import topk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    nr = T_PAD - 1000
+    bt = topk.twophase_block_t(T_PAD, K)
+    for dtype in ("bf16", "int8"):
+        emb, q = twophase_data(dtype, gen)
+        log(f"twophase {dtype} B=4096 device ms by part: {fmt(twophase_split(q, emb, nr, bt))} "
+            f"[{card}]")
+        if dtype == "bf16":
+            # the product alone, in chunks of rows: no block max, no index
+            out = torch.empty((q.shape[0], T_PAD // 20), dtype=torch.bfloat16, device="cuda")
+            chunks = [emb[i : i + out.shape[1]] for i in range(0, T_PAD, out.shape[1])]
+            ms = cuda_ms(lambda: [torch.matmul(q, e.T, out=out) for e in chunks], reps=3)
+            log(f"yardstick: cuBLAS bf16 q @ emb.T at B=4096 over {T_PAD} rows in "
+                f"{len(chunks)} chunks, {ms:.4f} ms, {2.0 * q.shape[0] * T_PAD * D / ms / 1e9:.1f} "
+                f"TFLOP/s [{card}]")
+            del out, chunks
+        times = []
+        for b in (256, 512, 1024, 2048, 4096):
+            qb = q[:b].contiguous()
+            tp = kernel_ms(lambda: topk.fused_score_topk_twophase(qb, emb, K, nr, block_t=bt), "",
+                           reps=3)
+            st = kernel_ms(lambda: topk.fused_score_topk(qb, emb, K, nr), "", reps=3)
+            times.append(f"B={b} two-phase {tp:.4f} / streaming {st:.4f}")
+        log(f"crossover {dtype} (device ms a call): " + "; ".join(times) + f" [{card}]")
+        del emb, q
+        torch.cuda.empty_cache()
+    log(f"engine bulk query B=4096 (GRU encode + two-phase top-k), device ms by kernel: "
+        f"{fmt(engine_bulk_split())} [{card}]")
+
+
+def engine_bulk_split(reps: int = 3) -> dict:
+    """Device ms of one bulk batch of the served GRU model (the bench
+    model, random weights from the seed) at B=4096, L=50, through
+    build_fused_query_fn on the 1,249,280-row bf16 index of unit rows."""
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
+    from sse_tpu_torch.models.towers import TowerConfig
+    from sse_tpu_torch.serve.engine import build_fused_query_fn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    width = dict(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1, encoding_dim=128)
+    cfg = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(cell="gru", **width))
+    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED))
+    emb = unit_rows(T_PAD, gen).bfloat16()
+    tokens = torch.randint(1, 8000, (4096, 50), generator=gen, device="cuda")
+    lengths = torch.randint(1, 51, (4096,), generator=gen, device="cuda")
+    fused = build_fused_query_fn(cfg, K)
+    run = lambda: fused(params, emb, tokens, lengths, T_PAD - 1000)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    pats = {"gru_fwd": "GRU", **TWOPHASE_PARTS}
+    out = {}
+    for key, ms in device_times(prof).items():
+        part = next((p for pat, p in pats.items() if pat in key), "other")
+        out[part] = out.get(part, 0.0) + ms / reps
+    out["batch"] = sum(out.values())
+    return out
+
+
+def hold_phases(name: str, q, emb, nr: int, bt: int) -> None:
+    """Phase 1 and phase 2 kernels bit-identical to their plain versions."""
+    from sse_tpu_torch.ops import topk
+
+    p1 = topk.twophase_phase1(q, emb, K, nr, bt)
+    check(torch.equal(p1, topk.twophase_phase1_reference(q, emb, K, nr, bt)),
+          f"{name}: phase 1 block keys differ")
+    tq, tb, _ = topk.pair_schedule(p1, emb.shape[0] // bt)
+    check(torch.equal(topk.twophase_phase2(q, emb, K, nr, bt, tq, tb),
+                      topk.twophase_phase2_reference(q, emb, K, nr, bt, tq, tb)),
+          f"{name}: phase 2 pair candidates differ")
+
+
+def check_topk(card: str, results: dict) -> None:
     from sse_tpu_torch.ops import topk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -583,12 +726,7 @@ def check_topk(card: str, results: dict) -> None:
     bt = topk.twophase_block_t(T_PAD, K)
     nblocks = T_PAD // bt
     for dtype in ("bf16", "int8"):
-        if dtype == "bf16":
-            emb = exact_dot((T_PAD, D), gen)
-            q_all = exact_dot((4096, D), gen)
-        else:
-            emb = quantize_rows(unit_rows(T_PAD, gen), torch.int8)
-            q_all = topk.quantize_queries_int8(unit_rows(4096, gen))
+        emb, q_all = twophase_data(dtype, gen)
 
         # streaming at B = 8 (the served interactive batch: 16-query tiles,
         # hundreds of 64-row tiles per split) and at B = 256 (64-query tiles)
@@ -652,6 +790,38 @@ def check_topk(card: str, results: dict) -> None:
                  topk.topk_reference(q[:1024], emb, K, small_nr))
             check(torch.isfinite(v).all() and (v[:, small_nr:] < -1e37).all(),
                   f"twophase {dtype} num_real={small_nr}: sinks must be finite")
+
+        # the edges: num_real at block and tile ends, a ragged last query
+        # group (B=1500) and a lone query, a zero and a -0.0 query row
+        qe = q.clone()
+        qe[1] = 0
+        if dtype == "bf16":
+            qe[2] = -0.0
+        for edge_nr in (0, 5, 2047, 2048, 2049, nr):
+            hold_phases(f"twophase {dtype} B=4096 num_real={edge_nr}", qe, emb, edge_nr, bt)
+        for b in (1, 1500):
+            hold_phases(f"twophase {dtype} B={b}", qe[:b].contiguous(), emb, nr, bt)
+        v, rows = topk.fused_score_topk_twophase(qe[:64], emb, K, nr, block_t=bt)
+        same(f"twophase {dtype} zero query rows", (v, rows), topk.topk_reference(qe[:64], emb, K, nr))
+        zero_rows = (1, 2) if dtype == "bf16" else (1,)
+        for i in zero_rows:
+            check(rows[i].tolist() == list(range(K)) and not bool(torch.signbit(v[i]).any())
+                  and bool((v[i] == 0).all()), f"twophase {dtype}: a zero query row keys +0.0")
+        log(f"twophase {dtype}: phases bit-identical to plain at num_real 0, 5, 2047, 2048, "
+            f"2049, {nr} (B=4096), at B=1 and 1500, with "
+            f"{'zero and -0.0 query rows' if dtype == 'bf16' else 'a zero query row'} "
+            f"(rows 0..{K - 1}, value +0.0)")
+
+        # no host sync anywhere in the call
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = topk.fused_score_topk_twophase(q, emb, K, nr, block_t=bt)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        same(f"twophase {dtype} under sync debug", got, full)
+        log(f"twophase {dtype} B=4096: the whole call ran under "
+            f"torch.cuda.set_sync_debug_mode('error')")
         if dtype == "bf16":
             # phase 2's work is this run's valid (query, block) pairs, each
             # a bt-row block against one query; it reads each block once
@@ -665,8 +835,24 @@ def check_topk(card: str, results: dict) -> None:
                 ms=ms2, plain_ms=plain2, library_ms=None,
                 **bound(nbytes(q, tq, tb, p2) + blocks * bt * D * emb.element_size(),
                         2.0 * pairs * bt * D))
-        del emb, q_all
+        else:
+            log(f"twophase int8 bound: phase 1 "
+                f"{bound(nbytes(q, emb, p1), 2.0 * q.shape[0] * nr * D, 'int8')['bound_ms']:.4f} ms")
+        del emb, q_all, q, qe
         torch.cuda.empty_cache()
+
+    # random unit rows (float32 sums not exact): how many B=4096 query rows
+    # the two routes rank apart (the two products round apart, if at all)
+    emb = unit_rows(T_PAD, gen).bfloat16()
+    q = unit_rows(4096, gen).bfloat16()
+    tp = topk.fused_score_topk_twophase(q, emb, K, nr, block_t=bt)
+    st = topk.fused_score_topk(q, emb, K, nr)
+    differ = int((tp[1] != st[1]).any(dim=1).sum())
+    log(f"twophase vs streaming on random bf16 unit rows, B=4096: {differ} of 4096 query rows "
+        f"differ [{card}]")
+    del emb, q
+    torch.cuda.empty_cache()
+    twophase_costs(card)
 
 
 def check_topk_exact(card: str, results: dict) -> None:
@@ -1223,6 +1409,9 @@ def main() -> None:
     if "--costs" in sys.argv[1:]:
         gru_fwd_costs(card)
         gru_bwd_costs(card)
+        return
+    if "--twophase" in sys.argv[1:]:
+        twophase_costs(card)
         return
     results = {name: {} for name in KERNELS}
     check_gru(card, results)

@@ -12,58 +12,74 @@
 //     pairs and returns each pair's block-local top-k composites, empty
 //     past num_real. The pairs arrive grouped by block in tiles of 64
 //     queries (the plain-torch mid-pass), so each tile is one 64 x block_t
-//     tensor-core product run through range_topk (topk_common.cuh).
-// The exactness proof at fused_topk.py:573-584 needs only that ties in
-// the block ranking go to the earlier block: the composite's low word is
-// 0xFFFFFFFF - block.
+//     product.
+// The exactness proof at fused_topk.py:573-584 needs ties in the block
+// ranking to go to the earlier block (the composite's low word is
+// 0xFFFFFFFF - block) and phase 1's block maxima to be the very numbers
+// phase 2 keys on: for bf16 and int8 indexes both phases score through
+// score_tile (topk_tile.cuh), one wgmma product, summed in one order.
 //
 // What bounds it on the H100 (B = 4096, 1,249,280 x 128 bf16 rows):
-// phase 1 is 1.31 TFLOP against 320 MB — compute-bound, on mma.sync; its
-// only per-score work beyond the product is one max. Phase 2 re-scores
-// B·k·block_t rows (~1/60 of phase 1 at block_t = 2048).
-#include "topk_common.cuh"
+// phase 1 is 1.31 TFLOP against 320 MB — compute-bound; its only
+// per-score work beyond the product is one max. The design:
+//   * index tiles of 128 rows come by TMA into a 4-stage ring (full and
+//     empty mbarriers, one producer warp);
+//   * four consumer warpgroups, 64 queries each, share every tile: 256
+//     queries per load of the index, so L2 → SM traffic is B / 256 x
+//     320 MB (5 GB at B = 4096; the mma.sync kernel it replaces loaded
+//     each index byte 4 times per 64 queries, 82 GB);
+//   * the grid is (B / 256 query groups) x (splits of the blocks), with
+//     CTA (g, s) walking blocks s, s + splits, ...: the CTAs that run
+//     together read the same blocks, once from HBM, the rest from L2;
+//   * the queries stay in shared memory for the whole walk, and the
+//     block max is the epilogue: a running max in registers over a
+//     block's tiles, one reduction over the 4 lanes of a row, one key.
+// Phase 2 re-scores B·k·block_t rows (~1/60 of phase 1 at block_t = 2048)
+// and is bound by the selection: a CTA takes one tile of 64 (query,
+// block) pairs, streams the block through the same ring and the same
+// score tile, and each warp selects for its own 16 queries with no
+// block-wide barrier: 32-bit candidates (key | 4095 - local row; the
+// packed keys' low 12 bits are free) above the query's threshold go to a
+// per-query list in shared memory, merged (warp-wide top-k) only when the
+// list could overflow or to seed the threshold after the first tile.
+// A float32 index keeps the mma-free FMA kernels (no tensor-core product
+// keeps fp32 operands): blockmax_kernel and range_topk.
+#include <type_traits>
+
+#include "topk_tile.cuh"
 
 namespace {
 
 using namespace sse;
 
-template <int DT, int KS, int MT>
+// ------------------------------------------------------------ float32 path
+template <int MT>
 __global__ void __launch_bounds__(128)
     blockmax_kernel(const void* q, const void* emb, int B, int T, int D, int num_real,
                     int block_t, int nblocks, int blocks_per_cta, long long* out) {
   constexpr int QB = 16 * MT, NT = 2 * MT, NW = 8 * NT;
-  constexpr int esz = DT == kF32 ? 4 : (DT == kBF16 ? 2 : 1);
-  using AccT = typename Acc<DT>::type;
   __shared__ int smax[QB];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
+  const int tig = lane & 3, g = lane >> 2;
   const int mi = warp % MT, cg = warp / MT;
   const int qbase = blockIdx.x * QB;
   const int b_lo = blockIdx.y * blocks_per_cta, b_hi = min(nblocks, b_lo + blocks_per_cta);
-  const int row_bytes = D * esz;
   const int ql0 = mi * 16 + g, ql1 = ql0 + 8;
-  const unsigned char* qb = static_cast<const unsigned char*>(q);
-  const unsigned char* p0 = qbase + ql0 < B ? qb + (size_t)(qbase + ql0) * row_bytes : nullptr;
-  const unsigned char* p1 = qbase + ql1 < B ? qb + (size_t)(qbase + ql1) * row_bytes : nullptr;
-  uint32_t a[KS][4];
-  if constexpr (DT != kF32) load_a<KS>(a, p0, p1, tig);
+  const float* qf = static_cast<const float*>(q);
+  const float* p0 = qbase + ql0 < B ? qf + (size_t)(qbase + ql0) * D : nullptr;
+  const float* p1 = qbase + ql1 < B ? qf + (size_t)(qbase + ql1) * D : nullptr;
   for (int i = tid; i < QB; i += blockDim.x) smax[i] = INT_MIN;
   __syncthreads();
   const int lim = min(T, num_real);
 
   for (int blk = b_lo; blk < b_hi; ++blk) {
     const int rs = blk * block_t, re = min(rs + block_t, lim);
-    AccT m0 = 0, m1 = 0;
+    float m0 = 0, m1 = 0;
     bool v0 = false, v1 = false;
     for (int row0 = rs; row0 < re; row0 += kTileRows) {
       const int rbase = row0 + cg * NW;
-      AccT acc[NT][4];
-      if constexpr (DT == kF32)
-        score_f32<NT>(reinterpret_cast<const float*>(p0), reinterpret_cast<const float*>(p1),
-                      static_cast<const float*>(emb), D, T, rbase, tig, acc);
-      else
-        score_mma<DT, KS, NT>(a, static_cast<const unsigned char*>(emb), row_bytes, T, rbase, g,
-                              tig, acc);
+      float acc[NT][4];
+      score_f32<NT>(p0, p1, static_cast<const float*>(emb), D, T, rbase, tig, acc);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -100,7 +116,6 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-template <int DT, int KS>
 __global__ void __launch_bounds__(128)
     pairs_kernel(const void* q, const void* emb, int B, int T, int D, int num_real, int block_t,
                  const int* tile_query, const int* tile_block, int k, long long* out) {
@@ -111,27 +126,413 @@ __global__ void __launch_bounds__(128)
     for (int i = threadIdx.x; i < 64 * k; i += blockDim.x) o[i] = kEmpty;
     return;
   }
-  range_topk<DT, KS, 4>(q, tile_query + (size_t)tile * 64, 0, B, emb, D, T, num_real,
-                        blk * block_t, blk * block_t + block_t, k, o, k, smem);
+  range_topk<kF32, 1, 4>(q, tile_query + (size_t)tile * 64, 0, B, emb, D, T, num_real,
+                         blk * block_t, blk * block_t + block_t, k, o, k, smem);
+}
+
+// ------------------------------------------------- bf16 / int8: wgmma path
+constexpr int kP1Groups = 4;                    // consumer warpgroups of phase 1
+constexpr int kP1Queries = 64 * kP1Groups;      // queries sharing each index tile
+constexpr int kP1Threads = 128 * kP1Groups + 32;
+constexpr int kP1Stages = 4;
+constexpr int kP2Threads = 128 + 32;
+constexpr int kP2Stages = 3;
+constexpr int kCap = 256;                       // candidate list of a query (phase 2)
+constexpr int kNoCand = INT_MIN;                // below every 32-bit candidate
+constexpr int kMaxBlockT = kIdxMask + 1;        // local rows fit the candidate's 12 bits
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// 128-row tiles of block blk that hold a row below lim.
+__device__ __forceinline__ int block_tiles(int blk, int block_t, int lim) {
+  const int rs = blk * block_t;
+  return rs >= lim ? 0 : (min(block_t, lim - rs) + kTileN - 1) / kTileN;
+}
+
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
+template <typename T>
+__device__ __forceinline__ T lowest() {
+  if constexpr (std::is_same<T, float>::value)
+    return -__int_as_float(0x7f800000);
+  else
+    return INT_MIN;
+}
+
+// Phase 1. CTA (blockIdx.x % nqg, blockIdx.x / nqg) = (query group of
+// 256, split): writes out[q, blk] for its queries and the blocks blk =
+// split, split + splits, ... . Warps 0-15: four consumer warpgroups;
+// warp 16: the TMA producer.
+template <int DT, int KS>
+__global__ void __launch_bounds__(kP1Threads, 1)
+    wg_blockmax_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap emap, int B, int lim, int block_t,
+                       int nblocks, int nqg, int splits, long long* out) {
+  constexpr int CH = KS / 4;                             // 128-byte chunks of a row
+  constexpr int kAChunk = kP1Queries * kChunkBytes;      // one chunk of the queries
+  constexpr int kStage = CH * kTileChunk;
+  using AccT = typename Acc<DT>::type;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sa = align1024(smem_raw);
+  unsigned char* ring = sa + CH * kAChunk;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kP1Stages * kStage);
+  uint64_t* empty = full + kP1Stages;
+  uint64_t* abar = empty + kP1Stages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qg = blockIdx.x % nqg, split = blockIdx.x / nqg;
+  if (tid == 0) {
+    for (int s = 0; s < kP1Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kP1Groups);
+    }
+    mbar_init(abar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kP1Groups) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(abar, CH * kAChunk);
+      for (int c = 0; c < CH; ++c)
+        tma_load(sa + c * kAChunk, &qmap, abar, c * kChunkBytes, qg * kP1Queries);
+      int it = 0;
+      for (int blk = split; blk < nblocks; blk += splits) {
+        const int nt = block_tiles(blk, block_t, lim);
+        for (int i = 0; i < nt; ++i, ++it) {
+          const int s = it % kP1Stages;
+          mbar_wait(&empty[s], ((it / kP1Stages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], kStage);
+          for (int c = 0; c < CH; ++c)
+            tma_load(ring + s * kStage + c * kTileChunk, &emap, &full[s], c * kChunkBytes,
+                     blk * block_t + i * kTileN);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, g = lane >> 2, tig = lane & 3;
+  const uint32_t a_addr = smem_addr(sa) + wg * 64 * kChunkBytes, r_addr = smem_addr(ring);
+  const int q0 = qg * kP1Queries + 16 * warp + g, q1 = q0 + 8;
+  mbar_wait(abar, 0);
+  AccT acc[64];
+  int it = 0;
+  for (int blk = split; blk < nblocks; blk += splits) {
+    const int nt = block_tiles(blk, block_t, lim);
+    AccT m0 = lowest<AccT>(), m1 = lowest<AccT>();
+    for (int i = 0; i < nt; ++i, ++it) {
+      const int s = it % kP1Stages;
+      mbar_wait(&full[s], (it / kP1Stages) & 1);
+      score_tile<DT, KS>(acc, a_addr, kAChunk, r_addr + s * kStage, kTileChunk);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      const int nvalid = lim - (blk * block_t + i * kTileN);  // rows of the tile below lim
+      if (nvalid >= kTileN) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          m0 = vmax(m0, vmax(acc[4 * j], acc[4 * j + 1]));
+          m1 = vmax(m1, vmax(acc[4 * j + 2], acc[4 * j + 3]));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (8 * j + 2 * tig + (c & 1) >= nvalid) continue;
+            if (c >> 1)
+              m1 = vmax(m1, acc[4 * j + c]);
+            else
+              m0 = vmax(m0, acc[4 * j + c]);
+          }
+      }
+    }
+    // every row of a block with a tile has a lane that saw a real row
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = vmax(m0, __shfl_xor_sync(kFull, m0, off));
+      m1 = vmax(m1, __shfl_xor_sync(kFull, m1, off));
+    }
+    if (tig == 0) {
+      if (q0 < B) out[(size_t)q0 * nblocks + blk] = nt ? make_comp(enc_key(m0), blk) : kEmpty;
+      if (q1 < B) out[(size_t)q1 * nblocks + blk] = nt ? make_comp(enc_key(m1), blk) : kEmpty;
+    }
+  }
+}
+
+// One warp: the k best of the query's n candidates (unique 32-bit
+// values) to the front of its list, best first; count and threshold
+// updated (the threshold stays kNoCand while fewer than k are known).
+__device__ __forceinline__ void warp_merge(int* list, int* cnt, int* thr, int k, int lane) {
+  const int n = *cnt;
+  int v[kCap / 32];
+#pragma unroll
+  for (int i = 0; i < kCap / 32; ++i) v[i] = lane + 32 * i < n ? list[lane + 32 * i] : kNoCand;
+  __syncwarp();
+  const int kk = min(n, k);
+  int prev = INT_MAX;
+  for (int r = 0; r < kk; ++r) {
+    int m = kNoCand;
+#pragma unroll
+    for (int i = 0; i < kCap / 32; ++i)
+      if (v[i] < prev && v[i] > m) m = v[i];
+    prev = __reduce_max_sync(kFull, m);
+    if (lane == 0) list[r] = prev;
+  }
+  if (lane == 0) {
+    *cnt = kk;
+    *thr = n >= k ? prev : kNoCand;
+  }
+  __syncwarp();
+}
+
+// Phase 2. CTA t: the queries tile_query[64t ..] (negative = none, its
+// slots end empty) against index block tile_block[t] (negative: the
+// whole tile empty); writes each query's block-local top-k composites.
+// Warps 0-3: the consumer warpgroup (warp w owns queries 16w .. 16w+15,
+// the rows its lanes hold in the accumulator); warp 4: the producer.
+template <int DT, int KS>
+__global__ void __launch_bounds__(kP2Threads, 1)
+    wg_pairs_kernel(const unsigned char* __restrict__ q, const __grid_constant__ CUtensorMap emap,
+                    int B, int lim, int block_t, const int* __restrict__ tile_query,
+                    const int* __restrict__ tile_block, int k, long long* __restrict__ out) {
+  constexpr int CH = KS / 4, RB = 32 * KS;  // chunks and bytes of a row
+  constexpr int kAChunk = 64 * kChunkBytes;
+  constexpr int kStage = CH * kTileChunk;
+  using AccT = typename Acc<DT>::type;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sa = align1024(smem_raw);
+  unsigned char* ring = sa + CH * kAChunk;
+  int* buf = reinterpret_cast<int*>(ring + kP2Stages * kStage);  // [64][kCap]
+  int* cnt = buf + 64 * kCap;
+  int* thr = cnt + 64;
+  int* qid = thr + 64;
+  uint64_t* full = reinterpret_cast<uint64_t*>(qid + 64);
+  uint64_t* empty = full + kP2Stages;
+
+  const int tile = blockIdx.x, blk = tile_block[tile];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  long long* o = out + (size_t)tile * 64 * k;
+  const int nt = blk < 0 ? 0 : block_tiles(blk, block_t, lim);
+  if (nt == 0) {
+    for (int i = tid; i < 64 * k; i += blockDim.x) o[i] = kEmpty;
+    return;
+  }
+  const int rs = blk * block_t;
+  if (tid == 0) {
+    for (int s = 0; s < kP2Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  if (tid < 64) {
+    const int id = tile_query[(size_t)tile * 64 + tid];
+    qid[tid] = id >= 0 && id < B ? id : -1;
+    cnt[tid] = 0;
+    thr[tid] = kNoCand;
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer
+    if (lane == 0)
+      for (int i = 0; i < nt; ++i) {
+        const int s = i % kP2Stages;
+        mbar_wait(&empty[s], ((i / kP2Stages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kStage);
+        for (int c = 0; c < CH; ++c)
+          tma_load(ring + s * kStage + c * kTileChunk, &emap, &full[s], c * kChunkBytes,
+                   rs + i * kTileN);
+      }
+    return;
+  }
+
+  // the 64 query rows, gathered into the swizzled layout (a zero row for
+  // a missing query), while the producer's first tiles are in flight
+  for (int x = tid; x < 64 * (RB / 16); x += 128) {
+    const int r = x / (RB / 16), j = x % (RB / 16), id = qid[r];
+    cp_async16(sa + (j >> 3) * kAChunk + sw128(r, j & 7), q + (size_t)max(id, 0) * RB + 16 * j,
+               id >= 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+  const int g = lane >> 2, tig = lane & 3;
+  const int ql0 = 16 * warp + g, ql1 = ql0 + 8;
+  const bool v0 = qid[ql0] >= 0, v1 = qid[ql1] >= 0;
+  int* l0 = buf + ql0 * kCap;
+  int* l1 = buf + ql1 * kCap;
+  int t0 = kNoCand, t1 = kNoCand;  // register copies of thr[ql0], thr[ql1]
+  const uint32_t a_addr = smem_addr(sa), r_addr = smem_addr(ring);
+  AccT acc[64];
+  for (int i = 0; i < nt; ++i) {
+    const int s = i % kP2Stages;
+    mbar_wait(&full[s], (i / kP2Stages) & 1);
+    score_tile<DT, KS>(acc, a_addr, kAChunk, r_addr + s * kStage, kTileChunk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    const int lr0 = i * kTileN, nvalid = lim - rs - lr0;
+    // candidate of slot (j, c): key | (4095 - local row); kNoCand past lim
+    auto cand = [&](int j, int c) {
+      const int col = 8 * j + 2 * tig + (c & 1);
+      return col < nvalid ? (enc_key(acc[4 * j + c]) | (kIdxMask - (lr0 + col))) : kNoCand;
+    };
+    int n0 = 0, n1 = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int x = cand(j, c);
+        if (c >> 1)
+          n1 += x > t1;
+        else
+          n0 += x > t0;
+      }
+    n0 = v0 ? n0 : 0;
+    n1 = v1 ? n1 : 0;
+    if (n0 | n1) {
+      int p0 = n0 ? atomicAdd(&cnt[ql0], n0) : 0, p1 = n1 ? atomicAdd(&cnt[ql1], n1) : 0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int x = cand(j, c);
+          if (c >> 1) {
+            if (n1 && x > t1) l1[p1++] = x;
+          } else if (n0 && x > t0) {
+            l0[p0++] = x;
+          }
+        }
+    }
+    __syncwarp();
+    // a list that could overflow on the next tile, or the first k
+    // candidates of a query (its threshold): merge, warp-wide
+    auto needs = [&](int ql) {
+      const int n = cnt[ql];
+      return n > kCap - kTileN || (thr[ql] == kNoCand && n >= k);
+    };
+    const unsigned m0 = __ballot_sync(kFull, tig == 0 && needs(ql0));
+    const unsigned m1 = __ballot_sync(kFull, tig == 0 && needs(ql1));
+    if (m0 | m1) {
+      for (unsigned m = m0; m; m &= m - 1) {
+        const int ql = 16 * warp + ((__ffs(m) - 1) >> 2);
+        warp_merge(buf + ql * kCap, &cnt[ql], &thr[ql], k, lane);
+      }
+      for (unsigned m = m1; m; m &= m - 1) {
+        const int ql = 16 * warp + 8 + ((__ffs(m) - 1) >> 2);
+        warp_merge(buf + ql * kCap, &cnt[ql], &thr[ql], k, lane);
+      }
+      t0 = thr[ql0];
+      t1 = thr[ql1];
+    }
+  }
+  for (int j = 0; j < 16; ++j) {
+    const int ql = 16 * warp + j;
+    warp_merge(buf + ql * kCap, &cnt[ql], &thr[ql], k, lane);
+    const int n = cnt[ql];
+    for (int r = lane; r < k; r += 32) {
+      const int x = r < n ? buf[ql * kCap + r] : kNoCand;
+      o[(size_t)ql * k + r] =
+          x == kNoCand ? kEmpty : make_comp(x & ~kIdxMask, rs + kIdxMask - (x & kIdxMask));
+    }
+  }
+}
+
+// ------------------------------------------------------------- host side
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    return err == cudaSuccess && res == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// A map over `rows` rows of `row_bytes` bytes at `base`, in boxes of 128
+// bytes x box_rows rows, written into shared memory in the 128-byte
+// swizzle; rows past the end read 0.
+int row_map(CUtensorMap* map, const void* base, int rows, int row_bytes, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)kChunkBytes, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+constexpr int p1_smem(int ks) {
+  return 1024 + (ks / 4) * (kP1Queries * kChunkBytes + kP1Stages * kTileChunk) +
+         (2 * kP1Stages + 1) * 8;
+}
+constexpr int p2_smem(int ks) {
+  return 1024 + (ks / 4) * (64 * kChunkBytes + kP2Stages * kTileChunk) + 64 * kCap * 4 +
+         3 * 64 * 4 + 2 * kP2Stages * 8;
+}
+
+int num_sms() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
 }
 
 template <int DT, int KS>
-const void* blockmax_fn(int MT) {
-  return MT == 1 ? (const void*)blockmax_kernel<DT, KS, 1>
-                 : (const void*)blockmax_kernel<DT, KS, 4>;
+int blockmax_wg(const void* q, const void* emb, int B, int T, int lim, int block_t, int nblocks,
+                long long* out, cudaStream_t st) {
+  CUtensorMap qmap, emap;
+  int err = row_map(&qmap, q, B, 32 * KS, kP1Queries);
+  if (!err) err = row_map(&emap, emb, T, 32 * KS, kTileN);
+  if (err) return err;
+  auto fn = wg_blockmax_kernel<DT, KS>;
+  // the kernel's dynamic shared memory, allowed once per instance
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p1_smem(KS));
+  if (attr != cudaSuccess) return (int)attr;
+  const int nqg = (B + kP1Queries - 1) / kP1Queries;
+  const int splits = max(1, min(nblocks, num_sms() / nqg));
+  wg_blockmax_kernel<DT, KS><<<nqg * splits, kP1Threads, p1_smem(KS), st>>>(
+      qmap, emap, B, lim, block_t, nblocks, nqg, splits, out);
+  return (int)cudaGetLastError();
 }
 
-const void* blockmax_pick(int dt, int ks, int MT) {
-  if (dt == kF32) return blockmax_fn<kF32, 1>(MT);
-  if (dt == kBF16) return ks == 4 ? blockmax_fn<kBF16, 4>(MT) : blockmax_fn<kBF16, 8>(MT);
-  return ks == 4 ? blockmax_fn<kI8, 4>(MT) : blockmax_fn<kI8, 8>(MT);
-}
-
-const void* pairs_pick(int dt, int ks) {
-  if (dt == kF32) return (const void*)pairs_kernel<kF32, 1>;
-  if (dt == kBF16)
-    return ks == 4 ? (const void*)pairs_kernel<kBF16, 4> : (const void*)pairs_kernel<kBF16, 8>;
-  return ks == 4 ? (const void*)pairs_kernel<kI8, 4> : (const void*)pairs_kernel<kI8, 8>;
+template <int DT, int KS>
+int pairs_wg(const void* q, const void* emb, int B, int T, int lim, int block_t, int ntile,
+             const int* tile_query, const int* tile_block, int k, long long* out,
+             cudaStream_t st) {
+  CUtensorMap emap;
+  if (int err = row_map(&emap, emb, T, 32 * KS, kTileN)) return err;
+  auto fn = wg_pairs_kernel<DT, KS>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p2_smem(KS));
+  if (attr != cudaSuccess) return (int)attr;
+  wg_pairs_kernel<DT, KS><<<ntile, kP2Threads, p2_smem(KS), st>>>(
+      static_cast<const unsigned char*>(q), emap, B, lim, block_t, tile_query, tile_block, k, out);
+  return (int)cudaGetLastError();
 }
 
 int row_slices(int dt, int D) { return dt == kF32 ? 1 : D * (dt == kBF16 ? 2 : 1) / 32; }
@@ -140,39 +541,62 @@ int row_slices(int dt, int D) { return dt == kF32 ? 1 : D * (dt == kBF16 ? 2 : 1
 
 // Phase 1: out int64 [B, nblocks], one composite (block-max key, block)
 // per query and block; kEmpty for a block with no row below num_real.
+// bf16 / int8 need block_t % 128 == 0; qb and blocks_per_cta shape the
+// float32 kernel's grid only.
 extern "C" int sse_twophase_blockmax(const void* q, const void* emb, int dt, int B, int T, int D,
                                      int num_real, int block_t, int nblocks, int qb,
                                      int blocks_per_cta, void* out, void* stream) {
-  const int MT = qb / 16, ks = row_slices(dt, D);
-  if ((MT != 1 && MT != 4) || (dt != kF32 && ks != 4 && ks != 8) ||
-      block_t % kTileRows)
-    return (int)cudaErrorInvalidValue;
-  const void* fn = blockmax_pick(dt, ks, MT);
+  const int ks = row_slices(dt, D), lim = max(0, min(T, num_real));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  long long* o = static_cast<long long*>(out);
+  if (B == 0 || nblocks == 0) return 0;
+  if (dt != kF32) {
+    if ((ks != 4 && ks != 8) || block_t % kTileN || (long long)nblocks * block_t > T)
+      return (int)cudaErrorInvalidValue;
+    if (dt == kBF16)
+      return ks == 4 ? blockmax_wg<kBF16, 4>(q, emb, B, T, lim, block_t, nblocks, o, st)
+                     : blockmax_wg<kBF16, 8>(q, emb, B, T, lim, block_t, nblocks, o, st);
+    return ks == 4 ? blockmax_wg<kI8, 4>(q, emb, B, T, lim, block_t, nblocks, o, st)
+                   : blockmax_wg<kI8, 8>(q, emb, B, T, lim, block_t, nblocks, o, st);
+  }
+  const int MT = qb / 16;
+  if ((MT != 1 && MT != 4) || block_t % kTileRows) return (int)cudaErrorInvalidValue;
+  const void* fn = MT == 1 ? (const void*)blockmax_kernel<1> : (const void*)blockmax_kernel<4>;
   void* args[] = {&q, &emb, &B, &T, &D, &num_real, &block_t, &nblocks, &blocks_per_cta, &out};
   const dim3 grid((B + qb - 1) / qb, (nblocks + blocks_per_cta - 1) / blocks_per_cta);
-  cudaError_t err = cudaLaunchKernel(fn, grid, dim3(32 * kWarps), args, 0,
-                                     static_cast<cudaStream_t>(stream));
+  cudaError_t err = cudaLaunchKernel(fn, grid, dim3(32 * kWarps), args, 0, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // Phase 2: tile t scores queries tile_query[64t .. 64t+63] (negative =
 // none) against index block tile_block[t] (negative = skip); out int64
-// [ntile·64, k], each pair's block-local top-k composites.
+// [ntile·64, k], each pair's block-local top-k composites. bf16 / int8
+// need block_t % 128 == 0 and block_t <= 4096.
 extern "C" int sse_twophase_pairs(const void* q, const void* emb, int dt, int B, int T, int D,
                                   int num_real, int block_t, int ntile, const void* tile_query,
                                   const void* tile_block, int k, void* out, void* stream) {
-  const int ks = row_slices(dt, D);
+  const int ks = row_slices(dt, D), lim = max(0, min(T, num_real));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((dt != kF32 && ks != 4 && ks != 8) || k < 1 || k > 128) return (int)cudaErrorInvalidValue;
   if (ntile == 0) return 0;
-  const void* fn = pairs_pick(dt, ks);
+  const int* tq = static_cast<const int*>(tile_query);
+  const int* tb = static_cast<const int*>(tile_block);
+  long long* o = static_cast<long long*>(out);
+  if (dt != kF32) {
+    if (block_t % kTileN || block_t > kMaxBlockT) return (int)cudaErrorInvalidValue;
+    if (dt == kBF16)
+      return ks == 4 ? pairs_wg<kBF16, 4>(q, emb, B, T, lim, block_t, ntile, tq, tb, k, o, st)
+                     : pairs_wg<kBF16, 8>(q, emb, B, T, lim, block_t, ntile, tq, tb, k, o, st);
+    return ks == 4 ? pairs_wg<kI8, 4>(q, emb, B, T, lim, block_t, ntile, tq, tb, k, o, st)
+                   : pairs_wg<kI8, 8>(q, emb, B, T, lim, block_t, ntile, tq, tb, k, o, st);
+  }
+  const void* fn = (const void*)pairs_kernel;
   const int smem = range_topk_smem(64, k);
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&q, &emb, &B, &T, &D, &num_real, &block_t, &tile_query, &tile_block, &k, &out};
-  err = cudaLaunchKernel(fn, dim3(ntile), dim3(32 * kWarps), args, smem,
-                         static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernel(fn, dim3(ntile), dim3(32 * kWarps), args, smem, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

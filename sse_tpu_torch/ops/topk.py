@@ -63,6 +63,8 @@ TWOPHASE_MIN_BATCH = 1024
 TWOPHASE_BLOCK_T = 2048
 PAIR_TILE = 64  # queries per phase-2 tile (the kernel's block of 4 warps)
 _TILE_ROWS = 64  # index rows per kernel step
+_SCORE_TILE = 128  # index rows per wgmma score tile (csrc/topk_tile.cuh)
+_MAX_BLOCK_T = 4096
 _REF_ELEMS = 1 << 26  # score elements per chunk of the plain versions
 
 # Launches of each CUDA kernel wrapper (incremented only where it launches).
@@ -95,10 +97,10 @@ def enc_key(scores: torch.Tensor, int_exact: bool) -> torch.Tensor:
 def dec_val(key: torch.Tensor, int_exact: bool) -> torch.Tensor:
     """Cosine-range float32 value of a cleared key; sinks decode finite."""
     if int_exact:
-        inv = torch.tensor(_INT8_INV, dtype=torch.float32, device=key.device)
-        v = (key >> 12).to(torch.float32) * inv
-        neg = torch.tensor(NEG, dtype=torch.float32, device=key.device)
-        return torch.where(key == _INT_SINK, neg, v)
+        # Python scalars, as jnp's weak types: float32 arithmetic, and no
+        # host-to-device copy (which would sync the stream)
+        v = (key >> 12).to(torch.float32) * _INT8_INV
+        return torch.where(key == _INT_SINK, NEG, v)
     return from_sortable(key)
 
 
@@ -300,6 +302,19 @@ def twophase_block_t(t_pad: int, k: int) -> Optional[int]:
     return bt if t_pad % bt == 0 and k <= t_pad // bt else None
 
 
+def _check_block_t(emb: torch.Tensor, block_t: int, name: str) -> None:
+    """What the phase kernels take: bf16 and int8 blocks of whole 128-row
+    score tiles, at most 4096 rows (a row's place in its block rides in a
+    phase-2 candidate's 12 low bits); float32 blocks of 64-row steps."""
+    if emb.dtype == torch.float32:
+        if block_t % _TILE_ROWS:
+            raise ValueError(f"{name}: block_t must be a multiple of {_TILE_ROWS}")
+    elif block_t % _SCORE_TILE or block_t > _MAX_BLOCK_T:
+        raise ValueError(
+            f"{name}: bf16/int8 block_t must be a multiple of {_SCORE_TILE} and at most "
+            f"{_MAX_BLOCK_T}, got {block_t}")
+
+
 def twophase_phase1_reference(
     q: torch.Tensor, emb: torch.Tensor, k: int, num_real: int, block_t: int
 ) -> torch.Tensor:
@@ -332,14 +347,14 @@ def twophase_phase1(
     if not emb.is_cuda:
         return twophase_phase1_reference(q, emb, k, num_real, block_t)
     _check_cuda(q, emb, k, "twophase_phase1")
-    if block_t % _TILE_ROWS:
-        raise ValueError(f"twophase_phase1: block_t must be a multiple of {_TILE_ROWS}")
+    _check_block_t(emb, block_t, "twophase_phase1")
     b, d = q.shape
     t = emb.shape[0]
     nblocks = t // block_t
     nr = max(0, min(int(num_real), t))
+    # the float32 kernel's grid; the bf16 / int8 kernel shapes its own
     qb = _queries_per_block(b)
-    blocks_per_cta, _ = _split(nblocks, b, qb, emb.device)
+    blocks_per_cta = _split(nblocks, b, qb, emb.device)[0] if emb.dtype == torch.float32 else 0
     bkeys = torch.empty((b, nblocks), dtype=torch.int64, device=emb.device)
     _build.launch(
         "sse_twophase_blockmax", [_P, _P] + [_I] * 9 + [_P], emb.device,
@@ -351,7 +366,8 @@ def twophase_phase1(
 
 
 def pair_schedule(bkeys: torch.Tensor, nblocks: int):
-    """The mid-pass (plain torch, no host sync): the B·k (query, block)
+    """The mid-pass (plain torch, no host sync: it runs under
+    ``torch.cuda.set_sync_debug_mode("error")``): the B·k (query, block)
     pairs grouped by block into tiles of PAIR_TILE queries. Returns
     (tile_query int32 [ntile·PAIR_TILE], tile_block int32 [ntile], pos
     int64 [B·k]: each pair's row in the phase-2 output, -1 for an empty
@@ -362,14 +378,15 @@ def pair_schedule(bkeys: torch.Tensor, nblocks: int):
     flat = bkeys.reshape(p)
     valid = flat != _EMPTY
     blk = torch.where(valid, _LOW32 - (flat & _LOW32), nblocks)
-    qrow = torch.arange(b, device=dev).repeat_interleave(k)
     order = torch.argsort(blk, stable=True)
     sblk = blk[order]
-    srow = qrow[order]
-    counts = torch.bincount(sblk, minlength=nblocks + 1)[:nblocks]
+    srow = order // k  # the query of each sorted pair
+    # sblk is sorted, so each block's first pair is a binary search: no
+    # bincount, whose CUDA version reads the input's range back to the host
+    start = torch.searchsorted(sblk, torch.arange(nblocks + 1, device=dev))
+    counts = start.diff()
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     tile_base = torch.cat([zero, torch.cumsum((counts + PAIR_TILE - 1) // PAIR_TILE, 0)])
-    start = torch.cat([zero, torch.cumsum(counts, 0)])
     in_range = sblk < nblocks
     sb = torch.clamp(sblk, max=nblocks - 1)
     rank = torch.arange(p, device=dev) - start[sb]
@@ -383,8 +400,6 @@ def pair_schedule(bkeys: torch.Tensor, nblocks: int):
     tile_block[torch.where(in_range, tile, ntile)] = sb.to(torch.int32)
     pos = torch.empty(p, dtype=torch.int64, device=dev)
     pos[order] = spos
-    tile_query[-1] = -1
-    tile_block[-1] = -1
     return tile_query[:-1].contiguous(), tile_block[:-1].contiguous(), pos
 
 
@@ -434,6 +449,7 @@ def twophase_phase2(
             q, emb, k, num_real, block_t, tile_query, tile_block
         )
     _check_cuda(q, emb, k, "twophase_phase2")
+    _check_block_t(emb, block_t, "twophase_phase2")
     for name, x in (("tile_query", tile_query), ("tile_block", tile_block)):
         if not (x.device == emb.device and x.dtype == torch.int32 and x.is_contiguous()):
             raise ValueError(f"twophase_phase2: {name} must be contiguous int32 on {emb.device}")

@@ -186,6 +186,112 @@ def test_topk_exact_negative_zero(cuda):
     assert got[1][0].tolist() == [77] + list(range(9))
 
 
+def _twophase_data(gen, dtype, d, b, t=20480):
+    from sse_tpu_torch.index.sharded_index import quantize_rows
+    from sse_tpu_torch.ops import topk
+
+    if dtype == "int8":
+        x = torch.randn((t, d), generator=gen, device="cuda")
+        y = torch.randn((b, d), generator=gen, device="cuda")
+        return (quantize_rows(x / x.norm(dim=1, keepdim=True), torch.int8),
+                topk.quantize_queries_int8(y / y.norm(dim=1, keepdim=True)))
+    return _exact((t, d), gen), _exact((b, d), gen)
+
+
+def _hold_twophase_phases(q, emb, k, num_real, block_t):
+    """The wgmma phase kernels bit-identical to their plain versions (each
+    launching once); phase 2 on the schedule of the plain phase 1."""
+    from sse_tpu_torch.ops import topk
+
+    n1, n2 = topk.launches["twophase_p1"], topk.launches["twophase_p2"]
+    p1 = topk.twophase_phase1(q, emb, k, num_real, block_t)
+    want1 = topk.twophase_phase1_reference(q, emb, k, num_real, block_t)
+    assert torch.equal(p1, want1)
+    tq, tb, _ = topk.pair_schedule(want1, emb.shape[0] // block_t)
+    p2 = topk.twophase_phase2(q, emb, k, num_real, block_t, tq, tb)
+    assert torch.equal(p2, topk.twophase_phase2_reference(q, emb, k, num_real, block_t, tq, tb))
+    assert (topk.launches["twophase_p1"], topk.launches["twophase_p2"]) == (n1 + 1, n2 + 1)
+    return tq, tb, p2
+
+
+# 128- and 256-byte rows of both types; B: a lone query, a ragged group of
+# 17, and 1000 / 1500 (four and six 256-query groups, the last ragged)
+@pytest.mark.parametrize("dtype,d", [("bf16", 128), ("bf16", 64), ("int8", 128), ("int8", 256)])
+@pytest.mark.parametrize("B", [1, 17, 1000, 1500])
+def test_twophase_phase_kernels_match_plain(cuda, dtype, d, B):
+    emb, q = _twophase_data(cuda, dtype, d, B)
+    _hold_twophase_phases(q, emb, 10, 19000, 2048)
+
+
+# num_real at the block and tile edges: none, fewer than k, a block's last
+# row, a whole block, one row into the next, all
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("num_real", [0, 5, 2047, 2048, 2049, 20480])
+def test_twophase_phase_kernels_num_real_edges(cuda, dtype, num_real):
+    emb, q = _twophase_data(cuda, dtype, 128, 300)
+    tq, tb, p2 = _hold_twophase_phases(q, emb, 10, num_real, 2048)
+    if num_real == 0:
+        assert (tb == -1).all() and (p2 == -(2**63)).all()
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_twophase_zero_query_rows_and_spare_tiles(cuda, dtype):
+    """An all-zero query row (and a -0.0 one in bf16) keys every score as
+    +0.0: rows 0..k-1, value 0.0, as the plain version gives them; spare
+    tiles (block -1) and missing queries (id -1) come out empty."""
+    from sse_tpu_torch.ops import topk
+
+    emb, q = _twophase_data(cuda, dtype, 128, 70)
+    q[3] = 0
+    if dtype == "bf16":
+        q[5] = -0.0
+    tq, tb, p2 = _hold_twophase_phases(q, emb, 10, 20480, 2048)
+    spare = (tb == -1).nonzero().flatten()
+    assert spare.numel() > 0 and (p2.view(tb.shape[0], 64, 10)[spare] == -(2**63)).all()
+    missing = (tq == -1) & (tb.repeat_interleave(64) >= 0)
+    assert missing.any() and (p2[missing] == -(2**63)).all()
+    got = topk.fused_score_topk_twophase(q, emb, 10, 20480, block_t=2048)
+    want = topk.topk_reference(q, emb, 10, 20480)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for i in (3, 5) if dtype == "bf16" else (3,):
+        assert got[1][i].tolist() == list(range(10))
+        assert (got[0][i] == 0).all() and not torch.signbit(got[0][i]).any()
+
+
+def test_twophase_phase_kernels_other_blocks(cuda):
+    """Blocks of one score tile (128 rows) and of 4096 rows (the most a
+    phase-2 candidate's local row field holds); other block sizes raise."""
+    from sse_tpu_torch.ops import topk
+
+    emb, q = _twophase_data(cuda, "bf16", 128, 300)
+    for bt in (128, 4096):
+        _hold_twophase_phases(q, emb, 10, 20000, bt)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        topk.twophase_phase1(q, emb, 10, 20000, 64)
+    tq = torch.full((64,), -1, dtype=torch.int32, device="cuda")
+    tb = torch.full((1,), -1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="at most 4096"):
+        topk.twophase_phase2(q, emb, 10, 20000, 8192, tq, tb)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_twophase_call_never_syncs_the_host(cuda, dtype):
+    """The whole two-phase call (phase 1, select, mid-pass, phase 2,
+    merge) under torch.cuda.set_sync_debug_mode("error"), and its result."""
+    from sse_tpu_torch.ops import topk
+
+    emb, q = _twophase_data(cuda, dtype, 128, 1024)
+    want = topk.topk_reference(q, emb, 10, 20000)
+    topk.fused_score_topk_twophase(q, emb, 10, 20000, block_t=2048)  # build and warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = topk.fused_score_topk_twophase(q, emb, 10, 20000, block_t=2048)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_cuda_wrappers_raise_on_bad_input(cuda):
     from sse_tpu_torch.ops import topk
 

@@ -254,6 +254,84 @@ def test_pair_schedule_groups_pairs_by_block():
     assert (tq >= 0).sum() == len(used)
 
 
+def _pair_schedule_by_bincount(bkeys, nblocks):
+    """The mid-pass as it was first written (bincount for the per-block
+    counts, repeat_interleave for the query of each pair): the reference
+    for the rewritten counts."""
+    b, k = bkeys.shape
+    p = b * k
+    flat = bkeys.reshape(p)
+    blk = torch.where(flat != ttopk._EMPTY, ttopk._LOW32 - (flat & ttopk._LOW32), nblocks)
+    order = torch.argsort(blk, stable=True)
+    sblk, srow = blk[order], torch.arange(b).repeat_interleave(k)[order]
+    counts = torch.bincount(sblk, minlength=nblocks + 1)[:nblocks]
+    zero = torch.zeros(1, dtype=torch.int64)
+    tile_base = torch.cat([zero, torch.cumsum((counts + ttopk.PAIR_TILE - 1) // ttopk.PAIR_TILE, 0)])
+    start = torch.cat([zero, torch.cumsum(counts, 0)])
+    in_range = sblk < nblocks
+    sb = torch.clamp(sblk, max=nblocks - 1)
+    rank = torch.arange(p) - start[sb]
+    tile = tile_base[sb] + rank // ttopk.PAIR_TILE
+    ntile = min(nblocks, p) + -(-p // ttopk.PAIR_TILE)
+    spos = torch.where(in_range, tile * ttopk.PAIR_TILE + rank % ttopk.PAIR_TILE, -1)
+    tile_query = torch.full((ntile * ttopk.PAIR_TILE,), -1, dtype=torch.int32)
+    tile_query[spos[in_range]] = srow[in_range].to(torch.int32)
+    tile_block = torch.full((ntile,), -1, dtype=torch.int32)
+    tile_block[tile[in_range]] = sb[in_range].to(torch.int32)
+    pos = torch.empty(p, dtype=torch.int64)
+    pos[order] = spos
+    return tile_query, tile_block, pos
+
+
+@pytest.mark.parametrize("b,k,nblocks", [(1, 1, 1), (3, 2, 5), (150, 4, 7), (200, 10, 610),
+                                         (1100, 10, 12), (70, 32, 40)])
+def test_pair_schedule_counts_match_bincount(b, k, nblocks):
+    """The mid-pass's searchsorted counts give the schedule the bincount
+    gave: random block choices with a share of empty pairs (blocks past
+    num_real), including all-empty queries."""
+    rng = np.random.default_rng(b * 1000 + k)
+    blk = np.stack([rng.choice(nblocks, size=k, replace=False) for _ in range(b)])
+    key = torch.from_numpy(rng.integers(-1000, 1000, size=(b, k)))
+    comp = key * (1 << 32) + (0xFFFFFFFF - torch.from_numpy(blk))
+    comp[torch.from_numpy(rng.random((b, k)) < 0.2)] = ttopk._EMPTY
+    comp[0] = ttopk._EMPTY
+    got = ttopk.pair_schedule(comp, nblocks)
+    want = _pair_schedule_by_bincount(comp, nblocks)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_twophase_zero_and_negative_zero_query_rows():
+    """A batch with an all-zero query row and a -0.0 query row: every
+    score of both is zero, keyed as +0.0, so both give rows 0-4 with value
+    0.0, as the JAX two-phase kernels (interpret mode) give them."""
+    b, d, t = 6, 32, 1024
+    q, emb = _inputs(13, b, d, t)
+    q[1] = 0.0
+    q[4] = -0.0
+    for dtype in ("bf16", "int8"):
+        je, te = _index(dtype, emb)
+        ref = _jax_tp(jnp.asarray(q), je, 5, t - 7, 64)
+        got = ttopk.fused_score_topk_twophase(torch.from_numpy(q), te, 5, t - 7, block_t=64)
+        _assert_same(got, ref, t, t, rtol=0 if dtype == "int8" else 2e-2)
+        for r in (1, 4):
+            assert got[1][r].tolist() == [0, 1, 2, 3, 4]
+            assert (got[0][r] == 0).all() and not torch.signbit(got[0][r]).any()
+
+
+def test_int8_dec_val_sinks_match_jax():
+    """The int8 decode with Python-scalar constants: values and the sink
+    bit-identical to JAX's _dec_val."""
+    rng = np.random.default_rng(6)
+    s = rng.integers(-ttopk._INT_SCORE_CLIP, ttopk._INT_SCORE_CLIP + 1, size=500).astype(np.int32)
+    keys = np.concatenate([s << 12, np.int32([ttopk._INT_SINK, 0, ttopk._INT_SINK])])
+    got = ttopk.dec_val(torch.from_numpy(keys), True)
+    want = np.asarray(jtopk._dec_val(jnp.asarray(keys), True))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert (got[-3::2] == np.float32(ttopk.NEG)).all()
+
+
 def test_cpu_tensors_never_launch_kernels():
     before = dict(ttopk.launches)
     q, emb = _inputs(2, 4, 32, 512)
