@@ -4,9 +4,11 @@ GRU and LSTM towers, both top-k variants, and the model-dir CLI.
     python3 chip_smoke.py            # needs one CUDA card; no network
     python3 chip_smoke.py --costs    # only the GRU recurrences' per-step costs
     python3 chip_smoke.py --twophase # only the two-phase top-k's costs
+    python3 chip_smoke.py --stream   # only the streaming top-k's costs
 
-``--costs`` (gru_fwd_costs, gru_bwd_costs) and ``--twophase``
-(twophase_costs) time the ``sse_tpu_torch`` beside this file: a copy of
+``--costs`` (gru_fwd_costs, gru_bwd_costs), ``--twophase``
+(twophase_costs) and ``--stream`` (stream_costs) time the
+``sse_tpu_torch`` beside this file: a copy of
 this file in another checkout measures that checkout's kernels, so two
 commits compare in one run, taken in turns.
 
@@ -21,17 +23,20 @@ commits compare in one run, taken in turns.
    precomputed pre-activations, GRU and LSTM (B=4096, the same bounds);
    the GRU and LSTM layer backward (B=128, 256, 384 and 2,304; end to
    end and at each rounding point, tolerances in check_bwd); the
-   streaming top-k (B=8, the served interactive batch, and B=256) and the
+   streaming top-k (B=8, the served interactive batch, and B=256; num_real
+   0, 5, 127, 128, 129, 4095, 4096, 4097; zero and -0.0 query rows; the
+   call under ``torch.cuda.set_sync_debug_mode("error")``) and the
    two-phase top-k phases (B=4096; B=1 and 1500; num_real 0, 5, 2047,
    2048, 2049 and T-1000; zero and -0.0 query rows) on the 1,249,280 x
-   128 index, in bf16 and int8, the whole two-phase call under
-   ``torch.cuda.set_sync_debug_mode("error")``, its device time by part,
-   against streaming at B=256 to 4096, and one engine bulk batch at
-   B=4096 by kernel (twophase_costs); the exact top-k variant (B=8, 256
-   and 4096, bf16, int8 and f32, num_real 0 and 5, -0.0 products); all on
+   128 index, in bf16 and int8, the whole two-phase call under sync
+   debug, its device time by part, against streaming at B=256 to 4096,
+   and one engine bulk batch at B=4096 by kernel (twophase_costs); the
+   exact top-k variant (B=8, 256 and 4096, bf16, int8 and f32, the same
+   num_real edges and zero rows, sync debug, -0.0 products); all on
    exact-dot inputs, so that rows and values must match bit for bit. On
-   random unit rows it logs how many B=4096 query rows the two-phase and
-   streaming routes rank apart.
+   random bf16 and int8 unit rows no B=4096 query row may rank apart
+   between the two-phase and streaming routes (both score through one
+   wgmma tile).
 3. The served slices (E=H=D=128, vocab 8000, L=50, random weights from a
    seed), each building the 1,249,280-row bf16 index on the GPU from the
    same 1,248,280 synthetic documents: (a) the bench model, a
@@ -66,12 +71,15 @@ forget bias folded into its bias, full lengths) is timed beside the LSTM
 kernels as their library yardstick; the port never calls it.
 
 Any failure raises (non-zero exit). The line before the last is a JSON
-object with each kernel's launches, error, times and bound; the last
-line is {"ok": true, "device": {...}}.
+object with each kernel's launches, error, times and bound (the
+streaming kernels also by batch size: time, bound and the served runs'
+launches at each B checked); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import random
@@ -225,11 +233,8 @@ def kernel_ms(run, pattern: str, reps: int = 10) -> float:
     ``pattern`` (torch.profiler, after a warm run)."""
     run()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    return sum(ms for k, ms in device_times(prof).items() if pattern in k) / reps
+    times = profiled(run, reps, want=(pattern,))
+    return sum(ms for k, ms in times.items() if pattern in k) / reps
 
 
 def gru_fwd_costs(card: str, Bs=(8, 256, 384, 4096), Ts=(1, 2, 50)) -> dict:
@@ -518,6 +523,7 @@ def check_bwd(card: str, results: dict, cell: str) -> None:
             ms = cuda_ms(run)
             plain = cuda_ms(lambda: rnn.rnn_layer_bwd_reference(*args, cs, cell), reps=2)
             msg += f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
+            split = bwd_split(run, cell) if B == report_b else None
             lib = None
             if lstm:
                 lstm_mod = cudnn_lstm(wx, wh, b)
@@ -530,7 +536,7 @@ def check_bwd(card: str, results: dict, cell: str) -> None:
                 ops = 2.0 * T * B * G * H * 3 * (E + H)
                 moved = nbytes(*args, *([cs] if lstm else []), *got)
                 results[name].update(ms=ms, plain_ms=plain, library_ms=lib,
-                                     cuda_kernels=bwd_split(run, cell), **bound(moved, ops))
+                                     cuda_kernels=split, **bound(moved, ops))
         log(msg + f" [{card}]")
     results[name].update(max_abs_err=err, rel_err=worst, pinned_rel_err=pinned)
     log(f"{name} kernels at T=50, B={report_b} (torch.profiler, ms per backward): "
@@ -548,11 +554,12 @@ def bwd_kernels(cell: str) -> dict:
     }
 
 
-def device_times(prof) -> dict:
+def device_times(prof, counts: dict | None = None) -> dict:
     """Name → total device ms of each event on the device timeline of a
     torch.profiler run (kernels, copies, and the spans of profiler ranges;
     CPU ops, which also report the device time of what they launched,
-    are left out so nothing counts twice)."""
+    are left out so nothing counts twice). ``counts``, where given, gets
+    name → number of events."""
     out = {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -562,19 +569,40 @@ def device_times(prof) -> dict:
             t = ev.self_cuda_time_total
         if t > 0:
             out[ev.key] = out.get(ev.key, 0.0) + t / 1000.0
+            if counts is not None:
+                counts[ev.key] = counts.get(ev.key, 0) + ev.count
     return out
+
+
+def profiled(run, reps: int, want=(), tries: int = 3) -> dict:
+    """device_times of one torch.profiler session over ``reps`` runs of
+    ``run()``. Now and then a session loses most of its kernel records
+    (on an H100, one backward's profile came back with only the last of
+    its 25 launches), so a session in which a name pattern of ``want``
+    matched fewer than ``reps`` events is profiled again, up to ``tries``
+    sessions, before the check fails."""
+    for attempt in range(1, tries + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        counts = {}
+        times = device_times(prof, counts)
+        short = {p: sum(c for k, c in counts.items() if p in k) for p in want}
+        short = {p: c for p, c in short.items() if c < reps}
+        if not short:
+            return times
+        log(f"torch.profiler session {attempt} of {tries} saw too few events of {short} "
+            f"(want {reps} each): {sorted(times)}")
+    check(False, f"torch.profiler lost the events of {sorted(short)} in {tries} sessions")
 
 
 def bwd_split(run, cell: str, reps: int = 5) -> dict:
     """Device ms of each CUDA kernel of one backward (``run()``), from
     torch.profiler."""
     kernels = bwd_kernels(cell)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
     split = {}
-    for key, ms in device_times(prof).items():
+    for key, ms in profiled(run, reps, want=tuple(kernels)).items():
         for pat, part in kernels.items():
             if pat in key:
                 split[part] = split.get(part, 0.0) + ms / reps
@@ -607,20 +635,17 @@ def twophase_split(q, emb, nr: int, bt: int, reps: int = 5) -> dict:
     the call's device time); "call" is the sum."""
     from sse_tpu_torch.ops import topk
 
-    def parts(run) -> dict:
+    def parts(run, want=()) -> dict:
         run()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                run()
-            torch.cuda.synchronize()
         out = {}
-        for key, ms in device_times(prof).items():
+        for key, ms in profiled(run, reps, want).items():
             part = next((p for pat, p in TWOPHASE_PARTS.items() if pat in key), "rest")
             out[part] = out.get(part, 0.0) + ms / reps
         return out
 
-    split = parts(lambda: topk.fused_score_topk_twophase(q, emb, K, nr, block_t=bt))
+    split = parts(lambda: topk.fused_score_topk_twophase(q, emb, K, nr, block_t=bt),
+                  want=tuple(TWOPHASE_PARTS))
     p1 = topk.twophase_phase1(q, emb, K, nr, bt)
     mid = sum(parts(lambda: topk.pair_schedule(p1, emb.shape[0] // bt)).values())
     rest = split.pop("rest", 0.0)
@@ -669,13 +694,15 @@ def twophase_costs(card: str) -> None:
         del emb, q
         torch.cuda.empty_cache()
     log(f"engine bulk query B=4096 (GRU encode + two-phase top-k), device ms by kernel: "
-        f"{fmt(engine_bulk_split())} [{card}]")
+        f"{fmt(engine_split(4096))} [{card}]")
 
 
-def engine_bulk_split(reps: int = 3) -> dict:
-    """Device ms of one bulk batch of the served GRU model (the bench
-    model, random weights from the seed) at B=4096, L=50, through
-    build_fused_query_fn on the 1,249,280-row bf16 index of unit rows."""
+def engine_split(b: int, reps: int = 3) -> dict:
+    """Device ms of one batch of the served GRU model (the bench model,
+    random weights from the seed) at B=b, L=50, through
+    build_fused_query_fn on the 1,249,280-row bf16 index of unit rows,
+    split by kernel: B=8 streams (a served interactive query), B=4096
+    takes the two-phase route (a bulk batch)."""
     from sse_tpu_torch.models import sse
     from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
     from sse_tpu_torch.models.towers import TowerConfig
@@ -686,23 +713,99 @@ def engine_bulk_split(reps: int = 3) -> dict:
     cfg = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(cell="gru", **width))
     params = sse.init_params(cfg, torch.Generator().manual_seed(SEED))
     emb = unit_rows(T_PAD, gen).bfloat16()
-    tokens = torch.randint(1, 8000, (4096, 50), generator=gen, device="cuda")
-    lengths = torch.randint(1, 51, (4096,), generator=gen, device="cuda")
+    tokens = torch.randint(1, 8000, (b, 50), generator=gen, device="cuda")
+    lengths = torch.randint(1, 51, (b,), generator=gen, device="cuda")
     fused = build_fused_query_fn(cfg, K)
     run = lambda: fused(params, emb, tokens, lengths, T_PAD - 1000)  # noqa: E731
     run()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    pats = {"gru_fwd": "GRU", **TWOPHASE_PARTS}
+    pats = {"gru_fwd": "GRU", **TWOPHASE_PARTS, **STREAM_PARTS}
     out = {}
-    for key, ms in device_times(prof).items():
+    for key, ms in profiled(run, reps, want=("gru_fwd",)).items():
         part = next((p for pat, p in pats.items() if pat in key), "other")
         out[part] = out.get(part, 0.0) + ms / reps
     out["batch"] = sum(out.values())
     return out
+
+
+# kernel-name patterns of a streaming call's parts (select first: the
+# streaming kernel's name is the one holding "stream")
+STREAM_PARTS = {"topk_select_kernel": "select", "stream": "streaming"}
+STREAM_BATCHES = (1, 8, 64, 256, 1024, 4096)
+
+
+def stream_split(run, reps: int = 3) -> tuple:
+    """Device ms of one streaming call (``run()``) by part, from
+    torch.profiler after a warm call: the streaming kernel, the select,
+    and the rest; and the names of the streaming kernels seen."""
+    run()
+    torch.cuda.synchronize()
+    out, names = {"streaming": 0.0, "select": 0.0}, set()
+    for key, ms in profiled(run, reps, want=("stream",)).items():
+        part = next((p for pat, p in STREAM_PARTS.items() if pat in key), "rest")
+        if part == "streaming":
+            names.add(key.split("<")[0])
+        out[part] = out.get(part, 0.0) + ms / reps
+    return out, names
+
+
+def stream_costs(card: str) -> None:
+    """The streaming top-k (both variants, bf16 and int8, random unit rows
+    on the 1,249,280-row index, num_real = T_pad - 1000) at B in
+    STREAM_BATCHES and k in {10, 100}: device ms of the kernel and of the
+    select, the bound, and at B >= 64 the packed two-phase call beside it
+    (the crossover); cuBLAS's product alone at B=256 and 4096 as a
+    yardstick (no single PyTorch call computes a top-k without the [B, T]
+    matrix); a served B=8 GRU query's device time by kernel. Uses only the
+    package's public functions, so a copy of this file in an older
+    checkout measures that checkout."""
+    from sse_tpu_torch.index.sharded_index import quantize_rows
+    from sse_tpu_torch.ops import topk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    nr = T_PAD - 1000
+    bt = topk.twophase_block_t(T_PAD, K)
+    seen = set()
+    for dtype in ("bf16", "int8"):
+        if dtype == "bf16":
+            emb, q_all = unit_rows(T_PAD, gen).bfloat16(), unit_rows(4096, gen).bfloat16()
+        else:
+            emb = quantize_rows(unit_rows(T_PAD, gen), torch.int8)
+            q_all = topk.quantize_queries_int8(unit_rows(4096, gen))
+        for variant in ("packed", "exact"):
+            for k in (10, 100):
+                cells = []
+                for b in STREAM_BATCHES:
+                    q = q_all[:b].contiguous()
+                    split, names = stream_split(
+                        lambda: topk.fused_score_topk(q, emb, k, nr, variant=variant))
+                    seen |= names
+                    bnd = bound(nbytes(q, emb) + 8 * b * k, 2.0 * b * nr * D, dtype)
+                    cell = (f"B={b} kernel {split['streaming']:.4f} + select {split['select']:.4f}"
+                            f" (bound {bnd['bound_ms']:.4f} by {bnd['bound_by']}")
+                    if variant == "packed" and b >= 64:
+                        tp = kernel_ms(
+                            lambda: topk.fused_score_topk_twophase(q, emb, k, nr, block_t=bt), "",
+                            reps=3)
+                        cell += f"; two-phase {tp:.4f}"
+                    cells.append(cell + ")")
+                log(f"stream {variant} {dtype} k={k}, device ms a call: " + "; ".join(cells)
+                    + f" [{card}]")
+        if dtype == "bf16":
+            out = torch.empty((4096, T_PAD // 20), dtype=torch.bfloat16, device="cuda")
+            chunks = [emb[i : i + out.shape[1]] for i in range(0, T_PAD, out.shape[1])]
+            for b in (256, 4096):
+                q, o = q_all[:b], out[:b]
+                ms = cuda_ms(lambda: [torch.matmul(q, e.T, out=o) for e in chunks], reps=3)
+                log(f"yardstick (not a library row): cuBLAS bf16 q @ emb.T alone at B={b} over "
+                    f"{T_PAD} rows in {len(chunks)} chunks, {ms:.4f} ms, "
+                    f"{2.0 * b * T_PAD * D / ms / 1e9:.1f} TFLOP/s [{card}]")
+            del out, chunks
+        del emb, q_all
+        torch.cuda.empty_cache()
+    log(f"streaming kernels seen by torch.profiler: {sorted(seen)}")
+    log(f"served GRU query B=8 (GRU encode + streaming top-k), device ms by kernel: "
+        f"{fmt(engine_split(8))} [{card}]")
 
 
 def hold_phases(name: str, q, emb, nr: int, bt: int) -> None:
@@ -718,7 +821,48 @@ def hold_phases(name: str, q, emb, nr: int, bt: int) -> None:
           f"{name}: phase 2 pair candidates differ")
 
 
+STREAM_EDGES = (0, 5, 127, 128, 129, 4095, 4096, 4097)  # num_real: none, < k, tile and window edges
+
+
+def hold_stream_edges(name: str, q_all, emb, variant: str) -> None:
+    """The streaming call bit-identical to plain at the num_real edges
+    (B=8; sinks: packed finite below -1e37, exact exactly float32(-3e38),
+    row 0), with a zero query row (and a -0.0 one for bf16: rows 0..k-1,
+    value +0.0), and at B=8 and 256 under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from sse_tpu_torch.ops import topk
+
+    q = q_all[:8].contiguous()
+    for edge_nr in STREAM_EDGES:
+        v, rows = topk.fused_score_topk(q, emb, K, edge_nr, variant=variant)
+        same(f"{name} num_real={edge_nr}", (v, rows),
+             topk.topk_reference(q, emb, K, edge_nr, variant=variant))
+        sink = v[:, edge_nr:]
+        check(bool((sink == -3.0e38).all() if variant == "exact" else (sink < -1e37).all())
+              and bool((rows[:, edge_nr:] == 0).all()), f"{name} num_real={edge_nr}: sinks")
+    qz = q.clone()
+    qz[1] = 0
+    if emb.dtype == torch.bfloat16:
+        qz[2] = -0.0
+    v, rows = topk.fused_score_topk(qz, emb, K, T_PAD, variant=variant)
+    same(f"{name} zero query rows", (v, rows), topk.topk_reference(qz, emb, K, T_PAD, variant=variant))
+    for i in (1, 2) if emb.dtype == torch.bfloat16 else (1,):
+        check(rows[i].tolist() == list(range(K)) and bool((v[i] == 0).all())
+              and not bool(torch.signbit(v[i]).any()), f"{name}: a zero query row keys +0.0")
+    for B in (8, 256):
+        q = q_all[:B].contiguous()
+        want = topk.fused_score_topk(q, emb, K, T_PAD - 1000, variant=variant)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = topk.fused_score_topk(q, emb, K, T_PAD - 1000, variant=variant)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        same(f"{name} B={B} under sync debug", got, want)
+
+
 def check_topk(card: str, results: dict) -> None:
+    from sse_tpu_torch.index.sharded_index import quantize_rows
     from sse_tpu_torch.ops import topk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -728,8 +872,8 @@ def check_topk(card: str, results: dict) -> None:
     for dtype in ("bf16", "int8"):
         emb, q_all = twophase_data(dtype, gen)
 
-        # streaming at B = 8 (the served interactive batch: 16-query tiles,
-        # hundreds of 64-row tiles per split) and at B = 256 (64-query tiles)
+        # streaming at B = 8 (the served interactive batch: one warpgroup of
+        # 64 query rows, 8 real) and at B = 256 (two groups of 128)
         for B in (8, 256):
             q = q_all[:B].contiguous()
             got = topk.fused_score_topk(q, emb, K, nr)
@@ -741,18 +885,15 @@ def check_topk(card: str, results: dict) -> None:
                 f"to plain; kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]")
             r = results["topk_stream"]
             r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
-            if dtype == "bf16" and B == 8:
-                r.update(ms=ms, plain_ms=plain, library_ms=None,
-                         **bound(nbytes(q, emb, *got), 2.0 * B * nr * D))
-        q = q_all[:8].contiguous()
-        for small_nr in (0, 5):  # fully padded, and fewer real rows than k
-            v, rows = topk.fused_score_topk(q, emb, K, small_nr)
-            same(f"topk_stream {dtype} num_real={small_nr}", (v, rows),
-                 topk.topk_reference(q, emb, K, small_nr))
-            check(torch.isfinite(v).all() and (v[:, small_nr:] < -1e37).all(),
-                  f"topk_stream {dtype} num_real={small_nr}: sinks must be finite")
-            check(((rows >= 0) & (rows < T_PAD)).all(), "sink rows must be in range")
-        log(f"topk_stream {dtype}: num_real=0 and num_real<k give finite sinks, in-range rows")
+            if dtype == "bf16":
+                at = dict(ms=ms, plain_ms=plain, **bound(nbytes(q, emb, *got), 2.0 * B * nr * D))
+                r.setdefault("at_batch", {})[str(B)] = at
+                if B == 8:
+                    r.update(library_ms=None, **at)
+        hold_stream_edges(f"topk_stream {dtype}", q_all, emb, "packed")
+        log(f"topk_stream {dtype}: bit-identical to plain at num_real {STREAM_EDGES} (B=8; "
+            f"finite sinks with row 0) and with zero query rows; B=8 and 256 ran under "
+            f"torch.cuda.set_sync_debug_mode('error')")
 
         # two-phase, B = 4096: each phase against its plain version
         q = q_all
@@ -841,17 +982,21 @@ def check_topk(card: str, results: dict) -> None:
         del emb, q_all, q, qe
         torch.cuda.empty_cache()
 
-    # random unit rows (float32 sums not exact): how many B=4096 query rows
-    # the two routes rank apart (the two products round apart, if at all)
-    emb = unit_rows(T_PAD, gen).bfloat16()
-    q = unit_rows(4096, gen).bfloat16()
-    tp = topk.fused_score_topk_twophase(q, emb, K, nr, block_t=bt)
-    st = topk.fused_score_topk(q, emb, K, nr)
-    differ = int((tp[1] != st[1]).any(dim=1).sum())
-    log(f"twophase vs streaming on random bf16 unit rows, B=4096: {differ} of 4096 query rows "
-        f"differ [{card}]")
-    del emb, q
-    torch.cuda.empty_cache()
+    # random unit rows (float32 sums not exact): both routes score through
+    # the same wgmma tile, so no B=4096 query row may rank apart
+    for dtype in ("bf16", "int8"):
+        x, q = unit_rows(T_PAD, gen), unit_rows(4096, gen)
+        emb = x.bfloat16() if dtype == "bf16" else quantize_rows(x, torch.int8)
+        del x
+        tp = topk.fused_score_topk_twophase(q, emb, K, nr, block_t=bt)
+        st = topk.fused_score_topk(q, emb, K, nr)
+        differ = int((tp[1] != st[1]).any(dim=1).sum())
+        check(differ == 0 and torch.equal(tp[0], st[0]),
+              f"twophase vs streaming on random {dtype} unit rows: {differ} query rows differ")
+        log(f"twophase vs streaming on random {dtype} unit rows, B=4096: 0 of 4096 query rows "
+            f"differ [{card}]")
+        del emb, q
+        torch.cuda.empty_cache()
     twophase_costs(card)
 
 
@@ -891,15 +1036,12 @@ def check_topk_exact(card: str, results: dict) -> None:
             if B == 8:
                 plain = cuda_ms(lambda: topk.topk_reference(q, emb, K, nr, **ex), reps=2)
                 times[-1] += f" (plain {plain:.4f})"
-                if dtype == "bf16":
-                    r.update(ms=ms, plain_ms=plain, library_ms=None,
-                             **bound(nbytes(q, emb, *got), 2.0 * B * nr * D))
-        for small_nr in (0, 5):  # fully padded, and fewer real rows than k
-            v, rows = topk.fused_score_topk(q_all[:8].contiguous(), emb, K, small_nr, **ex)
-            same(f"topk_exact {dtype} num_real={small_nr}", (v, rows),
-                 topk.topk_reference(q_all[:8], emb, K, small_nr, **ex))
-            check(bool((v[:, small_nr:] == -3.0e38).all()) and bool((rows[:, small_nr:] == 0).all()),
-                  f"topk_exact {dtype} num_real={small_nr}: sinks must be float32(-3e38), row 0")
+            if dtype == "bf16":
+                at = dict(ms=ms, **bound(nbytes(q, emb, *got), 2.0 * B * nr * D))
+                r.setdefault("at_batch", {})[str(B)] = at
+                if B == 8:
+                    r.update(plain_ms=plain, library_ms=None, **at)
+        hold_stream_edges(f"topk_exact {dtype}", q_all, emb, "exact")
         if dtype != "int8":  # q·e made of -0.0 products: ties with +0.0, lower row first
             qz = torch.zeros((8, D), device="cuda", dtype=emb.dtype)
             qz[:, 0] = -1.0
@@ -910,8 +1052,10 @@ def check_topk_exact(card: str, results: dict) -> None:
             same(f"topk_exact {dtype} -0.0 products", got, topk.topk_reference(qz, ez, K, 4096, **ex))
             check(got[1][0].tolist() == [77] + list(range(K - 1)), "-0.0 ties: lower rows first")
         log(f"topk_exact {dtype} T={T_PAD} num_real={nr} k={K}: bit-identical to plain "
-            f"(B=4096 on a 512-query subset), num_real 0/5 sinks exactly -3e38 with row 0"
-            f"{', -0.0 products tie to the lower row' if dtype != 'int8' else ''}; kernel "
+            f"(B=4096 on a 512-query subset)"
+            + f", at num_real {STREAM_EDGES} with sinks exactly -3e38 and row 0, zero query "
+            f"rows, under sync debug"
+            + f"{', -0.0 products tie to the lower row' if dtype != 'int8' else ''}; kernel "
             + ", ".join(times) + f" [{card}]")
         del emb, q_all
         torch.cuda.empty_cache()
@@ -954,6 +1098,10 @@ def served_corpus():
     log(f"corpus: {len(docs)} documents, vocab {vocab.vocab_size}, "
         f"token width {tspace.tokens.shape[1]} ({time.perf_counter() - t0:.1f} s host)")
     return vocab, tspace, evalp
+
+
+# main-path launches of the top-k kernels by (name, batch size) (served runs)
+BATCH_LAUNCHES = collections.Counter()
 
 
 def served_slice(label: str, cfg, corpus, n_post: int, variant: str = "packed") -> dict:
@@ -1004,8 +1152,9 @@ def served_slice(label: str, cfg, corpus, n_post: int, variant: str = "packed") 
         server.server_close()
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    log(f"{label} launches during the served run: {counts}; server stats: "
-        f"queries={stats['queries']}")
+    BATCH_LAUNCHES.update(ops.topk.launches)
+    log(f"{label} launches during the served run: {counts}, top-k by batch size "
+        f"{dict(ops.topk.launches)}; server stats: queries={stats['queries']}")
     split = query_split(engine, get_texts[0])
     log(f"{label} one query at the B=8 tier (engine.query, torch.profiler, ms per query): "
         f"device {sum(split.values()):.4f}; "
@@ -1030,11 +1179,8 @@ def query_split(engine, text: str, reps: int = 5) -> dict:
     """Device ms of each kernel and copy of one served query, from
     torch.profiler over ``reps`` queries after a warm one."""
     engine.query([text])
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            engine.query([text])
-        torch.cuda.synchronize()
-    return {k: v / reps for k, v in device_times(prof).items()}
+    times = profiled(lambda: engine.query([text]), reps)
+    return {k: v / reps for k, v in times.items()}
 
 
 def same_as_reference(engine, params, cfg, index, texts, served, variant="packed") -> int:
@@ -1413,6 +1559,9 @@ def main() -> None:
     if "--twophase" in sys.argv[1:]:
         twophase_costs(card)
         return
+    if "--stream" in sys.argv[1:]:
+        stream_costs(card)
+        return
     results = {name: {} for name in KERNELS}
     check_gru(card, results)
     check_lstm(card, results)
@@ -1456,6 +1605,9 @@ def main() -> None:
         missing = [n for n in names if runs[run].get(n, 0) < 1]
         check(not missing, f"kernels never launched on the {run} path: {missing}")
     launches = {n: sum(c.get(n, 0) for c in runs.values()) for n in KERNELS}
+    for name in ("topk_stream", "topk_exact"):
+        for b, at in results[name]["at_batch"].items():
+            at["launches"] = BATCH_LAUNCHES[name, int(b)]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **results[name]}

@@ -1,6 +1,6 @@
 // Shared pieces of the port's top-k kernels (topk_stream.cu,
-// topk_twophase.cu): the selection keys, a warp's score tile on the tensor
-// cores, and the per-block running top-k over a range of index rows.
+// topk_twophase.cu): the selection keys, and the float32 index's scores and
+// per-block running top-k over a range of index rows.
 //
 // Selection contract (sse_tpu/ops/fused_topk.py, the packed variant):
 //   float index: key = to_sortable(score) & ~0xFFF  (11 mantissa bits)
@@ -14,6 +14,8 @@
 // so a plain max picks (key desc, row asc), and every composite of one
 // query is unique. INT64_MIN marks an empty slot.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -43,6 +45,29 @@ __device__ __forceinline__ int to_sortable(float f) {
   return b ^ ((b >> 31) & 0x7FFFFFFF);
 }
 
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
+
+// The lowest and the highest value of an accumulator type.
+template <typename T>
+__device__ __forceinline__ T lowest() {
+  if constexpr (std::is_same<T, float>::value)
+    return -__int_as_float(0x7f800000);
+  else
+    return INT_MIN;
+}
+template <typename T>
+__device__ __forceinline__ T highest() {
+  if constexpr (std::is_same<T, float>::value)
+    return __int_as_float(0x7f800000);
+  else
+    return INT_MAX;
+}
+
+__device__ __forceinline__ float from_sortable(int key) {
+  return __int_as_float(key ^ ((key >> 31) & 0x7FFFFFFF));
+}
+
 __device__ __forceinline__ int enc_key(float s) { return to_sortable(s) & ~kIdxMask; }
 __device__ __forceinline__ int enc_key(int s) {
   return (s < -kIntClip ? -kIntClip : (s > kIntClip ? kIntClip : s)) * (1 << 12);
@@ -68,54 +93,11 @@ __device__ __forceinline__ long long warp_max_i64(long long v) {
   return v;
 }
 
-// A fragments of one m16 tile of queries: rows g and g+8 of the tile,
-// KS k-slices of 32 bytes (16 bf16 or 32 int8 values). The byte offsets
-// of the m16n8k16 bf16 and m16n8k32 s8 layouts coincide.
-template <int KS>
-__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4], const unsigned char* q0,
-                                       const unsigned char* q1, int tig) {
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    const int o = 32 * s + 4 * tig;
-    a[s][0] = q0 ? __ldg(reinterpret_cast<const unsigned*>(q0 + o)) : 0u;
-    a[s][1] = q1 ? __ldg(reinterpret_cast<const unsigned*>(q1 + o)) : 0u;
-    a[s][2] = q0 ? __ldg(reinterpret_cast<const unsigned*>(q0 + o + 16)) : 0u;
-    a[s][3] = q1 ? __ldg(reinterpret_cast<const unsigned*>(q1 + o + 16)) : 0u;
-  }
-}
-
-// Scores of the warp's 16 queries against NT·8 index rows starting at
-// `rbase`, in the mma C layout: acc[j][c] is query row g + 8·(c>>1) of the
-// m-tile against index row rbase + 8j + 2·tig + (c&1). Rows >= T read 0.
-template <int DT, int KS, int NT>
-__device__ __forceinline__ void score_mma(const uint32_t (&a)[KS][4], const unsigned char* emb,
-                                          int row_bytes, int T, int rbase, int g, int tig,
-                                          typename Acc<DT>::type (&acc)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0;
-    const int row = rbase + 8 * j + g;
-    const bool ok = row < T;
-    const unsigned char* p = emb + (size_t)(ok ? row : 0) * row_bytes + 4 * tig;
-    uint32_t b[KS][2];
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      b[s][0] = ok ? __ldg(reinterpret_cast<const unsigned*>(p + 32 * s)) : 0u;
-      b[s][1] = ok ? __ldg(reinterpret_cast<const unsigned*>(p + 32 * s + 16)) : 0u;
-    }
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      if constexpr (DT == kI8)
-        mma_s8(acc[j], a[s], b[s][0], b[s][1]);
-      else
-        mma_bf16(acc[j], a[s], b[s][0], b[s][1]);
-    }
-  }
-}
-
-// float32 index: the same C layout, computed with fp32 FMAs (no tensor
-// core product keeps full fp32 operands).
+// Scores of the warp's 16 queries (rows q0, q1 of its lanes) against NT·8
+// float32 index rows starting at `rbase`, in the mma C layout: acc[j][c]
+// is query row g + 8·(c>>1) against index row rbase + 8j + 2·tig + (c&1),
+// computed with fp32 FMAs (no tensor-core product keeps fp32 operands).
+// Rows >= T read 0.
 template <int NT>
 __device__ __forceinline__ void score_f32(const float* q0, const float* q1, const float* emb,
                                           int D, int T, int rbase, int tig, float (&acc)[NT][4]) {
@@ -150,24 +132,22 @@ __host__ __device__ inline int range_topk_smem(int QB, int k) {
 // row of local query i (negative = none). Writes each local query's k
 // composites, best first, to out + i·out_stride (empty slots kEmpty).
 //
-// Per step the block scores a 64-row tile on the tensor cores; a score
-// is a candidate only if its composite beats the query's current k-th
-// best (a register copy of the threshold). Candidates go to a per-query
-// buffer in shared memory (at most 64 per step, so it never overflows);
-// a step that produced any is followed by one warp-per-query merge of
-// buffer and list. On random data the threshold rises fast and almost
-// every step is scores + one compare + one __syncthreads_or. EX picks
-// the exact variant's key (exact_key) over the packed one (enc_key).
-template <int DT, int KS, int MT, bool EX = false>
-__device__ void range_topk(const void* qv, const int* qid_in, int qbase, int B,
-                           const void* embv, int D, int T, int num_real, int row_lo,
+// The float32 index's kernels (the bf16 and int8 ones score through the
+// wgmma tile, topk_tile.cuh). Per step the block scores a 64-row tile; a
+// score is a candidate only if its composite beats the query's current
+// k-th best (a register copy of the threshold). Candidates go to a
+// per-query buffer in shared memory (at most 64 per step, so it never
+// overflows); a step that produced any is followed by one warp-per-query
+// merge of buffer and list. EX picks the exact variant's key (exact_key)
+// over the packed one (enc_key).
+template <int MT, bool EX = false>
+__device__ void range_topk(const float* qv, const int* qid_in, int qbase, int B,
+                           const float* emb, int D, int T, int num_real, int row_lo,
                            int row_hi, int k, long long* out, long long out_stride,
                            unsigned char* smem) {
   constexpr int QB = 16 * MT;
   constexpr int NT = 2 * MT;          // n8 tiles per warp
   constexpr int NW = 8 * NT;          // index rows per warp per step
-  using AccT = typename Acc<DT>::type;
-  constexpr int esz = DT == kF32 ? 4 : (DT == kBF16 ? 2 : 1);
 
   long long* list = reinterpret_cast<long long*>(smem);   // [QB][k]
   long long* buf = list + QB * k;                          // [QB][64]
@@ -188,27 +168,18 @@ __device__ void range_topk(const void* qv, const int* qid_in, int qbase, int B,
   }
   __syncthreads();
 
-  const int row_bytes = D * esz;
   const int ql0 = mi * 16 + g, ql1 = ql0 + 8;
   const int q0 = qid[ql0], q1 = qid[ql1];
-  const unsigned char* qb = static_cast<const unsigned char*>(qv);
-  const unsigned char* p0 = q0 >= 0 ? qb + (size_t)q0 * row_bytes : nullptr;
-  const unsigned char* p1 = q1 >= 0 ? qb + (size_t)q1 * row_bytes : nullptr;
-  uint32_t a[KS][4];
-  if constexpr (DT != kF32) load_a<KS>(a, p0, p1, tig);
+  const float* p0 = q0 >= 0 ? qv + (size_t)q0 * D : nullptr;
+  const float* p1 = q1 >= 0 ? qv + (size_t)q1 * D : nullptr;
 
   const int lim = min(row_hi, min(T, num_real));
   long long t0 = kEmpty, t1 = kEmpty;  // thresholds of query rows ql0, ql1
 
   for (int row0 = row_lo; row0 < lim; row0 += kTileRows) {
     const int rbase = row0 + cg * NW;
-    AccT acc[NT][4];
-    if constexpr (DT == kF32)
-      score_f32<NT>(reinterpret_cast<const float*>(p0), reinterpret_cast<const float*>(p1),
-                    static_cast<const float*>(embv), D, T, rbase, tig, acc);
-    else
-      score_mma<DT, KS, NT>(a, static_cast<const unsigned char*>(embv), row_bytes, T, rbase, g,
-                            tig, acc);
+    float acc[NT][4];
+    score_f32<NT>(p0, p1, emb, D, T, rbase, tig, acc);
     int added = 0;
 #pragma unroll
     for (int j = 0; j < NT; ++j)

@@ -1,27 +1,29 @@
-// The score tile of the two-phase top-k kernels (topk_twophase.cu), for
-// Hopper (sm_90a): index rows arrive in shared memory by TMA, and one
+// The score tile of the top-k kernels (topk_stream.cu, topk_twophase.cu),
+// for Hopper (sm_90a): index rows arrive in shared memory by TMA, and one
 // warpgroup scores 64 queries against 128 of them with wgmma.
 //
-// Layout. A row of the index (or of the queries) is 128 or 256 bytes
-// (bf16 D = 64 / 128, int8 D = 128 / 256). Shared memory holds a tile as
-// row_bytes / 128 "chunks": chunk c is rows x bytes [128c, 128c + 128),
-// 128 bytes a row, in the 128-byte swizzle that TMA's
-// CU_TENSOR_MAP_SWIZZLE_128B writes and wgmma's B128 descriptor reads
-// (the 16-byte piece j of row r sits at piece j ^ (r % 8)). Every chunk
-// starts on a 1024-byte boundary.
+// Layout. A row of the index (or of the queries) is 64, 128 or 256 bytes
+// (bf16 D = 32 / 64 / 128, int8 D = 64 / 128 / 256). Shared memory holds
+// a tile as row_bytes / CB "chunks" of CB = min(row_bytes, 128) bytes a
+// row: chunk c is rows x bytes [CB·c, CB·c + CB), in the CB-byte swizzle
+// that TMA's CU_TENSOR_MAP_SWIZZLE_128B (64B) writes and wgmma's B128
+// (B64) descriptor reads (128B: the 16-byte piece j of row r sits at
+// piece j ^ (r % 8)). Every chunk starts on a 1024-byte boundary. The
+// streaming and the two-phase kernels take all three widths.
 //
 // Numbers. score_tile sums the k-slices (32 bytes: 16 bf16 or 32 int8
-// values) in increasing order into an accumulator that starts at +0,
-// as score_mma (topk_common.cuh) does with mma.sync, so a zero score is
-// +0.0, never -0.0 (to_sortable puts the two in different key buckets).
-// Both phases of the two-phase route score through this one function:
-// its exactness proof (sse_tpu/ops/fused_topk.py:573-584) needs phase 1's
-// block maxima and phase 2's element keys to be the same numbers.
+// values) in increasing order into an accumulator that starts at +0, so
+// a zero score is +0.0, never -0.0 (to_sortable puts the two in different
+// key buckets). Both phases of the two-phase route and the streaming
+// kernel score through this one function: the two-phase exactness proof
+// (sse_tpu/ops/fused_topk.py:573-584) needs phase 1's block maxima and
+// phase 2's element keys to be the same numbers, and the two routes then
+// select on the same scores.
 //
 // Accumulator layout (wgmma m64n128, per thread of the warpgroup): warp w,
 // lane = 4g + tig; d[4j + c] is query row 16w + g + 8(c >> 1) against
-// tile row 8j + 2tig + (c & 1), j = 0..15 — the mma.sync C layout of
-// score_mma, one n8 tile per j.
+// tile row 8j + 2tig + (c & 1), j = 0..15 — the mma.sync C layout, one
+// n8 tile per j.
 #pragma once
 
 #include <cuda.h>
@@ -32,7 +34,10 @@ namespace sse {
 
 constexpr int kTileN = 128;              // index rows a score tile
 constexpr int kChunkBytes = 128;         // row bytes per swizzled chunk
-constexpr int kTileChunk = kTileN * kChunkBytes;  // bytes of one chunk of a tile
+// Bytes of a row in one swizzled chunk: the whole row, up to 128.
+__host__ __device__ constexpr int chunk_bytes(int rb) {
+  return rb < kChunkBytes ? rb : kChunkBytes;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -93,14 +98,23 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Byte offset of the 16-byte piece j (0..7) of row r inside a chunk.
-__device__ __forceinline__ int sw128(int r, int j) { return r * kChunkBytes + ((j ^ (r & 7)) << 4); }
+// Byte offset of the 16-byte piece j of row r inside a chunk of CB-byte
+// rows, in the swizzle TMA writes and wgmma reads (128 bytes: piece
+// j ^ (r % 8); 64 bytes: piece j ^ (r / 2 % 4)).
+template <int CB>
+__device__ __forceinline__ int swz(int r, int j) {
+  return r * CB + ((j ^ (CB == 128 ? (r & 7) : ((r >> 1) & 3))) << 4);
+}
 
 // ------------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (start address and offsets in 16-byte units).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+// Shared-memory matrix descriptor: K-major, CB-byte swizzle (layout 1:
+// 128 bytes, 2: 64 bytes), 8-row groups 8·CB bytes apart (start address
+// and offsets in 16-byte units).
+template <int CB>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
+  static_assert(CB == 128 || CB == 64, "swizzle of 64 or 128 bytes");
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(CB / 2) << 32) |
+         ((CB == 128 ? 1ull : 2ull) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -123,8 +137,8 @@ __device__ __forceinline__ void fence_operands(int (&d)[64]) {
 }
 
 // D[64 x 128] += A[64 x 16] · B[128 x 16]ᵀ on one warpgroup: bf16
-// operands in shared memory (K-major, 128-byte swizzle; da, db from
-// sw128_desc), fp32 accumulation (scale-d = 1: the product is added to D).
+// operands in shared memory (K-major, swizzled; da, db from sw_desc),
+// fp32 accumulation (scale-d = 1: the product is added to D).
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -167,11 +181,12 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db)
 }
 
 // Scores of the warpgroup's 64 queries against one tile of 128 index rows:
-// KS k-slices of 32 bytes (KS = row_bytes / 32), A's chunks `a_stride`
-// bytes apart from a_addr, B's `b_stride` bytes apart from b_addr (shared
-// addresses). acc is zeroed first and summed slice by slice; returns when
-// the products are complete and the tile may be overwritten.
-template <int DT, int KS>
+// KS k-slices of 32 bytes (KS = row_bytes / 32), in chunks of CB bytes a
+// row: A's chunks `a_stride` bytes apart from a_addr, B's `b_stride`
+// bytes apart from b_addr (shared addresses). acc is zeroed first and
+// summed slice by slice; returns when the products are complete and the
+// tile may be overwritten.
+template <int DT, int KS, int CB>
 __device__ __forceinline__ void score_tile(typename Acc<DT>::type (&acc)[64], uint32_t a_addr,
                                            int a_stride, uint32_t b_addr, int b_stride) {
   __syncwarp();  // wgmma is .sync.aligned: the warp converged after its barrier wait
@@ -181,9 +196,9 @@ __device__ __forceinline__ void score_tile(typename Acc<DT>::type (&acc)[64], ui
   wgmma_fence();
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
-    const int c = s / 4, o = 32 * (s % 4);
-    const uint64_t da = sw128_desc(a_addr + c * a_stride + o);
-    const uint64_t db = sw128_desc(b_addr + c * b_stride + o);
+    const int c = s / (CB / 32), o = 32 * (s % (CB / 32));
+    const uint64_t da = sw_desc<CB>(a_addr + c * a_stride + o);
+    const uint64_t db = sw_desc<CB>(b_addr + c * b_stride + o);
     if constexpr (DT == kI8)
       wgmma_s8(acc, da, db);
     else
@@ -192,6 +207,61 @@ __device__ __forceinline__ void score_tile(typename Acc<DT>::type (&acc)[64], ui
   wgmma_commit();
   wgmma_wait_all();
   fence_operands(acc);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// ------------------------------------------------------------- host side
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no libcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    return err == cudaSuccess && res == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// A map over `rows` rows of `row_bytes` bytes at `base`, in boxes of
+// `chunk` (128 or 64) bytes x box_rows rows, written into shared memory in
+// the chunk's swizzle; rows past the end read 0.
+inline int row_map(CUtensorMap* map, const void* base, int rows, int row_bytes, int box_rows,
+                   int chunk) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)chunk, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         chunk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int num_sms() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
 }
 
 }  // namespace sse

@@ -44,8 +44,6 @@
 // list could overflow or to seed the threshold after the first tile.
 // A float32 index keeps the mma-free FMA kernels (no tensor-core product
 // keeps fp32 operands): blockmax_kernel and range_topk.
-#include <type_traits>
-
 #include "topk_tile.cuh"
 
 namespace {
@@ -126,8 +124,9 @@ __global__ void __launch_bounds__(128)
     for (int i = threadIdx.x; i < 64 * k; i += blockDim.x) o[i] = kEmpty;
     return;
   }
-  range_topk<kF32, 1, 4>(q, tile_query + (size_t)tile * 64, 0, B, emb, D, T, num_real,
-                         blk * block_t, blk * block_t + block_t, k, o, k, smem);
+  range_topk<4>(static_cast<const float*>(q), tile_query + (size_t)tile * 64, 0, B,
+                static_cast<const float*>(emb), D, T, num_real, blk * block_t,
+                blk * block_t + block_t, k, o, k, smem);
 }
 
 // ------------------------------------------------- bf16 / int8: wgmma path
@@ -141,38 +140,24 @@ constexpr int kCap = 256;                       // candidate list of a query (ph
 constexpr int kNoCand = INT_MIN;                // below every 32-bit candidate
 constexpr int kMaxBlockT = kIdxMask + 1;        // local rows fit the candidate's 12 bits
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
-}
-
 // 128-row tiles of block blk that hold a row below lim.
 __device__ __forceinline__ int block_tiles(int blk, int block_t, int lim) {
   const int rs = blk * block_t;
   return rs >= lim ? 0 : (min(block_t, lim - rs) + kTileN - 1) / kTileN;
 }
 
-__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
-template <typename T>
-__device__ __forceinline__ T lowest() {
-  if constexpr (std::is_same<T, float>::value)
-    return -__int_as_float(0x7f800000);
-  else
-    return INT_MIN;
-}
-
 // Phase 1. CTA (blockIdx.x % nqg, blockIdx.x / nqg) = (query group of
 // 256, split): writes out[q, blk] for its queries and the blocks blk =
 // split, split + splits, ... . Warps 0-15: four consumer warpgroups;
 // warp 16: the TMA producer.
-template <int DT, int KS>
+template <int DT, int RB>
 __global__ void __launch_bounds__(kP1Threads, 1)
     wg_blockmax_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap emap, int B, int lim, int block_t,
                        int nblocks, int nqg, int splits, long long* out) {
-  constexpr int CH = KS / 4;                             // 128-byte chunks of a row
-  constexpr int kAChunk = kP1Queries * kChunkBytes;      // one chunk of the queries
-  constexpr int kStage = CH * kTileChunk;
+  constexpr int KS = RB / 32, CB = chunk_bytes(RB), CH = RB / CB;
+  constexpr int kAChunk = kP1Queries * CB;  // one chunk of the queries
+  constexpr int kStage = kTileN * RB;
   using AccT = typename Acc<DT>::type;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sa = align1024(smem_raw);
@@ -197,7 +182,7 @@ __global__ void __launch_bounds__(kP1Threads, 1)
     if (lane == 0) {
       mbar_expect_tx(abar, CH * kAChunk);
       for (int c = 0; c < CH; ++c)
-        tma_load(sa + c * kAChunk, &qmap, abar, c * kChunkBytes, qg * kP1Queries);
+        tma_load(sa + c * kAChunk, &qmap, abar, c * CB, qg * kP1Queries);
       int it = 0;
       for (int blk = split; blk < nblocks; blk += splits) {
         const int nt = block_tiles(blk, block_t, lim);
@@ -206,7 +191,7 @@ __global__ void __launch_bounds__(kP1Threads, 1)
           mbar_wait(&empty[s], ((it / kP1Stages) & 1) ^ 1);
           mbar_expect_tx(&full[s], kStage);
           for (int c = 0; c < CH; ++c)
-            tma_load(ring + s * kStage + c * kTileChunk, &emap, &full[s], c * kChunkBytes,
+            tma_load(ring + s * kStage + c * kTileN * CB, &emap, &full[s], c * CB,
                      blk * block_t + i * kTileN);
         }
       }
@@ -215,7 +200,7 @@ __global__ void __launch_bounds__(kP1Threads, 1)
   }
 
   const int wg = warp >> 2, g = lane >> 2, tig = lane & 3;
-  const uint32_t a_addr = smem_addr(sa) + wg * 64 * kChunkBytes, r_addr = smem_addr(ring);
+  const uint32_t a_addr = smem_addr(sa) + wg * 64 * CB, r_addr = smem_addr(ring);
   const int q0 = qg * kP1Queries + 16 * warp + g, q1 = q0 + 8;
   mbar_wait(abar, 0);
   AccT acc[64];
@@ -226,7 +211,7 @@ __global__ void __launch_bounds__(kP1Threads, 1)
     for (int i = 0; i < nt; ++i, ++it) {
       const int s = it % kP1Stages;
       mbar_wait(&full[s], (it / kP1Stages) & 1);
-      score_tile<DT, KS>(acc, a_addr, kAChunk, r_addr + s * kStage, kTileChunk);
+      score_tile<DT, KS, CB>(acc, a_addr, kAChunk, r_addr + s * kStage, kTileN * CB);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
       const int nvalid = lim - (blk * block_t + i * kTileN);  // rows of the tile below lim
@@ -293,14 +278,14 @@ __device__ __forceinline__ void warp_merge(int* list, int* cnt, int* thr, int k,
 // whole tile empty); writes each query's block-local top-k composites.
 // Warps 0-3: the consumer warpgroup (warp w owns queries 16w .. 16w+15,
 // the rows its lanes hold in the accumulator); warp 4: the producer.
-template <int DT, int KS>
+template <int DT, int RB>
 __global__ void __launch_bounds__(kP2Threads, 1)
     wg_pairs_kernel(const unsigned char* __restrict__ q, const __grid_constant__ CUtensorMap emap,
                     int B, int lim, int block_t, const int* __restrict__ tile_query,
                     const int* __restrict__ tile_block, int k, long long* __restrict__ out) {
-  constexpr int CH = KS / 4, RB = 32 * KS;  // chunks and bytes of a row
-  constexpr int kAChunk = 64 * kChunkBytes;
-  constexpr int kStage = CH * kTileChunk;
+  constexpr int KS = RB / 32, CB = chunk_bytes(RB), CH = RB / CB;
+  constexpr int kAChunk = 64 * CB;  // one chunk of the queries
+  constexpr int kStage = kTileN * RB;
   using AccT = typename Acc<DT>::type;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sa = align1024(smem_raw);
@@ -343,7 +328,7 @@ __global__ void __launch_bounds__(kP2Threads, 1)
         mbar_wait(&empty[s], ((i / kP2Stages) & 1) ^ 1);
         mbar_expect_tx(&full[s], kStage);
         for (int c = 0; c < CH; ++c)
-          tma_load(ring + s * kStage + c * kTileChunk, &emap, &full[s], c * kChunkBytes,
+          tma_load(ring + s * kStage + c * kTileN * CB, &emap, &full[s], c * CB,
                    rs + i * kTileN);
       }
     return;
@@ -353,8 +338,8 @@ __global__ void __launch_bounds__(kP2Threads, 1)
   // a missing query), while the producer's first tiles are in flight
   for (int x = tid; x < 64 * (RB / 16); x += 128) {
     const int r = x / (RB / 16), j = x % (RB / 16), id = qid[r];
-    cp_async16(sa + (j >> 3) * kAChunk + sw128(r, j & 7), q + (size_t)max(id, 0) * RB + 16 * j,
-               id >= 0);
+    cp_async16(sa + j / (CB / 16) * kAChunk + swz<CB>(r, j % (CB / 16)),
+               q + (size_t)max(id, 0) * RB + 16 * j, id >= 0);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -372,7 +357,7 @@ __global__ void __launch_bounds__(kP2Threads, 1)
   for (int i = 0; i < nt; ++i) {
     const int s = i % kP2Stages;
     mbar_wait(&full[s], (i / kP2Stages) & 1);
-    score_tile<DT, KS>(acc, a_addr, kAChunk, r_addr + s * kStage, kTileChunk);
+    score_tile<DT, KS, CB>(acc, a_addr, kAChunk, r_addr + s * kStage, kTileN * CB);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
     const int lr0 = i * kTileN, nvalid = lim - rs - lr0;
@@ -443,121 +428,87 @@ __global__ void __launch_bounds__(kP2Threads, 1)
 }
 
 // ------------------------------------------------------------- host side
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (the library links no libcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    return err == cudaSuccess && res == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
-  }();
-  return fn;
+constexpr int p1_smem(int rb) {
+  return 1024 + kP1Queries * rb + kP1Stages * kTileN * rb + (2 * kP1Stages + 1) * 8;
+}
+constexpr int p2_smem(int rb) {
+  return 1024 + 64 * rb + kP2Stages * kTileN * rb + 64 * kCap * 4 + 3 * 64 * 4 +
+         2 * kP2Stages * 8;
 }
 
-// A map over `rows` rows of `row_bytes` bytes at `base`, in boxes of 128
-// bytes x box_rows rows, written into shared memory in the 128-byte
-// swizzle; rows past the end read 0.
-int row_map(CUtensorMap* map, const void* base, int rows, int row_bytes, int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)kChunkBytes, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-constexpr int p1_smem(int ks) {
-  return 1024 + (ks / 4) * (kP1Queries * kChunkBytes + kP1Stages * kTileChunk) +
-         (2 * kP1Stages + 1) * 8;
-}
-constexpr int p2_smem(int ks) {
-  return 1024 + (ks / 4) * (64 * kChunkBytes + kP2Stages * kTileChunk) + 64 * kCap * 4 +
-         3 * 64 * 4 + 2 * kP2Stages * 8;
-}
-
-int num_sms() {
-  static const int n = [] {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms;
-  }();
-  return n;
-}
-
-template <int DT, int KS>
+template <int DT, int RB>
 int blockmax_wg(const void* q, const void* emb, int B, int T, int lim, int block_t, int nblocks,
                 long long* out, cudaStream_t st) {
   CUtensorMap qmap, emap;
-  int err = row_map(&qmap, q, B, 32 * KS, kP1Queries);
-  if (!err) err = row_map(&emap, emb, T, 32 * KS, kTileN);
+  int err = row_map(&qmap, q, B, RB, kP1Queries, chunk_bytes(RB));
+  if (!err) err = row_map(&emap, emb, T, RB, kTileN, chunk_bytes(RB));
   if (err) return err;
-  auto fn = wg_blockmax_kernel<DT, KS>;
+  auto fn = wg_blockmax_kernel<DT, RB>;
   // the kernel's dynamic shared memory, allowed once per instance
   static const cudaError_t attr =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p1_smem(KS));
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p1_smem(RB));
   if (attr != cudaSuccess) return (int)attr;
   const int nqg = (B + kP1Queries - 1) / kP1Queries;
   const int splits = max(1, min(nblocks, num_sms() / nqg));
-  wg_blockmax_kernel<DT, KS><<<nqg * splits, kP1Threads, p1_smem(KS), st>>>(
-      qmap, emap, B, lim, block_t, nblocks, nqg, splits, out);
+  fn<<<nqg * splits, kP1Threads, p1_smem(RB), st>>>(qmap, emap, B, lim, block_t, nblocks, nqg,
+                                                     splits, out);
   return (int)cudaGetLastError();
 }
 
-template <int DT, int KS>
+template <int DT, int RB>
 int pairs_wg(const void* q, const void* emb, int B, int T, int lim, int block_t, int ntile,
              const int* tile_query, const int* tile_block, int k, long long* out,
              cudaStream_t st) {
   CUtensorMap emap;
-  if (int err = row_map(&emap, emb, T, 32 * KS, kTileN)) return err;
-  auto fn = wg_pairs_kernel<DT, KS>;
+  if (int err = row_map(&emap, emb, T, RB, kTileN, chunk_bytes(RB))) return err;
+  auto fn = wg_pairs_kernel<DT, RB>;
   static const cudaError_t attr =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p2_smem(KS));
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p2_smem(RB));
   if (attr != cudaSuccess) return (int)attr;
-  wg_pairs_kernel<DT, KS><<<ntile, kP2Threads, p2_smem(KS), st>>>(
-      static_cast<const unsigned char*>(q), emap, B, lim, block_t, tile_query, tile_block, k, out);
+  fn<<<ntile, kP2Threads, p2_smem(RB), st>>>(static_cast<const unsigned char*>(q), emap, B, lim,
+                                             block_t, tile_query, tile_block, k, out);
   return (int)cudaGetLastError();
 }
 
-int row_slices(int dt, int D) { return dt == kF32 ? 1 : D * (dt == kBF16 ? 2 : 1) / 32; }
+using BlockmaxFn = int (*)(const void*, const void*, int, int, int, int, int, long long*,
+                           cudaStream_t);
+using PairsFn = int (*)(const void*, const void*, int, int, int, int, int, const int*,
+                        const int*, int, long long*, cudaStream_t);
+
+// The instances for a bf16 / int8 index (dt) with rows of rb bytes;
+// nullptr for another width.
+template <int DT>
+BlockmaxFn blockmax_for(int rb) {
+  return rb == 64 ? blockmax_wg<DT, 64>
+                  : rb == 128 ? blockmax_wg<DT, 128> : rb == 256 ? blockmax_wg<DT, 256> : nullptr;
+}
+template <int DT>
+PairsFn pairs_for(int rb) {
+  return rb == 64 ? pairs_wg<DT, 64>
+                  : rb == 128 ? pairs_wg<DT, 128> : rb == 256 ? pairs_wg<DT, 256> : nullptr;
+}
+
+int row_bytes(int dt, int D) { return D * (dt == kBF16 ? 2 : 1); }
 
 }  // namespace
 
 // Phase 1: out int64 [B, nblocks], one composite (block-max key, block)
 // per query and block; kEmpty for a block with no row below num_real.
-// bf16 / int8 need block_t % 128 == 0; qb and blocks_per_cta shape the
-// float32 kernel's grid only.
+// bf16 / int8 need rows of 64, 128 or 256 bytes and block_t % 128 == 0;
+// qb and blocks_per_cta shape the float32 kernel's grid only.
 extern "C" int sse_twophase_blockmax(const void* q, const void* emb, int dt, int B, int T, int D,
                                      int num_real, int block_t, int nblocks, int qb,
                                      int blocks_per_cta, void* out, void* stream) {
-  const int ks = row_slices(dt, D), lim = max(0, min(T, num_real));
+  const int lim = max(0, min(T, num_real));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   long long* o = static_cast<long long*>(out);
   if (B == 0 || nblocks == 0) return 0;
   if (dt != kF32) {
-    if ((ks != 4 && ks != 8) || block_t % kTileN || (long long)nblocks * block_t > T)
+    const BlockmaxFn fn =
+        dt == kBF16 ? blockmax_for<kBF16>(row_bytes(dt, D)) : blockmax_for<kI8>(row_bytes(dt, D));
+    if (fn == nullptr || block_t % kTileN || (long long)nblocks * block_t > T)
       return (int)cudaErrorInvalidValue;
-    if (dt == kBF16)
-      return ks == 4 ? blockmax_wg<kBF16, 4>(q, emb, B, T, lim, block_t, nblocks, o, st)
-                     : blockmax_wg<kBF16, 8>(q, emb, B, T, lim, block_t, nblocks, o, st);
-    return ks == 4 ? blockmax_wg<kI8, 4>(q, emb, B, T, lim, block_t, nblocks, o, st)
-                   : blockmax_wg<kI8, 8>(q, emb, B, T, lim, block_t, nblocks, o, st);
+    return fn(q, emb, B, T, lim, block_t, nblocks, o, st);
   }
   const int MT = qb / 16;
   if ((MT != 1 && MT != 4) || block_t % kTileRows) return (int)cudaErrorInvalidValue;
@@ -572,25 +523,23 @@ extern "C" int sse_twophase_blockmax(const void* q, const void* emb, int dt, int
 // Phase 2: tile t scores queries tile_query[64t .. 64t+63] (negative =
 // none) against index block tile_block[t] (negative = skip); out int64
 // [ntile·64, k], each pair's block-local top-k composites. bf16 / int8
-// need block_t % 128 == 0 and block_t <= 4096.
+// need rows of 64, 128 or 256 bytes, block_t % 128 == 0 and block_t <= 4096.
 extern "C" int sse_twophase_pairs(const void* q, const void* emb, int dt, int B, int T, int D,
                                   int num_real, int block_t, int ntile, const void* tile_query,
                                   const void* tile_block, int k, void* out, void* stream) {
-  const int ks = row_slices(dt, D), lim = max(0, min(T, num_real));
+  const int lim = max(0, min(T, num_real));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dt != kF32 && ks != 4 && ks != 8) || k < 1 || k > 128) return (int)cudaErrorInvalidValue;
-  if (ntile == 0) return 0;
+  if (k < 1 || k > 128) return (int)cudaErrorInvalidValue;
   const int* tq = static_cast<const int*>(tile_query);
   const int* tb = static_cast<const int*>(tile_block);
   long long* o = static_cast<long long*>(out);
   if (dt != kF32) {
-    if (block_t % kTileN || block_t > kMaxBlockT) return (int)cudaErrorInvalidValue;
-    if (dt == kBF16)
-      return ks == 4 ? pairs_wg<kBF16, 4>(q, emb, B, T, lim, block_t, ntile, tq, tb, k, o, st)
-                     : pairs_wg<kBF16, 8>(q, emb, B, T, lim, block_t, ntile, tq, tb, k, o, st);
-    return ks == 4 ? pairs_wg<kI8, 4>(q, emb, B, T, lim, block_t, ntile, tq, tb, k, o, st)
-                   : pairs_wg<kI8, 8>(q, emb, B, T, lim, block_t, ntile, tq, tb, k, o, st);
+    const PairsFn fn =
+        dt == kBF16 ? pairs_for<kBF16>(row_bytes(dt, D)) : pairs_for<kI8>(row_bytes(dt, D));
+    if (fn == nullptr || block_t % kTileN || block_t > kMaxBlockT) return (int)cudaErrorInvalidValue;
+    return ntile == 0 ? 0 : fn(q, emb, B, T, lim, block_t, ntile, tq, tb, k, o, st);
   }
+  if (ntile == 0) return 0;
   const void* fn = (const void*)pairs_kernel;
   const int smem = range_topk_smem(64, k);
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -20,13 +20,13 @@ from sse_tpu_torch.ops.topk import (
 
 def launch_counts() -> dict:
     """Launches of every kernel wrapper since the last reset."""
-    return {**rnn.launches, **topk.launches}
+    return {**rnn.launches, **{name: topk.launch_total(name) for name in topk.KERNELS}}
 
 
 def reset_launch_counts() -> None:
-    for counts in (rnn.launches, topk.launches):
-        for name in counts:
-            counts[name] = 0
+    for name in rnn.launches:
+        rnn.launches[name] = 0
+    topk.launches.clear()
 
 
 __all__ = [

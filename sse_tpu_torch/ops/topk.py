@@ -25,7 +25,9 @@ Both orders ride one signed int64 composite, ``key << 32 | (0xFFFFFFFF -
 row)``: one max picks (key desc, row asc), and the plain versions get the
 contract's tie order from ``torch.topk`` over the composites.
 
-``fused_score_topk`` (streaming, either variant, ``csrc/topk_stream.cu``) and
+``fused_score_topk`` (streaming, either variant, ``csrc/topk_stream.cu``:
+bf16 and int8 indexes on the wgmma kernel shaped by ``_stream_plan``,
+float32 on the FMA kernel) and
 ``fused_score_topk_twophase`` (``csrc/topk_twophase.cu``, phase 1 and
 phase 2; the mid-pass and the merge are plain torch, as the JAX package
 does them in plain XLA) launch the Hopper kernels on CUDA tensors or raise,
@@ -37,6 +39,7 @@ on either device.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -66,9 +69,19 @@ _TILE_ROWS = 64  # index rows per kernel step
 _SCORE_TILE = 128  # index rows per wgmma score tile (csrc/topk_tile.cuh)
 _MAX_BLOCK_T = 4096
 _REF_ELEMS = 1 << 26  # score elements per chunk of the plain versions
+# the streaming kernel's shared memory (csrc/topk_stream.cu stream_smem)
+_SMEM_MAX = 232_448  # bytes a block may use on the H100
+_MAX_CAP = 256  # candidate-list entries a query
 
-# Launches of each CUDA kernel wrapper (incremented only where it launches).
-launches = {"topk_stream": 0, "topk_exact": 0, "twophase_p1": 0, "twophase_p2": 0}
+# Launches of each CUDA kernel wrapper by batch size, (name, B) → count,
+# incremented only where the wrapper launches its kernel.
+KERNELS = ("topk_stream", "topk_exact", "twophase_p1", "twophase_p2")
+launches: Counter = Counter()
+
+
+def launch_total(name: str) -> int:
+    """Launches of kernel ``name`` at every batch size."""
+    return sum(n for (kernel, _), n in launches.items() if kernel == name)
 VARIANTS = ("packed", "exact")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -216,15 +229,16 @@ def _check_cuda(q: torch.Tensor, emb: torch.Tensor, k: int, name: str) -> None:
     if not (q.is_contiguous() and emb.is_contiguous()):
         raise ValueError(f"{name}: q and emb must be contiguous")
     row_bytes = emb.shape[1] * emb.element_size()
-    if emb.dtype != torch.float32 and row_bytes not in (128, 256):
-        raise ValueError(f"{name}: bf16/int8 rows must be 128 or 256 bytes, got {row_bytes}")
+    if emb.dtype != torch.float32 and row_bytes not in (64, 128, 256):
+        raise ValueError(f"{name}: bf16/int8 rows must be 64, 128 or 256 bytes, got {row_bytes}")
     if not 0 <= k <= 128:
         raise ValueError(f"{name}: needs k <= 128, got {k}")
 
 
 def _queries_per_block(b: int) -> int:
-    """Query-tile width of the streaming and phase-1 kernels: 16 for the
-    interactive tier (B <= 16), 64 otherwise (not tuned on the H100)."""
+    """Query-tile width of the float32 streaming and phase-1 kernels: 16
+    for the interactive tier (B <= 16), 64 otherwise (not tuned on the
+    H100)."""
     return 16 if b <= 16 else 64
 
 
@@ -235,6 +249,45 @@ def _split(n: int, b: int, qb: int, device: torch.device) -> Tuple[int, int]:
     want = 4 * torch.cuda.get_device_properties(device).multi_processor_count
     per = -(-n // max(1, min(n, -(-want // qtiles))))
     return per, -(-n // per)
+
+
+def _stream_smem(row_bytes: int, groups: int, stages: int, cap: int, rows: int) -> int:
+    """Dynamic shared memory of the streaming kernel: alignment slack, the
+    64·groups queries, the ring of 128-row tiles, the candidate lists of
+    ``rows`` queries (8-byte entries, both variants) and the mbarriers."""
+    return (1024 + 64 * groups * row_bytes + stages * _SCORE_TILE * row_bytes
+            + rows * cap * 8 + 2 * stages * 8)
+
+
+def _stream_plan(row_bytes: int, k: int, b: int, rows: int, sms: int) -> dict:
+    """The bf16 / int8 streaming kernel's shape for B=b queries over the
+    first ``rows`` index rows (min(T, num_real)) on ``sms`` SMs:
+
+    * ``groups``: consumer warpgroups of 64 queries a CTA sharing each
+      index tile (2 above B=64, where the lists leave room);
+    * ``stages``: 128-row tiles in the TMA ring: 4 down to 2 for one
+      group (small batches are bound by the bytes in flight), 2 for two
+      (the selection bounds them; the room goes to the lists, whose
+      merges it makes rarer);
+    * ``cap``: candidate-list entries a query, a multiple of 32 and at
+      least k + 64 (after a merge half a tile fits); lists exist for
+      min(64·groups, B) queries a CTA;
+    * ``splits``: each CTA walks tiles split, split + splits, ...; about
+      one CTA an SM, never more splits than tiles;
+    * ``smem``: the dynamic shared memory, at most _SMEM_MAX.
+    """
+    tiles = -(-rows // _SCORE_TILE)
+    for groups in (2, 1) if b > 64 else (1,):
+        lists = min(64 * groups, b)
+        for stages in (2,) if groups == 2 else (4, 3, 2):
+            free = _SMEM_MAX - _stream_smem(row_bytes, groups, stages, 0, lists)
+            cap = min(_MAX_CAP, free // (lists * 8) // 32 * 32)
+            if cap >= k + _SCORE_TILE // 2:
+                nqg = -(-b // (64 * groups))
+                splits = max(1, min(tiles, sms // nqg))
+                return dict(groups=groups, stages=stages, cap=cap, splits=splits,
+                            smem=_stream_smem(row_bytes, groups, stages, cap, lists))
+    raise ValueError(f"no streaming plan for {row_bytes}-byte rows and k={k}")
 
 
 def _select(comp: torch.Tensor, k: int, mode: int):
@@ -281,15 +334,26 @@ def fused_score_topk(
     if b == 0 or k == 0:
         empty = torch.empty((b, k), dtype=torch.int64, device=emb.device)
         return decode(empty, int_exact, exact)
-    qb = _queries_per_block(b)
-    tiles_per_split, splits = _split(max(1, -(-t // _TILE_ROWS)), b, qb, emb.device)
-    partial = torch.empty((b, splits, k), dtype=torch.int64, device=emb.device)
-    _build.launch(
-        "sse_topk_stream", [_P, _P] + [_I] * 10 + [_P], emb.device,
-        q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr, k, int(exact),
-        qb, splits, tiles_per_split * _TILE_ROWS, partial.data_ptr(),
-    )
-    launches["topk_exact" if exact else "topk_stream"] += 1
+    if emb.dtype == torch.float32:
+        qb = _queries_per_block(b)
+        tiles_per_split, splits = _split(max(1, -(-t // _TILE_ROWS)), b, qb, emb.device)
+        partial = torch.empty((b, splits, k), dtype=torch.int64, device=emb.device)
+        _build.launch(
+            "sse_topk_stream_f32", [_P, _P] + [_I] * 9 + [_P], emb.device,
+            q.data_ptr(), emb.data_ptr(), b, t, d, nr, k, int(exact), qb, splits,
+            tiles_per_split * _TILE_ROWS, partial.data_ptr(),
+        )
+    else:
+        sms = torch.cuda.get_device_properties(emb.device).multi_processor_count
+        plan = _stream_plan(d * emb.element_size(), k, b, nr, sms)
+        splits = plan["splits"]
+        partial = torch.empty((b, splits, k), dtype=torch.int64, device=emb.device)
+        _build.launch(
+            "sse_topk_stream", [_P, _P] + [_I] * 11 + [_P], emb.device,
+            q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr, k, int(exact),
+            plan["groups"], plan["stages"], plan["cap"], splits, partial.data_ptr(),
+        )
+    launches["topk_exact" if exact else "topk_stream", b] += 1
     mode = 3 if exact else (2 if int_exact else 1)
     return _select(partial.reshape(b, splits * k), k, mode)
 
@@ -361,7 +425,7 @@ def twophase_phase1(
         q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr,
         block_t, nblocks, qb, blocks_per_cta, bkeys.data_ptr(),
     )
-    launches["twophase_p1"] += 1
+    launches["twophase_p1", b] += 1
     return _select(bkeys, k, 0)
 
 
@@ -466,7 +530,7 @@ def twophase_phase2(
         block_t, ntile, tile_query.data_ptr(), tile_block.data_ptr(), k,
         out.data_ptr(),
     )
-    launches["twophase_p2"] += 1
+    launches["twophase_p2", b] += 1
     return out
 
 
@@ -502,6 +566,7 @@ def fused_score_topk_twophase(
 
 
 __all__ = [
+    "KERNELS",
     "NEG",
     "PAIR_TILE",
     "TWOPHASE_BLOCK_T",
@@ -513,6 +578,7 @@ __all__ = [
     "from_sortable",
     "fused_score_topk",
     "fused_score_topk_twophase",
+    "launch_total",
     "launches",
     "pair_schedule",
     "quantize_queries_int8",

@@ -98,40 +98,63 @@ def test_gru_fwd_takes_the_fused_weight(cuda):
         rnn.gru_fwd_launch(xs, mask, wx, wh, b, wt.t().contiguous())
 
 
-@pytest.mark.parametrize("dtype", ["bf16", "int8", "f32"])
-@pytest.mark.parametrize("B,num_real", [(8, 20000), (100, 19000), (64, 5)])
-def test_topk_kernels_match_plain(cuda, dtype, B, num_real):
-    _check_topk(cuda, dtype, B, num_real, 128)
+# the streaming kernel at every row width (bf16 D = 32 / 64 / 128, int8
+# D = 64 / 128 / 256: 64-, 128- and 256-byte rows) and float32; B: a lone
+# query, the interactive tier and its 16-row edges, one and two 64-query
+# groups and their edges, and 1500 (ragged groups of 128)
+WIDTHS = [("bf16", 32), ("bf16", 64), ("bf16", 128), ("int8", 64), ("int8", 128),
+          ("int8", 256), ("f32", 128)]
+STREAM_B = [1, 8, 15, 16, 17, 64, 65, 256, 1500]
 
 
-# the other row width of each narrow type: 128-byte bf16 rows (D=64, the
-# default encoding_dim) and 256-byte int8 rows (D=256)
-@pytest.mark.parametrize("dtype,d", [("bf16", 64), ("int8", 256)])
-@pytest.mark.parametrize("B", [8, 100])
-def test_topk_kernels_other_row_width(cuda, dtype, d, B):
-    _check_topk(cuda, dtype, B, 19000, d)
-
-
-def _check_topk(cuda, dtype, B, num_real, d):
+def _topk_data(gen, dtype, d, B, t=20480):
+    """Exact-dot bf16 / float32 rows (every float32 sum exact, in any
+    order), or int8 unit rows with float unit queries (exact int sums)."""
     from sse_tpu_torch.index.sharded_index import quantize_rows
+
+    if dtype == "int8":
+        x = torch.randn((t, d), generator=gen, device="cuda")
+        q = torch.randn((B, d), generator=gen, device="cuda")
+        return quantize_rows(x / x.norm(dim=1, keepdim=True), torch.int8), q / q.norm(dim=1, keepdim=True)
+    emb, q = _exact((t, d), gen), _exact((B, d), gen)
+    return (emb.float(), q.float()) if dtype == "f32" else (emb, q)
+
+
+def _hold_stream(q, emb, k, num_real, variant):
+    """The streaming call (one launch of its counter) bit-identical to
+    topk_reference; sinks: exactly float32(-3e38) for exact, finite below
+    -1e37 for packed, row 0 either way."""
+    from sse_tpu_torch.ops import topk
+
+    name = "topk_exact" if variant == "exact" else "topk_stream"
+    n = topk.launch_total(name)
+    got = topk.fused_score_topk(q, emb, k, num_real, variant=variant)
+    assert topk.launch_total(name) == n + 1
+    want = topk.topk_reference(q, emb, k, num_real, variant=variant)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    real = min(num_real, k)
+    sink = (got[0][:, real:] == -3.0e38) if variant == "exact" else (got[0][:, real:] < -1e37)
+    assert sink.all() and (got[1][:, real:] == 0).all()
+    return got
+
+
+# num_real: fewer than k, two points inside the last 2048-row block, all
+@pytest.mark.parametrize("num_real", [5, 19000, 20000, 20480])
+@pytest.mark.parametrize("variant", ["packed", "exact"])
+@pytest.mark.parametrize("B", STREAM_B)
+@pytest.mark.parametrize("dtype,d", WIDTHS)
+def test_topk_kernels_match_plain(cuda, dtype, d, B, variant, num_real):
+    """Streaming, and for the packed variant the two-phase call and both
+    phase kernels, bit-identical to plain at every row width."""
     from sse_tpu_torch.ops import topk
 
     t, k = 20480, 10
-    if dtype == "int8":
-        x = torch.randn((t, d), generator=cuda, device="cuda")
-        emb = quantize_rows(x / x.norm(dim=1, keepdim=True), torch.int8)
-        q = torch.randn((B, d), generator=cuda, device="cuda")
-        q = q / q.norm(dim=1, keepdim=True)
-    else:
-        emb, q = _exact((t, d), cuda), _exact((B, d), cuda)
-        if dtype == "f32":
-            emb, q = emb.float(), q.float()
-    want = topk.topk_reference(q, emb, k, num_real)
-    for got in (
-        topk.fused_score_topk(q, emb, k, num_real),
-        topk.fused_score_topk_twophase(q, emb, k, num_real, block_t=2048),
-    ):
-        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    emb, q = _topk_data(cuda, dtype, d, B, t)
+    got = _hold_stream(q, emb, k, num_real, variant)
+    if variant == "exact":
+        return
+    tp = topk.fused_score_topk_twophase(q, emb, k, num_real, block_t=2048)
+    assert torch.equal(tp[1], got[1]) and torch.equal(tp[0], got[0])
     qk, _ = topk._prep_queries(q, emb)
     p1 = topk.twophase_phase1(qk, emb, k, num_real, 2048)
     assert torch.equal(p1, topk.twophase_phase1_reference(qk, emb, k, num_real, 2048))
@@ -142,32 +165,97 @@ def _check_topk(cuda, dtype, B, num_real, d):
     )
 
 
-@pytest.mark.parametrize("dtype,d", [("bf16", 128), ("int8", 128), ("f32", 128), ("bf16", 64),
-                                     ("int8", 256)])
-@pytest.mark.parametrize("B,num_real", [(8, 20000), (100, 19000), (64, 5), (8, 0)])
-def test_topk_exact_kernel_matches_plain(cuda, dtype, d, B, num_real):
-    """The exact variant (counter topk_exact) bit-identical to its plain
-    version on exact-dot inputs; sinks exactly float32(-3e38), row 0."""
+# k from one to the kernel's 128; num_real: none, fewer than k, a 128-row
+# tile's edges, a 4096-row window's edges, all
+@pytest.mark.parametrize("variant", ["packed", "exact"])
+@pytest.mark.parametrize("num_real", [0, 5, 127, 128, 129, 4095, 4096, 4097, 20480])
+@pytest.mark.parametrize("k", [1, 10, 100, 128])
+@pytest.mark.parametrize("dtype,d", WIDTHS)
+def test_topk_exact_kernel_matches_plain(cuda, dtype, d, k, num_real, variant):
+    """Both variants (counters topk_stream, topk_exact) bit-identical to
+    their plain versions at every k and num_real edge, B = 65 (two query
+    groups, or one group of 128); sinks exactly float32(-3e38) for exact,
+    finite for packed, row 0."""
+    emb, q = _topk_data(cuda, dtype, d, 65)
+    _hold_stream(q, emb, k, num_real, variant)
+
+
+@pytest.mark.parametrize("variant", ["packed", "exact"])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_topk_stream_zero_query_rows(cuda, dtype, variant):
+    """An all-zero query row (and a -0.0 one in bf16) keys every score as
+    +0.0: rows 0..k-1, value +0.0, through both list merges (k = 100)."""
+    emb, q = _topk_data(cuda, dtype, 128, 70)
+    q[3] = 0
+    if dtype == "bf16":
+        q[5] = -0.0
+    for k in (10, 100):
+        got = _hold_stream(q, emb, k, 20480, variant)
+        for i in (3, 5) if dtype == "bf16" else (3,):
+            assert got[1][i].tolist() == list(range(k))
+            assert (got[0][i] == 0).all() and not torch.signbit(got[0][i]).any()
+
+
+@pytest.mark.parametrize("variant", ["packed", "exact"])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_topk_stream_massive_ties(cuda, dtype, variant):
+    """Eight distinct index rows repeated over 40,960 rows: equal keys in
+    every tile and every split, where the lowest rows must win (k = 10 and
+    128, B = 8 and 300)."""
+    gen = cuda
+    t, d = 40960, 128
+    base = torch.randint(-2, 3, (8, d), generator=gen, device="cuda").float()
+    emb = base[torch.randint(0, 8, (t,), generator=gen, device="cuda")]
+    q = torch.randint(-2, 3, (300, d), generator=gen, device="cuda").float()
+    if dtype == "int8":
+        emb, q = (emb * 40).to(torch.int8), (q * 40).to(torch.int8)
+    else:
+        emb, q = (emb / 4).bfloat16(), (q / 4).bfloat16()
+    for B in (8, 300):
+        for k in (10, 128):
+            got = _hold_stream(q[:B].contiguous(), emb, k, t - 3, variant)
+            assert all(len(set(r)) == k for r in got[1].tolist())
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_stream_equals_twophase_on_random_rows(cuda, dtype):
+    """On random unit rows (float32 sums inexact) the streaming and the
+    two-phase routes score through the same wgmma tile, so they rank
+    every query row alike at B = 1024."""
     from sse_tpu_torch.index.sharded_index import quantize_rows
     from sse_tpu_torch.ops import topk
 
-    t, k = 20480, 10
-    if dtype == "int8":
-        x = torch.randn((t, d), generator=cuda, device="cuda")
-        emb = quantize_rows(x / x.norm(dim=1, keepdim=True), torch.int8)
-        q = torch.randn((B, d), generator=cuda, device="cuda")
-        q = q / q.norm(dim=1, keepdim=True)
-    else:
-        emb, q = _exact((t, d), cuda), _exact((B, d), cuda)
-        if dtype == "f32":
-            emb, q = emb.float(), q.float()
-    n = topk.launches["topk_exact"]
-    got = topk.fused_score_topk(q, emb, k, num_real, variant="exact")
-    assert topk.launches["topk_exact"] == n + 1
-    want = topk.topk_reference(q, emb, k, num_real, variant="exact")
-    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
-    real = min(num_real, k)
-    assert (got[0][:, real:] == -3.0e38).all() and (got[1][:, real:] == 0).all()
+    x = torch.randn((40960, 128), generator=cuda, device="cuda")
+    y = torch.randn((1024, 128), generator=cuda, device="cuda")
+    x, y = x / x.norm(dim=1, keepdim=True), y / y.norm(dim=1, keepdim=True)
+    emb, q = (x.bfloat16(), y.bfloat16()) if dtype == "bf16" else (quantize_rows(x, torch.int8), y)
+    st = topk.fused_score_topk(q, emb, 10, 40000)
+    tp = topk.fused_score_topk_twophase(q, emb, 10, 40000, block_t=2048)
+    assert torch.equal(st[1], tp[1]) and torch.equal(st[0], tp[0])
+
+
+@pytest.mark.parametrize("variant", ["packed", "exact"])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_stream_call_never_syncs_the_host(cuda, dtype, variant):
+    """The whole streaming call (query prep, the plan, the kernel, the
+    select) under torch.cuda.set_sync_debug_mode("error"), and its result;
+    torch.profiler shows the wgmma kernel, and no range_topk kernel."""
+    from sse_tpu_torch.ops import topk
+
+    emb, q = _topk_data(cuda, dtype, 128, 300)
+    want = topk.topk_reference(q, emb, 10, 20000, variant=variant)
+    topk.fused_score_topk(q, emb, 10, 20000, variant=variant)  # build and warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = topk.fused_score_topk(q, emb, 10, 20000, variant=variant)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    names = [e.key for e in prof.key_averages()]
+    assert any("wg_stream_kernel" in n for n in names), names
+    assert not any("topk_stream_kernel" in n for n in names), names
 
 
 def test_topk_exact_negative_zero(cuda):
@@ -203,20 +291,22 @@ def _hold_twophase_phases(q, emb, k, num_real, block_t):
     launching once); phase 2 on the schedule of the plain phase 1."""
     from sse_tpu_torch.ops import topk
 
-    n1, n2 = topk.launches["twophase_p1"], topk.launches["twophase_p2"]
+    n1, n2 = topk.launch_total("twophase_p1"), topk.launch_total("twophase_p2")
     p1 = topk.twophase_phase1(q, emb, k, num_real, block_t)
     want1 = topk.twophase_phase1_reference(q, emb, k, num_real, block_t)
     assert torch.equal(p1, want1)
     tq, tb, _ = topk.pair_schedule(want1, emb.shape[0] // block_t)
     p2 = topk.twophase_phase2(q, emb, k, num_real, block_t, tq, tb)
     assert torch.equal(p2, topk.twophase_phase2_reference(q, emb, k, num_real, block_t, tq, tb))
-    assert (topk.launches["twophase_p1"], topk.launches["twophase_p2"]) == (n1 + 1, n2 + 1)
+    assert (topk.launch_total("twophase_p1"), topk.launch_total("twophase_p2")) == (n1 + 1, n2 + 1)
     return tq, tb, p2
 
 
-# 128- and 256-byte rows of both types; B: a lone query, a ragged group of
-# 17, and 1000 / 1500 (four and six 256-query groups, the last ragged)
-@pytest.mark.parametrize("dtype,d", [("bf16", 128), ("bf16", 64), ("int8", 128), ("int8", 256)])
+# 64-, 128- and 256-byte rows of both types; B: a lone query, a ragged
+# group of 17, and 1000 / 1500 (four and six 256-query groups, the last
+# ragged)
+@pytest.mark.parametrize("dtype,d", [("bf16", 32), ("bf16", 64), ("bf16", 128), ("int8", 64),
+                                     ("int8", 128), ("int8", 256)])
 @pytest.mark.parametrize("B", [1, 17, 1000, 1500])
 def test_twophase_phase_kernels_match_plain(cuda, dtype, d, B):
     emb, q = _twophase_data(cuda, dtype, d, B)
@@ -292,12 +382,44 @@ def test_twophase_call_never_syncs_the_host(cuda, dtype):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("dtype,d", [("bf16", 32), ("int8", 64), ("bf16", 64), ("int8", 256)])
+def test_engine_bulk_batch_at_every_row_width(cuda, dtype, d):
+    """A packed engine batch of TWOPHASE_MIN_BATCH queries takes the
+    two-phase kernels at every row width, 64-byte rows included, and
+    returns the streaming kernel's rows (one score tile: the same float32
+    scores) on random unit rows; int8 sums are exact, so int8 also equals
+    topk_reference."""
+    from sse_tpu_torch.index.sharded_index import quantize_rows
+    from sse_tpu_torch.models import sse, towers
+    from sse_tpu_torch.ops import topk
+    from sse_tpu_torch.serve import engine
+
+    tower = towers.TowerConfig(vocab_size=100, embed_dim=128, hidden=128, encoding_dim=d)
+    cfg = sse.SSEConfig(mode=sse.NetworkMode.SHARED_ENCODER, src_tower=tower)
+    params = sse.init_params(cfg, torch.Generator().manual_seed(0))
+    b, n_tok, t, nr = topk.TWOPHASE_MIN_BATCH, 12, 20480, 20000
+    toks = torch.randint(2, 100, (b, n_tok), generator=cuda, device="cuda")
+    lens = torch.randint(1, n_tok + 1, (b,), generator=cuda, device="cuda")
+    x = torch.randn((t, d), generator=cuda, device="cuda")
+    emb = quantize_rows(x / x.norm(dim=1, keepdim=True),
+                        torch.bfloat16 if dtype == "bf16" else torch.int8)
+    n1, ns = topk.launch_total("twophase_p1"), topk.launch_total("topk_stream")
+    got = engine.build_fused_query_fn(cfg, k=10, num_real=nr)(params, emb, toks, lens)
+    assert (topk.launch_total("twophase_p1"), topk.launch_total("topk_stream")) == (n1 + 1, ns)
+    q = sse.encode_source(params, cfg, toks, lens)
+    want = topk.fused_score_topk(q, emb, 10, nr)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    if dtype == "int8":
+        want = topk.topk_reference(q, emb, 10, nr)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
 def test_cuda_wrappers_raise_on_bad_input(cuda):
     from sse_tpu_torch.ops import topk
 
     q = torch.zeros((4, 96), device="cuda", dtype=torch.bfloat16)  # 192-byte rows
     emb = torch.zeros((256, 96), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="128 or 256 bytes"):
+    with pytest.raises(ValueError, match="64, 128 or 256 bytes"):
         topk.fused_score_topk(q, emb, 5, 256)
     with pytest.raises(ValueError, match="k <= 128"):
         topk.fused_score_topk(q[:, :64].contiguous(), emb[:, :64].contiguous(), 200, 256)

@@ -452,3 +452,216 @@ def test_exact_variant_validation():
     before = dict(ttopk.launches)
     ttopk.fused_score_topk(q, emb, 2, 16, variant="exact")
     assert ttopk.launches == before
+
+
+# ------------------------------------------------ the streaming kernel's host logic
+# csrc/topk_stream.cu selects on a raw threshold (raw_thr: the accumulator
+# value above which a score's key beats the row's threshold key t), keeps
+# each query's candidates in a list of `cap` composites merged when it
+# could overflow on the next 32 columns or first reaches k, and walks the
+# tiles split, split + splits, ... . These tests pin that logic on the CPU:
+# _raw_thr mirrors raw_thr, _emulate_stream the kernel's walk.
+
+_INT_CLIP = (1 << 18) - 1
+_F32_INV = np.float32(1.0 / (127 * 127))
+
+
+def _sortable(x):
+    b = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+    return (b ^ ((b >> 31) & 0x7FFFFFFF)).astype(np.int32)
+
+
+def _unsortable(key):
+    b = np.asarray(key, np.int64)
+    return np.asarray((b ^ ((b >> 31) & 0x7FFFFFFF)).astype(np.int32)).view(np.float32)
+
+
+def _key(s, int_exact, exact):
+    """The kernel's selection key of raw accumulator values s (float32
+    sums, or int32 sums for int8)."""
+    if int_exact:
+        if exact:
+            return _sortable(np.asarray(s, np.int64).astype(np.float32) * _F32_INV)
+        return (np.clip(np.asarray(s, np.int64), -_INT_CLIP, _INT_CLIP) << 12).astype(np.int32)
+    s = np.asarray(s, np.float32) + np.float32(0.0)
+    return _sortable(s) if exact else _sortable(s) & ~0xFFF
+
+
+def _raw_thr(t, int_exact, exact):
+    """Mirror of raw_thr in csrc/topk_stream.cu; t None: no threshold."""
+    if t is None:
+        return -(2**31) if int_exact else -np.inf
+    if int_exact:
+        if not exact:
+            r = t >> 12
+            return 2**31 - 1 if r >= _INT_CLIP else r
+        r = int(np.floor(np.float64(_unsortable(t)) * 16129.0))
+        while _key(r + 1, True, True) <= t:
+            r += 1
+        while _key(r, True, True) > t:
+            r -= 1
+        return r
+    if exact:
+        return _unsortable(t)
+    u = t | 0xFFF
+    return _unsortable(-2 if u == -1 else u)
+
+
+def _float_edges(rng):
+    tiny = np.array([1, 2, 0xFFF, 0x1000, 0x1001, 0x7FFFFF, 0x800000], np.int32).view(np.float32)
+    big = np.array([np.finfo(np.float32).max, 1.0, 0.5, 1e-30, 3e38], np.float32)
+    rnd = (rng.normal(size=400) * 10.0 ** rng.integers(-8, 8, size=400)).astype(np.float32)
+    keys = _sortable(rnd) & ~0xFFF  # the floats at and around packed-key edges
+    edge = np.concatenate([_unsortable(keys), _unsortable(keys - 1), _unsortable(keys | 0xFFF),
+                           _unsortable((keys | 0xFFF) + 1)])
+    s = np.concatenate([tiny, -tiny, big, -big, rnd, edge, [np.float32(0.0)]])
+    return s[np.isfinite(s)].astype(np.float32)
+
+
+@pytest.mark.parametrize("int_exact", [False, True])
+@pytest.mark.parametrize("exact", [False, True])
+def test_raw_thresholds_split_scores_as_keys_do(int_exact, exact):
+    """key(s) > t exactly when s > raw_thr(t), for every score s a tile can
+    give (float32 sums are never -0.0; int8 sums reach ±256·127²) and every
+    threshold key t of such a score, at the packed keys' bucket edges, the
+    int8 clip and the tiny denormals whose packed key is -4096."""
+    rng = np.random.default_rng(5)
+    if int_exact:
+        s = np.concatenate([rng.integers(-4_200_000, 4_200_000, size=600),
+                            [0, 1, -1, _INT_CLIP, _INT_CLIP + 1, _INT_CLIP - 1, -_INT_CLIP,
+                             -_INT_CLIP - 1, 4_129_024, -4_129_024, 16129, -16129]])
+        s = s.astype(np.int64)
+    else:
+        s = _float_edges(rng)
+    keys = _key(s, int_exact, exact).astype(np.int64)
+    for t in [None, *np.unique(keys)]:
+        r = _raw_thr(None if t is None else int(t), int_exact, exact)
+        want = np.ones_like(keys, bool) if t is None else keys > t
+        got = s > r
+        assert (got == want).all(), (t, s[got != want][:5])
+
+
+def _emulate_stream(q, emb, k, num_real, variant, splits, cap):
+    """The kernel's selection, step by step, on the plain scores: each
+    split walks its tiles in order; before each tile a query row holding k
+    candidates whose list could not take the tile's scores above its raw
+    threshold, or that has no threshold yet, is cut to its k best
+    composites (threshold: the k-th key); then the tile's scores above the
+    threshold are appended whole, or, where they still do not fit, in two
+    halves of 64 columns, cutting the list before a half that would not
+    fit (cap >= k + 64); the splits' lists then merge as sse_topk_select
+    merges them."""
+    exact = variant == "exact"
+    qp, int_exact = ttopk._prep_queries(q, emb)
+    acc = ttopk._scores(qp, emb, int_exact).numpy()
+    t_rows, lim = emb.shape[0], max(0, min(num_real, emb.shape[0]))
+    tiles = -(-lim // 128)
+    out = []
+    for row in acc:
+        keys = _key(row, int_exact, exact).astype(np.int64)
+        comp = (keys << 32) + (0xFFFFFFFF - np.arange(t_rows))
+        found = []
+        for split in range(splits):
+            lst, t = np.zeros(0, np.int64), None
+            def above(lo, hi):
+                cols = np.arange(tile * 128 + lo, min(tile * 128 + hi, lim))
+                return comp[cols[row[cols] > _raw_thr(t, int_exact, exact)]]
+
+            for tile in range(split, tiles, splits):
+                new = above(0, 128)
+                if lst.size >= k and (lst.size + new.size > cap or t is None):
+                    lst = np.sort(lst)[::-1][:k]
+                    t = int(lst[-1] >> 32)
+                    new = above(0, 128)
+                if lst.size + new.size > cap:
+                    for lo in (0, 64):
+                        new = above(lo, lo + 64)
+                        if lst.size + new.size > cap:
+                            lst = np.sort(lst)[::-1][:k]
+                            t = int(lst[-1] >> 32)
+                            new = above(lo, lo + 64)
+                        lst = np.concatenate([lst, new])
+                else:
+                    lst = np.concatenate([lst, new])
+                assert lst.size <= cap
+            found.append(np.sort(lst)[::-1][:k])
+        best = np.sort(np.concatenate(found))[::-1][:k]
+        out.append(np.concatenate([best, np.full(k - best.size, ttopk._EMPTY, np.int64)]))
+    comp = torch.from_numpy(np.stack(out)) if out else torch.empty((0, k), dtype=torch.int64)
+    return ttopk.decode(comp, int_exact, exact)
+
+
+@pytest.mark.parametrize("variant", ["packed", "exact"])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("k,splits,cap,num_real", [(10, 3, 96, 1600), (40, 2, 128, 1500),
+                                                  (100, 1, 192, 1100)])
+def test_stream_emulation_matches_reference_on_ties(dtype, variant, k, splits, cap, num_real):
+    """The kernel's walk (interleaved splits, strict `key > t` against a
+    threshold that only ever sees higher rows, merges before a tile that
+    would not fit) gives topk_reference's rows and values on tie-heavy rows: a few
+    distinct index rows repeated across tiles and splits, so equal keys
+    must go to the lowest rows."""
+    rng = np.random.default_rng(9)
+    d, t = 16, 1664
+    base = rng.integers(-2, 3, size=(6, d)).astype(np.float32)
+    emb = base[rng.integers(0, 6, size=t)]
+    q = rng.integers(-2, 3, size=(5, d)).astype(np.float32)
+    q[0] = 0.0  # every score +0.0: rows 0..k-1
+    if dtype == "int8":
+        te = torch.from_numpy((emb * 40).astype(np.int8))
+        tq = torch.from_numpy((q * 40).astype(np.int8))
+    else:
+        te, tq = torch.from_numpy(emb).bfloat16(), torch.from_numpy(q / 4).bfloat16()
+    got = _emulate_stream(tq, te, k, num_real, variant, splits, cap)
+    want = ttopk.topk_reference(tq, te, k, num_real, variant)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert got[1][0].tolist() == list(range(k))
+
+
+@pytest.mark.parametrize("dtype,d", [("bf16", 32), ("bf16", 64), ("bf16", 128),
+                                     ("int8", 64), ("int8", 128), ("int8", 256)])
+def test_stream_plan_fits_and_walks_every_tile_once(dtype, d):
+    """_stream_plan for every k in 1..128 (both variants keep 8-byte
+    candidates, so one plan serves both), B in {1, 8, 64, 256, 4096} and
+    T in {1, 127, 128, 4097, 1,249,280}: shared memory within 227 KB and
+    equal to the kernel's layout, lists room for k plus half a tile,
+    about one CTA an SM, and the splits' walks (tile split,
+    split + splits, ...) cover every 128-row tile exactly once."""
+    row_bytes = d * (2 if dtype == "bf16" else 1)
+    sms = 132
+    for k in range(1, 129):
+        for b in (1, 8, 64, 256, 4096):
+            for t in (1, 127, 128, 4097, 1_249_280):
+                p = ttopk._stream_plan(row_bytes, k, b, t, sms)
+                lists = min(64 * p["groups"], b)
+                assert p["smem"] == ttopk._stream_smem(row_bytes, p["groups"], p["stages"],
+                                                       p["cap"], lists)
+                assert p["smem"] <= 232_448
+                assert p["cap"] % 32 == 0 and k + 64 <= p["cap"] <= 256
+                assert p["groups"] in (1, 2) and p["stages"] >= 2 and (b > 64 or p["groups"] == 1)
+                tiles = -(-t // 128)
+                nqg = -(-b // (64 * p["groups"]))
+                assert 1 <= p["splits"] <= tiles and nqg * p["splits"] <= max(sms, nqg)
+                walked = np.concatenate([np.arange(s, tiles, p["splits"])
+                                         for s in range(p["splits"])])
+                assert np.array_equal(np.sort(walked), np.arange(tiles))
+
+
+def test_launch_counts_sum_the_per_batch_counter(monkeypatch):
+    """The top-k wrappers count launches by (kernel, B) in one counter:
+    ops.launch_counts() reports each kernel's sum over B beside the
+    recurrent kernels' counts, and reset_launch_counts empties it."""
+    from collections import Counter
+
+    from sse_tpu_torch import ops
+    from sse_tpu_torch.ops import rnn
+
+    monkeypatch.setattr(rnn, "launches", dict.fromkeys(rnn.launches, 1))
+    monkeypatch.setattr(ttopk, "launches", Counter(
+        {("topk_stream", 8): 3, ("topk_stream", 256): 2, ("twophase_p1", 1024): 1}))
+    counts = ops.launch_counts()
+    assert counts.keys() == set(rnn.launches) | set(ttopk.KERNELS)
+    assert (counts["topk_stream"], counts["topk_exact"], counts["twophase_p1"]) == (5, 0, 1)
+    assert ttopk.launch_total("twophase_p2") == 0 and counts["gru_fwd"] == 1
+    ops.reset_launch_counts()
+    assert not ttopk.launches and not any(ops.launch_counts().values())

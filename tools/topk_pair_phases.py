@@ -59,11 +59,11 @@ WG_MARKS = [
     ("topk_twophase.cu", "// ------------------------------------------------- bf16 / int8: wgmma path",
      "before", COUNTER),
     ("topk_twophase.cu", "  AccT acc[64];\n  for (int i = 0; i < nt; ++i) {\n", "before", DECL),
-    ("topk_twophase.cu", "\n    score_tile<DT, KS>(acc, a_addr, kAChunk, r_addr + s * kStage, "
-     "kTileChunk);\n    __syncwarp();\n    if (lane == 0) mbar_arrive(&empty[s]);\n    const int lr0",
+    ("topk_twophase.cu", "\n    score_tile<DT, KS, CB>(acc, a_addr, kAChunk, r_addr + s * kStage, "
+     "kTileN * CB);\n    __syncwarp();\n    if (lane == 0) mbar_arrive(&empty[s]);\n    const int lr0",
      "replace",
-     "\n    PH(0)\n    score_tile<DT, KS>(acc, a_addr, kAChunk, r_addr + s * kStage, "
-     "kTileChunk);\n    PH(1)\n    __syncwarp();\n    if (lane == 0) mbar_arrive(&empty[s]);\n"
+     "\n    PH(0)\n    score_tile<DT, KS, CB>(acc, a_addr, kAChunk, r_addr + s * kStage, "
+     "kTileN * CB);\n    PH(1)\n    __syncwarp();\n    if (lane == 0) mbar_arrive(&empty[s]);\n"
      "    const int lr0"),
     ("topk_twophase.cu", "    if (m0 | m1) {\n      for (unsigned m = m0;", "before",
      "    PH(2)\n    steps += 1;\n    merges += (m0 | m1) != 0;\n"),
