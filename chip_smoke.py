@@ -2,11 +2,12 @@
 GRU and LSTM towers, both top-k variants, and the model-dir CLI.
 
     python3 chip_smoke.py            # needs one CUDA card; no network
-    python3 chip_smoke.py --costs    # only the GRU recurrences' per-step costs
+    python3 chip_smoke.py --costs    # only the recurrences' per-step costs
     python3 chip_smoke.py --twophase # only the two-phase top-k's costs
     python3 chip_smoke.py --stream   # only the streaming top-k's costs
 
-``--costs`` (gru_fwd_costs, gru_bwd_costs), ``--twophase``
+``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
+cell, and a served qna query by part: qna_query_costs), ``--twophase``
 (twophase_costs) and ``--stream`` (stream_costs) time the
 ``sse_tpu_torch`` beside this file: a copy of
 this file in another checkout measures that checkout's kernels, so two
@@ -18,8 +19,9 @@ commits compare in one run, taken in turns.
    the paths below (T=50, E=H=128, ragged lengths): the GRU layer forward
    (B=8, 256, 384 and 4096) and the LSTM layer forward (B=8, 256 and 4096;
    fin to atol 2e-3 / rtol 1e-3, bf16 ys and cs to one bf16 ulp), and the
-   GRU recurrences' cost per step (gru_fwd_costs, gru_bwd_costs: the
-   slope over T=1, 2, 50 of the kernels' device time); the scan over
+   recurrences' cost per step (gru_fwd_costs, lstm_fwd_costs,
+   rnn_bwd_costs: the slope over T=1, 2, 50 of the kernels' device time;
+   the LSTM forward by part, scan and x-product); the scan over
    precomputed pre-activations, GRU and LSTM (B=4096, the same bounds);
    the GRU and LSTM layer backward (B=128, 256, 384 and 2,304; end to
    end and at each rounding point, tolerances in check_bwd); the
@@ -46,7 +48,8 @@ commits compare in one run, taken in turns.
    QueryEngine and warmup, the HTTP server on a free localhost port, GET
    (B=8 tier) and bulk POST queries (1,024 and 4,096 texts), the rows
    served held against topk_reference of the engine's variant, and every
-   kernel's launch count from each run.
+   kernel's launch count from each run; a qna query's device time by
+   part (query_parts: LSTM scan, x-product, attention readout, top-k).
 4. The trained slices: (a) the train bench's configuration (dual-encoder
    1-layer GRU, E=H=D=128, vocab 8000, L=50, batch 256, 128 sampled
    negatives over 10,000 random targets, Adam) and (b) the
@@ -228,13 +231,25 @@ def slope_line(name: str, ms_by_t: dict) -> str:
             f"{mm - slope * mt:.4f} ms")
 
 
-def kernel_ms(run, pattern: str, reps: int = 10) -> float:
-    """Mean device ms that one run() spends in the kernels whose name holds
-    ``pattern`` (torch.profiler, after a warm run)."""
+def parts_ms(run, parts: dict, reps: int = 10) -> dict:
+    """Mean device ms that one run() spends in the kernels of each part:
+    ``parts`` maps a name pattern to its part, and a kernel whose name
+    holds a pattern counts for that part (torch.profiler, after a warm
+    run)."""
     run()
     torch.cuda.synchronize()
-    times = profiled(run, reps, want=(pattern,))
-    return sum(ms for k, ms in times.items() if pattern in k) / reps
+    times = profiled(run, reps, want=tuple(parts))
+    out = dict.fromkeys(parts.values(), 0.0)
+    for pat, part in parts.items():
+        out[part] += sum(ms for k, ms in times.items() if pat in k) / reps
+    return out
+
+
+def kernel_ms(run, pattern, reps: int = 10) -> float:
+    """Mean device ms that one run() spends in the kernels whose name holds
+    ``pattern`` (or any pattern of a tuple)."""
+    pats = (pattern,) if isinstance(pattern, str) else pattern
+    return sum(parts_ms(run, {p: p for p in pats}, reps).values())
 
 
 def gru_fwd_costs(card: str, Bs=(8, 256, 384, 4096), Ts=(1, 2, 50)) -> dict:
@@ -265,32 +280,78 @@ def gru_fwd_costs(card: str, Bs=(8, 256, 384, 4096), Ts=(1, 2, 50)) -> dict:
     return out
 
 
-def gru_bwd_costs(card: str, Bs=(8, 256, 384, 2304, 4096), Ts=(1, 2, 50)) -> dict:
-    """The GRU layer backward (``rnn.gru_bwd_launch``, E=H=128, full
-    lengths) at each (B, T): whole backward (CUDA events), its kernels'
-    device time and its dh loop kernel alone (torch.profiler, bwd_split);
-    logs each B's slopes and the bound at the largest T. Returns {B: {T:
-    (ms, dh ms, kernels ms)}}."""
+def lstm_fwd_costs(card: str, Bs=(8, 128, 256, 2304, 4096), Ts=(1, 2, 50)) -> dict:
+    """The LSTM layer forward (kernel 3, ``rnn.rnn_layer``, E=H=128,
+    ragged lengths) by part at each (B, T): the scan kernel's and the
+    x-product's device time (parts_ms), and the scan alone with the GRU
+    cell (kernel 1, ``rnn.scan_layer`` over a precomputed ax); logs each
+    B's per-step slope and intercept of each, and the bounds at the
+    largest T. Returns {B: {T: (scan ms, x-product ms, GRU scan ms)}}."""
     from sse_tpu_torch.ops import rnn
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     E = H = 128
-    wx, wh, b = layer_weights(E, H, 3, gen)
+    wx, wh, b = layer_weights(E, H, 4, gen)
+    wh3 = layer_weights(E, H, 3, gen)[1]
+    parts = {"rnn_scan_kernel": "scan", "gemm_kernel": "x-product"}
+    out = {}
+    for B in Bs:
+        xs_all = torch.randn((max(Ts), B, E), generator=gen, device="cuda").bfloat16()
+        ax3_all = torch.randn((max(Ts), B, 3 * H), generator=gen, device="cuda")
+        mask_all = ragged_mask(max(Ts), B, gen)
+        out[B] = {}
+        for T in Ts:
+            xs, ax3 = xs_all[:T].contiguous(), ax3_all[:T].contiguous()
+            mask = mask_all[:T].contiguous()
+            run = lambda: rnn.rnn_layer(xs, mask, wx, wh, b, "lstm")  # noqa: E731
+            split = parts_ms(run, parts)
+            gru = kernel_ms(lambda: rnn.scan_layer(ax3, mask, wh3, "gru"), "rnn_scan_kernel")
+            out[B][T] = (split["scan"], split["x-product"], gru)
+        ys, fin = run()
+        ops = 2.0 * T * B * (E + H) * 4 * H
+        bnd = bound(nbytes(xs, mask, wx, wh, b, ys, ys, fin), ops)
+        scan_bnd = bound(T * B * 4 * H * 4 + nbytes(mask, ys, ys, fin), 2.0 * T * B * H * 4 * H)
+        log(slope_line(f"lstm_fwd B={B} E=H={H} scan", {t: v[0] for t, v in out[B].items()})
+            + "; " + slope_line("x-product", {t: v[1] for t, v in out[B].items()})
+            + "; " + slope_line("GRU-cell scan", {t: v[2] for t, v in out[B].items()})
+            + f"; layer bound at T={T} {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), the "
+            f"scan's with its ax round trip {scan_bnd['bound_ms']:.4f} ms [{card}]")
+    return out
+
+
+def rnn_bwd_costs(card: str, cell: str, Bs=(8, 256, 384, 2304, 4096), Ts=(1, 2, 50)) -> dict:
+    """The GRU or LSTM layer backward (``rnn.{gru,lstm}_bwd_launch``,
+    E=H=128, full lengths) at each (B, T): whole backward (CUDA events),
+    its kernels' device time and its dh loop kernel alone (torch.profiler,
+    bwd_split); logs each B's slopes and the bound at the largest T.
+    Returns {B: {T: (ms, dh ms, kernels ms)}}."""
+    from sse_tpu_torch.ops import rnn
+
+    lstm = cell == "lstm"
+    G = 4 if lstm else 3
+    gen = torch.Generator(device="cuda").manual_seed(SEED + (12 if lstm else 10))
+    E = H = 128
+    wx, wh, b = layer_weights(E, H, G, gen)
     out = {}
     for B in Bs:
         out[B] = {}
         for T in Ts:
             xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
             mask = torch.ones((T, 1, B), device="cuda")
-            ys, _ = rnn.rnn_layer(xs, mask, wx, wh, b)
+            if lstm:
+                ys, _, cs, _ = rnn.lstm_fwd_launch(xs, mask, wx, wh, b)
+            else:
+                (ys, _), cs = rnn.rnn_layer(xs, mask, wx, wh, b), None
             dys = (torch.randn((T, B, H), generator=gen, device="cuda") * 0.1).bfloat16()
             dfin = torch.randn((B, H), generator=gen, device="cuda")
-            run = lambda: rnn.gru_bwd_launch(xs, ys, mask, wx, wh, b, dys, dfin)  # noqa: E731
-            split = bwd_split(run, "gru")
+            args = (xs, ys, mask, wx, wh, b, dys, dfin)
+            run = ((lambda: rnn.lstm_bwd_launch(xs, ys, cs, *args[2:])) if lstm  # noqa: E731
+                   else (lambda: rnn.gru_bwd_launch(*args)))
+            split = bwd_split(run, cell)
             out[B][T] = (cuda_ms(run, reps=20), split["dh_loop"], sum(split.values()))
-        bnd = bound(nbytes(xs, ys, mask, wx, wh, b, dys, dfin, *run()[:4]),
-                    2.0 * T * B * 3 * H * 3 * (E + H))
-        log(slope_line(f"gru_bwd B={B} E=H={H}", {t: v[0] for t, v in out[B].items()})
+        bnd = bound(nbytes(*args, *([cs] if lstm else []), *run()[:4]),
+                    2.0 * T * B * G * H * 3 * (E + H))
+        log(slope_line(f"{cell}_bwd B={B} E=H={H}", {t: v[0] for t, v in out[B].items()})
             + f"; its kernels' device time at T={T} {out[B][T][2]:.4f} ms, of it the dh loop: "
             + slope_line("dh", {t: v[1] for t, v in out[B].items()})
             + f"; bound at T={T} {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
@@ -367,19 +428,23 @@ def check_lstm(card: str, results: dict) -> None:
         check(e_ax <= 1e-5, f"lstm_fwd B={B}: x-product {e_ax:.3g} of max-abs (bound 1e-5)")
         err = max(err, e, e_b)
         ms = cuda_ms(lambda: rnn.rnn_layer(*args, cell="lstm"))
+        dev = parts_ms(lambda: rnn.rnn_layer(*args, cell="lstm"),
+                       {"rnn_scan_kernel": "scan", "gemm_kernel": "x-product"})
         plain = cuda_ms(lambda: rnn.rnn_layer_reference(*args, "lstm"), reps=3)
         lstm = cudnn_lstm(wx, wh, b)
         with torch.no_grad():
             lib = cuda_ms(lambda: lstm(xs))
         log(f"lstm_fwd T={T} B={B} E=H={H}: fin max_abs_err {e:.3g} (atol 2e-3, rtol 1e-3), "
             f"{flips} of {2 * ys.numel()} bf16 ys/cs values differ (max {e_b:.3g}, one ulp), "
-            f"x-product {e_ax:.2g} of max-abs; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"cuDNN LSTM (full lengths) {lib:.4f} ms [{card}]")
+            f"x-product {e_ax:.2g} of max-abs; kernel {ms:.4f} ms (its device time "
+            f"{sum(dev.values()):.4f}: scan {dev['scan']:.4f}, x-product {dev['x-product']:.4f}), "
+            f"plain {plain:.4f} ms, cuDNN LSTM (full lengths) {lib:.4f} ms [{card}]")
         if B == 4096:
             results["lstm_fwd"].update(
-                ms=ms, plain_ms=plain, library_ms=lib,
+                ms=ms, device_ms=sum(dev.values()), plain_ms=plain, library_ms=lib,
                 **bound(nbytes(*args, ys, cs, fin), 2.0 * T * B * (E + H) * 4 * H))
     results["lstm_fwd"]["max_abs_err"] = err
+    lstm_fwd_costs(card)
 
 
 def check_scan(card: str, results: dict) -> None:
@@ -400,14 +465,16 @@ def check_scan(card: str, results: dict) -> None:
                                    rnn.scan_layer_reference(ax, mask, wh, cell))
         err = max(err, e, e_b)
         ms = cuda_ms(lambda: rnn.scan_layer(ax, mask, wh, cell))
+        dev = kernel_ms(lambda: rnn.scan_layer(ax, mask, wh, cell), "rnn_scan_kernel")
         plain = cuda_ms(lambda: rnn.scan_layer_reference(ax, mask, wh, cell), reps=3)
+        bnd = bound(nbytes(ax, mask, wh, ys, fin), 2.0 * T * B * H * G * H)
         log(f"rnn_scan {cell} T={T} B={B} H={H}: fin max_abs_err {e:.3g}, {flips} of "
-            f"{ys.numel()} bf16 ys values differ (max {e_b:.3g}, one ulp); kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms [{card}]")
+            f"{ys.numel()} bf16 ys values differ (max {e_b:.3g}, one ulp); kernel {ms:.4f} ms "
+            f"(its device time {dev:.4f}), plain {plain:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}) [{card}]")
         if cell == "lstm":
-            results["rnn_scan"].update(
-                ms=ms, plain_ms=plain, library_ms=None,
-                **bound(nbytes(ax, mask, wh, ys, fin), 2.0 * T * B * H * G * H))
+            results["rnn_scan"].update(ms=ms, device_ms=dev, plain_ms=plain, library_ms=None,
+                                       **bnd)
     results["rnn_scan"]["max_abs_err"] = err
 
 
@@ -1159,6 +1226,11 @@ def served_slice(label: str, cfg, corpus, n_post: int, variant: str = "packed") 
     log(f"{label} one query at the B=8 tier (engine.query, torch.profiler, ms per query): "
         f"device {sum(split.values()):.4f}; "
         + json.dumps({k[:60]: round(v, 4) for k, v in sorted(split.items(), key=lambda kv: -kv[1])}))
+    if cfg.src_tower.cell == "lstm":
+        parts = query_parts(engine, get_texts[0])
+        log(f"{label} one query at the B=8 tier by part (torch.profiler, device ms per query): "
+            f"{sum(parts.values()):.4f}: "
+            + json.dumps({k: round(v, 4) for k, v in sorted(parts.items(), key=lambda kv: -kv[1])}))
     check(len(served) == len(texts), "POST: one result list per query")
     for hits in served:
         check(len(hits) == K and all(h["targetId"] in known for h in hits), f"POST: {hits}")
@@ -1173,6 +1245,82 @@ def served_slice(label: str, cfg, corpus, n_post: int, variant: str = "packed") 
         log(f"{label}: served rows == topk_reference(variant={variant!r}) for {len(tx)} "
             f"{name} queries ({n} positions differ, the two rows' scores {tol})")
     return counts
+
+
+# kernel name pattern → part of a served query (query_parts)
+QUERY_PARTS = {"rnn_scan_kernel": "LSTM scan", "gemm_kernel": "x-product",
+               "gru_fwd_kernel": "GRU", "stream": "top-k", "select": "top-k",
+               "blockmax": "top-k", "pairs": "top-k"}
+
+
+def query_parts(engine, text: str, reps: int = 5) -> dict:
+    """Device ms of one served query by part (torch.profiler with the CPU
+    activity, after a warm query): the device's kernels and copies, the
+    recurrent kernels and the top-k by kernel name (QUERY_PARTS), of the
+    others what the CPU ops inside the ``sse.tower.readout`` range
+    launched as the readout, the rest as other."""
+    engine.query([text])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            engine.query([text])
+        torch.cuda.synchronize()
+
+    def in_readout(e) -> bool:
+        while e is not None:
+            if e.name == "sse.tower.readout":
+                return True
+            e = e.cpu_parent
+        return False
+
+    readout = collections.Counter()  # kernel → ms launched inside the readout range
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and in_readout(e):
+            for k in e.kernels:
+                if k.name != e.name and not k.name.startswith("sse."):
+                    readout[k.name] += k.duration / 1000.0
+    out, other = collections.Counter(), collections.Counter()
+    for name, ms in device_times(prof).items():
+        if name.startswith("sse."):
+            continue  # a range's device span
+        part = next((p for pat, p in QUERY_PARTS.items() if pat in name), None)
+        if part is None:
+            r = min(ms, readout[name])
+            out["attention readout"] += r / reps
+            part, ms = "other", ms - r
+            other[name[:50]] += ms / reps
+        out[part] += ms / reps
+    log(f"query_parts: the largest of other: "
+        f"{[(n, round(v, 4)) for n, v in other.most_common(4)]}")
+    return dict(out)
+
+
+def qna_query_costs(card: str) -> dict:
+    """One served qna query at the B=8 tier (``engine.query``: the qna
+    towers at E=H=D=128, random weights from the seed, L=50) on a
+    1,249,280-row bf16 index of random unit rows, by part (query_parts)."""
+    from sse_tpu_torch.data import synthetic
+    from sse_tpu_torch.data.corpus import build_vocab
+    from sse_tpu_torch.index.sharded_index import ShardedIndex
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.serve import QueryEngine
+
+    train, evalp, targets = synthetic.make_corpus(task="ranking", num_targets=1024, seed=SEED)
+    cfg = qna_config()
+    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    nr = T_PAD - 1000
+    index = ShardedIndex(emb=unit_rows(T_PAD, gen).bfloat16(), num_real=nr,
+                         ids=[f"x{i}" for i in range(nr)], texts=[""] * nr)
+    engine = QueryEngine(params, cfg, build_vocab(8000, train, targets), index,
+                         max_seq_length=50, max_batch=8, k=K)
+    parts = query_parts(engine, evalp[0][0])
+    log(f"qna query at the B=8 tier by part (torch.profiler, device ms per query): "
+        f"{sum(parts.values()):.4f}: "
+        + json.dumps({k: round(v, 4) for k, v in sorted(parts.items(), key=lambda kv: -kv[1])})
+        + f" [{card}]")
+    return parts
 
 
 def query_split(engine, text: str, reps: int = 5) -> dict:
@@ -1532,6 +1680,17 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
 }
 
 
+def qna_config():
+    """The ``qna`` configuration at the served width: a dual-encoder
+    1-layer LSTM with the attention readout, E=H=D=128, vocab 8000."""
+    from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
+    from sse_tpu_torch.models.towers import TowerConfig
+
+    tower = TowerConfig(cell="lstm", readout="attention", vocab_size=8000, embed_dim=128,
+                        hidden=128, num_layers=1, encoding_dim=128)
+    return SSEConfig(mode=NetworkMode.DUAL_ENCODER, src_tower=tower, tgt_tower=tower)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1550,11 +1709,15 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     _build.library()
     log(f"kernel build: {_build.build_info['seconds']:.1f} s")
-    for line in ptxas_report(_build.build_info["log"], "gru_"):
-        log(f"ptxas: {line}")
+    for pattern in ("gru_", "rnn_scan", "lstm_bwd"):
+        for line in ptxas_report(_build.build_info["log"], pattern):
+            log(f"ptxas: {line}")
     if "--costs" in sys.argv[1:]:
         gru_fwd_costs(card)
-        gru_bwd_costs(card)
+        rnn_bwd_costs(card, "gru")
+        lstm_fwd_costs(card)
+        rnn_bwd_costs(card, "lstm", Bs=(8, 128, 256, 2304))
+        qna_query_costs(card)
         return
     if "--twophase" in sys.argv[1:]:
         twophase_costs(card)
@@ -1567,16 +1730,16 @@ def main() -> None:
     check_lstm(card, results)
     check_scan(card, results)
     check_bwd(card, results, "gru")
-    gru_bwd_costs(card)
+    rnn_bwd_costs(card, "gru")
     check_bwd(card, results, "lstm")
+    rnn_bwd_costs(card, "lstm", Bs=(8, 128, 256, 2304))
     check_topk(card, results)
     check_topk_exact(card, results)
 
     corpus = served_corpus()
     width = dict(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1, encoding_dim=128)
     gru = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(cell="gru", **width))
-    qna_tower = TowerConfig(cell="lstm", readout="attention", **width)
-    qna = SSEConfig(mode=NetworkMode.DUAL_ENCODER, src_tower=qna_tower, tgt_tower=qna_tower)
+    qna = qna_config()
     runs = {
         "served GRU": served_slice("served GRU", gru, corpus, 1024),
         "served qna": served_slice("served qna", qna, corpus, 4096),

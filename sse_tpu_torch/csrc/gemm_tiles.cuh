@@ -166,10 +166,11 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ w_part, int splits,
 }
 
 // out [M, N] fp32 = X·Wᵀ + bias, with X [M, K] and wt = Wᵀ [N, K] bf16
-// (the rows of wt are the B fragments as stored).
-inline cudaError_t launch_gates(const Mat& x, const __nv_bfloat16* wt, int M, int N, int K,
-                                const float* bias, float* out, cudaStream_t st) {
-  const Mat w = {wt, K, K, nullptr, 0, 0, N, K};
+// in rows ldw apart (the rows of wt are the B fragments as stored; the
+// LSTM forward passes the Wx columns of [Wx;Wh]ᵀ).
+inline cudaError_t launch_gates(const Mat& x, const __nv_bfloat16* wt, int ldw, int M, int N,
+                                int K, const float* bias, float* out, cudaStream_t st) {
+  const Mat w = {wt, ldw, K, nullptr, 0, 0, N, K};
   gemm_kernel<false, false, EPI_GATES><<<dim3(cdiv(N, TM), cdiv(M, TM), 1), GEMM_THREADS, 0, st>>>(
       x, w, M, N, K, cdiv(K, TK) * TK, bias, out);
   return cudaGetLastError();

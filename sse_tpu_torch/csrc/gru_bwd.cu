@@ -356,7 +356,7 @@ extern "C" int sse_gru_bwd(const void* xs, const void* ys, const void* mask,
   cudaError_t err;
 
   // 1. gates = [xs ; h_prev]·[Wx ; Wh] + b
-  err = launch_gates(xh, static_cast<const __nv_bfloat16*>(wt), M, N, K,
+  err = launch_gates(xh, static_cast<const __nv_bfloat16*>(wt), K, M, N, K,
                      static_cast<const float*>(bias), static_cast<float*>(gates), st);
   if (err != cudaSuccess) return (int)err;
 

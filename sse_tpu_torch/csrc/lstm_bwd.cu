@@ -15,209 +15,311 @@
 //
 // Design: gru_bwd.cu's five launches with N = 4H. (1) one tiled product
 // recomputes the gates of all T·B rows off the serial chain; (2) the
-// serial loop carries dh and dc, one block per 32 batch rows for all T
-// steps, holding Wh as stored (its rows are the B fragments of
-// dgates_b·Whᵀ) and a double-buffered dgates_b tile in shared memory:
-// (128·520 + 2·32·520)·2 = 199,680 B at H=128; (3) dxs, (4) the split-K
-// dW product into fixed partials, (5) their in-order sum with the loop's
+// serial loop carries dh and dc (below); (3) dxs, (4) the split-K dW
+// product into fixed partials, (5) their in-order sum with the loop's
 // per-block db partials (gemm_tiles.cuh). No float atomics.
 //
-// What bounds it on the H100: the serial loop, latency-bound (T steps of
-// a [32, 4H]·[4H, H] product per block and one
-// barrier a step, on ceil(B/32) SMs: 8 at B=256); the products are ~4/3
-// of the GRU's FLOPs on the same untuned mma.sync tiles; the gates buffer
-// costs 2·T·B·4H·4 bytes of traffic (52 MB at T=50, B=256).
+// What bounds it on the H100: the serial loop, T steps of a chain: the
+// cell backward's dh-dependent part, one barrier, and the dh product over
+// K = 4H. The design keeps everything else off that chain, as
+// gru_bwd.cu's dh kernel does:
+//   * Transposed product: dhᵀ = Wh·dgates_bᵀ, so the H units are the m16
+//     rows of mma.sync and a block's BN=8 batch rows one n8 tile (B=128,
+//     256 and 2304 run on 16, 32 and 288 blocks). At H=128 each warp holds
+//     its Wh fragments in registers (32 k16 slices: 128 a thread), so the
+//     product reads only the 8 KB dgates_b tile from shared memory, in one
+//     accumulator chain per gate.
+//   * Step inputs: each warp copies its own units' fp32 i, f, g, o for 8
+//     rows (2 KB), dys_t, c_{t-1} = cs[t-1] and the mask three steps ahead
+//     into a shared stage by cp.async, so no barrier guards them (the
+//     gates buffer, 52 MB at T=50, B=256, does not stay in the 50 MB L2).
+//   * σ(i), σ(f+1), tanh(g̃), σ(o), c_new and tanh(c_new) need no dh: each
+//     step's are computed while the step before runs its product, staged
+//     (exponentials, divisions back to back, tanhf's). The chain keeps the
+//     reference's left-to-right products (g·σ(o)·(1-tanh²), dc_new·c·σ(f)·
+//     (1-σ(f)), ...), so moving the factors changes no rounding.
+//   * dgates_b goes to global memory from the shared tile in 16-byte
+//     stores while the product runs.
+// Other widths take a generic instance: Wh in shared memory, one input
+// stage (H <= 144, what shared memory allows). The products are ~4/3 of
+// the GRU's FLOPs on the same mma.sync tiles; the gates buffer costs
+// 2·T·B·4H·4 bytes of traffic.
 #include "gemm_tiles.cuh"
 
 namespace {
 
-constexpr int BM = 32;    // batch rows per block (two m16 tiles)
-constexpr int WH = 16;    // hidden units per warp
-constexpr int KPAD = 8;   // bf16 row padding: spreads fragment loads over banks
+constexpr int BN = 8;     // dh kernel: batch rows per block (one n8 tile)
+constexpr int WH = 16;    // dh kernel: hidden units per warp (one m16 tile)
+constexpr int KPAD = 8;   // bf16 row padding: conflict-free 32-bit fragment loads
+constexpr int GPAD = 4;   // fp32 gate row padding: rows 2·tig apart fall in distinct banks
+constexpr int MAX_THREADS = 288;  // 2H threads; H <= 144 is what shared memory allows
 
-// The serial reverse loop. Warp w owns hidden units [16w, 16w+16) of all
-// four gates, so the cell backward for a (row, unit) needs only the same
-// warp's loads, and its dh and dc carries sit at the positions of the
-// forward's h and c.
-__global__ void lstm_bwd_dh_kernel(const float* __restrict__ gates,
-                                   const __nv_bfloat16* __restrict__ cs,
-                                   const float* __restrict__ mask,
-                                   const __nv_bfloat16* __restrict__ wh,
-                                   const __nv_bfloat16* __restrict__ dys,
-                                   const float* __restrict__ dfin,
-                                   __nv_bfloat16* __restrict__ dgb,
-                                   float* __restrict__ db_part, int T, int B, int H) {
+// Input stages of the dh loop: three with H fixed at compile time (Wh in
+// registers leaves room), one with Wh in shared memory.
+__host__ __device__ constexpr int dh_stages(int kh) { return kh ? 3 : 1; }
+
+// Byte offsets of the dh kernel's shared buffers: Wh [H][ldw] bf16 as
+// stored (only where it is not held in registers), dgates_b [2][BN][ldw]
+// bf16, then `stages` stages of step inputs, each gates [BN][ldg] fp32,
+// dys_t and c_{t-1} [BN][ldv] bf16 and the mask, one [BN] copy per warp.
+struct DhLayout {
+  int ldw, ldg, ldv, wh, dg, st, g, dy, cp, m, stage, total;
+};
+
+__host__ __device__ inline DhLayout dh_layout(int H, int stages, bool wh_shared) {
+  DhLayout L;
+  L.ldw = 4 * H + KPAD;
+  L.ldg = 4 * H + GPAD;
+  L.ldv = H + KPAD;
+  L.wh = 0;
+  L.dg = L.wh + (wh_shared ? H * L.ldw * 2 : 0);
+  L.st = L.dg + 2 * BN * L.ldw * 2;
+  L.g = 0;  // offsets inside a stage
+  L.dy = L.g + BN * L.ldg * 4;
+  L.cp = L.dy + BN * L.ldv * 2;
+  L.m = L.cp + BN * L.ldv * 2;
+  L.stage = L.m + (H / WH) * BN * 4;
+  L.total = L.st + stages * L.stage;
+  return L;
+}
+
+// The serial reverse loop, transposed: dhᵀ = Wh·dgates_bᵀ. Warp w owns
+// units [16w, 16w+16) of all four gates: the cell backward for a (unit,
+// row) needs only what the same warp copied, and its dh and dc carries
+// sit where the forward's h and c do. KH: H at compile time, with the
+// warp's Wh fragments in registers (0: H from the argument, Wh in shared
+// memory, one input stage).
+template <int KH>
+__global__ void __launch_bounds__(KH ? 2 * KH : MAX_THREADS, 1)
+lstm_bwd_dh_kernel(const float* __restrict__ gates, const __nv_bfloat16* __restrict__ cs,
+                   const float* __restrict__ mask, const __nv_bfloat16* __restrict__ wh,
+                   const __nv_bfloat16* __restrict__ dys, const float* __restrict__ dfin,
+                   __nv_bfloat16* __restrict__ dgb, float* __restrict__ db_part, int T, int B,
+                   int h_arg) {
+  constexpr bool WREG = KH != 0;
+  constexpr int STAGES = dh_stages(KH);  // copies run STAGES steps ahead
+  const int H = KH ? KH : h_arg, N = 4 * H;
+  const DhLayout L = dh_layout(H, STAGES, !WREG);
   extern __shared__ __align__(16) unsigned char smem[];
-  const int N = 4 * H, ldw = N + KPAD;
-  __nv_bfloat16* whs = reinterpret_cast<__nv_bfloat16*>(smem);  // [H][ldw], Wh as stored
-  __nv_bfloat16* dgs = whs + H * ldw;                            // [2][BM][ldw]
+  __nv_bfloat16* whs = reinterpret_cast<__nv_bfloat16*>(smem + L.wh);  // Wh as stored
+  __nv_bfloat16* dgs = reinterpret_cast<__nv_bfloat16*>(smem + L.dg);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane >> 2, tig = lane & 3;
-  const int row0 = blockIdx.x * BM;
+  const int row0 = blockIdx.x * BN;
   const int col0 = warp * WH;
+  const int u0 = col0 + grp;  // this thread's units: u0 and u0 + 8; rows 2·tig, 2·tig+1
 
-  for (int i = tid; i < H * (N / 8); i += blockDim.x) {
-    const int j = i / (N / 8), c = (i % (N / 8)) * 8;
-    *reinterpret_cast<uint4*>(whs + j * ldw + c) =
-        *reinterpret_cast<const uint4*>(wh + (size_t)j * N + c);
+  // Iteration i's inputs (step s = T-1-i) into stage i % STAGES, this
+  // warp's columns only, as one group of copies: four 16-byte pieces of
+  // its fp32 i, f, g, o columns a lane (8 rows x 4 gates x 4 pieces);
+  // lanes < 16 one piece of dys_t, the others one of c_{t-1} = cs[t-1]
+  // (8 rows x 2 pieces); lanes < 8 one mask value. Rows >= B (and c_{-1})
+  // are zero-filled.
+  const bool is_cp = lane >= 16;
+  const int v_r = (lane & 15) >> 1, v_col = col0 + (lane & 1) * 8;
+  const int v_s = (is_cp ? L.cp : L.dy) / 2 + v_r * L.ldv + v_col;  // bf16 offset into a stage
+  const bool v_ok = row0 + v_r < B, m_ok = lane < BN && row0 + lane < B;
+  auto fetch = [&](int i) {
+    const int s = T - 1 - i;
+    if (s >= 0) {
+      unsigned char* st = smem + L.st + (i % STAGES) * L.stage;
+      float* sg = reinterpret_cast<float*>(st + L.g);
+      const float* gs = gates + (size_t)s * B * N;
+#pragma unroll
+      for (int j = 0; j < BN * 16 / 32; ++j) {
+        const int q = lane + 32 * j, r = q >> 4, rem = q & 15;
+        const int col = (rem >> 2) * H + col0 + (rem & 3) * 4;
+        const bool v = row0 + r < B;
+        sse::cp_async16(sg + r * L.ldg + col, gs + (v ? (size_t)(row0 + r) * N + col : 0), v);
+      }
+      const __nv_bfloat16* src = is_cp ? cs + (size_t)(s > 0 ? s - 1 : 0) * B * H
+                                       : dys + (size_t)s * B * H;
+      sse::cp_async16(reinterpret_cast<__nv_bfloat16*>(st) + v_s,
+                      src + (v_ok ? (size_t)(row0 + v_r) * H + v_col : 0),
+                      v_ok && (!is_cp || s > 0));
+      if (lane < BN)
+        sse::cp_async4(reinterpret_cast<float*>(st + L.m) + warp * BN + lane,
+                       mask + (size_t)s * B + (m_ok ? row0 + lane : 0), m_ok);
+    }
+    sse::cp_async_commit();
+  };
+
+  // C[u][n] = Σ_k Wh[u][k]·dg[n][k]: an A fragment is Wh's rows u0, u0+8,
+  // k-contiguous as stored. With H known, each warp keeps its m16 tile's
+  // fragments in registers (128 at H=128); else Wh is staged.
+  constexpr int NK = KH ? 4 * KH / 16 : 1;
+  uint32_t whr[NK][4];
+  if constexpr (WREG) {
+#pragma unroll
+    for (int kq = 0; kq < NK; ++kq)
+      sse::frag_a(whr[kq], wh + (size_t)u0 * N + 16 * kq + 2 * tig, N);
+  } else {
+    for (int i = tid; i < H * (N / 8); i += blockDim.x) {
+      const int j = i / (N / 8), c = (i - j * (N / 8)) * 8;
+      sse::cp_async16(whs + j * L.ldw + c, wh + (size_t)j * N + c, true);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < STAGES; ++i) fetch(i);  // the first with Wh, where staged
+
+  // fp32 dh and dc carries and the db sums over this thread's rows;
+  // fragment c is unit u0 + 8·(c >> 1), row 2·tig + (c & 1)
+  float dh[4], dc[4] = {}, dbs[4][2] = {};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int r = row0 + 2 * tig + (c & 1);
+    dh[c] = r < B ? dfin[(size_t)r * H + u0 + 8 * (c >> 1)] : 0.f;
   }
 
-  float dh[2][2][4], dc[2][2][4];  // fp32 carries: [m16 tile][n8 tile][fragment]
-  float dbs[4][2][2];              // db over this thread's rows: [gate][n8 tile][column]
+  // Iteration i's inputs from its stage, and the factors that need no
+  // dh: σ(i), σ(f+1), tanh(g̃), σ(o) and tanh(c_new), c_new from the bf16
+  // c_{t-1}; staged (exponentials, then the divisions back to back, then
+  // the tanhf's), the values of sse::sigmoid and tanhf.
+  float si[4], sf[4], tg[4], so[4], tc[4], cprev[4], dyv[4], m[2];
+  auto prepare = [&](int i) {
+    sse::cp_async_wait<STAGES - 1>();  // this thread's copies of iteration i
+    __syncwarp();                      // ... and its warp's
+    const unsigned char* st = smem + L.st + (i % STAGES) * L.stage;
+    const float* sg = reinterpret_cast<const float*>(st + L.g);
+    const __nv_bfloat16* sdy = reinterpret_cast<const __nv_bfloat16*>(st + L.dy);
+    const __nv_bfloat16* scp = reinterpret_cast<const __nv_bfloat16*>(st + L.cp);
+    const float* sm = reinterpret_cast<const float*>(st + L.m) + warp * BN;
+    m[0] = sm[2 * tig];
+    m[1] = sm[2 * tig + 1];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row0 + mi * 16 + grp + half * 8;
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        const int col = col0 + nj * 8 + 2 * tig;
-        dh[mi][nj][half * 2] = r < B ? dfin[(size_t)r * H + col] : 0.f;
-        dh[mi][nj][half * 2 + 1] = r < B ? dfin[(size_t)r * H + col + 1] : 0.f;
-        dc[mi][nj][half * 2] = dc[mi][nj][half * 2 + 1] = 0.f;
-      }
+    for (int c = 0; c < 4; ++c) {
+      const int r = 2 * tig + (c & 1), u = u0 + 8 * (c >> 1);
+      const float* gr = sg + r * L.ldg + u;
+      si[c] = expf(-gr[0]);
+      sf[c] = expf(-(gr[H] + 1.f));
+      tg[c] = gr[2 * H];
+      so[c] = expf(-gr[3 * H]);
+      dyv[c] = __bfloat162float(sdy[r * L.ldv + u]);
+      cprev[c] = __bfloat162float(scp[r * L.ldv + u]);
     }
 #pragma unroll
-  for (int g = 0; g < 4; ++g)
+    for (int c = 0; c < 4; ++c) {
+      si[c] = sse::sigmoid_exp(si[c]);
+      sf[c] = sse::sigmoid_exp(sf[c]);
+      so[c] = sse::sigmoid_exp(so[c]);
+    }
 #pragma unroll
-    for (int nj = 0; nj < 2; ++nj) dbs[g][nj][0] = dbs[g][nj][1] = 0.f;
-  __syncthreads();
+    for (int c = 0; c < 4; ++c) tg[c] = tanhf(tg[c]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) tc[c] = tanhf(sf[c] * cprev[c] + si[c] * tg[c]);
+  };
 
+  prepare(0);
   int cur = 0;
-  for (int t = T - 1; t >= 0; --t) {
-    __nv_bfloat16* dg = dgs + cur * BM * ldw;
-    const float* mt = mask + (size_t)t * B;
-    float base[2][2][4];  // (1-m)·dh_t
+  for (int i = 0; i < T; ++i) {
+    const int t = T - 1 - i;
+    __nv_bfloat16* dg = dgs + cur * BN * L.ldw;
+    float base[4];  // (1-m)·dh_t
 
+    // the cell backward's part that needs dh: the chain
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int c = 0; c < 4; ++c) {
+      const float mc = m[c & 1];
+      const float dh_t = dh[c] + dyv[c];
+      const float g = mc * dh_t;  // d h_new
+      const float dcn = mc * dc[c] + g * so[c] * (1.f - tc[c] * tc[c]);
+      const float d_o = g * tc[c] * so[c] * (1.f - so[c]);
+      const float d_f = dcn * cprev[c] * sf[c] * (1.f - sf[c]);
+      const float d_i = dcn * tg[c] * si[c] * (1.f - si[c]);
+      const float d_g = dcn * si[c] * (1.f - tg[c] * tg[c]);
+      base[c] = (1.f - mc) * dh_t;
+      dc[c] = (1.f - mc) * dc[c] + dcn * sf[c];
+      dbs[0][c >> 1] += d_i;
+      dbs[1][c >> 1] += d_f;
+      dbs[2][c >> 1] += d_g;
+      dbs[3][c >> 1] += d_o;
+      __nv_bfloat16* ds = dg + (2 * tig + (c & 1)) * L.ldw + u0 + 8 * (c >> 1);
+      ds[0] = __float2bfloat16(d_i);
+      ds[H] = __float2bfloat16(d_f);
+      ds[2 * H] = __float2bfloat16(d_g);
+      ds[3 * H] = __float2bfloat16(d_o);
+    }
+    __syncthreads();  // every warp's dgates_b of step t
+
+    // dh = base + Wh·dgates_bᵀ over K = 4H, one accumulator chain per gate
+    float acc[4][4] = {};
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rl = mi * 16 + grp + half * 8;
-        const int r = row0 + rl;
-        const bool valid = r < B;
-        const float m = valid ? mt[r] : 0.f;
-        const size_t tb = (size_t)t * B + r;
+    for (int g = 0; g < 4; ++g)
 #pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          const int col = col0 + nj * 8 + 2 * tig;
-          float2 gp[4], dy = make_float2(0.f, 0.f), cp = dy;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) gp[g] = dy;
-          if (valid) {
-            const float* gr = gates + tb * N + col;
-#pragma unroll
-            for (int g = 0; g < 4; ++g) gp[g] = *reinterpret_cast<const float2*>(gr + g * H);
-            dy = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(dys + tb * H + col));
-            if (t > 0)
-              cp = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                  cs + (tb - B) * H + col));
-          }
-          const float cprev[2] = {cp.x, cp.y}, dyv[2] = {dy.x, dy.y};
-          float dgt[4][2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int q = half * 2 + e;
-            const float ip = e ? gp[0].y : gp[0].x, fp = e ? gp[1].y : gp[1].x;
-            const float gg = e ? gp[2].y : gp[2].x, op = e ? gp[3].y : gp[3].x;
-            const float dh_t = dh[mi][nj][q] + dyv[e];
-            const float g = m * dh_t;  // d h_new
-            const float si = sse::sigmoid(ip);
-            const float sf = sse::sigmoid(fp + 1.f);
-            const float tg = tanhf(gg);
-            const float so = sse::sigmoid(op);
-            const float cnew = sf * cprev[e] + si * tg;
-            const float tc = tanhf(cnew);
-            const float dc_t = dc[mi][nj][q];
-            const float dcn = m * dc_t + g * so * (1.f - tc * tc);
-            dgt[3][e] = g * tc * so * (1.f - so);
-            dgt[1][e] = dcn * cprev[e] * sf * (1.f - sf);
-            dgt[0][e] = dcn * tg * si * (1.f - si);
-            dgt[2][e] = dcn * si * (1.f - tg * tg);
-            base[mi][nj][q] = (1.f - m) * dh_t;
-            dc[mi][nj][q] = (1.f - m) * dc_t + dcn * sf;
-#pragma unroll
-            for (int gi = 0; gi < 4; ++gi) dbs[gi][nj][e] += dgt[gi][e];
-          }
-          __nv_bfloat16* ds = dg + rl * ldw + col;
-          __nv_bfloat16* dgl = dgb + tb * N + col;
-#pragma unroll
-          for (int gi = 0; gi < 4; ++gi) {
-            const __nv_bfloat162 v = __floats2bfloat162_rn(dgt[gi][0], dgt[gi][1]);
-            *reinterpret_cast<__nv_bfloat162*>(ds + gi * H) = v;
-            if (valid) *reinterpret_cast<__nv_bfloat162*>(dgl + gi * H) = v;
-          }
+      for (int kq = 0; kq < H / 16; ++kq) {
+        const int k = g * H + 16 * kq;
+        const __nv_bfloat16* p = dg + grp * L.ldw + k + 2 * tig;
+        const uint32_t b0 = sse::ld32(p), b1 = sse::ld32(p + 8);
+        if constexpr (WREG) {
+          sse::mma_bf16(acc[g], whr[k / 16], b0, b1);
+        } else {
+          uint32_t f[4];
+          sse::frag_a(f, whs + u0 * L.ldw + k + 2 * tig, L.ldw);
+          sse::mma_bf16(acc[g], f, b0, b1);
         }
       }
-    __syncthreads();
-
-    // dh = base + dgates_b·Whᵀ over K = 4H
-    float acc[2][2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
-    for (int kk = 0; kk < N; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* p0 = dg + (mi * 16 + grp) * ldw + kk + 2 * tig;
-        a[mi][0] = sse::ld32(p0);
-        a[mi][1] = sse::ld32(p0 + 8 * ldw);
-        a[mi][2] = sse::ld32(p0 + 8);
-        a[mi][3] = sse::ld32(p0 + 8 * ldw + 8);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        const __nv_bfloat16* wb = whs + (col0 + nj * 8 + grp) * ldw + kk + 2 * tig;
-        const uint32_t b0 = sse::ld32(wb), b1 = sse::ld32(wb + 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) sse::mma_bf16(acc[mi][nj], a[mi], b0, b1);
-      }
+    // while the products run: refill the stage prepare(i) read, store
+    // dgates_b of step t from the shared tile (16 bytes a store), and
+    // prepare the next step
+    fetch(i + STAGES);
+    for (int q = tid; q < BN * (N / 8); q += blockDim.x) {
+      const int r = q / (N / 8), c = (q - r * (N / 8)) * 8;
+      if (row0 + r < B)
+        *reinterpret_cast<uint4*>(dgb + ((size_t)t * B + row0 + r) * N + c) =
+            *reinterpret_cast<const uint4*>(dg + r * L.ldw + c);
     }
+    if (i + 1 < T) prepare(i + 1);
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) dh[mi][nj][q] = base[mi][nj][q] + acc[mi][nj][q];
+    for (int c = 0; c < 4; ++c)
+      dh[c] = base[c] + (((acc[0][c] + acc[1][c]) + acc[2][c]) + acc[3][c]);
     cur ^= 1;
   }
 
-  // db partial of this block: sum the 8 row groups with a fixed shuffle tree
+  // db partial of this block: sum the 4 row pairs with a fixed shuffle tree
 #pragma unroll
   for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int nj = 0; nj < 2; ++nj)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float v = dbs[g][nj][e];
-        v += __shfl_xor_sync(sse::kFull, v, 4);
-        v += __shfl_xor_sync(sse::kFull, v, 8);
-        v += __shfl_xor_sync(sse::kFull, v, 16);
-        if (grp == 0)
-          db_part[(size_t)blockIdx.x * N + g * H + col0 + nj * 8 + 2 * tig + e] = v;
-      }
+    for (int j = 0; j < 2; ++j) {
+      float v = dbs[g][j];
+      v += __shfl_xor_sync(sse::kFull, v, 1);
+      v += __shfl_xor_sync(sse::kFull, v, 2);
+      if (tig == 0) db_part[(size_t)blockIdx.x * N + g * H + u0 + 8 * j] = v;
+    }
+}
+
+// Shared memory of the dh loop's instance for H: H=128 at compile time
+// (Wh in registers), else generic.
+int dh_smem(int H) {
+  const int kh = H == 128 ? 128 : 0;
+  return dh_layout(H, dh_stages(kh), kh == 0).total;
+}
+
+template <int KH>
+cudaError_t launch_dh(const float* gates, const __nv_bfloat16* cs, const float* mask,
+                      const __nv_bfloat16* wh, const __nv_bfloat16* dys, const float* dfin,
+                      __nv_bfloat16* dgb, float* db_part, int T, int B, int H, cudaStream_t st) {
+  const int smem = dh_smem(H);
+  auto* kernel = lstm_bwd_dh_kernel<KH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<cdiv(B, BN), 32 * (H / WH), smem, st>>>(gates, cs, mask, wh, dys, dfin, dgb, db_part,
+                                                   T, B, H);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory of the serial kernel; the wrapper rejects shapes above the
-// 232,448-byte opt-in limit before launching (H > 128 among them).
-extern "C" int sse_lstm_bwd_smem_bytes(int H) {
-  return (H * (4 * H + KPAD) + 2 * BM * (4 * H + KPAD)) * (int)sizeof(__nv_bfloat16);
-}
+// Shared memory of the dh kernel; the wrapper rejects shapes above the
+// 232,448-byte opt-in limit before launching (H > 144 among them).
+extern "C" int sse_lstm_bwd_smem_bytes(int H) { return dh_smem(H); }
 
-// Rows of the batch one serial block owns (the db partials come one per block).
-extern "C" int sse_lstm_bwd_block_rows() { return BM; }
+// Rows of the batch one dh block owns (the db partials come one per block).
+extern "C" int sse_lstm_bwd_block_rows() { return BN; }
 
 // One LSTM layer backward. xs [T,B,E], ys, cs, dys [T,B,H] bf16; mask
 // [T,1,B], dfin [B,H], bias [4H] fp32; wx [E,4H], wh [H,4H] and
 // wt = [Wx;Wh]ᵀ [4H,E+H] bf16. Scratch from the wrapper: gates [T·B,4H]
-// fp32, dgb [T·B,4H] bf16, db_part [ceil(B/32),4H] and w_part
+// fp32, dgb [T·B,4H] bf16, db_part [ceil(B/8),4H] and w_part
 // [splits,E+H,4H] fp32. Out: dxs [T,B,E] bf16, dw [E+H,4H] (dWx over
 // dWh) and db [4H] fp32. T, B >= 1; E, H multiples of 16.
 extern "C" int sse_lstm_bwd(const void* xs, const void* ys, const void* cs, const void* mask,
@@ -233,22 +335,23 @@ extern "C" int sse_lstm_bwd(const void* xs, const void* ys, const void* cs, cons
   cudaError_t err;
 
   // 1. gates = [xs ; h_prev]·[Wx ; Wh] + b
-  err = launch_gates(xh, static_cast<const __nv_bfloat16*>(wt), M, N, K,
+  err = launch_gates(xh, static_cast<const __nv_bfloat16*>(wt), K, M, N, K,
                      static_cast<const float*>(bias), static_cast<float*>(gates), st);
   if (err != cudaSuccess) return (int)err;
 
   // 2. the serial dh / dc loop
-  const int smem = sse_lstm_bwd_smem_bytes(H);
-  err = cudaFuncSetAttribute(lstm_bwd_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  const auto* g_f = static_cast<const float*>(gates);
+  const auto* cs_b = static_cast<const __nv_bfloat16*>(cs);
+  const auto* m_f = static_cast<const float*>(mask);
+  const auto* wh_b = static_cast<const __nv_bfloat16*>(wh);
+  const auto* dys_b = static_cast<const __nv_bfloat16*>(dys);
+  const auto* dfin_f = static_cast<const float*>(dfin);
+  auto* dgb_b = static_cast<__nv_bfloat16*>(dgb);
+  auto* dbp_f = static_cast<float*>(db_part);
+  err = H == 128 ? launch_dh<128>(g_f, cs_b, m_f, wh_b, dys_b, dfin_f, dgb_b, dbp_f, T, B, H, st)
+                 : launch_dh<0>(g_f, cs_b, m_f, wh_b, dys_b, dfin_f, dgb_b, dbp_f, T, B, H, st);
   if (err != cudaSuccess) return (int)err;
-  const int nblk = cdiv(B, BM);
-  lstm_bwd_dh_kernel<<<nblk, 32 * (H / WH), smem, st>>>(
-      static_cast<const float*>(gates), static_cast<const __nv_bfloat16*>(cs),
-      static_cast<const float*>(mask), static_cast<const __nv_bfloat16*>(wh),
-      static_cast<const __nv_bfloat16*>(dys), static_cast<const float*>(dfin),
-      static_cast<__nv_bfloat16*>(dgb), static_cast<float*>(db_part), T, B, H);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int nblk = cdiv(B, BN);
 
   // 3-5. dxs = bf16(dgates_b·Wxᵀ), the split-K dW partials, their in-order sums
   return (int)launch_bwd_products(

@@ -11,254 +11,398 @@
 //     LSTM forward, cs = bf16(c) [T,B,H] after the mask;
 //   * _layer_fwd_pallas, LSTM (_fwd_lstm_kernel → _fwd_core; kernel 3):
 //     sse_lstm_fwd = one tiled product for ax over all T·B rows
-//     (gemm_tiles.cuh, EPI_GATES) + this scan. Summed in this order,
-//     ax + bf16(h)·Wh is _fwd_core's (xs·Wx + b) + h·Wh.
+//     (gemm_tiles.cuh, EPI_GATES, from the rows of [Wx;Wh]ᵀ) + this scan.
+//     Summed in this order, ax + bf16(h)·Wh is _fwd_core's (xs·Wx + b) +
+//     h·Wh.
 //
-// Why two launches for the LSTM, where gru_fwd.cu fuses its layer: that
-// design keeps Wxᵀ in shared memory and each warp's Whᵀ fragments in
-// registers (96 a thread at E=H=128, 180 registers in all). With four
-// gates Whᵀ alone would be 128 registers a thread, beside a cell that
-// also carries c, and [Wx;Wh]ᵀ all in shared memory is 4·128·(256+8)·2 =
-// 270,336 B, above the 232,448-byte opt-in limit. The scan keeps only
-// Whᵀ: (4·128·136 + 2·32·136)·2 = 156,672 B. The price is the ax round trip through device
-// memory, 2·T·B·4H·4 bytes: 0.84 GB at B=4096, T=50, ~0.25 ms at
-// 3.35 TB/s. A fused design (a thread-block cluster sharing the weights
-// through distributed shared memory, or Wx streamed from L2) is later work.
+// Why two launches for the LSTM, where gru_fwd.cu fuses its layer: with
+// four gates Whᵀ alone takes the 128 registers a thread that gru_fwd.cu
+// gives to Whᵀ and its x-part accumulators together, and [Wx;Wh]ᵀ all in
+// shared memory is 4·128·(256+8)·2 = 270,336 B, above the 232,448-byte
+// opt-in limit. The price is the ax round trip through device memory,
+// 2·T·B·4H·4 bytes: 0.84 GB at B=4096, T=50, ~0.25 ms at 3.35 TB/s.
 //
-// What bounds the scan on the H100: the chain over T. One block owns
-// BM=32 batch rows for all T steps (ceil(B/32) blocks: 1 SM at B=8, 128 at
-// B=4096); each step is one dependent mma.sync sweep over K=H and a
-// barrier, plus the step's ax loads (issued before the sweep, which hides
-// their latency behind it). The h and c carries stay fp32 in registers;
-// bf16(h) sits in a double-buffered shared tile that is the next step's A
-// operand. Warp w owns hidden units [16w, 16w+16) of every gate, so the
-// cell needs no exchange between warps (gru_fwd.cu's layout). A thread
-// keeps its ax values, gate sums and both carries in registers (243 for
-// the LSTM instance, 167 for the GRU's), so 2H threads cap the LSTM scan
-// at H=128: sse_rnn_scan_max_threads lets the wrappers check it.
+// What bounds the scan on the H100: the chain over T. The only
+// parallelism is the batch, and each step waits for every warp's bf16(h)
+// of the step before. The design keeps everything else off that chain:
+//
+// * Transposed products: gatesᵀ = Whᵀ·bf16(h)ᵀ, so the G·H gate columns
+//   are the m16 rows of mma.sync and 8 batch rows one n8 tile. Warp w
+//   owns units [16w, 16w+16) of all G gates (G m16 tiles), so the cell
+//   needs no exchange between warps. A block takes one tile (B=8 computes
+//   8 rows; B=128 and 256 run on 16 and 32 SMs), or two where that halves
+//   the waves of blocks over the SMs (two_tiles).
+// * Whᵀ comes as rows of a matrix with a row stride: for the layer
+//   forward the Wh columns of [Wx;Wh]ᵀ (RNNLayer builds it once), for the
+//   scan alone whᵀ. At H=128 each warp holds its fragments in registers
+//   (4·8·4 = 128 a thread for the LSTM, 96 for the GRU), so a step reads
+//   only the h tile from shared memory: 16 32-bit loads a thread.
+// * Step inputs: the ax tile of step t+3 (fp32, rows x G·H: 16 KB for 8
+//   rows at H=128, G=4) and its mask are copied by cp.async into a 4-slot
+//   shared ring while step t runs; ys and cs leave from shared bf16 tiles
+//   in 16-byte stores during the next step, off the chain.
+// * The cell is staged: the exponentials first, then the divisions back
+//   to back, then the tanhf's (sse::sigmoid's and tanhf's values, bit for
+//   bit; the +1 forget bias where the reference adds it).
+// * H=128 is a template instance (both cells). Other widths take a
+//   generic one-tile instance: Whᵀ in shared memory, ax and the mask read
+//   from global memory; shared memory caps it at H=160 (LSTM) and H=176
+//   (GRU), which the wrappers check before launching.
+//
+// The h and c carries stay fp32 in registers at the accumulators'
+// positions; bf16(h) sits in a double-buffered shared [rows][H] tile
+// that is the next step's B operand, bf16(c) in another (for cs).
 #include "gemm_tiles.cuh"
 
 namespace {
 
-constexpr int BM = 32;    // batch rows per block: two m16 tiles
-constexpr int WH = 16;    // hidden units per warp (two n8 tiles per gate)
-constexpr int KPAD = 8;   // bf16 row padding: spreads fragment loads over banks
+constexpr int BN = 8;       // batch rows of one n8 tile (a block takes one or two)
+constexpr int WH = 16;      // hidden units per warp: one m16 tile per gate
+constexpr int KPAD = 8;     // bf16 row padding: conflict-free 32-bit fragment loads
+constexpr int APAD = 4;     // fp32 ax row padding: rows 2·tig apart fall in distinct banks
+constexpr int RING = 4;     // ax and mask slots: step t+3's are copied while step t runs
+constexpr int MAX_THREADS = 352;  // 2H threads; H <= 176 is what shared memory allows
 
-template <int G>  // gates: 3 = GRU (z, r, n), 4 = LSTM (i, f, g, o)
-__global__ void rnn_scan_kernel(const float* __restrict__ ax,
-                                const float* __restrict__ mask,
-                                const __nv_bfloat16* __restrict__ wh,
-                                __nv_bfloat16* __restrict__ ys,
-                                float* __restrict__ fin,
-                                __nv_bfloat16* __restrict__ cs,  // LSTM only; may be null
-                                int T, int B, int H) {
+// Byte offsets of the shared buffers for blocks of `rows` batch rows:
+// Whᵀ [G·H][ldw] bf16 (generic instance only), [2][rows][ldh] bf16 h and
+// c tiles and, in the H=128 instance (`fixed`), [RING][rows][lda] fp32
+// ax tiles and [RING][rows] masks.
+struct Layout {
+  int ldw, ldh, lda, w, h, c, a, m, total;
+};
+
+__host__ __device__ inline Layout layout(int G, int H, bool fixed, int rows) {
+  Layout L;
+  L.ldw = H + KPAD;
+  L.ldh = H + KPAD;
+  L.lda = G * H + APAD;
+  L.w = 0;
+  L.h = L.w + (fixed ? 0 : G * H * L.ldw * 2);
+  L.c = L.h + 2 * rows * L.ldh * 2;
+  L.a = L.c + (G == 4 ? 2 * rows * L.ldh * 2 : 0);
+  L.m = L.a + (fixed ? RING * rows * L.lda * 4 : 0);
+  L.total = L.m + (fixed ? RING * rows * 4 : 0);
+  return L;
+}
+
+// G gates; KH: H at compile time, with the Whᵀ fragments in registers and
+// the step inputs through the shared ring (0: H from the argument, Whᵀ in
+// shared memory, inputs from global memory). NB: n8 tiles of batch rows a
+// block (a second one shares every weight fragment with the first).
+template <int G, int KH, int NB>
+__global__ void __launch_bounds__(KH ? 2 * KH : MAX_THREADS, 1)
+rnn_scan_kernel(const float* __restrict__ ax, const float* __restrict__ mask,
+                const __nv_bfloat16* __restrict__ wt, int ldwt,
+                __nv_bfloat16* __restrict__ ys, float* __restrict__ fin,
+                __nv_bfloat16* __restrict__ cs,  // LSTM only; may be null
+                int T, int B, int h_arg) {
+  constexpr bool FIXED = KH != 0;
+  constexpr int R = BN * NB;  // batch rows a block
+  const int H = KH ? KH : h_arg, N = G * H;
+  const Layout L = layout(G, H, FIXED, R);
   extern __shared__ __align__(16) unsigned char smem[];
-  const int N = G * H, ldw = H + KPAD;
-  __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(smem);  // [N][ldw]: Whᵀ
-  __nv_bfloat16* hs = wt + N * ldw;                              // [2][BM][ldw]
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + L.h);
+  __nv_bfloat16* cts = reinterpret_cast<__nv_bfloat16*>(smem + L.c);
+  float* ar = reinterpret_cast<float*>(smem + L.a);
+  float* mr = reinterpret_cast<float*>(smem + L.m);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane >> 2, tig = lane & 3;
-  const int row0 = blockIdx.x * BM;
-  const int col0 = warp * WH;
+  const int row0 = blockIdx.x * R;
+  const int u0 = warp * WH + grp;  // this thread's units: u0 and u0 + 8
+  const bool want_c = G == 4 && cs != nullptr;
 
-  // Whᵀ: wt[n][k] = Wh[k][n], so a B fragment is one 32-bit load
-  for (int i = tid; i < H * N; i += blockDim.x) {
-    const int k = i / N, n = i - k * N;
-    wt[n * ldw + k] = wh[i];
+  // step s's ax tile into ring slot s % RING and its mask beside it
+  // (rows >= B zero-filled), as one group of copies
+  auto fetch = [&](int s) {
+    if (s < T) {
+      float* dst = ar + (s % RING) * R * L.lda;
+      const float* src = ax + (size_t)s * B * N;
+      const int pieces = N / 4;
+      for (int q = tid; q < R * pieces; q += blockDim.x) {
+        const int r = q / pieces, c = (q - r * pieces) * 4;
+        const bool v = row0 + r < B;
+        sse::cp_async16(dst + r * L.lda + c, src + (size_t)(v ? row0 + r : 0) * N + c, v);
+      }
+      if (tid < R) {
+        const bool v = row0 + tid < B;
+        sse::cp_async4(mr + (s % RING) * R + tid, mask + (size_t)s * B + (v ? row0 + tid : 0), v);
+      }
+    }
+    sse::cp_async_commit();
+  };
+
+  // the rows < B of a shared bf16 [R][ldh] tile into out_s [B, H], 16
+  // bytes a store
+  auto store_tile = [&](__nv_bfloat16* out_s, const __nv_bfloat16* tile) {
+    for (int q = tid; q < R * (H / 8); q += blockDim.x) {
+      const int r = q / (H / 8), c = (q - r * (H / 8)) * 8;
+      if (row0 + r < B)
+        *reinterpret_cast<uint4*>(out_s + (size_t)(row0 + r) * H + c) =
+            *reinterpret_cast<const uint4*>(tile + r * L.ldh + c);
+    }
+  };
+
+  // Whᵀ into padded shared rows (generic instance), 16 bytes a copy;
+  // zero h_{-1} (and c_{-1}); the first ring slots
+  if constexpr (!FIXED) {
+    const int wpieces = H / 8;
+    for (int q = tid; q < N * wpieces; q += blockDim.x) {
+      const int n = q / wpieces, c = (q - n * wpieces) * 8;
+      sse::cp_async16(ws + n * L.ldw + c, wt + (size_t)n * ldwt + c, true);
+    }
   }
-  for (int i = tid; i < 2 * BM * ldw; i += blockDim.x) hs[i] = __float2bfloat16(0.f);
+  const int ntile = (G == 4 ? 4 : 2) * R * L.ldh;  // the h tiles, then the c tiles
+  for (int i = tid; i < ntile; i += blockDim.x) hs[i] = __float2bfloat16(0.f);
+  if constexpr (FIXED) {
+#pragma unroll
+    for (int s = 0; s < RING - 1; ++s) fetch(s);
+  } else {
+    sse::cp_async_commit();
+  }
+
+  // Whᵀ fragments of this warp's G m16 tiles, one per k16 slice
+  constexpr int NK = KH ? KH / 16 : 1;
+  uint32_t whr[G][NK][4];
+  if constexpr (FIXED) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int kq = 0; kq < NK; ++kq)
+        sse::frag_a(whr[g][kq], wt + (size_t)(g * H + u0) * ldwt + 16 * kq + 2 * tig, ldwt);
+  }
+  if constexpr (FIXED) sse::cp_async_wait<RING - 2>();  // step 0's inputs
+  else sse::cp_async_wait<0>();                        // Whᵀ
   __syncthreads();
 
-  float h[2][2][4], c[2][2][4];  // fp32 carries: [m16 tile][n8 tile][fragment]
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) h[mi][nj][q] = c[mi][nj][q] = 0.f;
-
+  // fp32 carries; fragment c of tile j: unit u0 + 8·(c >> 1), row
+  // 8·j + 2·tig + (c & 1)
+  float h[NB][4] = {}, c[NB][4] = {};
   int cur = 0;
   for (int t = 0; t < T; ++t) {
-    // the step's x-side pre-activations, for this thread's (row, unit)s
-    float a[2][G][2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = row0 + mi * 16 + grp + half * 8;
-        const float* at = ax + ((size_t)t * B + r) * N;
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-#pragma unroll
-          for (int nj = 0; nj < 2; ++nj) {
-            float2 v = make_float2(0.f, 0.f);
-            if (r < B) v = *reinterpret_cast<const float2*>(at + g * H + col0 + nj * 8 + 2 * tig);
-            a[mi][g][nj][half * 2] = v.x;
-            a[mi][g][nj][half * 2 + 1] = v.y;
-          }
-      }
+    const __nv_bfloat16* hc = hs + cur * R * L.ldh;
 
-    // bf16(h_{t-1})·Wh from the carry tile
-    float acc[2][G][2][4];
+    // bf16(h_{t-1})·Wh: the chain
+    float acc[NB][G][4] = {};
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int kq = 0; kq < H / 16; ++kq) {
+      uint32_t b[NB][2];
 #pragma unroll
-      for (int g = 0; g < G; ++g)
+      for (int j = 0; j < NB; ++j) {
+        const __nv_bfloat16* p = hc + (8 * j + grp) * L.ldh + 16 * kq + 2 * tig;
+        b[j][0] = sse::ld32(p);
+        b[j][1] = sse::ld32(p + 8);
+      }
 #pragma unroll
-        for (int nj = 0; nj < 2; ++nj)
+      for (int g = 0; g < G; ++g) {
+        uint32_t f[4];
+        if constexpr (FIXED) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mi][g][nj][q] = 0.f;
-    const __nv_bfloat16* hc = hs + cur * BM * ldw;
-    for (int kk = 0; kk < H; kk += 16) {
-      uint32_t fa[2][4];
+          for (int q = 0; q < 4; ++q) f[q] = whr[g][kq][q];
+        } else {
+          sse::frag_a(f, ws + (g * H + u0) * L.ldw + 16 * kq + 2 * tig, L.ldw);
+        }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* p0 = hc + (mi * 16 + grp) * ldw + kk + 2 * tig;
-        fa[mi][0] = sse::ld32(p0);
-        fa[mi][1] = sse::ld32(p0 + 8 * ldw);
-        fa[mi][2] = sse::ld32(p0 + 8);
-        fa[mi][3] = sse::ld32(p0 + 8 * ldw + 8);
+        for (int j = 0; j < NB; ++j) sse::mma_bf16(acc[j][g], f, b[j][0], b[j][1]);
+      }
+    }
+    // while it runs: step t+3's inputs into the slot step t-1 read, and
+    // ys_{t-1} (cs_{t-1}) from the tiles step t-1 wrote
+    if constexpr (FIXED) fetch(t + RING - 1);
+    if (t > 0) {
+      store_tile(ys + (size_t)(t - 1) * B * H, hc);
+      if (want_c) store_tile(cs + (size_t)(t - 1) * B * H, cts + cur * R * L.ldh);
+    }
+
+    // gates = ax + h-part, at the accumulators' positions
+    float m[NB][2];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * j + 2 * tig + e;
+        if constexpr (FIXED) m[j][e] = mr[(t % RING) * R + r];
+        else m[j][e] = row0 + r < B ? mask[(size_t)t * B + row0 + r] : 0.f;
       }
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          const __nv_bfloat16* wb = wt + (g * H + col0 + nj * 8 + grp) * ldw + kk + 2 * tig;
-          const uint32_t b0 = sse::ld32(wb), b1 = sse::ld32(wb + 8);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) sse::mma_bf16(acc[mi][g][nj], fa[mi], b0, b1);
+        for (int q = 0; q < 4; ++q) {
+          const int r = 8 * j + 2 * tig + (q & 1), u = g * H + u0 + 8 * (q >> 1);
+          float a;
+          if constexpr (FIXED) a = ar[((t % RING) * R + r) * L.lda + u];
+          else a = row0 + r < B ? ax[((size_t)t * B + row0 + r) * N + u] : 0.f;
+          acc[j][g][q] = a + acc[j][g][q];
         }
     }
 
-    // cell + masked carries; publish bf16(h) for the next step, ys and cs
-    __nv_bfloat16* hn = hs + (cur ^ 1) * BM * ldw;
-    const float* mt = mask + (size_t)t * B;
+    // The cell. Each IEEE division and each tanhf is a branch that the
+    // compiler schedules on its own: the exponentials first, then the
+    // divisions back to back, then the tanhf's. The values are
+    // sse::sigmoid's (sigmoid_exp(expf(-x))) and tanhf's.
+    float hnew[NB][4];
+    if constexpr (G == 3) {  // z, r, n: h' = (1-z)·tanh(r·n_pre) + z·h
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+      for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rl = mi * 16 + grp + half * 8;
-        const int r = row0 + rl;
-        const float m = r < B ? mt[r] : 0.f;
-#pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int q = half * 2 + e;
-            float gt[G];
-#pragma unroll
-            for (int g = 0; g < G; ++g) gt[g] = a[mi][g][nj][q] + acc[mi][g][nj][q];
-            const float hp = h[mi][nj][q];
-            float hnew;
-            if (G == 3) {
-              const float z = sse::sigmoid(gt[0]);
-              const float rg = sse::sigmoid(gt[1]);
-              const float n = tanhf(gt[2] * rg);
-              hnew = (1.f - z) * n + z * hp;
-            } else {
-              const float cp = c[mi][nj][q];
-              const float cnew = sse::sigmoid(gt[1] + 1.f) * cp +
-                                 sse::sigmoid(gt[0]) * tanhf(gt[2]);
-              hnew = sse::sigmoid(gt[G - 1]) * tanhf(cnew);
-              c[mi][nj][q] = m * cnew + (1.f - m) * cp;
-            }
-            h[mi][nj][q] = m * hnew + (1.f - m) * hp;
-          }
-          const int col = col0 + nj * 8 + 2 * tig;
-          const __nv_bfloat162 v =
-              __floats2bfloat162_rn(h[mi][nj][half * 2], h[mi][nj][half * 2 + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(hn + rl * ldw + col) = v;
-          if (r < B) {
-            const size_t o = ((size_t)t * B + r) * H + col;
-            *reinterpret_cast<__nv_bfloat162*>(ys + o) = v;
-            if (G == 4 && cs != nullptr)
-              *reinterpret_cast<__nv_bfloat162*>(cs + o) =
-                  __floats2bfloat162_rn(c[mi][nj][half * 2], c[mi][nj][half * 2 + 1]);
-          }
+        for (int q = 0; q < 4; ++q) {
+          acc[j][0][q] = expf(-acc[j][0][q]);
+          acc[j][1][q] = expf(-acc[j][1][q]);
         }
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[j][0][q] = sse::sigmoid_exp(acc[j][0][q]);
+          acc[j][1][q] = sse::sigmoid_exp(acc[j][1][q]);
+        }
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float z = acc[j][0][q], n = tanhf(acc[j][2][q] * acc[j][1][q]);
+          hnew[j][q] = (1.f - z) * n + z * h[j][q];
+        }
+    } else {  // i, f, g, o: c' = σ(f+1)·c + σ(i)·tanh(g), h' = σ(o)·tanh(c')
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[j][0][q] = expf(-acc[j][0][q]);
+          acc[j][1][q] = expf(-(acc[j][1][q] + 1.f));
+          acc[j][G - 1][q] = expf(-acc[j][G - 1][q]);
+        }
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[j][0][q] = sse::sigmoid_exp(acc[j][0][q]);
+          acc[j][1][q] = sse::sigmoid_exp(acc[j][1][q]);
+          acc[j][G - 1][q] = sse::sigmoid_exp(acc[j][G - 1][q]);
+        }
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][2][q] = tanhf(acc[j][2][q]);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float cp = c[j][q];
+          const float cnew = acc[j][1][q] * cp + acc[j][0][q] * acc[j][2][q];
+          hnew[j][q] = acc[j][G - 1][q] * tanhf(cnew);
+          c[j][q] = m[j][q & 1] * cnew + (1.f - m[j][q & 1]) * cp;
+        }
+    }
+
+    // masked carry, then publish bf16(h) (and bf16(c)): the next step's B
+    // operand, and ys_t (cs_t), stored from the tiles during the next step
+    __nv_bfloat16* hn = hs + (cur ^ 1) * R * L.ldh;
+    __nv_bfloat16* cn = cts + (cur ^ 1) * R * L.ldh;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float mq = m[j][q & 1];
+        h[j][q] = mq * hnew[j][q] + (1.f - mq) * h[j][q];
+        const int o = (8 * j + 2 * tig + (q & 1)) * L.ldh + u0 + 8 * (q >> 1);
+        hn[o] = __float2bfloat16(h[j][q]);
+        if (want_c) cn[o] = __float2bfloat16(c[j][q]);
       }
+    if constexpr (FIXED) sse::cp_async_wait<RING - 2>();  // step t+1's inputs
     __syncthreads();
     cur ^= 1;
   }
+  if (T > 0) {
+    store_tile(ys + (size_t)(T - 1) * B * H, hs + cur * R * L.ldh);
+    if (want_c) store_tile(cs + (size_t)(T - 1) * B * H, cts + cur * R * L.ldh);
+  }
 
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row0 + mi * 16 + grp + half * 8;
-      if (r >= B) continue;
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        const int col = col0 + nj * 8 + 2 * tig;
-        fin[(size_t)r * H + col] = h[mi][nj][half * 2];
-        fin[(size_t)r * H + col + 1] = h[mi][nj][half * 2 + 1];
-      }
+    for (int q = 0; q < 4; ++q) {
+      const int r = row0 + 8 * j + 2 * tig + (q & 1);
+      if (r < B) fin[(size_t)r * H + u0 + 8 * (q >> 1)] = h[j][q];
     }
 }
 
-template <int G>
-cudaError_t launch_scan(const float* ax, const float* mask, const __nv_bfloat16* wh,
-                        __nv_bfloat16* ys, float* fin, __nv_bfloat16* cs, int T, int B,
-                        int H, int smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(rnn_scan_kernel<G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int G, int KH, int NB>
+cudaError_t launch_scan(const float* ax, const float* mask, const __nv_bfloat16* wt, int ldwt,
+                        __nv_bfloat16* ys, float* fin, __nv_bfloat16* cs, int T, int B, int H,
+                        cudaStream_t st) {
+  const int smem = layout(G, H, KH != 0, BN * NB).total;
+  auto* kernel = rnn_scan_kernel<G, KH, NB>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  rnn_scan_kernel<G><<<cdiv(B, BM), 32 * (H / WH), smem, st>>>(ax, mask, wh, ys, fin, cs, T,
-                                                                B, H);
+  kernel<<<cdiv(B, BN * NB), 32 * (H / WH), smem, st>>>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H);
   return cudaGetLastError();
+}
+
+// Blocks of 8 rows, or of 16 (H=128 only) where that halves the waves of
+// blocks over the SMs (one block fits an SM). Measured on an H100, a
+// 16-row step takes ~1.9x an 8-row one (~3.4 against 1.8 µs, LSTM), so
+// 16 rows win only then: B=4096 runs 2 waves of them against 4 of 8
+// rows, while at B=2304 (2 against 3) 8 rows are faster.
+bool two_tiles(int B) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return false;
+  return cdiv(cdiv(B, BN), sms) >= 2 * cdiv(cdiv(B, 2 * BN), sms);
+}
+
+template <int G>
+cudaError_t scan(const float* ax, const float* mask, const __nv_bfloat16* wt, int ldwt,
+                 __nv_bfloat16* ys, float* fin, __nv_bfloat16* cs, int T, int B, int H,
+                 cudaStream_t st) {
+  if (H == 128)
+    return two_tiles(B) ? launch_scan<G, 128, 2>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, st)
+                        : launch_scan<G, 128, 1>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, st);
+  return launch_scan<G, 0, 1>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, st);
 }
 
 }  // namespace
 
-// Shared memory of one scan block for G gates; the wrappers reject shapes
-// above the 232,448-byte opt-in limit before launching.
+// Shared memory one scan block needs for G gates, at most (H=128: the
+// ring, 16 rows; else Whᵀ, 8 rows); the wrappers reject shapes above the
+// 232,448-byte opt-in limit before launching.
 extern "C" int sse_rnn_scan_smem_bytes(int G, int H) {
-  return (G * H * (H + KPAD) + 2 * BM * (H + KPAD)) * (int)sizeof(__nv_bfloat16);
+  const bool fixed = H == 128;
+  return layout(G, H, fixed, fixed ? 2 * BN : BN).total;
 }
 
-// Most threads one scan block can have, as its registers allow (the LSTM
-// instance holds ~240 a thread, so 256 threads, H=128, is its limit); the
-// wrappers reject H with 2H threads above it before launching.
-extern "C" int sse_rnn_scan_max_threads(int G) {
-  cudaFuncAttributes a;
-  const cudaError_t err = G == 3 ? cudaFuncGetAttributes(&a, rnn_scan_kernel<3>)
-                                 : cudaFuncGetAttributes(&a, rnn_scan_kernel<4>);
-  return err == cudaSuccess ? a.maxThreadsPerBlock : 0;
-}
-
-// Kernel 1. ax [T,B,G·H] fp32, mask [T,1,B] fp32, wh [H,G·H] bf16 → ys
-// [T,B,H] bf16, fin [B,H] fp32 (no c stream: the scan alone has no
-// backward). T, B >= 1; H a multiple of 16.
-extern "C" int sse_rnn_scan(const void* ax, const void* mask, const void* wh, void* ys,
+// Kernel 1. ax [T,B,G·H] fp32, mask [T,1,B] fp32, wht = Whᵀ [G·H,H] bf16
+// → ys [T,B,H] bf16, fin [B,H] fp32 (no c stream: the scan alone has no
+// backward). T, B >= 1; H a multiple of 16; every pointer 16-byte aligned.
+extern "C" int sse_rnn_scan(const void* ax, const void* mask, const void* wht, void* ys,
                             void* fin, int T, int B, int H, int G, void* stream) {
-  const int smem = sse_rnn_scan_smem_bytes(G, H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const float*>(ax);
   const auto* m = static_cast<const float*>(mask);
-  const auto* w = static_cast<const __nv_bfloat16*>(wh);
+  const auto* w = static_cast<const __nv_bfloat16*>(wht);
   auto* y = static_cast<__nv_bfloat16*>(ys);
   auto* f = static_cast<float*>(fin);
-  if (G == 3) return (int)launch_scan<3>(a, m, w, y, f, nullptr, T, B, H, smem, st);
-  if (G == 4) return (int)launch_scan<4>(a, m, w, y, f, nullptr, T, B, H, smem, st);
+  if (G == 3) return (int)scan<3>(a, m, w, H, y, f, nullptr, T, B, H, st);
+  if (G == 4) return (int)scan<4>(a, m, w, H, y, f, nullptr, T, B, H, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Kernel 3, the LSTM layer forward. xs [T,B,E] bf16, mask [T,1,B] fp32,
-// wxt = Wxᵀ [4H,E] and wh [H,4H] bf16, bias [4H] fp32; scratch ax
-// [T·B,4H] fp32. Out: ys, cs [T,B,H] bf16 and fin [B,H] fp32. T, B >= 1;
-// E, H multiples of 16.
-extern "C" int sse_lstm_fwd(const void* xs, const void* mask, const void* wxt,
-                            const void* wh, const void* bias, void* ax, void* ys, void* fin,
-                            void* cs, int T, int B, int E, int H, void* stream) {
+// wt = [Wx;Wh]ᵀ [4H,E+H] bf16, bias [4H] fp32; scratch ax [T·B,4H] fp32.
+// Out: ys, cs [T,B,H] bf16 and fin [B,H] fp32. T, B >= 1; E, H multiples
+// of 16; every pointer 16-byte aligned.
+extern "C" int sse_lstm_fwd(const void* xs, const void* mask, const void* wt,
+                            const void* bias, void* ax, void* ys, void* fin, void* cs, int T,
+                            int B, int E, int H, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = T * B, N = 4 * H;
+  const int M = T * B, N = 4 * H, K = E + H;
+  const auto* w = static_cast<const __nv_bfloat16*>(wt);
   const Mat x = {static_cast<const __nv_bfloat16*>(xs), E, E, nullptr, 0, 0, M, E};
-  cudaError_t err = launch_gates(x, static_cast<const __nv_bfloat16*>(wxt), M, N, E,
-                                 static_cast<const float*>(bias), static_cast<float*>(ax), st);
+  cudaError_t err = launch_gates(x, w, K, M, N, E, static_cast<const float*>(bias),
+                                 static_cast<float*>(ax), st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_scan<4>(static_cast<const float*>(ax), static_cast<const float*>(mask),
-                             static_cast<const __nv_bfloat16*>(wh),
-                             static_cast<__nv_bfloat16*>(ys), static_cast<float*>(fin),
-                             static_cast<__nv_bfloat16*>(cs), T, B, H,
-                             sse_rnn_scan_smem_bytes(4, H), st);
+  return (int)scan<4>(static_cast<const float*>(ax), static_cast<const float*>(mask), w + E, K,
+                      static_cast<__nv_bfloat16*>(ys), static_cast<float*>(fin),
+                      static_cast<__nv_bfloat16*>(cs), T, B, H, st);
 }

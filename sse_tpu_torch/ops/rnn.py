@@ -176,18 +176,6 @@ def _smem(kernel: str, fn: str, *dims: int) -> None:
         raise ValueError(f"{kernel}: {dims} needs {need} B of shared memory (> {_MAX_SMEM})")
 
 
-def _scan_fits(kernel: str, G: int, H: int) -> None:
-    """Raise unless the scan kernel takes G gates of H units: its shared
-    memory, and its 2H threads against what its registers allow."""
-    _smem(kernel, "sse_rnn_scan_smem_bytes", G, H)
-    f = _build.library().sse_rnn_scan_max_threads
-    f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_int]
-    if 2 * H > f(G):
-        raise ValueError(f"{kernel}: H={H} needs {2 * H} threads a block, above the "
-                         f"{f(G)} the scan kernel's registers allow")
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t, contiguous and starting on a 16-byte boundary (copied if not)."""
     t = t.contiguous()
@@ -207,9 +195,10 @@ def _layer_args(xs, mask, wx, wh, b, G):
 
 
 def fused_weight_t(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
-    """[Wx;Wh]ᵀ [G·H, E+H], contiguous: the weight layout the GRU forward
-    kernel copies into shared memory row by row and the backward's gate
-    recompute reads (the TPU kernel's wxᵀ/whᵀ)."""
+    """[Wx;Wh]ᵀ [G·H, E+H], contiguous: the weight layout the layer
+    forward kernels read row by row (the GRU's, the LSTM's x-product and
+    scan) and the backward's gate recompute reads (the TPU kernel's
+    wxᵀ/whᵀ)."""
     return torch.cat([wx, wh]).t().contiguous()
 
 
@@ -240,17 +229,21 @@ def gru_fwd_launch(xs, mask, wx, wh, b, wt=None) -> Tuple[torch.Tensor, torch.Te
     return ys, fin
 
 
-def lstm_fwd_launch(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, ...]:
+def lstm_fwd_launch(xs, mask, wx, wh, b, wt=None) -> Tuple[torch.Tensor, ...]:
     """``csrc/rnn_scan.cu`` ``sse_lstm_fwd`` on CUDA tensors (contiguous,
     16-byte aligned: xs, wx, wh bf16; mask, b fp32): the x-product, then
-    the scan. Returns (ys, fin, cs, ax [T,B,4H] fp32), the last the
-    x-product the scan consumed."""
+    the scan, both from the rows of ``wt = fused_weight_t(wx, wh)`` (built
+    here if the caller has none). Returns (ys, fin, cs, ax [T,B,4H]
+    fp32), the last the x-product the scan consumed."""
     _check_args("lstm_fwd", _layer_args(xs, mask, wx, wh, b, 4))
     T, B, E = xs.shape
     H = wh.shape[0]
+    wt = fused_weight_t(wx, wh) if wt is None else wt
+    _check_args("lstm_fwd", {"xs": (xs, torch.bfloat16, (T, B, E)),
+                             "wt": (wt, torch.bfloat16, (4 * H, E + H))})
     if E % 16 or H % 16:
         raise ValueError(f"lstm_fwd: needs E, H multiples of 16 (E={E}, H={H})")
-    _scan_fits("lstm_fwd", 4, H)
+    _smem("lstm_fwd", "sse_rnn_scan_smem_bytes", 4, H)
     dev = xs.device
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
     cs = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
@@ -258,11 +251,10 @@ def lstm_fwd_launch(xs, mask, wx, wh, b) -> Tuple[torch.Tensor, ...]:
     ax = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     if T == 0 or B == 0:
         return ys, fin.zero_(), cs, ax
-    wxt = wx.t().contiguous()  # Wxᵀ [4H, E]: its rows are the B fragments
     _build.launch(
-        "sse_lstm_fwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4, dev,
-        xs.data_ptr(), mask.data_ptr(), wxt.data_ptr(), wh.data_ptr(), b.data_ptr(),
-        ax.data_ptr(), ys.data_ptr(), fin.data_ptr(), cs.data_ptr(), T, B, E, H,
+        "sse_lstm_fwd", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4, dev,
+        xs.data_ptr(), mask.data_ptr(), wt.data_ptr(), b.data_ptr(), ax.data_ptr(),
+        ys.data_ptr(), fin.data_ptr(), cs.data_ptr(), T, B, E, H,
     )
     launches["lstm_fwd"] += 1
     launches["rnn_scan"] += 1
@@ -282,15 +274,16 @@ def rnn_scan_launch(ax, mask, wh, cell: str = "gru") -> Tuple[torch.Tensor, torc
     })
     if H % 16:
         raise ValueError(f"rnn_scan: needs H a multiple of 16 (H={H})")
-    _scan_fits("rnn_scan", G, H)
+    _smem("rnn_scan", "sse_rnn_scan_smem_bytes", G, H)
     dev = ax.device
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
     fin = torch.empty((B, H), dtype=torch.float32, device=dev)
     if T == 0 or B == 0:
         return ys, fin.zero_()
+    wht = wh.t().contiguous()  # Whᵀ [G·H, H]: its rows are the A fragments
     _build.launch(
         "sse_rnn_scan", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4, dev,
-        ax.data_ptr(), mask.data_ptr(), wh.data_ptr(), ys.data_ptr(), fin.data_ptr(),
+        ax.data_ptr(), mask.data_ptr(), wht.data_ptr(), ys.data_ptr(), fin.data_ptr(),
         T, B, H, G,
     )
     launches["rnn_scan"] += 1
@@ -301,12 +294,12 @@ def rnn_scan_launch(ax, mask, wh, cell: str = "gru") -> Tuple[torch.Tensor, torc
 def _layer_fwd(xs, mask, wx, wh, b, cell, wt=None):
     """(ys, fin, cs | None): the kernel on CUDA tensors, the plain version
     on CPU tensors. ``wt``: ``fused_weight_t(wx, wh)``, if the caller has
-    it (the GRU kernel takes it)."""
+    it (both kernels take it)."""
     if not xs.is_cuda:
         return _scan_reference(_x_product(xs, wx, b), mask, wh, cell)
     if _n_gates(cell) == 3:
         return (*gru_fwd_launch(xs, mask, wx, wh, b, wt), None)
-    return lstm_fwd_launch(xs, mask, wx, wh, b)[:3]
+    return lstm_fwd_launch(xs, mask, wx, wh, b, wt)[:3]
 
 
 def _cast_layer(xs, mask, wx, wh, b):
@@ -636,11 +629,11 @@ class RNNLayer(torch.autograd.Function):
     b, cell="gru")`` → (ys bf16, fin fp32). Forward is ``rnn_layer``,
     backward ``rnn_layer_bwd`` (port of the ``jax.custom_vjp`` at
     ``pallas_rnn.py:441-466``); the LSTM saves its bf16 c stream for the
-    backward. ``fused_weight_t`` is built once per forward: the GRU
-    forward kernel takes it, and it is saved for the backward's gate
-    recompute. The float32 weights are cast to bf16 inside, so their
-    gradients come back in float32, unrounded; ``dxs`` is bf16 and is
-    cast to the dtype ``xs`` came in; ``mask`` gets none."""
+    backward. ``fused_weight_t`` is built once per forward: the forward
+    kernels take it, and it is saved for the backward's gate recompute.
+    The float32 weights are cast to bf16 inside, so their gradients come
+    back in float32, unrounded; ``dxs`` is bf16 and is cast to the dtype
+    ``xs`` came in; ``mask`` gets none."""
 
     @staticmethod
     def forward(ctx, xs, mask, wx, wh, b, cell="gru"):

@@ -580,17 +580,36 @@ def test_gru_bwd_raises_on_bad_input(cuda):
 
 
 # ------------------------------------------------------------ LSTM and scan
-@pytest.mark.parametrize("B", [8, 300])
-def test_lstm_kernel_matches_plain(cuda, B):
+# B: a lone row, one 8-row tile and its edges (7, 8, 9, 16, 17, 33), the
+# qna source tower (128), a ragged batch (300) and the qna target tower
+# (2304: 16-row blocks, more than one wave of SMs); T: one step, the ring
+# and stage edges (2, 3) and the main path's 50
+LSTM_B = [1, 7, 8, 9, 16, 17, 33, 128, 300, 2304]
+LSTM_T = [1, 2, 3, 50]
+
+
+def _ragged_mask(gen, T, B, dead_rows=()):
+    """[T, 1, B] float mask of ragged lengths, ``dead_rows`` masked at
+    every step."""
+    lens = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
+    mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :]
+    mask[:, :, list(dead_rows)] = 0.0
+    return mask.contiguous()
+
+
+def _check_lstm_fwd(gen, T, B, E, H):
+    """The LSTM layer forward kernel (x-product, then the scan) against
+    its plain version on ragged lengths, with row 0 masked at every step
+    and, where T > 1, step 1 masked for every row."""
     from sse_tpu_torch.ops import rnn
 
-    T, E, H = 20, 128, 128
-    xs = torch.randn((T, B, E), generator=cuda, device="cuda").bfloat16()
-    lens = torch.randint(1, T + 1, (B,), generator=cuda, device="cuda")
-    mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :].contiguous()
-    wx = (torch.randn((E, 4 * H), generator=cuda, device="cuda") * 0.08).bfloat16()
-    wh = (torch.randn((H, 4 * H), generator=cuda, device="cuda") * 0.08).bfloat16()
-    b = torch.randn((4 * H,), generator=cuda, device="cuda") * 0.05
+    xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
+    mask = _ragged_mask(gen, T, B, dead_rows=(0,))
+    if T > 1:
+        mask[1] = 0.0
+    wx = (torch.randn((E, 4 * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    wh = (torch.randn((H, 4 * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    b = torch.randn((4 * H,), generator=gen, device="cuda") * 0.05
     before = dict(rnn.launches)
     ys, fin, cs, ax = rnn.lstm_fwd_launch(xs, mask, wx, wh, b)
     assert rnn.launches["lstm_fwd"] == before["lstm_fwd"] + 1
@@ -601,44 +620,96 @@ def test_lstm_kernel_matches_plain(cuda, B):
         torch.testing.assert_close(g.float(), w.float(), atol=2e-3, rtol=2.0**-7)
     ax_r = rnn._x_product(xs, wx, b)
     assert float((ax - ax_r).abs().max()) <= 1e-5 * float(ax_r.abs().max())
+    assert not (fin[0].any() or ys[:, 0].float().any() or cs[:, 0].float().any())
+    if T > 1:  # a step masked for all rows carries h and c over
+        assert torch.equal(ys[1], ys[0]) and torch.equal(cs[1], cs[0])
 
 
-@pytest.mark.parametrize("cell", ["gru", "lstm"])
-def test_scan_kernel_matches_plain(cuda, cell):
+@pytest.mark.parametrize("T", LSTM_T)
+@pytest.mark.parametrize("B", LSTM_B)
+def test_lstm_kernel_matches_plain(cuda, B, T):
+    _check_lstm_fwd(cuda, T, B, 128, 128)
+
+
+# widths other than E=H=128 take the generic scan instance (Whᵀ in shared
+# memory, ax read from global memory): H=160 is the LSTM's widest
+@pytest.mark.parametrize("E,H", [(64, 96), (16, 160), (272, 96), (128, 144)])
+def test_lstm_kernel_other_widths(cuda, E, H):
+    _check_lstm_fwd(cuda, 20, 40, E, H)
+
+
+def test_lstm_fwd_takes_the_fused_weight(cuda):
+    """lstm_fwd_launch with the caller's [Wx;Wh]ᵀ (what RNNLayer hands it)
+    gives what it gives when it builds that layout itself; a wrongly
+    shaped one raises."""
     from sse_tpu_torch.ops import rnn
 
-    T, B, H = 20, 100, 128
+    T, B, E, H = 6, 20, 128, 128
+    xs = torch.randn((T, B, E), generator=cuda, device="cuda").bfloat16()
+    mask = torch.ones((T, 1, B), device="cuda")
+    wx = (torch.randn((E, 4 * H), generator=cuda, device="cuda") * 0.08).bfloat16()
+    wh = (torch.randn((H, 4 * H), generator=cuda, device="cuda") * 0.08).bfloat16()
+    b = torch.randn((4 * H,), generator=cuda, device="cuda") * 0.05
+    wt = rnn.fused_weight_t(wx, wh)
+    got = rnn.lstm_fwd_launch(xs, mask, wx, wh, b, wt)
+    want = rnn.lstm_fwd_launch(xs, mask, wx, wh, b)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="wt"):
+        rnn.lstm_fwd_launch(xs, mask, wx, wh, b, wt[:, : E + H - 16].contiguous())
+
+
+def _check_scan(gen, cell, T, B, H):
+    from sse_tpu_torch.ops import rnn
+
     G = 3 if cell == "gru" else 4
-    ax = torch.randn((T, B, G * H), generator=cuda, device="cuda")
-    wh = (torch.randn((H, G * H), generator=cuda, device="cuda") * 0.08).bfloat16()
-    lens = torch.randint(1, T + 1, (B,), generator=cuda, device="cuda")
-    mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :].contiguous()
+    ax = torch.randn((T, B, G * H), generator=gen, device="cuda")
+    wh = (torch.randn((H, G * H), generator=gen, device="cuda") * 0.08).bfloat16()
+    mask = _ragged_mask(gen, T, B, dead_rows=(0,))
     n = rnn.launches["rnn_scan"]
     ys, fin = rnn.scan_layer(ax, mask, wh, cell)
     assert rnn.launches["rnn_scan"] == n + 1
     rys, rfin = rnn.scan_layer_reference(ax, mask, wh, cell)
     torch.testing.assert_close(fin, rfin, atol=2e-3, rtol=1e-3)
     torch.testing.assert_close(ys.float(), rys.float(), atol=2e-3, rtol=2.0**-7)
+    assert not (fin[0].any() or ys[:, 0].float().any())
 
 
-def _lstm_bwd_args(gen, T, B, E=128, H=128):
+@pytest.mark.parametrize("T", LSTM_T)
+@pytest.mark.parametrize("B", LSTM_B)
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_scan_kernel_matches_plain(cuda, cell, B, T):
+    _check_scan(cuda, cell, T, B, 128)
+
+
+# the generic scan instance: H=176 is the GRU cell's widest, 160 the LSTM's
+@pytest.mark.parametrize("cell,H", [("gru", 96), ("gru", 176), ("lstm", 96), ("lstm", 160)])
+def test_scan_kernel_other_widths(cuda, cell, H):
+    _check_scan(cuda, cell, 20, 40, H)
+
+
+def _lstm_bwd_args(gen, T, B, E=128, H=128, dead_rows=()):
     from sse_tpu_torch.ops import rnn
 
     wx = (torch.randn((E, 4 * H), generator=gen, device="cuda") * 0.08).bfloat16()
     wh = (torch.randn((H, 4 * H), generator=gen, device="cuda") * 0.08).bfloat16()
     b = torch.randn((4 * H,), generator=gen, device="cuda") * 0.05
     xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
-    lens = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
-    mask = (torch.arange(T, device="cuda")[:, None] < lens).float()[:, None, :].contiguous()
+    mask = _ragged_mask(gen, T, B, dead_rows)
     ys, _, cs, _ = rnn.lstm_fwd_launch(xs, mask, wx, wh, b)
     dys = (torch.randn((T, B, H), generator=gen, device="cuda") * 0.1).bfloat16()
     dfin = torch.randn((B, H), generator=gen, device="cuda")
     return (xs, ys, mask, wx, wh, b, dys, dfin), cs
 
 
-@pytest.mark.parametrize("T", [1, 50])
-@pytest.mark.parametrize("B", [1, 33, 256])
-def test_lstm_bwd_kernel_matches_plain(cuda, T, B):
+# B=2304 at T <= 2 goes to the rounding-point test below: with 2304 live
+# rows the gate recompute's fp32 sum order (one [xs;h]·[Wx;Wh] product,
+# against cuBLAS's two in the plain version) puts ~45 of 1.18M dgates at
+# the other side of a bf16 rounding edge, and each such flip moves dxs by
+# more than the short-T bound's one ulp plus 1e-4 of max-abs (the
+# parent's kernels, the same)
+@pytest.mark.parametrize("B,T", [(B, T) for B in LSTM_B for T in LSTM_T
+                                 if not (B == 2304 and T <= 2)])
+def test_lstm_bwd_kernel_matches_plain(cuda, B, T):
     from sse_tpu_torch.ops import rnn
 
     args, cs = _lstm_bwd_args(cuda, T, B)
@@ -650,12 +721,45 @@ def test_lstm_bwd_kernel_matches_plain(cuda, T, B):
     _check_bwd(got, rnn.rnn_layer_bwd_reference(*args, cs, "lstm"), T)
 
 
-def test_lstm_bwd_rounding_points(cuda):
-    """chip_smoke's pinned check for the LSTM at T=50, B=256."""
+# the tile edges of the 8-row dh blocks, and the train bench's B=256
+@pytest.mark.parametrize("B", [1, 8, 9, 17, 33, 256])
+def test_lstm_bwd_fully_masked_rows(cuda, B):
+    """Rows masked at every step get no input gradient (dgates = 0, the dh
+    and dc chains pass through) and leave the rest as the plain version."""
+    from sse_tpu_torch.ops import rnn
+
+    dead = sorted({0, B // 2, B - 1})
+    args, cs = _lstm_bwd_args(cuda, 20, B, dead_rows=dead)
+    got = rnn.rnn_layer_bwd(*args, cs=cs, cell="lstm")
+    assert not got[0][:, dead].float().abs().any()
+    _check_bwd(got, rnn.rnn_layer_bwd_reference(*args, cs, "lstm"), 20)
+    dead = args[2].clone()
+    dead.zero_()
+    got = rnn.rnn_layer_bwd(args[0], args[1], dead, *args[3:], cs=cs, cell="lstm")
+    assert not (got[0].float().abs().any() or got[1].any() or got[2].any() or got[3].any())
+
+
+# the dh loop's generic instance (Wh in shared memory, one input stage):
+# H=96, and H=144, the widest the backward's shared memory takes
+@pytest.mark.parametrize("E,H", [(64, 96), (16, 144)])
+def test_lstm_bwd_other_widths(cuda, E, H):
+    from sse_tpu_torch.ops import rnn
+
+    args, cs = _lstm_bwd_args(cuda, 20, 40, E, H, dead_rows=(3,))
+    got = rnn.rnn_layer_bwd(*args, cs=cs, cell="lstm")
+    assert not got[0][:, 3].float().abs().any()
+    _check_bwd(got, rnn.rnn_layer_bwd_reference(*args, cs, "lstm"), 20)
+
+
+@pytest.mark.parametrize("T,B", [(50, 256), (1, 2304), (2, 2304), (50, 2304)])
+def test_lstm_bwd_rounding_points(cuda, T, B):
+    """chip_smoke's pinned check for the LSTM: the train bench's B=256,
+    and the qna target tower's B=2304 at the short T the end-to-end test
+    leaves to it."""
     from chip_smoke import held_to_one_ulp
     from sse_tpu_torch.ops import rnn
 
-    args, cs = _lstm_bwd_args(cuda, 50, 256)
+    args, cs = _lstm_bwd_args(cuda, T, B)
     xs, ys, mask, wx, wh, b, dys, dfin = args
     dxs, dwx, dwh, db, gates, dgb = rnn.lstm_bwd_launch(xs, ys, cs, *args[2:])
     h_prev = rnn._h_prev(ys)
@@ -670,8 +774,8 @@ def test_lstm_bwd_rounding_points(cuda):
 
 def test_lstm_wrappers_raise_on_what_they_do_not_take(cuda):
     """No fallback: a missing c stream and a CPU weight raise; so does
-    H=144, above what the LSTM scan's registers allow (288 threads of ~240
-    registers) and the LSTM backward's shared memory (242,944 B)."""
+    H=176, above what the LSTM scan's generic instance (Whᵀ in shared
+    memory: 270,848 B) and the LSTM backward's (Wh: 302,304 B) take."""
     from sse_tpu_torch.ops import rnn
 
     args, cs = _lstm_bwd_args(cuda, 3, 8)
@@ -679,15 +783,15 @@ def test_lstm_wrappers_raise_on_what_they_do_not_take(cuda):
         rnn.rnn_layer_bwd(*args, cell="lstm")
     with pytest.raises(ValueError, match="wh"):
         rnn.lstm_fwd_launch(args[0], args[2], args[3], args[4].cpu(), args[5])
-    T, B, E, H = 3, 8, 128, 144
+    T, B, E, H = 3, 8, 128, 176
     xs, mask = args[0], args[2]
     wx = torch.zeros((E, 4 * H), device="cuda", dtype=torch.bfloat16)
     wh = torch.zeros((H, 4 * H), device="cuda", dtype=torch.bfloat16)
     b = torch.zeros((4 * H,), device="cuda")
     ys = torch.zeros((T, B, H), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="threads"):
+    with pytest.raises(ValueError, match="shared memory"):
         rnn.lstm_fwd_launch(xs, mask, wx, wh, b)
-    with pytest.raises(ValueError, match="threads"):
+    with pytest.raises(ValueError, match="shared memory"):
         rnn.scan_layer(torch.zeros((T, B, 4 * H), device="cuda"), mask, wh, "lstm")
     with pytest.raises(ValueError, match="shared memory"):
         rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, ys, torch.zeros((B, H), device="cuda"),

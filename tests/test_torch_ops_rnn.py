@@ -81,19 +81,22 @@ def test_fused_weight_layout():
         assert torch.equal(wt[n, :E], wx[:, n]) and torch.equal(wt[n, E:], wh[:, n])
 
 
-def test_rnn_layer_hands_the_fused_weight_to_the_forward(monkeypatch):
-    """RNNLayer hands the layer forward (on the card, the GRU kernel) the
-    bf16 [Wx;Wh]ᵀ of the weights it casts: torch.cat([wx, wh]).t()."""
+@pytest.mark.parametrize("cell,G", [("gru", 3), ("lstm", 4)])
+def test_rnn_layer_hands_the_fused_weight_to_the_forward(monkeypatch, cell, G):
+    """RNNLayer hands the layer forward (on the card, the GRU kernel, or
+    the LSTM's x-product and scan) the bf16 [Wx;Wh]ᵀ of the weights it
+    casts: torch.cat([wx, wh]).t()."""
     seen = {}
     layer_fwd = rnn._layer_fwd
 
     def spy(xs, mask, wx, wh, b, cell, wt=None):
-        seen.update(wx=wx, wh=wh, wt=wt)
+        seen.update(wx=wx, wh=wh, wt=wt, cell=cell)
         return layer_fwd(xs, mask, wx, wh, b, cell, wt)
 
     monkeypatch.setattr(rnn, "_layer_fwd", spy)
-    xs, mask, wx, wh, b = (torch.from_numpy(a) for a in _layer_inputs(12, 4, 3, 16, 16))
-    rnn.RNNLayer.apply(xs, mask, wx, wh, b)
+    xs, mask, wx, wh, b = (torch.from_numpy(a) for a in _layer_inputs(12, 4, 3, 16, 16, G))
+    rnn.RNNLayer.apply(xs, mask, wx, wh, b, cell)
+    assert seen["cell"] == cell and seen["wt"].shape == (G * 16, 32)
     assert seen["wt"].dtype == torch.bfloat16 and seen["wt"].is_contiguous()
     assert torch.equal(seen["wt"], torch.cat([seen["wx"], seen["wh"]]).t())
     assert torch.equal(seen["wt"], torch.cat([wx, wh]).t().bfloat16())
