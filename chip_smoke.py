@@ -5,10 +5,13 @@ GRU and LSTM towers, both top-k variants, and the model-dir CLI.
     python3 chip_smoke.py --costs    # only the recurrences' per-step costs
     python3 chip_smoke.py --twophase # only the two-phase top-k's costs
     python3 chip_smoke.py --stream   # only the streaming top-k's costs
+    python3 chip_smoke.py --bench    # only the query bench's sweep
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
 cell, and a served qna query by part: qna_query_costs), ``--twophase``
-(twophase_costs) and ``--stream`` (stream_costs) time the
+(twophase_costs), ``--stream`` (stream_costs) and ``--bench``
+(bench_sweep: the port's query bench at B=8..4096, k=10 and 100, bf16,
+int8 and float32, a 10M-row index, both routes end to end) time the
 ``sse_tpu_torch`` beside this file: a copy of
 this file in another checkout measures that checkout's kernels, so two
 commits compare in one run, taken in turns.
@@ -63,8 +66,14 @@ commits compare in one run, taken in turns.
    serve one query through QueryEngine whose rows match topk_reference.
 5. The model-dir path, each command a ``python -m sse_tpu_torch.cli``
    subprocess (cli_slice): demo-data, train (ranking preset), index,
-   eval, eval --use_index, visualize, serve with /api/add, /api/save, a
-   second train and /api/reload.
+   eval, eval --use_index, visualize, bench --kind query over the model
+   dir, serve with /api/add, /api/save, a second train and /api/reload.
+6. The port's benchmark (bench_slice, ``sse_tpu_torch.bench``): the query
+   bench at k=10 on the 1,249,280-row index (bf16 B=4096, 8 and 256,
+   int8 B=4096), the train and index benches at the JAX bench's default
+   shapes; each result as JSON, the kernels each run launched, the timed
+   path's first batch against topk_reference, the device's busy share of
+   one B=8 and one B=4096 window.
 
 Every kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
@@ -1030,22 +1039,22 @@ def check_topk(card: str, results: dict) -> None:
         same(f"twophase {dtype} under sync debug", got, full)
         log(f"twophase {dtype} B=4096: the whole call ran under "
             f"torch.cuda.set_sync_debug_mode('error')")
+        # phase 2's work is this run's valid (query, block) pairs, each a
+        # bt-row block against one query; it reads each block once
+        tile_ok = (tb >= 0)[:, None] & (tq.view(tb.shape[0], -1) >= 0)
+        pairs = int(tile_ok.sum())
+        blocks = int(torch.unique(tb[tb >= 0]).numel())
+        bound1 = bound(nbytes(q, emb, p1), 2.0 * q.shape[0] * nr * D, dtype)
+        bound2 = bound(nbytes(q, tq, tb, p2) + blocks * bt * D * emb.element_size(),
+                       2.0 * pairs * bt * D, dtype)
         if dtype == "bf16":
-            # phase 2's work is this run's valid (query, block) pairs, each
-            # a bt-row block against one query; it reads each block once
-            tile_ok = (tb >= 0)[:, None] & (tq.view(tb.shape[0], -1) >= 0)
-            pairs = int(tile_ok.sum())
-            blocks = int(torch.unique(tb[tb >= 0]).numel())
-            results["twophase_p1"].update(
-                ms=ms1, plain_ms=plain1, library_ms=None,
-                **bound(nbytes(q, emb, p1), 2.0 * q.shape[0] * nr * D))
-            results["twophase_p2"].update(
-                ms=ms2, plain_ms=plain2, library_ms=None,
-                **bound(nbytes(q, tq, tb, p2) + blocks * bt * D * emb.element_size(),
-                        2.0 * pairs * bt * D))
+            results["twophase_p1"].update(ms=ms1, plain_ms=plain1, library_ms=None, **bound1)
+            results["twophase_p2"].update(ms=ms2, plain_ms=plain2, library_ms=None, **bound2)
         else:
-            log(f"twophase int8 bound: phase 1 "
-                f"{bound(nbytes(q, emb, p1), 2.0 * q.shape[0] * nr * D, 'int8')['bound_ms']:.4f} ms")
+            log(f"twophase int8 B=4096: phase 1 {ms1:.4f} ms against its bound "
+                f"{bound1['bound_ms']:.4f} ms ({bound1['bound_by']}), phase 2 {ms2:.4f} ms "
+                f"against {bound2['bound_ms']:.4f} ms ({bound2['bound_by']}; {pairs} pairs, "
+                f"{blocks} blocks) [{card}]")
         del emb, q_all, q, qe
         torch.cuda.empty_cache()
 
@@ -1333,26 +1342,202 @@ def query_split(engine, text: str, reps: int = 5) -> dict:
 
 def same_as_reference(engine, params, cfg, index, texts, served, variant="packed") -> int:
     """Served rows against topk_reference on the same query encodings and
-    index. The kernel and the reference sum in different orders, so a
-    differing position is allowed only where the two rows' scores lie
-    within one key bucket (2^-11 relative; packed variant) or within 2e-6
-    (exact variant, full float32 keys). Returns the count of such."""
+    index (rows_near_reference). Returns the count of differing positions."""
     from sse_tpu_torch.models import sse
-    from sse_tpu_torch.ops import topk
 
     tokens, lengths = engine.encode_queries(texts)
     with torch.no_grad():
         q = sse.encode_source(params, cfg, tokens, lengths)[: len(texts)]
-    _, ref_rows = topk.topk_reference(q, index.emb, K, index.num_real, variant)
     rows = torch.tensor([[h["row"] for h in hits] for hits in served], device="cuda")
+    return rows_near_reference(q, index.emb, index.num_real, rows, variant)
+
+
+def rows_near_reference(q, emb, nr: int, rows, variant: str = "packed") -> int:
+    """Top-k ``rows`` [B, k] of the queries ``q`` against topk_reference on
+    the same inputs. The kernels and the reference sum in different
+    orders, so on a float index a differing position is allowed only where
+    the two rows' scores lie within one key bucket (2^-11 relative; packed
+    variant) or within 2e-6 (exact variant, full float32 keys); on an int8
+    index the sums are exact and every row must match. Returns the count
+    of differing positions."""
+    from sse_tpu_torch.ops import topk
+
+    _, ref_rows = topk.topk_reference(q, emb, rows.shape[1], nr, variant)
     diff = (rows != ref_rows).nonzero().tolist()
-    qb = q.to(torch.bfloat16).double()
+    check(emb.dtype != torch.int8 or not diff, f"int8 rows differ from topk_reference at {diff[:5]}")
+    qd = q.to(emb.dtype).double()
     for i, j in diff:
-        a = float(qb[i] @ index.emb[rows[i, j]].double())
-        b = float(qb[i] @ index.emb[ref_rows[i, j]].double())
+        a = float(qd[i] @ emb[rows[i, j]].double())
+        b = float(qd[i] @ emb[ref_rows[i, j]].double())
         ok = abs(a - b) <= (2e-6 if variant == "exact" else 2.0**-11 * max(abs(a), abs(b)))
-        check(ok, f"served row {i},{j} differs beyond the {variant} tolerance: {a} vs {b}")
+        check(ok, f"row {i},{j} differs beyond the {variant} tolerance: {a} vs {b}")
     return len(diff)
+
+
+# ------------------------------------------------------------ the bench
+# the query bench's runs on the card: label → (index dtype, B); every run
+# is k=10 on the 1,249,280-row index (bench.HEADLINE_ROWS)
+BENCH_QUERIES = {
+    "bench query bf16 B=4096": (torch.bfloat16, 4096),
+    "bench query bf16 B=8": (torch.bfloat16, 8),
+    "bench query bf16 B=256": (torch.bfloat16, 256),
+    "bench query int8 B=4096": (torch.int8, 4096),
+}
+
+
+def bench_kernels(b: int) -> tuple:
+    """The kernels a query batch of b launches (the engine's route)."""
+    from sse_tpu_torch.ops.topk import TWOPHASE_MIN_BATCH
+
+    return ("gru_fwd", "twophase_p1", "twophase_p2") if b >= TWOPHASE_MIN_BATCH else (
+        "gru_fwd", "topk_stream")
+
+
+def window_busy(s, window: int = 32, tries: int = 3) -> tuple:
+    """Wall ms of one window of the query bench's dispatches (``s``: a
+    bench.QuerySetup) ending in a drain, under torch.profiler, and the
+    device's busy ms in it (its kernels and copies). Profiles again when
+    the session saw fewer GRU launches than dispatches (see profiled)."""
+    s.call(s.variants[0])
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(window):
+                s.call(s.variants[1 + i % (len(s.variants) - 1)])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        counts = {}
+        times = device_times(prof, counts)
+        if sum(c for name, c in counts.items() if "gru_fwd" in name) >= window:
+            return wall, sum(v for name, v in times.items() if not name.startswith("sse."))
+    check(False, f"torch.profiler lost the GRU launches of a bench window: {counts}")
+
+
+def bench_slice(card: str) -> dict:
+    """The port's benchmark on the card (sse_tpu_torch.bench, its own
+    random data made on the card): the query bench at k=10 on the
+    1,249,280-row index (BENCH_QUERIES), the train bench and the index
+    bench at the JAX bench's default shapes, each with a shortened
+    ``seconds``. Each result prints as JSON, each run must launch its
+    path's kernels (launch counts reset just before it), and each query
+    run's first batch (the timed path's first dispatch, rebuilt from the
+    same seeds) must hold against topk_reference (rows_near_reference).
+    Logs the device's busy share of one window at B=8 and B=4096.
+    Returns each run's launch counts."""
+    from sse_tpu_torch import bench, ops
+    from sse_tpu_torch.models import sse
+
+    runs = {}
+
+    def counted(label: str, names, fn):
+        ops.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        BATCH_LAUNCHES.update(ops.topk.launches)
+        missing = [n for n in names if counts[n] < 1]
+        check(not missing, f"{label}: kernels never launched: {missing} ({counts})")
+        check(result["value"] > 0 and result["device"] == torch.cuda.get_device_name(0),
+              f"{label}: {result}")
+        log(f"{label}: {json.dumps(result)}; launches {counts} [{card}]")
+        runs[label] = counts
+        return result
+
+    for label, (dtype, b) in BENCH_QUERIES.items():
+        args = dict(num_targets=bench.HEADLINE_ROWS, encoding_dim=D, batch=b, k=K,
+                    max_seq_length=50, index_dtype=dtype)
+        result = counted(label, bench_kernels(b),
+                         lambda: bench.run_query_bench(seconds=1.0, **args))
+        check(all(key in result for key in ("mfu_pct", "hbm_pct_of_spec")) or
+              bench._chip_spec(result["device"]) is None, f"{label}: no roofline fields")
+        s = bench.query_setup(**args)
+        vals, rows = s.call(s.variants[0])
+        with torch.no_grad():
+            q = sse.encode_source(s.params, s.model_cfg, s.variants[0], s.lengths)
+        n = rows_near_reference(q, s.emb, s.num_real, rows)
+        check(bool(torch.isfinite(vals).all()) and tuple(rows.shape) == (b, K)
+              and int(rows.max()) < s.num_real, f"{label}: first batch {vals}, {rows}")
+        log(f"{label}: the timed path's first batch == topk_reference on the bench's index "
+            f"({n} of {rows.numel()} positions differ, each within one key bucket)")
+        if dtype == torch.bfloat16 and b in (8, 4096):
+            wall, busy = window_busy(s)
+            log(f"{label}: one window of 32 dispatches under torch.profiler: wall {wall:.4f} ms, "
+                f"device busy {busy:.4f} ms ({100.0 * busy / wall:.1f}%), {wall / 32:.4f} ms a "
+                f"dispatch; busy {busy / 32:.4f} ms a dispatch is "
+                f"{100.0 * busy / 32 / result['ms_per_batch']:.1f}% of the bench's unprofiled "
+                f"best window ({result['ms_per_batch']} ms a dispatch) [{card}]")
+        del s, q, vals, rows
+        torch.cuda.empty_cache()
+    counted("bench train", ("gru_fwd", "gru_bwd"), lambda: bench.run_train_bench(seconds=2.0))
+    counted("bench index", ("gru_fwd",), lambda: bench.run_index_bench(seconds=1.0))
+    return runs
+
+
+SWEEP_BATCHES = (8, 256, 512, 1024, 2048, 4096)
+NORTH_STAR_ROWS = 9_998_336  # 2048 x 4882: the north star's 10M items on one card
+
+
+def route_call(s, route: str):
+    """The bench's query path (``s``: a bench.QuerySetup) with the top-k
+    route forced: encode, then the streaming or the two-phase call."""
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.ops import topk
+
+    bt = topk.twophase_block_t(s.emb.shape[0], s.k)
+
+    def call(tokens):
+        with torch.no_grad():
+            q = sse.encode_source(s.params, s.model_cfg, tokens, s.lengths)
+            if route == "two-phase":
+                return topk.fused_score_topk_twophase(q, s.emb, s.k, s.num_real, block_t=bt)
+            return topk.fused_score_topk(q, s.emb, s.k, s.num_real)
+
+    return call
+
+
+def bench_sweep(card: str) -> None:
+    """``--bench``: the query bench (1 s a point) at B in SWEEP_BATCHES x k
+    in {10, 100} x bf16, int8 and float32 on the 1,249,280-row index, each
+    point with the route the engine took; bf16 k=10 at 9,998,336 rows
+    (B=256 and 4096); then both top-k routes forced end to end (encode +
+    streaming, encode + two-phase) at B=256..4096, k=10 and 100, bf16 and
+    int8: where the route crossover falls for a caller."""
+    from sse_tpu_torch import bench, ops
+
+    def point(b, k, dtype, rows=bench.HEADLINE_ROWS) -> str:
+        ops.reset_launch_counts()
+        r = bench.run_query_bench(num_targets=rows, encoding_dim=D, batch=b, k=k, seconds=1.0,
+                                  max_seq_length=50, index_dtype=dtype)
+        route = "two-phase" if ops.launch_counts()["twophase_p1"] else "streaming"
+        torch.cuda.empty_cache()
+        return (f"B={b} {r['value']} qps ({route}; {r['ms_per_batch']} ms a batch, stream mean "
+                f"{r['qps_stream_mean']}, mfu {r.get('mfu_pct')}%, hbm {r.get('hbm_pct_of_spec')}%)")
+
+    for dtype in (torch.bfloat16, torch.int8, torch.float32):
+        for k in (10, 100):
+            cells = [point(b, k, dtype) for b in SWEEP_BATCHES]
+            log(f"bench sweep {str(dtype)[6:]} k={k}, T={bench.HEADLINE_ROWS}: "
+                + "; ".join(cells) + f" [{card}]")
+    cells = [point(b, K, torch.bfloat16, NORTH_STAR_ROWS) for b in (256, 4096)]
+    log(f"bench sweep bfloat16 k={K}, T={NORTH_STAR_ROWS}: " + "; ".join(cells) + f" [{card}]")
+
+    for dtype in (torch.bfloat16, torch.int8):
+        for k in (10, 100):
+            cells = []
+            for b in SWEEP_BATCHES[1:]:
+                s = bench.query_setup(num_targets=bench.HEADLINE_ROWS, encoding_dim=D, batch=b,
+                                      k=k, max_seq_length=50, index_dtype=dtype)
+                qps = {}
+                for route in ("streaming", "two-phase"):
+                    best, _ = bench._throughput_time(route_call(s, route), s.variants, 1.0)
+                    qps[route] = b / best
+                cells.append(f"B={b} streaming {qps['streaming']:.1f} / two-phase "
+                             f"{qps['two-phase']:.1f} qps")
+                del s
+                torch.cuda.empty_cache()
+            log(f"bench routes {str(dtype)[6:]} k={k} (end to end, best window, qps): "
+                + "; ".join(cells) + f" [{card}]")
 
 
 # ------------------------------------------------------------ phase 4
@@ -1572,7 +1757,8 @@ def cli_slice(card: str) -> dict:
     """The model-dir path on the card, each command a subprocess of
     ``python -m sse_tpu_torch.cli`` (CLI_RUNNER): demo-data (ranking),
     train with the ranking preset at its own widths, index (with live-add
-    headroom and a TSV export), eval, eval --use_index, visualize; then
+    headroom and a TSV export), eval, eval --use_index, visualize, bench
+    --kind query over the model dir (its JSON, its kernels); then
     serve on a free port: a GET, POST /api/add, /api/save, a second train
     into the same model dir, /api/reload (its num_targets counts the added
     document, read back from the saved index) and a GET after it. Checks
@@ -1620,6 +1806,14 @@ def cli_slice(card: str) -> dict:
     via = last_json(run("eval", "--model_dir", "run", "--data_dir", "data", "--use_index",
                         want="recall@1"))
     run("visualize", "--model_dir", "run", "--out_dir", "viz", want="[sse] wrote 64x128 embeddings")
+    out = run("bench", "--kind", "query", "--model_dir", "run", "--seconds", "1",
+              want='{"metric": "queries_per_sec_exact_topk"')
+    bench = json.loads([ln for ln in out.splitlines() if ln.startswith('{"metric"')][-1])
+    check(bench["value"] > 0 and bench["num_targets"] == 64 and bench["k"] == K,
+          f"cli bench: {bench}")
+    missing = [n for n in bench_kernels(bench["batch"]) if cli_launches(out).get(n, 0) < 1]
+    check(not missing, f"cli bench: kernels never launched: {missing}")
+    log(f"cli bench --kind query --model_dir run: {json.dumps(bench)} [{card}]")
 
     port = free_port()
     t0 = time.perf_counter()
@@ -1725,6 +1919,9 @@ def main() -> None:
     if "--stream" in sys.argv[1:]:
         stream_costs(card)
         return
+    if "--bench" in sys.argv[1:]:
+        bench_sweep(card)
+        return
     results = {name: {} for name in KERNELS}
     check_gru(card, results)
     check_lstm(card, results)
@@ -1744,6 +1941,7 @@ def main() -> None:
         "served GRU": served_slice("served GRU", gru, corpus, 1024),
         "served qna": served_slice("served qna", qna, corpus, 4096),
         "served exact": served_slice("served exact", gru, corpus, 4096, variant="exact"),
+        **bench_slice(card),  # checks each run's kernels itself
         "GRU train bench": train_bench_slice(card, "GRU train bench", {"cell": "gru"}, 0.5,
                                              {"gru_fwd": 2, "gru_bwd": 2}),
         "compositional train bench": train_bench_slice(

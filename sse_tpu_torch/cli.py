@@ -1,6 +1,6 @@
-"""CLI: demo-data | train | index | eval | visualize | serve (port of
-``sse_tpu/cli.py``: the same subcommands, flags, defaults, output lines
-and exit codes; the JAX CLI's ``bench`` is not ported, ROADMAP.md §1).
+"""CLI: demo-data | train | index | eval | visualize | serve | bench (port
+of ``sse_tpu/cli.py``: the same subcommands, flags, defaults, output
+lines and exit codes).
 
 Usage:
     python -m sse_tpu_torch.cli demo-data --task classification --out_dir data/
@@ -9,12 +9,16 @@ Usage:
     python -m sse_tpu_torch.cli index --model_dir runs/clf --data_dir data/
     python -m sse_tpu_torch.cli eval  --model_dir runs/clf --data_dir data/
     python -m sse_tpu_torch.cli serve --model_dir runs/clf --port 8080
+    python -m sse_tpu_torch.cli bench --kind query --model_dir runs/clf
 
 Every command runs on the CUDA card and raises where there is none;
 ``SSE_PLATFORM=cpu`` runs it on the CPU (the counterpart of the JAX CLI's
 ``SSE_PLATFORM``, which picks JAX's backend). One process on one card:
 ``--cp_shards`` above 0 and more than one process raise
-``NotImplementedError`` (ROADMAP.md §1, multi-GPU).
+``NotImplementedError`` (ROADMAP.md §1, multi-GPU). ``bench`` runs the
+port's benchmark (``sse_tpu_torch.bench``) and prints its result as one
+JSON line; unlike the JAX CLI it honours ``--seconds``, and its train
+bench times one step a dispatch (the JAX CLI's default chains 8).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import time
 
 _TASKS = ["classification", "ranking", "crosslingual", "qna"]
 _MULTI_GPU = "is not ported yet (ROADMAP.md §1, multi-GPU)"
+_INDEX_DTYPES = ["float32", "bfloat16", "int8"]  # torch dtype names
 
 
 def _parse_bool(s: str) -> bool:
@@ -261,6 +266,32 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    import torch
+
+    from sse_tpu_torch import bench as bench_lib
+
+    device = _device()
+    if args.kind == "query":
+        result = bench_lib.run_query_bench(
+            model_dir=args.model_dir, num_targets=args.num_targets,
+            encoding_dim=args.encoding_dim, batch=args.batch or 64, k=args.k,
+            seconds=args.seconds, index_dtype=getattr(torch, args.index_dtype), device=device,
+        )
+    elif args.kind == "index":
+        result = bench_lib.run_index_bench(
+            num_targets=args.num_targets, encoding_dim=args.encoding_dim,
+            batch_size=args.batch or 512, seconds=args.seconds, device=device,
+        )
+    else:
+        result = bench_lib.run_train_bench(
+            num_targets=args.num_targets, encoding_dim=args.encoding_dim,
+            batch=args.batch or 256, seconds=args.seconds, device=device,
+        )
+    print(json.dumps(result))
+    return 0
+
+
 def _add_dist_flags(p) -> None:
     """The JAX CLI's multi-host flags; more than one process raises."""
     p.add_argument("--coordinator", default=None, help="coordinator address host:port (process 0's)")
@@ -313,7 +344,7 @@ def main(argv=None) -> int:
     p.add_argument("--export_tsv", default=None, help="also write reference-format TSV")
     p.add_argument("--capacity", type=int, default=None,
                    help="reserve index rows for live POST /api/add growth")
-    p.add_argument("--index_dtype", default=None, choices=["float32", "bfloat16", "int8"],
+    p.add_argument("--index_dtype", default=None, choices=_INDEX_DTYPES,
                    help="override the trained config's index precision for THIS build")
     p.add_argument("--cp_shards", type=int, default=0,
                    help="context-parallel encoding over this many devices (not ported: > 0 raises)")
@@ -343,6 +374,18 @@ def main(argv=None) -> int:
     p.add_argument("--bulk_batch", type=int, default=256,
                    help="second batch tier for bulk POST traffic (0 disables)")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("bench", help="throughput microbenchmarks")
+    p.add_argument("--kind", default="query", choices=["query", "index", "train"])
+    p.add_argument("--model_dir", default=None)
+    p.add_argument("--num_targets", type=int, default=100_000)
+    p.add_argument("--encoding_dim", type=int, default=128)
+    p.add_argument("--batch", type=int, default=None)  # per-kind default
+    p.add_argument("--k", type=int, default=10)
+    p.add_argument("--seconds", type=float, default=5.0, help="timed seconds (at least one window)")
+    p.add_argument("--index_dtype", default="float32", choices=_INDEX_DTYPES,
+                   help="query bench: index storage precision (serving flagship uses bfloat16)")
+    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     return args.fn(args)

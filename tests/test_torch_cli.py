@@ -77,6 +77,14 @@ def test_cli_full_flow(run, tmp_path):
     assert (tmp_path / "run" / "idx.tsv").exists()
     assert (tmp_path / "run" / "index" / "sidecar.json").exists()
 
+    # the query bench over the model dir's engine: its 8-row index, k
+    # clamped to the real rows as QueryEngine does
+    rc, out, _ = run("bench", "--kind", "query", "--model_dir", "run", "--seconds", "0")
+    bench = json.loads(out.strip().splitlines()[-1])
+    assert rc == 0 and bench["metric"] == "queries_per_sec_exact_topk" and bench["value"] > 0
+    assert bench["num_targets"] == 8 and bench["k"] == 8 and bench["batch"] == 64
+    assert "T=8, D=16, L=12" in bench["unit"] and bench["device"] == "cpu"
+
     rc, out, _ = run("eval", "--model_dir", "run", "--data_dir", "data")
     plain = _last_json(out)
     assert rc == 0 and "recall@1" in plain
@@ -89,6 +97,20 @@ def test_cli_full_flow(run, tmp_path):
     tensors = (tmp_path / "viz" / "tensors.tsv").read_text().splitlines()
     meta = (tmp_path / "viz" / "metadata.tsv").read_text().splitlines()
     assert len(tensors) == 8 and len(meta) == 9 and len(tensors[0].split("\t")) == 16
+
+
+@pytest.mark.parametrize("kind, extra", [
+    ("query", ["--num_targets", "512", "--batch", "4", "--encoding_dim", "16"]),
+    ("index", ["--num_targets", "256", "--batch", "32", "--encoding_dim", "16"]),
+    ("train", ["--num_targets", "256", "--batch", "8", "--encoding_dim", "16"]),
+])
+def test_cli_bench_kinds(run, kind, extra):
+    """Each bench kind runs on the CPU and prints its result as the last
+    line (tests/test_cli.py's bench step, with a shortened --seconds)."""
+    rc, out, _ = run("bench", "--kind", kind, *extra, "--seconds", "0")
+    assert rc == 0
+    result = json.loads(out.strip().splitlines()[-1])
+    assert result["value"] > 0 and result["device"] == "cpu", (kind, result)
 
 
 def test_cli_errors_and_flags(run, tmp_path, monkeypatch):
