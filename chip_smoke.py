@@ -53,11 +53,11 @@ commits compare in one run, taken in turns.
    served held against topk_reference of the engine's variant, and every
    kernel's launch count from each run; a qna query's device time by
    part (query_parts: LSTM scan, x-product, attention readout, top-k).
-4. The trained slices: (a) the train bench's configuration (dual-encoder
-   1-layer GRU, E=H=D=128, vocab 8000, L=50, batch 256, 128 sampled
-   negatives over 10,000 random targets, Adam) and (b) the
-   ``compositional`` recipe's towers (3-layer residual LSTM, dropout 0.1)
-   at the same shape: warm ms/step, the step's device time split by the
+4. The trained slices: (a) the train bench's setup (bench.train_setup:
+   dual-encoder 1-layer GRU, E=H=D=128, vocab 8000, L=50, batch 256, 128
+   sampled negatives over 10,000 random targets, Adam; the one that
+   phase 6 times) and (b) the ``compositional`` recipe's towers (3-layer
+   residual LSTM, dropout 0.1) in the same setup: warm ms/step, the step's device time split by the
    profiler range or op that launched each kernel (step_split), and the
    layer forward and backward launches a step (2 + 2 GRU; 6 + 6 LSTM);
    (c) the ``ranking`` and (d) the ``qna`` task presets trained by
@@ -72,7 +72,7 @@ commits compare in one run, taken in turns.
    bench at k=10 on the 1,249,280-row index (bf16 B=4096, 8 and 256,
    int8 B=4096), the train and index benches at the JAX bench's default
    shapes; each result as JSON, the kernels each run launched, the timed
-   path's first batch against topk_reference, the device's busy share of
+   setup's first batch against topk_reference, the device's busy share of
    one B=8 and one B=4096 window.
 
 Every kernel's bound (the least time the card could take for the same
@@ -1354,24 +1354,16 @@ def same_as_reference(engine, params, cfg, index, texts, served, variant="packed
 
 def rows_near_reference(q, emb, nr: int, rows, variant: str = "packed") -> int:
     """Top-k ``rows`` [B, k] of the queries ``q`` against topk_reference on
-    the same inputs. The kernels and the reference sum in different
-    orders, so on a float index a differing position is allowed only where
-    the two rows' scores lie within one key bucket (2^-11 relative; packed
-    variant) or within 2e-6 (exact variant, full float32 keys); on an int8
-    index the sums are exact and every row must match. Returns the count
-    of differing positions."""
+    the same inputs, within the kernels' tolerance (rows_off_reference:
+    a differing position only where the two rows' scores lie within one
+    key bucket, or 2e-6 on the exact variant; none on an int8 index).
+    Returns the count of differing positions."""
     from sse_tpu_torch.ops import topk
 
-    _, ref_rows = topk.topk_reference(q, emb, rows.shape[1], nr, variant)
-    diff = (rows != ref_rows).nonzero().tolist()
-    check(emb.dtype != torch.int8 or not diff, f"int8 rows differ from topk_reference at {diff[:5]}")
-    qd = q.to(emb.dtype).double()
-    for i, j in diff:
-        a = float(qd[i] @ emb[rows[i, j]].double())
-        b = float(qd[i] @ emb[ref_rows[i, j]].double())
-        ok = abs(a - b) <= (2e-6 if variant == "exact" else 2.0**-11 * max(abs(a), abs(b)))
-        check(ok, f"row {i},{j} differs beyond the {variant} tolerance: {a} vs {b}")
-    return len(diff)
+    n, bad = topk.rows_off_reference(q, emb, rows, nr, variant)
+    check(not bad, f"{len(bad)} of {n} differing {variant} rows beyond the tolerance "
+          f"(i, j, score, reference's score): {bad[:5]}")
+    return n
 
 
 # ------------------------------------------------------------ the bench
@@ -1393,11 +1385,14 @@ def bench_kernels(b: int) -> tuple:
         "gru_fwd", "topk_stream")
 
 
-def window_busy(s, window: int = 32, tries: int = 3) -> tuple:
-    """Wall ms of one window of the query bench's dispatches (``s``: a
+def window_busy(s, tries: int = 3) -> tuple:
+    """Wall ms of one window (bench.WINDOW) of the query bench's dispatches (``s``: a
     bench.QuerySetup) ending in a drain, under torch.profiler, and the
     device's busy ms in it (its kernels and copies). Profiles again when
     the session saw fewer GRU launches than dispatches (see profiled)."""
+    from sse_tpu_torch import bench
+
+    window = bench.WINDOW
     s.call(s.variants[0])
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -1421,12 +1416,12 @@ def bench_slice(card: str) -> dict:
     bench at the JAX bench's default shapes, each with a shortened
     ``seconds``. Each result prints as JSON, each run must launch its
     path's kernels (launch counts reset just before it), and each query
-    run's first batch (the timed path's first dispatch, rebuilt from the
-    same seeds) must hold against topk_reference (rows_near_reference).
-    Logs the device's busy share of one window at B=8 and B=4096.
-    Returns each run's launch counts."""
+    run's first batch, from the very setup that was timed
+    (bench.first_batch), must hold against topk_reference. Logs the
+    device's busy share of one window at B=8 and B=4096. The train
+    bench's setup then also gives the GRU train step's per-step launches
+    and split (train_bench_slice). Returns each run's launch counts."""
     from sse_tpu_torch import bench, ops
-    from sse_tpu_torch.models import sse
 
     runs = {}
 
@@ -1445,31 +1440,32 @@ def bench_slice(card: str) -> dict:
         return result
 
     for label, (dtype, b) in BENCH_QUERIES.items():
-        args = dict(num_targets=bench.HEADLINE_ROWS, encoding_dim=D, batch=b, k=K,
-                    max_seq_length=50, index_dtype=dtype)
-        result = counted(label, bench_kernels(b),
-                         lambda: bench.run_query_bench(seconds=1.0, **args))
+        s = bench.query_setup(num_targets=bench.HEADLINE_ROWS, encoding_dim=D, batch=b, k=K,
+                              max_seq_length=50, index_dtype=dtype)
+        result = counted(label, bench_kernels(b), lambda: bench.time_query(s, 1.0))
         check(all(key in result for key in ("mfu_pct", "hbm_pct_of_spec")) or
               bench._chip_spec(result["device"]) is None, f"{label}: no roofline fields")
-        s = bench.query_setup(**args)
-        vals, rows = s.call(s.variants[0])
-        with torch.no_grad():
-            q = sse.encode_source(s.params, s.model_cfg, s.variants[0], s.lengths)
-        n = rows_near_reference(q, s.emb, s.num_real, rows)
+        vals, rows, n, bad = bench.first_batch(s)
+        check(not bad, f"{label}: {len(bad)} of {n} differing rows beyond the tolerance "
+              f"(i, j, score, reference's score): {bad[:5]}")
         check(bool(torch.isfinite(vals).all()) and tuple(rows.shape) == (b, K)
               and int(rows.max()) < s.num_real, f"{label}: first batch {vals}, {rows}")
-        log(f"{label}: the timed path's first batch == topk_reference on the bench's index "
-            f"({n} of {rows.numel()} positions differ, each within one key bucket)")
+        log(f"{label}: the timed setup's first batch == topk_reference on the bench's index "
+            f"({n} of {rows.numel()} positions differ, each within the kernels' tolerance)")
         if dtype == torch.bfloat16 and b in (8, 4096):
             wall, busy = window_busy(s)
-            log(f"{label}: one window of 32 dispatches under torch.profiler: wall {wall:.4f} ms, "
-                f"device busy {busy:.4f} ms ({100.0 * busy / wall:.1f}%), {wall / 32:.4f} ms a "
-                f"dispatch; busy {busy / 32:.4f} ms a dispatch is "
-                f"{100.0 * busy / 32 / result['ms_per_batch']:.1f}% of the bench's unprofiled "
+            w = bench.WINDOW
+            log(f"{label}: one window of {w} dispatches under torch.profiler: wall {wall:.4f} "
+                f"ms, device busy {busy:.4f} ms ({100.0 * busy / wall:.1f}% of the profiled "
+                f"window), {wall / w:.4f} ms a dispatch; busy {busy / w:.4f} ms a dispatch is "
+                f"{100.0 * busy / w / result['ms_per_batch']:.1f}% of the bench's unprofiled "
                 f"best window ({result['ms_per_batch']} ms a dispatch) [{card}]")
-        del s, q, vals, rows
+        del s, vals, rows
         torch.cuda.empty_cache()
-    counted("bench train", ("gru_fwd", "gru_bwd"), lambda: bench.run_train_bench(seconds=2.0))
+    train = bench.train_setup()
+    counted("bench train", ("gru_fwd", "gru_bwd"), lambda: bench.time_train(train, 2.0))
+    runs["GRU train bench"] = train_bench_slice(card, "GRU train bench", train,
+                                                {"gru_fwd": 2, "gru_bwd": 2})
     counted("bench index", ("gru_fwd",), lambda: bench.run_index_bench(seconds=1.0))
     return runs
 
@@ -1590,44 +1586,19 @@ def step_split(prof) -> tuple:
     return split, {p: n for p, n in names.items() if OUTSIDE in p or "no forward" in p}
 
 
-def train_bench_slice(card: str, label: str, tower_kw: dict, lr: float, per_step: dict) -> dict:
-    """The train bench's shape (sse_tpu/bench.py:231-263: dual-encoder,
-    E=H=D=128, vocab 8000, L=50, batch 256, 128 sampled negatives over
-    10,000 random targets, Adam at ``lr``) with the towers of
-    ``tower_kw``, random tokens: warm ms/step over 24 steps, the layer
-    kernels' launches a step (``per_step``), the step's split
+def train_bench_slice(card: str, label: str, s, per_step: dict) -> dict:
+    """The train bench's step (``s``: a bench.TrainSetup; each call steps
+    the same state, as the bench does): warm ms/step over 24 steps, the
+    layer kernels' launches a step (``per_step``), the step's split
     (step_split). Returns the launch counts of the timed steps (reset
     just before them)."""
     from sse_tpu_torch import ops
-    from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
-    from sse_tpu_torch.models.towers import TowerConfig
-    from sse_tpu_torch.train import LossConfig, TrainConfig, init_train_state, make_train_step
 
-    batch, num_targets, L = 256, 10_000, 50
-    tower = TowerConfig(vocab_size=8000, embed_dim=128, hidden=128, encoding_dim=128, **tower_kw)
-    mc = SSEConfig(mode=NetworkMode.DUAL_ENCODER, src_tower=tower, tgt_tower=tower)
-    cfg = TrainConfig(batch_size=batch, learning_rate=lr,
-                      loss=LossConfig(kind="sampled", num_negatives=128))
-    state = init_train_state(mc, cfg, torch.Generator().manual_seed(SEED))
-    step_fn = make_train_step(mc, cfg)
-    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    tgt_tokens = torch.randint(2, 8000, (num_targets, L), generator=g, device="cuda")
-    tgt_lens = torch.full((num_targets,), L, device="cuda")
-    lengths = torch.full((batch,), L, device="cuda")
-    weight = torch.ones((batch,), device="cuda")
-    variants = [
-        (torch.randint(2, 8000, (batch, L), generator=g, device="cuda"),
-         torch.randint(0, num_targets, (batch,), generator=g, device="cuda"))
-        for _ in range(16)
-    ]
     losses = []
 
     def run(n):
-        nonlocal state
         for i in range(n):
-            src, labels = variants[i % len(variants)]
-            state, m = step_fn(state, src, lengths, labels, weight, tgt_tokens, tgt_lens)
-            losses.append(m["loss"])
+            losses.append(s.call(s.variants[i % len(s.variants)]))
 
     run(3)
     torch.cuda.synchronize()
@@ -1660,8 +1631,11 @@ def train_bench_slice(card: str, label: str, tower_kw: dict, lr: float, per_step
     split["not linked to an op"] = busy - linked
     per_step_json = lambda d: json.dumps(  # noqa: E731
         {k[:70]: round(v, 4) for k, v in sorted(d.items(), key=lambda kv: -kv[1])})
-    log(f"{label} (dual-encoder, E=H=D=128, vocab 8000, L=50, B=256, 128 sampled "
-        f"negatives, 10,000 targets, Adam): {ms_step:.4f} ms/step over {n} warm steps "
+    tower = s.model_cfg.src_tower
+    log(f"{label} (dual-encoder {tower.cell} x{tower.num_layers}, E={tower.embed_dim} "
+        f"H={tower.hidden} D={tower.encoding_dim}, vocab {tower.vocab_size}, "
+        f"L={s.max_seq_length}, B={len(s.lengths)}, {s.num_negatives} sampled negatives, "
+        f"{len(s.tgt_tokens)} targets, Adam): {ms_step:.4f} ms/step over {n} warm steps "
         f"(CUDA events); launches {counts} [{card}]")
     log(f"{label} step split (torch.profiler, {prof_steps} steps, ms per step): wall "
         f"{wall:.4f}, device busy {busy:.4f} ({100.0 * busy / wall:.1f}%), host/idle "
@@ -1893,6 +1867,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from sse_tpu_torch import bench
     from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
     from sse_tpu_torch.models.towers import TowerConfig
     from sse_tpu_torch.ops import _build
@@ -1941,12 +1916,12 @@ def main() -> None:
         "served GRU": served_slice("served GRU", gru, corpus, 1024),
         "served qna": served_slice("served qna", qna, corpus, 4096),
         "served exact": served_slice("served exact", gru, corpus, 4096, variant="exact"),
-        **bench_slice(card),  # checks each run's kernels itself
-        "GRU train bench": train_bench_slice(card, "GRU train bench", {"cell": "gru"}, 0.5,
-                                             {"gru_fwd": 2, "gru_bwd": 2}),
+        **bench_slice(card),  # checks each run's kernels itself; "GRU train bench" too
         "compositional train bench": train_bench_slice(
             card, "compositional train bench",
-            {"cell": "lstm", "num_layers": 3, "residual": True, "dropout": 0.1}, 0.003,
+            bench.train_setup(tower=TowerConfig(
+                vocab_size=8000, embed_dim=128, hidden=128, encoding_dim=128, cell="lstm",
+                num_layers=3, residual=True, dropout=0.1)),
             {"lstm_fwd": 6, "lstm_bwd": 6}),
         "ranking preset": preset_slice(card, "ranking", "gru"),
         "qna preset": preset_slice(card, "qna", "lstm"),

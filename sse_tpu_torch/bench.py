@@ -3,7 +3,7 @@ docs/sec on one CUDA card (port of ``sse_tpu/bench.py``).
 
 Same metric names, output keys (plus ``device``, the name of what ran
 it), work models and input protocol as the JAX bench: every dispatch
-takes the next of 16 distinct inputs, windows of ``window`` asynchronous
+takes the next of 16 distinct inputs, windows of 32 asynchronous
 dispatches end in a drain, and each bench reports the best window (the
 headline ``value``) beside the whole-stream mean (the train bench's
 too, where the JAX bench's one-step branch repeats its best window).
@@ -39,6 +39,7 @@ from sse_tpu_torch.index.sharded_index import _padded_rows, quantize_rows
 from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
 from sse_tpu_torch.models.towers import TowerConfig
+from sse_tpu_torch.utils.device import env_device
 from sse_tpu_torch.utils.profiling import wait_for
 
 # the headline index: the north star's 10M items over 8 chips, per chip
@@ -46,17 +47,18 @@ from sse_tpu_torch.utils.profiling import wait_for
 HEADLINE_ROWS = 1_249_280
 BASELINE_QPS = 10_000.0  # vs_baseline = QPS / this (the north-star per-chip bar)
 NUM_VARIANTS = 16  # distinct inputs each bench rotates through
+WINDOW = 32  # asynchronous dispatches between two drains
 
 
-def _default_model(vocab_size: int = 8000, encoding_dim: int = 128) -> SSEConfig:
-    """The bench tower: shared-encoder 1-layer GRU, E=H=128."""
-    return SSEConfig(
-        mode=NetworkMode.SHARED_ENCODER,
-        src_tower=TowerConfig(
-            vocab_size=vocab_size, embed_dim=128, hidden=128, num_layers=1,
-            encoding_dim=encoding_dim, cell="gru",
-        ),
-    )
+def _bench_tower(encoding_dim: int = 128) -> TowerConfig:
+    """The bench tower: 1-layer GRU, E=H=128, vocab 8000."""
+    return TowerConfig(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1,
+                       encoding_dim=encoding_dim, cell="gru")
+
+
+def _default_model(encoding_dim: int = 128) -> SSEConfig:
+    """The query and index benches' model: the bench tower, shared encoder."""
+    return SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=_bench_tower(encoding_dim))
 
 
 def _bench_device(device: torch.device | str) -> torch.device:
@@ -94,12 +96,12 @@ def _random_tokens(gen: torch.Generator, shape, vocab_size: int, device) -> torc
 
 
 def _throughput_time(
-    call: Callable[[Any], Any], variants: Sequence[Any], seconds: float = 8.0, window: int = 32
+    call: Callable[[Any], Any], variants: Sequence[Any], seconds: float = 8.0
 ) -> Tuple[float, float]:
     """Per-call seconds of ``call(variant)`` under steady pipelined load.
 
     Every dispatch takes the next of ``variants``, so no two consecutive
-    calls share an input; windows of ``window`` asynchronous dispatches end
+    calls share an input; windows of WINDOW asynchronous dispatches end
     in a drain (``wait_for`` of the last output: ``torch.cuda.synchronize``
     on the card), so the device queue stays bounded and a window's time
     covers all of its executions. The first call (which builds the kernels
@@ -115,13 +117,13 @@ def _throughput_time(
     t0 = time.perf_counter()
     while True:
         w0 = time.perf_counter()
-        for _ in range(window):
+        for _ in range(WINDOW):
             out = call(variants[vi % n])
             vi += 1
         wait_for(out)
         now = time.perf_counter()
-        best = min(best, (now - w0) / window)
-        dispatches += window
+        best = min(best, (now - w0) / WINDOW)
+        dispatches += WINDOW
         if now - t0 >= seconds:
             return best, (now - t0) / dispatches
 
@@ -239,6 +241,19 @@ def query_setup(
                       variants)
 
 
+def first_batch(s: QuerySetup) -> Tuple[torch.Tensor, torch.Tensor, int, list]:
+    """The setup's first dispatch, ``s.call(s.variants[0])``, held against
+    topk_reference on the same query encodings and index
+    (``ops.topk.rows_off_reference``): (values, rows, the count of
+    positions that differ, those beyond the kernels' tolerance)."""
+    from sse_tpu_torch.ops.topk import rows_off_reference
+
+    vals, rows = s.call(s.variants[0])
+    with torch.no_grad():
+        q = sse.encode_source(s.params, s.model_cfg, s.variants[0], s.lengths)
+    return (vals, rows, *rows_off_reference(q, s.emb, rows, s.num_real))
+
+
 def run_query_bench(
     model_dir: Optional[str] = None,
     num_targets: int = 100_000,
@@ -252,8 +267,14 @@ def run_query_bench(
 ) -> Dict[str, Any]:
     """End-to-end fused query path (token ids → encode → scores → exact
     top-k) queries/sec, the best of windows over ``seconds``."""
-    s = query_setup(model_dir, num_targets, encoding_dim, batch, k, max_seq_length,
-                    index_dtype, device)
+    return time_query(query_setup(model_dir, num_targets, encoding_dim, batch, k,
+                                  max_seq_length, index_dtype, device), seconds)
+
+
+def time_query(s: QuerySetup, seconds: float = 8.0) -> Dict[str, Any]:
+    """``run_query_bench``'s timing and result of an existing setup (so a
+    caller can check the very object that was timed)."""
+    batch = len(s.lengths)
     per_iter, per_iter_mean = _throughput_time(s.call, s.variants, seconds)
     d = s.model_cfg.encoding_dim
     # minimum algorithmic work: the scoring product over the real rows and
@@ -279,6 +300,75 @@ def run_query_bench(
 
 
 # ----------------------------------------------------------------- train
+@dataclasses.dataclass
+class TrainSetup:
+    """What the train bench times: ``call((src, labels))`` = one train step
+    of ``state`` on a variant's source tokens and labels against the
+    ``tgt_tokens`` target space. Each call steps the same state, as the
+    JAX bench's undonated step does."""
+
+    step_fn: Callable
+    state: Any
+    model_cfg: SSEConfig
+    num_negatives: int
+    max_seq_length: int
+    lengths: torch.Tensor
+    weight: torch.Tensor
+    tgt_tokens: torch.Tensor
+    tgt_lens: torch.Tensor
+    variants: list
+
+    def call(self, v):
+        src, labels = v
+        _, metrics = self.step_fn(self.state, src, self.lengths, labels, self.weight,
+                                  self.tgt_tokens, self.tgt_lens)
+        return metrics["loss"]
+
+
+def train_setup(
+    batch: int = 256,
+    num_targets: int = 10_000,
+    max_seq_length: int = 50,
+    num_negatives: int = 128,
+    encoding_dim: int = 128,
+    device: torch.device | str = "cuda",
+    tower: Optional[TowerConfig] = None,
+) -> TrainSetup:
+    """The train bench's inputs: a dual-encoder of ``tower`` (the bench's
+    GRU tower unless given), sampled-softmax negatives, Adam, random
+    weights (seed 0) and random tokens made on ``device``."""
+    from sse_tpu_torch.train import LossConfig, TrainConfig, init_train_state, make_train_step
+
+    device = _bench_device(device)
+    tower = tower or _bench_tower(encoding_dim)
+    model_cfg = SSEConfig(mode=NetworkMode.DUAL_ENCODER, src_tower=tower, tgt_tower=tower)
+    cfg = TrainConfig(batch_size=batch,
+                      loss=LossConfig(kind="sampled", num_negatives=num_negatives))
+    state = init_train_state(model_cfg, cfg, torch.Generator().manual_seed(0), device)
+    vocab = tower.vocab_size
+    gen = torch.Generator(device=device).manual_seed(1)
+    variants = [
+        (
+            _random_tokens(gen, (batch, max_seq_length), vocab, device),
+            torch.randint(0, num_targets, (batch,), generator=gen, device=device,
+                          dtype=torch.int32),
+        )
+        for _ in range(NUM_VARIANTS)
+    ]
+    return TrainSetup(
+        step_fn=make_train_step(model_cfg, cfg),
+        state=state,
+        model_cfg=model_cfg,
+        num_negatives=num_negatives,
+        max_seq_length=max_seq_length,
+        lengths=torch.full((batch,), max_seq_length, dtype=torch.int32, device=device),
+        weight=torch.ones((batch,), dtype=torch.float32, device=device),
+        tgt_tokens=_random_tokens(gen, (num_targets, max_seq_length), vocab, device),
+        tgt_lens=torch.full((num_targets,), max_seq_length, dtype=torch.int32, device=device),
+        variants=variants,
+    )
+
+
 def run_train_bench(
     batch: int = 256,
     num_targets: int = 10_000,
@@ -286,77 +376,45 @@ def run_train_bench(
     num_negatives: int = 128,
     encoding_dim: int = 128,
     chain: int = 1,
-    embed_grad: str = "take",
-    norm_metric: str = "grad",
-    optimizer: str = "adam",
     seconds: float = 5.0,
     device: torch.device | str = "cuda",
 ) -> Dict[str, Any]:
     """Training throughput: the train step (dual-encoder GRU, sampled-softmax
     negatives, Adam; the hand-written GRU forward and backward kernels on
-    the card) steps/sec and examples/sec, one step a dispatch. Each call
-    steps the same state, as the JAX bench's undonated step does."""
+    the card) steps/sec and examples/sec, one step a dispatch."""
     if chain > 1:
         raise NotImplementedError(
             "chained train dispatch (TrainConfig.steps_per_dispatch) is not ported yet "
             "(ROADMAP.md §1 item 2)")
-    from sse_tpu_torch.train import LossConfig, TrainConfig, init_train_state, make_train_step
+    return time_train(train_setup(batch, num_targets, max_seq_length, num_negatives,
+                                  encoding_dim, device), seconds)
 
-    device = _bench_device(device)
-    tower = TowerConfig(
-        vocab_size=8000, embed_dim=128, hidden=128, num_layers=1,
-        encoding_dim=encoding_dim, cell="gru", embed_grad=embed_grad,
-    )
-    model_cfg = SSEConfig(mode=NetworkMode.DUAL_ENCODER, src_tower=tower, tgt_tower=tower)
-    cfg = TrainConfig(
-        batch_size=batch,
-        loss=LossConfig(kind="sampled", num_negatives=num_negatives),
-        steps_per_dispatch=chain,
-        norm_metric=norm_metric,
-        optimizer=optimizer,
-    )
-    state = init_train_state(model_cfg, cfg, torch.Generator().manual_seed(0), device)
-    step_fn = make_train_step(model_cfg, cfg)
 
-    gen = torch.Generator(device=device).manual_seed(1)
-    tgt_tokens = _random_tokens(gen, (num_targets, max_seq_length), 8000, device)
-    tgt_lens = torch.full((num_targets,), max_seq_length, dtype=torch.int32, device=device)
-    lengths = torch.full((batch,), max_seq_length, dtype=torch.int32, device=device)
-    weight = torch.ones((batch,), dtype=torch.float32, device=device)
-    variants = [
-        (
-            _random_tokens(gen, (batch, max_seq_length), 8000, device),
-            torch.randint(0, num_targets, (batch,), generator=gen, device=device,
-                          dtype=torch.int32),
-        )
-        for _ in range(NUM_VARIANTS)
-    ]
-
-    def call(v):
-        src, labels = v
-        _, metrics = step_fn(state, src, lengths, labels, weight, tgt_tokens, tgt_lens)
-        return metrics["loss"]
-
-    per_iter, per_iter_mean = _throughput_time(call, variants, seconds)
+def time_train(s: TrainSetup, seconds: float = 5.0) -> Dict[str, Any]:
+    """``run_train_bench``'s timing and result of an existing setup."""
+    batch, length, negatives = len(s.lengths), s.max_seq_length, s.num_negatives
+    d = s.model_cfg.encoding_dim
+    per_iter, per_iter_mean = _throughput_time(s.call, s.variants, seconds)
     # FLOP model of the step (fwd + ~2x bwd), minimum algorithmic work:
     # src tower over batch rows + tgt tower over (batch + num_negatives)
     # sampled rows, plus the [B, B+N] loss product
     fwd = (
-        _tower_flops(batch, max_seq_length, model_cfg.src_tower, encoding_dim)
-        + _tower_flops(batch + num_negatives, max_seq_length, model_cfg.tgt_tower, encoding_dim)
-        + 2 * batch * (batch + num_negatives) * encoding_dim
+        _tower_flops(batch, length, s.model_cfg.src_tower, d)
+        + _tower_flops(batch + negatives, length, s.model_cfg.tgt_tower, d)
+        + 2 * batch * (batch + negatives) * d
     )
     out = {
         "metric": "train_steps_per_sec",
         "value": round(1.0 / per_iter, 2),
         "examples_per_sec": round(batch / per_iter, 1),
-        "unit": f"steps/sec, best sustained window (dual-encoder GRU, batch={batch}, "
-        f"L={max_seq_length}, {num_negatives} sampled negatives, 1-step dispatch "
+        "unit": f"steps/sec, best sustained window (dual-encoder "
+        f"{s.model_cfg.src_tower.cell.upper()}, batch={batch}, "
+        f"L={length}, {negatives} sampled negatives, 1-step dispatch "
         f"(chaining not ported, ROADMAP §1 item 2))",
         "ms_per_step": round(per_iter * 1000, 3),
         "steps_per_sec_stream_mean": round(1.0 / per_iter_mean, 2),
         "steps_per_sec_single_dispatch": round(1.0 / per_iter, 2),
-        "device": _device_kind(device),
+        "device": _device_kind(s.lengths.device),
     }
     roof = _roofline_fields(per_iter, 3 * fwd, hbm_bytes=0, kind=out["device"])
     roof.pop("achieved_hbm_gbps")  # no meaningful traffic floor here
@@ -408,9 +466,7 @@ def main() -> int:
     """One JSON line: exact top-10 QPS of the bench tower at B=4096 over a
     bf16 index of HEADLINE_ROWS rows (4096 x 5 rows on the CPU), with
     ``vs_baseline`` = QPS / 10,000 and the roofline fields."""
-    from sse_tpu_torch.cli import _device
-
-    device = _device()
+    device = env_device()
     result = run_query_bench(
         num_targets=HEADLINE_ROWS if device.type == "cuda" else 4096 * 5,
         encoding_dim=128, batch=4096, k=10, index_dtype=torch.bfloat16, device=device,

@@ -43,21 +43,6 @@ def _parse_bool(s: str) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
 
 
-def _device():
-    """The card, or the CPU with ``SSE_PLATFORM=cpu`` (a ``:N`` device
-    count suffix, which the JAX CLI takes, is accepted and ignored)."""
-    import torch
-
-    platform = os.environ.get("SSE_PLATFORM", "").partition(":")[0].lower()
-    if platform == "cpu":
-        return torch.device("cpu")
-    if platform not in ("", "gpu", "cuda"):
-        raise ValueError(f"SSE_PLATFORM must be cpu or gpu, got {platform!r}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device (set SSE_PLATFORM=cpu to run on the CPU)")
-    return torch.device("cuda")
-
-
 def _add_task_overrides(p: argparse.ArgumentParser) -> None:
     """Every TaskConfig field as a --flag (the reference's tf.app.flags
     surface)."""
@@ -138,14 +123,15 @@ def _check_single_process(args) -> None:
 
 def cmd_train(args) -> int:
     from sse_tpu_torch.configs import preset
+    from sse_tpu_torch.utils.device import env_device
     from sse_tpu_torch.workspace import Workspace
 
     _check_single_process(args)
     if args.task_type is not None:
         cfg = preset(args.task_type, recipe=args.recipe, **_overrides(args))
-        ws = Workspace.create(args.model_dir, cfg, _device())
+        ws = Workspace.create(args.model_dir, cfg, env_device())
     elif os.path.exists(os.path.join(args.model_dir, "config.json")):
-        ws = Workspace.open(args.model_dir, _device())  # resume with the saved config
+        ws = Workspace.open(args.model_dir, env_device())  # resume with the saved config
         # flags passed on resume still apply (the common case: a larger
         # --max_epochs) and persist back into config.json
         overrides = _overrides(args)
@@ -166,11 +152,12 @@ def cmd_train(args) -> int:
 
 
 def cmd_index(args) -> int:
+    from sse_tpu_torch.utils.device import env_device
     from sse_tpu_torch.workspace import Workspace
 
     if args.cp_shards > 0:
         raise NotImplementedError(f"--cp_shards (context-parallel encoding) {_MULTI_GPU}")
-    ws = Workspace.open(args.model_dir, _device())
+    ws = Workspace.open(args.model_dir, env_device())
     if args.index_dtype:
         # this build only: the saved config is not rewritten, the index
         # carries its dtype in its own sidecar
@@ -192,9 +179,10 @@ def cmd_index(args) -> int:
 
 
 def cmd_eval(args) -> int:
+    from sse_tpu_torch.utils.device import env_device
     from sse_tpu_torch.workspace import Workspace
 
-    ws = Workspace.open(args.model_dir, _device())
+    ws = Workspace.open(args.model_dir, env_device())
     if args.use_index:
         # score through the serving path (the saved index + the top-k
         # kernels), the right mode at large target-space scale
@@ -218,9 +206,10 @@ def cmd_visualize(args) -> int:
     """Target embeddings in TensorBoard-projector TSV format (the
     reference's visualize mode)."""
     from sse_tpu_torch.index import ShardedIndex
+    from sse_tpu_torch.utils.device import env_device
     from sse_tpu_torch.workspace import Workspace
 
-    ws = Workspace.open(args.model_dir, _device())
+    ws = Workspace.open(args.model_dir, env_device())
     if os.path.isdir(ws.index_dir):
         index = ShardedIndex.load(ws.index_dir, ws.device)
     elif args.data_dir:
@@ -247,9 +236,10 @@ def cmd_visualize(args) -> int:
 
 def cmd_serve(args) -> int:
     from sse_tpu_torch.serve import serve_http
+    from sse_tpu_torch.utils.device import env_device
     from sse_tpu_torch.workspace import Workspace
 
-    ws = Workspace.open(args.model_dir, _device())
+    ws = Workspace.open(args.model_dir, env_device())
     engine = ws.engine(
         data_dir=args.data_dir, k=args.k, max_batch=args.max_batch,
         bulk_batch=args.bulk_batch or None,
@@ -270,8 +260,9 @@ def cmd_bench(args) -> int:
     import torch
 
     from sse_tpu_torch import bench as bench_lib
+    from sse_tpu_torch.utils.device import env_device
 
-    device = _device()
+    device = env_device()
     if args.kind == "query":
         result = bench_lib.run_query_bench(
             model_dir=args.model_dir, num_targets=args.num_targets,

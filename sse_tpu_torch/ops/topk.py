@@ -215,6 +215,33 @@ def topk_reference(
     return decode(comp, int_exact, exact)
 
 
+def rows_off_reference(
+    q: torch.Tensor, emb: torch.Tensor, rows: torch.Tensor, num_real: int,
+    variant: str = "packed",
+) -> Tuple[int, list]:
+    """Top-k ``rows`` [B, k] of the queries ``q`` held against
+    ``topk_reference`` on the same inputs. The kernels and the reference
+    sum in different orders, so on a float index a differing position is
+    allowed where the two rows' scores lie within one key bucket (2^-11
+    relative; packed variant) or within 2e-6 (exact variant, full float32
+    keys); on an int8 index the sums are exact and none is allowed.
+    Returns (the count of differing positions, those beyond the tolerance
+    as (i, j, score of rows[i, j], score of the reference's row), the
+    scores None on int8)."""
+    _, ref = topk_reference(q, emb, rows.shape[1], num_real, variant)
+    diff = (rows != ref).nonzero().tolist()
+    if emb.dtype == torch.int8:
+        return len(diff), [(i, j, None, None) for i, j in diff]
+    qd = q.to(emb.dtype).double()
+    bad = []
+    for i, j in diff:
+        a = float(qd[i] @ emb[rows[i, j]].double())
+        b = float(qd[i] @ emb[ref[i, j]].double())
+        if abs(a - b) > (2e-6 if variant == "exact" else 2.0**-11 * max(abs(a), abs(b))):
+            bad.append((i, j, a, b))
+    return len(diff), bad
+
+
 # ------------------------------------------------------------ CUDA glue
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -582,6 +609,7 @@ __all__ = [
     "launches",
     "pair_schedule",
     "quantize_queries_int8",
+    "rows_off_reference",
     "to_sortable",
     "topk_reference",
     "twophase_block_t",

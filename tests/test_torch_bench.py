@@ -80,22 +80,21 @@ def test_index_bench_work_model_matches_jax(stubbed, timing):
     _same(j, t, ("metric", "unit", "value", "ms_per_batch", "docs_per_sec_stream_mean"))
 
 
-@pytest.mark.parametrize("window", [32, 5])
-def test_throughput_time_rotates_every_variant(window):
+@pytest.mark.parametrize("n_variants", [tbench.NUM_VARIANTS, 3])
+def test_throughput_time_rotates_every_variant(n_variants):
     seen = []
 
     def call(v):
         seen.append(v)
         return torch.zeros(1)
 
-    variants = list(range(16))
-    best, mean = tbench._throughput_time(call, variants, seconds=0.0, window=window)
+    variants = list(range(n_variants))
+    best, mean = tbench._throughput_time(call, variants, seconds=0.0)
     assert seen[0] == variants[0]  # the untimed first call
-    assert len(seen) == 1 + window  # seconds=0: exactly one timed window
+    assert len(seen) == 1 + tbench.WINDOW == 33  # seconds=0: exactly one timed window
     assert all(a != b for a, b in zip(seen, seen[1:]))
-    assert seen == [variants[i % 16] for i in range(len(seen))]
-    if window >= 16:
-        assert set(seen) == set(variants)
+    assert seen == [variants[i % n_variants] for i in range(len(seen))]
+    assert set(seen) == set(variants)
     assert 0.0 < best <= mean
 
 
@@ -150,12 +149,13 @@ def test_query_bench_rows_equal_topk_reference(dtype, batch, monkeypatch):
     assert torch.equal(rows, ref_rows)
     torch.testing.assert_close(vals, ref_vals, atol=0, rtol=0)
     assert int(rows.max()) < s.num_real
+    assert tbench.first_batch(s)[2:] == (0, [])
     if batch == 4:
-        out = tbench.run_query_bench(num_targets=20474, encoding_dim=16, batch=batch, k=10,
-                                     seconds=0.0, max_seq_length=6, index_dtype=tdt,
-                                     device="cpu")
+        out = tbench.time_query(s, seconds=0.0)  # the same setup, timed
         assert out["value"] > 0 and out["num_targets"] == 20474 and out["k"] == 10
-        assert "mfu_pct" not in out  # no chip spec for the CPU
+        assert out["batch"] == batch and "mfu_pct" not in out  # no chip spec for the CPU
+        _, timed_rows, n_diff, bad = tbench.first_batch(s)
+        assert torch.equal(timed_rows, rows) and (n_diff, bad) == (0, [])
 
 
 def test_query_bench_variants_are_distinct_and_in_vocab():

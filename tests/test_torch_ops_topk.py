@@ -665,3 +665,30 @@ def test_launch_counts_sum_the_per_batch_counter(monkeypatch):
     assert ttopk.launch_total("twophase_p2") == 0 and counts["gru_fwd"] == 1
     ops.reset_launch_counts()
     assert not ttopk.launches and not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_rows_off_reference_tolerance(dtype):
+    """rows_off_reference: the reference's own rows differ nowhere; two
+    rows of equal score may trade places on a float index (a summation-
+    order tie), but on an int8 index no position may differ; two rows of
+    far-apart scores may not trade places on either."""
+    rng = np.random.default_rng(0)
+    emb = _unit(rng.standard_normal((64, 16)).astype(np.float32))
+    emb[1] = emb[0]  # a tie: equal scores for every query
+    q = torch.from_numpy(_unit(rng.standard_normal((4, 16)).astype(np.float32)))
+    _, e = _index(dtype, emb)
+    _, ref = ttopk.topk_reference(q, e, 64, 64)
+    assert ttopk.rows_off_reference(q, e, ref, 64) == (0, [])
+
+    tied = ref.clone()
+    for i in range(4):
+        j0, j1 = (ref[i] == 0).nonzero().item(), (ref[i] == 1).nonzero().item()
+        tied[i, j0], tied[i, j1] = 1, 0
+    n, bad = ttopk.rows_off_reference(q, e, tied, 64)
+    assert n == 8 and len(bad) == (8 if dtype == "int8" else 0)
+
+    far = ref.clone()
+    far[:, 0], far[:, -1] = ref[:, -1], ref[:, 0]  # the best row and the worst
+    n, bad = ttopk.rows_off_reference(q, e, far, 64)
+    assert n == 8 and len(bad) == 8
