@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA GPU: serving and training,
-GRU and LSTM towers, both top-k variants, and the model-dir CLI.
+GRU, LSTM and transformer towers, both top-k variants, and the model-dir
+CLI.
 
     python3 chip_smoke.py            # needs one CUDA card; no network
     python3 chip_smoke.py --costs    # only the recurrences' per-step costs
@@ -41,13 +42,21 @@ commits compare in one run, taken in turns.
    exact-dot inputs, so that rows and values must match bit for bit. On
    random bf16 and int8 unit rows no B=4096 query row may rank apart
    between the two-phase and streaming routes (both score through one
-   wgmma tile).
+   wgmma tile). The transformer tower (the ``transformer`` recipe's
+   model) with the card's products against the same tower on
+   ``bf16_matmul`` (check_transformer: B=256, states to 2e-2, gradients
+   to 3e-2 of max-abs), its forward's cost at B=8, 256 and 4096 beside
+   its FLOP bound with its GEMM kernels' names (no float32 GEMM may run),
+   and one bulk B=4096 transformer query batch by part
+   (transformer_costs).
 3. The served slices (E=H=D=128, vocab 8000, L=50, random weights from a
    seed), each building the 1,249,280-row bf16 index on the GPU from the
    same 1,248,280 synthetic documents: (a) the bench model, a
    shared-encoder 1-layer GRU; (b) the ``qna`` configuration, a
    dual-encoder LSTM with the attention readout; (c) the GRU model with
-   ``QueryEngine(pallas_variant="exact")``, which streams every batch.
+   ``QueryEngine(pallas_variant="exact")``, which streams every batch;
+   (d) the ``transformer`` recipe's model (dual-encoder, 4 pre-LN blocks,
+   4 heads, RoPE), which launches no recurrent kernel.
    QueryEngine and warmup, the HTTP server on a free localhost port, GET
    (B=8 tier) and bulk POST queries (1,024 and 4,096 texts), the rows
    served held against topk_reference of the engine's variant, and every
@@ -60,10 +69,13 @@ commits compare in one run, taken in turns.
    residual LSTM, dropout 0.1) in the same setup: warm ms/step, the step's device time split by the
    profiler range or op that launched each kernel (step_split), and the
    layer forward and backward launches a step (2 + 2 GRU; 6 + 6 LSTM);
-   (c) the ``ranking`` and (d) the ``qna`` task presets trained by
-   ``sse_tpu_torch.train.train`` on their demo corpora with the Evaluator
-   as eval_fn: finite, falling loss, rising recall@1, and their EMA params
-   serve one query through QueryEngine whose rows match topk_reference.
+   (c) the ``transformer`` recipe's towers in the same setup (no
+   recurrent launch); (d) the ``ranking`` and (e) the ``qna`` task
+   presets and (f) the ``ranking`` preset with the ``transformer`` recipe
+   trained by ``sse_tpu_torch.train.train`` on their demo corpora with
+   the Evaluator as eval_fn: finite, falling loss, rising recall@1 (the
+   transformer with no recurrent launch), and their EMA params serve one
+   query through QueryEngine whose rows match topk_reference.
 5. The model-dir path, each command a ``python -m sse_tpu_torch.cli``
    subprocess (cli_slice): demo-data, train (ranking preset), index,
    eval, eval --use_index, visualize, bench --kind query over the model
@@ -1230,13 +1242,13 @@ def served_corpus():
 BATCH_LAUNCHES = collections.Counter()
 
 
-def served_slice(label: str, cfg, corpus, n_post: int, variant: str = "packed") -> dict:
+def served_slice(label: str, cfg, corpus, posts: tuple, variant: str = "packed") -> dict:
     """Build the 1,249,280-row bf16 index with ``cfg``'s seeded weights,
     serve it over HTTP with the engine's top-k ``variant``, send four GET
-    queries (the B=8 tier) and one POST of ``n_post`` texts (one bulk
-    dispatch), and hold the served rows against topk_reference of that
-    variant. Returns the kernels' launch counts from this run (reset just
-    before it)."""
+    queries (the B=8 tier) and one POST of each size in ``posts`` (one
+    bulk dispatch each), and hold the served rows against topk_reference
+    of that variant. Returns the kernels' launch counts from this run
+    (reset just before it)."""
     from sse_tpu_torch import ops
     from sse_tpu_torch.index import build_index
     from sse_tpu_torch.models import sse
@@ -1267,11 +1279,15 @@ def served_slice(label: str, cfg, corpus, n_post: int, variant: str = "packed") 
             hits = http_json(url)["results"]
             check(len(hits) == K and all(h["targetId"] in known for h in hits), f"GET: {hits}")
             got.append(hits)
-        texts = [s for s, _ in evalp[:n_post]]
-        check(len(texts) == n_post, f"{label}: {len(texts)} eval texts, want {n_post}")
-        t0 = time.perf_counter()
-        served = http_json(base + "/api/query", {"queries": texts})["results"]
-        log(f"{label} POST /api/query with {len(texts)} texts: {time.perf_counter() - t0:.3f} s")
+        bulk = []
+        for n_post in posts:
+            texts = [s for s, _ in evalp[:n_post]]
+            check(len(texts) == n_post, f"{label}: {len(texts)} eval texts, want {n_post}")
+            t0 = time.perf_counter()
+            served = http_json(base + "/api/query", {"queries": texts})["results"]
+            log(f"{label} POST /api/query with {len(texts)} texts: "
+                f"{time.perf_counter() - t0:.3f} s")
+            bulk.append((texts, served))
         stats = http_json(base + "/api/stats")
     finally:
         server.shutdown()
@@ -1290,16 +1306,17 @@ def served_slice(label: str, cfg, corpus, n_post: int, variant: str = "packed") 
         log(f"{label} one query at the B=8 tier by part (torch.profiler, device ms per query): "
             f"{sum(parts.values()):.4f}: "
             + json.dumps({k: round(v, 4) for k, v in sorted(parts.items(), key=lambda kv: -kv[1])}))
-    check(len(served) == len(texts), "POST: one result list per query")
-    for hits in served:
-        check(len(hits) == K and all(h["targetId"] in known for h in hits), f"POST: {hits}")
+    for texts, served in bulk:
+        check(len(served) == len(texts), "POST: one result list per query")
+        for hits in served:
+            check(len(hits) == K and all(h["targetId"] in known for h in hits), f"POST: {hits}")
 
     if variant == "exact":
         check(counts["topk_exact"] > 0 and counts["twophase_p1"] == counts["twophase_p2"]
               == counts["topk_stream"] == 0,
               f"{label}: the exact engine must stream every batch: {counts}")
     tol = "within 2e-6" if variant == "exact" else "each within one key bucket"
-    for name, tx, res in (("GET", get_texts, got), ("POST", texts, served)):
+    for name, tx, res in (("GET", get_texts, got), *(("POST", t, r) for t, r in bulk)):
         n = same_as_reference(engine, params, cfg, index, tx, res, variant)
         log(f"{label}: served rows == topk_reference(variant={variant!r}) for {len(tx)} "
             f"{name} queries ({n} positions differ, the two rows' scores {tol})")
@@ -1704,12 +1721,17 @@ def train_bench_slice(card: str, label: str, s, per_step: dict) -> dict:
     return counts
 
 
-def preset_slice(card: str, task_name: str, layer: str) -> dict:
-    """A task preset trained through train() on its demo corpus at the
-    preset's widths, the Evaluator as eval_fn; then its EMA params serve
-    one query through QueryEngine. ``layer`` is the preset's cell (gru |
-    lstm), whose forward and backward kernels must launch. Returns the
-    launch counts of the training run (reset just before it)."""
+RNN_KERNELS = ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "rnn_scan")
+
+
+def preset_slice(card: str, task_name: str, layer: str, recipe: str | None = None) -> dict:
+    """A task preset (with a named ``recipe`` on top, where given) trained
+    through train() on its demo corpus at the preset's widths, the
+    Evaluator as eval_fn; then its EMA params serve one query through
+    QueryEngine. ``layer`` is the preset's cell: for gru | lstm its
+    forward and backward kernels must launch, for the transformer no
+    recurrent kernel may. Returns the launch counts of the training run
+    (reset just before it)."""
     from sse_tpu_torch.data import synthetic
     from sse_tpu_torch.data.corpus import build_vocab, encode_pairs, encode_target_space
     from sse_tpu_torch import configs, ops
@@ -1719,7 +1741,7 @@ def preset_slice(card: str, task_name: str, layer: str) -> dict:
     from sse_tpu_torch.train import inference_params, init_train_state, train
 
     # 640 pairs / batch 128 = 5 steps an epoch: 60 epochs = 300 steps
-    task = configs.preset(task_name, max_epochs=60, steps_per_checkpoint=50)
+    task = configs.preset(task_name, recipe=recipe, max_epochs=60, steps_per_checkpoint=50)
     rows, evrows, targets = synthetic.make_corpus(task=task_name, seed=SEED)
     vocab = build_vocab(task.vocab_size, rows, targets,
                         max_subtoken_length=task.max_subtoken_length, vocab_mode=task.vocab_mode)
@@ -1740,14 +1762,22 @@ def preset_slice(card: str, task_name: str, layer: str) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
-    check(counts[f"{layer}_fwd"] > 0 and counts[f"{layer}_bwd"] > 0,
-          f"{task_name}: launches {counts}")
+    if layer in ("gru", "lstm"):
+        check(counts[f"{layer}_fwd"] > 0 and counts[f"{layer}_bwd"] > 0,
+              f"{task_name}: launches {counts}")
+    else:
+        check(all(counts[k] == 0 for k in RNN_KERNELS),
+              f"{task_name} ({layer}): a recurrent kernel launched: {counts}")
     check(all(math.isfinite(r["loss"]) for r in records), f"{task_name}: loss {records}")
     first, last = records[0], records[-1]
     check(last["loss"] < first["loss"], f"{task_name}: loss did not fall: {first} -> {last}")
     check(last["recall@1"] > before["recall@1"],
           f"{task_name}: recall@1 {before['recall@1']} at step 0 -> {last['recall@1']}")
-    log(f"{task_name} preset ({layer}, {mc.src_tower.readout} readout): {state.step} steps in "
+    readout = mc.src_tower.readout
+    if layer not in ("gru", "lstm") and readout != "attention":
+        readout = "mean"  # what the transformer and bow towers read out for final | mean
+    log(f"{task_name} preset ({layer} x{mc.src_tower.num_layers}, {readout} readout, "
+        f"lr {tc.learning_rate}): {state.step} steps in "
         f"{secs:.2f} s (evals included), window loss {first['loss']:.4f} (step {first['step']}) "
         f"-> {last['loss']:.4f} (step {last['step']}), recall@1 {before['recall@1']:.4f} "
         f"(step 0) -> {last['recall@1']:.4f}, recall@10 {before['recall@10']:.4f} -> "
@@ -1890,6 +1920,204 @@ def cli_slice(card: str) -> dict:
     return total
 
 
+# ------------------------------------------------------ the transformer
+def transformer_config():
+    """The ``transformer`` recipe's model on the ``ranking`` preset at its
+    full width: a dual-encoder of 4 pre-LN blocks, E=H=D=128, 4 heads,
+    mlp_ratio 4, RoPE, vocab 8000."""
+    from sse_tpu_torch import configs
+
+    return configs.preset("ranking", recipe="transformer").model_config(8000, T_PAD)
+
+
+def transformer_flops(tower, b: int, length: int) -> float:
+    """A transformer tower's forward at B=b, L=length: per token and block
+    the QKV, out-projection and MLP products and the attention's two
+    (2·(3d² + d² + 2·r·d²) + 4·L·d), plus the projection a row."""
+    d, r = tower.hidden, tower.mlp_ratio
+    per_token = 2 * (3 * d * d + d * d + 2 * r * d * d) + 4 * length * d
+    return b * length * tower.num_layers * per_token + 2 * b * d * tower.encoding_dim
+
+
+def tower_inputs(tower, b: int, gen, length: int = 50, ragged: bool = False):
+    """Random tokens [b, length] and lengths (all ``length``, or 0..length
+    with a row of length 0 and one of length 1) on the card."""
+    tokens = torch.randint(1, tower.vocab_size, (b, length), generator=gen, device="cuda")
+    if not ragged:
+        return tokens, torch.full((b,), length, dtype=torch.int32, device="cuda")
+    lengths = torch.randint(0, length + 1, (b,), generator=gen, device="cuda")
+    lengths[:2] = torch.tensor([0, 1], device="cuda")
+    return tokens, lengths
+
+
+FP32_GEMM = ("ffma", "f32f32_f32f32", "sgemm", "tf32")  # fp32 CUDA-core / TF32 GEMM names
+GEMM = ("gemm", "nvjet", "cutlass", "xmma", "Kernel2")
+
+
+def check_transformer(card: str) -> None:
+    """The transformer tower on the card (the recipe's model, random
+    weights from the seed, B=256, L=50, ragged lengths with a length-0 and
+    a length-1 row): its body (``towers._transformer_encode``) with the
+    card's products (``towers._dot``: bf16 tensor cores, float32 result)
+    against the same body on ``bf16_matmul`` (float32 products of
+    bf16-rounded operands) on the same card, params and tokens. The two
+    sum in other orders, so a float32 difference may flip a bf16 rounding
+    downstream: the states to 2e-2 (the JAX package's own tolerance for
+    this tower's invariances), the params' gradients of a random linear
+    function of the states to 3e-2 of each leaf's max-abs (the train-step
+    parity's tolerance); then the whole tower's output: finite, unit
+    norm."""
+    from sse_tpu_torch.models import sse, towers
+    from sse_tpu_torch.ops import rnn
+
+    cfg = transformer_config()
+    tower = cfg.src_tower
+    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED))["src_tower"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    tokens, lengths = tower_inputs(tower, 256, gen, ragged=True)
+    valid = (torch.arange(50, device="cuda")[None, :] < lengths[:, None]).float()
+    x = params["embed"][tokens.long()]
+    p = {k: v for k, v in params.items() if k != "blocks"}
+    p["blocks"] = [{k: v.detach().clone().requires_grad_() for k, v in blk.items()}
+                   for blk in params["blocks"]]
+    leaves = [(f"blocks[{i}].{k}", v) for i, blk in enumerate(p["blocks"])
+              for k, v in sorted(blk.items())]
+    w = torch.randn((256, 50, tower.hidden), generator=gen, device="cuda")
+
+    def run(dot):
+        states = towers._transformer_encode(p, tower, x, valid, dot=dot)
+        grads = torch.autograd.grad((states * w).sum(), [v for _, v in leaves])
+        return states.detach(), grads
+
+    got, got_g = run(towers._dot)
+    want, want_g = run(rnn.bf16_matmul)
+    err = (got - want).abs()
+    check(bool(torch.isfinite(got).all()), "transformer states: not finite")
+    check(float(err.max()) <= 2e-2, f"transformer states: max |tensor cores - bf16_matmul| "
+          f"{float(err.max())} > 2e-2")
+    rel = {name: float((g - h).abs().max() / h.abs().max().clamp_min(1e-12))
+           for (name, _), g, h in zip(leaves, got_g, want_g)}
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= 3e-2, f"transformer gradient {worst}: {rel[worst]} of its max-abs > 3e-2")
+    log(f"transformer tower B=256 (tensor cores vs bf16_matmul on the card): states max abs "
+        f"{float(err.max()):.3g}, mean {float(err.mean()):.3g}, {int((err > 1e-3).sum())} of "
+        f"{err.numel()} above 1e-3; gradients worst {worst} {rel[worst]:.3g} of max-abs "
+        f"(autograd through _TensorCoreDot) [{card}]")
+    with torch.no_grad():
+        out = sse.encode_source({"src_tower": params}, cfg, tokens, lengths)
+    check(bool(torch.isfinite(out).all()) and out.shape == (256, tower.encoding_dim),
+          "transformer encode_source: shape or not finite")
+    norm = torch.linalg.norm(out[lengths > 0], dim=1)  # a length-0 row is tanh(proj_b) = 0
+    check(float((norm - 1).abs().max()) < 1e-3, "transformer encode_source: not unit norm")
+
+
+def range_parts(run, names: dict, reps: int = 3) -> dict:
+    """Device ms of one run() by part (torch.profiler with the CPU activity,
+    after a warm run): the kernels launched by the ops inside the profiler
+    range "chip.tower" are the tower; of the device's kernels and copies
+    (device_times), each one whose name holds a pattern of ``names`` is
+    that part (the hand-written kernels launch through ctypes, outside any
+    op); the rest is "small ops"."""
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+
+    def in_tower(e) -> bool:
+        while e is not None:
+            if e.name == "chip.tower":
+                return True
+            e = e.cpu_parent
+        return False
+
+    out = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and in_tower(e):
+            out["tower"] += sum(k.duration for k in e.kernels if k.name != e.name
+                                and not k.name.startswith(("sse.", "chip."))) / 1000.0 / reps
+    times = {k: v / reps for k, v in device_times(prof).items()
+             if not k.startswith(("sse.", "chip."))}
+    for key, ms in times.items():
+        part = next((p for pat, p in names.items() if pat in key), None)
+        if part is not None:
+            out[part] += ms
+    out["batch"] = sum(times.values())
+    out["small ops"] = out["batch"] - sum(v for k, v in out.items() if k != "batch")
+    return dict(out)
+
+
+def transformer_costs(card: str) -> None:
+    """The transformer tower's forward (the recipe's model, random weights
+    from the seed, no_grad, L=50, full lengths) at B=8, 256 and 4096: CUDA
+    events around the call (at small B that is the host path), the
+    kernels' device time (torch.profiler), the plain version's (the same
+    tower on bf16_matmul, float32 CUDA-core products) at B=4096, the bound
+    (its FLOPs over 989 TFLOP/s bf16; its bytes, tokens in and
+    embeddings out, are far below), and the GEMM kernels' names, none of
+    which may be a float32 or TF32 GEMM. Then one bulk B=4096 query batch
+    (the engine's two-phase route on the 1,249,280-row bf16 index of
+    unit rows, ragged lengths) by part: tower, phase 1, phase 2, select,
+    small ops."""
+    from torch.profiler import record_function
+
+    from sse_tpu_torch.models import sse, towers
+    from sse_tpu_torch.ops import rnn, topk
+    from sse_tpu_torch.serve.engine import build_fused_query_fn
+
+    cfg = transformer_config()
+    tower = cfg.src_tower
+    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    for b in (8, 256, 4096):
+        tokens, lengths = tower_inputs(tower, b, gen)
+        with torch.no_grad():
+            run = lambda: sse.encode_source(params, cfg, tokens, lengths)  # noqa: E731
+            ms = cuda_ms(run, reps=10)
+            run()
+            times = profiled(run, 5)
+        device = NOT_MEASURED if times is None else sum(
+            v for k, v in times.items() if not k.startswith("sse.")) / 5
+        flops = transformer_flops(tower, b, 50)
+        gemms = sorted(k for k in (times or {}) if any(g in k for g in GEMM))
+        check(not [k for k in (times or {}) if any(f in k for f in FP32_GEMM)],
+              f"transformer B={b}: a float32 GEMM ran: {sorted(times)}")
+        line = (f"transformer tower forward B={b} L=50 ({tower.num_layers} blocks, d="
+                f"{tower.hidden}): {ms:.4f} ms (CUDA events), device {device:.4f} ms; bound "
+                f"{flops / PEAK['bf16'] * 1e3:.4f} ms ({flops / 1e9:.1f} GFLOP, operations)")
+        if b == 4096:
+            plain = lambda: towers._transformer_encode(  # noqa: E731
+                params["src_tower"], tower, params["src_tower"]["embed"][tokens.long()],
+                torch.ones((b, 50), device="cuda"), dot=rnn.bf16_matmul)
+            with torch.no_grad():
+                line += f"; plain body (bf16_matmul) {cuda_ms(plain, reps=3):.4f} ms"
+        log(f"{line} [{card}]")
+        log(f"transformer B={b} GEMM kernels (device ms per call): "
+            + json.dumps({k[:110]: round(times[k] / 5, 4) for k in gemms}))
+    tokens, _ = tower_inputs(tower, 4096, gen)
+    lengths = torch.randint(1, 51, (4096,), generator=gen, device="cuda")
+    emb = unit_rows(T_PAD, gen).bfloat16()
+    nr, bt = T_PAD - 1000, topk.twophase_block_t(T_PAD, K)
+
+    def batch():  # what build_fused_query_fn runs for a packed B >= 1024 batch
+        with torch.no_grad():
+            with record_function("chip.tower"):
+                q = sse.encode_source(params, cfg, tokens, lengths)
+            return topk.fused_score_topk_twophase(q, emb, K, nr, block_t=bt)
+
+    fused = build_fused_query_fn(cfg, K)
+    tok8, len8 = tokens[:8].contiguous(), lengths[:8].contiguous()
+    ms8 = cuda_ms(lambda: fused(params, emb, tok8, len8, nr), reps=20)
+    log(f"transformer query dispatch B=8 (build_fused_query_fn: tower + streaming top-k on the "
+        f"1,249,280-row index; CUDA events, host path included): {ms8:.4f} ms [{card}]")
+    split = range_parts(batch, TWOPHASE_PARTS)
+    log(f"bulk transformer query batch B=4096 (two-phase route, device ms by part, "
+        f"torch.profiler): {fmt(split)}; bound of the tower "
+        f"{transformer_flops(tower, 4096, 50) / PEAK['bf16'] * 1e3:.4f} ms [{card}]")
+
+
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
     "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
@@ -1963,15 +2191,19 @@ def main() -> None:
     rnn_bwd_costs(card, "lstm", Bs=(8, 128, 256, 2304))
     check_topk(card, results)
     check_topk_exact(card, results)
+    check_transformer(card)
+    transformer_costs(card)
 
     corpus = served_corpus()
     width = dict(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1, encoding_dim=128)
     gru = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(cell="gru", **width))
     qna = qna_config()
     runs = {
-        "served GRU": served_slice("served GRU", gru, corpus, 1024),
-        "served qna": served_slice("served qna", qna, corpus, 4096),
-        "served exact": served_slice("served exact", gru, corpus, 4096, variant="exact"),
+        "served GRU": served_slice("served GRU", gru, corpus, (1024,)),
+        "served qna": served_slice("served qna", qna, corpus, (4096,)),
+        "served exact": served_slice("served exact", gru, corpus, (4096,), variant="exact"),
+        "served transformer": served_slice("served transformer", transformer_config(), corpus,
+                                           (1024, 4096)),
         **bench_slice(card),  # checks each run's kernels itself; "GRU train bench" too
         "compositional train bench": train_bench_slice(
             card, "compositional train bench",
@@ -1979,8 +2211,13 @@ def main() -> None:
                 vocab_size=8000, embed_dim=128, hidden=128, encoding_dim=128, cell="lstm",
                 num_layers=3, residual=True, dropout=0.1)),
             {"lstm_fwd": 6, "lstm_bwd": 6}),
+        "transformer train bench": train_bench_slice(
+            card, "transformer train bench",
+            bench.train_setup(tower=transformer_config().src_tower),
+            dict.fromkeys(RNN_KERNELS, 0)),
         "ranking preset": preset_slice(card, "ranking", "gru"),
         "qna preset": preset_slice(card, "qna", "lstm"),
+        "transformer preset": preset_slice(card, "ranking", "transformer", recipe="transformer"),
         "cli": cli_slice(card),
     }
     need = {
@@ -1991,11 +2228,15 @@ def main() -> None:
         "ranking preset": ("gru_fwd", "gru_bwd"),
         "qna preset": ("lstm_fwd", "lstm_bwd", "rnn_scan"),
         "served exact": ("gru_fwd", "topk_exact"),
+        "served transformer": ("topk_stream", "twophase_p1", "twophase_p2"),
         "cli": ("gru_fwd", "gru_bwd", "topk_stream"),
     }
     for run, names in need.items():
         missing = [n for n in names if runs[run].get(n, 0) < 1]
         check(not missing, f"kernels never launched on the {run} path: {missing}")
+    for run in ("served transformer", "transformer train bench", "transformer preset"):
+        check(all(runs[run][n] == 0 for n in RNN_KERNELS),
+              f"a recurrent kernel launched on the {run} path: {runs[run]}")
     launches = {n: sum(c.get(n, 0) for c in runs.values()) for n in KERNELS}
     for name in ("topk_stream", "topk_exact"):
         for b, at in results[name]["at_batch"].items():

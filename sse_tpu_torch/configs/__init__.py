@@ -6,9 +6,9 @@ The same ``TaskConfig`` (fields and defaults), the same four task
 ``TrainConfig``, and the same ``config.json`` format (``to_json``,
 ``from_json``, ``save``, ``load``): a file written by either package
 loads in the other. This loader imports no JAX (the JAX one imports the
-JAX models). A preset whose tower is not ported yet (qna's LSTM, the
-``compositional`` and ``transformer`` recipes) still builds its configs;
-encoding with them raises ``NotImplementedError``. See
+JAX models). Every preset and recipe runs in the port: the GRU presets,
+qna's LSTM with the attention readout, the ``compositional`` recipe's
+residual LSTM stack and the ``transformer`` recipe's pre-LN blocks. See
 ``sse_tpu/configs/__init__.py`` for where each preset's numbers were
 measured (TPU runs of the JAX package).
 """

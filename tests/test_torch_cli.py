@@ -99,6 +99,36 @@ def test_cli_full_flow(run, tmp_path):
     assert len(tensors) == 8 and len(meta) == 9 and len(tensors[0].split("\t")) == 16
 
 
+@pytest.mark.parametrize("flags, cell", [
+    (["--recipe", "transformer"], "transformer"),  # 4 pre-LN blocks, RoPE, lr 1e-3
+    (["--cell", "bow"], "bow"),
+])
+def test_cli_other_towers(run, tmp_path, flags, cell):
+    """The ``transformer`` recipe and the bag-of-subwords tower through the
+    CLI at tiny widths: demo-data, train (ranking preset, dual encoder),
+    index, eval --use_index, then a query through the model dir's engine."""
+    run("demo-data", "--task", "ranking", "--out_dir", "data", "--num_targets", "8",
+        "--train_per_target", "6")
+    rc, out, _ = run("train", "--task_type", "ranking", "--data_dir", "data", "--model_dir",
+                     "run", *TINY, "--num_negatives", "4", "--num_hard_negatives", "2", *flags)
+    assert rc == 0 and "[sse] final eval: " in out
+    cfg = json.loads((tmp_path / "run" / "config.json").read_text())
+    assert cfg["cell"] == cell and cfg["network_mode"] == "dual-encoder"
+    if cell == "transformer":
+        assert cfg["num_layers"] == 4 and cfg["pos_encoding"] == "rope"
+    rc, out, _ = run("index", "--model_dir", "run", "--data_dir", "data")
+    assert rc == 0 and "built index: 8 targets, dim 16" in out
+    rc, out, _ = run("eval", "--model_dir", "run", "--data_dir", "data", "--use_index")
+    metrics = _last_json(out)
+    assert rc == 0 and 0.0 <= metrics["recall@1"] <= 1.0
+    engine = Workspace.open(str(tmp_path / "run"), device="cpu").engine(k=3)
+    texts = [line.split("\t")[0] for line in
+             (tmp_path / "data" / "EvalPairs").read_text().splitlines()[:3]]
+    hits = engine.query(texts)
+    assert [len(h) for h in hits] == [3, 3, 3]
+    assert all(h["targetId"] == engine.index.ids[h["row"]] for row in hits for h in row)
+
+
 @pytest.mark.parametrize("kind, extra", [
     ("query", ["--num_targets", "512", "--batch", "4", "--encoding_dim", "16"]),
     ("index", ["--num_targets", "256", "--batch", "32", "--encoding_dim", "16"]),

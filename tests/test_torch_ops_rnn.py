@@ -134,12 +134,17 @@ def test_gru_cell_matches_jax():
 
 
 def test_other_cells_are_not_ported():
-    """The transformer and bag-of-subwords towers still raise; an unknown
-    cell name is an error at the layer."""
+    """The transformer and bag-of-subwords towers build, and need
+    embed_dim == hidden (a ValueError, as in JAX); an unknown cell name is
+    an error at the tower and at the layer."""
     for cell in ("transformer", "bow"):
-        cfg = ttowers.TowerConfig(vocab_size=10, cell=cell)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttowers.init_tower(cfg, device="cpu")
+        params = ttowers.init_tower(ttowers.TowerConfig(vocab_size=10, cell=cell), device="cpu")
+        assert "layers" not in params and ("blocks" in params) == (cell == "transformer")
+        with pytest.raises(ValueError, match="embed_dim == hidden"):
+            ttowers.init_tower(ttowers.TowerConfig(vocab_size=10, cell=cell, embed_dim=64),
+                               device="cpu")
+    with pytest.raises(ValueError, match="unknown cell"):
+        ttowers.init_tower(ttowers.TowerConfig(vocab_size=10, cell="rnn"), device="cpu")
     args = [torch.from_numpy(a) for a in _layer_inputs(5, 3, 2, 16, 16)]
     with pytest.raises(ValueError, match="unknown recurrent cell"):
         rnn.rnn_layer(*args, cell="rnn")

@@ -184,17 +184,20 @@ def test_clip_and_adam_match_optax(optimizer):
 V, L, NT, BS, NEG = 120, 6, 40, 8, 8
 
 
-def _model_cfgs(mode, **tower_kw):
+def _model_cfgs(mode, tgt_width=("hidden",), **tower_kw):
+    """Both packages' configs; a dual-encoder's target tower is wider (48
+    in the ``tgt_width`` fields)."""
     tower = dict(vocab_size=V, embed_dim=32, hidden=32, encoding_dim=16, **tower_kw)
     jt, tt = jtowers.TowerConfig(**tower), ttowers.TowerConfig(**tower)
+    wider = {f: 48 for f in tgt_width}
     extra = {}
     if mode == "dual-encoder":
-        extra = dict(tgt_tower=dataclasses.replace(jt, hidden=48))
+        extra = dict(tgt_tower=dataclasses.replace(jt, **wider))
     if mode == "source-encoder-only":
         extra = dict(num_targets=NT)
     jcfg = jsse.SSEConfig(mode=jsse.NetworkMode(mode), src_tower=jt, **extra)
     if "tgt_tower" in extra:
-        extra = dict(tgt_tower=dataclasses.replace(tt, hidden=48))
+        extra = dict(tgt_tower=dataclasses.replace(tt, **wider))
     return jcfg, tsse.SSEConfig(mode=tsse.NetworkMode(mode), src_tower=tt, **extra)
 
 
@@ -231,9 +234,29 @@ def test_lstm_attention_train_step_matches_jax():
     _step_parity(jcfg, tcfg, "sampled")
 
 
-def _step_parity(jcfg, tcfg, kind):
+@pytest.mark.parametrize("mode,cell,lr", [
+    # the target tower wider (embed_dim and hidden 48); at lr 0.5 this
+    # model's 3-step change is chaotic in the reference itself: JAX
+    # started from params moved by 1e-6 relative ends 20% apart (its
+    # step-1 gradient norm is 117, and bf16 roundings flip), so it steps
+    # at lr 0.01, where that spread is 3.5% and the port's 1.2%
+    ("dual-encoder", "transformer", 0.01),
+    ("shared-encoder", "transformer", 0.5),  # the merged pass: one width for all rows
+    ("dual-encoder", "bow", 0.5),
+])
+def test_transformer_train_step_matches_jax(mode, cell, lr):
+    """test_train_step_matches_jax on 2-block RoPE transformer towers (2
+    heads) and on bag-of-subwords towers with the attention readout, same
+    tolerances; SGD at ``lr``."""
+    jcfg, tcfg = _model_cfgs(mode, tgt_width=("embed_dim", "hidden"), cell=cell,
+                             num_layers=2, num_heads=2, max_len=16,
+                             readout="attention" if cell == "bow" else "mean")
+    _step_parity(jcfg, tcfg, "sampled", lr)
+
+
+def _step_parity(jcfg, tcfg, kind, lr=0.5):
     loss = dict(kind=kind, num_negatives=NEG)
-    train = dict(batch_size=BS, learning_rate=0.5, optimizer="sgd", max_gradient_norm=1e9)
+    train = dict(batch_size=BS, learning_rate=lr, optimizer="sgd", max_gradient_norm=1e9)
     jtc = jloop.TrainConfig(loss=jlosses.LossConfig(**loss), **train)
     ttc = tloop.TrainConfig(loss=tlosses.LossConfig(**loss), **train)
     rng = np.random.default_rng(2)
@@ -246,7 +269,7 @@ def _step_parity(jcfg, tcfg, kind):
 
     js = jloop.init_train_state(jax.random.PRNGKey(0), jcfg, jtc)
     p0 = params_from_jax(jax.device_get(js.params))  # the same weights
-    ts = tloop.TrainState(params=p0, opt_state=None, step=0, lr=torch.tensor(0.5))
+    ts = tloop.TrainState(params=p0, opt_state=None, step=0, lr=torch.tensor(lr))
     jstep = jloop.make_train_step(jcfg, jtc, donate=False)
     tstep = tloop.make_train_step(tcfg, ttc, sample_negatives=jax_negs)
     for s in range(3):
@@ -258,7 +281,7 @@ def _step_parity(jcfg, tcfg, kind):
         if s == 0:
             for k in ("loss", "accuracy", "grad_norm"):
                 _close(tm[k].item(), jm[k], 1e-3, k)
-            _check_deltas(ts.params, js.params, p0, scale=1 / 0.5, what="step-1 gradient")
+            _check_deltas(ts.params, js.params, p0, scale=1 / lr, what="step-1 gradient")
     _check_deltas(ts.params, js.params, p0, scale=1.0, what="3-step change")
 
 
