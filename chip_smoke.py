@@ -7,6 +7,7 @@ CLI.
     python3 chip_smoke.py --twophase # only the two-phase top-k's costs
     python3 chip_smoke.py --stream   # only the streaming top-k's costs
     python3 chip_smoke.py --bench    # only the query bench's sweep
+    python3 chip_smoke.py --sharded  # only the sharded serving phase (7.)
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
 cell, and a served qna query by part: qna_query_costs), ``--twophase``
@@ -86,6 +87,26 @@ commits compare in one run, taken in turns.
    shapes; each result as JSON, the kernels each run launched, the timed
    setup's first batch against topk_reference, the device's busy share of
    one B=8 and one B=4096 window.
+7. Sharded serving (sharded_slice, ``sse_tpu_torch.parallel``): the
+   bench's GRU model over 1,249,280 random unit rows made on the card,
+   on (1, 2), (1, 4) and (2, 2) grids (every entry cuda:0 on a one-card
+   machine, so the shards share the card; distinct cards in turn where
+   there are more): bf16 and int8, B=8 (streaming a shard) and 4096
+   (two-phase a shard), k=10 and 100, the exact variant at B=8. On one
+   data replica the rows and values equal the unsharded call's bit for
+   bit; on (2, 2) they equal it wherever a replica's q equals the whole
+   batch's, equal the unsharded top-k of the replicas' own q everywhere,
+   and hold against topk_reference where q differs. Each call launches
+   each of its top-k kernels data x model times. The device ms of the
+   sharded and unsharded calls at B=8 and 4096 (shards sharing one card:
+   not a multi-card speed); the bench's query setup on a (1, 2) grid; a
+   (2, 2) engine served over HTTP (GET, POST of 4,096 texts) against
+   topk_reference on the whole index; an add across a block boundary and
+   a delete from both blocks of a (1, 2) engine against the same on one
+   device; two processes (``chip_smoke.py --sharded-rank R``) joined by
+   ``parallel.distributed`` (gloo on one card, NCCL on two) serving a
+   (1, 2) grid across them, whose rows equal the single process's and
+   whose two-process index save loads back equal.
 
 Every kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
@@ -106,6 +127,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import random
 import socket
 import subprocess
@@ -2118,6 +2140,348 @@ def transformer_costs(card: str) -> None:
         f"{transformer_flops(tower, 4096, 50) / PEAK['bf16'] * 1e3:.4f} ms [{card}]")
 
 
+# ------------------------------------------------------------ phase 7
+SHARDED_MESHES = ((1, 2), (1, 4), (2, 2))
+SHARDED_ROWS = 1_249_280  # the bench index's real rows, random unit rows
+# where the two rank processes save their rows and index (beside this file)
+MP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sharded_mp")
+
+
+def mesh_cards(n: int) -> list:
+    """The cards of a grid of ``n`` entries: every entry cuda:0 on a
+    one-card machine (the shards share the card), else the cards in turn."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def padded(shards: int) -> int:
+    """The index rows of SHARDED_ROWS real rows in ``shards`` blocks
+    (1,249,280; 1,253,376 at 2; 1,261,568 at 4)."""
+    from sse_tpu_torch.index.sharded_index import _padded_rows
+
+    return _padded_rows(SHARDED_ROWS, None, shards)
+
+
+def sharded_rows(dtype) -> torch.Tensor:
+    """SHARDED_ROWS random unit rows made on the card from a seeded
+    generator (bench._device_index), stored as the index stores them, with
+    zero padding to the 4-shard geometry: its first padded(1) rows are the
+    unsharded index, its first padded(2) the 2-shard one."""
+    from sse_tpu_torch import bench
+
+    return bench._device_index(SHARDED_ROWS, D, dtype, "cuda", shards=4)
+
+
+def sharded_tokens(b: int, seed: int, device="cuda"):
+    """Seeded token ids and ragged lengths of a B=b batch at L=50."""
+    from sse_tpu_torch import bench
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    toks = bench._random_tokens(gen, (b, 50), 8000, device)
+    lens = torch.randint(1, 51, (b,), generator=gen, device=device, dtype=torch.int32)
+    return toks, lens
+
+
+def held_sharded(label: str, mesh, got, want, q_rep, q_full, emb, k: int, variant: str) -> str:
+    """A sharded call's (vals, rows) against the unsharded call's on the
+    same tokens. A grid of one data replica encodes the very batch the
+    unsharded call encodes: rows and values must be identical. With
+    several replicas each encodes its slice, and the GEMMs may round a
+    slice's q apart from the whole batch's in the last bits: where a
+    query's q matches, its rows must be identical to the unsharded call's;
+    every query's must be identical to the unsharded top-k of its
+    replica's own q (the engine's route for the whole batch, on the whole
+    index), and a query whose q differs is also held against
+    topk_reference (rows_off_reference)."""
+    from sse_tpu_torch.ops import topk
+    from sse_tpu_torch.serve.engine import _shard_topk
+
+    (gv, gr), (wv, wr) = got, want
+    if mesh.shape["data"] == 1:
+        same(label, got, want)
+        return "identical to the unsharded call"
+    match = (q_rep == q_full).all(dim=1)
+    check(torch.equal(gr[match], wr[match]) and torch.equal(gv[match], wv[match]),
+          f"{label}: rows differ where the replica's q matches the whole batch's")
+    comp = _shard_topk(q_rep, emb, k, SHARDED_ROWS, 0, variant)
+    same(f"{label} on the replicas' q", got,
+         topk.decode(comp, emb.dtype == torch.int8, variant == "exact"))
+    n = 0
+    if not bool(match.all()):
+        n = rows_near_reference(q_rep[~match], emb, SHARDED_ROWS, gr[~match], variant)
+    return (f"identical where q matches the whole batch's ({int(match.sum())} of {len(match)} "
+            f"queries), identical to the unsharded top-k of the replicas' q; "
+            f"{n} positions apart from topk_reference where q differs, each within tolerance")
+
+
+def sharded_slice(card: str) -> dict:
+    """Sharded serving (``sse_tpu_torch.parallel``) on the bench's GRU
+    model and a 1,249,280-row index of random unit rows: the (1, 2),
+    (1, 4) and (2, 2) grids against the unsharded fused query (bf16 and
+    int8, B=8 streaming and B=4096 two-phase a shard, k=10 and 100; the
+    exact variant at B=8), with each call's launches (one a shard and
+    kernel: data x model); the sharded and unsharded calls' device ms at
+    B=8 and 4096; the bench's query setup on a grid; a (2, 2) engine
+    served over HTTP (GET, POST of 4,096 texts) held against
+    topk_reference on the whole index; an add and a delete across a shard
+    boundary on a (1, 2) engine against the same on one device; and two
+    processes joined by parallel.distributed (sharded_processes). Returns
+    the launch counts of the HTTP run (reset just before it)."""
+    from sse_tpu_torch import bench, ops
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.parallel import RowShards, make_mesh, replicate
+    from sse_tpu_torch.serve.engine import build_fused_query_fn
+
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    where = ("every grid entry is cuda:0: the shards share one card and their launches run "
+             "one after another" if count == 1 else
+             f"{count} cards: grid entry i is cuda:(i mod {count})")
+    log(f"sharded: {where}")
+    cfg = bench._default_model()
+    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED), "cuda")
+    meshes = {shape: make_mesh(*shape, devices=mesh_cards(shape[0] * shape[1]))
+              for shape in SHARDED_MESHES}
+    for shape, mesh in meshes.items():
+        check(mesh.shape == {"data": shape[0], "model": shape[1]}, f"mesh {mesh.shape}")
+    reps = {shape: replicate(params, mesh) for shape, mesh in meshes.items()}
+    timings = []
+    for dtype in (torch.bfloat16, torch.int8):
+        base = sharded_rows(dtype)
+        full = base[:SHARDED_ROWS]
+        shards = {shape: RowShards.from_tensor(base[:padded(shape[1])], mesh)
+                  for shape, mesh in meshes.items()}
+        geometry = {s: shards[(1, s)].rows_per_shard for s in (2, 4)}
+        check(all(t % ops.topk.TWOPHASE_BLOCK_T == 0 for t in geometry.values()),
+              f"shard rows {geometry} not whole two-phase blocks")
+        log(f"sharded {str(dtype)[6:]} index: {SHARDED_ROWS} rows; {padded(2)} rows in 2 shards "
+            f"and {padded(4)} in 4, rows a shard {geometry}")
+        for b, k, variant in ((8, 10, "packed"), (8, 100, "packed"), (4096, 10, "packed"),
+                              (4096, 100, "packed"), (8, 10, "exact")):
+            toks, lens = sharded_tokens(b, 100 + b + k)
+            want = build_fused_query_fn(cfg, k, SHARDED_ROWS, variant)(params, full, toks, lens)
+            with torch.no_grad():
+                q_full = sse.encode_source(params, cfg, toks, lens)
+            for shape, mesh in meshes.items():
+                fn = build_fused_query_fn(cfg, k, SHARDED_ROWS, variant, mesh=mesh)
+                ops.reset_launch_counts()
+                got = fn(reps[shape], shards[shape], toks, lens)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                data, s = shape
+                two = (variant == "packed" and b // data >= ops.topk.TWOPHASE_MIN_BATCH
+                       and ops.topk.twophase_block_t(shards[shape].rows_per_shard, k) is not None)
+                names = (("twophase_p1", "twophase_p2") if two else
+                         ("topk_exact",) if variant == "exact" else ("topk_stream",))
+                check(all(counts[n] == data * s for n in names)
+                      and sum(counts[n] for n in ops.topk.KERNELS) == len(names) * data * s
+                      and counts["gru_fwd"] == sum(len(set(mesh.devices[d].tolist()))
+                                                   for d in range(data)),
+                      f"{shape} B={b}: launches {counts}, want {data * s} of {names}")
+                bl = b // data
+                with torch.no_grad():
+                    q_rep = torch.cat([sse.encode_source(params, cfg, toks[d * bl:(d + 1) * bl],
+                                                         lens[d * bl:(d + 1) * bl])
+                                       for d in range(data)])
+                how = held_sharded(f"{shape} {dtype} B={b} k={k} {variant}", mesh, got, want,
+                                   q_rep, q_full, full, k, variant)
+                log(f"sharded {shape} {str(dtype)[6:]} B={b} k={k} {variant}: launches "
+                    f"{ {n: counts[n] for n in names} } ({data * s} a kernel), rows {how}")
+                if dtype == torch.bfloat16 and k == 10 and variant == "packed":
+                    timings.append((shape, b, fn, reps[shape], shards[shape], toks, lens))
+            if dtype == torch.bfloat16 and k == 10 and variant == "packed":
+                timings.append(((1, 1), b, build_fused_query_fn(cfg, k, SHARDED_ROWS), params,
+                                full, toks, lens))
+        if dtype == torch.bfloat16:
+            for shape, b, fn, p, emb, toks, lens in sorted(timings, key=lambda t: (t[1], t[0])):
+                run = lambda: fn(p, emb, toks, lens)  # noqa: E731
+                times = profiled(run, 3)
+                dev = NOT_MEASURED if times is None else sum(times.values()) / 3
+                log(f"sharded timing {shape} bf16 B={b} k=10: device {dev:.4f} ms a call "
+                    f"(torch.profiler, kernels and copies, summed over the cards), "
+                    f"{cuda_ms(run, 3):.4f} ms a call (CUDA events) -- {where}"
+                    f"{'; not a multi-card speed' if count == 1 else ''} [{card}]")
+            timings.clear()
+            s = bench.query_setup(num_targets=SHARDED_ROWS, encoding_dim=D, batch=8, k=K,
+                                  index_dtype=torch.bfloat16, mesh=meshes[(1, 2)])
+            result = bench.time_query(s, 0.5)
+            vals, rows, n, bad = bench.first_batch(s)
+            check(not bad and result["value"] > 0, f"bench on a grid: {result}, {bad[:5]}")
+            log(f"sharded bench query (1, 2) bf16 B=8: {json.dumps(result)}; first batch "
+                f"against topk_reference: {n} positions apart, each within tolerance [{card}]")
+            del s
+        del base, full, shards
+        torch.cuda.empty_cache()
+
+    counts = sharded_engines(cfg, params, meshes)
+    sharded_processes(cfg, params)
+    log(f"sharded slice: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def sharded_engines(cfg, params, meshes) -> dict:
+    """A (2, 2) engine over the bf16 index served over HTTP, and an add
+    and a delete across a shard boundary on a (1, 2) engine (see
+    sharded_slice), with the ranking demo corpus' vocabulary and eval
+    texts. Returns the HTTP run's launch counts."""
+    from sse_tpu_torch import ops
+    from sse_tpu_torch.data import synthetic
+    from sse_tpu_torch.data.corpus import build_vocab
+    from sse_tpu_torch.index import ShardedIndex
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.parallel import RowShards
+    from sse_tpu_torch.serve import QueryEngine, serve_http
+
+    train, evalp, targets = synthetic.make_corpus(task="ranking", num_targets=1024, seed=SEED)
+    vocab = build_vocab(8000, train, targets)
+    base = sharded_rows(torch.bfloat16)
+    ids = [f"r{i}" for i in range(SHARDED_ROWS)]
+    mesh = meshes[(2, 2)]
+    index = ShardedIndex(emb=RowShards.from_tensor(base[:padded(2)], mesh),
+                         num_real=SHARDED_ROWS, ids=ids, texts=ids, mesh=mesh)
+    engine = QueryEngine(params, cfg, vocab, index, max_seq_length=50, max_batch=8, k=K,
+                         bulk_batch=4096)
+    log(f"sharded (2, 2) engine warmup: {engine.warmup():.2f} s")
+    texts = [s for s, _ in evalp[:4096]]
+    check(len(texts) == 4096, "4,096 eval texts")
+    ops.reset_launch_counts()
+    server = serve_http(engine, port=free_port(), block=False)
+    base_url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        got = http_json(base_url + "/api/query?keywords=" + urllib.request.quote(texts[0]))
+        t0 = time.perf_counter()
+        bulk = http_json(base_url + "/api/query", {"queries": texts})["results"]
+        log(f"sharded (2, 2) POST /api/query with 4096 texts: {time.perf_counter() - t0:.3f} s")
+    finally:
+        server.shutdown()
+        server.server_close()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    BATCH_LAUNCHES.update(ops.topk.launches)
+    log(f"sharded (2, 2) served run launches: {counts}, top-k by batch size "
+        f"{dict(ops.topk.launches)}")
+    check(len(bulk) == 4096 and all(len(h) == K for h in bulk) and len(got["results"]) == K,
+          "sharded served result shapes")
+    full = base[:SHARDED_ROWS]
+    for name, tx, res in (("GET", texts[:1], [got["results"]]), ("POST", texts, bulk)):
+        tokens, lengths = engine.encode_queries(tx)
+        bl = tokens.shape[0] // 2
+        with torch.no_grad():  # each replica's own q, as the engine encoded it
+            q = torch.cat([sse.encode_source(params, cfg, tokens[d * bl:(d + 1) * bl],
+                                             lengths[d * bl:(d + 1) * bl]) for d in range(2)])
+        rows = torch.tensor([[h["row"] for h in hits] for hits in res], device="cuda")
+        n = rows_near_reference(q[: len(tx)], full, SHARDED_ROWS, rows)
+        log(f"sharded (2, 2) served {name} of {len(tx)}: rows == topk_reference on the whole "
+            f"index ({n} positions apart, each within one key bucket)")
+
+    # add across the boundary between the two blocks of a (1, 2) index
+    # holding 5 rows less than its first block, then delete rows of both
+    # blocks; the same on one device; the next queries must agree bit for
+    # bit
+    edge = padded(2) // 2
+    nr = edge - 5
+    m12 = meshes[(1, 2)]
+    one = ShardedIndex(emb=base[:padded(2)].clone(), num_real=nr, ids=ids[:nr], texts=ids[:nr])
+    two = ShardedIndex(emb=RowShards.from_tensor(base[:padded(2)], m12), num_real=nr,
+                       ids=ids[:nr], texts=ids[:nr], mesh=m12)
+    engines = [QueryEngine(params, cfg, vocab, ix, max_seq_length=50, max_batch=8, k=K)
+               for ix in (two, one)]
+    new = [f"new{i}" for i in range(10)]
+    gone = ["r5", "new9", f"r{edge - 600}", "new2", f"r{edge // 2}"]
+    for e in engines:
+        check(e.add_documents(new, texts[:10]) == nr + 10, "add")
+        check(e.delete_documents(gone) == nr + 5, "delete")
+    check(torch.equal(two.emb[:], one.emb), "sharded add/delete rows != one device's")
+    check(two.ids == one.ids, "sharded add/delete ids != one device's")
+    a, b = (e.query(texts[:8]) for e in engines)
+    check(a == b, "queries after add/delete differ between the grid and one device")
+    log(f"sharded (1, 2) add of 10 across row {edge} and delete of 5 from both shards: rows, "
+        f"ids and the next 8 queries == one device's")
+    return counts
+
+
+def sharded_processes(cfg, params) -> None:
+    """Two processes (``python3 chip_smoke.py --sharded-rank R``) joined by
+    parallel.distributed.initialize over the card(s) (gloo when they share
+    one, NCCL on two), each holding one block of a (1, 2) grid: both ranks'
+    sharded rows at B=8 and 4096 must be the single process's unsharded
+    rows, and the index they save, each its own block, must load in this
+    process with the same rows and answer the same queries."""
+    import shutil
+
+    from sse_tpu_torch.index import ShardedIndex
+    from sse_tpu_torch.serve.engine import build_fused_query_fn
+
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    # the kernels are built (main) before the ranks start: they load the
+    # same library instead of racing two nvcc runs into one directory
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                               str(r), coord],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"rank {r} failed ({p.returncode}):\n{out}\n{err}")
+        for line in (out + err).splitlines():
+            if line.startswith("[sse]") or line.startswith("rank"):
+                log(f"  rank {r}: {line}")
+    log(f"sharded processes: both ranks done in {time.perf_counter() - t0:.1f} s")
+    full = sharded_rows(torch.bfloat16)
+    loaded = ShardedIndex.load(os.path.join(MP_DIR, "index"), "cuda")
+    check(loaded.num_real == SHARDED_ROWS and torch.equal(loaded.emb, full[:padded(2)])
+          and loaded.ids == [f"r{i}" for i in range(SHARDED_ROWS)],
+          "the two-process save loaded back other rows")
+    for b in (8, 4096):
+        toks, lens = sharded_tokens(b, 7 + b)
+        fn = build_fused_query_fn(cfg, K, SHARDED_ROWS)
+        want = fn(params, full[:SHARDED_ROWS], toks, lens)
+        same(f"two-process save, loaded, B={b}", fn(params, loaded.emb, toks, lens), want)
+        for r in range(2):
+            got = torch.load(os.path.join(MP_DIR, f"rank{r}_b{b}.pt"))
+            same(f"rank {r} B={b}", (got[0].cuda(), got[1].cuda()), want)
+    log("sharded processes: both ranks' rows at B=8 and 4096 == the single process's; the "
+        "two-process save loads back with the same rows and answers")
+
+
+def sharded_rank(rank: int, coord: str) -> None:
+    """One rank of sharded_processes."""
+    from sse_tpu_torch import bench
+    from sse_tpu_torch.index import ShardedIndex
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.parallel import RowShards, distributed, make_mesh
+    from sse_tpu_torch.serve.engine import build_fused_query_fn
+
+    distributed.initialize(coord, 2, rank)
+    dev = distributed.local_device()
+    mesh = make_mesh(1, 2)
+    check(mesh.multi_process and mesh.ranks.tolist() == [[0, 1]], f"rank {rank}: {mesh}")
+    cfg = bench._default_model()
+    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    rows = bench._device_index(SHARDED_ROWS, D, torch.bfloat16, dev, shards=2)
+    ids = [f"r{i}" for i in range(SHARDED_ROWS)]
+    index = ShardedIndex(emb=RowShards.from_tensor(rows, mesh), num_real=SHARDED_ROWS, ids=ids,
+                         texts=ids, mesh=mesh)
+    del rows
+    fn = build_fused_query_fn(cfg, K, SHARDED_ROWS, mesh=mesh)
+    os.makedirs(MP_DIR, exist_ok=True)
+    for b in (8, 4096):
+        toks, lens = sharded_tokens(b, 7 + b, dev)
+        vals, got = fn(params, index.emb, toks, lens)
+        torch.save((vals.cpu(), got.cpu()), os.path.join(MP_DIR, f"rank{rank}_b{b}.pt"))
+    index.save(os.path.join(MP_DIR, "index"))
+    print(f"rank {rank}: {distributed.process_info()}, backend {distributed.backend()}",
+          flush=True)
+    torch.distributed.destroy_process_group()
+
+
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
     "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
@@ -2150,6 +2514,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--sharded-rank" in sys.argv[1:]:  # one rank of sharded_processes
+        at = sys.argv.index("--sharded-rank")
+        sharded_rank(int(sys.argv[at + 1]), sys.argv[at + 2])
+        return
 
     from sse_tpu_torch import bench
     from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
@@ -2181,6 +2549,9 @@ def main() -> None:
     if "--bench" in sys.argv[1:]:
         bench_sweep(card)
         return
+    if "--sharded" in sys.argv[1:]:
+        sharded_slice(card)
+        return
     results = {name: {} for name in KERNELS}
     check_gru(card, results)
     check_lstm(card, results)
@@ -2204,6 +2575,7 @@ def main() -> None:
         "served exact": served_slice("served exact", gru, corpus, (4096,), variant="exact"),
         "served transformer": served_slice("served transformer", transformer_config(), corpus,
                                            (1024, 4096)),
+        "sharded": sharded_slice(card),
         **bench_slice(card),  # checks each run's kernels itself; "GRU train bench" too
         "compositional train bench": train_bench_slice(
             card, "compositional train bench",
@@ -2229,6 +2601,7 @@ def main() -> None:
         "qna preset": ("lstm_fwd", "lstm_bwd", "rnn_scan"),
         "served exact": ("gru_fwd", "topk_exact"),
         "served transformer": ("topk_stream", "twophase_p1", "twophase_p2"),
+        "sharded": ("gru_fwd", "topk_stream", "twophase_p1", "twophase_p2"),
         "cli": ("gru_fwd", "gru_bwd", "topk_stream"),
     }
     for run, names in need.items():

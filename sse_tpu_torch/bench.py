@@ -75,13 +75,14 @@ def _device_index(
     dim: int,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cuda",
+    shards: int = 1,
 ) -> torch.Tensor:
     """Random L2-normalized rows made on ``device`` (no host upload), stored
     as the index stores them (``quantize_rows``), padded to the index's row
-    geometry with zero rows past ``num_targets``."""
+    geometry (of ``shards`` row blocks) with zero rows past ``num_targets``."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(0)
-    emb = torch.zeros((_padded_rows(num_targets, None), dim), dtype=dtype, device=device)
+    emb = torch.zeros((_padded_rows(num_targets, None, shards), dim), dtype=dtype, device=device)
     chunk = 1 << 20  # rows drawn at a time: bounds the float32 peak
     for lo in range(0, num_targets, chunk):
         hi = min(lo + chunk, num_targets)
@@ -191,7 +192,7 @@ class QuerySetup:
     fused: Callable
     params: Any
     model_cfg: SSEConfig
-    emb: torch.Tensor
+    emb: Any  # torch.Tensor, or the RowShards of a grid
     num_real: int
     k: int
     max_seq_length: int
@@ -211,11 +212,17 @@ def query_setup(
     max_seq_length: int = 50,
     index_dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> QuerySetup:
     """The query bench's inputs. With ``model_dir``: that model dir's
     engine (its index, params, ``max_seq_length`` and ``k``, which the
-    engine clamps to the index's real rows). Otherwise the bench tower
-    with random weights (seed 0) over ``_device_index``."""
+    engine clamps to the index's real rows; on the workspace's grid where
+    it has one). Otherwise the bench tower with random weights (seed 0)
+    over ``_device_index``, row-sharded over ``mesh`` when given (then
+    ``device`` is the grid's first device and ``batch`` must divide over
+    its 'data' axis)."""
+    if mesh is not None:
+        device = mesh.local_devices[0]
     device = _bench_device(device)
     if model_dir:
         from sse_tpu_torch.workspace import Workspace
@@ -225,12 +232,17 @@ def query_setup(
         emb, num_real, k = engine.index.emb, engine.index.num_real, engine.k
         max_seq_length = engine.max_seq_length
     else:
+        from sse_tpu_torch.parallel.mesh import RowShards, replicate
         from sse_tpu_torch.serve.engine import build_fused_query_fn
 
         model_cfg = _default_model(encoding_dim=encoding_dim)
         params = sse.init_params(model_cfg, torch.Generator().manual_seed(0), device)
-        emb, num_real = _device_index(num_targets, encoding_dim, index_dtype, device), num_targets
-        fused = build_fused_query_fn(model_cfg, k=k, num_real=num_targets)
+        shards = 1 if mesh is None else mesh.shape["model"]
+        emb, num_real = _device_index(num_targets, encoding_dim, index_dtype, device,
+                                      shards), num_targets
+        if mesh is not None:
+            emb, params = RowShards.from_tensor(emb, mesh), replicate(params, mesh)
+        fused = build_fused_query_fn(model_cfg, k=k, num_real=num_targets, mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(100)
     variants = [
         _random_tokens(gen, (batch, max_seq_length), model_cfg.src_tower.vocab_size, device)
@@ -248,10 +260,14 @@ def first_batch(s: QuerySetup) -> Tuple[torch.Tensor, torch.Tensor, int, list]:
     positions that differ, those beyond the kernels' tolerance)."""
     from sse_tpu_torch.ops.topk import rows_off_reference
 
+    from sse_tpu_torch.parallel.mesh import Replicated
+
     vals, rows = s.call(s.variants[0])
+    params = s.params[s.emb.device] if isinstance(s.params, Replicated) else s.params
     with torch.no_grad():
-        q = sse.encode_source(s.params, s.model_cfg, s.variants[0], s.lengths)
-    return (vals, rows, *rows_off_reference(q, s.emb, rows, s.num_real))
+        q = sse.encode_source(params, s.model_cfg, s.variants[0], s.lengths)
+    # s.emb[:]: the whole index as one tensor (a grid's row blocks gathered)
+    return (vals, rows, *rows_off_reference(q, s.emb[:], rows, s.num_real))
 
 
 def run_query_bench(
@@ -264,11 +280,13 @@ def run_query_bench(
     max_seq_length: int = 50,
     index_dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> Dict[str, Any]:
     """End-to-end fused query path (token ids → encode → scores → exact
-    top-k) queries/sec, the best of windows over ``seconds``."""
+    top-k) queries/sec, the best of windows over ``seconds`` (over the
+    row-sharded index of ``mesh`` when given, see ``query_setup``)."""
     return time_query(query_setup(model_dir, num_targets, encoding_dim, batch, k,
-                                  max_seq_length, index_dtype, device), seconds)
+                                  max_seq_length, index_dtype, device, mesh), seconds)
 
 
 def time_query(s: QuerySetup, seconds: float = 8.0) -> Dict[str, Any]:

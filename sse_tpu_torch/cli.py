@@ -13,9 +13,16 @@ Usage:
 
 Every command runs on the CUDA card and raises where there is none;
 ``SSE_PLATFORM=cpu`` runs it on the CPU (the counterpart of the JAX CLI's
-``SSE_PLATFORM``, which picks JAX's backend). One process on one card:
-``--cp_shards`` above 0 and more than one process raise
-``NotImplementedError`` (ROADMAP.md §1, multi-GPU). ``bench`` runs the
+``SSE_PLATFORM``, which picks JAX's backend). On a machine with several
+cards, ``index``, ``eval --use_index`` and ``serve`` run on the
+('data', 'model') grid of the config's ``mesh_data`` x ``mesh_model``
+(``Workspace.mesh``). Several processes join by ``--coordinator``,
+``--num_processes`` and ``--process_id`` (``train``'s flags, as in the
+JAX CLI) or ``SSE_COORDINATOR``, ``SSE_NUM_PROCESSES`` and
+``SSE_PROCESS_ID`` (any command), before the first touch of a card.
+Training stays on one process and one card: multi-process ``train`` and
+context-parallel encoding (``index --cp_shards`` above 0) raise
+``NotImplementedError`` (ROADMAP.md §1 item 5). ``bench`` runs the
 port's benchmark (``sse_tpu_torch.bench``) and prints its result as one
 JSON line; unlike the JAX CLI it honours ``--seconds``, and its train
 bench times one step a dispatch (the JAX CLI's default chains 8).
@@ -31,7 +38,7 @@ import sys
 import time
 
 _TASKS = ["classification", "ranking", "crosslingual", "qna"]
-_MULTI_GPU = "is not ported yet (ROADMAP.md §1, multi-GPU)"
+_MULTI_GPU = "is not ported yet (ROADMAP.md §1 item 5)"
 _INDEX_DTYPES = ["float32", "bfloat16", "int8"]  # torch dtype names
 
 
@@ -110,23 +117,11 @@ def cmd_demo_data(args) -> int:
     return 0
 
 
-def _check_single_process(args) -> None:
-    """The JAX CLI's multi-host flags (and their SSE_* environment
-    fallbacks) are accepted; more than one process raises."""
-    coord = args.coordinator or os.environ.get("SSE_COORDINATOR")
-    nproc = args.num_processes
-    if nproc is None and os.environ.get("SSE_NUM_PROCESSES"):
-        nproc = int(os.environ["SSE_NUM_PROCESSES"])
-    if (nproc and nproc > 1) or coord:
-        raise NotImplementedError(f"multi-process training {_MULTI_GPU}")
-
-
 def cmd_train(args) -> int:
     from sse_tpu_torch.configs import preset
     from sse_tpu_torch.utils.device import env_device
     from sse_tpu_torch.workspace import Workspace
 
-    _check_single_process(args)
     if args.task_type is not None:
         cfg = preset(args.task_type, recipe=args.recipe, **_overrides(args))
         ws = Workspace.create(args.model_dir, cfg, env_device())
@@ -194,7 +189,7 @@ def cmd_eval(args) -> int:
         model_cfg = ws.model_config(vocab, tspace)
         state, mgr = ws.restore_state(model_cfg)
         mgr.close()
-        index = ShardedIndex.load(ws.index_dir, ws.device)
+        index = ShardedIndex.load(ws.index_dir, ws.mesh() or ws.device)
         result = evaluate_against_index(inference_params(state), model_cfg, eval_pairs, index)
     else:
         result = ws.evaluate(args.data_dir)
@@ -284,10 +279,31 @@ def cmd_bench(args) -> int:
 
 
 def _add_dist_flags(p) -> None:
-    """The JAX CLI's multi-host flags; more than one process raises."""
+    """The JAX CLI's multi-host flags (``train``'s). Environment
+    fallbacks, for any command: SSE_COORDINATOR, SSE_NUM_PROCESSES,
+    SSE_PROCESS_ID."""
     p.add_argument("--coordinator", default=None, help="coordinator address host:port (process 0's)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+
+
+def _maybe_init_distributed(args) -> None:
+    """Join the process group (``parallel.distributed.initialize``) when
+    more than one process is asked for. Multi-process training is not
+    ported: ``train`` raises before joining."""
+    coord = getattr(args, "coordinator", None) or os.environ.get("SSE_COORDINATOR")
+    nproc = getattr(args, "num_processes", None)
+    if nproc is None and os.environ.get("SSE_NUM_PROCESSES"):
+        nproc = int(os.environ["SSE_NUM_PROCESSES"])
+    pid = getattr(args, "process_id", None)
+    if pid is None and os.environ.get("SSE_PROCESS_ID"):
+        pid = int(os.environ["SSE_PROCESS_ID"])
+    if (nproc and nproc > 1) or coord:
+        if args.command == "train":
+            raise NotImplementedError(f"multi-process training {_MULTI_GPU}")
+        from sse_tpu_torch.parallel import distributed
+
+        distributed.initialize(coord, nproc, pid)
 
 
 def main(argv=None) -> int:
@@ -379,6 +395,7 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
+    _maybe_init_distributed(args)  # before the first touch of a card
     return args.fn(args)
 
 

@@ -465,10 +465,9 @@ int stream_wg(const StreamArgs& a) {
   if (int err = row_map(&emap, a.emb, a.T, RB, kTileN, chunk_bytes(RB)))
     return err;
   auto fn = wg_stream_kernel<DT, RB, EX>;
-  // the kernel's dynamic shared memory, allowed once per instance
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-  if (attr != cudaSuccess) return (int)attr;
+  if (const cudaError_t err = allow_smem(reinterpret_cast<const void*>(fn), kSmemMax);
+      err != cudaSuccess)
+    return (int)err;
   const int nqg = (a.B + 64 * a.groups - 1) / (64 * a.groups);
   const int smem = stream_smem(RB, a.groups, a.stages, a.cap, min(64 * a.groups, a.B));
   fn<<<nqg * a.splits, 128 * a.groups + 32, smem, a.st>>>(

@@ -28,6 +28,10 @@
 
 #include <cuda.h>
 
+#include <mutex>
+#include <set>
+#include <utility>
+
 #include "topk_common.cuh"
 
 namespace sse {
@@ -252,6 +256,23 @@ inline int row_map(CUtensorMap* map, const void* base, int rows, int row_bytes, 
                          chunk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Allow the kernel `fn` `bytes` of dynamic shared memory on the current
+// device. The attribute belongs to a (kernel, device) pair, so it is set
+// the first time a process launches fn on each device (a process may
+// drive several cards: the shards of a grid).
+inline cudaError_t allow_smem(const void* fn, int bytes) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
+  int dev = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev); err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({fn, dev})) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.insert({fn, dev});
+  return err;
 }
 
 inline int num_sms() {

@@ -444,10 +444,9 @@ int blockmax_wg(const void* q, const void* emb, int B, int T, int lim, int block
   if (!err) err = row_map(&emap, emb, T, RB, kTileN, chunk_bytes(RB));
   if (err) return err;
   auto fn = wg_blockmax_kernel<DT, RB>;
-  // the kernel's dynamic shared memory, allowed once per instance
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p1_smem(RB));
-  if (attr != cudaSuccess) return (int)attr;
+  if (const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fn), p1_smem(RB));
+      e != cudaSuccess)
+    return (int)e;
   const int nqg = (B + kP1Queries - 1) / kP1Queries;
   const int splits = max(1, min(nblocks, num_sms() / nqg));
   fn<<<nqg * splits, kP1Threads, p1_smem(RB), st>>>(qmap, emap, B, lim, block_t, nblocks, nqg,
@@ -462,9 +461,9 @@ int pairs_wg(const void* q, const void* emb, int B, int T, int lim, int block_t,
   CUtensorMap emap;
   if (int err = row_map(&emap, emb, T, RB, kTileN, chunk_bytes(RB))) return err;
   auto fn = wg_pairs_kernel<DT, RB>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p2_smem(RB));
-  if (attr != cudaSuccess) return (int)attr;
+  if (const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fn), p2_smem(RB));
+      e != cudaSuccess)
+    return (int)e;
   fn<<<ntile, kP2Threads, p2_smem(RB), st>>>(static_cast<const unsigned char*>(q), emap, B, lim,
                                              block_t, tile_query, tile_block, k, out);
   return (int)cudaGetLastError();

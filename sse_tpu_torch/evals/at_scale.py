@@ -1,8 +1,9 @@
 """Eval at index scale (port of ``sse_tpu/evals/at_scale.py``): recall@k
 scored through the same fused encode + top-k function that serves queries
 (``build_fused_query_fn``: the streaming or two-phase top-k kernels on a
-GPU), so large-target-space evaluation costs what serving costs and
-exercises the serving path.
+GPU, per row block and merged exactly when the index lies on a grid), so
+large-target-space evaluation costs what serving costs and exercises the
+serving path.
 
 (The ``Evaluator`` in ``evals/recall.py`` re-encodes the targets on every
 call, which is right during training; this one takes a built
@@ -20,6 +21,7 @@ from sse_tpu_torch.data.corpus import EncodedPairs
 from sse_tpu_torch.evals.recall import recall_at_k
 from sse_tpu_torch.index.sharded_index import ShardedIndex
 from sse_tpu_torch.models.sse import SSEConfig
+from sse_tpu_torch.parallel.mesh import replicate
 from sse_tpu_torch.serve.engine import build_fused_query_fn
 
 
@@ -34,9 +36,15 @@ def evaluate_against_index(
     """recall@k and MRR of the eval pairs against ``index``, in batches of
     ``batch_size`` (the last one padded with length-1 rows, as in JAX, so
     every call has one shape); rows stay on the device until one copy at
-    the end."""
+    the end. An index with a mesh is scored through the sharded function,
+    its params replicated on the grid (``batch_size`` must divide over
+    the 'data' axis)."""
     ks = [k for k in ks if k <= index.num_real]
-    fused = build_fused_query_fn(model_cfg, k=max(ks), num_real=index.num_real)
+    if index.mesh is not None:
+        params = replicate(params, index.mesh)
+    fused = build_fused_query_fn(
+        model_cfg, k=max(ks), num_real=index.num_real, mesh=index.mesh
+    )
     device = index.emb.device
     n = eval_pairs.num_examples
     tops = []

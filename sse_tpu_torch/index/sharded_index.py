@@ -1,5 +1,5 @@
-"""Device-resident target-embedding index on one GPU (port of
-``sse_tpu/index/sharded_index.py``).
+"""Device-resident target-embedding index, on one GPU or row-sharded over
+a grid of devices (port of ``sse_tpu/index/sharded_index.py``).
 
 Same geometry and invariants as the JAX index: ``[T_pad, D]`` rows,
 L2-normalized, stored as float32, bfloat16 or int8 (symmetric 127-scale);
@@ -13,7 +13,17 @@ either package loads in the other: ``emb_r{row0:012d}.npy`` (bf16 stored as
 its uint16 bits), ``docs.tsv`` (one escaped ``id\ttext`` line per real
 row) and ``sidecar.json``. ``export_tsv``/``import_tsv`` speak the
 reference's ``targetEncodingIndex.tsv``. Not ported (ROADMAP.md): the
-legacy Orbax layout, and sharding over several devices.
+legacy Orbax layout.
+
+With a ``mesh`` (``sse_tpu_torch.parallel.make_mesh``) the rows are split
+over 'model' into equal blocks, each on every device of its grid column
+(replicated over 'data'): ``emb`` is then a ``parallel.RowShards``. The
+padding rounds to the shard count (``_padded_rows``); ``add`` and
+``delete`` write across block boundaries, a row moved by ``delete`` may
+cross devices (or processes); ``save`` writes one
+``emb_r{row0:012d}.npy`` a block, each process its own, and rank 0
+``docs.tsv`` and ``sidecar.json`` after a barrier; ``load`` reads any
+npy-v1 layout onto a grid.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ import glob
 import json
 import os
 import shutil
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +41,8 @@ import torch
 from sse_tpu_torch.data.corpus import TargetSpace
 from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
+from sse_tpu_torch.parallel import distributed
+from sse_tpu_torch.parallel.mesh import Mesh, RowShards, replicate
 
 INT8_SCALE = 127  # L2-normalized rows live in [-1, 1]; symmetric int8
 
@@ -81,10 +93,11 @@ def _normalized(rows: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class ShardedIndex:
-    emb: torch.Tensor  # [T_pad, D] on the serving device
+    emb: torch.Tensor | RowShards  # [T_pad, D] on the serving device, or over mesh
     num_real: int  # first num_real rows are valid
     ids: List[str]
     texts: List[str]
+    mesh: Optional[Mesh] = None
     # atomically published (emb, num_real, ids, texts) for lock-free readers
     pub: tuple = dataclasses.field(init=False, repr=False, default=None)
 
@@ -106,6 +119,15 @@ class ShardedIndex:
     def capacity(self) -> int:
         return self.padded_size
 
+    def valid_mask(self) -> torch.Tensor:
+        """[T_pad] bool on the index's (first) device: False on padding
+        rows."""
+        return torch.arange(self.padded_size, device=self.emb.device) < self.num_real
+
+    def lookup(self, rows: Sequence[int]) -> List[Tuple[str, str]]:
+        """Global row indices → (target_id, target_text)."""
+        return [(self.ids[r], self.texts[r]) for r in rows]
+
     def add(self, emb_rows, ids: Sequence[str], texts: Sequence[str]) -> None:
         """Append documents into padding capacity (rows are L2-normalized
         here). Writes in place: the rows written lie at or past every
@@ -116,7 +138,10 @@ class ShardedIndex:
         if self.num_real + n > self.capacity:
             raise ValueError(f"index full: {self.num_real}+{n} > capacity {self.capacity}")
         update = quantize_rows(_normalized(rows.to(self.emb.device)), self.emb.dtype)
-        self.emb[self.num_real : self.num_real + n] = update
+        if self.mesh is not None:
+            _write_rows(self.emb, self.num_real, update)
+        else:
+            self.emb[self.num_real : self.num_real + n] = update
         self.ids.extend(ids)
         self.texts.extend(texts)
         self.num_real += n
@@ -136,6 +161,8 @@ class ShardedIndex:
             rows.append(id_pos[tid])
         if len(set(rows)) != len(rows):
             raise ValueError("duplicate target ids in delete()")
+        if self.mesh is not None:
+            return self._delete_sharded(rows)
         new_ids = list(self.ids)
         new_texts = list(self.texts)
         emb = self.emb.clone() if rows else self.emb
@@ -157,57 +184,89 @@ class ShardedIndex:
         self._publish()
         return self.num_real
 
+    def _delete_sharded(self, rows: List[int]) -> int:
+        """``delete`` on a grid: the swaps run on the host over row
+        numbers, then every row that moved is copied from the old blocks
+        (across devices, or from the process that holds it) into copies
+        of the blocks it lands in, and the vacated rows are zeroed. The
+        old blocks stay as they were for readers of the old snapshot."""
+        old = self.emb
+        nr = self.num_real
+        src = list(range(nr))  # src[i]: the old row that ends at row i
+        new_ids = list(self.ids)
+        new_texts = list(self.texts)
+        end = nr
+        for r in sorted(rows, reverse=True):
+            end -= 1
+            if end > r:
+                src[r] = src[end]
+                new_ids[r] = new_ids[end]
+                new_texts[r] = new_texts[end]
+            del new_ids[end]
+            del new_texts[end]
+        dest = [i for i in range(end) if src[i] != i]
+        t = old.rows_per_shard
+        touched = {i // t for i in dest} | set(range(end // t, -(-nr // t)))
+        blocks = [
+            {dev: b.clone() for dev, b in copies.items()} if s in touched else copies
+            for s, copies in enumerate(old.blocks)
+        ]
+        moved = _gather_rows(old, [src[i] for i in dest])
+        for s in touched:
+            mine = [j for j, i in enumerate(dest) if i // t == s]
+            at = torch.tensor([dest[j] - s * t for j in mine], dtype=torch.long)
+            for dev, b in blocks[s].items():
+                if mine:
+                    b[at.to(dev)] = moved[mine].to(dev)
+                b[max(end - s * t, 0) : max(min(nr - s * t, t), 0)] = 0
+        self.emb = RowShards(self.mesh, blocks, old.shape, old.dtype)
+        self.num_real = end
+        self.ids = new_ids
+        self.texts = new_texts
+        self._publish()
+        return self.num_real
+
     # ------------------------------------------------------------ persist
     def save(self, directory: str) -> None:
-        """Write the npy-v1 layout: ``emb_r000000000000.npy`` (all T_pad
-        rows; bf16 as uint16 bits), ``docs.tsv``, ``sidecar.json``. Rows
-        reach the host in 16 MiB chunks written straight into a memmapped
-        .npy, so host memory stays at one chunk. Files the new sidecar no
-        longer names (a legacy Orbax ``emb/``, other ``emb_*.npy``) are
-        removed."""
+        """Write the npy-v1 layout: ``emb_r{row0:012d}.npy`` (bf16 as
+        uint16 bits), ``docs.tsv``, ``sidecar.json``. One tensor: one file
+        of all T_pad rows. On a grid: one file a row block, written by the
+        process that owns the block (``Mesh.owner``); rank 0 writes
+        ``docs.tsv`` and the sidecar once every block is on disk (a
+        barrier), and no process returns before they are (a second one).
+        Assumes a directory that every process sees. Rows reach the host
+        in 16 MiB chunks written straight into a memmapped .npy, so host
+        memory stays at one chunk. Files the new sidecar no longer names
+        (a legacy Orbax ``emb/``, other ``emb_*.npy``) are removed."""
         directory = os.path.abspath(directory)
         os.makedirs(directory, exist_ok=True)
         emb, num_real, ids, texts = self.pub
-        rows, dim = emb.shape
-        as_bits = emb.dtype == torch.bfloat16
-        name = "emb_r000000000000.npy"
-        out = np.lib.format.open_memmap(
-            os.path.join(directory, name), mode="w+",
-            dtype=np.uint16 if as_bits else _DTYPE_NAME[emb.dtype], shape=(rows, dim),
-        )
-        step = max(1, _SAVE_CHUNK_BYTES // (dim * emb.element_size()))
-        for lo in range(0, rows, step):
-            part = emb[lo : lo + step]
-            if as_bits:
-                part = part.view(torch.int16)
-            part = part.cpu().numpy()
-            out[lo : lo + step] = part.view(np.uint16) if as_bits else part
-        out.flush()
-        del out
-        with open(os.path.join(directory, "docs.tsv"), "w", encoding="utf-8", newline="\n") as f:
-            for tid, txt in zip(ids[:num_real], texts[:num_real]):
-                f.write(f"{_esc(tid)}\t{_esc(txt)}\n")
-        with open(os.path.join(directory, "sidecar.json"), "w", encoding="utf-8") as f:
-            json.dump(
-                {
-                    "format": "npy-v1",
-                    "num_real": num_real,
-                    "shape": [rows, dim],
-                    "dtype": _DTYPE_NAME[emb.dtype],
-                    "shards": [{"file": name, "row0": 0}],
-                },
-                f,
-            )
-        shutil.rmtree(os.path.join(directory, "emb"), ignore_errors=True)
-        for path in glob.glob(os.path.join(directory, "emb_*.npy")):
-            if os.path.basename(path) != name:
-                os.unlink(path)
+        if self.mesh is None:
+            blocks = {0: emb}
+            mine = [0]
+        else:
+            t = emb.rows_per_shard
+            blocks = {s * t: emb.block(s) if self.mesh.owner(s) == self.mesh.rank else None
+                      for s in range(len(emb.blocks))}
+            mine = [r for r, b in blocks.items() if b is not None]
+        for row0 in mine:
+            _write_npy(os.path.join(directory, f"emb_r{row0:012d}.npy"), blocks[row0])
+        multi = self.mesh is not None and self.mesh.multi_process
+        if multi:
+            distributed.barrier()  # every block on disk before the sidecar names it
+        if not multi or self.mesh.rank == 0:
+            _write_meta(directory, num_real, ids, texts, tuple(emb.shape), emb.dtype,
+                        sorted(blocks))
+        if multi:
+            distributed.barrier()
 
     @classmethod
-    def load(cls, directory: str, device: torch.device | str = "cuda") -> "ShardedIndex":
-        """Read an npy-v1 index (written by either package) onto
-        ``device``. Raises on the legacy Orbax layout and on a docs.tsv
-        whose row count is not the sidecar's ``num_real``."""
+    def load(cls, directory: str, device: torch.device | str | Mesh = "cuda") -> "ShardedIndex":
+        """Read an npy-v1 index (written by either package, any number of
+        shard files) onto ``device``, or onto a grid when ``device`` is a
+        ``Mesh`` (each process reads the blocks of its own grid columns).
+        Raises on the legacy Orbax layout and on a docs.tsv whose row count
+        is not the sidecar's ``num_real``."""
         directory = os.path.abspath(directory)
         with open(os.path.join(directory, "sidecar.json"), "r", encoding="utf-8") as f:
             side = json.load(f)
@@ -218,22 +277,34 @@ class ShardedIndex:
                 "with sse_tpu's ShardedIndex.load and save it again."
             )
         dtype = _NAME_DTYPE[side["dtype"]]
-        emb = torch.empty(tuple(side["shape"]), dtype=dtype, device=device)
-        row = 0
-        for shard in sorted(side["shards"], key=lambda s: s["row0"]):
-            part = np.load(os.path.join(directory, shard["file"]), mmap_mode="r")
-            step = max(1, _SAVE_CHUNK_BYTES // max(1, part.shape[1] * part.itemsize))
-            for lo in range(0, part.shape[0], step):
-                chunk = np.array(part[lo : lo + step])  # a writable copy off the memmap
-                if dtype == torch.bfloat16:
-                    t = torch.from_numpy(chunk.view(np.int16)).view(torch.bfloat16)
-                else:
-                    t = torch.from_numpy(chunk)
-                at = shard["row0"] + lo
-                emb[at : at + t.shape[0]] = t.to(device)
-            row += part.shape[0]
-        if row != emb.shape[0]:
-            raise ValueError(f"corrupt index at {directory}: shards hold {row} of {emb.shape[0]} rows")
+        shape = tuple(side["shape"])
+        parts = [
+            (s["row0"], np.load(os.path.join(directory, s["file"]), mmap_mode="r"))
+            for s in sorted(side["shards"], key=lambda s: s["row0"])
+        ]
+        row = sum(p.shape[0] for _, p in parts)
+        if row != shape[0]:
+            raise ValueError(f"corrupt index at {directory}: shards hold {row} of {shape[0]} rows")
+        mesh = device if isinstance(device, Mesh) else None
+        if mesh is None:
+            emb = torch.empty(shape, dtype=dtype, device=device)
+            _read_rows(parts, 0, emb)
+        else:
+            shards = mesh.shape["model"]
+            if shape[0] % shards:
+                raise ValueError(f"{shape[0]} index rows do not split into {shards} blocks")
+            t = shape[0] // shards
+            blocks = []
+            for s in range(shards):
+                devs = mesh.column_devices(s)
+                copies = {}
+                if devs:
+                    first = torch.empty((t, shape[1]), dtype=dtype, device=devs[0])
+                    _read_rows(parts, s * t, first)
+                    copies = {dev: first if dev == devs[0] else first.to(dev, copy=True)
+                              for dev in devs}
+                blocks.append(copies)
+            emb = RowShards(mesh, blocks, shape, dtype)
         ids: List[str] = []
         texts: List[str] = []
         # newline="\n": a raw "\r" in an old unescaped file stays in its field
@@ -247,7 +318,7 @@ class ShardedIndex:
                 f"corrupt index at {directory}: docs.tsv has {len(ids)} rows but "
                 f"sidecar num_real={side['num_real']}"
             )
-        return cls(emb=emb, num_real=side["num_real"], ids=ids, texts=texts)
+        return cls(emb=emb, num_real=side["num_real"], ids=ids, texts=texts, mesh=mesh)
 
     # -------------------------------------------------- reference TSV compat
     def export_tsv(self, path: str) -> None:
@@ -263,8 +334,9 @@ class ShardedIndex:
                 f.write(f"{self.ids[i]}\t{self.texts[i]}\t{vec}\n")
 
     @classmethod
-    def import_tsv(cls, path: str, device: torch.device | str = "cuda") -> "ShardedIndex":
-        """Read a targetEncodingIndex.tsv into a float32 index."""
+    def import_tsv(cls, path: str, device: torch.device | str | Mesh = "cuda") -> "ShardedIndex":
+        """Read a targetEncodingIndex.tsv into a float32 index on
+        ``device``, or on a grid when ``device`` is a ``Mesh``."""
         ids, texts, rows = [], [], []
         with open(path, "r", encoding="utf-8") as f:
             for line in f:
@@ -275,7 +347,107 @@ class ShardedIndex:
                 ids.append(tid)
                 texts.append(text)
                 rows.append(np.asarray(vec.split(" "), dtype=np.float32))
+        if isinstance(device, Mesh):
+            return from_embeddings(np.stack(rows), ids, texts, mesh=device)
         return from_embeddings(np.stack(rows), ids, texts, device=device)
+
+
+def _write_npy(path: str, emb: torch.Tensor) -> None:
+    """``emb`` [rows, D] into a .npy (bf16 as uint16 bits), in 16 MiB
+    chunks through a memmap."""
+    rows, dim = emb.shape
+    as_bits = emb.dtype == torch.bfloat16
+    out = np.lib.format.open_memmap(
+        path, mode="w+", dtype=np.uint16 if as_bits else _DTYPE_NAME[emb.dtype], shape=(rows, dim),
+    )
+    step = max(1, _SAVE_CHUNK_BYTES // (dim * emb.element_size()))
+    for lo in range(0, rows, step):
+        part = emb[lo : lo + step]
+        if as_bits:
+            part = part.view(torch.int16)
+        part = part.cpu().numpy()
+        out[lo : lo + step] = part.view(np.uint16) if as_bits else part
+    out.flush()
+    del out
+
+
+def _write_meta(directory: str, num_real: int, ids, texts, shape, dtype, row0s) -> None:
+    """docs.tsv and sidecar.json of an index whose shard files start at
+    ``row0s``; removes the files the sidecar does not name."""
+    names = [f"emb_r{r:012d}.npy" for r in row0s]
+    with open(os.path.join(directory, "docs.tsv"), "w", encoding="utf-8", newline="\n") as f:
+        for tid, txt in zip(ids[:num_real], texts[:num_real]):
+            f.write(f"{_esc(tid)}\t{_esc(txt)}\n")
+    with open(os.path.join(directory, "sidecar.json"), "w", encoding="utf-8") as f:
+        json.dump(
+            {
+                "format": "npy-v1",
+                "num_real": num_real,
+                "shape": list(shape),
+                "dtype": _DTYPE_NAME[dtype],
+                "shards": [{"file": n, "row0": r} for n, r in zip(names, row0s)],
+            },
+            f,
+        )
+    shutil.rmtree(os.path.join(directory, "emb"), ignore_errors=True)
+    for path in glob.glob(os.path.join(directory, "emb_*.npy")):
+        if os.path.basename(path) not in names:
+            os.unlink(path)
+
+
+def _read_rows(parts, lo: int, out: torch.Tensor) -> None:
+    """Fill ``out`` [n, D] with rows [lo, lo + n) of the index whose shard
+    files are ``parts`` ((row0, memmapped array), by row0), 16 MiB at a
+    time (bf16 files hold uint16 bits)."""
+    hi = lo + out.shape[0]
+    for row0, part in parts:
+        a, b = max(lo, row0), min(hi, row0 + part.shape[0])
+        step = max(1, _SAVE_CHUNK_BYTES // max(1, part.shape[1] * part.itemsize))
+        for c in range(a, b, step):
+            chunk = np.array(part[c - row0 : min(b, c + step) - row0])  # a writable copy
+            if out.dtype == torch.bfloat16:
+                t = torch.from_numpy(chunk.view(np.int16)).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(chunk)
+            out[c - lo : c - lo + t.shape[0]] = t.to(out.device)
+
+
+def _write_rows(emb: RowShards, at: int, rows: torch.Tensor) -> None:
+    """Write ``rows`` at global row ``at`` into every copy of the blocks
+    they fall in (in place)."""
+    t = emb.rows_per_shard
+    hi = at + rows.shape[0]
+    for s in range(at // t, -(-hi // t)):
+        a, b = max(at, s * t), min(hi, (s + 1) * t)
+        for dev, blk in emb.blocks[s].items():
+            blk[a - s * t : b - s * t] = rows[a - at : b - at].to(dev)
+
+
+def _gather_rows(emb: RowShards, rows: List[int]) -> torch.Tensor:
+    """Global ``rows`` of a grid index, [n, D] on its first device. Across
+    processes each row comes from the rank that owns its block
+    (``distributed.all_gather``; bf16 travels as its int16 bits)."""
+    t = emb.rows_per_shard
+    mesh = emb.mesh
+    out = torch.zeros((len(rows), emb.shape[1]), dtype=emb.dtype, device=emb.device)
+    for s in sorted({r // t for r in rows}):
+        if mesh.owner(s) != mesh.rank:
+            continue
+        sel = [j for j, r in enumerate(rows) if r // t == s]
+        local = torch.tensor([rows[j] - s * t for j in sel], dtype=torch.long)
+        blk = emb.block(s)
+        out[sel] = blk[local.to(blk.device)].to(out.device)
+    if not mesh.multi_process or not rows:
+        return out
+    bits = out.view(torch.int16) if out.dtype == torch.bfloat16 else out
+    every = distributed.all_gather(bits)
+    owner = torch.tensor([mesh.owner(r // t) for r in rows], dtype=torch.long, device=out.device)
+    picked = every[owner, torch.arange(len(rows), device=out.device)]
+    return picked.view(torch.bfloat16) if out.dtype == torch.bfloat16 else picked
+
+
+def _shard_count(mesh: Optional[Mesh]) -> int:
+    return 1 if mesh is None else mesh.shape["model"]
 
 
 def _padded_rows(t: int, capacity: Optional[int], shards: int = 1) -> int:
@@ -293,12 +465,20 @@ def from_embeddings(
     dtype: torch.dtype = torch.float32,
     capacity: Optional[int] = None,
     device: torch.device | str = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> ShardedIndex:
-    """Wrap embeddings [T, D] (numpy or tensor) into a padded index."""
+    """Wrap embeddings [T, D] (numpy or tensor) into a padded index on
+    ``device``, or row-sharded over ``mesh`` (``device`` unused; across
+    processes every rank passes the same rows and keeps its own blocks)."""
     emb = torch.as_tensor(emb).float()
     t, d = emb.shape
-    padded = torch.zeros((_padded_rows(t, capacity), d), dtype=torch.float32)
+    padded = torch.zeros((_padded_rows(t, capacity, _shard_count(mesh)), d), dtype=torch.float32)
     padded[:t] = emb.cpu()
+    if mesh is not None:
+        return ShardedIndex(
+            emb=RowShards.from_tensor(padded, mesh, dtype, lambda x: quantize_rows(x, dtype)),
+            num_real=t, ids=list(ids), texts=list(texts), mesh=mesh,
+        )
     return ShardedIndex(
         emb=quantize_rows(padded.to(device), dtype),
         num_real=t,
@@ -318,35 +498,61 @@ def build_index(
     batch_size: int = 256,
     dtype: torch.dtype = torch.float32,
     capacity: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> ShardedIndex:
-    """Encode the whole target space into an index on the params' device.
+    """Encode the whole target space into an index on the params' device,
+    or row-sharded over ``mesh``.
 
     SOURCE_ENCODER_ONLY: the learned table is the index. Tower modes:
     token batches of ``batch_size`` go through the target tower (the GRU
     kernel on a GPU) and land in the preallocated buffer; rows in
-    ``[num_targets, T_pad)`` stay zero."""
+    ``[num_targets, T_pad)`` stay zero. On a grid the batches are the
+    same, each encoded on a device of the first block it lands in (a
+    process encodes only the batches that reach its own blocks) and
+    written into every copy of the blocks it spans."""
     device = _params_device(params)
     if model_cfg.mode == NetworkMode.SOURCE_ENCODER_ONLY:
         with torch.no_grad():
             emb = sse.target_embeddings(params, model_cfg)
         return from_embeddings(
             emb[: target_space.num_targets], target_space.ids, target_space.texts,
-            dtype=dtype, capacity=capacity, device=device,
+            dtype=dtype, capacity=capacity, device=device, mesh=mesh,
         )
     toks, lens = target_space.tokens, target_space.lengths
     t = toks.shape[0]
-    buf = torch.zeros(
-        (_padded_rows(t, capacity), model_cfg.encoding_dim), dtype=dtype, device=device
-    )
+    rows = _padded_rows(t, capacity, _shard_count(mesh))
+    d = model_cfg.encoding_dim
+    if mesh is not None:
+        shards = mesh.shape["model"]
+        blocks = [
+            {dev: torch.zeros((rows // shards, d), dtype=dtype, device=dev)
+             for dev in mesh.column_devices(s)}
+            for s in range(shards)
+        ]
+        buf = RowShards(mesh, blocks, (rows, d), dtype)
+        copies = replicate(params, mesh)
+    else:
+        buf = torch.zeros((rows, d), dtype=dtype, device=device)
     with torch.no_grad():
         for lo in range(0, t, batch_size):
             hi = min(lo + batch_size, t)
+            dev = device
+            if mesh is not None:
+                t_local = buf.rows_per_shard
+                mine = [s for s in range(lo // t_local, -(-hi // t_local)) if buf.blocks[s]]
+                if not mine:
+                    continue
+                dev = mesh.column_devices(mine[0])[0]
             out = sse.target_embeddings(
-                params, model_cfg,
-                tokens=torch.from_numpy(np.ascontiguousarray(toks[lo:hi])).to(device),
-                lengths=torch.from_numpy(np.ascontiguousarray(lens[lo:hi])).to(device),
+                params if mesh is None else copies[dev], model_cfg,
+                tokens=torch.from_numpy(np.ascontiguousarray(toks[lo:hi])).to(dev),
+                lengths=torch.from_numpy(np.ascontiguousarray(lens[lo:hi])).to(dev),
             )
-            buf[lo:hi] = quantize_rows(out, dtype)
+            if mesh is None:
+                buf[lo:hi] = quantize_rows(out, dtype)
+            else:
+                _write_rows(buf, lo, quantize_rows(out, dtype))
     return ShardedIndex(
-        emb=buf, num_real=t, ids=list(target_space.ids), texts=list(target_space.texts)
+        emb=buf, num_real=t, ids=list(target_space.ids), texts=list(target_space.texts),
+        mesh=mesh,
     )

@@ -192,6 +192,15 @@ def topk_reference(
     key (packed: low 12 bits cleared; exact: the full key of the float32
     score), and ``torch.topk``. Chunked over queries, so it never holds
     more than ~64M scores at once."""
+    comp = reference_composites(q, emb, k, num_real, variant)
+    return decode(comp, emb.dtype == torch.int8, variant == "exact")
+
+
+def reference_composites(
+    q: torch.Tensor, emb: torch.Tensor, k: int, num_real: int, variant: str = "packed"
+) -> torch.Tensor:
+    """``topk_reference`` before the decode: int64 [B, k] composites, best
+    first, empty slots ``_EMPTY``."""
     _check_variant(variant)
     exact = variant == "exact"
     q, int_exact = _prep_queries(q, emb)
@@ -209,10 +218,8 @@ def topk_reference(
         comp[:, nr:] = _EMPTY
         out.append(_topk_desc(comp, k))
     if not out:
-        comp = torch.empty((0, k), dtype=torch.int64, device=emb.device)
-    else:
-        comp = torch.cat(out)
-    return decode(comp, int_exact, exact)
+        return torch.empty((0, k), dtype=torch.int64, device=emb.device)
+    return torch.cat(out)
 
 
 def rows_off_reference(
@@ -343,13 +350,19 @@ def fused_score_topk(
     k: int,
     num_real: int,  # rows >= num_real are padding
     variant: str = "packed",  # packed | exact (see the module doc)
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    composites: bool = False,
+):
     """Top-k (float32 values [B, k], int32 rows [B, k]) of q·embᵀ: one
     streaming kernel launch plus the split merge on CUDA tensors (counter
     ``topk_stream``, or ``topk_exact`` for the exact variant), the plain
-    version on CPU tensors."""
+    version on CPU tensors. ``composites=True`` returns the int64 [B, k]
+    composites instead (best first, empty slots ``_EMPTY``), which
+    ``decode`` turns into the values and rows: what a cross-shard merge
+    (``sse_tpu_torch.parallel.topk``) takes."""
     _check_variant(variant)
     if not emb.is_cuda:
+        if composites:
+            return reference_composites(q, emb, k, num_real, variant)
         return topk_reference(q, emb, k, num_real, variant)
     exact = variant == "exact"
     q, int_exact = _prep_queries(q, emb)
@@ -360,7 +373,7 @@ def fused_score_topk(
     nr = max(0, min(int(num_real), t))
     if b == 0 or k == 0:
         empty = torch.empty((b, k), dtype=torch.int64, device=emb.device)
-        return decode(empty, int_exact, exact)
+        return empty if composites else decode(empty, int_exact, exact)
     if emb.dtype == torch.float32:
         qb = _queries_per_block(b)
         tiles_per_split, splits = _split(max(1, -(-t // _TILE_ROWS)), b, qb, emb.device)
@@ -381,7 +394,7 @@ def fused_score_topk(
             plan["groups"], plan["stages"], plan["cap"], splits, partial.data_ptr(),
         )
     launches["topk_exact" if exact else "topk_stream", b] += 1
-    mode = 3 if exact else (2 if int_exact else 1)
+    mode = 0 if composites else (3 if exact else (2 if int_exact else 1))
     return _select(partial.reshape(b, splits * k), k, mode)
 
 
@@ -567,11 +580,14 @@ def fused_score_topk_twophase(
     k: int,
     num_real: int,
     block_t: int = TWOPHASE_BLOCK_T,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    composites: bool = False,
+):
     """Exact top-k with the two-phase block-max algorithm: selection
     identical to ``fused_score_topk``. Needs k <= nblocks = T_pad/block_t.
     Phase 1 and phase 2 are kernels on CUDA tensors (plain versions on
-    CPU tensors); the mid-pass and the merge are plain torch."""
+    CPU tensors); the mid-pass and the merge are plain torch.
+    ``composites=True`` returns the int64 composites, as
+    ``fused_score_topk`` does."""
     t_pad = emb.shape[0]
     if t_pad % block_t:
         raise ValueError(f"T_pad {t_pad} not a multiple of block_t {block_t}")
@@ -582,14 +598,16 @@ def fused_score_topk_twophase(
     q = q.contiguous()
     b = q.shape[0]
     if b == 0 or k == 0:
-        return decode(torch.empty((b, k), dtype=torch.int64, device=emb.device), int_exact)
+        empty = torch.empty((b, k), dtype=torch.int64, device=emb.device)
+        return empty if composites else decode(empty, int_exact)
     bkeys = twophase_phase1(q, emb, k, num_real, block_t)
     tile_query, tile_block, pos = pair_schedule(bkeys, nblocks)
     cand = twophase_phase2(q, emb, k, num_real, block_t, tile_query, tile_block)
     # merge: each query's k pairs x k candidates, contract order
     got = cand[pos.clamp(min=0)]
     got = torch.where((pos >= 0)[:, None], got, _EMPTY)
-    return decode(_topk_desc(got.view(b, k * k), k), int_exact)
+    comp = _topk_desc(got.view(b, k * k), k)
+    return comp if composites else decode(comp, int_exact)
 
 
 __all__ = [
@@ -609,6 +627,7 @@ __all__ = [
     "launches",
     "pair_schedule",
     "quantize_queries_int8",
+    "reference_composites",
     "rows_off_reference",
     "to_sortable",
     "topk_reference",

@@ -1,0 +1,138 @@
+"""Several processes joined by ``torch.distributed`` (port of
+``sse_tpu/parallel/distributed.py``, the counterpart of
+``jax.distributed.initialize``).
+
+``initialize`` joins the process group over TCP. Its backend follows a
+rule: NCCL when every rank has a card of its own, gloo when ranks share a
+card or run on the CPU. The group is made with gloo first (a card-free
+rendezvous that exchanges each rank's card), and an NCCL group is added
+for the device collectives when the rule allows it; the choice is logged.
+Under gloo, whose collectives take CPU tensors, a tensor crosses between
+processes through host memory, explicitly (``all_gather``).
+
+The group is process-wide state, as JAX's distributed client is: this
+module records the rank's card and the group its device collectives use.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Any, List, Optional
+
+import torch
+import torch.distributed as dist
+
+# this process's card and the group of its device collectives, set by
+# initialize (the default gloo group when the ranks share a card)
+_state: dict = {"device": None, "group": None, "backend": None}
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if world_size() > 1 else 0
+
+
+def _default_device(process_id: int) -> torch.device:
+    """Rank r takes card r mod the visible cards, or the CPU if none."""
+    if not torch.cuda.is_available():
+        return torch.device("cpu")
+    return torch.device("cuda", process_id % torch.cuda.device_count())
+
+
+def _card_id(device: torch.device) -> Optional[str]:
+    """A card's identity across processes (its UUID), None for the CPU."""
+    if device.type != "cuda":
+        return None
+    return str(torch.cuda.get_device_properties(device).uuid)
+
+
+def initialize(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+) -> None:
+    """Join ``num_processes`` processes at ``coordinator_address``
+    (host:port of rank 0). No-op for one process or fewer. This rank's
+    card is card ``process_id`` mod the visible cards (the CPU where
+    there is none).
+
+    Afterwards ``make_mesh()`` spans every rank's card, and the sharded
+    index and query path exchange their small per-shard results with the
+    other ranks."""
+    if num_processes is not None and num_processes <= 1:
+        return
+    if coordinator_address is None or num_processes is None or process_id is None:
+        raise ValueError(
+            "initialize needs coordinator_address, num_processes and process_id "
+            "(torch.distributed detects none of them)"
+        )
+    device = _default_device(process_id)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id,
+    )
+    cards = all_gather_object(_card_id(device))
+    own = all(c is not None for c in cards) and len(set(cards)) == len(cards)
+    if own:
+        torch.cuda.set_device(device)
+        _state["group"] = dist.new_group(backend="nccl")
+        why = "every rank has a card of its own"
+    else:
+        _state["group"] = None  # the default gloo group
+        why = "ranks share a card" if all(c is not None for c in cards) else "ranks run on the CPU"
+    _state["device"], _state["backend"] = device, "nccl" if own else "gloo"
+    print(f"[sse] distributed: rank {process_id} of {num_processes} on {device}, "
+          f"device collectives over {_state['backend']} ({why})", file=sys.stderr, flush=True)
+
+
+def local_device() -> torch.device:
+    """This rank's card, as ``initialize`` chose it."""
+    if _state["device"] is None:
+        raise RuntimeError("parallel.distributed.initialize has not run in this process")
+    return _state["device"]
+
+
+def backend() -> Optional[str]:
+    """"nccl" or "gloo" after ``initialize``, None in one process."""
+    return _state["backend"] if world_size() > 1 else None
+
+
+def all_gather_object(obj: Any) -> List[Any]:
+    """Every rank's ``obj``, in rank order (over the gloo group)."""
+    out: List[Any] = [None] * world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def all_gather(t: torch.Tensor) -> torch.Tensor:
+    """[world, *t.shape]: every rank's ``t`` (same shape and type on every
+    rank), on ``t``'s device. Under gloo the tensors cross through host
+    memory; under NCCL they stay on the cards."""
+    on_host = _state["backend"] != "nccl"
+    src = t.cpu() if on_host else t.to(local_device())
+    out = [torch.empty_like(src) for _ in range(world_size())]
+    dist.all_gather(out, src.contiguous(), group=_state["group"])
+    return torch.stack(out).to(t.device)
+
+
+def barrier() -> None:
+    dist.barrier()
+
+
+def process_info() -> dict:
+    """The JAX package's keys: this process's rank and the count of
+    processes, its cards and those of every process (one card a rank in a
+    group of several)."""
+    if world_size() > 1:
+        return {"process_index": rank(), "process_count": world_size(),
+                "local_devices": 1, "global_devices": world_size()}
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return {"process_index": 0, "process_count": 1, "local_devices": cards,
+            "global_devices": cards}
+
+
+__all__ = ["all_gather", "all_gather_object", "backend", "barrier", "initialize",
+           "local_device", "process_info", "rank", "world_size"]

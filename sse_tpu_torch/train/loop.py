@@ -426,7 +426,7 @@ def train(
     where its params are."""
     if process_count > 1 or mesh is not None:
         raise NotImplementedError(
-            "multi-process / mesh training is not ported yet (ROADMAP.md §1)"
+            "multi-process / mesh training is not ported yet (ROADMAP.md §1 item 5)"
         )
     if state is None:
         state = init_train_state(model_cfg, cfg, device=device)

@@ -9,9 +9,13 @@ and ``index/`` (npy-v1, either package reads the other's). So ``index``,
 ``eval`` and ``serve`` need only the model dir.
 
 Everything runs on ``device``: one CUDA card, or the CPU where the caller
-asks for it. Multi-process training and a mesh over several cards are not
-ported (ROADMAP.md §1, multi-GPU): ``mesh()`` is None and those branches
-raise ``NotImplementedError``.
+asks for it. Where the process sees more than one card (or runs in a
+process group of several ranks, ``parallel.distributed``), ``mesh()`` is
+the ('data', 'model') grid of ``mesh_data`` x ``mesh_model`` cards and
+the index, eval through the index and serving run on it, as in the JAX
+package. Training stays on one card: training on a mesh, multi-process
+training and context-parallel encoding are not ported (ROADMAP.md §1
+item 5) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from sse_tpu_torch.data.corpus import (
 from sse_tpu_torch.evals import Evaluator
 from sse_tpu_torch.index import ShardedIndex, build_index
 from sse_tpu_torch.models.sse import SSEConfig
+from sse_tpu_torch.parallel import distributed, make_mesh
 from sse_tpu_torch.serve import QueryEngine
 from sse_tpu_torch.text.subword import SubwordVocab, load_vocab
 from sse_tpu_torch.train import TrainState, inference_params, init_train_state
@@ -47,7 +52,7 @@ from sse_tpu_torch.train.loop import tree_map
 from sse_tpu_torch.train.metrics import MetricWriter
 
 _INDEX_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
-_MULTI_GPU = "is not ported yet (ROADMAP.md §1, multi-GPU)"
+_MULTI_GPU = "is not ported yet (ROADMAP.md §1 item 5)"
 
 
 class Workspace:
@@ -131,8 +136,12 @@ class Workspace:
 
     # --------------------------------------------------------------- model
     def mesh(self):
-        """None: the port runs on one card (ROADMAP.md §1, multi-GPU)."""
-        return None
+        """The serving grid: None on one card (and on the CPU), else
+        ``make_mesh(mesh_data, mesh_model)`` over the cards of every
+        process (JAX: more than one device in ``jax.devices()``)."""
+        if self.device.type != "cuda" or distributed.process_info()["global_devices"] <= 1:
+            return None
+        return make_mesh(self.cfg.mesh_data, self.cfg.mesh_model)
 
     def model_config(self, vocab: SubwordVocab, tspace: TargetSpace) -> SSEConfig:
         return self.cfg.model_config(vocab.vocab_size, tspace.num_targets)
@@ -173,7 +182,10 @@ class Workspace:
         """Train (resuming from the latest checkpoint), checkpoint every
         ``steps_per_checkpoint`` steps and at the end, keeping the best
         ``recall@1`` checkpoints when there are EvalPairs. Returns the
-        final eval."""
+        final eval. Training runs on ``device``, one card, also on a
+        machine with several (the JAX package trains on its mesh; training
+        on a mesh is not ported yet, ROADMAP.md §1 item 5); in a process
+        group of several ranks it raises ``NotImplementedError``."""
         if torch.distributed.is_available() and torch.distributed.is_initialized():
             if torch.distributed.get_world_size() > 1:
                 raise NotImplementedError(f"multi-process training {_MULTI_GPU}")
@@ -222,8 +234,9 @@ class Workspace:
         cp_shards: int = 0,
     ) -> ShardedIndex:
         """Build and save the index (``index_dtype`` precision, ``capacity``
-        rows reserved for live adds). ``phase_times`` receives the wall
-        seconds of prepare_data, restore, encode and save."""
+        rows reserved for live adds), row-sharded over ``mesh()`` where
+        there is one. ``phase_times`` receives the wall seconds of
+        prepare_data, restore, encode and save."""
         if cp_shards:
             raise NotImplementedError(f"context-parallel encoding (cp_shards) {_MULTI_GPU}")
         t = time.perf_counter
@@ -234,12 +247,15 @@ class Workspace:
         state, mgr = self.restore_state(model_cfg)
         mgr.close()
         t2 = t()
+        mesh = self.mesh()
         index = build_index(
             inference_params(state), model_cfg, tspace,
             dtype=_INDEX_DTYPES.get(self.cfg.index_dtype, torch.float32), capacity=capacity,
+            mesh=mesh,
         )
-        if index.emb.is_cuda:
-            torch.cuda.synchronize(index.emb.device)
+        for dev in mesh.local_devices if mesh is not None else [index.emb.device]:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         t3 = t()
         index.save(self.index_dir)
         t4 = t()
@@ -265,12 +281,12 @@ class Workspace:
         max_batch: int = 8,
         bulk_batch: Optional[int] = None,
     ) -> QueryEngine:
-        """Everything serving needs: the saved index if there is one, else
-        one built from ``data_dir``; the latest checkpoint's inference
-        params."""
+        """Everything serving needs: the saved index if there is one (on
+        ``mesh()`` where there is one), else one built from ``data_dir``;
+        the latest checkpoint's inference params."""
         vocab = load_vocab(self.vocab_path)  # dispatches on the word-mode marker
         if os.path.isdir(self.index_dir):
-            index = ShardedIndex.load(self.index_dir, self.device)
+            index = ShardedIndex.load(self.index_dir, self.mesh() or self.device)
         elif data_dir:
             index = self.build_index(data_dir)
         else:

@@ -796,3 +796,48 @@ def test_lstm_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, ys, torch.zeros((B, H), device="cuda"),
                           cs=ys, cell="lstm")
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_topk_kernels_on_every_card(cuda, dtype):
+    """The top-k kernels launch on every card of a process, not only the
+    first (their shared-memory allowance is a property of the card), and a
+    grid of distinct cards returns the unsharded rows: streaming (packed
+    and exact) and two-phase on each card against topk_reference there, on
+    exact-dot inputs, then a (1, n) grid's fused query against one card."""
+    from sse_tpu_torch.index.sharded_index import quantize_rows
+    from sse_tpu_torch.models import sse, towers
+    from sse_tpu_torch.ops import topk
+    from sse_tpu_torch.parallel import RowShards, make_mesh
+    from sse_tpu_torch.serve import engine
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    t, nr = 32768, 32000  # 16 two-phase blocks: k=10 of them
+    emb = _exact((t, 128), cuda)
+    q = _exact((1024, 128), cuda)
+    if dtype == "int8":
+        emb = quantize_rows(emb.float() / 2, torch.int8)
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        e, qq = emb.to(dev), q.to(dev)
+        for b, variant in ((8, "packed"), (8, "exact"), (1024, "packed")):
+            want = topk.topk_reference(qq[:b], e, 10, nr, variant)
+            if b >= topk.TWOPHASE_MIN_BATCH:
+                got = topk.fused_score_topk_twophase(qq[:b], e, 10, nr)
+            else:
+                got = topk.fused_score_topk(qq[:b], e, 10, nr, variant)
+            assert got[1].device == dev
+            assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), (i, b, variant)
+    tower = towers.TowerConfig(vocab_size=100, embed_dim=128, hidden=128, encoding_dim=128)
+    cfg = sse.SSEConfig(mode=sse.NetworkMode.SHARED_ENCODER, src_tower=tower)
+    params = sse.init_params(cfg, torch.Generator().manual_seed(0))
+    mesh = make_mesh(1, n)
+    toks = torch.randint(2, 100, (1024, 12), generator=cuda, device="cuda")
+    lens = torch.randint(1, 13, (1024,), generator=cuda, device="cuda")
+    for b in (8, 1024):
+        want = engine.build_fused_query_fn(cfg, 10, nr)(params, emb, toks[:b], lens[:b])
+        got = engine.build_fused_query_fn(cfg, 10, nr, mesh=mesh)(
+            params, RowShards.from_tensor(emb, mesh), toks[:b], lens[:b])
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), b
