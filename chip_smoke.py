@@ -8,6 +8,7 @@ CLI.
     python3 chip_smoke.py --stream   # only the streaming top-k's costs
     python3 chip_smoke.py --bench    # only the query bench's sweep
     python3 chip_smoke.py --sharded  # only the sharded serving phase (7.)
+    python3 chip_smoke.py --grid     # only the training-on-a-grid phase (8.)
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
 cell, and a served qna query by part: qna_query_costs), ``--twophase``
@@ -107,8 +108,30 @@ commits compare in one run, taken in turns.
    ``parallel.distributed`` (gloo on one card, NCCL on two) serving a
    (1, 2) grid across them, whose rows equal the single process's and
    whose two-process index save loads back equal.
-
-Every kernel's bound (the least time the card could take for the same
+8. Training on a grid (train_grid_slice, ``train.grid`` and
+   ``parallel.context``; grid entries as in 7.): the ranking preset at
+   its widths (GRU, E=H=D=128, 128 sampled and 16 mined negatives,
+   multi-label rows, B=256) 8 steps through train() on (2, 1) and (4, 1),
+   each step held against the one-card step from the same state (loss and
+   grad_norm within rtol 2e-4, Adam's moments within 3e-3 in the 2-norm,
+   params and EMA within rtol 3e-3 / atol 3e-5 where Adam's update is
+   conditioned, at most SKIP_SHARE of a leaf left out elsewhere:
+   held_state), every copy identical, the GRU kernels
+   launched data x one card's count a step (the main path's counts leave
+   out the one-card steps it is held against), and the free-running
+   runs' drift from the one-card run beside the one-card run's own drift
+   from a 1e-7 nudge of its init; the
+   classification preset (full softmax, dropout 0.1, EMA) with a
+   1,249,280-row table, one step on (1, 2), (1, 4) and (2, 2) against one
+   card, no allocation as large as a [B, T] logits tensor; the
+   transformer recipe's tower (mean readout) at B=256, L=512 on 2 and 4
+   context-parallel shards against the unsharded encode, forward and
+   gradients; dryrun_multichip(4); two ranks through ``cli train
+   --num_processes 2`` (GRU and transformer; gloo on one card, NCCL too on
+   two) against one process, then ``index --cp_shards 2``. Each grid's
+   ms a step and split by part, and each CP encode's ms (the entries
+   queue on one card: checks of the path, not a multi-card speed).
+ (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
 operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8) is computed from
 this run's inputs. The cuDNN LSTM (``torch.nn.LSTM`` in bf16, the +1
@@ -125,6 +148,7 @@ launches at each B checked); the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -135,6 +159,7 @@ import sys
 import time
 import urllib.request
 
+import numpy as np
 import torch
 
 T_PAD = 1_249_280  # the bench index: 305 x 4096 rows
@@ -2482,6 +2507,663 @@ def sharded_rank(rank: int, coord: str) -> None:
     torch.distributed.destroy_process_group()
 
 
+# ------------------------------------------------- training on a grid
+GRID_STEPS = 8
+GRID_TABLE = 1_249_280  # the classification preset's table at the query bench's index size
+CP_SHAPE = (256, 512)  # B, L of the context-parallel encode
+MP_TRAIN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "grid_mp")
+
+# Runs ``python -m sse_tpu_torch.cli <args>``; where the run trains on a
+# grid and SMOKE_SHADOW=1, it holds every step against the one-card step
+# from the same state (recording_steps(shadow=True)); it prints the sums of
+# its final inference params (every rank's own) and how many steps were
+# held.
+MP_RUNNER = (
+    "import json, os, runpy, sys\n"
+    "import chip_smoke\n"
+    "import sse_tpu_torch.workspace as w\n"
+    "from sse_tpu_torch.train import inference_params, loop\n"
+    "steps = []\n"
+    "chip_smoke.recording_steps(steps, shadow=os.environ.get('SMOKE_SHADOW') == '1')\n"
+    "real = w.train_loop\n"
+    "def train(*a, **k):\n"
+    "    s = real(*a, **k)\n"
+    "    leaves = loop.tree_leaves(inference_params(s))\n"
+    "    print('[params] ' + json.dumps([float(sum(x.double().sum() for x in leaves)),\n"
+    "          float(sum(x.double().abs().sum() for x in leaves))]), flush=True)\n"
+    "    held = [r[4] for r in steps if r[4] is not None]\n"
+    "    print('[held] ' + json.dumps([len(steps), len(held), max([h[0] for h in held] or [0]),\n"
+    "          sum(h[1] for h in held), max([h[2] for h in held] or [0]),\n"
+    "          max([h[3] for h in held] or [0])]), flush=True)\n"
+    "    return s\n"
+    "w.train_loop = train\n"
+    "sys.argv = ['sse_tpu_torch.cli', *sys.argv[1:]]\n"
+    "runpy.run_module('sse_tpu_torch.cli', run_name='__main__', alter_sys=True)\n"
+)
+
+
+def recording_steps(records: list, shadow: bool = False):
+    """Patch loop.make_train_step so that every step it builds appends
+    (loss, grad_norm, host ms, the recurrent kernels it launched, and with
+    ``shadow`` what shadow_step found and every kernel the shadow step
+    launched) to ``records``; returns the undo."""
+    from sse_tpu_torch import ops
+    from sse_tpu_torch.train import loop
+
+    real = loop.make_train_step
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+        plain = real(*args, **{**kw, "mesh": None}) if shadow and kw.get("mesh") else None
+
+        def run(state, *a, **k):
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            new, m = step(state, *a, **k)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1000.0
+            after = ops.launch_counts()
+            held = shadow_step(plain, state, new, m, a, k, len(records) + 1) if plain else None
+            shadow = {n: c - after[n] for n, c in ops.launch_counts().items()}
+            records.append((float(m["loss"]), float(m["grad_norm"]), ms,
+                            {n: after[n] - before[n] for n in RNN_KERNELS}, held, shadow))
+            return new, m
+
+        return run
+
+    loop.make_train_step = make
+    return lambda: setattr(loop, "make_train_step", real)
+
+
+def shadow_step(plain, state, new, m, args, kw, i: int) -> float:
+    """The one-card step from the grid step's own input state (gathered
+    whole, the table assembled) on the same batch, against the grid step:
+    loss and grad_norm within rtol 2e-4, the new state as held_state holds
+    it. Returns held_state's reading."""
+    from sse_tpu_torch.parallel.mesh import Replicated
+    from sse_tpu_torch.train.grid import copies_identical, gather_state
+
+    lead = state.mesh.local_devices[0]
+    on = lambda x: x[lead] if isinstance(x, Replicated) else x  # noqa: E731
+    args = [on(x) for x in args]
+    if state.mesh.multi_process:  # the one-card step takes the global batch: every rank's rows
+        from sse_tpu_torch.parallel import distributed
+
+        args[0] = distributed.all_gather(args[0]).flatten(0, 1)
+    ref, rm = plain(gather_state(state), *args, **{k: on(v) for k, v in kw.items()})
+    for key in ("loss", "grad_norm"):
+        g, r = float(m[key]), float(rm[key])
+        check(abs(g - r) <= 2e-4 * abs(r), f"grid step {i} from the same state: {key} {g} "
+                                            f"against one card's {r}")
+    held = held_state(f"grid step {i}", gather_state(new), ref)
+    check(copies_identical(new), f"grid step {i}: the replicas' copies differ")
+    return held
+
+
+# The largest share of a leaf's elements that held_params may leave out
+# (PERF.md §6 gives the readings it was set from).
+SKIP_SHARE = 1e-3
+
+
+def held_params(label: str, got, want, nu=None) -> tuple:
+    """Each leaf of ``got`` (a state's tree, whole) within rtol 3e-3 / atol
+    3e-5 of ``want``'s. With ``nu`` (the reference's Adam second moment,
+    bias-corrected) an element whose sqrt(nu) is under 2^-6 of its leaf's
+    largest may fail, at most SKIP_SHARE of the leaf: there the Adam
+    update m / (sqrt(nu) + eps) divides a gradient's rounding noise by its
+    own size. That noise is a bf16 rounding: the card's bf16 cotangents
+    (the one rounding point where its products differ from
+    ``bf16_matmul``, ROADMAP §3) turn a 1e-7 change upstream into 2^-8 of
+    an element, and a weight that a bf16 product reads inside a tower gets
+    its gradient rounded a replica (2^-9 of each part, train/grid.py).
+    Returns (the largest |difference| held, the elements left out, the
+    largest share of a leaf left out)."""
+    from sse_tpu_torch.train import loop
+
+    worst, skipped, share = 0.0, 0, 0.0
+    if want is None:
+        check(got is None, f"{label}: present where the reference has none")
+        return worst, skipped, share
+    scales = [None] * len(loop.tree_leaves(want)) if nu is None else loop.tree_leaves(nu)
+    for a, b, v in zip(loop.tree_leaves(got), loop.tree_leaves(want), scales):
+        d = (a.to(b.device) - b).abs()
+        bad = d > 3e-5 + 3e-3 * b.abs()
+        if v is not None:
+            rms = v.sqrt()
+            noisy = rms < 2.0**-6 * rms.max()
+            n_out = int((bad & noisy).sum())
+            check(n_out <= SKIP_SHARE * b.numel(),
+                  f"{label}: {n_out} of {b.numel()} elements of a {tuple(b.shape)} leaf where "
+                  f"Adam's update is not conditioned beyond rtol 3e-3 / atol 3e-5, more than "
+                  f"{SKIP_SHARE:g} of the leaf")
+            skipped += n_out
+            share = max(share, n_out / b.numel())
+            bad &= ~noisy
+            d = torch.where(noisy, torch.zeros_like(d), d)
+        n = int(bad.sum())
+        check(n == 0, f"{label}: {n} of {b.numel()} elements of a {tuple(b.shape)} leaf beyond "
+                      f"rtol 3e-3 / atol 3e-5 (max |d| {float(d.max()):.3g})")
+        worst = max(worst, float(d.max()))
+    return worst, skipped, share
+
+
+def held_moments(label: str, got, ref) -> float:
+    """Adam's moments of a state against the reference's: the first and
+    sqrt of the second (each in the units of a gradient), each leaf within
+    3e-3 of the reference leaf in the 2-norm, and the first also element
+    by element within rtol 3e-3 / atol 3e-5. Returns the largest relative
+    2-norm difference."""
+    from sse_tpu_torch.train import loop
+
+    held_params(f"{label} Adam first moment", got.mu, ref.mu)
+    worst = 0.0
+    for name, g, r in (("first", got.mu, ref.mu),
+                       ("sqrt of the second", loop.tree_map(torch.sqrt, got.nu),
+                        loop.tree_map(torch.sqrt, ref.nu))):
+        for a, b in zip(loop.tree_leaves(g), loop.tree_leaves(r)):
+            rel = float(torch.linalg.vector_norm(a.to(b.device) - b)) / max(
+                float(torch.linalg.vector_norm(b)), 1e-30)
+            check(rel <= 3e-3, f"{label}: Adam's {name} moment of a {tuple(b.shape)} leaf "
+                               f"{rel:.3g} from the reference's in the 2-norm (relative)")
+            worst = max(worst, rel)
+    return worst
+
+
+def held_state(label: str, got, ref) -> tuple:
+    """A state (whole) against the reference state: Adam's moments as
+    held_moments holds them; the params and EMA within rtol 3e-3 / atol
+    3e-5 where Adam's update is conditioned (held_params). Returns (the
+    largest |difference| of the params, the elements left out, the
+    largest share of a leaf left out, the moments' largest relative
+    difference)."""
+    from sse_tpu_torch.train import loop
+
+    opt = ref.opt_state
+    nu, moments = None, 0.0
+    if opt is not None:
+        moments = held_moments(label, got.opt_state, opt)
+        c2 = float(1.0 - np.power(np.float32(0.999), np.float32(opt.count)))
+        nu = loop.tree_map(lambda v: v / c2, opt.nu)
+    worst, skipped, share = held_params(f"{label} params", got.params, ref.params, nu)
+    _, more, ema_share = held_params(f"{label} EMA", got.ema_params, ref.ema_params, nu)
+    return worst, skipped + more, max(share, ema_share), moments
+
+
+def grid_split(label: str, run, card: str, reps: int = 3) -> None:
+    """A grid step's device time by part (step_split over ``reps`` steps of
+    ``run()``): forward, backward, the gradient sum over 'data', the
+    update and, with a sharded table, the cross-block combine; the wall ms
+    and the device-busy share."""
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000.0 / reps
+    busy = sum(v for k, v in device_times(prof).items() if not k.startswith("sse.")) / reps
+    split, _ = step_split(prof)
+    split = {k[:60]: round(v / reps, 4) for k, v in sorted(split.items(), key=lambda kv: -kv[1])}
+    log(f"{label} split (torch.profiler, {reps} steps, ms a step): wall {wall:.4f}, device busy "
+        f"{busy:.4f} ({100.0 * busy / wall:.1f}%); by range (step_split): {json.dumps(split)} "
+        f"[{card}]")
+
+
+def flagship_problem(steps: int = GRID_STEPS, b: int = 256, t: int = 4096, length: int = 50):
+    """The ranking preset at its widths (GRU, E=H=D=128, vocab 8000, dual
+    encoder, 128 sampled and 16 mined negatives, Adam, EMA 0.999) at the
+    train bench's B=256: ``steps`` batches of seeded pairs (a quarter of
+    them with a second label), ``t`` targets of ragged lengths up to L=50,
+    the hard-negative cache refreshed every 4 steps."""
+    from sse_tpu_torch import configs
+    from sse_tpu_torch.data.corpus import EncodedPairs, TargetSpace
+
+    rng = np.random.default_rng(SEED)
+    n = steps * b
+    labels = rng.integers(0, t, size=n).astype(np.int32)
+    lm = np.full((n, 2), -1, np.int32)
+    lm[:, 0] = labels
+    take = rng.random(n) < 0.25
+    lm[take, 1] = rng.integers(0, t, size=n)[take]
+    pairs = EncodedPairs(src=rng.integers(2, 8000, size=(n, length)).astype(np.int32),
+                         src_len=rng.integers(1, length + 1, size=n).astype(np.int32),
+                         labels=labels, label_sets=[(int(x),) for x in labels], labels_multi=lm)
+    tspace = TargetSpace(ids=[f"t{i}" for i in range(t)], texts=["x"] * t,
+                         tokens=rng.integers(2, 8000, size=(t, length)).astype(np.int32),
+                         lengths=rng.integers(1, length + 1, size=t).astype(np.int32),
+                         id_to_row={f"t{i}": i for i in range(t)})
+    task = configs.preset("ranking", batch_size=b, max_epochs=1, hard_negative_refresh=4,
+                          steps_per_checkpoint=10_000)
+    return task.model_config(8000, t), task.train_config(), pairs, tspace
+
+
+def drift(recs, ref) -> str:
+    """The largest relative loss and grad_norm differences of a
+    free-running run's steps from a reference run's, by step."""
+    return ", ".join(f"{abs(g[0] - r[0]) / abs(r[0]):.1e}/{abs(g[1] - r[1]) / abs(r[1]):.1e}"
+                     for g, r in zip(recs, ref))
+
+
+def dp_grids(card: str) -> dict:
+    """The ranking preset's GRID_STEPS steps through train() on the (2, 1)
+    and (4, 1) grids against one card on the same batches. Every grid step
+    is held to the one-card step from its own input state (shadow_step:
+    loss, grad_norm, params, moments, EMA) and launches the GRU kernels
+    data times the one-card step's count. The free-running runs drift
+    apart as the one-card run drifts from itself when its initial params
+    move by 1e-7 relative: both drifts are logged. Returns the launch
+    counts of the (2, 1) run (reset just before it), less those of the
+    one-card steps it was held against."""
+    import dataclasses as dc
+
+    from sse_tpu_torch import ops
+    from sse_tpu_torch.parallel import make_mesh
+    from sse_tpu_torch.parallel.mesh import gather
+    from sse_tpu_torch.train import grid, init_train_state, loop, train
+
+    mc, tc, pairs, tspace = flagship_problem()
+    runs, counts = {}, {}
+    for shape in (None, "perturbed", (2, 1), (4, 1)):
+        records = []
+        undo = recording_steps(records, shadow=isinstance(shape, tuple))
+        mesh = make_mesh(*shape, devices=mesh_cards(shape[0])) if isinstance(shape, tuple) \
+            else None
+        state = init_train_state(mc, tc, device="cuda")
+        if shape == "perturbed":
+            state = dc.replace(state, params=loop.tree_map(lambda t: t * (1 + 1e-7), state.params))
+        ops.reset_launch_counts()
+        try:
+            state = train(mc, tc, pairs, tspace, mesh=mesh, state=state)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        counts[shape] = ops.launch_counts()
+        for r in records:  # the shadow steps are not the grid's path
+            for n, c in (r[5] or {}).items():
+                counts[shape][n] -= c
+        runs[shape] = (state, records)
+    one, ref = runs[None]
+    check(len(ref) == GRID_STEPS, f"one card: {len(ref)} steps")
+    ms = {"one card": sum(r[2] for r in ref[1:]) / (len(ref) - 1)}
+    log(f"train one card, params moved by 1e-7 relative, free-running drift of loss/grad_norm "
+        f"by step: {drift(runs['perturbed'][1], ref)}")
+    for shape in ((2, 1), (4, 1)):
+        state, recs = runs[shape]
+        check(state.step == GRID_STEPS and len(recs) == GRID_STEPS, f"{shape}: {state.step} steps")
+        for i, (g, r) in enumerate(zip(recs, ref)):
+            for name in ("gru_fwd", "gru_bwd"):
+                check(g[3][name] == shape[0] * r[3][name] > 0,
+                      f"{shape} step {i + 1}: {name} launched {g[3][name]} times, one card "
+                      f"{r[3][name]}")
+        check(grid.copies_identical(state), f"{shape}: the replicas' copies differ")
+        worst = max(g[4][0] for g in recs)
+        skipped = sum(g[4][1] for g in recs)
+        share = max(g[4][2] for g in recs)
+        moments = max(g[4][3] for g in recs)
+        end = max(float((a - b).abs().max()) for a, b in zip(
+            loop.tree_leaves(gather(state.params)), loop.tree_leaves(one.params)))
+        ms[str(shape)] = sum(r[2] for r in recs[1:]) / (len(recs) - 1)
+        log(f"train grid {shape} (ranking preset, GRU E=H=D=128, B=256, 128 sampled + 16 mined "
+            f"negatives, multi-label rows, cache refreshed at step 4): {GRID_STEPS} steps through "
+            f"train(); each step from its own input state within rtol 2e-4 (loss, grad_norm), "
+            f"Adam's moments within 3e-3 in the 2-norm (at most {moments:.3g}), params and EMA "
+            f"within rtol 3e-3 / atol 3e-5 where Adam's update is conditioned (max |d| "
+            f"{worst:.3g}; {skipped} elements left out over the steps, at most {share:.3g} of a "
+            f"leaf in a step) of the one-card step, every copy identical, gru_fwd/gru_bwd "
+            f"{recs[0][3]['gru_fwd']}/"
+            f"{recs[0][3]['gru_bwd']} a step (one card {ref[0][3]['gru_fwd']}/"
+            f"{ref[0][3]['gru_bwd']}); free-running drift from the one-card run, loss/grad_norm "
+            f"by step: {drift(recs, ref)}, final params max |d| {end:.3g}")
+    log(f"train grid ms a step (host clock around the synchronized step, steps 2-{GRID_STEPS}; "
+        f"one card's grid entries queue on it: a check of the path, not a multi-card speed): "
+        f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} [{card}]")
+
+    # the (2, 1) step's split, on the run's final state and first batch
+    state = runs[(2, 1)][0]
+    step = loop.make_train_step(mc, tc, packed_width=pairs.src.shape[1], num_label_cols=2,
+                                mesh=state.mesh)
+    packed = torch.from_numpy(loop.pack_batch(next(iter(
+        loop.BatchIterator(pairs, tc.batch_size).epoch_batches(0)))))
+    tt = torch.from_numpy(tspace.tokens).cuda()
+    tl = torch.from_numpy(tspace.lengths).cuda()
+    with torch.no_grad():
+        cache = loop.sse.target_embeddings(loop.inference_params(state), mc, tokens=tt, lengths=tl)
+    grid_split("train grid (2, 1) step", lambda: step(state, packed, tt, tl, cache), card)
+    one_step = loop.make_train_step(mc, tc, packed_width=pairs.src.shape[1], num_label_cols=2)
+    grid_split("train one-card step", lambda: one_step(one, packed.cuda(), tt, tl, cache), card)
+    return counts[(2, 1)]
+
+
+def largest_alloc(run) -> tuple:
+    """(the largest single device allocation of ``run()``, in bytes, and its
+    peak memory above what was allocated before it): the allocator's own
+    record (torch.cuda.memory's history) and max_memory_allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=200_000)
+    try:
+        out = run()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    sizes = [e["size"] for dev in snap["device_traces"] for e in dev if e["action"] == "alloc"]
+    return out, max(sizes), torch.cuda.max_memory_allocated() - base
+
+
+def tp_grids(card: str) -> None:
+    """The classification preset (source encoder only, full softmax,
+    dropout 0.1, EMA 0.999; GRU E=H=D=128) at B=128 with a
+    GRID_TABLE-row target table: one step on (1, 2), (1, 4) and (2, 2)
+    against the one-card step. No grid allocates a whole [B, T] logits
+    tensor (the allocator's largest block stays under B·T·4 bytes), where
+    the one-card step does."""
+    from sse_tpu_torch import configs
+    from sse_tpu_torch.data.batching import Batch
+    from sse_tpu_torch.parallel import make_mesh
+    from sse_tpu_torch.train import grid, init_train_state, loop
+
+    b, t, length = 128, GRID_TABLE, 50
+    task = configs.preset("classification", batch_size=b)
+    mc, tc = task.model_config(8000, t), task.train_config()
+    rng = np.random.default_rng(SEED + 1)
+    packed = torch.from_numpy(loop.pack_batch(Batch(
+        rng.integers(2, 8000, size=(b, length)).astype(np.int32),
+        rng.integers(1, length + 1, size=b).astype(np.int32),
+        rng.integers(0, t, size=b).astype(np.int32), np.ones(b, np.float32))))
+    dummy_t = torch.zeros((t, 1), dtype=torch.int32, device="cuda")
+    dummy_l = torch.ones((t,), dtype=torch.int32, device="cuda")
+    s0 = init_train_state(mc, tc, device="cuda")
+    one_step = loop.make_train_step(mc, tc, packed_width=length)
+    (ref, rm), one_big, one_peak = largest_alloc(lambda: one_step(s0, packed.cuda(), dummy_t,
+                                                                  dummy_l))
+    logits = b * t * 4
+    check(one_big >= logits, f"the one-card step's largest allocation {one_big} < B·T·4")
+    one_ms = cuda_ms(lambda: one_step(s0, packed.cuda(), dummy_t, dummy_l), reps=3)
+    ms = {"one card": one_ms}
+    for shape in ((1, 2), (1, 4), (2, 2)):
+        mesh = make_mesh(*shape, devices=mesh_cards(shape[0] * shape[1]))
+        placed = grid.place_state(s0, mesh)
+        step = loop.make_train_step(mc, tc, packed_width=length, mesh=mesh)
+        (got, gm), big, peak = largest_alloc(lambda: step(placed, packed, dummy_t, dummy_l))
+        for key in ("loss", "grad_norm", "accuracy"):
+            g, r = float(gm[key]), float(rm[key])
+            check(abs(g - r) <= 2e-4 * abs(r) + (1e-6 if key == "accuracy" else 0.0),
+                  f"TP {shape} {key}: {g} against one card's {r}")
+        check(grid.copies_identical(got), f"TP {shape}: the copies differ")
+        worst, skipped, share, moments = held_state(f"TP {shape}", grid.gather_state(got), ref)
+        check(big < logits, f"TP {shape}: an allocation of {big} bytes, a [B, T] logits "
+                            f"tensor is {logits}")
+        ms[str(shape)] = cuda_ms(lambda: step(placed, packed, dummy_t, dummy_l), reps=3)
+        log(f"train grid TP {shape} (classification preset, B=128, {t:,}-row table over "
+            f"'model'): one step, loss/grad_norm/accuracy within rtol 2e-4, Adam's moments within "
+            f"3e-3 in the 2-norm (at most {moments:.3g}), params and EMA within rtol 3e-3 / atol "
+            f"3e-5 where Adam's update is conditioned (max |d| {worst:.3g}; {skipped} elements "
+            f"left out, at most {share:.3g} of a leaf), copies identical; largest allocation "
+            f"{big / 2**20:.1f} MiB against {one_big / 2**20:.1f} MiB on one card (a [B, T] "
+            f"logits tensor: {logits / 2**20:.1f} MiB); peak above the state "
+            f"{peak / 2**30:.2f} GiB against {one_peak / 2**30:.2f} GiB")
+        if shape == (1, 2):
+            grid_split("train grid TP (1, 2) step",
+                       lambda: step(placed, packed, dummy_t, dummy_l), card, reps=2)
+        del placed, got
+    log(f"train grid TP ms a step (CUDA events, 3 steps after a warm one; the grid's entries "
+        f"queue on one card): {json.dumps({k: round(v, 3) for k, v in ms.items()})} [{card}]")
+
+
+def cp_encodes(card: str) -> None:
+    """The transformer recipe's tower (4 pre-LN blocks, E=H=D=128, 4 heads,
+    RoPE, mean readout) at B=256, L=512 on cp_mesh(2) and cp_mesh(4)
+    against the unsharded encode on the card: embeddings within rtol 2e-5
+    / atol 2e-6, the gradients of sum(out · v) within 1e-2 of max(1, max
+    |ref|) (tests/test_parallel.py:192, 262); ms an encode each."""
+    from sse_tpu_torch.models import towers
+    from sse_tpu_torch.parallel.context import cp_mesh, make_cp_encoder
+    from sse_tpu_torch.train import loop
+
+    tower = dataclasses.replace(transformer_config().src_tower, readout="mean", max_len=512)
+    params = towers.init_tower(tower, torch.Generator().manual_seed(SEED), "cuda")
+    b, length = CP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(2, tower.vocab_size, (b, length), generator=gen, device="cuda")
+    lengths = torch.randint(1, length + 1, (b,), generator=gen, device="cuda")
+    lengths[:4] = torch.tensor([length, 1, 200, 300], device="cuda")  # full, one token, mid-shard
+    v = torch.randn((b, tower.encoding_dim), generator=gen, device="cuda")
+
+    def grads(encode):
+        leaves = [x.detach().requires_grad_(True) for x in loop.tree_leaves(params)]
+        out = encode(loop._unflatten(params, leaves), tokens, lengths)
+        return out.detach(), torch.autograd.grad((out * v).sum(), leaves)
+
+    plain = lambda p, t, n: towers.encode_raw(p, tower, t, n)  # noqa: E731
+    ref, ref_g = grads(plain)
+    with torch.no_grad():
+        ms = {"unsharded": cuda_ms(lambda: plain(params, tokens, lengths), reps=3)}
+    for n in (2, 4):
+        enc = make_cp_encoder(tower, cp_mesh(n, devices=mesh_cards(n)))
+        out, g = grads(enc)
+        err = float((out - ref).abs().max())
+        check(bool(torch.isfinite(out).all()) and out.shape == ref.shape, f"CP {n}: {out.shape}")
+        check(bool(((out - ref).abs() <= 2e-6 + 2e-5 * ref.abs()).all()),
+              f"CP {n}: embeddings {err:.3g} from the unsharded encode")
+        worst = 0.0
+        for a, w in zip(g, ref_g):
+            tol = 1e-2 * max(1.0, float(w.abs().max()))
+            d = float((a - w).abs().max())
+            check(d <= tol, f"CP {n}: a {tuple(w.shape)} gradient {d:.3g} > {tol:.3g}")
+            worst = max(worst, d / tol)
+        with torch.no_grad():
+            ms[f"cp_mesh({n})"] = cuda_ms(lambda: enc(params, tokens, lengths), reps=3)
+        log(f"CP encode on cp_mesh({n}) (transformer recipe tower, mean readout, B={b}, "
+            f"L={length}): embeddings max |d| {err:.3g} (within rtol 2e-5 / atol 2e-6), "
+            f"gradients at most {worst:.3f} of their tolerance")
+    log(f"CP encode ms (CUDA events, forward only; the shards queue on one card): "
+        f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} [{card}]")
+
+
+def saved_distance(a: str, b: str) -> float:
+    """||p_a - p_b|| / ||p_b|| over every param of the latest checkpoints
+    of two model dirs."""
+    from sse_tpu_torch.train import loop
+    from sse_tpu_torch.train.checkpoint import CheckpointManager
+
+    def params(d):
+        mgr = CheckpointManager(os.path.join(d, "ckpt"))
+        path = os.path.join(d, "ckpt", str(mgr.latest_step()), "state.pt")
+        return loop.tree_leaves(torch.load(path, map_location="cpu", weights_only=True)["params"])
+
+    pa, pb = params(a), params(b)
+    diff = sum(float(((x - y).double() ** 2).sum()) for x, y in zip(pa, pb))
+    return math.sqrt(diff / sum(float((y.double() ** 2).sum()) for y in pb))
+
+
+def mp_train(card: str) -> None:
+    """Two ranks train through ``python -m sse_tpu_torch.cli train
+    --num_processes 2`` (gloo on one card; on a machine with two cards also
+    over NCCL, a card each): the ranking preset (GRU) and a transformer
+    with the mean readout, on the demo ranking corpus, beside a
+    single-process run of the GRU model. Both ranks' final params and eval
+    equal each other exactly, and every step of the GRU ranks equals the
+    one-card step from the same state (the global batch gathered from both
+    ranks; shadow_step's tolerances); rank 0 alone wrote metrics.jsonl and the
+    checkpoints. Beside the single process, free-running, the final eval
+    is held to two of its N queries, and the params' sums and the
+    checkpoints' distance are logged: the runs add in other orders, and 24
+    steps of this training amplify that (dp_grids' drift).
+    Then ``index --cp_shards 2`` on the transformer's model dir writes the
+    rows that ``index`` writes."""
+    import shutil
+
+    from sse_tpu_torch import cli
+    from sse_tpu_torch.index import ShardedIndex
+
+    shutil.rmtree(MP_TRAIN, ignore_errors=True)
+    os.makedirs(MP_TRAIN)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "SSE_PLATFORM"}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    check(cli.main(["demo-data", "--task", "ranking", "--out_dir",
+                    os.path.join(MP_TRAIN, "data")]) == 0, "demo-data")
+    base = ["train", "--data_dir", "data", "--task_type", "ranking", "--max_epochs", "2"]
+    tf = ["--recipe", "transformer", "--readout", "mean", "--max_epochs", "2"]
+    backends = [("gloo", {})]
+    if torch.cuda.device_count() >= 2:
+        backends = [("gloo", {"CUDA_VISIBLE_DEVICES": "0"}), ("nccl", {})]
+    t0 = time.perf_counter()
+    for backend, extra_env in backends:
+        jobs = {}
+        for name, args in (("gru", base), ("tf", base + tf)):
+            coord = f"127.0.0.1:{free_port()}"
+            for r in range(2):
+                jobs[f"{name} rank {r}"] = [*args, "--model_dir", f"{name}_{backend}",
+                                            "--num_processes", "2", "--coordinator", coord,
+                                            "--process_id", str(r)]
+        if backend == "gloo":
+            jobs["gru single"] = [*base, "--model_dir", "gru_single"]
+        # the GRU ranks' steps are held against the one-card step; the transformer's weights
+        # keep a bf16 rounding of their gradient a replica (train/grid.py), so its ranks are held
+        # against each other only
+        procs = {k: subprocess.Popen([sys.executable, "-c", MP_RUNNER, *a], cwd=MP_TRAIN,
+                                     env={**env, **extra_env,
+                                          "SMOKE_SHADOW": "1" if k.startswith("gru") else "0"},
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for k, a in jobs.items()}
+        outs, errs = {}, {}
+        try:
+            for k, p in procs.items():
+                out, err = p.communicate(timeout=400)
+                check(p.returncode == 0, f"{k} ({backend}) exit {p.returncode}:\n{out[-2000:]}"
+                                         f"\n{err[-3000:]}")
+                outs[k], errs[k] = out, err
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+
+        def parsed(out):
+            final = json.loads(out.split("[sse] final eval: ")[1].splitlines()[0])
+            sums = json.loads([ln for ln in out.splitlines() if ln.startswith("[params] ")][-1][9:])
+            return final, sums
+
+        for name in ("gru", "tf"):
+            for r in range(2 if name == "gru" else 0):
+                n, held, worst, skipped, share, moments = json.loads([
+                    ln for ln in outs[f"{name} rank {r}"].splitlines()
+                    if ln.startswith("[held] ")][-1][7:])
+                check(n == held == 24, f"{name} rank {r} ({backend}): {held} of {n} steps held")
+                log(f"cli train --num_processes 2 ({name}, {backend}) rank {r}: every one of its "
+                    f"{n} steps within the one-card step's tolerances from the same state (the "
+                    f"global batch gathered; params max |d| {worst:.3g}, {skipped} elements "
+                    f"left out, at most {share:.3g} of a leaf; moments at most {moments:.3g} in "
+                    f"the 2-norm)")
+            (f0, s0), (f1, s1) = parsed(outs[f"{name} rank 0"]), parsed(outs[f"{name} rank 1"])
+            check(f0 == f1 and s0 == s1, f"{name} ({backend}): the ranks differ: {f0} {s0} / {f1} "
+                                         f"{s1}")
+            check(f"over {backend}" in errs[f"{name} rank 0"],
+                  f"{name}: not over {backend}: {errs[f'{name} rank 0'][-1000:]}")
+            lines = open(os.path.join(MP_TRAIN, f"{name}_{backend}", "metrics.jsonl")).read()
+            check(lines.count('"final": 1') == 1, f"{name} ({backend}): metrics.jsonl {lines[-500:]}")
+            log(f"cli train --num_processes 2 ({name}, {backend}): both ranks final eval {f0}, "
+                f"params sum / sum |.| {s0}")
+        if backend == "gloo":
+            fs, ss = parsed(outs["gru single"])
+            (f0, s0) = parsed(outs["gru rank 0"])
+            rel = saved_distance(os.path.join(MP_TRAIN, "gru_gloo"),
+                                 os.path.join(MP_TRAIN, "gru_single"))
+            n_eval = sum(1 for _ in open(os.path.join(MP_TRAIN, "data", "EvalPairs")))
+            log(f"cli train, one process (gru): final eval {fs}, params sum / sum |.| {ss}; the "
+                f"ranks' run, free-running beside it: final eval {f0}, params {s0}, checkpoint "
+                f"distance ||d|| / ||p|| {rel:.3g}")
+            # free-running, the two runs add in other orders and drift apart (dp_grids): the
+            # eval is held to two of its N queries
+            for key, val in fs.items():
+                check(abs(f0[key] - val) <= 2.0 / n_eval,
+                      f"gru ranks' final {key} {f0[key]} against one process's {val}")
+    log(f"cli train --num_processes 2: {time.perf_counter() - t0:.1f} s for "
+        f"{len(backends)} backend(s) [{card}]")
+    model_dir = os.path.join(MP_TRAIN, "tf_gloo")
+    data_dir = os.path.join(MP_TRAIN, "data")
+    rows = {}
+    for extra in ([], ["--cp_shards", "2"]):
+        check(cli.main(["index", "--model_dir", model_dir, "--data_dir", data_dir, *extra]) == 0,
+              f"index {extra}")
+        rows[bool(extra)] = ShardedIndex.load(os.path.join(model_dir, "index"), "cuda").emb
+    err = float((rows[True] - rows[False]).abs().max())
+    check(bool(((rows[True] - rows[False]).abs() <= 2e-6 + 2e-5 * rows[False].abs()).all()),
+          f"index --cp_shards 2: rows {err:.3g} from index's")
+    log(f"index --cp_shards 2 on the two-rank transformer's model dir: the rows of index "
+        f"(max |d| {err:.3g})")
+
+
+def dryrun_multichip(n: int) -> None:
+    """The counterpart of ``__graft_entry__.dryrun_multichip``: one full
+    sharded step of the source-encoder-only, full-softmax model (2-layer
+    residual GRU, E=H=D=16, 8·model targets) on an ``n``-entry grid with
+    model=2 (entry i on card i mod the cards), held to the unsharded step:
+    a finite loss, the same loss (rtol 2e-4) and the same updated table
+    (rtol 3e-3 / atol 3e-5)."""
+    from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
+    from sse_tpu_torch.models.towers import TowerConfig
+    from sse_tpu_torch.parallel import make_mesh
+    from sse_tpu_torch.parallel.mesh import RowShards, gather
+    from sse_tpu_torch.train import LossConfig, TrainConfig, grid, init_train_state, loop
+
+    model = 2 if n % 2 == 0 and n >= 2 else 1
+    mesh = make_mesh(n // model, model, devices=mesh_cards(n))
+    mc = SSEConfig(mode=NetworkMode.SOURCE_ENCODER_ONLY,
+                   src_tower=TowerConfig(vocab_size=128, embed_dim=16, hidden=16, num_layers=2,
+                                         encoding_dim=16, residual=True),
+                   num_targets=8 * model)
+    tc = TrainConfig(batch_size=2 * n, loss=LossConfig(kind="full"))
+    state = grid.place_state(init_train_state(mc, tc, device="cuda"), mesh)
+    check(isinstance(state.params["target_table"], RowShards), "table not over 'model'")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b = tc.batch_size
+    src = torch.randint(2, 128, (b, 10), generator=gen, device="cuda", dtype=torch.int32)
+    src_len = torch.full((b,), 10, dtype=torch.int32, device="cuda")
+    labels = torch.randint(0, 8 * model, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    weight = torch.ones((b,), device="cuda")
+    dummy = (torch.zeros((8 * model, 10), dtype=torch.int32, device="cuda"),
+             torch.ones((8 * model,), dtype=torch.int32, device="cuda"))
+    new, m = loop.make_train_step(mc, tc, mesh=mesh)(state, src, src_len, labels, weight, *dummy)
+    loss = float(m["loss"])
+    check(math.isfinite(loss), f"dryrun_multichip({n}): loss {loss}")
+    ref, rm = loop.make_train_step(mc, tc)(init_train_state(mc, tc, device="cuda"), src, src_len,
+                                           labels, weight, *dummy)
+    check(abs(loss - float(rm["loss"])) <= 2e-4 * abs(float(rm["loss"])),
+          f"dryrun_multichip({n}): loss {loss} against {float(rm['loss'])}")
+    got, want = gather(new.params)["target_table"], ref.params["target_table"]
+    check(bool(((got - want).abs() <= 3e-5 + 3e-3 * want.abs()).all()),
+          f"dryrun_multichip({n}): the updated table differs")
+    log(f"dryrun_multichip({n}): one sharded step on a {mesh.shape} grid, loss {loss:.6f} "
+        f"(unsharded {float(rm['loss']):.6f}), the table within rtol 3e-3 / atol 3e-5")
+
+
+def train_grid_slice(card: str) -> dict:
+    """Training on a grid (``train.grid``, ``parallel.context``): DP with the
+    flagship loss (dp_grids), TP with the 'model'-sharded table
+    (tp_grids), the context-parallel encode (cp_encodes), two ranks
+    through the CLI and index --cp_shards (mp_train), dryrun_multichip(4).
+    Every grid entry is cuda:0 on one card (entry i on cuda:(i mod n)
+    where there are n). Returns the launch counts of the (2, 1) DP run."""
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    log("train grid: " + ("every grid entry is cuda:0: the entries share one card and their "
+                          "launches run one after another" if count == 1 else
+                          f"{count} cards: grid entry i is cuda:(i mod {count})"))
+    counts = dp_grids(card)
+    tp_grids(card)
+    cp_encodes(card)
+    dryrun_multichip(4)
+    mp_train(card)
+    log(f"train grid phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
     "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
@@ -2552,6 +3234,9 @@ def main() -> None:
     if "--sharded" in sys.argv[1:]:
         sharded_slice(card)
         return
+    if "--grid" in sys.argv[1:]:
+        train_grid_slice(card)
+        return
     results = {name: {} for name in KERNELS}
     check_gru(card, results)
     check_lstm(card, results)
@@ -2591,6 +3276,7 @@ def main() -> None:
         "qna preset": preset_slice(card, "qna", "lstm"),
         "transformer preset": preset_slice(card, "ranking", "transformer", recipe="transformer"),
         "cli": cli_slice(card),
+        "train grid": train_grid_slice(card),
     }
     need = {
         "served GRU": ("gru_fwd", "topk_stream", "twophase_p1", "twophase_p2"),
@@ -2603,6 +3289,7 @@ def main() -> None:
         "served transformer": ("topk_stream", "twophase_p1", "twophase_p2"),
         "sharded": ("gru_fwd", "topk_stream", "twophase_p1", "twophase_p2"),
         "cli": ("gru_fwd", "gru_bwd", "topk_stream"),
+        "train grid": ("gru_fwd", "gru_bwd"),
     }
     for run, names in need.items():
         missing = [n for n in names if runs[run].get(n, 0) < 1]

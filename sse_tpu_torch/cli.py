@@ -20,9 +20,11 @@ cards, ``index``, ``eval --use_index`` and ``serve`` run on the
 ``--num_processes`` and ``--process_id`` (``train``'s flags, as in the
 JAX CLI) or ``SSE_COORDINATOR``, ``SSE_NUM_PROCESSES`` and
 ``SSE_PROCESS_ID`` (any command), before the first touch of a card.
-Training stays on one process and one card: multi-process ``train`` and
-context-parallel encoding (``index --cp_shards`` above 0) raise
-``NotImplementedError`` (ROADMAP.md §1 item 5). ``bench`` runs the
+``train`` in several processes trains one model on the grid of every
+rank's device (each rank its slice of the global batch; on the CPU too,
+with ``SSE_PLATFORM=cpu``); rank 0 writes the metrics and checkpoints.
+``index --cp_shards N`` (N > 1) encodes a transformer tower's targets
+context-parallel over N devices beside this process's. ``bench`` runs the
 port's benchmark (``sse_tpu_torch.bench``) and prints its result as one
 JSON line; unlike the JAX CLI it honours ``--seconds``, and its train
 bench times one step a dispatch (the JAX CLI's default chains 8).
@@ -38,7 +40,6 @@ import sys
 import time
 
 _TASKS = ["classification", "ranking", "crosslingual", "qna"]
-_MULTI_GPU = "is not ported yet (ROADMAP.md §1 item 5)"
 _INDEX_DTYPES = ["float32", "bfloat16", "int8"]  # torch dtype names
 
 
@@ -122,19 +123,31 @@ def cmd_train(args) -> int:
     from sse_tpu_torch.utils.device import env_device
     from sse_tpu_torch.workspace import Workspace
 
-    if args.task_type is not None:
-        cfg = preset(args.task_type, recipe=args.recipe, **_overrides(args))
-        ws = Workspace.create(args.model_dir, cfg, env_device())
-    elif os.path.exists(os.path.join(args.model_dir, "config.json")):
-        ws = Workspace.open(args.model_dir, env_device())  # resume with the saved config
-        # flags passed on resume still apply (the common case: a larger
-        # --max_epochs) and persist back into config.json
-        overrides = _overrides(args)
-        if overrides:
-            ws = Workspace.create(args.model_dir, dataclasses.replace(ws.cfg, **overrides), ws.device)
+    from sse_tpu_torch.parallel import distributed
+
+    multi = distributed.world_size() > 1
+    if multi and distributed.rank() != 0:
+        distributed.barrier()  # rank 0 has written config.json
+        ws = Workspace.open(args.model_dir, env_device())
     else:
-        print("error: new model_dir needs --task_type", file=sys.stderr)
-        return 2
+        try:
+            if args.task_type is not None:
+                cfg = preset(args.task_type, recipe=args.recipe, **_overrides(args))
+                ws = Workspace.create(args.model_dir, cfg, env_device())
+            elif os.path.exists(os.path.join(args.model_dir, "config.json")):
+                ws = Workspace.open(args.model_dir, env_device())  # resume with the saved config
+                # flags passed on resume still apply (the common case: a larger
+                # --max_epochs) and persist back into config.json
+                overrides = _overrides(args)
+                if overrides:
+                    ws = Workspace.create(args.model_dir, dataclasses.replace(ws.cfg, **overrides),
+                                          ws.device)
+            else:
+                print("error: new model_dir needs --task_type", file=sys.stderr)
+                return 2
+        finally:
+            if multi:
+                distributed.barrier()
     if args.profile_dir:
         from sse_tpu_torch.utils import trace
 
@@ -150,8 +163,6 @@ def cmd_index(args) -> int:
     from sse_tpu_torch.utils.device import env_device
     from sse_tpu_torch.workspace import Workspace
 
-    if args.cp_shards > 0:
-        raise NotImplementedError(f"--cp_shards (context-parallel encoding) {_MULTI_GPU}")
     ws = Workspace.open(args.model_dir, env_device())
     if args.index_dtype:
         # this build only: the saved config is not rewritten, the index
@@ -160,7 +171,8 @@ def cmd_index(args) -> int:
     t0 = time.perf_counter()
     phases: dict = {}
     index = ws.build_index(
-        args.data_dir, export_tsv=args.export_tsv, capacity=args.capacity, phase_times=phases
+        args.data_dir, export_tsv=args.export_tsv, capacity=args.capacity, phase_times=phases,
+        cp_shards=args.cp_shards,
     )
     dt = time.perf_counter() - t0
     breakdown = " ".join(f"{k}={v:.1f}s" for k, v in phases.items())
@@ -289,8 +301,7 @@ def _add_dist_flags(p) -> None:
 
 def _maybe_init_distributed(args) -> None:
     """Join the process group (``parallel.distributed.initialize``) when
-    more than one process is asked for. Multi-process training is not
-    ported: ``train`` raises before joining."""
+    more than one process is asked for."""
     coord = getattr(args, "coordinator", None) or os.environ.get("SSE_COORDINATOR")
     nproc = getattr(args, "num_processes", None)
     if nproc is None and os.environ.get("SSE_NUM_PROCESSES"):
@@ -299,8 +310,6 @@ def _maybe_init_distributed(args) -> None:
     if pid is None and os.environ.get("SSE_PROCESS_ID"):
         pid = int(os.environ["SSE_PROCESS_ID"])
     if (nproc and nproc > 1) or coord:
-        if args.command == "train":
-            raise NotImplementedError(f"multi-process training {_MULTI_GPU}")
         from sse_tpu_torch.parallel import distributed
 
         distributed.initialize(coord, nproc, pid)
@@ -354,7 +363,7 @@ def main(argv=None) -> int:
     p.add_argument("--index_dtype", default=None, choices=_INDEX_DTYPES,
                    help="override the trained config's index precision for THIS build")
     p.add_argument("--cp_shards", type=int, default=0,
-                   help="context-parallel encoding over this many devices (not ported: > 0 raises)")
+                   help="context-parallel target encoding over this many devices (transformer, mean readout)")
     p.set_defaults(fn=cmd_index)
 
     p = sub.add_parser("eval", help="top-N recall eval (reference: sse_evaluator)")

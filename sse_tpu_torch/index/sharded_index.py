@@ -499,6 +499,7 @@ def build_index(
     dtype: torch.dtype = torch.float32,
     capacity: Optional[int] = None,
     mesh: Optional[Mesh] = None,
+    cp_shards: int = 0,
 ) -> ShardedIndex:
     """Encode the whole target space into an index on the params' device,
     or row-sharded over ``mesh``.
@@ -509,7 +510,15 @@ def build_index(
     ``[num_targets, T_pad)`` stay zero. On a grid the batches are the
     same, each encoded on a device of the first block it lands in (a
     process encodes only the batches that reach its own blocks) and
-    written into every copy of the blocks it spans."""
+    written into every copy of the blocks it spans.
+
+    ``cp_shards`` > 1 (a transformer tower with the mean readout): the
+    target tower encodes each batch context-parallel on its own
+    ``{'seq': cp_shards}`` grid of this process's devices
+    (``parallel.context.local_cp_mesh`` beside the params' device), the
+    token width padded to a multiple of the shards; the encoded rows are
+    then written into the index, on ``mesh`` where there is one, so the two
+    placements compose (``sse_tpu/index/sharded_index.py:614-646``)."""
     device = _params_device(params)
     if model_cfg.mode == NetworkMode.SOURCE_ENCODER_ONLY:
         with torch.no_grad():
@@ -521,6 +530,18 @@ def build_index(
     toks, lens = target_space.tokens, target_space.lengths
     t = toks.shape[0]
     rows = _padded_rows(t, capacity, _shard_count(mesh))
+    encode = None
+    if cp_shards > 1:
+        from sse_tpu_torch.parallel.context import local_cp_mesh, make_cp_encoder
+
+        tower = "tgt_tower" if model_cfg.mode == NetworkMode.DUAL_ENCODER else "src_tower"
+        cp_enc = make_cp_encoder(getattr(model_cfg, tower), local_cp_mesh(cp_shards, device))
+        l_cp = -(-toks.shape[1] // cp_shards) * cp_shards  # token width a shard count divides
+
+        def encode(tokens, lengths):
+            tokens = torch.nn.functional.pad(tokens, (0, l_cp - tokens.shape[1]))
+            return cp_enc(params[tower], tokens, lengths)
+
     d = model_cfg.encoding_dim
     if mesh is not None:
         shards = mesh.shape["model"]
@@ -543,11 +564,13 @@ def build_index(
                 if not mine:
                     continue
                 dev = mesh.column_devices(mine[0])[0]
-            out = sse.target_embeddings(
-                params if mesh is None else copies[dev], model_cfg,
-                tokens=torch.from_numpy(np.ascontiguousarray(toks[lo:hi])).to(dev),
-                lengths=torch.from_numpy(np.ascontiguousarray(lens[lo:hi])).to(dev),
-            )
+            tb = torch.from_numpy(np.ascontiguousarray(toks[lo:hi])).to(dev)
+            lb = torch.from_numpy(np.ascontiguousarray(lens[lo:hi])).to(dev)
+            if encode is not None:
+                out = encode(tb, lb).to(dev)
+            else:
+                out = sse.target_embeddings(
+                    params if mesh is None else copies[dev], model_cfg, tokens=tb, lengths=lb)
             if mesh is None:
                 buf[lo:hi] = quantize_rows(out, dtype)
             else:

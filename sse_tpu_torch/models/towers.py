@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -312,64 +312,130 @@ def _rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqShards:
+    """A transformer encode with its sequence split over shards (context
+    parallelism, ``parallel.context``): ``offsets``, the first global
+    position of each of this process's shards; ``length``, the global
+    sequence length; ``gather(parts, dim)``, the local shards' tensors (a
+    list in shard order, each on its shard's device) → for each local shard
+    the tensor of every shard concatenated along ``dim`` in global order,
+    on that shard's device."""
+
+    offsets: Sequence[int]
+    length: int
+    gather: Callable[[List[torch.Tensor], int], List[torch.Tensor]]
+
+
 def _transformer_encode(
-    p: Params, cfg: TowerConfig, x: torch.Tensor, valid: torch.Tensor,
-    dot: Callable = _dot,
-) -> torch.Tensor:
+    p, cfg: TowerConfig, x, valid, dot: Callable = _dot, cp: Optional[SeqShards] = None,
+):
     """x [B, L, E] float32 embeddings, valid [B, L] float 0/1 → states
-    [B, L, H] float32: pre-LN blocks (``towers.py:403-525`` without
-    ``cp_axis``). Per block: LN, ``qkv = bf16(y)·bf16(W) + b``, heads
-    [B, nh, L, hd]; RoPE rotates q and k in float32 before their bf16
-    cast (nothing is added to the residual stream), learned positions are
-    added to x, sinusoids to x·√d; logits on bf16 operands with float32
-    sums, then / √hd, plus the key mask as an additive finfo(float32).min
-    bias (a row of length 0 gets a uniform softmax and stays finite); a
-    float32 softmax; ``bf16(attn)·bf16(v)``; the out-projection and the
-    residual; LN, the MLP with the tanh GELU (``jax.nn.gelu``'s default),
-    the residual; then a final LN. ``dot`` is the product (``_dot``
-    picks by device; a check on the card passes ``bf16_matmul``)."""
-    B, L, d = x.shape
+    [B, L, H] float32: pre-LN blocks (``towers.py:403-525``). Per block: LN,
+    ``qkv = bf16(y)·bf16(W) + b``, heads [B, nh, L, hd]; RoPE rotates q and
+    k in float32 before their bf16 cast (nothing is added to the residual
+    stream), learned positions are added to x, sinusoids to x·√d; logits on
+    bf16 operands with float32 sums, then / √hd, plus the key mask as an
+    additive finfo(float32).min bias (a row of length 0 gets a uniform
+    softmax and stays finite); a float32 softmax; ``bf16(attn)·bf16(v)``;
+    the out-projection and the residual; LN, the MLP with the tanh GELU
+    (``jax.nn.gelu``'s default), the residual; then a final LN. ``dot`` is
+    the product (``_dot`` picks by device; a check on the card passes
+    ``bf16_matmul``).
+
+    With ``cp`` (the JAX tower's ``cp_axis``) ``p``, ``x`` and ``valid``
+    are lists, one entry a local shard of the sequence (its params copy,
+    its [B, Lc, E] chunk and [B, Lc] mask, on its device), and so is the
+    result. The per-token work (LN, QKV, the MLP) runs on each chunk; K, V
+    and the key-side mask are gathered in global order, so the local
+    queries attend to every key; queries rotate at their global positions
+    (offset + i) and the gathered keys at 0..L-1; the position tables are
+    sliced at each shard's offset."""
+    if cp is None:
+        return _encode_shards([p], cfg, [x], [valid], dot, None)[0]
+    return _encode_shards(p, cfg, x, valid, dot, cp)
+
+
+def _encode_shards(ps, cfg, xs, valids, dot, cp):
+    B, L, d = xs[0].shape  # L: each shard's chunk length
     nh = cfg.num_heads
     hd = d // nh
+    offsets = cp.offsets if cp is not None else (0,)
+    length = cp.length if cp is not None else L
     rope = cfg.pos_encoding == "rope"
+    xs = list(xs)
     if rope:
-        cos_t, sin_t = _rope_tables(torch.arange(L, device=x.device), hd)
+        q_tabs = [_rope_tables(off + torch.arange(L, device=x.device), hd)
+                  for off, x in zip(offsets, xs)]
+        k_tabs = q_tabs if cp is None else [
+            _rope_tables(torch.arange(length, device=x.device), hd) for x in xs]
     else:
-        if cfg.pos_encoding == "learned":
-            table, in_scale = p["pos_embed"], 1.0
-        else:
-            table = torch.from_numpy(_sinusoid_table(cfg.max_len, d)).to(x.device)
-            in_scale = math.sqrt(d)
-        if L > table.shape[0]:
-            raise ValueError(f"{L} tokens exceed the {table.shape[0]}-row position table "
-                             f"(max_len)")
-        x = x * in_scale + table[:L][None]
-    bias = torch.where(valid[:, None, None, :] > 0, 0.0, torch.finfo(torch.float32).min)
-    for blk in p["blocks"]:
-        y = _layer_norm(x, blk["ln1_scale"], blk["ln1_bias"])
-        qkv = dot(y, blk["qkv_w"]) + blk["qkv_b"]
-        qkv = qkv.reshape(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)  # [3, B, nh, L, hd]
-        if rope:  # q and k in one pass: the same elementwise ops on each
-            q, k = _rope_rotate(qkv[:2], cos_t, sin_t)
-        else:
-            q, k = qkv[0], qkv[1]
-        v = qkv[2]
-        logits = dot(q, k.transpose(-1, -2)) / math.sqrt(hd) + bias
-        attn = torch.softmax(logits, dim=-1)
-        ctx = dot(attn, v).transpose(1, 2).reshape(B, L, d)
-        x = x + (dot(ctx, blk["attn_out_w"]) + blk["attn_out_b"])
-        y = _layer_norm(x, blk["ln2_scale"], blk["ln2_bias"])
-        h = F.gelu(dot(y, blk["mlp_in_w"]) + blk["mlp_in_b"], approximate="tanh")
-        x = x + (dot(h, blk["mlp_out_w"]) + blk["mlp_out_b"])
-    return _layer_norm(x, p["ln_f_scale"], p["ln_f_bias"])
+        for i, (off, x) in enumerate(zip(offsets, xs)):
+            if cfg.pos_encoding == "learned":
+                table, in_scale = ps[i]["pos_embed"], 1.0
+            else:
+                table = torch.from_numpy(_sinusoid_table(cfg.max_len, d)).to(x.device)
+                in_scale = math.sqrt(d)
+            if length > table.shape[0]:
+                raise ValueError(f"{length} tokens exceed the {table.shape[0]}-row position "
+                                 f"table (max_len)")
+            xs[i] = x * in_scale + table[off : off + L][None]
+    valid_g = valids if cp is None else cp.gather(valids, 1)
+    biases = [torch.where(v[:, None, None, :] > 0, 0.0, torch.finfo(torch.float32).min)
+              for v in valid_g]
+    for bi in range(len(ps[0]["blocks"])):
+        qs, ks, vs = [], [], []
+        for i, x in enumerate(xs):
+            blk = ps[i]["blocks"][bi]
+            y = _layer_norm(x, blk["ln1_scale"], blk["ln1_bias"])
+            qkv = dot(y, blk["qkv_w"]) + blk["qkv_b"]
+            qkv = qkv.reshape(B, L, 3, nh, hd).permute(2, 0, 3, 1, 4)  # [3, B, nh, L, hd]
+            qs.append(qkv[0])
+            ks.append(qkv[1])
+            vs.append(qkv[2])
+        if cp is not None:  # keys and values go global; queries stay local
+            ks, vs = cp.gather(ks, 2), cp.gather(vs, 2)
+        for i, x in enumerate(xs):
+            blk = ps[i]["blocks"][bi]
+            q, k, v = qs[i], ks[i], vs[i]
+            if rope:
+                q = _rope_rotate(q, *q_tabs[i])
+                k = _rope_rotate(k, *k_tabs[i])
+            logits = dot(q, k.transpose(-1, -2)) / math.sqrt(hd) + biases[i]
+            attn = torch.softmax(logits, dim=-1)
+            ctx = dot(attn, v).transpose(1, 2).reshape(B, L, d)
+            x = x + (dot(ctx, blk["attn_out_w"]) + blk["attn_out_b"])
+            y = _layer_norm(x, blk["ln2_scale"], blk["ln2_bias"])
+            h = F.gelu(dot(y, blk["mlp_in_w"]) + blk["mlp_in_b"], approximate="tanh")
+            xs[i] = x + (dot(h, blk["mlp_out_w"]) + blk["mlp_out_b"])
+    return [_layer_norm(x, p["ln_f_scale"], p["ln_f_bias"]) for p, x in zip(ps, xs)]
 
 
 # ----------------------------------------------------------- readouts
-def _dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class RowDraw:
+    """A dropout generator for some rows of a larger batch (a data
+    replica's rows on a grid): each mask is drawn for all ``rows`` rows
+    from ``generator``, as the one-device step draws it, and the rows of
+    ``segments`` ((first row, count) pairs, in the order of the rows
+    encoded) are kept. So a replica's masks equal the one-device step's
+    masks of its rows."""
+
+    generator: torch.Generator
+    rows: int
+    segments: Tuple[Tuple[int, int], ...]
+
+
+def _dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
     """Inverted dropout (scale-at-train, identity-at-eval), as
-    ``towers.py:576-580``; the keep mask is drawn from ``gen``."""
+    ``towers.py:576-580``; the keep mask is drawn from ``gen`` (a
+    ``torch.Generator``, or a ``RowDraw``)."""
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=gen, device=x.device)
+    if isinstance(gen, RowDraw):
+        u = torch.rand((gen.rows, *x.shape[1:]), generator=gen.generator, device=x.device)
+        u = torch.cat([u[a : a + n] for a, n in gen.segments])
+    else:
+        u = torch.rand(x.shape, generator=gen, device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -427,16 +493,29 @@ def encode_raw(
     dropout_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Token ids → L2-normalized [B, encoding_dim] float32 embeddings
-    (``towers.py:583-676``). Recurrent towers read out the final state,
-    the masked mean or the attention readout; the bag-of-subwords tower
-    (its embeddings are its states) and the transformer read out the
-    masked mean, or the attention readout with the masked mean as its
-    residual. Then the tanh projection and the L2 norm.
+    (``towers.py:583-676``): ``project(encode_features(...))``. Recurrent
+    towers read out the final state, the masked mean or the attention
+    readout; the bag-of-subwords tower (its embeddings are its states) and
+    the transformer read out the masked mean, or the attention readout
+    with the masked mean as its residual. Then the tanh projection and the
+    L2 norm.
 
-    ``dropout_generator`` (a ``torch.Generator`` on the tokens' device)
-    turns on ``cfg.dropout`` on the embeddings and on the readout
-    features (training only); None, what eval and serving pass, keeps the
-    forward deterministic."""
+    ``dropout_generator`` (a ``torch.Generator`` on the tokens' device,
+    or a ``RowDraw`` of one) turns on ``cfg.dropout`` on the embeddings
+    and on the readout features (training only); None, what eval and
+    serving pass, keeps the forward deterministic."""
+    return project(params, encode_features(params, cfg, tokens, lengths, dropout_generator))
+
+
+def encode_features(
+    params: Params,
+    cfg: TowerConfig,
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    dropout_generator=None,
+) -> torch.Tensor:
+    """``encode_raw`` up to the projection: the readout's [B, H] float32
+    features, after the train-time dropout."""
     _check_supported(cfg)
     train = dropout_generator is not None and cfg.dropout > 0.0
     L = tokens.shape[1]
@@ -459,14 +538,29 @@ def encode_raw(
                 feats = _attention_readout(params, states, valid, feats)
     if train:
         feats = _dropout(feats, cfg.dropout, dropout_generator)
+    return feats
+
+
+# the params that project the readout's features (``project``)
+PROJECTION = ("proj_b", "proj_w")
+
+
+def project(params: Params, feats: torch.Tensor) -> torch.Tensor:
+    """The tanh projection of [B, H] features and the L2 norm → [B,
+    encoding_dim] float32."""
     out = torch.tanh(_dot(feats, params["proj_w"]) + params["proj_b"])
     return out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-6)
 
 
 __all__ = [
+    "PROJECTION",
+    "RowDraw",
+    "SeqShards",
     "TowerConfig",
+    "encode_features",
     "encode_raw",
     "gru_cell",
     "init_tower",
     "lstm_cell",
+    "project",
 ]

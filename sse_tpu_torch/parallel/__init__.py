@@ -1,29 +1,57 @@
 """Parallelism layer (port of ``sse_tpu.parallel``): the ('data', 'model')
-grid of devices, the exact top-k merge across index row shards, and the
-process group across several processes.
+grid of devices, the placement of a train state on it, the exact top-k
+merge across index row shards, context parallelism and the process group
+across several processes.
 
 * ``mesh``: ``make_mesh``, the grid; ``replicate`` (params on each
-  device) and ``RowShards`` (index rows split over 'model');
+  device), ``RowShards`` (index rows split over 'model'), ``place`` /
+  ``gather`` / ``param_shardings`` (a train state on the grid: the target
+  table over 'model', everything else replicated) and ``batch_rows`` (a
+  batch over 'data');
 * ``topk``: the exact cross-shard merge on int64 composites;
+* ``context``: the transformer encode with its sequence split over a
+  ``{'seq': n}`` grid (``cp_mesh``, ``make_cp_encoder``,
+  ``encode_context_parallel``);
 * ``distributed``: ``torch.distributed`` bring-up (NCCL when every rank
-  has a card of its own, gloo otherwise).
-
-The JAX package's context parallelism (``cp_mesh``, ``make_cp_encoder``,
-``encode_context_parallel``) and its ``param_shardings`` belong to
-training on a mesh, which is not ported yet (ROADMAP.md §1 item 5).
+  has a card of its own, gloo otherwise) and the collectives that carry
+  gradients.
 """
 
 from sse_tpu_torch.parallel import distributed
-from sse_tpu_torch.parallel.mesh import Mesh, Replicated, RowShards, make_mesh, replicate
+from sse_tpu_torch.parallel.context import (
+    check_cp_config,
+    cp_mesh,
+    encode_context_parallel,
+    make_cp_encoder,
+)
+from sse_tpu_torch.parallel.mesh import (
+    Mesh,
+    Replicated,
+    RowShards,
+    batch_rows,
+    gather,
+    make_mesh,
+    param_shardings,
+    place,
+    replicate,
+)
 from sse_tpu_torch.parallel.topk import distributed_topk, local_topk_merge_body
 
 __all__ = [
     "Mesh",
     "Replicated",
     "RowShards",
+    "batch_rows",
+    "check_cp_config",
+    "cp_mesh",
     "distributed",
     "distributed_topk",
+    "encode_context_parallel",
+    "gather",
     "local_topk_merge_body",
+    "make_cp_encoder",
     "make_mesh",
+    "param_shardings",
+    "place",
     "replicate",
 ]

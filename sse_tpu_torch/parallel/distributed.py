@@ -12,6 +12,32 @@ processes through host memory, explicitly (``all_gather``).
 
 The group is process-wide state, as JAX's distributed client is: this
 module records the rank's card and the group its device collectives use.
+
+Collectives that carry gradients (training on a grid, the
+context-parallel encode across processes):
+
+* ``gather_rows(t, dim)``: every rank's ``t`` concatenated in rank order,
+  for a computation that every rank then repeats on the same values (the
+  train step's global loss). Its backward takes this rank's slice of the
+  cotangent and needs no collective: every rank holds the whole,
+  identical cotangent. (``torch.distributed.nn.functional.all_gather``
+  sums the cotangents over the ranks instead, which on an identical loss
+  makes every gradient ``world`` times too large.)
+* ``gather_rows(t, dim, scatter=True)``: the same forward for a
+  computation that differs by rank (context parallelism's keys and
+  values, read by each rank's own queries): the backward sums the
+  cotangents over the ranks and takes this rank's slice (a reduce-scatter,
+  made of ``all_gather``, since gloo has no ``reduce_scatter``).
+* ``sum_over_ranks(t)``: the sum of every rank's ``t`` in rank order, the
+  same on every rank (no gradient: the train step sums its gradients
+  over 'data' with it).
+* ``sum_grads_over_ranks(t)``: ``t`` itself, with a backward that sums
+  the cotangent over the ranks (the gradient of a parameter replicated
+  over ranks that each use it on their own shard of the work).
+
+A sum over 'model' never crosses processes: a rank holds whole grid rows
+in training (``train.grid``), so the [B]-sized partials of its table
+blocks meet on its own devices.
 """
 
 from __future__ import annotations
@@ -118,6 +144,49 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
     return torch.stack(out).to(t.device)
 
 
+def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
+    """The sum of every rank's ``t`` (same shape and type on every rank),
+    summed in rank order on ``t``'s device: bit for bit the same on every
+    rank."""
+    return all_gather(t.detach()).sum(0)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, scatter):
+        ctx.dim, ctx.scatter, ctx.n = dim, scatter, t.shape[dim]
+        return torch.cat(list(all_gather(t).unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.scatter:
+            g = sum_over_ranks(g.contiguous())
+        return g.narrow(ctx.dim, rank() * ctx.n, ctx.n), None, None
+
+
+def gather_rows(t: torch.Tensor, dim: int = 0, scatter: bool = False) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order, on
+    ``t``'s device, differentiable: the backward takes this rank's slice of
+    the cotangent, summed over the ranks first with ``scatter`` (see the
+    module docstring for which to use)."""
+    return _GatherRows.apply(t, dim, scatter)
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_over_ranks(g.contiguous())
+
+
+def sum_grads_over_ranks(t: torch.Tensor) -> torch.Tensor:
+    """``t``, whose gradient is summed over the ranks in the backward."""
+    return _SumGrads.apply(t)
+
+
 def barrier() -> None:
     dist.barrier()
 
@@ -134,5 +203,6 @@ def process_info() -> dict:
             "global_devices": cards}
 
 
-__all__ = ["all_gather", "all_gather_object", "backend", "barrier", "initialize",
-           "local_device", "process_info", "rank", "world_size"]
+__all__ = ["all_gather", "all_gather_object", "backend", "barrier", "gather_rows", "initialize",
+           "local_device", "process_info", "rank", "sum_grads_over_ranks", "sum_over_ranks",
+           "world_size"]

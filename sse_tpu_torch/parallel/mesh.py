@@ -17,8 +17,17 @@ Across processes (``parallel.distributed.initialize``) the grid is
 global, as a JAX mesh is after ``jax.distributed.initialize``: every
 entry records the rank of the process that owns it, the device names of
 other ranks are labels only, and each process touches only its own
-entries. ``param_shardings`` (the target table over 'model') belongs to
-training on a mesh, which is not ported yet (ROADMAP.md §1).
+entries.
+
+A train state on a grid (``place``, the counterpart of JAX's
+``jax.device_put(state, param_shardings(mesh, state))``): every
+``target_table`` leaf (the params', the Adam moments' and the EMA copy's)
+is a ``RowShards`` of equal row blocks over 'model', each block on every
+device of its column; every other leaf is a ``Replicated`` copy on each
+of this process's devices. A table whose rows do not divide by 'model'
+raises ValueError, as ``jax.device_put`` does. ``gather`` assembles a
+placed tree whole on one device. A batch is split over 'data' in grid
+order (``batch_rows``).
 """
 
 from __future__ import annotations
@@ -220,4 +229,87 @@ class RowShards:
         return torch.cat(parts)
 
 
-__all__ = ["AXES", "Mesh", "Replicated", "RowShards", "make_mesh", "replicate"]
+# ------------------------------------------------- a train state on a grid
+ROW_SHARDED = ("target_table",)  # the leaves split over 'model' (param_shardings)
+
+
+def param_shardings(tree: Any) -> Any:
+    """``tree``'s structure with "model" at every ``target_table`` leaf
+    (rows over 'model') and None at every other (replicated): the rule of
+    JAX's ``param_shardings``, for ``place``."""
+
+    def walk(t, key):
+        if isinstance(t, dict) and not isinstance(t, Replicated):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, key) for v in t)
+        return "model" if key in ROW_SHARDED else None
+
+    return walk(tree, None)
+
+
+def is_placed(leaf: Any) -> bool:
+    return isinstance(leaf, (Replicated, RowShards))
+
+
+def place(tree: Any, mesh: Mesh) -> Any:
+    """``tree`` (a params-like pytree of tensors, or None) on ``mesh`` by
+    ``param_shardings``: row-sharded leaves become ``RowShards`` (ValueError
+    where the rows do not divide by 'model'), the others ``Replicated``
+    copies on each of this process's devices. Leaves already placed stay
+    as they are."""
+    if tree is None:
+        return None
+
+    def walk(t, rule):
+        if is_placed(t):
+            return t
+        if isinstance(t, dict):
+            return {k: walk(v, rule[k]) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, r) for v, r in zip(t, rule))
+        if rule == "model":
+            return RowShards.from_tensor(t.detach(), mesh)
+        return Replicated({dev: t.detach().to(dev, copy=True) for dev in mesh.local_devices})
+
+    return walk(tree, param_shardings(tree))
+
+
+def whole(leaf: Any, device: Optional[torch.device] = None) -> torch.Tensor:
+    """One placed leaf whole on ``device`` (its first device when None):
+    the first copy of a ``Replicated``, the blocks of a ``RowShards`` in
+    row order. A plain tensor is moved to ``device``."""
+    if isinstance(leaf, Replicated):
+        t = next(iter(leaf.values()))
+    elif isinstance(leaf, RowShards):
+        t = leaf[0 : leaf.shape[0]]
+    else:
+        t = leaf
+    return t if device is None else t.to(device)
+
+
+def gather(tree: Any, device: Optional[torch.device] = None) -> Any:
+    """A placed tree whole on ``device``: a plain pytree of tensors, the
+    row-sharded leaves assembled (``whole``)."""
+    if tree is None:
+        return None
+    if is_placed(tree) or torch.is_tensor(tree):
+        return whole(tree, device)
+    if isinstance(tree, dict):
+        return {k: gather(v, device) for k, v in tree.items()}
+    return type(tree)(gather(v, device) for v in tree)
+
+
+def batch_rows(mesh: Mesh, rows: int) -> List[range]:
+    """The global rows of each data replica d (grid row d) of a batch of
+    ``rows``: equal contiguous blocks in grid order, as ``P('data')``
+    splits them. Raises where 'data' does not divide the batch."""
+    data = mesh.shape["data"]
+    if rows % data:
+        raise ValueError(f"a batch of {rows} rows does not split over data={data}")
+    b = rows // data
+    return [range(d * b, (d + 1) * b) for d in range(data)]
+
+
+__all__ = ["AXES", "Mesh", "Replicated", "RowShards", "batch_rows", "gather", "is_placed",
+           "make_mesh", "param_shardings", "place", "replicate", "whole"]

@@ -26,6 +26,14 @@ latest is skipped and returns False, as Orbax's is.
 The format is the port's own: an Orbax checkpoint of the JAX package is
 carried across by restoring it with ``sse_tpu`` and converting the state
 (``sse_tpu_torch.convert.train_state_from_jax``), never read here.
+
+A state on a grid (``TrainState.mesh``) is saved whole: every leaf is
+assembled (the row-sharded target table's blocks in row order) before it
+is written, so a checkpoint saved on any grid restores on one device and
+on any other grid, equal bit for bit. Restoring into a state on a grid
+places the restored state on that grid. In a process group of several
+ranks every rank calls ``save``: rank 0 writes and removes, and the
+others wait for it at a barrier.
 """
 
 from __future__ import annotations
@@ -37,13 +45,16 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from sse_tpu_torch.parallel import distributed
+from sse_tpu_torch.parallel.mesh import gather
 from sse_tpu_torch.train.loop import ScaleByAdamState, TrainState, tree_leaves, tree_map
 
 _TMP = ".tmp-"
 
 
 def _host(tree: Any) -> Any:
-    return None if tree is None else tree_map(lambda t: t.detach().cpu(), tree)
+    """The tree whole on the host (a placed tree assembled)."""
+    return None if tree is None else tree_map(lambda t: t.detach().cpu(), gather(tree))
 
 
 def _state_dict(state: TrainState) -> Dict[str, Any]:
@@ -94,6 +105,8 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self.best_metric = best_metric
         os.makedirs(self.directory, exist_ok=True)
+        if distributed.rank() != 0:
+            return
         for name in os.listdir(self.directory):  # saves a killed process left
             if name.startswith(_TMP):
                 shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
@@ -130,6 +143,15 @@ class CheckpointManager:
         ``step`` is not above the latest step."""
         step = int(step)
         latest = self.latest_step()
+        if distributed.world_size() > 1:
+            distributed.barrier()  # every rank has read the latest step
+            saved = self._save(state, step, latest, extra, metrics) if distributed.rank() == 0 \
+                else latest is None or step > latest
+            distributed.barrier()  # rank 0 has written
+            return saved
+        return self._save(state, step, latest, extra, metrics)
+
+    def _save(self, state, step, latest, extra, metrics) -> bool:
         if latest is not None and step <= latest:
             return False
         tmp = os.path.join(self.directory, f"{_TMP}{step}-{os.getpid()}")
@@ -170,7 +192,15 @@ class CheckpointManager:
         """Restore latest (or ``step``) into the structure of
         ``abstract_state``, onto its devices; None if no checkpoint exists.
         Raises ValueError when the checkpoint's trees (params, Adam state,
-        EMA params) differ from ``abstract_state``'s."""
+        EMA params) differ from ``abstract_state``'s. An ``abstract_state``
+        on a grid gets the restored state placed on its grid."""
+        if abstract_state.mesh is not None:
+            from sse_tpu_torch.train.grid import gather_state, place_state
+
+            mesh = abstract_state.mesh
+            whole = gather_state(abstract_state)
+            restored = self.restore(whole, step)
+            return None if restored is None else place_state(restored, mesh)
         step = self.latest_step() if step is None else step
         if step is None:
             return None

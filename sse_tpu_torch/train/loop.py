@@ -94,13 +94,23 @@ class TrainState:
     # bias-corrected EMA of params (TrainConfig.ema_decay > 0), else None;
     # inference uses it when present (inference_params)
     ema_params: Any = None
+    # the ('data', 'model') grid the state lives on (train.grid.place_state):
+    # its params, moments and EMA leaves are then parallel.mesh.Replicated
+    # copies, and the target table a parallel.mesh.RowShards; None on one device
+    mesh: Any = None
 
 
 def inference_params(state: TrainState) -> Any:
     """The params every inference consumer (eval, index build, serving)
     should use: the EMA average when training keeps one, else the raw
-    optimization params."""
-    return state.params if state.ema_params is None else state.ema_params
+    optimization params. A state on a grid gives them whole on its first
+    device (the target table assembled)."""
+    params = state.params if state.ema_params is None else state.ema_params
+    if state.mesh is not None:
+        from sse_tpu_torch.parallel.mesh import gather
+
+        return gather(params, state.mesh.local_devices[0])
+    return params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,8 +159,12 @@ def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tenso
     g unchanged otherwise (no epsilon, unlike clip_grad_norm_), chosen on
     the device without a host sync. Returns (clipped, ‖g‖)."""
     g_norm = global_norm(grads)
-    keep = g_norm < max_norm
-    return tree_map(lambda t: torch.where(keep, t, (t / g_norm) * max_norm), grads), g_norm
+    return tree_map(lambda t: clip_to(t, g_norm, max_norm), grads), g_norm
+
+
+def clip_to(t: torch.Tensor, g_norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """One leaf of clip_by_global_norm, given the global norm."""
+    return torch.where(g_norm < max_norm, t, (t / g_norm) * max_norm)
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -217,6 +231,40 @@ def init_train_state(
     )
 
 
+def ema_update(decay: float, ema: Tree, params: Tree, step: int) -> Tree:
+    """The bias-corrected EMA after update ``step + 1``, stored corrected:
+    ema_1 = params, and no weight stays on the init params
+    (``loop.py:311-331``); the weights in float32 as the JAX step computes
+    them."""
+    d = np.float32(decay)
+    t = np.float32(step) + np.float32(1.0)
+    w_old = float(d * (np.float32(1.0) - np.power(d, t - np.float32(1.0))))
+    denom = float(np.float32(1.0) - np.power(d, t))
+    return tree_map(lambda e, p: (w_old * e + (1.0 - decay) * p) / denom, ema, params)
+
+
+def step_plan(model_cfg: SSEConfig, cfg: TrainConfig) -> Tuple[bool, bool]:
+    """(dropout on, merged scan) for a step. Shared-encoder mode without
+    mining: source and candidate rows ride ONE tower pass (the candidates
+    do not depend on src_emb). The gate counts the global batch; its 1024
+    rows are the JAX package's v5e measurement, not yet measured on the
+    H100 (ROADMAP.md)."""
+    loss_cfg = cfg.loss
+    use_dropout = model_cfg.src_tower.dropout > 0 or (
+        model_cfg.tgt_tower is not None and model_cfg.tgt_tower.dropout > 0
+    )
+    merged_rows = 2 * cfg.batch_size + (
+        loss_cfg.num_negatives if loss_cfg.kind == "sampled" else 0
+    )
+    merged_scan = (
+        model_cfg.mode == NetworkMode.SHARED_ENCODER
+        and loss_cfg.kind in ("inbatch", "sampled")
+        and loss_cfg.num_hard_negatives == 0
+        and merged_rows <= 1024
+    )
+    return use_dropout, merged_scan
+
+
 def _step_seed(seed: int, step: int) -> int:
     """A generator seed for one (stream seed, step) pair: distinct pairs
     give distinct seeds for seed, step < 2^32."""
@@ -230,6 +278,7 @@ def make_train_step(
     packed_width: Optional[int] = None,
     num_label_cols: int = 1,
     sample_negatives: Optional[Callable[[int, int, int], torch.Tensor]] = None,
+    mesh=None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the train step (see ``sse_tpu.train.loop.make_train_step``).
 
@@ -242,31 +291,20 @@ def make_train_step(
     (cfg.seed, s), so a resumed run draws what the unbroken run drew; the
     dropout generator is seeded from (cfg.seed ^ 0x0D0D0D, s), a disjoint
     stream. ``sample_negatives(step, num_targets, k)`` replaces the draw
-    (parity tests inject the rows JAX drew)."""
+    (parity tests inject the rows JAX drew).
+
+    With ``mesh`` (a ``parallel.Mesh``) the step runs on that grid
+    (``train.grid``): the state is one placed by ``grid.place_state``, and
+    the batch operands are this process's rows of the global batch."""
+    if mesh is not None:
+        from sse_tpu_torch.train import grid
+
+        step = grid.make_grid_step(model_cfg, cfg, mesh, sample_negatives)
+        return step if packed_width is None else _packed(step, packed_width, num_label_cols)
     tx = make_optimizer(cfg)
     loss_cfg = cfg.loss
-    use_dropout = model_cfg.src_tower.dropout > 0 or (
-        model_cfg.tgt_tower is not None and model_cfg.tgt_tower.dropout > 0
-    )
-    # Shared-encoder mode without mining: source and candidate rows ride
-    # ONE tower pass (the candidates do not depend on src_emb). The
-    # 1024-row gate is the JAX package's v5e measurement, not yet
-    # measured on the H100 (ROADMAP.md).
-    merged_rows = 2 * cfg.batch_size + (
-        loss_cfg.num_negatives if loss_cfg.kind == "sampled" else 0
-    )
-    merged_scan = (
-        model_cfg.mode == NetworkMode.SHARED_ENCODER
-        and loss_cfg.kind in ("inbatch", "sampled")
-        and loss_cfg.num_hard_negatives == 0
-        and merged_rows <= 1024
-    )
-
-    def negatives(step: int, num_targets: int, device) -> torch.Tensor:
-        if sample_negatives is not None:
-            return sample_negatives(step, num_targets, loss_cfg.num_negatives).to(device)
-        gen = torch.Generator(device=device).manual_seed(_step_seed(cfg.seed, step))
-        return losses_lib.sample_negative_rows(gen, num_targets, loss_cfg.num_negatives)
+    use_dropout, merged_scan = step_plan(model_cfg, cfg)
+    negatives = make_negatives(cfg, sample_negatives)
 
     def loss_fn(params, src, src_len, labels, weight, tgt_tokens, tgt_lens,
                 step, tgt_emb_cache, labels_multi):
@@ -347,17 +385,7 @@ def make_train_step(
             new_params = tree_map(lambda p, u: p - state.lr * u, state.params, updates)
             ema = state.ema_params
             if ema is not None:
-                # bias-corrected EMA, stored corrected: ema_1 = params, and
-                # no weight stays on the init params (loop.py:311-331);
-                # weights in float32 as the JAX step computes them
-                d = np.float32(cfg.ema_decay)
-                t = np.float32(state.step) + np.float32(1.0)
-                w_old = float(d * (np.float32(1.0) - np.power(d, t - np.float32(1.0))))
-                denom = float(np.float32(1.0) - np.power(d, t))
-                ema = tree_map(
-                    lambda e, p: (w_old * e + (1.0 - cfg.ema_decay) * p) / denom,
-                    ema, new_params,
-                )
+                ema = ema_update(cfg.ema_decay, ema, new_params, state.step)
         new_state = TrainState(
             params=new_params, opt_state=opt_state, step=state.step + 1,
             lr=state.lr, ema_params=ema,
@@ -367,7 +395,26 @@ def make_train_step(
 
     if packed_width is None:
         return step_fn
+    return _packed(step_fn, packed_width, num_label_cols)
 
+
+def make_negatives(cfg: TrainConfig, sample_negatives=None):
+    """``negatives(step, num_targets, device)``: the uniform negative rows
+    of a step, from a generator on ``device`` seeded from (cfg.seed, step),
+    the same rows on every device (or the injected ``sample_negatives``)."""
+    k = cfg.loss.num_negatives
+
+    def negatives(step: int, num_targets: int, device) -> torch.Tensor:
+        if sample_negatives is not None:
+            return sample_negatives(step, num_targets, k).to(device)
+        gen = torch.Generator(device=device).manual_seed(_step_seed(cfg.seed, step))
+        return losses_lib.sample_negative_rows(gen, num_targets, k)
+
+    return negatives
+
+
+def _packed(step_fn, packed_width: int, num_label_cols: int):
+    """``step_fn`` taking one packed [B, L+3+(M-1)] int32 operand a batch."""
     l = packed_width
     extra = num_label_cols - 1
 
@@ -423,35 +470,56 @@ def train(
     ``steps_per_checkpoint`` steps a log record, ``eval_fn`` on the
     inference params with plateau decay of ``lr``, ``checkpoint_fn`` and
     ``log_fn``. ``device`` places a fresh state; a given state stays
-    where its params are."""
-    if process_count > 1 or mesh is not None:
-        raise NotImplementedError(
-            "multi-process / mesh training is not ported yet (ROADMAP.md §1 item 5)"
-        )
+    where its params are.
+
+    With ``mesh`` (a ``parallel.Mesh``) the steps run on that grid
+    (``train.grid``): a fresh state, or one on one device, is placed on it
+    (``grid.place_state``), and one already there stays. With
+    ``process_count > 1`` (a mesh is then required, as in JAX) each
+    process feeds its slice of the global batch (``BatchIterator``) and
+    holds whole grid rows; the ranks' slices, in rank order, make the
+    global batch. ``eval_fn`` gets the inference params whole on this
+    process's first device, on every process."""
+    if process_count > 1 and mesh is None:
+        raise ValueError("multi-process training requires a mesh")
     if state is None:
-        state = init_train_state(model_cfg, cfg, device=device)
-    dev = tree_leaves(state.params)[0].device
+        state = init_train_state(
+            model_cfg, cfg, device=device if mesh is None else mesh.local_devices[0])
+    if mesh is not None:
+        from sse_tpu_torch.parallel.mesh import Replicated
+        from sse_tpu_torch.train.grid import place_state
+
+        state = place_state(state, mesh)
+        dev = mesh.local_devices[0]
+        copies = lambda x: Replicated({d: x.to(d) for d in mesh.local_devices})  # noqa: E731
+    else:
+        dev = tree_leaves(state.params)[0].device
+        copies = lambda x: x  # noqa: E731
     lm = getattr(train_pairs, "labels_multi", None)
     label_cols = 1 if lm is None else int(lm.shape[1])
     width = train_pairs.src.shape[1]
-    step_fn = make_train_step(model_cfg, cfg, packed_width=width, num_label_cols=label_cols)
+    step_fn = make_train_step(model_cfg, cfg, packed_width=width, num_label_cols=label_cols,
+                              mesh=mesh)
     it = BatchIterator(
-        train_pairs, cfg.batch_size, seed=cfg.seed,
-        shuffle_window=cfg.shuffle_window or None,
+        train_pairs, cfg.batch_size, seed=cfg.seed, process_index=process_index,
+        process_count=process_count, shuffle_window=cfg.shuffle_window or None,
     )
-    tgt_tokens = torch.from_numpy(np.asarray(target_space.tokens)).to(dev)
-    tgt_lens = torch.from_numpy(np.asarray(target_space.lengths)).to(dev)
+    tokens = torch.from_numpy(np.asarray(target_space.tokens)).to(dev)
+    lengths = torch.from_numpy(np.asarray(target_space.lengths)).to(dev)
+    tgt_tokens, tgt_lens = copies(tokens), copies(lengths)
     upload = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
 
     mine = cfg.loss.num_hard_negatives > 0 and cfg.loss.kind != "full"
 
     @torch.no_grad()
-    def encode_cache(params):
+    def encode_cache(state):
+        """The whole target-embedding cache, on every device of the grid."""
+        params = inference_params(dataclasses.replace(state, ema_params=None))
         if model_cfg.mode == NetworkMode.SOURCE_ENCODER_ONLY:
-            return sse.target_embeddings(params, model_cfg)
-        return sse.target_embeddings(params, model_cfg, tokens=tgt_tokens, lengths=tgt_lens)
+            return copies(sse.target_embeddings(params, model_cfg))
+        return copies(sse.target_embeddings(params, model_cfg, tokens=tokens, lengths=lengths))
 
-    tgt_emb_cache = encode_cache(state.params) if mine else None
+    tgt_emb_cache = encode_cache(state) if mine else None
 
     best = -float("inf")
     window_losses: List[torch.Tensor] = []
@@ -465,7 +533,7 @@ def train(
         """Boundary work after each step; acts only at exact multiples."""
         nonlocal tgt_emb_cache, window_losses, best, state, t0
         if mine and step % cfg.hard_negative_refresh == 0:
-            tgt_emb_cache = encode_cache(state.params)
+            tgt_emb_cache = encode_cache(state)
         if step % cfg.steps_per_checkpoint == 0:
             mean_loss = (
                 float(torch.stack(window_losses).mean())

@@ -9,6 +9,14 @@ uniform rows (``sampled``), optionally with mined hard negatives. A
 candidate that is one of the example's own targets but not its
 designated column is masked to ``finfo(float32).min``, as in JAX. Every
 loss honours per-example weights (weight 0 = batch padding row).
+
+On a grid (``train.grid``) the full softmax over a 'model'-sharded table
+is computed block by block (``block_softmax``): each (data replica,
+table block) entry scores its replica's rows against its block in column
+chunks and returns per-row partials (log-sum-exp, the label's logit, the
+first maximal column); ``combine_blocks`` joins a row's partials over the
+blocks. No device holds a [B, T] logits matrix, and the backward
+recomputes each chunk instead of keeping it.
 """
 
 from __future__ import annotations
@@ -17,9 +25,12 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
 _MASKED = torch.finfo(torch.float32).min
+# logits a column chunk of block_softmax holds (128 MiB of float32)
+BLOCK_LOGITS = 1 << 25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +79,113 @@ def full_softmax_loss(
         false_neg = (cols[:, :, None] == extra[:, None, :]).any(dim=2)
         logits = logits.masked_fill(false_neg, _MASKED)
     return _weighted_ce(logits, labels, weight)
+
+
+def _block_logits(src, tbl, labels, extra, col0: int, scale: float, margin: float):
+    """Logits of ``src`` [b, D] against table rows ``tbl`` [c, D] whose first
+    global column is ``col0``: full_softmax_loss's margin and false-negative
+    mask on global column ids."""
+    cos = src @ tbl.t()
+    cols = torch.arange(col0, col0 + tbl.shape[0], device=cos.device)[None, :]
+    if margin:
+        cos = cos - margin * (cols == labels[:, None]).float()
+    logits = scale * cos
+    if extra is not None:
+        logits = logits.masked_fill((cols[:, :, None] == extra[:, None, :]).any(dim=2), _MASKED)
+    return logits
+
+
+def _chunks(rows: int, b: int):
+    """Column ranges of about BLOCK_LOGITS logits for ``b`` rows."""
+    step = max(1, BLOCK_LOGITS // max(b, 1))
+    return [(lo, min(lo + step, rows)) for lo in range(0, rows, step)]
+
+
+class _BlockSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, tbl, labels, extra, col0, scale, margin):
+        lses, lls, bests, args = [], torch.zeros_like(src[:, 0]), [], []
+        for lo, hi in _chunks(tbl.shape[0], src.shape[0]):
+            logits = _block_logits(src, tbl[lo:hi], labels, extra, col0 + lo, scale, margin)
+            lses.append(torch.logsumexp(logits, dim=1))
+            local = labels - (col0 + lo)
+            here = (local >= 0) & (local < hi - lo)
+            got = torch.gather(logits, 1, local.clamp(0, hi - lo - 1)[:, None])[:, 0]
+            lls = torch.where(here, got, lls)
+            best, arg = logits.max(dim=1)  # the first maximal column of the chunk
+            bests.append(best)
+            args.append(arg + (col0 + lo))
+        lse = torch.logsumexp(torch.stack(lses), dim=0)
+        best, arg = _first_max(bests, args)
+        ctx.save_for_backward(src, tbl, labels, extra, lse)
+        ctx.col0, ctx.scale, ctx.margin = col0, scale, margin
+        ctx.mark_non_differentiable(best, arg)
+        return lse, lls, best, arg
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_lse, g_ll, _g_best, _g_arg):
+        src, tbl, labels, extra, lse = ctx.saved_tensors
+        d_src = torch.zeros_like(src)
+        d_tbl = torch.empty_like(tbl)
+        for lo, hi in _chunks(tbl.shape[0], src.shape[0]):
+            logits = _block_logits(src, tbl[lo:hi], labels, extra, ctx.col0 + lo, ctx.scale,
+                                   ctx.margin)
+            d = torch.exp(logits - lse[:, None]) * g_lse[:, None]
+            local = labels - (ctx.col0 + lo)
+            here = (local >= 0) & (local < hi - lo)
+            if extra is not None:  # a masked label column takes no gradient
+                here &= ~(extra == labels[:, None]).any(dim=1)
+            here = here.nonzero()[:, 0]
+            d[here, local[here]] += g_ll[here]
+            d = d * ctx.scale
+            d_src += d @ tbl[lo:hi]
+            d_tbl[lo:hi] = d.t() @ src
+        return d_src, d_tbl, None, None, None, None, None
+
+
+def _first_max(bests, args):
+    """The greatest of per-part maxima and its column, ties to the first
+    part (``jnp.argmax``'s first maximal column over the parts in order)."""
+    best, arg = bests[0], args[0]
+    for b, a in zip(bests[1:], args[1:]):
+        take = b > best
+        best, arg = torch.where(take, b, best), torch.where(take, a, arg)
+    return best, arg
+
+
+def block_softmax(
+    src_emb: torch.Tensor,  # [b, D] normalized, one data replica's rows
+    tbl: torch.Tensor,  # [t, D] normalized rows [col0, col0 + t) of the table
+    labels: torch.Tensor,  # [b] global rows of the positives
+    col0: int,
+    scale: float,
+    margin: float = 0.0,
+    labels_multi: Optional[torch.Tensor] = None,  # [b, M] -1-padded
+):
+    """One table block's share of ``full_softmax_loss`` for a replica's
+    rows: (log-sum-exp of the block's logits, the label's logit where the
+    label lies in the block and 0 elsewhere, the block's greatest logit
+    and its first global column), each [b]. Differentiable in ``src_emb``
+    and ``tbl`` through the first two."""
+    extra = None
+    if labels_multi is not None and labels_multi.shape[1] > 1:
+        extra = labels_multi[:, 1:].contiguous()
+    return _BlockSoftmax.apply(src_emb.float(), tbl.float(), labels.long(), extra, col0,
+                               float(scale), float(margin))
+
+
+def combine_blocks(parts):
+    """A row's partials from ``block_softmax`` over every block (in block
+    order, on one device) → (log-softmax of the label's column [b], the
+    first maximal global column [b]): the log-sum-exp combined over the
+    blocks, the label logit from the one block that holds it."""
+    lse = torch.logsumexp(torch.stack([p[0] for p in parts]), dim=0)
+    ll = parts[0][1]
+    for p in parts[1:]:
+        ll = ll + p[1]
+    _, arg = _first_max([p[2] for p in parts], [p[3] for p in parts])
+    return ll - lse, arg
 
 
 def candidate_softmax_loss(
@@ -172,6 +290,8 @@ def similarity_loss(
 
 __all__ = [
     "LossConfig",
+    "block_softmax",
+    "combine_blocks",
     "candidate_softmax_loss",
     "full_softmax_loss",
     "mine_hard_negative_rows",

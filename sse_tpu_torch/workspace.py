@@ -12,10 +12,12 @@ Everything runs on ``device``: one CUDA card, or the CPU where the caller
 asks for it. Where the process sees more than one card (or runs in a
 process group of several ranks, ``parallel.distributed``), ``mesh()`` is
 the ('data', 'model') grid of ``mesh_data`` x ``mesh_model`` cards and
-the index, eval through the index and serving run on it, as in the JAX
-package. Training stays on one card: training on a mesh, multi-process
-training and context-parallel encoding are not ported (ROADMAP.md §1
-item 5) and raise ``NotImplementedError``.
+training, the index, eval through the index and serving run on it, as
+in the JAX package. In a process group every rank trains its slice of
+the global batch on the grid of every rank's device (on the CPU too);
+rank 0 alone writes the metrics and the checkpoints. ``build_index``
+with ``cp_shards`` encodes the targets context-parallel over that many
+devices beside this process's (``parallel.context``).
 """
 
 from __future__ import annotations
@@ -52,7 +54,6 @@ from sse_tpu_torch.train.loop import tree_map
 from sse_tpu_torch.train.metrics import MetricWriter
 
 _INDEX_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
-_MULTI_GPU = "is not ported yet (ROADMAP.md §1 item 5)"
 
 
 class Workspace:
@@ -143,6 +144,14 @@ class Workspace:
             return None
         return make_mesh(self.cfg.mesh_data, self.cfg.mesh_model)
 
+    def train_mesh(self):
+        """The training grid: ``mesh()``, or in a process group on the CPU
+        the grid of every rank's CPU (JAX's mesh over the processes'
+        devices)."""
+        if distributed.world_size() > 1 and self.device.type != "cuda":
+            return make_mesh(self.cfg.mesh_data, self.cfg.mesh_model, devices=[self.device])
+        return self.mesh()
+
     def model_config(self, vocab: SubwordVocab, tspace: TargetSpace) -> SSEConfig:
         return self.cfg.model_config(vocab.vocab_size, tspace.num_targets)
 
@@ -182,14 +191,22 @@ class Workspace:
         """Train (resuming from the latest checkpoint), checkpoint every
         ``steps_per_checkpoint`` steps and at the end, keeping the best
         ``recall@1`` checkpoints when there are EvalPairs. Returns the
-        final eval. Training runs on ``device``, one card, also on a
-        machine with several (the JAX package trains on its mesh; training
-        on a mesh is not ported yet, ROADMAP.md §1 item 5); in a process
-        group of several ranks it raises ``NotImplementedError``."""
-        if torch.distributed.is_available() and torch.distributed.is_initialized():
-            if torch.distributed.get_world_size() > 1:
-                raise NotImplementedError(f"multi-process training {_MULTI_GPU}")
+        final eval. Trains on ``train_mesh()`` where there is one (the
+        restored state is placed on it), else on ``device``. In a process
+        group every rank must be given the same model dir (checked); rank
+        0 prepares the data first, every rank computes eval, and rank 0
+        alone writes the metrics and the checkpoints."""
+        multi = distributed.world_size() > 1
+        if multi:
+            dirs = distributed.all_gather_object(self.model_dir)
+            if len(set(dirs)) > 1:
+                raise ValueError("model_dir must be the SAME (shared) path on every process: "
+                                 f"checkpointing is a cross-process collective, got {dirs}")
+            if distributed.rank() != 0:
+                distributed.barrier()  # rank 0 writes the vocab and the target cache
         vocab, tspace, train_pairs, eval_pairs = self.prepare_data(data_dir)
+        if multi and distributed.rank() == 0:
+            distributed.barrier()
         if train_pairs is None:
             raise FileNotFoundError(f"no TrainPairs under {data_dir}")
         model_cfg = self.model_config(vocab, tspace)
@@ -203,7 +220,8 @@ class Workspace:
         if evaluator is not None:  # retain the best-recall checkpoints
             mgr.close()
             mgr = CheckpointManager(self.ckpt_dir, best_metric="recall@1")
-        writer = MetricWriter(self.metrics_path)
+        p0 = distributed.rank() == 0
+        writer = MetricWriter(self.metrics_path if p0 else os.devnull)
         state = train_loop(
             model_cfg,
             self.cfg.train_config(),
@@ -213,8 +231,11 @@ class Workspace:
             checkpoint_fn=lambda s, step, rec: mgr.save(
                 s, step, metrics={k: v for k, v in rec.items() if isinstance(v, (int, float))}
             ),
-            log_fn=writer.write,
+            log_fn=writer.write if p0 else None,
             state=state,
+            process_index=distributed.rank(),
+            process_count=distributed.world_size(),
+            mesh=self.train_mesh(),
             device=self.device,
         )
         final = evaluator.evaluate(inference_params(state)) if evaluator else {}
@@ -236,9 +257,8 @@ class Workspace:
         """Build and save the index (``index_dtype`` precision, ``capacity``
         rows reserved for live adds), row-sharded over ``mesh()`` where
         there is one. ``phase_times`` receives the wall seconds of
-        prepare_data, restore, encode and save."""
-        if cp_shards:
-            raise NotImplementedError(f"context-parallel encoding (cp_shards) {_MULTI_GPU}")
+        prepare_data, restore, encode and save. ``cp_shards`` > 1 encodes
+        the targets context-parallel (``build_index``)."""
         t = time.perf_counter
         t0 = t()
         vocab, tspace, _, _ = self.prepare_data(data_dir, need_eval=False)
@@ -251,7 +271,7 @@ class Workspace:
         index = build_index(
             inference_params(state), model_cfg, tspace,
             dtype=_INDEX_DTYPES.get(self.cfg.index_dtype, torch.float32), capacity=capacity,
-            mesh=mesh,
+            mesh=mesh, cp_shards=cp_shards,
         )
         for dev in mesh.local_devices if mesh is not None else [index.emb.device]:
             if dev.type == "cuda":

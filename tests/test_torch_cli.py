@@ -155,14 +155,80 @@ def test_cli_errors_and_flags(run, tmp_path, monkeypatch):
     assert rc == 0
     cfg = json.loads((tmp_path / "boolrun" / "config.json").read_text())
     assert cfg["bidirectional"] is False and cfg["streaming"] is True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --cp_shards reaches the context-parallel encode, which refuses a GRU
+    # tower as the JAX package's does (test_cli_two_process_train_and_cp_index
+    # indexes a transformer with it)
+    with pytest.raises(ValueError, match="sequential"):
         run("index", "--model_dir", "boolrun", "--data_dir", "data", "--cp_shards", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run("train", "--data_dir", "data", "--model_dir", "boolrun", "--num_processes", "2")
+    # --num_processes 2: two ranks resume the model dir and train it on one grid
+    ranks = _two_ranks(tmp_path, "train", "--data_dir", "data", "--model_dir", "boolrun",
+                       "--max_epochs", "2")
+    finals = [out.split("[sse] final eval: ")[1].splitlines()[0] for out in ranks]
+    assert finals[0] == finals[1]
+    assert "restored checkpoint step=" in ranks[0] and "restored checkpoint step=" in ranks[1]
     monkeypatch.delenv("SSE_PLATFORM")
     if not torch.cuda.is_available():  # without SSE_PLATFORM the CLI wants the card
         with pytest.raises(RuntimeError, match="CUDA"):
             run("eval", "--model_dir", "boolrun", "--data_dir", "data")
+
+
+def _two_ranks(cwd, *args, limit: int = 180):
+    """``python -m sse_tpu_torch.cli *args`` as ranks 0 and 1 of one process
+    group over gloo on the CPU (each under its own time limit); returns
+    their outputs after checking both exit codes."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "SSE_PLATFORM": "cpu", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "sse_tpu_torch.cli", *args, "--num_processes", "2",
+         "--coordinator", f"127.0.0.1:{port}", "--process_id", str(r)],
+        cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=limit)
+            assert p.returncode == 0, f"rank failed:\n{out}\n{err}"
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def test_cli_two_process_train_and_cp_index(run, tmp_path):
+    """Two ranks train a transformer (mean readout) through the CLI on one
+    grid: the same final eval on both, one metrics.jsonl and one set of
+    checkpoints (rank 0's); then ``index --cp_shards 2`` writes the rows
+    that ``index`` without it writes."""
+    from sse_tpu_torch.index import ShardedIndex
+
+    run("demo-data", "--task", "ranking", "--out_dir", "data", "--num_targets", "8",
+        "--train_per_target", "4")
+    ranks = _two_ranks(tmp_path, "train", "--task_type", "ranking", "--data_dir", "data",
+                       "--model_dir", "tf", *TINY[:-4], "--num_negatives", "4",
+                       "--num_hard_negatives", "2", "--recipe", "transformer", "--readout",
+                       "mean", "--num_layers", "2", "--max_epochs", "2")
+    finals = [out.split("[sse] final eval: ")[1].splitlines()[0] for out in ranks]
+    assert finals[0] == finals[1]
+    records = (tmp_path / "tf" / "metrics.jsonl").read_text().splitlines()
+    assert sum('"final": 1' in line for line in records) == 1  # rank 0 alone writes
+    assert CheckpointManager(str(tmp_path / "tf" / "ckpt")).latest_step() == 4
+    rc, _, _ = run("index", "--model_dir", "tf", "--data_dir", "data")
+    plain = ShardedIndex.load(str(tmp_path / "tf" / "index"), "cpu")
+    rc2, out, _ = run("index", "--model_dir", "tf", "--data_dir", "data", "--cp_shards", "2")
+    assert rc == rc2 == 0 and "built index: 8 targets" in out
+    cp = ShardedIndex.load(str(tmp_path / "tf" / "index"), "cpu")
+    np.testing.assert_allclose(cp.emb.numpy(), plain.emb.numpy(), rtol=2e-5, atol=2e-6)
 
 
 def test_jax_model_dir_serves_in_port(run, tmp_path):

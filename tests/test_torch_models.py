@@ -407,11 +407,11 @@ def test_unported_towers_raise():
 
 def test_entry_points_default_to_the_card():
     """init_params, init_tower, init_train_state, train,
-    from_embeddings and make_mesh place their tensors on the card unless
+    from_embeddings, make_mesh and cp_mesh place their tensors on the card unless
     the caller asks for the CPU: where torch sees no card, leaving device
     out raises instead of running on the CPU."""
     from sse_tpu_torch.index import sharded_index as tindex
-    from sse_tpu_torch.parallel import make_mesh
+    from sse_tpu_torch.parallel import cp_mesh, make_mesh
     from sse_tpu_torch.train import loop as tloop
 
     if torch.cuda.is_available():
@@ -427,6 +427,7 @@ def test_entry_points_default_to_the_card():
                                        ["x", "y", "z"]),
         lambda: make_mesh(),
         lambda: make_mesh(1, 1),
+        lambda: cp_mesh(2),
     ]
     for call in calls:
         with pytest.raises((RuntimeError, AssertionError)):

@@ -1,10 +1,16 @@
 """Two processes of the port joined over gloo (``sse_tpu_torch.parallel
-.distributed``) on the CPU, each holding two entries of one (1, 4) grid:
-the port of ``tests/test_multiprocess.py``'s serving and index-save
-tests. The sharded fused query gives both ranks the single-process rows
-(bit for bit: the same CPU kernels on the same rows), and an index saved
-by the two processes, each writing its own row blocks, loads back equal
-in one process. Each process runs under its own time limit."""
+.distributed``) on the CPU, each holding two entries of one grid: the
+port of ``tests/test_multiprocess.py``. The sharded fused query on a
+(1, 4) grid gives both ranks the single-process rows (bit for bit: the
+same CPU kernels on the same rows), and an index saved by the two
+processes, each writing its own row blocks, loads back equal in one
+process. ``train()`` on a (4, 1) grid across the two processes (each
+feeding its slice of the global batch) gives both ranks the same params
+(rel 1e-6), equal to the single-process run of the same global batches
+(rel 2e-4, as the JAX test holds its own), in the ``full`` and
+``flagship`` modes, with Adam (the JAX test's optimizer) and with SGD. The context-parallel encode over a {'seq': 4} grid
+across the two processes gives the single process's output and
+gradients. Each process runs under its own time limit."""
 
 import json
 import os
@@ -13,6 +19,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -92,3 +99,48 @@ def test_two_process_index_save_then_single_process_load(tmp_path):
     assert idx.ids == ids and idx.texts == texts
     grid = ShardedIndex.load(out_dir, worker.make_mesh(1, 2, devices=[worker.CPU] * 2))
     assert torch.equal(grid.emb[:], idx.emb) and grid.ids == ids
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+@pytest.mark.parametrize("mode", ["full", "flagship"])
+def test_two_process_train(mode, optimizer):
+    """mode='full': source-encoder-only, full softmax. mode='flagship':
+    dual-encoder sampled softmax with mined hard negatives (the cache
+    refreshed inside the run, so its agreement across ranks is on the
+    line) and multi-label rows. ``adam`` is the JAX test's optimizer (the
+    TrainConfig defaults), which answers to the last bits of a gradient
+    that nearly cancels; ``sgd`` at lr 0.05 holds the gradients' sums."""
+    from sse_tpu_torch.train import train
+
+    results = _run_pair(mode, optimizer)
+    r0, r1 = results[0], results[1]
+    assert r0["step"] == r1["step"] == 8  # 64 pairs / batch 16 x 2 epochs
+    assert r0["copies_identical"] and r1["copies_identical"]
+    assert r0["table_sum"] == pytest.approx(r1["table_sum"], rel=1e-6)
+    assert r0["table_abs"] == pytest.approx(r1["table_abs"], rel=1e-6)
+    pairs, tspace, model_cfg, cfg = worker.build_problem(mode, optimizer)
+    state = train(model_cfg, cfg, pairs, tspace, device="cpu")
+    ref_sum, ref_abs = worker.params_sums(state.params)
+    assert r0["table_sum"] == pytest.approx(ref_sum, rel=2e-4)
+    assert r0["table_abs"] == pytest.approx(ref_abs, rel=2e-4)
+
+
+def test_two_process_context_parallel_encode():
+    """The {'seq': 4} grid across two processes (gather_rows with the
+    summed backward for K and V, the projection's gradient whole on each
+    rank): both ranks' outputs equal the single process's 4-shard encode
+    (rtol 2e-5 / atol 2e-6) and their gradients are within JAX's CP
+    tolerance, 1e-2 of max(1, max |ref|), of it."""
+    from sse_tpu_torch.parallel.context import cp_mesh, make_cp_encoder
+
+    results = _run_pair("cp")
+    cfg, params, tokens, lengths, v = worker.cp_problem()
+    out, grads = worker.cp_grads(make_cp_encoder(cfg, cp_mesh(4, [worker.CPU] * 4)), params,
+                                 tokens, lengths, v)
+    for r in results.values():
+        np.testing.assert_allclose(np.asarray(r["out"], np.float32), out.numpy(), rtol=2e-5,
+                                   atol=2e-6)
+        for got, want in zip(r["grads"], grads):
+            want = want.reshape(-1).numpy()
+            tol = 1e-2 * max(1.0, float(np.abs(want).max()))
+            assert float(np.abs(np.asarray(got, np.float32) - want).max()) <= tol

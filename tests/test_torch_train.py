@@ -379,12 +379,25 @@ def test_train_driver_matches_jax(monkeypatch):
 
 
 def test_train_driver_is_single_process():
+    """(The name is kept from when train() refused a mesh and several
+    processes.) train(mesh=) now trains on the grid: a (2, 1) grid of CPU
+    entries gives the one-device run's steps and params; several processes
+    without a mesh raise ValueError, as JAX's train() does."""
+    from sse_tpu_torch.parallel import make_mesh
+
     _, tspace, pairs, _ = _corpus()
     tm = tsse.SSEConfig(mode=tsse.NetworkMode.SHARED_ENCODER,
                         src_tower=ttowers.TowerConfig(vocab_size=300, embed_dim=16, hidden=16))
-    for kw in ({"process_count": 2}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tloop.train(tm, tloop.TrainConfig(), pairs, tspace, device="cpu", **kw)
+    tc = tloop.TrainConfig(batch_size=8, max_epochs=1, learning_rate=0.05, optimizer="sgd",
+                           loss=tlosses.LossConfig(kind="sampled", num_negatives=4))
+    one = tloop.train(tm, tc, pairs, tspace, device="cpu")
+    on_grid = tloop.train(tm, tc, pairs, tspace, mesh=make_mesh(2, 1, devices=["cpu"] * 2))
+    assert one.step == on_grid.step == 5 and on_grid.mesh is not None
+    for a, b in zip(tloop.tree_leaves(tloop.inference_params(on_grid)),
+                    tloop.tree_leaves(one.params)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=3e-3, atol=3e-5)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        tloop.train(tm, tc, pairs, tspace, device="cpu", process_count=2)
 
 
 # ------------------------------------------------------------ Evaluator
