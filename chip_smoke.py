@@ -9,6 +9,7 @@ CLI.
     python3 chip_smoke.py --bench    # only the query bench's sweep
     python3 chip_smoke.py --sharded  # only the sharded serving phase (7.)
     python3 chip_smoke.py --grid     # only the training-on-a-grid phase (8.)
+    python3 chip_smoke.py --encode   # only the subword encoder's phase (3.)
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
 cell, and a served qna query by part: qna_query_costs), ``--twophase``
@@ -51,8 +52,17 @@ commits compare in one run, taken in turns.
    its FLOP bound with its GEMM kernels' names (no float32 GEMM may run),
    and one bulk B=4096 transformer query batch by part
    (transformer_costs).
-3. The served slices (E=H=D=128, vocab 8000, L=50, random weights from a
-   seed), each building the 1,249,280-row bf16 index on the GPU from the
+3. The C++ subword encoder on the card machine's host (encode_slice):
+   its build with the host compiler; the served corpus (below) built and
+   encoded through it, its 1,248,280 documents at L=50 and the CPU
+   tests' odd strings (unicode, escape blowup, lone surrogates, NUL, 300
+   random) held against the plain Python encoder bit for bit, the token
+   counts and three vocab builds too; batch_encode's host ms at B=8, 256
+   and 4096, C++ beside Python; one bulk POST of 4,096 texts to the
+   served GRU model split into tokenize, host to device, device and the
+   rest, under the C++ and under the Python tokenizer (rows equal under
+   both). Then the served slices (E=H=D=128, vocab 8000, L=50, random
+   weights from a seed), each building the 1,249,280-row bf16 index on the GPU from the
    same 1,248,280 synthetic documents: (a) the bench model, a
    shared-encoder 1-layer GRU; (b) the ``qna`` configuration, a
    dual-encoder LSTM with the attention readout; (c) the GRU model with
@@ -131,15 +141,16 @@ commits compare in one run, taken in turns.
    two) against one process, then ``index --cp_shards 2``. Each grid's
    ms a step and split by part, and each CP encode's ms (the entries
    queue on one card: checks of the path, not a multi-card speed).
- (the least time the card could take for the same
+Each kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
 operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8) is computed from
 this run's inputs. The cuDNN LSTM (``torch.nn.LSTM`` in bf16, the +1
 forget bias folded into its bias, full lengths) is timed beside the LSTM
 kernels as their library yardstick; the port never calls it.
 
-Any failure raises (non-zero exit). The line before the last is a JSON
-object with each kernel's launches, error, times and bound (the
+Any failure raises (non-zero exit). Before the last two lines, a JSON
+line {"encode": {...}} holds phase 3's host readings. The line before
+the last is a JSON object with each kernel's launches, error, times and bound (the
 streaming kernels also by batch size: time, bound and the served runs'
 launches at each B checked); the last line is {"ok": true, "device":
 {...}}.
@@ -1265,24 +1276,257 @@ def http_json(url: str, body=None):
 def served_corpus():
     """The served slices' documents: the ranking demo corpus' 1,024
     targets plus random word strings up to T_PAD - 1000 rows, encoded at
-    L=50 (host work, shared by both served slices). Returns (vocab,
-    target space, eval pairs)."""
+    L=50 (host work, shared by the served slices; the vocab build, its
+    token counts and the encode run in the C++ encoder). Returns ((vocab,
+    target space, eval pairs), host seconds by part)."""
     from sse_tpu_torch.data import synthetic
     from sse_tpu_torch.data.corpus import build_vocab, encode_target_space
 
     t0 = time.perf_counter()
     train, evalp, targets = synthetic.make_corpus(task="ranking", num_targets=1024, seed=SEED)
+    t1 = time.perf_counter()
     vocab = build_vocab(8000, train, targets)
+    t2 = time.perf_counter()
     words = sorted({w for _, t in targets for w in t.split()})
     rnd = random.Random(SEED)
     docs = list(targets) + [
         (f"x{i:07d}", " ".join(rnd.choices(words, k=rnd.randint(3, 8))))
         for i in range(T_PAD - 1000 - len(targets))
     ]
+    t3 = time.perf_counter()
     tspace = encode_target_space(vocab, docs, 50)
+    t4 = time.perf_counter()
+    secs = {"demo corpus": t1 - t0, "vocab build": t2 - t1, "documents": t3 - t2,
+            "encode": t4 - t3, "total": t4 - t0}
     log(f"corpus: {len(docs)} documents, vocab {vocab.vocab_size}, "
-        f"token width {tspace.tokens.shape[1]} ({time.perf_counter() - t0:.1f} s host)")
-    return vocab, tspace, evalp
+        f"token width {tspace.tokens.shape[1]} ({secs['total']:.1f} s host: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items() if k != "total") + ")")
+    return (vocab, tspace, evalp), secs
+
+
+# the CPU tests' odd strings (tests/test_text.py SAMPLES; the escape blowup,
+# lone surrogates and NULs of tests/test_torch_native.py), held C++ against
+# Python on the card's host with 300 random strings over their alphabet
+ODD_TEXTS = [
+    "", "hello world", "Hello, World!", "  leading and trailing  ", "tabs\tand\nnewlines",
+    "unicode: caffè, naïve, 北京 2024!", "e-commerce query: iphone 12 pro max 256gb unlocked",
+    "underscore_token and back\\slash", "semicolons; and \\123; fake escapes",
+    "ümlaut ÅÄÖ ß … emoji 🙂 mixed", "a b", " ", "_", "\\", "123 456.789",
+    "{" * 200, "~{}" * 100, "e{" * 150, "{",
+    "\ud800", "x \udfff y", "🙂 pair of halves", "a\x00b", "\x00", "nul\x00 \x00",
+]
+ENCODE_BATCHES = (8, 256, 4096)
+# what the encode slice's bulk POSTs (B=4096, packed) launch
+ENCODE_KERNELS = ("gru_fwd", "twophase_p1", "twophase_p2")
+
+
+def odd_texts() -> list:
+    import string
+
+    rng = random.Random(0)
+    chars = string.printable + "éß北🙂_\\;caffènaïve"
+    return ODD_TEXTS + ["".join(rng.choice(chars) for _ in range(rng.randrange(60)))
+                        for _ in range(300)]
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host milliseconds of fn() over ``reps`` calls after a warm
+    one (the host's clock: these are host readings)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def same_arrays(label: str, got, want) -> None:
+    for name, g, w in zip(("tokens", "lengths"), got, want):
+        if not np.array_equal(g, w):
+            bad = np.argwhere(g != w)[:5].tolist() if g.shape == w.shape else (g.shape, w.shape)
+            raise AssertionError(f"{label}: {name} differ at {bad}")
+
+
+def timed_query_path(engine, python: bool, spans: dict):
+    """A context in which ``engine``'s bulk path records the host seconds
+    of each tokenize (``corpus.batch_encode``: the plain Python loop if
+    ``python``, else itself), each ``encode_queries`` and each ``query``
+    into ``spans``' lists, inside the calls that serve the POSTs."""
+    import contextlib
+
+    from sse_tpu_torch.data import corpus as corpus_mod
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spans.setdefault(name, []).append(time.perf_counter() - t0)
+        return run
+
+    @contextlib.contextmanager
+    def ctx():
+        native = corpus_mod.batch_encode
+        corpus_mod.batch_encode = timed(
+            "tokenize", corpus_mod.batch_encode_python if python else native)
+        engine.encode_queries = timed("encode_queries", engine.encode_queries)
+        engine.query = timed("query", engine.query)
+        try:
+            yield
+        finally:
+            corpus_mod.batch_encode = native
+            del engine.encode_queries, engine.query
+
+    return ctx()
+
+
+def median_ms(xs) -> float:
+    return sorted(xs)[len(xs) // 2] * 1e3
+
+
+def encode_slice(card: str) -> tuple:
+    """The C++ subword encoder on the card machine's host (``--encode``
+    runs it alone): its build; the served corpus' 1,248,280 documents at
+    L=50 and the odd strings, C++ against the plain Python encoder bit for
+    bit; token counts and the vocab build against Python; batch_encode's
+    host ms at B=8, 256 and 4096, C++ beside Python; served_corpus end to
+    end; one bulk POST of 4,096 texts to the served GRU model split into
+    tokenize, host to device, device and the rest, under each tokenizer
+    (rows equal). Returns (the served corpus, the kernels' launch counts
+    of its served run, its readings for the encode line)."""
+    from sse_tpu_torch import native, ops
+    from sse_tpu_torch.data import corpus as corpus_mod
+    from sse_tpu_torch.data import synthetic
+    from sse_tpu_torch.index import build_index
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
+    from sse_tpu_torch.models.towers import TowerConfig
+    from sse_tpu_torch.serve import QueryEngine, serve_http
+    from sse_tpu_torch.text import subword
+
+    t0 = time.perf_counter()
+    native.build_library()
+    out = {"build_s": time.perf_counter() - t0}
+    log(f"encoder build (host c++): {out['build_s']:.2f} s, "
+        f"{native.binding.build_info['seconds']} s compiling")
+
+    corpus, out["served_corpus_s"] = served_corpus()
+    vocab, tspace, evalp = corpus
+    texts = tspace.texts
+    t0 = time.perf_counter()
+    plain = corpus_mod.batch_encode_python(vocab, texts, 50)
+    t1 = time.perf_counter()
+    fast = corpus_mod.batch_encode(vocab, texts, 50)
+    t2 = time.perf_counter()
+    same_arrays(f"{len(texts)} served documents, C++ against Python", fast, plain)
+    same_arrays("the served target space", (tspace.tokens, tspace.lengths),
+                (plain[0][:, : tspace.tokens.shape[1]], plain[1]))
+    out["documents"] = {"n": len(texts), "cpp_s": t2 - t1, "python_s": t1 - t0}
+    odd = odd_texts()
+    enc = native.NativeSubwordEncoder(vocab)
+    for text in odd:
+        check(enc.encode(text) == vocab.encode(text), f"C++ encode differs on {text[:40]!r}")
+    same_arrays("odd strings", corpus_mod.batch_encode(vocab, odd, 50),
+                corpus_mod.batch_encode_python(vocab, odd, 50))
+    log(f"encode parity: {len(texts)} served documents at L=50 and {len(odd)} odd strings, C++ "
+        f"== Python bit for bit; C++ {t2 - t1:.2f} s, Python {t1 - t0:.2f} s (host)")
+
+    train, _, targets = synthetic.make_corpus(task="ranking", num_targets=1024, seed=SEED)
+    lines = [s for s, _ in train] + [t for _, t in targets]
+    counts = native.native_token_counts(lines)
+    check(counts == subword.token_counts_from_lines(lines), "C++ token counts differ")
+    out["vocab_build_s"] = {}
+    for mc in (1, 2, 5):
+        secs, built = {}, {}
+        for name, use_native in (("cpp", True), ("python", False)):
+            t0 = time.perf_counter()
+            v = subword.SubwordVocab.build_from_token_counts(
+                counts, mc, max_subtoken_length=20, use_native=use_native)
+            secs[name] = time.perf_counter() - t0
+            built[name] = [v.id_to_subtoken(i) for i in range(v.vocab_size)]
+        check(built["cpp"] == built["python"], f"C++ vocab build differs at min_count {mc}")
+        out["vocab_build_s"][f"min_count {mc}"] = secs
+    log(f"token counts and vocab builds (min_count 1, 2, 5): C++ == Python; host s "
+        f"{json.dumps(out['vocab_build_s'])}")
+
+    queries = [q for q, _ in evalp]
+    out["batch_encode_ms"] = {}
+    for b in ENCODE_BATCHES:
+        reps = {8: 200, 256: 50, 4096: 10}[b]
+        out["batch_encode_ms"][b] = {
+            "cpp": host_ms(lambda: corpus_mod.batch_encode(vocab, queries[:b], 50), reps),
+            "python": host_ms(lambda: corpus_mod.batch_encode_python(vocab, queries[:b], 50),
+                              reps)}
+    log(f"batch_encode host ms at B=8/256/4096 (query texts, L=50, median): "
+        f"{json.dumps(out['batch_encode_ms'])} [host of {card}]")
+
+    width = dict(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1, encoding_dim=128)
+    cfg = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(cell="gru", **width))
+    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED))
+    index = build_index(params, cfg, tspace, batch_size=4096, dtype=torch.bfloat16,
+                        capacity=T_PAD)
+    engine = QueryEngine(params, cfg, vocab, index, max_seq_length=50, max_batch=8, k=K,
+                         bulk_batch=4096)
+    engine.warmup()
+    bulk = queries[:4096]
+    check(len(bulk) == 4096, f"{len(bulk)} eval texts, want 4096")
+    server = serve_http(engine, port=free_port(), block=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}/api/query"
+    ops.reset_launch_counts()
+    out["bulk_post_4096_ms"], rows = {}, {}
+    try:
+        for name, python in (("cpp", False), ("python", True)):
+            spans, per = {}, collections.defaultdict(list)
+            with timed_query_path(engine, python, spans):
+                rows[name] = http_json(url, {"queries": bulk})["results"]  # warm
+                for _ in range(5):
+                    spans.clear()
+                    t0 = time.perf_counter()
+                    http_json(url, {"queries": bulk})
+                    per["post"].append(time.perf_counter() - t0)
+                    for key in ("tokenize", "encode_queries", "query"):
+                        per[key].append(sum(spans[key]))
+                    per["dispatches"].append(len(spans["query"]))
+                # the batcher may dispatch a POST's first texts before the
+                # rest are queued, so the device time is read around POSTs
+                times = profiled(lambda: http_json(url, {"queries": bulk}), 3)
+            device = NOT_MEASURED if times is None else sum(
+                v for k, v in times.items() if "Memcpy" not in k) / 3
+            split = {
+                "post": median_ms(per["post"]), "tokenize": median_ms(per["tokenize"]),
+                "host_to_device": median_ms(
+                    [e - t for e, t in zip(per["encode_queries"], per["tokenize"])]),
+                "device": device,
+                "device_copies": NOT_MEASURED if times is None else sum(
+                    v for k, v in times.items() if "Memcpy" in k) / 3,
+                "engine_other": median_ms(
+                    [q - e for q, e in zip(per["query"], per["encode_queries"])]) - device,
+                "http_and_json": median_ms([p - q for p, q in zip(per["post"], per["query"])]),
+                "dispatches": sorted(per["dispatches"]),
+            }
+            split["rest"] = split["post"] - split["tokenize"] - split["host_to_device"] - device
+            out["bulk_post_4096_ms"][name] = split
+    finally:
+        server.shutdown()
+        server.server_close()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    BATCH_LAUNCHES.update(ops.topk.launches)
+    check([[h["row"] for h in r] for r in rows["cpp"]]
+          == [[h["row"] for h in r] for r in rows["python"]],
+          "the bulk POST's rows differ between the C++ and the Python tokenizer")
+    n = same_as_reference(engine, params, cfg, index, bulk, rows["cpp"])
+    log(f"bulk POST of 4,096 texts to the served GRU model, host ms (medians of 5 POSTs, each "
+        f"part summed over the dispatches that served it; device and its copies from "
+        f"torch.profiler around 3 POSTs; rest = post - tokenize - host_to_device - device "
+        f"= engine_other (the fused call's host path, the wait, the results) + "
+        f"http_and_json): "
+        f"{json.dumps(out['bulk_post_4096_ms'])}; rows equal under both tokenizers and held "
+        f"against topk_reference ({n} positions differ, each within one key bucket); "
+        f"launches {counts} [{card}]")
+    return corpus, counts, out
 
 
 # main-path launches of the top-k kernels by (name, batch size) (served runs)
@@ -3237,6 +3481,12 @@ def main() -> None:
     if "--grid" in sys.argv[1:]:
         train_grid_slice(card)
         return
+    if "--encode" in sys.argv[1:]:
+        _, counts, readings = encode_slice(card)
+        missing = [n for n in ENCODE_KERNELS if counts.get(n, 0) < 1]
+        check(not missing, f"kernels never launched on the encode slice's POSTs: {missing}")
+        print(json.dumps({"encode": no_nan(readings)}, allow_nan=False))
+        return
     results = {name: {} for name in KERNELS}
     check_gru(card, results)
     check_lstm(card, results)
@@ -3250,11 +3500,12 @@ def main() -> None:
     check_transformer(card)
     transformer_costs(card)
 
-    corpus = served_corpus()
+    corpus, encode_counts, encode_readings = encode_slice(card)
     width = dict(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1, encoding_dim=128)
     gru = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(cell="gru", **width))
     qna = qna_config()
     runs = {
+        "encode": encode_counts,
         "served GRU": served_slice("served GRU", gru, corpus, (1024,)),
         "served qna": served_slice("served qna", qna, corpus, (4096,)),
         "served exact": served_slice("served exact", gru, corpus, (4096,), variant="exact"),
@@ -3279,6 +3530,7 @@ def main() -> None:
         "train grid": train_grid_slice(card),
     }
     need = {
+        "encode": ENCODE_KERNELS,
         "served GRU": ("gru_fwd", "topk_stream", "twophase_p1", "twophase_p2"),
         "served qna": ("lstm_fwd", "rnn_scan", "topk_stream", "twophase_p1", "twophase_p2"),
         "GRU train bench": ("gru_fwd", "gru_bwd"),
@@ -3310,6 +3562,7 @@ def main() -> None:
     for k in kernels:
         check(all(key in k for key in keys), f"kernel line misses a key: {k}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check")
+    print(json.dumps({"encode": no_nan(encode_readings)}, allow_nan=False))
     print(json.dumps({"kernels": no_nan(kernels)}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Data layer of the port: corpus schema, encoding, batching and the
-synthetic demo corpora (a copy of ``sse_tpu.data``; pure Python and
-numpy, no JAX)."""
+synthetic demo corpora (a copy of ``sse_tpu.data``; Python and numpy,
+with a ``SubwordVocab``'s encodes in the C++ encoder of
+``sse_tpu_torch.native``; no JAX)."""
 
 from sse_tpu_torch.data import synthetic
 from sse_tpu_torch.data.batching import BatchIterator, pad_batch

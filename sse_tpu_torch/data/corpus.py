@@ -1,5 +1,7 @@
 """Corpus schema + encoding (a copy of ``sse_tpu/data/corpus.py`` for the
-PyTorch port, without the JAX package's C++ encoder; same ids, same files).
+PyTorch port; same ids, same files). A ``SubwordVocab``'s token counts,
+vocab build and encodes run in the port's C++ encoder
+(``sse_tpu_torch.native``), as the JAX package's do in its own.
 
 Reference file-format parity (SURVEY.md §2.1 "Demo datasets" row):
   * ``TrainPairs`` / ``EvalPairs``: TSV, ``source_text \\t target_id`` where
@@ -18,16 +20,18 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import threading
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from sse_tpu_torch.native import NativeSubwordEncoder, native_token_counts
 from sse_tpu_torch.text.subword import (
     EOS_ID,
     SubwordVocab,
     TokenVocab,
     load_vocab,
-    token_counts_from_lines,
 )
 
 
@@ -119,7 +123,7 @@ def build_vocab(
     if cache_path and os.path.exists(cache_path):
         return load_vocab(cache_path)
     lines = [src for src, _ in pair_rows] + [txt for _, txt in target_rows]
-    counts = token_counts_from_lines(lines)
+    counts = native_token_counts(lines)
     if vocab_mode == "word":
         vocab = TokenVocab.build(counts, vocab_size)
     else:
@@ -145,8 +149,8 @@ def build_vocab_streaming(
     vocab_mode: str = "subword",
 ):
     """build_vocab for corpora >> RAM: token counting streams the
-    TrainPairs file line-by-line (never materializing the rows), then the
-    build runs on the count dict — whose size is bounded by the
+    TrainPairs file line-by-line (never materializing the rows) through
+    the C++ counter, then the build runs on the count dict — whose size is bounded by the
     UNIQUE token count, not the corpus size."""
     if cache_path and os.path.exists(cache_path):
         return load_vocab(cache_path)
@@ -161,7 +165,7 @@ def build_vocab_streaming(
         for _, txt in target_rows:
             yield txt
 
-    counts = token_counts_from_lines(lines())
+    counts = native_token_counts(lines())
     if vocab_mode == "word":
         vocab = TokenVocab.build(counts, vocab_size)
     else:
@@ -186,8 +190,28 @@ def batch_encode(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Encode many lines → ([N, max_len] tokens, [N] lengths), EOS-padded.
 
-    Pure Python, one line at a time; the JAX package's C++ encoder gives
-    the same ids."""
+    A ``SubwordVocab`` encodes in C++ (``NativeSubwordEncoder``, one per
+    vocab, shared by every thread; a failed library build raises). Any
+    other vocab (``TokenVocab``: a dict lookup a token) takes
+    :func:`batch_encode_python`, the plain version, which gives the same
+    arrays."""
+    if not isinstance(vocab, SubwordVocab):
+        return batch_encode_python(vocab, texts, max_len)
+    with _native_lock:
+        enc = _native_cache.get(vocab)
+        if enc is None:
+            enc = _native_cache[vocab] = NativeSubwordEncoder(vocab)
+    return enc.encode_batch(texts, max_len, EOS_ID)
+
+
+_native_lock = threading.Lock()
+_native_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def batch_encode_python(
+    vocab, texts: Sequence[str], max_len: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`batch_encode` in pure Python, one line at a time."""
     tokens = np.zeros((len(texts), max_len), dtype=np.int32)
     lengths = np.zeros((len(texts),), dtype=np.int32)
     for i, text in enumerate(texts):

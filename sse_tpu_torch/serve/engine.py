@@ -234,7 +234,7 @@ class QueryEngine:
 
     def encode_queries(self, texts: Sequence[str]):
         """Tokenize and pad a query batch to a batch tier and length
-        bucket (host side, pure Python)."""
+        bucket (host side, the C++ encoder through ``batch_encode``)."""
         from sse_tpu_torch.data.corpus import batch_encode
 
         b = next((t for t in self._batch_tiers() if t >= len(texts)), self.max_dispatch)

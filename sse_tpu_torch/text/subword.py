@@ -205,14 +205,23 @@ class SubwordVocab:
         min_count: int,
         num_iterations: int = 4,
         max_subtoken_length: Optional[int] = None,
+        use_native: bool = True,
     ) -> "SubwordVocab":
         """EM-style construction: segment with current vocab, count candidate
         substrings, keep those with count >= min_count (longest first,
         subtracting prefix counts), repeat.
 
-        The candidate loop is O(len²) per token. The JAX package runs a
-        C++ copy of this loop; this pure-Python body is the same algorithm
-        and builds the same vocab (the port's tests compare the two)."""
+        The candidate loop is O(len²) per token, so by default the port's
+        C++ copy of this build runs (``sse_tpu_torch.native``, multithreaded;
+        a failed library build raises). ``use_native=False`` runs this
+        pure-Python body, the plain version: the same algorithm, the same
+        vocab bit for bit (tests/test_torch_native.py)."""
+        if use_native:
+            from sse_tpu_torch.native import native_build_subtokens
+
+            return cls(native_build_subtokens(
+                token_counts, min_count, num_iterations, max_subtoken_length
+            ))
         alphabet = frozenset(
             ch for tok in token_counts for ch in tok
         ) | _ESCAPE_CHARS
