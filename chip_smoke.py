@@ -10,6 +10,7 @@ CLI.
     python3 chip_smoke.py --sharded  # only the sharded serving phase (7.)
     python3 chip_smoke.py --grid     # only the training-on-a-grid phase (8.)
     python3 chip_smoke.py --encode   # only the subword encoder's phase (3.)
+    python3 chip_smoke.py --chain    # only the dispatch-chaining phase (9.)
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
 cell, and a served qna query by part: qna_query_costs), ``--twophase``
@@ -141,6 +142,16 @@ commits compare in one run, taken in turns.
    two) against one process, then ``index --cp_shards 2``. Each grid's
    ms a step and split by part, and each CP encode's ms (the entries
    queue on one card: checks of the path, not a multi-card speed).
+9. Dispatch chaining (chain_slice, ``make_train_step(chain=8)``: 8 train
+   steps captured as one CUDA graph and replayed): the train bench's GRU,
+   the compositional LSTM stack (dropout) and the transformer towers at
+   the bench shape (E=H=D=128, B=256, 128 negatives, L=50), each with
+   its capture time and memory, a replay from one state held against 8
+   eager steps (bit for bit where eager runs are), replays under sync
+   debug, the launches a replayed step equal to an eager step's, ms a
+   step chained against eager and the device's busy share; then the
+   ``ranking`` preset through train() at steps_per_dispatch 8 against 1
+   (the same log steps, the launches of one warm-up step more).
 Each kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
 operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8) is computed from
@@ -2790,13 +2801,15 @@ def recording_steps(records: list, shadow: bool = False):
     """Patch loop.make_train_step so that every step it builds appends
     (loss, grad_norm, host ms, the recurrent kernels it launched, and with
     ``shadow`` what shadow_step found and every kernel the shadow step
-    launched) to ``records``; returns the undo."""
+    launched) to ``records``; a chain it builds runs its steps one by one
+    (a grid's chain does so anyway), each recorded and shadowed as a step.
+    Returns the undo."""
     from sse_tpu_torch import ops
     from sse_tpu_torch.train import loop
 
     real = loop.make_train_step
 
-    def make(*args, **kw):
+    def make(*args, chain: int = 1, **kw):
         step = real(*args, **kw)
         plain = real(*args, **{**kw, "mesh": None}) if shadow and kw.get("mesh") else None
 
@@ -2813,7 +2826,16 @@ def recording_steps(records: list, shadow: bool = False):
                             {n: after[n] - before[n] for n in RNN_KERNELS}, held, shadow))
             return new, m
 
-        return run
+        if chain <= 1:
+            return run
+        steps = loop._eager_chain(run, chain)
+
+        def chained(state, packed_k, *a, **k):
+            if state.mesh is None:  # one card's chunk comes in pinned host memory
+                packed_k = packed_k.to(loop.tree_leaves(state.params)[0].device)
+            return steps(state, packed_k, *a, **k)
+
+        return chained
 
     loop.make_train_step = make
     return lambda: setattr(loop, "make_train_step", real)
@@ -2926,7 +2948,7 @@ def held_state(label: str, got, ref) -> tuple:
     nu, moments = None, 0.0
     if opt is not None:
         moments = held_moments(label, got.opt_state, opt)
-        c2 = float(1.0 - np.power(np.float32(0.999), np.float32(opt.count)))
+        c2 = float(1.0 - np.power(np.float32(0.999), np.float32(int(opt.count))))
         nu = loop.tree_map(lambda v: v / c2, opt.nu)
     worst, skipped, share = held_params(f"{label} params", got.params, ref.params, nu)
     _, more, ema_share = held_params(f"{label} EMA", got.ema_params, ref.ema_params, nu)
@@ -3408,6 +3430,205 @@ def train_grid_slice(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ phase 9
+CHAIN = 8  # steps a dispatch: the JAX package's and its configs' default
+
+
+def state_copy(state):
+    """A state's tensors cloned (a chain's returned state is its graph's
+    buffers, which the next replay rewrites)."""
+    from sse_tpu_torch.train import loop
+
+    return loop._with_leaves(state, [x.clone() for x in loop._state_leaves(state)], state.step)
+
+
+def chain_run(card: str, label: str, s, per_step: dict, want: tuple) -> dict:
+    """The train bench's setup ``s`` (bench.train_setup at chain=CHAIN):
+    its first chain call (warm-up, capture, first replay) timed, with the
+    memory it reserved (the graph's buffers and its pool); a replay from
+    the setup's state held against CHAIN eager steps from that state (bit
+    for bit where two eager runs are, else as held_state holds a state,
+    the eager-vs-eager drift beside it); four replays under
+    ``torch.cuda.set_sync_debug_mode("error")``; the launches a replayed
+    step (``per_step``, the eager step's); ms a step chained against
+    eager over the same 48 batches, each run carrying its state; the
+    device's busy share of a replay (torch.profiler, ``want``: a kernel
+    name every step launches). Returns the launch counts of the replays
+    (reset just before them)."""
+    from sse_tpu_torch import ops
+    from sse_tpu_torch.train import loop
+
+    cfg = loop.TrainConfig(batch_size=len(s.lengths), steps_per_dispatch=CHAIN,
+                           loss=loop.LossConfig(kind="sampled", num_negatives=s.num_negatives))
+    single = loop.make_train_step(s.model_cfg, cfg, packed_width=s.max_seq_length)
+    eager = loop._eager_chain(single, CHAIN)
+    pk = s.packed_variants
+    args = (s.tgt_tokens, s.tgt_lens)
+    e1, em = eager(s.state, pk[1], *args)
+    e2, _ = eager(s.state, pk[1], *args)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    s.chain_fn(s.state, pk[0], *args)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    pool_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+    g, gm = s.chain_fn(s.state, pk[1], *args)
+    g, gm = state_copy(g), {k: v.clone() for k, v in gm.items()}
+    leaves = loop._state_leaves
+    eager_bitwise = all(torch.equal(a, b) for a, b in zip(leaves(e1), leaves(e2)))
+    if eager_bitwise:
+        check(all(torch.equal(a, b) for a, b in zip(leaves(g), leaves(e1))) and all(
+            torch.equal(gm[k], em[k]) for k in em), f"{label}: a replay differs from the eager "
+                                                    f"steps, which are bit for bit run to run")
+        held = "bit for bit (two eager runs are bit for bit)"
+    else:
+        drift_ = held_state(f"{label} eager against eager", e2, e1)
+        got = held_state(f"{label} replay against eager", g, e1)
+        for k in ("loss", "grad_norm"):
+            rel = float(((gm[k] - em[k]).abs() / em[k].abs()).max())
+            check(rel <= 2e-4, f"{label}: replay's {k} {rel:.3g} from the eager steps' (rtol 2e-4)")
+        held = (f"held as held_state holds a state: params max |d| {got[0]:.3g}, {got[1]} "
+                f"elements left out, moments {got[3]:.3g} (eager against eager: {drift_[0]:.3g}, "
+                f"{drift_[1]}, {drift_[3]:.3g})")
+    state = s.state
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(4):
+            state, m = s.chain_fn(state, pk[i], *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(m["loss"]).all()), f"{label}: non-finite loss {m['loss']}")
+
+    n = 6
+    ops.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(n):
+        state, m = s.chain_fn(state, pk[i % 4], *args)
+    end.record()
+    torch.cuda.synchronize()
+    host_chained = (time.perf_counter() - t0) * 1e3 / (n * CHAIN)
+    chained = start.elapsed_time(end) / (n * CHAIN)
+    counts = ops.launch_counts()
+    check(all(counts[k] == v * n * CHAIN for k, v in per_step.items()),
+          f"{label}: {n} replays of {CHAIN} steps launched {counts}, want {per_step} a step")
+    state = s.state
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(n):
+        state, _ = eager(state, pk[i % 4], *args)
+    end.record()
+    torch.cuda.synchronize()
+    host_eager = (time.perf_counter() - t0) * 1e3 / (n * CHAIN)
+    eager_ms = start.elapsed_time(end) / (n * CHAIN)
+    reps = 2
+    times = profiled(lambda: s.chain_fn(s.state, pk[2], *args), reps, want=want)
+    busy = NOT_MEASURED if times is None else sum(
+        v for k, v in times.items() if not k.startswith("sse.")) / (reps * CHAIN)
+    log(f"{label} chained ({CHAIN} steps a CUDA graph): capture {capture_s:.3f} s (warm-up step, "
+        f"capture, first replay), memory reserved by it {pool_mib:.1f} MiB (static buffers and "
+        f"graph pool); replay against {CHAIN} eager steps from one state: {held}; 4 replays "
+        f"under set_sync_debug_mode('error'); ms a step chained {chained:.4f} (host clock "
+        f"{host_chained:.4f}) against eager {eager_ms:.4f} ({host_eager:.4f}), "
+        f"{eager_ms / chained:.2f}x; device busy {busy:.4f} ms a step, "
+        f"{100.0 * busy / chained:.1f}% of a chained step; launches a step "
+        f"{ {k: counts[k] // (n * CHAIN) for k in RNN_KERNELS} } [{card}]")
+    return counts
+
+
+def chain_preset(card: str) -> dict:
+    """The ``ranking`` preset at its widths (GRU, E=H=D=128, 128 sampled
+    and 16 mined negatives, Adam, EMA) through train() on a synthetic
+    ranking corpus of 8,192 pairs (64 steps an epoch at B=128), 2 epochs,
+    a log record and eval every 50 steps: once at steps_per_dispatch=8
+    (chunks of 8 replayed, clamped at the checkpoints) and once at 1. The
+    same log steps, finite falling loss in both, the same
+    launches but for one eager warm-up step of each captured graph.
+    Returns the chained run's launch counts (reset just before it)."""
+    from sse_tpu_torch import configs, ops
+    from sse_tpu_torch.data import synthetic
+    from sse_tpu_torch.data.corpus import build_vocab, encode_pairs, encode_target_space
+    from sse_tpu_torch.evals import Evaluator
+    from sse_tpu_torch.train import init_train_state, train
+
+    rows, evrows, targets = synthetic.make_corpus(task="ranking", num_targets=256,
+                                                  train_per_target=32, seed=SEED)
+    task = configs.preset("ranking", max_epochs=2, steps_per_checkpoint=50)
+    vocab = build_vocab(task.vocab_size, rows, targets,
+                        max_subtoken_length=task.max_subtoken_length, vocab_mode=task.vocab_mode)
+    tspace = encode_target_space(vocab, targets, task.max_seq_length)
+    pairs = encode_pairs(vocab, rows, tspace, task.max_seq_length)
+    mc = task.model_config(vocab.vocab_size, tspace.num_targets)
+    evaluator = Evaluator(mc, encode_pairs(vocab, evrows, tspace, task.max_seq_length), tspace)
+    out, runs = {}, {}
+    for k in (CHAIN, 1):
+        tc = dataclasses.replace(task.train_config(), steps_per_dispatch=k)
+        records = []
+        state = init_train_state(mc, tc)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train(mc, tc, pairs, tspace, eval_fn=evaluator.evaluate, log_fn=records.append,
+                      state=state)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[k] = ops.launch_counts()
+        check(state.step == 128 and all(math.isfinite(r["loss"]) for r in records)
+              and records[-1]["loss"] < records[0]["loss"], f"ranking K={k}: {records}")
+        runs[k] = (secs, records)
+    (s8, r8), (s1, r1) = runs[CHAIN], runs[1]
+    check([(r["step"], r["epoch"]) for r in r8] == [(r["step"], r["epoch"]) for r in r1],
+          f"ranking: log steps {r8} against {r1}")
+    per_step = {n: out[1][n] / 128 for n in ("gru_fwd", "gru_bwd")}
+    extra = {n: out[CHAIN][n] - out[1][n] for n in RNN_KERNELS}
+    check(extra["gru_bwd"] == 2 and extra["gru_fwd"] == 2 and out[CHAIN]["gru_fwd"] > 0,
+          f"ranking: launches chained {out[CHAIN]} against unchained {out[1]}: want one eager "
+          f"warm-up step (2 + 2) more")
+    log(f"ranking preset through train(), 128 steps (B=128, 2 epochs of 64, eval every 50): "
+        f"steps_per_dispatch={CHAIN} {s8:.2f} s against 1: {s1:.2f} s (evals and the mining "
+        f"refresh included), {s1 / s8:.2f}x; window loss {r8[0]['loss']:.4f} -> "
+        f"{r8[-1]['loss']:.4f} (unchained {r1[0]['loss']:.4f} -> {r1[-1]['loss']:.4f}), recall@1 "
+        f"{r8[-1]['recall@1']:.4f} (unchained {r1[-1]['recall@1']:.4f}); launches chained "
+        f"{ {n: out[CHAIN][n] for n in ('gru_fwd', 'gru_bwd')} }, unchained "
+        f"{ {n: out[1][n] for n in ('gru_fwd', 'gru_bwd')} } (a step and its evals "
+        f"{per_step}), the one warm-up step of the captured graph the difference [{card}]")
+    return out[CHAIN]
+
+
+def chain_slice(card: str) -> dict:
+    """Dispatch chaining (train.loop ``make_train_step(chain=8)``, the
+    train bench's headline, train()'s chunks): chain_run on the train
+    bench's GRU, the compositional recipe's towers (3-layer residual LSTM,
+    dropout 0.1) and the transformer recipe's towers at the bench shape
+    (E=H=D=128, B=256, 128 negatives, L=50), then chain_preset. Returns
+    the launch counts of the replays and the chained train() run,
+    summed."""
+    from sse_tpu_torch import bench
+    from sse_tpu_torch.models.towers import TowerConfig
+
+    t0 = time.perf_counter()
+    lstm = TowerConfig(vocab_size=8000, embed_dim=128, hidden=128, encoding_dim=128,
+                       cell="lstm", num_layers=3, residual=True, dropout=0.1)
+    counts = collections.Counter()
+    for label, tower, per_step, want in (
+        ("GRU train bench", None, {"gru_fwd": 2, "gru_bwd": 2}, ("gru_fwd",)),
+        ("compositional train bench", lstm, {"lstm_fwd": 6, "lstm_bwd": 6, "rnn_scan": 6},
+         ("rnn_scan",)),
+        ("transformer train bench", transformer_config().src_tower,
+         dict.fromkeys(RNN_KERNELS, 0), ()),
+    ):
+        s = bench.train_setup(tower=tower, chain=CHAIN)
+        counts.update(chain_run(card, label, s, per_step, want))
+        del s
+        torch.cuda.empty_cache()
+    counts.update(chain_preset(card))
+    log(f"chain phase: {time.perf_counter() - t0:.1f} s")
+    return dict(counts)
+
+
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
     "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
@@ -3481,6 +3702,11 @@ def main() -> None:
     if "--grid" in sys.argv[1:]:
         train_grid_slice(card)
         return
+    if "--chain" in sys.argv[1:]:
+        counts = chain_slice(card)
+        missing = [n for n in RNN_KERNELS if counts.get(n, 0) < 1]
+        check(not missing, f"kernels never launched on the chain phase's path: {missing}")
+        return
     if "--encode" in sys.argv[1:]:
         _, counts, readings = encode_slice(card)
         missing = [n for n in ENCODE_KERNELS if counts.get(n, 0) < 1]
@@ -3523,6 +3749,7 @@ def main() -> None:
             card, "transformer train bench",
             bench.train_setup(tower=transformer_config().src_tower),
             dict.fromkeys(RNN_KERNELS, 0)),
+        "chain": chain_slice(card),
         "ranking preset": preset_slice(card, "ranking", "gru"),
         "qna preset": preset_slice(card, "qna", "lstm"),
         "transformer preset": preset_slice(card, "ranking", "transformer", recipe="transformer"),
@@ -3542,6 +3769,7 @@ def main() -> None:
         "sharded": ("gru_fwd", "topk_stream", "twophase_p1", "twophase_p2"),
         "cli": ("gru_fwd", "gru_bwd", "topk_stream"),
         "train grid": ("gru_fwd", "gru_bwd"),
+        "chain": RNN_KERNELS,
     }
     for run, names in need.items():
         missing = [n for n in names if runs[run].get(n, 0) < 1]

@@ -20,8 +20,10 @@ bf16 peak and HBM rate; an unknown card and the CPU get none.
     python -m sse_tpu_torch.bench       # the headline: one JSON line
     SSE_PLATFORM=cpu python -m sse_tpu_torch.bench   # on the CPU, small index
 
-The JAX bench's chained train dispatch (``chain > 1``) is not ported yet
-(ROADMAP.md §1 item 2): the train bench times one step a dispatch.
+The train bench times ``chain`` steps a dispatch (8, as the JAX bench):
+on the card one replay of a captured CUDA graph (``train.loop``'s
+``make_train_step(chain=)``), whose rate per step is the headline, and
+the one-step dispatch beside it.
 """
 
 from __future__ import annotations
@@ -322,10 +324,14 @@ def time_query(s: QuerySetup, seconds: float = 8.0) -> Dict[str, Any]:
 class TrainSetup:
     """What the train bench times: ``call((src, labels))`` = one train step
     of ``state`` on a variant's source tokens and labels against the
-    ``tgt_tokens`` target space. Each call steps the same state, as the
-    JAX bench's undonated step does."""
+    ``tgt_tokens`` target space, and ``call_chain(packed_k)`` = ``chain``
+    steps in one dispatch on one of ``packed_variants`` ([chain, B, W]
+    packed batches). Each call steps the same state, as the JAX bench's
+    undonated step does."""
 
     step_fn: Callable
+    chain_fn: Optional[Callable]  # None at chain=1
+    chain: int
     state: Any
     model_cfg: SSEConfig
     num_negatives: int
@@ -335,11 +341,16 @@ class TrainSetup:
     tgt_tokens: torch.Tensor
     tgt_lens: torch.Tensor
     variants: list
+    packed_variants: list
 
     def call(self, v):
         src, labels = v
         _, metrics = self.step_fn(self.state, src, self.lengths, labels, self.weight,
                                   self.tgt_tokens, self.tgt_lens)
+        return metrics["loss"]
+
+    def call_chain(self, packed_k):
+        _, metrics = self.chain_fn(self.state, packed_k, self.tgt_tokens, self.tgt_lens)
         return metrics["loss"]
 
 
@@ -351,16 +362,20 @@ def train_setup(
     encoding_dim: int = 128,
     device: torch.device | str = "cuda",
     tower: Optional[TowerConfig] = None,
+    chain: int = 8,
 ) -> TrainSetup:
     """The train bench's inputs: a dual-encoder of ``tower`` (the bench's
     GRU tower unless given), sampled-softmax negatives, Adam, random
-    weights (seed 0) and random tokens made on ``device``."""
+    weights (seed 0) and random tokens made on ``device``; at ``chain > 1``
+    the chain step and 4 packed chunks of ``chain`` batches, batch j of
+    chunk i the variant (i·chain + j) mod 16, as the JAX bench packs
+    them."""
     from sse_tpu_torch.train import LossConfig, TrainConfig, init_train_state, make_train_step
 
     device = _bench_device(device)
     tower = tower or _bench_tower(encoding_dim)
     model_cfg = SSEConfig(mode=NetworkMode.DUAL_ENCODER, src_tower=tower, tgt_tower=tower)
-    cfg = TrainConfig(batch_size=batch,
+    cfg = TrainConfig(batch_size=batch, steps_per_dispatch=chain,
                       loss=LossConfig(kind="sampled", num_negatives=num_negatives))
     state = init_train_state(model_cfg, cfg, torch.Generator().manual_seed(0), device)
     vocab = tower.vocab_size
@@ -373,17 +388,31 @@ def train_setup(
         )
         for _ in range(NUM_VARIANTS)
     ]
+    lengths = torch.full((batch,), max_seq_length, dtype=torch.int32, device=device)
+    weight = torch.ones((batch,), dtype=torch.float32, device=device)
+    packed_variants = []
+    if chain > 1:
+        wcol = weight.view(torch.int32)[:, None]
+        packed = lambda v: torch.cat([v[0], lengths[:, None], v[1][:, None], wcol], 1)  # noqa: E731
+        packed_variants = [
+            torch.stack([packed(variants[(i * chain + j) % NUM_VARIANTS]) for j in range(chain)])
+            for i in range(4)
+        ]
     return TrainSetup(
         step_fn=make_train_step(model_cfg, cfg),
+        chain_fn=make_train_step(model_cfg, cfg, packed_width=max_seq_length, chain=chain)
+        if chain > 1 else None,
+        chain=chain,
         state=state,
         model_cfg=model_cfg,
         num_negatives=num_negatives,
         max_seq_length=max_seq_length,
-        lengths=torch.full((batch,), max_seq_length, dtype=torch.int32, device=device),
-        weight=torch.ones((batch,), dtype=torch.float32, device=device),
+        lengths=lengths,
+        weight=weight,
         tgt_tokens=_random_tokens(gen, (num_targets, max_seq_length), vocab, device),
         tgt_lens=torch.full((num_targets,), max_seq_length, dtype=torch.int32, device=device),
         variants=variants,
+        packed_variants=packed_variants,
     )
 
 
@@ -393,26 +422,32 @@ def run_train_bench(
     max_seq_length: int = 50,
     num_negatives: int = 128,
     encoding_dim: int = 128,
-    chain: int = 1,
+    chain: int = 8,
     seconds: float = 5.0,
     device: torch.device | str = "cuda",
 ) -> Dict[str, Any]:
     """Training throughput: the train step (dual-encoder GRU, sampled-softmax
     negatives, Adam; the hand-written GRU forward and backward kernels on
-    the card) steps/sec and examples/sec, one step a dispatch."""
-    if chain > 1:
-        raise NotImplementedError(
-            "chained train dispatch (TrainConfig.steps_per_dispatch) is not ported yet "
-            "(ROADMAP.md §1 item 2)")
+    the card) steps/sec and examples/sec at ``chain`` steps a dispatch
+    (TrainConfig.steps_per_dispatch; on the card one CUDA graph replay),
+    with the one-step dispatch's rate beside it."""
     return time_train(train_setup(batch, num_targets, max_seq_length, num_negatives,
-                                  encoding_dim, device), seconds)
+                                  encoding_dim, device, chain=chain), seconds)
 
 
 def time_train(s: TrainSetup, seconds: float = 5.0) -> Dict[str, Any]:
-    """``run_train_bench``'s timing and result of an existing setup."""
+    """``run_train_bench``'s timing and result of an existing setup: the
+    one-step dispatch over ``seconds``, then, at ``s.chain > 1``, the
+    chained dispatch over ``seconds``, whose per-step time is the
+    headline (as the JAX bench reports it)."""
     batch, length, negatives = len(s.lengths), s.max_seq_length, s.num_negatives
     d = s.model_cfg.encoding_dim
-    per_iter, per_iter_mean = _throughput_time(s.call, s.variants, seconds)
+    single_iter, single_mean = _throughput_time(s.call, s.variants, seconds)
+    if s.chain > 1:
+        best, mean = _throughput_time(s.call_chain, s.packed_variants, seconds)
+        per_iter, per_iter_mean = best / s.chain, mean / s.chain
+    else:
+        per_iter, per_iter_mean = single_iter, single_mean
     # FLOP model of the step (fwd + ~2x bwd), minimum algorithmic work:
     # src tower over batch rows + tgt tower over (batch + num_negatives)
     # sampled rows, plus the [B, B+N] loss product
@@ -427,11 +462,10 @@ def time_train(s: TrainSetup, seconds: float = 5.0) -> Dict[str, Any]:
         "examples_per_sec": round(batch / per_iter, 1),
         "unit": f"steps/sec, best sustained window (dual-encoder "
         f"{s.model_cfg.src_tower.cell.upper()}, batch={batch}, "
-        f"L={length}, {negatives} sampled negatives, 1-step dispatch "
-        f"(chaining not ported, ROADMAP §1 item 2))",
+        f"L={length}, {negatives} sampled negatives, {s.chain}-step dispatch chain)",
         "ms_per_step": round(per_iter * 1000, 3),
         "steps_per_sec_stream_mean": round(1.0 / per_iter_mean, 2),
-        "steps_per_sec_single_dispatch": round(1.0 / per_iter, 2),
+        "steps_per_sec_single_dispatch": round(1.0 / single_iter, 2),
         "device": _device_kind(s.lengths.device),
     }
     roof = _roofline_fields(per_iter, 3 * fwd, hbm_bytes=0, kind=out["device"])

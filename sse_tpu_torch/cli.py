@@ -26,8 +26,9 @@ with ``SSE_PLATFORM=cpu``); rank 0 writes the metrics and checkpoints.
 ``index --cp_shards N`` (N > 1) encodes a transformer tower's targets
 context-parallel over N devices beside this process's. ``bench`` runs the
 port's benchmark (``sse_tpu_torch.bench``) and prints its result as one
-JSON line; unlike the JAX CLI it honours ``--seconds``, and its train
-bench times one step a dispatch (the JAX CLI's default chains 8).
+JSON line; unlike the JAX CLI it honours ``--seconds``. Its train bench
+chains 8 steps a dispatch, as the JAX CLI's does (on the card one CUDA
+graph replay), and reports the one-step rate beside it.
 """
 
 from __future__ import annotations

@@ -50,13 +50,13 @@ def train_state_from_jax(state: Any, device: torch.device | str = "cpu"):
     ``(clip state, ScaleByAdamState | EmptyState)``, ``step``, ``lr``,
     ``ema_params``; leaves as anything ``np.asarray`` takes) → the port's
     ``TrainState`` on ``device``."""
-    from sse_tpu_torch.train.loop import ScaleByAdamState, TrainState
+    from sse_tpu_torch.train.loop import ScaleByAdamState, TrainState, adam_count
 
     adam = state.opt_state[-1] if isinstance(state.opt_state, (list, tuple)) else None
     opt = None
     if adam is not None and hasattr(adam, "mu"):
         opt = ScaleByAdamState(
-            count=int(np.asarray(adam.count)),
+            count=adam_count(int(np.asarray(adam.count)), device),
             mu=params_from_jax(adam.mu, device),
             nu=params_from_jax(adam.nu, device),
         )

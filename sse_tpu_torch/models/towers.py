@@ -24,6 +24,7 @@ as the JAX package's default-precision ``einsum`` does on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -294,6 +295,13 @@ def _sinusoid_table(max_len: int, dim: int) -> np.ndarray:
     return table
 
 
+@functools.lru_cache(maxsize=None)
+def _sinusoid_on(max_len: int, dim: int, device: torch.device) -> torch.Tensor:
+    """``_sinusoid_table`` on ``device``, uploaded once: a step captured in
+    a CUDA graph may not copy from the host."""
+    return torch.from_numpy(_sinusoid_table(max_len, dim)).to(device)
+
+
 def _rope_tables(positions: torch.Tensor, hd: int):
     """RoPE cos/sin tables for int ``positions`` [L] → two [L, hd/2]
     float32 tensors, 10000-base frequencies ``10000^(-2i/hd)`` in float32
@@ -374,7 +382,7 @@ def _encode_shards(ps, cfg, xs, valids, dot, cp):
             if cfg.pos_encoding == "learned":
                 table, in_scale = ps[i]["pos_embed"], 1.0
             else:
-                table = torch.from_numpy(_sinusoid_table(cfg.max_len, d)).to(x.device)
+                table = _sinusoid_on(cfg.max_len, d, x.device)
                 in_scale = math.sqrt(d)
             if length > table.shape[0]:
                 raise ValueError(f"{length} tokens exceed the {table.shape[0]}-row position "

@@ -2,6 +2,9 @@
 ``sse_tpu.ops``). Importing this package builds nothing; the CUDA library
 is compiled on the first launch (``sse_tpu_torch.ops._build``)."""
 
+import contextlib
+from collections import Counter
+
 from sse_tpu_torch.ops import rnn, topk
 from sse_tpu_torch.ops.rnn import (
     RNNLayer,
@@ -29,7 +32,37 @@ def reset_launch_counts() -> None:
     topk.launches.clear()
 
 
+class GraphLaunches:
+    """The launches of a captured CUDA graph, counted on each replay. A
+    wrapper counts its launch while the graph is captured, where nothing
+    runs; ``with g.capturing():`` around the capture takes those counts
+    back out and keeps them, and ``g.replayed()`` adds them once a
+    replay, so the counters see every launch a replay makes."""
+
+    def __init__(self) -> None:
+        self.rnn: dict = {}
+        self.topk: Counter = Counter()
+
+    @contextlib.contextmanager
+    def capturing(self):
+        rnn0, topk0 = dict(rnn.launches), Counter(topk.launches)
+        try:
+            yield self
+        finally:
+            self.rnn = {k: rnn.launches[k] - rnn0[k] for k in rnn0}
+            self.topk = topk.launches - topk0
+            rnn.launches.update(rnn0)
+            topk.launches.clear()
+            topk.launches.update(topk0)
+
+    def replayed(self) -> None:
+        for name, n in self.rnn.items():
+            rnn.launches[name] += n
+        topk.launches.update(self.topk)
+
+
 __all__ = [
+    "GraphLaunches",
     "RNNLayer",
     "fused_score_topk",
     "fused_score_topk_twophase",

@@ -47,7 +47,13 @@ import torch
 
 from sse_tpu_torch.parallel import distributed
 from sse_tpu_torch.parallel.mesh import gather
-from sse_tpu_torch.train.loop import ScaleByAdamState, TrainState, tree_leaves, tree_map
+from sse_tpu_torch.train.loop import (
+    ScaleByAdamState,
+    TrainState,
+    adam_count,
+    tree_leaves,
+    tree_map,
+)
 
 _TMP = ".tmp-"
 
@@ -216,13 +222,13 @@ class CheckpointManager:
         opt = abstract_state.opt_state
         if (opt is None) != (saved["opt_state"] is None):
             raise ValueError("checkpoint optimizer state does not match the state to restore into")
+        device = tree_leaves(abstract_state.params)[0].device
         if opt is not None:
             s = saved["opt_state"]
             opt = ScaleByAdamState(
-                count=s["count"], mu=_like(s["mu"], opt.mu, "Adam mu"),
+                count=adam_count(s["count"], device), mu=_like(s["mu"], opt.mu, "Adam mu"),
                 nu=_like(s["nu"], opt.nu, "Adam nu"),
             )
-        device = tree_leaves(abstract_state.params)[0].device
         return TrainState(
             params=params,
             opt_state=opt,

@@ -90,7 +90,9 @@ from sse_tpu_torch.train.loop import (
     ScaleByAdamState,
     TrainConfig,
     TrainState,
+    _dropout_seed,
     _step_seed,
+    adam_count,
     clip_to,
     ema_update,
     make_negatives,
@@ -112,7 +114,8 @@ def place_state(state: TrainState, mesh: Mesh) -> TrainState:
         raise ValueError("the state lives on another grid: gather it first")
     opt = state.opt_state
     if opt is not None:
-        opt = ScaleByAdamState(count=opt.count, mu=place(opt.mu, mesh), nu=place(opt.nu, mesh))
+        opt = ScaleByAdamState(count=adam_count(opt.count, mesh.local_devices[0]),
+                               mu=place(opt.mu, mesh), nu=place(opt.nu, mesh))
     return TrainState(
         params=place(state.params, mesh), opt_state=opt, step=state.step,
         lr=state.lr.detach().to(mesh.local_devices[0], copy=True),
@@ -128,7 +131,7 @@ def gather_state(state: TrainState, device: Optional[torch.device] = None) -> Tr
     device = device or state.mesh.local_devices[0]
     opt = state.opt_state
     if opt is not None:
-        opt = ScaleByAdamState(count=opt.count, mu=gather(opt.mu, device),
+        opt = ScaleByAdamState(count=adam_count(opt.count, device), mu=gather(opt.mu, device),
                                nu=gather(opt.nu, device))
     return TrainState(params=gather(state.params, device), opt_state=opt, step=state.step,
                       lr=state.lr.to(device), ema_params=gather(state.ema_params, device))
@@ -318,7 +321,7 @@ def make_grid_step(
         if use_dropout:
             for d in reps:
                 gens[d] = torch.Generator(device=dev[d]).manual_seed(
-                    _step_seed(cfg.seed ^ 0x0D0D0D, step))
+                    _step_seed(_dropout_seed(cfg.seed), step))
         labels_g = cat_global([x[2] for x in inputs.values()])
         weight_g = cat_global([x[3] for x in inputs.values()])
         lm_g = None
@@ -504,7 +507,8 @@ def _update(state: TrainState, flat: _Copies, grads, totals, tx, cfg: TrainConfi
     ema = state.ema_params
     if ema is not None:
         ema_flat = _Copies(ema)
-        ema = ema_flat.rebuild(ema_update(cfg.ema_decay, ema_flat.tensors, new, state.step))
+        step_t = torch.full((), state.step, dtype=torch.int32, device=lead)
+        ema = ema_flat.rebuild(ema_update(cfg.ema_decay, ema_flat.tensors, new, step_t))
     new_state = TrainState(params=flat.rebuild(new), opt_state=new_opt, step=state.step + 1,
                            lr=state.lr, ema_params=ema, mesh=state.mesh)
     return new_state, gnorm

@@ -2,16 +2,33 @@
 ``sse_tpu/train/loop.py``).
 
 One step: both towers forward, scaled-cosine similarity, the softmax-
-with-negatives loss, backward (the GRU layers' backward is the
+with-negatives loss, backward (the recurrent layers' backward is the
 hand-written kernel on a CUDA device), clip-then-Adam, ``p - lr·u`` and
-the bias-corrected EMA. The JAX package compiles a step into one XLA
-program, and its driver chains ``steps_per_dispatch`` steps into one
-program; here each step is its own sequence of launches, with no host
-sync inside it, and ``train()`` runs one step per batch. What a chunk
-decides in JAX (log, eval and mining-refresh steps, the lr sequence)
-falls at the same steps, since chunks end exactly at those boundaries.
-``steps_per_dispatch`` is mirrored but unused until a chunk is captured
-as a CUDA graph (ROADMAP.md).
+the bias-corrected EMA, with no host sync inside it.
+
+Dispatch chaining. The JAX package runs ``steps_per_dispatch`` steps as
+one XLA program (``make_train_step(chain=K)``, a ``lax.scan``). Here the
+same call captures K steps as one CUDA graph on a card and replays it
+(``_GraphChain``: one upload of the packed chunk, one launch of the
+graph); on the CPU, which only the tests ask for, and on a grid
+(``mesh=``) the chain runs its K steps eagerly. ``train()`` chunks as
+JAX's does: a chunk ends exactly at the next checkpoint or mining-
+refresh step and never crosses an epoch; a full chunk is one chain
+call, a short one runs as single steps. So chained and unchained runs
+take the same steps, and log, eval and refresh steps and the lr
+sequence fall at the same steps. A grid step is not captured: it
+issues work to several cards from one thread, and its block softmax's
+backward reads ``nonzero()``, a host sync (ROADMAP.md §1 item 4).
+
+A replay cannot read the host, so what a step takes from its step
+number lives on the device: Adam's ``count`` is an int32 tensor, the
+EMA's weights come from a device step, and the random draws come from
+generators. Step s draws its uniform negatives from a generator seeded
+from (cfg.seed, s) and its dropout masks from one seeded from
+(cfg.seed ^ 0x0D0D0D, s); a chain registers one generator of each kind
+a position with its graph and seeds them before each replay, so the
+draws of step s are a function of (seed, s) alone, chained or not, and
+a run resumed mid-chunk draws what the unbroken run drew.
 
 The step's three phases are ``torch.profiler`` ranges
 (``sse.train.forward``, ``sse.train.backward``, ``sse.train.update``);
@@ -29,6 +46,7 @@ their leaves in JAX's flattening order (sorted dict keys).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -40,6 +58,7 @@ from sse_tpu_torch.data.batching import Batch, BatchIterator
 from sse_tpu_torch.data.corpus import EncodedPairs, TargetSpace
 from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
+from sse_tpu_torch.ops import GraphLaunches
 from sse_tpu_torch.train import losses as losses_lib
 from sse_tpu_torch.train.losses import LossConfig
 
@@ -131,15 +150,16 @@ class TrainConfig:
     shuffle_window: int = 0
     ema_decay: float = 0.0
     norm_metric: str = "grad"  # grad | update | none
-    steps_per_dispatch: int = 8  # unused: one step per batch (see the module doc)
+    steps_per_dispatch: int = 8  # steps a chain: one CUDA graph a chunk on a card
 
 
 # ----------------------------------------------------------- optimizer
 class ScaleByAdamState(NamedTuple):
-    """optax.ScaleByAdamState's fields: updates so far, first and second
-    moments (trees shaped like the params)."""
+    """optax.ScaleByAdamState's fields: updates so far (an int32 scalar
+    tensor on the params' device, so that a replayed step counts on the
+    device), first and second moments (trees shaped like the params)."""
 
-    count: int
+    count: torch.Tensor
     mu: Tree
     nu: Tree
 
@@ -167,9 +187,16 @@ def clip_to(t: torch.Tensor, g_norm: torch.Tensor, max_norm: float) -> torch.Ten
     return torch.where(g_norm < max_norm, t, (t / g_norm) * max_norm)
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    """1 - decay**count in float32, as optax computes it."""
-    return float(np.float32(1.0) - np.power(np.float32(decay), np.float32(count)))
+def adam_count(count, device: torch.device | str) -> torch.Tensor:
+    """Adam's update count (an int or a tensor) as the state holds it: an
+    int32 scalar on ``device``."""
+    return torch.as_tensor(count, dtype=torch.int32).to(device)
+
+
+def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """1 - decay**count in float32 on count's device, as optax computes
+    it."""
+    return 1.0 - torch.pow(decay, count.float())
 
 
 def scale_by_adam_update(
@@ -182,7 +209,8 @@ def scale_by_adam_update(
     nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state.nu)
     count = state.count + 1
     c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
-    updates = tree_map(lambda m, v: (m / c1) / (torch.sqrt(v / c2) + eps), mu, nu)
+    updates = tree_map(
+        lambda m, v: (m / c1.to(m.device)) / (torch.sqrt(v / c2.to(v.device)) + eps), mu, nu)
     return updates, ScaleByAdamState(count=count, mu=mu, nu=nu)
 
 
@@ -196,7 +224,8 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
         if not adam:
             return None
         zeros = lambda: tree_map(torch.zeros_like, params)  # noqa: E731
-        return ScaleByAdamState(count=0, mu=zeros(), nu=zeros())
+        return ScaleByAdamState(count=adam_count(0, tree_leaves(params)[0].device),
+                                mu=zeros(), nu=zeros())
 
     def update(grads, state):
         clipped, g_norm = clip_by_global_norm(grads, cfg.max_gradient_norm)
@@ -231,16 +260,18 @@ def init_train_state(
     )
 
 
-def ema_update(decay: float, ema: Tree, params: Tree, step: int) -> Tree:
-    """The bias-corrected EMA after update ``step + 1``, stored corrected:
+def ema_update(decay: float, ema: Tree, params: Tree, step: torch.Tensor) -> Tree:
+    """The bias-corrected EMA after update ``step + 1`` (``step``: the
+    updates before this one, a device int tensor), stored corrected:
     ema_1 = params, and no weight stays on the init params
-    (``loop.py:311-331``); the weights in float32 as the JAX step computes
-    them."""
-    d = np.float32(decay)
-    t = np.float32(step) + np.float32(1.0)
-    w_old = float(d * (np.float32(1.0) - np.power(d, t - np.float32(1.0))))
-    denom = float(np.float32(1.0) - np.power(d, t))
-    return tree_map(lambda e, p: (w_old * e + (1.0 - decay) * p) / denom, ema, params)
+    (``loop.py:311-331``); the weights in float32 on the device, as the
+    JAX step computes them."""
+    t = step.float() + 1.0
+    w_old = decay * (1.0 - torch.pow(decay, t - 1.0))
+    denom = 1.0 - torch.pow(decay, t)
+    return tree_map(
+        lambda e, p: (w_old.to(e.device) * e + (1.0 - decay) * p) / denom.to(e.device),
+        ema, params)
 
 
 def step_plan(model_cfg: SSEConfig, cfg: TrainConfig) -> Tuple[bool, bool]:
@@ -271,6 +302,24 @@ def _step_seed(seed: int, step: int) -> int:
     return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
 
 
+def _dropout_seed(seed: int) -> int:
+    """The dropout stream's seed, disjoint from the negatives' (``seed``)."""
+    return seed ^ 0x0D0D0D
+
+
+@dataclasses.dataclass
+class _Draws:
+    """What a step reads of its step number s: s on the host (the injected
+    ``sample_negatives`` hook's argument), s as an int32 scalar on the
+    device (the EMA's weights; None without an EMA), and its negatives'
+    and dropout generators (None where the step draws none)."""
+
+    step: int
+    step_t: Optional[torch.Tensor]
+    negatives: Optional[torch.Generator]
+    dropout: Optional[torch.Generator]
+
+
 # ---------------------------------------------------------------- step
 def make_train_step(
     model_cfg: SSEConfig,
@@ -279,46 +328,66 @@ def make_train_step(
     num_label_cols: int = 1,
     sample_negatives: Optional[Callable[[int, int, int], torch.Tensor]] = None,
     mesh=None,
+    chain: int = 1,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the train step (see ``sse_tpu.train.loop.make_train_step``).
 
     ``step_fn(state, src, src_len, labels, weight, tgt_tokens, tgt_lens
     [, tgt_emb_cache, labels_multi])`` → (new state, metrics). With
     ``packed_width=L`` it takes one [B, L+3+(M-1)] int32 operand per
-    batch (``pack_batch``).
+    batch (``pack_batch``). With ``chain=K`` (packed only) it takes K of
+    them, ``chain_fn(state, packed_k [K, B, W], tgt_tokens, tgt_lens
+    [, tgt_emb_cache])``, runs the K steps and returns metrics stacked
+    [K]: on a CUDA device as one captured CUDA graph (``_GraphChain``),
+    elsewhere eagerly. Its state and metrics are the graph's buffers:
+    valid until the next call of the chain function.
 
     The uniform negatives of step s come from a generator seeded from
     (cfg.seed, s), so a resumed run draws what the unbroken run drew; the
     dropout generator is seeded from (cfg.seed ^ 0x0D0D0D, s), a disjoint
     stream. ``sample_negatives(step, num_targets, k)`` replaces the draw
-    (parity tests inject the rows JAX drew).
+    (parity tests inject the rows JAX drew); a chain on a card refuses it.
 
     With ``mesh`` (a ``parallel.Mesh``) the step runs on that grid
     (``train.grid``): the state is one placed by ``grid.place_state``, and
     the batch operands are this process's rows of the global batch."""
+    if chain > 1 and packed_width is None:
+        raise ValueError("a chain of steps takes packed batches (packed_width)")
     if mesh is not None:
         from sse_tpu_torch.train import grid
 
         step = grid.make_grid_step(model_cfg, cfg, mesh, sample_negatives)
-        return step if packed_width is None else _packed(step, packed_width, num_label_cols)
+        if packed_width is None:
+            return step
+        packed = _packed(step, packed_width, num_label_cols)
+        return packed if chain <= 1 else _eager_chain(packed, chain)
     tx = make_optimizer(cfg)
     loss_cfg = cfg.loss
     use_dropout, merged_scan = step_plan(model_cfg, cfg)
+    sampled = loss_cfg.kind == "sampled"
     negatives = make_negatives(cfg, sample_negatives)
 
+    def eager_draws(step: int, dev) -> _Draws:
+        gen = lambda seed: torch.Generator(device=dev).manual_seed(  # noqa: E731
+            _step_seed(seed, step))
+        return _Draws(
+            step=step,
+            step_t=torch.full((), step, dtype=torch.int32, device=dev)
+            if cfg.ema_decay > 0 else None,
+            negatives=gen(cfg.seed) if sampled and sample_negatives is None else None,
+            dropout=gen(_dropout_seed(cfg.seed)) if use_dropout else None,
+        )
+
     def loss_fn(params, src, src_len, labels, weight, tgt_tokens, tgt_lens,
-                step, tgt_emb_cache, labels_multi):
+                draws, tgt_emb_cache, labels_multi):
         dev = src.device
-        drop = None
-        if use_dropout:
-            drop = torch.Generator(device=dev).manual_seed(
-                _step_seed(cfg.seed ^ 0x0D0D0D, step)
-            )
+        drop = draws.dropout
         labels = labels.long()
         if merged_scan:
             cand_rows = labels
-            if loss_cfg.kind == "sampled":
-                cand_rows = torch.cat([cand_rows, negatives(step, tgt_tokens.shape[0], dev)])
+            if sampled:
+                cand_rows = torch.cat([cand_rows, negatives(draws.step, tgt_tokens.shape[0], dev,
+                                                            draws.negatives)])
             ct, cl = tgt_tokens[cand_rows], tgt_lens[cand_rows]
             width = max(src.shape[1], ct.shape[1])
             pad = lambda t: torch.nn.functional.pad(t, (0, width - t.shape[1]))  # noqa: E731
@@ -347,8 +416,9 @@ def make_train_step(
                     labels_multi=labels_multi,
                 )
             cand_rows = torch.cat([cand_rows, hard])
-        if loss_cfg.kind == "sampled":
-            cand_rows = torch.cat([cand_rows, negatives(step, tgt_tokens.shape[0], dev)])
+        if sampled:
+            cand_rows = torch.cat([cand_rows, negatives(draws.step, tgt_tokens.shape[0], dev,
+                                                        draws.negatives)])
         if model_cfg.mode == NetworkMode.SOURCE_ENCODER_ONLY:
             cand_emb = sse.target_embeddings(params, model_cfg, rows=cand_rows)
         else:
@@ -362,13 +432,15 @@ def make_train_step(
         )
 
     def step_fn(state, src, src_len, labels, weight, tgt_tokens, tgt_lens,
-                tgt_emb_cache=None, labels_multi=None):
+                tgt_emb_cache=None, labels_multi=None, draws: Optional[_Draws] = None):
+        if draws is None:  # else a captured chain's position: its generators, its step
+            draws = eager_draws(state.step, src.device)
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
         params = _unflatten(state.params, leaves)
         with record_function("sse.train.forward"):
             loss, acc = loss_fn(
                 params, src, src_len, labels, weight, tgt_tokens, tgt_lens,
-                state.step, tgt_emb_cache, labels_multi,
+                draws, tgt_emb_cache, labels_multi,
             )
         with record_function("sse.train.backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -385,7 +457,7 @@ def make_train_step(
             new_params = tree_map(lambda p, u: p - state.lr * u, state.params, updates)
             ema = state.ema_params
             if ema is not None:
-                ema = ema_update(cfg.ema_decay, ema, new_params, state.step)
+                ema = ema_update(cfg.ema_decay, ema, new_params, draws.step_t)
         new_state = TrainState(
             params=new_params, opt_state=opt_state, step=state.step + 1,
             lr=state.lr, ema_params=ema,
@@ -395,20 +467,170 @@ def make_train_step(
 
     if packed_width is None:
         return step_fn
-    return _packed(step_fn, packed_width, num_label_cols)
+    packed = _packed(step_fn, packed_width, num_label_cols)
+    if chain <= 1:
+        return packed
+    eager = _eager_chain(packed, chain)
+    graphs: Dict[tuple, _GraphChain] = {}
+
+    def chain_fn(state, packed_k, tgt_tokens, tgt_lens, tgt_emb_cache=None):
+        dev = tree_leaves(state.params)[0].device
+        if dev.type != "cuda":
+            return eager(state, packed_k, tgt_tokens, tgt_lens, tgt_emb_cache)
+        if sampled and sample_negatives is not None:
+            raise ValueError("a chain on a CUDA device cannot capture the sample_negatives hook")
+        key = (tuple(packed_k.shape), tuple(tgt_tokens.shape), tuple(tgt_lens.shape),
+               None if tgt_emb_cache is None else tuple(tgt_emb_cache.shape))
+        graph = graphs.get(key)
+        if graph is None:
+            graph = graphs[key] = _GraphChain(
+                packed, chain, cfg.seed, sampled, use_dropout, state, packed_k, tgt_tokens,
+                tgt_lens, tgt_emb_cache)
+        return graph(state, packed_k, tgt_tokens, tgt_lens, tgt_emb_cache)
+
+    return chain_fn
+
+
+def _stacked(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Per-step metrics → each stacked with a leading [K] axis."""
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def _eager_chain(packed_step, k: int):
+    """A chain's K steps one after the other (the CPU's and a grid's
+    chain, and the plain version of a captured one)."""
+
+    def chain_fn(state, packed_k, tgt_tokens, tgt_lens, tgt_emb_cache=None):
+        if packed_k.shape[0] != k:
+            raise ValueError(f"a chain of {k} steps got {packed_k.shape[0]} batches")
+        metrics = []
+        for i in range(k):
+            state, m = packed_step(state, packed_k[i], tgt_tokens, tgt_lens, tgt_emb_cache)
+            metrics.append(m)
+        return state, _stacked(metrics)
+
+    return chain_fn
+
+
+def _state_leaves(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor of a one-device state, in a fixed order: params, Adam's
+    count and moments, lr, EMA params."""
+    opt = state.opt_state
+    adam = [] if opt is None else [opt.count, *tree_leaves(opt.mu), *tree_leaves(opt.nu)]
+    ema = [] if state.ema_params is None else tree_leaves(state.ema_params)
+    return [*tree_leaves(state.params), *adam, state.lr, *ema]
+
+
+def _with_leaves(state: TrainState, leaves: List[torch.Tensor], step: int) -> TrainState:
+    """``state``'s structure over ``leaves`` (``_state_leaves`` order)."""
+    it = iter(leaves)
+    take = lambda tree: _unflatten(tree, [next(it) for _ in tree_leaves(tree)])  # noqa: E731
+    params = take(state.params)
+    opt = state.opt_state
+    if opt is not None:
+        opt = ScaleByAdamState(count=next(it), mu=take(opt.mu), nu=take(opt.nu))
+    lr = next(it)
+    ema = None if state.ema_params is None else take(state.ema_params)
+    return TrainState(params=params, opt_state=opt, step=step, lr=lr, ema_params=ema)
+
+
+class _GraphChain:
+    """K steps captured as one CUDA graph for one set of input shapes (the
+    counterpart of one XLA program a chunk), replayed once a call.
+
+    The graph reads fixed buffers: the packed chunk, the target tokens,
+    lengths and mining cache, every tensor of the state and the first
+    step's number. Before each replay ``load`` fills them: the chunk by
+    one upload (non-blocking from pinned memory) or a device copy; an
+    input or a state tensor only where the caller passes another tensor
+    than the buffer it was last copied into (a state the last replay
+    returned is taken as it is; a state from eager steps, a rebound lr or
+    a refreshed cache is copied in), and it seeds each position's
+    generators for its step. The graph's last ops copy the K-th state into
+    the state buffers, so the state a replay returns is those buffers.
+
+    Capture follows PyTorch's whole-network recipe: one warm-up step on a
+    side stream, then capture. A capture that fails raises."""
+
+    def __init__(self, packed_step, k: int, seed: int, sampled: bool, dropout: bool,
+                 state: TrainState, packed_k, tgt_tokens, tgt_lens, cache) -> None:
+        dev = tree_leaves(state.params)[0].device
+        self.packed_step, self.k, self.seed = packed_step, k, seed
+        self.leaves = [torch.empty_like(x) for x in _state_leaves(state)]
+        self.template = _with_leaves(state, self.leaves, 0)
+        self.packed = torch.empty(tuple(packed_k.shape), dtype=torch.int32, device=dev)
+        self.inputs = [None if x is None else torch.empty(x.shape, dtype=x.dtype, device=dev)
+                       for x in (tgt_tokens, tgt_lens, cache)]
+        self.seen: List[Any] = [None] * 3  # the caller's tensor each input buffer holds
+        self.s0 = torch.zeros((), dtype=torch.int32, device=dev)
+        gen = lambda on: torch.Generator(device=dev) if on else None  # noqa: E731
+        self.gens = [(gen(sampled), gen(dropout)) for _ in range(k)]
+        self.graph = torch.cuda.CUDAGraph()
+        for g in itertools.chain(*self.gens):
+            if g is not None:
+                self.graph.register_generator_state(g)
+        self.launches = GraphLaunches()
+        self.load(state, packed_k, tgt_tokens, tgt_lens, cache)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._steps(1)  # warm-up: the captured code once, eagerly; dropped
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with self.launches.capturing(), torch.cuda.graph(self.graph):
+            final, self.metrics = self._steps(k)
+            for buf, x in zip(self.leaves, _state_leaves(final)):
+                buf.copy_(x)
+
+    def _steps(self, n: int):
+        state = _with_leaves(self.template, self.leaves, 0)
+        tokens, lengths, cache = self.inputs
+        metrics = []
+        for i in range(n):
+            draws = _Draws(i, self.s0 + i, *self.gens[i])
+            state, m = self.packed_step(state, self.packed[i], tokens, lengths, cache,
+                                        draws=draws)
+            metrics.append(m)
+        return state, _stacked(metrics)
+
+    def load(self, state: TrainState, packed_k, tgt_tokens, tgt_lens, cache) -> None:
+        leaves = _state_leaves(state)
+        if tuple(packed_k.shape) != tuple(self.packed.shape) or len(leaves) != len(self.leaves):
+            raise ValueError("the chain's inputs do not match the captured graph's")
+        self.packed.copy_(packed_k, non_blocking=packed_k.is_pinned())
+        for j, x in enumerate((tgt_tokens, tgt_lens, cache)):
+            if x is not self.seen[j]:
+                self.inputs[j].copy_(x)
+                self.seen[j] = x
+        for buf, x in zip(self.leaves, leaves):
+            if x is not buf:
+                buf.copy_(x)
+        self.s0.fill_(state.step)
+        for i, (neg, drop) in enumerate(self.gens):
+            if neg is not None:
+                neg.manual_seed(_step_seed(self.seed, state.step + i))
+            if drop is not None:
+                drop.manual_seed(_step_seed(_dropout_seed(self.seed), state.step + i))
+
+    def __call__(self, state: TrainState, packed_k, tgt_tokens, tgt_lens, cache):
+        self.load(state, packed_k, tgt_tokens, tgt_lens, cache)
+        self.graph.replay()
+        self.launches.replayed()
+        return _with_leaves(self.template, self.leaves, state.step + self.k), self.metrics
 
 
 def make_negatives(cfg: TrainConfig, sample_negatives=None):
-    """``negatives(step, num_targets, device)``: the uniform negative rows
-    of a step, from a generator on ``device`` seeded from (cfg.seed, step),
-    the same rows on every device (or the injected ``sample_negatives``)."""
+    """``negatives(step, num_targets, device, generator=None)``: the
+    uniform negative rows of a step, from ``generator`` or else a
+    generator on ``device`` seeded from (cfg.seed, step), the same rows on
+    every device (or the injected ``sample_negatives``)."""
     k = cfg.loss.num_negatives
 
-    def negatives(step: int, num_targets: int, device) -> torch.Tensor:
+    def negatives(step: int, num_targets: int, device, generator=None) -> torch.Tensor:
         if sample_negatives is not None:
             return sample_negatives(step, num_targets, k).to(device)
-        gen = torch.Generator(device=device).manual_seed(_step_seed(cfg.seed, step))
-        return losses_lib.sample_negative_rows(gen, num_targets, k)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(_step_seed(cfg.seed, step))
+        return losses_lib.sample_negative_rows(generator, num_targets, k)
 
     return negatives
 
@@ -418,7 +640,7 @@ def _packed(step_fn, packed_width: int, num_label_cols: int):
     l = packed_width
     extra = num_label_cols - 1
 
-    def packed_step(state, packed, tgt_tokens, tgt_lens, tgt_emb_cache=None):
+    def packed_step(state, packed, tgt_tokens, tgt_lens, tgt_emb_cache=None, **kw):
         labels = packed[:, l + 1]
         labels_multi = None
         if extra > 0:
@@ -426,7 +648,7 @@ def _packed(step_fn, packed_width: int, num_label_cols: int):
         return step_fn(
             state, packed[:, :l], packed[:, l], labels,
             packed[:, l + 2].view(torch.float32), tgt_tokens, tgt_lens,
-            tgt_emb_cache, labels_multi,
+            tgt_emb_cache, labels_multi, **kw,
         )
 
     return packed_step
@@ -472,6 +694,13 @@ def train(
     ``log_fn``. ``device`` places a fresh state; a given state stays
     where its params are.
 
+    Steps run in chunks of ``cfg.steps_per_dispatch`` (JAX's
+    ``loop.py:586-626``): a chunk ends at the next checkpoint or refresh
+    step and within its epoch; a full chunk is one call of the chain
+    step (on a card one CUDA graph replay, its batches uploaded once from
+    pinned memory), a shorter one runs as single steps, and the boundary
+    work runs once a chunk.
+
     With ``mesh`` (a ``parallel.Mesh``) the steps run on that grid
     (``train.grid``): a fresh state, or one on one device, is placed on it
     (``grid.place_state``), and one already there stays. With
@@ -500,6 +729,10 @@ def train(
     width = train_pairs.src.shape[1]
     step_fn = make_train_step(model_cfg, cfg, packed_width=width, num_label_cols=label_cols,
                               mesh=mesh)
+    chain_k = max(1, cfg.steps_per_dispatch)
+    chain_fn = make_train_step(
+        model_cfg, cfg, packed_width=width, num_label_cols=label_cols, mesh=mesh, chain=chain_k,
+    ) if chain_k > 1 else None
     it = BatchIterator(
         train_pairs, cfg.batch_size, seed=cfg.seed, process_index=process_index,
         process_count=process_count, shuffle_window=cfg.shuffle_window or None,
@@ -508,6 +741,9 @@ def train(
     lengths = torch.from_numpy(np.asarray(target_space.lengths)).to(dev)
     tgt_tokens, tgt_lens = copies(tokens), copies(lengths)
     upload = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    # a captured chain uploads its chunk itself: once, from pinned memory
+    pinned = dev.type == "cuda" and mesh is None
+    upload_chunk = lambda a: torch.from_numpy(a).pin_memory() if pinned else upload(a)  # noqa: E731
 
     mine = cfg.loss.num_hard_negatives > 0 and cfg.loss.kind != "full"
 
@@ -530,13 +766,14 @@ def train(
     skip_batches = step % spe if start_epoch < cfg.max_epochs else 0
 
     def boundaries(epoch):
-        """Boundary work after each step; acts only at exact multiples."""
+        """Boundary work after each chunk; acts only at exact multiples
+        (a chunk ends at every boundary, so this is step-exact)."""
         nonlocal tgt_emb_cache, window_losses, best, state, t0
         if mine and step % cfg.hard_negative_refresh == 0:
             tgt_emb_cache = encode_cache(state)
         if step % cfg.steps_per_checkpoint == 0:
             mean_loss = (
-                float(torch.stack(window_losses).mean())
+                float(torch.cat([x.reshape(-1) for x in window_losses]).mean())
                 if window_losses else float("nan")
             )
             window_losses = []
@@ -566,19 +803,39 @@ def train(
 
     for epoch in range(start_epoch, cfg.max_epochs):
         start = skip_batches if epoch == start_epoch else 0
-        for batch in it.epoch_batches(epoch, start=start):
-            state, metrics = step_fn(
-                state, upload(pack_batch(batch)), tgt_tokens, tgt_lens,
-                tgt_emb_cache=tgt_emb_cache,
-            )
-            window_losses.append(metrics["loss"])
-            step += 1
+        batches = iter(it.epoch_batches(epoch, start=start))
+        while True:
+            # a chunk ends exactly AT the next boundary and never crosses it
+            room = chain_k
+            if chain_k > 1:
+                room = min(room, cfg.steps_per_checkpoint - step % cfg.steps_per_checkpoint)
+                if mine:
+                    room = min(room, cfg.hard_negative_refresh - step % cfg.hard_negative_refresh)
+            chunk = list(itertools.islice(batches, room))
+            if not chunk:
+                break
+            if chain_fn is not None and len(chunk) == chain_k:
+                state, metrics = chain_fn(
+                    state, upload_chunk(np.stack([pack_batch(b) for b in chunk])), tgt_tokens,
+                    tgt_lens, tgt_emb_cache=tgt_emb_cache,
+                )
+                # [K]: a replay's output buffer, rewritten by the next replay
+                window_losses.append(metrics["loss"].clone())
+            else:  # epoch tail, boundary remainder, or chaining off
+                for batch in chunk:
+                    state, metrics = step_fn(
+                        state, upload(pack_batch(batch)), tgt_tokens, tgt_lens,
+                        tgt_emb_cache=tgt_emb_cache,
+                    )
+                    window_losses.append(metrics["loss"])
+            step += len(chunk)
             boundaries(epoch)
     return state
 
 
 __all__ = [
     "Optimizer",
+    "adam_count",
     "ScaleByAdamState",
     "TrainConfig",
     "TrainState",

@@ -60,7 +60,7 @@ def test_train_bench_work_model_matches_jax(stubbed, timing):
     stubbed(timing)
     shape = dict(batch=8, num_targets=64, max_seq_length=12, num_negatives=16, encoding_dim=16)
     j = jbench.run_train_bench(chain=1, **shape)
-    t = tbench.run_train_bench(device="cpu", **shape)
+    t = tbench.run_train_bench(chain=1, device="cpu", **shape)
     _same(j, t, ("metric", "value", "examples_per_sec", "ms_per_step",
                  "steps_per_sec_single_dispatch", "achieved_gflops", "mfu_pct"))
     assert "hbm_pct_of_spec" not in t and "achieved_hbm_gbps" not in t
@@ -69,6 +69,68 @@ def test_train_bench_work_model_matches_jax(stubbed, timing):
     assert t["steps_per_sec_stream_mean"] == round(1.0 / timing[1], 2)
     assert j["steps_per_sec_stream_mean"] == round(1.0 / timing[0], 2)
     assert "1-step dispatch" in t["unit"]
+
+
+TRAIN_KEYS = ("metric", "value", "examples_per_sec", "ms_per_step", "steps_per_sec_stream_mean",
+              "steps_per_sec_single_dispatch", "achieved_gflops", "mfu_pct")
+
+
+@pytest.mark.parametrize("timing", TIMINGS)
+def test_train_bench_chain_work_model_matches_jax(stubbed, timing):
+    """The default chain of 8: the same keys and numbers as the JAX
+    bench's chain=8 (its chained rate the headline, the one-step rate
+    beside it), and the same unit but for the JAX bench's "fused Pallas
+    recurrence"."""
+    stubbed(timing)
+    shape = dict(batch=8, num_targets=64, max_seq_length=12, num_negatives=16, encoding_dim=16)
+    j = jbench.run_train_bench(**shape)
+    t = tbench.run_train_bench(device="cpu", **shape)
+    _same(j, t, TRAIN_KEYS)
+    assert set(j) <= set(t) and set(t) - set(j) == {"device"}
+    assert t["unit"] == j["unit"].replace("fused Pallas recurrence, ", "")
+    assert "8-step dispatch chain" in t["unit"]
+    assert t["value"] == round(8 / timing[0], 2)  # per step: a chain's time over 8
+
+
+def test_train_bench_chained_value_is_per_step(monkeypatch):
+    """A chain's time divided by its steps is the headline; the one-step
+    dispatch's own time is reported beside it, and the packed chunks are
+    the JAX bench's: batch j of chunk i is variant (i·chain + j) mod 16."""
+    timed = {}
+
+    def fake(call, variants, seconds=8.0):
+        chained = variants[0].ndim == 3 if isinstance(variants[0], torch.Tensor) else False
+        timed["chain" if chained else "single"] = (call, variants)
+        return (24e-3, 30e-3) if chained else (5e-3, 6e-3)
+
+    monkeypatch.setattr(tbench, "_throughput_time", fake)
+    s = tbench.train_setup(batch=4, num_targets=32, max_seq_length=6, num_negatives=4,
+                           encoding_dim=16, device="cpu", chain=3)
+    out = tbench.time_train(s, seconds=0.0)
+    assert out["value"] == round(3 / 24e-3, 2) == 125.0
+    assert out["ms_per_step"] == 8.0 and out["examples_per_sec"] == round(4 * 3 / 24e-3, 1)
+    assert out["steps_per_sec_stream_mean"] == round(3 / 30e-3, 2)
+    assert out["steps_per_sec_single_dispatch"] == 200.0
+    assert "3-step dispatch chain" in out["unit"]
+    assert timed["chain"][1] is s.packed_variants and timed["single"][1] is s.variants
+    assert len(s.packed_variants) == 4
+    for i, pk in enumerate(s.packed_variants):
+        assert pk.shape == (3, 4, 6 + 3) and pk.dtype == torch.int32
+        for j in range(3):
+            src, labels = s.variants[(i * 3 + j) % tbench.NUM_VARIANTS]
+            assert torch.equal(pk[j, :, :6], src) and torch.equal(pk[j, :, 7], labels)
+            assert (pk[j, :, 6] == 6).all()
+            assert (pk[j, :, 8].view(torch.float32) == 1.0).all()
+    losses = s.call_chain(s.packed_variants[0])
+    assert losses.shape == (3,) and bool(torch.isfinite(losses).all())
+
+
+def test_train_bench_runs_chained_on_the_cpu():
+    """Unstubbed at a tiny shape: both dispatches timed, every key there."""
+    out = tbench.run_train_bench(batch=4, num_targets=32, max_seq_length=6, num_negatives=4,
+                                 encoding_dim=16, chain=2, seconds=0.0, device="cpu")
+    assert out["value"] > 0 and out["steps_per_sec_single_dispatch"] > 0
+    assert set(TRAIN_KEYS) - {"mfu_pct"} <= set(out) and out["device"] == "cpu"
 
 
 @pytest.mark.parametrize("timing", TIMINGS)
@@ -166,11 +228,6 @@ def test_query_bench_variants_are_distinct_and_in_vocab():
     assert flat.shape == (16, 8, 10) and flat.dtype == torch.int32
     assert int(flat.min()) >= 2 and int(flat.max()) < 8000
     assert len({tuple(v.flatten().tolist()) for v in s.variants}) == 16
-
-
-def test_train_bench_chain_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        tbench.run_train_bench(chain=2, device="cpu")
 
 
 def test_bench_without_a_card_raises(monkeypatch):

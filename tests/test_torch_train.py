@@ -333,9 +333,12 @@ def _control_flow(calls, records, start):
 
 def test_train_driver_matches_jax(monkeypatch):
     """Same mining-refresh steps, log steps/epochs, plateau-decayed lr
-    sequence and resume skip from step 7. JAX chains steps_per_dispatch=3
-    steps per dispatch, clamped at checkpoint and refresh boundaries; the
-    port runs one step per batch, so both must act at the same steps."""
+    sequence and resume skip from step 7. Both packages chain
+    steps_per_dispatch=3 steps per dispatch, clamped at checkpoint and
+    refresh boundaries, so their step and chain calls come in the same
+    chunk sizes (held call for call by
+    test_torch_chain.py::test_train_chunks_match_jax) and both act at the
+    same steps."""
     _, tspace, pairs, _ = _corpus()
     tower = dict(vocab_size=300, embed_dim=16, hidden=16, encoding_dim=16)
     jm = jsse.SSEConfig(mode=jsse.NetworkMode.DUAL_ENCODER,
