@@ -11,6 +11,7 @@ CLI.
     python3 chip_smoke.py --grid     # only the training-on-a-grid phase (8.)
     python3 chip_smoke.py --encode   # only the subword encoder's phase (3.)
     python3 chip_smoke.py --chain    # only the dispatch-chaining phase (9.)
+    python3 chip_smoke.py --graphs   # only the served-graphs phase (10.)
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
 cell, and a served qna query by part: qna_query_costs), ``--twophase``
@@ -152,6 +153,21 @@ commits compare in one run, taken in turns.
    step chained against eager and the device's busy share; then the
    ``ranking`` preset through train() at steps_per_dispatch 8 against 1
    (the same log steps, the launches of one warm-up step more).
+10. The served query as CUDA graphs (graphs_slice: ``QueryEngine.warmup``
+   captures every (batch tier, length bucket), ``build_fused_query_fn``
+   replays one graph a shape): the bench's GRU model over 1,249,280 random
+   unit rows at bf16 B=8, 256 and 4096, int8 B=4096 and the exact variant
+   at B=8, the transformer recipe's model at B=8 and 4096, each warmed
+   (tiers x buckets captures, each one's seconds and MiB), a dispatch of
+   served texts replayed against the same call eager bit for bit, the
+   launches of one replay, ms a dispatch through ``engine.query`` (host
+   clock) and through the function (CUDA events), replayed and eager, and
+   the device's busy share of a bench window, replayed and eager;
+   /api/stats of the B=4096 engine (captures = tiers x buckets, one
+   replay a dispatch); one served ``compositional`` query (3-layer
+   residual LSTM) replayed against eager; 1,000 documents added in ten
+   calls while a thread serves (no capture, each added text ranks its
+   document first) and a delete's recapture, then replay == eager.
 Each kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
 operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8) is computed from
@@ -160,7 +176,8 @@ forget bias folded into its bias, full lengths) is timed beside the LSTM
 kernels as their library yardstick; the port never calls it.
 
 Any failure raises (non-zero exit). Before the last two lines, a JSON
-line {"encode": {...}} holds phase 3's host readings. The line before
+line {"encode": {...}} holds phase 3's host readings and one
+{"graphs": {...}} phase 10's readings. The line before
 the last is a JSON object with each kernel's launches, error, times and bound (the
 streaming kernels also by batch size: time, bound and the served runs'
 launches at each B checked); the last line is {"ok": true, "device":
@@ -178,6 +195,7 @@ import random
 import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -1756,12 +1774,13 @@ def bench_kernels(b: int) -> tuple:
         "gru_fwd", "topk_stream")
 
 
-def window_busy(s, tries: int = 3) -> tuple:
+def window_busy(s, tries: int = 3, want: str = "gru_fwd") -> tuple:
     """Wall ms of one window (bench.WINDOW) of the query bench's dispatches (``s``: a
     bench.QuerySetup) ending in a drain, under torch.profiler, and the
     device's busy ms in it (its kernels and copies). Profiles again when
-    the session saw fewer GRU launches than dispatches; busy is
-    NOT_MEASURED if every session lost them (see profiled)."""
+    the session saw fewer launches of the kernel named ``want`` (the GRU
+    forward by default) than dispatches; busy is NOT_MEASURED if every
+    session lost them (see profiled)."""
     from sse_tpu_torch import bench
 
     window = bench.WINDOW
@@ -1776,10 +1795,10 @@ def window_busy(s, tries: int = 3) -> tuple:
             wall = (time.perf_counter() - t0) * 1e3
         counts = {}
         times = device_times(prof, counts)
-        if sum(c for name, c in counts.items() if "gru_fwd" in name) >= window:
+        if sum(c for name, c in counts.items() if want in name) >= window:
             return wall, sum(v for name, v in times.items() if not name.startswith("sse."))
-        warn(f"torch.profiler lost GRU launches of a bench window: {json.dumps(counts)}")
-    warn(f"torch.profiler lost the GRU launches of a bench window in {tries} sessions: "
+        warn(f"torch.profiler lost {want} launches of a bench window: {json.dumps(counts)}")
+    warn(f"torch.profiler lost the {want} launches of a bench window in {tries} sessions: "
          f"its busy share is not measured")
     return wall, NOT_MEASURED
 
@@ -3629,6 +3648,290 @@ def chain_slice(card: str) -> dict:
     return dict(counts)
 
 
+# ------------------------------------------------------------ phase 10
+# the served query as one CUDA graph a shape: label → (model, index dtype,
+# top-k variant, B); every run k=10 on a 1,249,280-row index of
+# GRAPH_ROWS random unit rows made on the card
+GRAPH_RUNS = {
+    "GRU bf16 B=8": ("gru", torch.bfloat16, "packed", 8),
+    "GRU bf16 B=256": ("gru", torch.bfloat16, "packed", 256),
+    "GRU bf16 B=4096": ("gru", torch.bfloat16, "packed", 4096),
+    "GRU int8 B=4096": ("gru", torch.int8, "packed", 4096),
+    "GRU exact B=8": ("gru", torch.bfloat16, "exact", 8),
+    "transformer B=8": ("transformer", torch.bfloat16, "packed", 8),
+    "transformer B=4096": ("transformer", torch.bfloat16, "packed", 4096),
+}
+GRAPH_ROWS = T_PAD - 1000  # the served slices' real rows; 1,000 left for live adds
+GRAPH_KERNELS = ("gru_fwd", "lstm_fwd", "rnn_scan", "topk_stream", "topk_exact", "twophase_p1",
+                 "twophase_p2")
+
+
+def graph_model(kind: str):
+    """(config, seeded params) of the graphs phase's models at full width:
+    the bench's shared-encoder 1-layer GRU, the ``transformer`` recipe's
+    and the ``compositional`` recipe's (3-layer residual LSTM) models."""
+    from sse_tpu_torch import configs
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
+    from sse_tpu_torch.models.towers import TowerConfig
+
+    if kind == "gru":
+        cfg = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(
+            cell="gru", vocab_size=8000, embed_dim=128, hidden=128, encoding_dim=128))
+    elif kind == "transformer":
+        cfg = transformer_config()
+    else:
+        cfg = configs.preset("ranking", recipe=kind).model_config(8000, T_PAD)
+    return cfg, sse.init_params(cfg, torch.Generator().manual_seed(SEED))
+
+
+def uncounted(fn):
+    """fn()'s result with its kernel launches left out of the counters:
+    the eager calls a replay is held against and timed beside are no part
+    of the main path's run."""
+    from sse_tpu_torch import ops
+
+    with ops.GraphLaunches().capturing():
+        out = fn()
+        torch.cuda.synchronize()
+    return out
+
+
+def eager_of(fn):
+    """The captured function's path issued eagerly, with its signature."""
+    return lambda p, e, t, l, nr=None: fn.run(p, e, t, l, fn.num_real if nr is None else nr)
+
+
+def graph_run(card: str, label: str, engine, texts: list, want: str) -> dict:
+    """One engine of the graphs phase after its warmup: a dispatch of the B
+    texts replayed against the same call eager, bit for bit; the launches
+    of one replay; ms a dispatch through ``engine.query`` (host clock,
+    median) and through the function (CUDA events around back-to-back
+    calls), each replayed and eager; the device's busy share of one bench
+    window (``window_busy``: 32 dispatches of random full-length tokens,
+    ``want`` the kernel it counts) replayed and eager. Returns the
+    readings."""
+    from sse_tpu_torch import bench, ops
+
+    fn, params = engine._fused, engine.params
+    emb, nr = engine.index.pub[:2]
+    tokens, lengths = engine.encode_queries(texts)
+    b = tokens.shape[0]
+    want_out = uncounted(lambda: fn.run(params, emb, tokens, lengths, nr))
+    ops.reset_launch_counts()
+    got = fn(params, emb, tokens, lengths, nr)
+    torch.cuda.synchronize()
+    per_replay = {n: c for n, c in ops.launch_counts().items() if c}
+    same(f"{label}: replay against eager", got, want_out)
+    if b <= 256 and engine.pallas_variant == "packed":
+        from sse_tpu_torch.models import sse
+
+        q = uncounted(lambda: sse.encode_source(params, engine.model_cfg, tokens, lengths))
+        rows_near_reference(q, emb, nr, got[1])
+    reps = 20 if b <= 256 else 5
+    host_graph = host_ms(lambda: engine.query(texts), reps)
+    graph_fn = cuda_ms(lambda: fn(params, emb, tokens, lengths, nr), reps)
+    engine._fused = eager_of(fn)
+    try:
+        host_eager = uncounted(lambda: host_ms(lambda: engine.query(texts), reps))
+    finally:
+        engine._fused = fn
+    eager_fn = uncounted(lambda: cuda_ms(lambda: fn.run(params, emb, tokens, lengths, nr),
+                                         reps))
+    gen = torch.Generator(device="cuda").manual_seed(100)
+    variants = [bench._random_tokens(gen, (b, 50), 8000, "cuda") for _ in range(4)]
+    full = torch.full((b,), 50, dtype=torch.int32, device="cuda")
+    setup = lambda f: bench.QuerySetup(f, params, engine.model_cfg, emb, nr, engine.k, 50,  # noqa: E731
+                                       full, variants)
+    wall, busy = window_busy(setup(fn), want=want)
+    e_wall, e_busy = uncounted(lambda: window_busy(setup(eager_of(fn)), want=want))
+    w = bench.WINDOW
+    graphs = engine.last_warmup["graphs"]
+    log(f"graphs {label}: replay == eager bit for bit (rows and values); launches a replay "
+        f"{per_replay}; ms a dispatch replayed / eager: engine.query (host clock, median of "
+        f"{reps}) {host_graph:.4f} / {host_eager:.4f}, the function (CUDA events, {reps} "
+        f"back to back) {graph_fn:.4f} / {eager_fn:.4f}; a window of {w}: wall {wall:.3f} / "
+        f"{e_wall:.3f} ms, device busy {busy:.3f} / {e_busy:.3f} ms "
+        f"({100.0 * busy / wall:.1f}% / {100.0 * e_busy / e_wall:.1f}%); warmup "
+        f"{engine.last_warmup['seconds']:.2f} s, {engine.last_warmup['captures']} captures: "
+        + ", ".join(f"{g['shape']} {g['seconds']:.3f} s {g['mib']:.1f} MiB" for g in graphs)
+        + f" [{card}]")
+    return {"launches_a_replay": per_replay, "engine_ms": [host_graph, host_eager],
+            "function_ms": [graph_fn, eager_fn], "window_ms": [wall, e_wall],
+            "busy_ms": [busy, e_busy],
+            "captures": [[list(g["shape"]), g["seconds"], g["mib"]] for g in graphs]}
+
+
+def graph_live_index(card: str, engine, texts: list) -> dict:
+    """On a served engine (one tier, B=8): 1,000 documents added in ten
+    calls while another thread serves queries (no capture may happen, k is
+    unchanged, each added text then ranks its own document first), then a
+    delete, which copies the index buffer: its time, the recapture of the
+    engine's graphs, and a replay on the new snapshot against eager."""
+    stop, errors, served = threading.Event(), [], [0]
+
+    def serve():
+        try:
+            while not stop.is_set():
+                hits = engine.query(texts[:8])
+                check(len(hits) == 8 and all(len(h) == K for h in hits), f"served {hits}")
+                served[0] += 1
+        except Exception as e:  # noqa: BLE001 (raised below)
+            errors.append(e)
+
+    n = len(texts)
+    added = [f"{texts[i % n]} {texts[(7 * i + 3) % n]}" for i in range(1000)]
+    ids = [f"added{i}" for i in range(1000)]
+    before = engine.graph_counts()
+    thread = threading.Thread(target=serve)
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        for lo in range(0, 1000, 100):
+            engine.add_documents(ids[lo : lo + 100], added[lo : lo + 100])
+    finally:
+        add_s = time.perf_counter() - t0
+        stop.set()
+        thread.join()
+    check(not errors, f"serving during the adds failed: {errors}")
+    after = engine.graph_counts()
+    check(after["graph_captures"] == before["graph_captures"] and engine.index.num_real == T_PAD,
+          f"adds captured {after} (before {before}), num_real {engine.index.num_real}")
+    for i in (0, 517, 999):
+        top = engine.query([added[i]])[0][0]
+        check(top["targetId"] == ids[i], f"added doc {i}: top hit {top}")
+    t0 = time.perf_counter()
+    engine.delete_documents(["added3", "r0", "r1"])
+    delete_s = time.perf_counter() - t0
+    recaptured = engine.graph_counts()["graph_captures"] - after["graph_captures"]
+    check(recaptured == len(engine._bucket_widths()), f"a delete recaptured {recaptured}")
+    fn, (emb, nr) = engine._fused, engine.index.pub[:2]
+    tokens, lengths = engine.encode_queries(texts[:8])
+    same("after the delete: replay against eager", fn(engine.params, emb, tokens, lengths, nr),
+         uncounted(lambda: fn.run(engine.params, emb, tokens, lengths, nr)))
+    log(f"graphs live index: 1,000 documents added in 10 calls in {add_s:.2f} s while a thread "
+        f"served {served[0]} B=8 dispatches, 0 captures (k stays {engine.k}), each added text "
+        f"ranks its document first; a delete of 3 took {delete_s:.3f} s (the buffer's copy and "
+        f"{recaptured} captures in {engine.last_warmup['seconds']:.3f} s), then replay == eager "
+        f"[{card}]")
+    return {"add_s": add_s, "served_during_adds": served[0], "delete_s": delete_s,
+            "recapture_s": engine.last_warmup["seconds"], "recaptures": recaptured}
+
+
+def graph_http(card: str, engine, texts: list) -> None:
+    """/api/stats of a warmed two-tier engine served without the
+    micro-batcher: captures = tiers x buckets, and one replay more a
+    dispatch (four GETs, one POST of 4,096 texts)."""
+    from sse_tpu_torch.serve import serve_http
+
+    replays = engine.graph_counts()["graph_replays"]
+    server = serve_http(engine, port=free_port(), block=False, micro_batch=False)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        for text in texts[:4]:
+            http_json(base + "/api/query?keywords=" + urllib.request.quote(text))
+        http_json(base + "/api/query", {"queries": texts[:4096]})
+        stats = http_json(base + "/api/stats")
+    finally:
+        server.shutdown()
+        server.server_close()
+    shapes = len(engine._batch_tiers()) * len(engine._bucket_widths())
+    check(stats["graph_captures"] == shapes == stats["graphs_cached"]
+          and stats["graph_replays"] == replays + 5, f"/api/stats: {stats} (from {replays})")
+    log(f"graphs /api/stats: graph_captures {stats['graph_captures']} (tiers x buckets), "
+        f"graph_replays {replays} -> {stats['graph_replays']} over 5 dispatches, "
+        f"kernel_launches {stats['kernel_launches']} [{card}]")
+
+
+def graphs_slice(card: str, corpus=None) -> tuple:
+    """The served query path replayed as CUDA graphs (QueryEngine.warmup
+    captures every (tier, bucket); ``build_fused_query_fn``'s
+    CapturedQuery replays it): GRAPH_RUNS over the 1,249,280-row index
+    (graph_run: eager against replayed, ms a dispatch, busy share, launches
+    a replay, capture s and MiB a graph), /api/stats of the GRU bf16
+    B=4096 engine (graph_http), one served ``compositional`` query, and
+    1,000 live adds and a delete (graph_live_index). ``corpus``: the
+    served slices' (vocab, target space, eval pairs); built here when
+    None (vocab and eval texts only). Returns (the launch counts of the
+    phase, reset at its start; the readings)."""
+    from sse_tpu_torch import bench, ops
+    from sse_tpu_torch.index.sharded_index import ShardedIndex
+    from sse_tpu_torch.serve import QueryEngine
+
+    t0 = time.perf_counter()
+    if corpus is None:
+        from sse_tpu_torch.data import synthetic
+        from sse_tpu_torch.data.corpus import build_vocab
+
+        train, evalp, targets = synthetic.make_corpus(task="ranking", num_targets=1024,
+                                                      seed=SEED)
+        vocab = build_vocab(8000, train, targets)
+    else:
+        vocab, _, evalp = corpus
+    texts = [s for s, _ in evalp]
+    ids = [f"r{i}" for i in range(GRAPH_ROWS)]
+    rows = {dt: bench._device_index(GRAPH_ROWS, D, dt, "cuda")
+            for dt in (torch.bfloat16, torch.int8)}
+    check(all(e.shape[0] == T_PAD for e in rows.values()), "graph index geometry")
+    models = {kind: graph_model(kind) for kind in ("gru", "transformer")}
+
+    def engine_for(kind, dtype, variant, b):
+        cfg, params = models[kind] if kind in models else graph_model(kind)
+        index = ShardedIndex(emb=rows[dtype], num_real=GRAPH_ROWS, ids=list(ids),
+                             texts=list(ids))
+        return QueryEngine(params, cfg, vocab, index, max_seq_length=50, max_batch=8, k=K,
+                           bulk_batch=b if b > 8 else None, pallas_variant=variant)
+
+    total = collections.Counter()
+    readings = {}
+    for label, (kind, dtype, variant, b) in GRAPH_RUNS.items():
+        ops.reset_launch_counts()
+        engine = engine_for(kind, dtype, variant, b)
+        engine.warmup()
+        shapes = len(engine._batch_tiers()) * len(engine._bucket_widths())
+        check(engine.graph_counts() == {"graph_captures": shapes, "graph_replays": 0,
+                                        "graphs_cached": shapes}, f"{label}: warmup "
+              f"{engine.graph_counts()}, want {shapes} captures")
+        want = "gru_fwd" if kind == "gru" else ("wg_blockmax" if b >= 1024 else "wg_stream")
+        readings[label] = graph_run(card, label, engine, (texts * 2)[:b], want)
+        if label == "GRU bf16 B=4096":
+            graph_http(card, engine, texts)
+        total.update(ops.launch_counts())
+        del engine
+        torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    engine = engine_for("compositional", torch.bfloat16, "packed", 8)
+    engine.warmup()
+    tokens, lengths = engine.encode_queries(texts[:1])
+    emb, nr = engine.index.pub[:2]
+    fn = engine._fused
+    want_out = uncounted(lambda: fn.run(engine.params, emb, tokens, lengths, nr))
+    before = ops.launch_counts()
+    hits = engine.query(texts[:1])[0]
+    per_replay = {n: c - before[n] for n, c in ops.launch_counts().items() if c - before[n]}
+    same("compositional: replay against eager", fn(engine.params, emb, tokens, lengths, nr),
+         want_out)
+    check(len(hits) == K and per_replay.get("lstm_fwd") == 3 and per_replay.get("rnn_scan") == 3,
+          f"compositional: {hits}, launches {per_replay}")
+    log(f"graphs compositional (3-layer residual LSTM): one served query replayed, == eager bit "
+        f"for bit; launches a replay {per_replay}; warmup {engine.last_warmup['seconds']:.2f} s, "
+        + ", ".join(f"{g['shape']} {g['seconds']:.3f} s {g['mib']:.1f} MiB"
+                    for g in engine.last_warmup["graphs"]) + f" [{card}]")
+    total.update(ops.launch_counts())
+    del engine
+
+    ops.reset_launch_counts()
+    engine = engine_for("gru", torch.bfloat16, "packed", 8)
+    engine.warmup()
+    readings["live index"] = graph_live_index(card, engine, texts)
+    total.update(ops.launch_counts())
+    del engine, rows
+    torch.cuda.empty_cache()
+    log(f"graphs phase: {time.perf_counter() - t0:.1f} s")
+    return dict(total), readings
+
+
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
     "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
@@ -3707,6 +4010,12 @@ def main() -> None:
         missing = [n for n in RNN_KERNELS if counts.get(n, 0) < 1]
         check(not missing, f"kernels never launched on the chain phase's path: {missing}")
         return
+    if "--graphs" in sys.argv[1:]:
+        counts, readings = graphs_slice(card)
+        missing = [n for n in GRAPH_KERNELS if counts.get(n, 0) < 1]
+        check(not missing, f"kernels never launched on the graphs phase's path: {missing}")
+        print(json.dumps({"graphs": no_nan(readings)}, allow_nan=False))
+        return
     if "--encode" in sys.argv[1:]:
         _, counts, readings = encode_slice(card)
         missing = [n for n in ENCODE_KERNELS if counts.get(n, 0) < 1]
@@ -3730,6 +4039,7 @@ def main() -> None:
     width = dict(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1, encoding_dim=128)
     gru = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(cell="gru", **width))
     qna = qna_config()
+    graph_counts, graph_readings = graphs_slice(card, corpus)
     runs = {
         "encode": encode_counts,
         "served GRU": served_slice("served GRU", gru, corpus, (1024,)),
@@ -3737,6 +4047,7 @@ def main() -> None:
         "served exact": served_slice("served exact", gru, corpus, (4096,), variant="exact"),
         "served transformer": served_slice("served transformer", transformer_config(), corpus,
                                            (1024, 4096)),
+        "graphs": graph_counts,
         "sharded": sharded_slice(card),
         **bench_slice(card),  # checks each run's kernels itself; "GRU train bench" too
         "compositional train bench": train_bench_slice(
@@ -3770,6 +4081,7 @@ def main() -> None:
         "cli": ("gru_fwd", "gru_bwd", "topk_stream"),
         "train grid": ("gru_fwd", "gru_bwd"),
         "chain": RNN_KERNELS,
+        "graphs": GRAPH_KERNELS,
     }
     for run, names in need.items():
         missing = [n for n in names if runs[run].get(n, 0) < 1]
@@ -3791,6 +4103,7 @@ def main() -> None:
         check(all(key in k for key in keys), f"kernel line misses a key: {k}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"encode": no_nan(encode_readings)}, allow_nan=False))
+    print(json.dumps({"graphs": no_nan(graph_readings)}, allow_nan=False))
     print(json.dumps({"kernels": no_nan(kernels)}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

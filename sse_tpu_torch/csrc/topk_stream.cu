@@ -63,13 +63,14 @@ using namespace sse;
 // ------------------------------------------------------------ float32 path
 template <int MT, bool EX>
 __global__ void __launch_bounds__(128)
-    topk_stream_kernel(const void* q, const void* emb, int B, int T, int D, int num_real, int k,
-                       int splits, int rows_per_split, long long* partial) {
+    topk_stream_kernel(const void* q, const void* emb, int B, int T, int D,
+                       const int* __restrict__ num_real, int k, int splits, int rows_per_split,
+                       long long* partial) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int qbase = blockIdx.x * 16 * MT, split = blockIdx.y;
   const int lo = split * rows_per_split;
   range_topk<MT, EX>(static_cast<const float*>(q), nullptr, qbase, B, static_cast<const float*>(emb),
-                     D, T, num_real, lo, lo + rows_per_split, k,
+                     D, T, max(0, *num_real), lo, lo + rows_per_split, k,
                      partial + ((size_t)qbase * splits + split) * k, (long long)splits * k, smem);
 }
 
@@ -341,15 +342,17 @@ __device__ __forceinline__ void select_half(const typename Acc<DT>::type (&acc)[
 
 // CTA (blockIdx.x % nqg, blockIdx.x / nqg) = (query group, split): the
 // queries 64·groups·group .. and the tiles split, split + splits, ... below
-// lim; writes partial[q, split, 0..k) for each of its queries q < B.
+// lim = clamp(*num_real, 0, T), read from device memory so that a captured
+// launch serves a growing index; writes partial[q, split, 0..k) for each of
+// its queries q < B (all empty where the split holds no tile below lim).
 // Warps 0 .. W-1 (W = 4·groups): the consumer warpgroups; warp W: the
 // producer. Row j of warp w's 16 holds the group's query j·W + w, so the
 // queries of a small batch spread over every warp.
 template <int DT, int RB, bool EX>
 __global__ void __launch_bounds__(128 * kMaxGroups + 32, 1)
     wg_stream_kernel(const unsigned char* __restrict__ q, const __grid_constant__ CUtensorMap emap,
-                     int B, int lim, int k, int groups, int stages, int cap, int nqg, int splits,
-                     long long* __restrict__ partial) {
+                     int B, int T, const int* __restrict__ num_real, int k, int groups,
+                     int stages, int cap, int nqg, int splits, long long* __restrict__ partial) {
   constexpr int KS = RB / 32, CB = chunk_bytes(RB), CH = RB / CB;
   constexpr int kTile = kTileN * RB;  // bytes of an index tile, one ring stage
   using AccT = typename Acc<DT>::type;
@@ -363,6 +366,7 @@ __global__ void __launch_bounds__(128 * kMaxGroups + 32, 1)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int qg = blockIdx.x % nqg, split = blockIdx.x / nqg, q0 = qg * nq;
+  const int lim = max(0, min(T, *num_real));
   const int ntiles = (lim + kTileN - 1) / kTileN;
   const int nt = split < ntiles ? (ntiles - 1 - split) / splits + 1 : 0;
   if (nt == 0) {  // no real row in the split: every slot empty
@@ -454,7 +458,8 @@ __global__ void __launch_bounds__(128 * kMaxGroups + 32, 1)
 struct StreamArgs {
   const void* q;
   const void* emb;
-  int B, T, lim, k, groups, stages, cap, splits;
+  const int* num_real;
+  int B, T, k, groups, stages, cap, splits;
   long long* partial;
   cudaStream_t st;
 };
@@ -471,8 +476,8 @@ int stream_wg(const StreamArgs& a) {
   const int nqg = (a.B + 64 * a.groups - 1) / (64 * a.groups);
   const int smem = stream_smem(RB, a.groups, a.stages, a.cap, min(64 * a.groups, a.B));
   fn<<<nqg * a.splits, 128 * a.groups + 32, smem, a.st>>>(
-      static_cast<const unsigned char*>(a.q), emap, a.B, a.lim, a.k, a.groups, a.stages, a.cap,
-      nqg, a.splits, a.partial);
+      static_cast<const unsigned char*>(a.q), emap, a.B, a.T, a.num_real, a.k, a.groups, a.stages,
+      a.cap, nqg, a.splits, a.partial);
   return (int)cudaGetLastError();
 }
 
@@ -526,12 +531,14 @@ __global__ void __launch_bounds__(128)
 
 // bf16 / int8 index (dt 1 / 2), rows of 64, 128 or 256 bytes: partial
 // int64 [B, splits, k], each query's k best composites of each split
-// (unordered; empty slots kEmpty). exact: 0 packed keys, 1 the exact
+// (unordered; empty slots kEmpty). num_real: one int32 in device memory,
+// clamped to [0, T] by the kernel. exact: 0 packed keys, 1 the exact
 // variant's full keys. groups, stages, cap and splits come from the
-// host's plan (ops/topk.py _stream_plan).
+// host's plan (ops/topk.py _stream_plan), sized on T: the CTAs of splits
+// past num_real write empty slots and exit.
 extern "C" int sse_topk_stream(const void* q, const void* emb, int dt, int B, int T, int D,
-                               int num_real, int k, int exact, int groups, int stages, int cap,
-                               int splits, void* partial, void* stream) {
+                               const void* num_real, int k, int exact, int groups, int stages,
+                               int cap, int splits, void* partial, void* stream) {
   const int rb = D * (dt == kBF16 ? 2 : 1);
   if ((dt != kBF16 && dt != kI8) || (rb != 64 && rb != 128 && rb != 256) || k < 1 || k > 128 ||
       groups < 1 || groups > kMaxGroups || stages < 2 || splits < 1 || cap % 32 ||
@@ -539,16 +546,17 @@ extern "C" int sse_topk_stream(const void* q, const void* emb, int dt, int B, in
       stream_smem(rb, groups, stages, cap, min(64 * groups, B)) > kSmemMax)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const StreamArgs a{q, emb, B, T, max(0, min(T, num_real)), k, groups, stages, cap, splits,
-                     static_cast<long long*>(partial), static_cast<cudaStream_t>(stream)};
+  const StreamArgs a{q, emb, static_cast<const int*>(num_real), B, T, k, groups, stages, cap,
+                     splits, static_cast<long long*>(partial), static_cast<cudaStream_t>(stream)};
   if (dt == kBF16) return exact ? stream_rb<kBF16, true>(rb, a) : stream_rb<kBF16, false>(rb, a);
   return exact ? stream_rb<kI8, true>(rb, a) : stream_rb<kI8, false>(rb, a);
 }
 
 // float32 index: partial int64 [B, splits, k] from range_topk. qb: queries
-// per block (16 or 64); splits x rows_per_split cover the rows.
+// per block (16 or 64); splits x rows_per_split cover the rows; num_real
+// as above.
 extern "C" int sse_topk_stream_f32(const void* q, const void* emb, int B, int T, int D,
-                                   int num_real, int k, int exact, int qb, int splits,
+                                   const void* num_real, int k, int exact, int qb, int splits,
                                    int rows_per_split, void* partial, void* stream) {
   const int MT = qb / 16;
   if ((MT != 1 && MT != 4) || k < 1 || k > 128) return (int)cudaErrorInvalidValue;

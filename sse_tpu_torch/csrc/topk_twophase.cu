@@ -53,8 +53,9 @@ using namespace sse;
 // ------------------------------------------------------------ float32 path
 template <int MT>
 __global__ void __launch_bounds__(128)
-    blockmax_kernel(const void* q, const void* emb, int B, int T, int D, int num_real,
-                    int block_t, int nblocks, int blocks_per_cta, long long* out) {
+    blockmax_kernel(const void* q, const void* emb, int B, int T, int D,
+                    const int* __restrict__ num_real, int block_t, int nblocks, int blocks_per_cta,
+                    long long* out) {
   constexpr int QB = 16 * MT, NT = 2 * MT, NW = 8 * NT;
   __shared__ int smax[QB];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -68,7 +69,7 @@ __global__ void __launch_bounds__(128)
   const float* p1 = qbase + ql1 < B ? qf + (size_t)(qbase + ql1) * D : nullptr;
   for (int i = tid; i < QB; i += blockDim.x) smax[i] = INT_MIN;
   __syncthreads();
-  const int lim = min(T, num_real);
+  const int lim = max(0, min(T, *num_real));
 
   for (int blk = b_lo; blk < b_hi; ++blk) {
     const int rs = blk * block_t, re = min(rs + block_t, lim);
@@ -115,8 +116,9 @@ __global__ void __launch_bounds__(128)
 }
 
 __global__ void __launch_bounds__(128)
-    pairs_kernel(const void* q, const void* emb, int B, int T, int D, int num_real, int block_t,
-                 const int* tile_query, const int* tile_block, int k, long long* out) {
+    pairs_kernel(const void* q, const void* emb, int B, int T, int D,
+                 const int* __restrict__ num_real, int block_t, const int* tile_query,
+                 const int* tile_block, int k, long long* out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile = blockIdx.x, blk = tile_block[tile];
   long long* o = out + (size_t)tile * 64 * k;
@@ -125,7 +127,7 @@ __global__ void __launch_bounds__(128)
     return;
   }
   range_topk<4>(static_cast<const float*>(q), tile_query + (size_t)tile * 64, 0, B,
-                static_cast<const float*>(emb), D, T, num_real, blk * block_t,
+                static_cast<const float*>(emb), D, T, max(0, *num_real), blk * block_t,
                 blk * block_t + block_t, k, o, k, smem);
 }
 
@@ -148,13 +150,15 @@ __device__ __forceinline__ int block_tiles(int blk, int block_t, int lim) {
 
 // Phase 1. CTA (blockIdx.x % nqg, blockIdx.x / nqg) = (query group of
 // 256, split): writes out[q, blk] for its queries and the blocks blk =
-// split, split + splits, ... . Warps 0-15: four consumer warpgroups;
+// split, split + splits, ... over the rows below lim = clamp(*num_real, 0,
+// T), read from device memory. Warps 0-15: four consumer warpgroups;
 // warp 16: the TMA producer.
 template <int DT, int RB>
 __global__ void __launch_bounds__(kP1Threads, 1)
     wg_blockmax_kernel(const __grid_constant__ CUtensorMap qmap,
-                       const __grid_constant__ CUtensorMap emap, int B, int lim, int block_t,
-                       int nblocks, int nqg, int splits, long long* out) {
+                       const __grid_constant__ CUtensorMap emap, int B, int T,
+                       const int* __restrict__ num_real, int block_t, int nblocks, int nqg,
+                       int splits, long long* out) {
   constexpr int KS = RB / 32, CB = chunk_bytes(RB), CH = RB / CB;
   constexpr int kAChunk = kP1Queries * CB;  // one chunk of the queries
   constexpr int kStage = kTileN * RB;
@@ -168,6 +172,7 @@ __global__ void __launch_bounds__(kP1Threads, 1)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int qg = blockIdx.x % nqg, split = blockIdx.x / nqg;
+  const int lim = max(0, min(T, *num_real));
   if (tid == 0) {
     for (int s = 0; s < kP1Stages; ++s) {
       mbar_init(&full[s], 1);
@@ -275,14 +280,16 @@ __device__ __forceinline__ void warp_merge(int* list, int* cnt, int* thr, int k,
 
 // Phase 2. CTA t: the queries tile_query[64t ..] (negative = none, its
 // slots end empty) against index block tile_block[t] (negative: the
-// whole tile empty); writes each query's block-local top-k composites.
+// whole tile empty); writes each query's block-local top-k composites
+// over the rows below lim = clamp(*num_real, 0, T).
 // Warps 0-3: the consumer warpgroup (warp w owns queries 16w .. 16w+15,
 // the rows its lanes hold in the accumulator); warp 4: the producer.
 template <int DT, int RB>
 __global__ void __launch_bounds__(kP2Threads, 1)
     wg_pairs_kernel(const unsigned char* __restrict__ q, const __grid_constant__ CUtensorMap emap,
-                    int B, int lim, int block_t, const int* __restrict__ tile_query,
-                    const int* __restrict__ tile_block, int k, long long* __restrict__ out) {
+                    int B, int T, const int* __restrict__ num_real, int block_t,
+                    const int* __restrict__ tile_query, const int* __restrict__ tile_block, int k,
+                    long long* __restrict__ out) {
   constexpr int KS = RB / 32, CB = chunk_bytes(RB), CH = RB / CB;
   constexpr int kAChunk = 64 * CB;  // one chunk of the queries
   constexpr int kStage = kTileN * RB;
@@ -300,6 +307,7 @@ __global__ void __launch_bounds__(kP2Threads, 1)
   const int tile = blockIdx.x, blk = tile_block[tile];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   long long* o = out + (size_t)tile * 64 * k;
+  const int lim = max(0, min(T, *num_real));
   const int nt = blk < 0 ? 0 : block_tiles(blk, block_t, lim);
   if (nt == 0) {
     for (int i = tid; i < 64 * k; i += blockDim.x) o[i] = kEmpty;
@@ -437,8 +445,8 @@ constexpr int p2_smem(int rb) {
 }
 
 template <int DT, int RB>
-int blockmax_wg(const void* q, const void* emb, int B, int T, int lim, int block_t, int nblocks,
-                long long* out, cudaStream_t st) {
+int blockmax_wg(const void* q, const void* emb, int B, int T, const int* num_real, int block_t,
+                int nblocks, long long* out, cudaStream_t st) {
   CUtensorMap qmap, emap;
   int err = row_map(&qmap, q, B, RB, kP1Queries, chunk_bytes(RB));
   if (!err) err = row_map(&emap, emb, T, RB, kTileN, chunk_bytes(RB));
@@ -449,14 +457,14 @@ int blockmax_wg(const void* q, const void* emb, int B, int T, int lim, int block
     return (int)e;
   const int nqg = (B + kP1Queries - 1) / kP1Queries;
   const int splits = max(1, min(nblocks, num_sms() / nqg));
-  fn<<<nqg * splits, kP1Threads, p1_smem(RB), st>>>(qmap, emap, B, lim, block_t, nblocks, nqg,
-                                                     splits, out);
+  fn<<<nqg * splits, kP1Threads, p1_smem(RB), st>>>(qmap, emap, B, T, num_real, block_t, nblocks,
+                                                     nqg, splits, out);
   return (int)cudaGetLastError();
 }
 
 template <int DT, int RB>
-int pairs_wg(const void* q, const void* emb, int B, int T, int lim, int block_t, int ntile,
-             const int* tile_query, const int* tile_block, int k, long long* out,
+int pairs_wg(const void* q, const void* emb, int B, int T, const int* num_real, int block_t,
+             int ntile, const int* tile_query, const int* tile_block, int k, long long* out,
              cudaStream_t st) {
   CUtensorMap emap;
   if (int err = row_map(&emap, emb, T, RB, kTileN, chunk_bytes(RB))) return err;
@@ -464,14 +472,14 @@ int pairs_wg(const void* q, const void* emb, int B, int T, int lim, int block_t,
   if (const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fn), p2_smem(RB));
       e != cudaSuccess)
     return (int)e;
-  fn<<<ntile, kP2Threads, p2_smem(RB), st>>>(static_cast<const unsigned char*>(q), emap, B, lim,
-                                             block_t, tile_query, tile_block, k, out);
+  fn<<<ntile, kP2Threads, p2_smem(RB), st>>>(static_cast<const unsigned char*>(q), emap, B, T,
+                                             num_real, block_t, tile_query, tile_block, k, out);
   return (int)cudaGetLastError();
 }
 
-using BlockmaxFn = int (*)(const void*, const void*, int, int, int, int, int, long long*,
+using BlockmaxFn = int (*)(const void*, const void*, int, int, const int*, int, int, long long*,
                            cudaStream_t);
-using PairsFn = int (*)(const void*, const void*, int, int, int, int, int, const int*,
+using PairsFn = int (*)(const void*, const void*, int, int, const int*, int, int, const int*,
                         const int*, int, long long*, cudaStream_t);
 
 // The instances for a bf16 / int8 index (dt) with rows of rb bytes;
@@ -492,13 +500,14 @@ int row_bytes(int dt, int D) { return D * (dt == kBF16 ? 2 : 1); }
 }  // namespace
 
 // Phase 1: out int64 [B, nblocks], one composite (block-max key, block)
-// per query and block; kEmpty for a block with no row below num_real.
+// per query and block; kEmpty for a block with no row below num_real
+// (one int32 in device memory, clamped to [0, T] by the kernels).
 // bf16 / int8 need rows of 64, 128 or 256 bytes and block_t % 128 == 0;
 // qb and blocks_per_cta shape the float32 kernel's grid only.
 extern "C" int sse_twophase_blockmax(const void* q, const void* emb, int dt, int B, int T, int D,
-                                     int num_real, int block_t, int nblocks, int qb,
+                                     const void* num_real, int block_t, int nblocks, int qb,
                                      int blocks_per_cta, void* out, void* stream) {
-  const int lim = max(0, min(T, num_real));
+  const int* nr = static_cast<const int*>(num_real);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   long long* o = static_cast<long long*>(out);
   if (B == 0 || nblocks == 0) return 0;
@@ -507,7 +516,7 @@ extern "C" int sse_twophase_blockmax(const void* q, const void* emb, int dt, int
         dt == kBF16 ? blockmax_for<kBF16>(row_bytes(dt, D)) : blockmax_for<kI8>(row_bytes(dt, D));
     if (fn == nullptr || block_t % kTileN || (long long)nblocks * block_t > T)
       return (int)cudaErrorInvalidValue;
-    return fn(q, emb, B, T, lim, block_t, nblocks, o, st);
+    return fn(q, emb, B, T, nr, block_t, nblocks, o, st);
   }
   const int MT = qb / 16;
   if ((MT != 1 && MT != 4) || block_t % kTileRows) return (int)cudaErrorInvalidValue;
@@ -521,12 +530,14 @@ extern "C" int sse_twophase_blockmax(const void* q, const void* emb, int dt, int
 
 // Phase 2: tile t scores queries tile_query[64t .. 64t+63] (negative =
 // none) against index block tile_block[t] (negative = skip); out int64
-// [ntile·64, k], each pair's block-local top-k composites. bf16 / int8
-// need rows of 64, 128 or 256 bytes, block_t % 128 == 0 and block_t <= 4096.
+// [ntile·64, k], each pair's block-local top-k composites; num_real as in
+// phase 1. bf16 / int8 need rows of 64, 128 or 256 bytes, block_t % 128 ==
+// 0 and block_t <= 4096.
 extern "C" int sse_twophase_pairs(const void* q, const void* emb, int dt, int B, int T, int D,
-                                  int num_real, int block_t, int ntile, const void* tile_query,
-                                  const void* tile_block, int k, void* out, void* stream) {
-  const int lim = max(0, min(T, num_real));
+                                  const void* num_real, int block_t, int ntile,
+                                  const void* tile_query, const void* tile_block, int k, void* out,
+                                  void* stream) {
+  const int* nr = static_cast<const int*>(num_real);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k < 1 || k > 128) return (int)cudaErrorInvalidValue;
   const int* tq = static_cast<const int*>(tile_query);
@@ -536,7 +547,7 @@ extern "C" int sse_twophase_pairs(const void* q, const void* emb, int dt, int B,
     const PairsFn fn =
         dt == kBF16 ? pairs_for<kBF16>(row_bytes(dt, D)) : pairs_for<kI8>(row_bytes(dt, D));
     if (fn == nullptr || block_t % kTileN || block_t > kMaxBlockT) return (int)cudaErrorInvalidValue;
-    return ntile == 0 ? 0 : fn(q, emb, B, T, lim, block_t, ntile, tq, tb, k, o, st);
+    return ntile == 0 ? 0 : fn(q, emb, B, T, nr, block_t, ntile, tq, tb, k, o, st);
   }
   if (ntile == 0) return 0;
   const void* fn = (const void*)pairs_kernel;

@@ -13,6 +13,12 @@ default), which both entry points keep:
   real rows than k the remaining slots hold a finite sink value (< -1e37)
   with row 0.
 
+``num_real`` is an int or a 0-d int32 tensor on the index's card. The
+kernels read it from device memory (an int becomes one filled 0-d
+tensor, no host copy), so a CUDA graph that captured a call serves a
+growing index: its replays read the count from the buffer it captured.
+The plain versions take an int (or a tensor, which they read).
+
 The exact variant (``variant="exact"``, streaming only; the JAX
 ``_kernel`` + ``_topk_passes``) selects on the full-precision float32
 scores: key = ``to_sortable(score + 0.0)`` with no bits cleared (``+ 0.0``
@@ -253,6 +259,21 @@ def rows_off_reference(
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+def _num_real_on(num_real, emb: torch.Tensor, name: str) -> torch.Tensor:
+    """``num_real`` as the kernels read it, one int32 in the index's
+    device memory: a 0-d int32 tensor on the index's card as it is (the
+    kernels clamp it to [0, T]), an int clamped to [0, T] and filled into
+    a new 0-d tensor (one fill kernel, no host copy)."""
+    if torch.is_tensor(num_real):
+        if num_real.dim() or num_real.dtype != torch.int32 or num_real.device != emb.device:
+            raise ValueError(f"{name}: num_real must be an int or a 0-d int32 tensor on "
+                             f"{emb.device}, got {num_real.dtype} {tuple(num_real.shape)} on "
+                             f"{num_real.device}")
+        return num_real
+    nr = max(0, min(int(num_real), emb.shape[0]))
+    return torch.full((), nr, dtype=torch.int32, device=emb.device)
+
+
 def _check_cuda(q: torch.Tensor, emb: torch.Tensor, k: int, name: str) -> None:
     if not (q.is_cuda and q.device == emb.device):
         raise ValueError(f"{name}: q and emb must be on one CUDA device")
@@ -294,8 +315,9 @@ def _stream_smem(row_bytes: int, groups: int, stages: int, cap: int, rows: int) 
 
 
 def _stream_plan(row_bytes: int, k: int, b: int, rows: int, sms: int) -> dict:
-    """The bf16 / int8 streaming kernel's shape for B=b queries over the
-    first ``rows`` index rows (min(T, num_real)) on ``sms`` SMs:
+    """The bf16 / int8 streaming kernel's shape for B=b queries over an
+    index of ``rows`` rows (T: the kernel reads num_real on the device, and
+    the CTAs of splits past it exit at once) on ``sms`` SMs:
 
     * ``groups``: consumer warpgroups of 64 queries a CTA sharing each
       index tile (2 above B=64, where the lists leave room);
@@ -348,7 +370,7 @@ def fused_score_topk(
     q: torch.Tensor,  # [B, D] queries
     emb: torch.Tensor,  # [T_pad, D] index rows: float32, bfloat16 or int8
     k: int,
-    num_real: int,  # rows >= num_real are padding
+    num_real,  # rows >= num_real are padding: an int or a 0-d int32 tensor
     variant: str = "packed",  # packed | exact (see the module doc)
     composites: bool = False,
 ):
@@ -370,27 +392,28 @@ def fused_score_topk(
     _check_cuda(q, emb, k, "fused_score_topk")
     b, d = q.shape
     t = emb.shape[0]
-    nr = max(0, min(int(num_real), t))
     if b == 0 or k == 0:
         empty = torch.empty((b, k), dtype=torch.int64, device=emb.device)
         return empty if composites else decode(empty, int_exact, exact)
+    nr = _num_real_on(num_real, emb, "fused_score_topk")
     if emb.dtype == torch.float32:
         qb = _queries_per_block(b)
         tiles_per_split, splits = _split(max(1, -(-t // _TILE_ROWS)), b, qb, emb.device)
         partial = torch.empty((b, splits, k), dtype=torch.int64, device=emb.device)
         _build.launch(
-            "sse_topk_stream_f32", [_P, _P] + [_I] * 9 + [_P], emb.device,
-            q.data_ptr(), emb.data_ptr(), b, t, d, nr, k, int(exact), qb, splits,
+            "sse_topk_stream_f32", [_P, _P, _I, _I, _I, _P] + [_I] * 5 + [_P], emb.device,
+            q.data_ptr(), emb.data_ptr(), b, t, d, nr.data_ptr(), k, int(exact), qb, splits,
             tiles_per_split * _TILE_ROWS, partial.data_ptr(),
         )
     else:
         sms = torch.cuda.get_device_properties(emb.device).multi_processor_count
-        plan = _stream_plan(d * emb.element_size(), k, b, nr, sms)
+        plan = _stream_plan(d * emb.element_size(), k, b, t, sms)
         splits = plan["splits"]
         partial = torch.empty((b, splits, k), dtype=torch.int64, device=emb.device)
         _build.launch(
-            "sse_topk_stream", [_P, _P] + [_I] * 11 + [_P], emb.device,
-            q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr, k, int(exact),
+            "sse_topk_stream", [_P, _P, _I, _I, _I, _I, _P] + [_I] * 6 + [_P], emb.device,
+            q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr.data_ptr(), k,
+            int(exact),
             plan["groups"], plan["stages"], plan["cap"], splits, partial.data_ptr(),
         )
     launches["topk_exact" if exact else "topk_stream", b] += 1
@@ -444,10 +467,11 @@ def twophase_phase1_reference(
 
 
 def twophase_phase1(
-    q: torch.Tensor, emb: torch.Tensor, k: int, num_real: int, block_t: int
+    q: torch.Tensor, emb: torch.Tensor, k: int, num_real, block_t: int
 ) -> torch.Tensor:
     """Phase 1 [B, k] int64: the block-max kernel plus the warp select on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors. ``num_real``: an int
+    or a 0-d int32 tensor on the index's card."""
     if not emb.is_cuda:
         return twophase_phase1_reference(q, emb, k, num_real, block_t)
     _check_cuda(q, emb, k, "twophase_phase1")
@@ -455,14 +479,14 @@ def twophase_phase1(
     b, d = q.shape
     t = emb.shape[0]
     nblocks = t // block_t
-    nr = max(0, min(int(num_real), t))
+    nr = _num_real_on(num_real, emb, "twophase_phase1")
     # the float32 kernel's grid; the bf16 / int8 kernel shapes its own
     qb = _queries_per_block(b)
     blocks_per_cta = _split(nblocks, b, qb, emb.device)[0] if emb.dtype == torch.float32 else 0
     bkeys = torch.empty((b, nblocks), dtype=torch.int64, device=emb.device)
     _build.launch(
-        "sse_twophase_blockmax", [_P, _P] + [_I] * 9 + [_P], emb.device,
-        q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr,
+        "sse_twophase_blockmax", [_P, _P, _I, _I, _I, _I, _P] + [_I] * 4 + [_P], emb.device,
+        q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr.data_ptr(),
         block_t, nblocks, qb, blocks_per_cta, bkeys.data_ptr(),
     )
     launches["twophase_p1", b] += 1
@@ -543,11 +567,11 @@ def twophase_phase2_reference(
 
 
 def twophase_phase2(
-    q: torch.Tensor, emb: torch.Tensor, k: int, num_real: int, block_t: int,
+    q: torch.Tensor, emb: torch.Tensor, k: int, num_real, block_t: int,
     tile_query: torch.Tensor, tile_block: torch.Tensor,
 ) -> torch.Tensor:
     """Phase 2: the pair kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors. ``num_real`` as in phase 1."""
     if not emb.is_cuda:
         return twophase_phase2_reference(
             q, emb, k, num_real, block_t, tile_query, tile_block
@@ -562,11 +586,11 @@ def twophase_phase2(
     ntile = tile_block.shape[0]
     if tile_query.shape[0] != ntile * PAIR_TILE:
         raise ValueError("twophase_phase2: tile_query must hold PAIR_TILE ids per tile")
-    nr = max(0, min(int(num_real), t))
+    nr = _num_real_on(num_real, emb, "twophase_phase2")
     out = torch.empty((ntile * PAIR_TILE, k), dtype=torch.int64, device=emb.device)
     _build.launch(
-        "sse_twophase_pairs", [_P, _P] + [_I] * 7 + [_P, _P, _I, _P], emb.device,
-        q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr,
+        "sse_twophase_pairs", [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P], emb.device,
+        q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, t, d, nr.data_ptr(),
         block_t, ntile, tile_query.data_ptr(), tile_block.data_ptr(), k,
         out.data_ptr(),
     )
@@ -578,7 +602,7 @@ def fused_score_topk_twophase(
     q: torch.Tensor,  # [B, D] queries
     emb: torch.Tensor,  # [T_pad, D], T_pad % block_t == 0
     k: int,
-    num_real: int,
+    num_real,  # an int or a 0-d int32 tensor (see fused_score_topk)
     block_t: int = TWOPHASE_BLOCK_T,
     composites: bool = False,
 ):
@@ -600,6 +624,8 @@ def fused_score_topk_twophase(
     if b == 0 or k == 0:
         empty = torch.empty((b, k), dtype=torch.int64, device=emb.device)
         return empty if composites else decode(empty, int_exact)
+    if emb.is_cuda:  # one device copy of the count for both phases
+        num_real = _num_real_on(num_real, emb, "fused_score_topk_twophase")
     bkeys = twophase_phase1(q, emb, k, num_real, block_t)
     tile_query, tile_block, pos = pair_schedule(bkeys, nblocks)
     cand = twophase_phase2(q, emb, k, num_real, block_t, tile_query, tile_block)

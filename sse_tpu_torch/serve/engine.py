@@ -2,6 +2,18 @@
 (top-k kernels) → rows mapped to ids (port of ``sse_tpu/serve/engine.py``),
 on one GPU or over a ('data', 'model') grid of devices.
 
+On one card the query function is one program per shape, as the JAX
+engine's ``jax.jit`` is: each (tokens shape, params) is captured once as a
+CUDA graph (``QueryGraph``: the encode, the query quantization, the top-k
+kernels, the mid-pass, the merge and the decode) and replayed from then
+on. ``num_real`` is a device operand of the top-k kernels, so an ``add``
+(rows written in place) needs no new capture; a ``delete`` copies the
+index buffer, and the graphs of the old buffer are replaced
+(``GraphCache``). ``QueryEngine.warmup`` captures every (batch tier,
+length bucket) before traffic arrives. CPU tensors run the plain versions
+eagerly; the grid stays eager (it issues work to several cards from one
+thread).
+
 Routing carried over from the JAX package and NOT yet measured on the
 H100: with the default ``pallas_variant="packed"``, batches of
 ``TWOPHASE_MIN_BATCH`` (1024) or more go to the two-phase kernels when the
@@ -23,6 +35,9 @@ exchange of the [B, S·k] composites.
 
 from __future__ import annotations
 
+import collections
+import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -32,6 +47,7 @@ from sse_tpu_torch.text.subword import SubwordVocab
 from sse_tpu_torch.index.sharded_index import ShardedIndex
 from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
+from sse_tpu_torch.ops import GraphLaunches
 from sse_tpu_torch.ops.topk import (
     _EMPTY,
     TWOPHASE_MIN_BATCH,
@@ -45,6 +61,11 @@ from sse_tpu_torch.ops.topk import (
 from sse_tpu_torch.parallel import distributed
 from sse_tpu_torch.parallel.mesh import Mesh, RowShards, replicate
 from sse_tpu_torch.parallel.topk import lift, merge
+from sse_tpu_torch.train.loop import tree_leaves
+
+# graphs one query function keeps; an engine needs tiers x buckets (8 with
+# a bulk tier and max_seq_length 50)
+MAX_GRAPHS = 32
 
 
 def _shard_topk(q: torch.Tensor, block: torch.Tensor, k: int, num_real: int, row0: int,
@@ -110,18 +131,230 @@ def _sharded_fn(model_cfg: SSEConfig, k: int, num_real: Optional[int], variant: 
     return fused
 
 
+class GraphStats:
+    """Captures and replays of one engine's query graphs, shared by the
+    functions it builds (a k rebuild makes another), and the readings of
+    the last captures (shape, seconds, MiB reserved). Thread-safe."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.captures = 0
+        self.replays = 0
+        self.log: collections.deque = collections.deque(maxlen=64)
+
+    def captured(self, reading: dict) -> None:
+        with self._lock:
+            self.captures += 1
+            self.log.append(reading)
+
+    def replayed(self) -> None:
+        with self._lock:
+            self.replays += 1
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return {"graph_captures": self.captures, "graph_replays": self.replays}
+
+
+class GraphCache:
+    """The graphs of one query function, one a key, all over one index
+    buffer. A call with another ``emb`` (a delete copies the buffer)
+    drops every graph of the old one first; past ``MAX_GRAPHS`` the least
+    recently used goes. On a miss ``make()`` captures the graph; if it
+    raises, nothing is cached and the caller sees the error. Capture and
+    replay run under ``lock``: a graph's buffers are shared."""
+
+    def __init__(self, stats: GraphStats) -> None:
+        self.lock = threading.Lock()
+        self.stats = stats
+        self.graphs: "collections.OrderedDict[tuple, Any]" = collections.OrderedDict()
+        self.emb = None  # the buffer every cached graph reads
+
+    def get(self, emb, key: tuple, make: Callable[[], Any]):
+        if emb is not self.emb:
+            self.graphs.clear()
+            self.emb = emb
+        graph = self.graphs.get(key)
+        if graph is not None:
+            self.graphs.move_to_end(key)
+            return graph
+        graph = make()
+        self.graphs[key] = graph
+        self.stats.captured({"shape": key[0], "seconds": graph.seconds, "mib": graph.mib})
+        while len(self.graphs) > MAX_GRAPHS:
+            self.graphs.popitem(last=False)
+        return graph
+
+
+def _abandon_capture(graph: torch.cuda.CUDAGraph, dev: torch.device, pool) -> None:
+    """End a capture that failed, and the allocator's recording into
+    ``pool``, which ``capture_end`` skips when CUDA invalidated the
+    capture; errors of either are dropped (the caller raises the one that
+    broke the capture)."""
+    try:
+        graph.capture_end()
+    except Exception:  # noqa: BLE001
+        pass
+    try:
+        torch.cuda.memory._cuda_endAllocateToPool(dev.index, pool)
+    except Exception:  # noqa: BLE001
+        pass
+
+
+class QueryGraph:
+    """One query shape captured as a CUDA graph over fixed buffers. Before
+    each replay the caller's tokens, lengths and num_real are copied into
+    the buffers the graph reads (num_real: a 0-d int32 tensor, filled from
+    an int with no host copy); the graph's last op packs (vals, rows) into
+    one int32 [2, B, k] buffer, and each call returns a clone of it, so a
+    result outlives the next replay.
+
+    Capture follows PyTorch's whole-network recipe: ``run`` once on the
+    side stream ``side`` (it builds the kernels and warms the allocator),
+    then the capture on it into ``pool``. The warm-up is the capturing
+    call's own dispatch: ``take_first()`` hands its result to that caller,
+    so each call launches its kernels once, eagerly or in a replay. The
+    capture is thread-local: another thread may sync the card or serve
+    meanwhile (``/api/reload`` warms a new engine while the old one
+    serves). Nothing in ``run`` may read a device value on the host; a
+    capture that fails raises.
+    ``seconds`` and ``mib``: the host time of the warm-up and the capture,
+    and what the capture added to the allocator's reserve."""
+
+    def __init__(self, run: Callable, params, emb: torch.Tensor, tokens: torch.Tensor,
+                 lengths: torch.Tensor, nr, pool, side: torch.cuda.Stream) -> None:
+        dev = emb.device
+        t0 = time.perf_counter()
+        self.refs = (params, emb)  # the graph reads their memory
+        self.tokens = torch.empty_like(tokens, device=dev)
+        self.lengths = torch.empty_like(lengths, device=dev)
+        self.nr = torch.zeros((), dtype=torch.int32, device=dev)
+        self.rows = emb.shape[0]
+        self.launches = GraphLaunches()
+        self.graph = torch.cuda.CUDAGraph()
+        self.load(tokens, lengths, nr)
+        cur = torch.cuda.current_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.first = run(params, emb, self.tokens, self.lengths, self.nr)
+        cur.wait_stream(side)
+        for x in self.first:  # the caller reads it on its own stream
+            x.record_stream(cur)
+        reserved = torch.cuda.memory_reserved(dev)
+        with self.launches.capturing(), torch.cuda.stream(side):
+            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                vals, rows = run(params, emb, self.tokens, self.lengths, self.nr)
+                self.out = torch.stack([vals.view(torch.int32), rows])
+            except BaseException:
+                _abandon_capture(self.graph, dev, pool)
+                raise
+            self.graph.capture_end()
+        self.mib = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        self.seconds = time.perf_counter() - t0
+
+    def load(self, tokens: torch.Tensor, lengths: torch.Tensor, nr) -> None:
+        self.tokens.copy_(tokens)
+        self.lengths.copy_(lengths)
+        if torch.is_tensor(nr):
+            self.nr.copy_(nr)
+        else:
+            self.nr.fill_(max(0, min(int(nr), self.rows)))
+
+    def take_first(self):
+        """The warm-up's (vals, rows), once: the capturing call's result."""
+        out, self.first = self.first, None
+        return out
+
+    def __call__(self, tokens: torch.Tensor, lengths: torch.Tensor, nr):
+        self.load(tokens, lengths, nr)
+        self.graph.replay()
+        self.launches.replayed()
+        out = self.out.clone()
+        return out[0].view(torch.float32), out[1]
+
+
+class CapturedQuery:
+    """``build_fused_query_fn``'s one-card function: ``run`` (the eager
+    query path) on CPU tensors; on the card one ``QueryGraph`` a key —
+    (tokens shape and type, lengths shape and type, the identity of the
+    params' tensors) over the index buffer ``emb`` — captured on the first
+    call, which returns the result of the capture's warm-up, and replayed
+    on every later call (``GraphCache``). ``stats`` counts captures and
+    replays (an engine shares its own among the functions it builds).
+    The graphs of one function share one memory pool and one capture
+    stream (the allocator reuses a block only on the stream it was
+    allocated on): their replays are serialized and their outputs cloned
+    out, so each capture takes the blocks the ones before it left free."""
+
+    def __init__(self, run: Callable, num_real: Optional[int],
+                 stats: Optional[GraphStats] = None) -> None:
+        self.run = run
+        self.num_real = num_real
+        self.stats = GraphStats() if stats is None else stats
+        self.cache = GraphCache(self.stats)
+        self._pools: Dict[torch.device, Any] = {}
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+    def __call__(self, params, emb, tokens, lengths, nr=None):
+        nr = self.num_real if nr is None else nr
+        if not emb.is_cuda:
+            return self.run(params, emb, tokens, lengths, nr)
+        return self.replay(params, emb, tokens, lengths, nr)
+
+    def replay(self, params, emb, tokens, lengths, nr):
+        """The call through the graph of its key: a replay, or on a miss
+        the capture, whose warm-up is this call's dispatch."""
+        key = (tuple(tokens.shape), tokens.dtype, tuple(lengths.shape), lengths.dtype,
+               tuple(id(x) for x in tree_leaves(params)))
+        with self.cache.lock:
+            graph = self.cache.get(emb, key, lambda: self._capture(params, emb, tokens, lengths,
+                                                                   nr))
+            first = graph.take_first()
+            if first is not None:
+                return first
+            out = graph(tokens, lengths, nr)
+        self.stats.replayed()
+        return out
+
+    def _capture(self, params, emb, tokens, lengths, nr) -> QueryGraph:
+        """A new graph in the function's pool on ``emb``'s card. A pool
+        whose graphs are all gone (the cache is empty: a new index buffer)
+        is released by the allocator, and one a capture failed in may be
+        left inconsistent, so both are replaced by a new pool."""
+        dev = emb.device
+        if not self.cache.graphs or dev not in self._pools:
+            self._pools[dev] = torch.cuda.graph_pool_handle()
+        if dev not in self._streams:
+            self._streams[dev] = torch.cuda.Stream(dev)
+        try:
+            return QueryGraph(self.run, params, emb, tokens, lengths, nr, self._pools[dev],
+                              self._streams[dev])
+        except BaseException:
+            del self._pools[dev]
+            raise
+
+
 def build_fused_query_fn(
     model_cfg: SSEConfig,
     k: int,
     num_real: Optional[int] = None,
     pallas_variant: str = "packed",
     mesh: Optional[Mesh] = None,
+    stats: Optional[GraphStats] = None,
 ) -> Callable:
     """fused(params, emb, tokens, lengths[, num_real]) → (vals [B, k]
-    float32, rows [B, k] int32). ``num_real`` is a runtime argument, so a
-    growing or shrinking index needs no new function. ``pallas_variant``:
-    ``packed`` (11-bit float keys, exact int8 keys) or ``exact`` (full
-    float32 keys; always the streaming kernel).
+    float32, rows [B, k] int32). ``num_real`` is a runtime argument (an
+    int or a 0-d int32 tensor on the index's card), so a growing or
+    shrinking index needs no new function. ``pallas_variant``: ``packed``
+    (11-bit float keys, exact int8 keys) or ``exact`` (full float32 keys;
+    always the streaming kernel).
+
+    On one card the function is a ``CapturedQuery``: each input shape is
+    captured once as a CUDA graph and replayed (``stats`` counts both),
+    and the results are the caller's (clones, made before the next call
+    may replay); ``.run`` is the same path issued eagerly. On CPU tensors
+    it runs the plain versions.
 
     With ``mesh`` (the 2D serving grid, e.g. {data: 2, model: 4}), ``emb``
     is the index's ``RowShards`` and ``params`` a pytree or its
@@ -131,14 +364,13 @@ def build_fused_query_fn(
     when the replica's batch is at least ``TWOPHASE_MIN_BATCH``), and the
     shards' candidates are merged exactly. The results lie on the grid's
     first device, in batch order; across processes every rank gets all
-    of them, on its own first device."""
+    of them, on its own first device. The grid runs eagerly."""
     if pallas_variant not in VARIANTS:
         raise ValueError(f"pallas_variant must be one of {VARIANTS}, got {pallas_variant!r}")
     if mesh is not None:
         return _sharded_fn(model_cfg, k, num_real, pallas_variant, mesh)
 
-    def fused(params, emb, tokens, lengths, nr=None):
-        nr = num_real if nr is None else nr
+    def run(params, emb, tokens, lengths, nr):
         with torch.no_grad():
             q = sse.encode_source(params, model_cfg, tokens, lengths)
             if pallas_variant == "packed":
@@ -147,7 +379,7 @@ def build_fused_query_fn(
                     return fused_score_topk_twophase(q, emb, k, nr, block_t=bt)
             return fused_score_topk(q, emb, k, nr, variant=pallas_variant)
 
-    return fused
+    return CapturedQuery(run, num_real, stats)
 
 
 class QueryEngine:
@@ -155,7 +387,10 @@ class QueryEngine:
     with a ``mesh``: its params are then replicated once on each distinct
     device). Queries are padded to a batch tier (``max_batch``, or
     ``bulk_batch`` for bulk calls) and a length bucket, as in the JAX
-    engine; with a mesh, each tier must divide over the 'data' axis."""
+    engine; with a mesh, each tier must divide over the 'data' axis. On
+    one card every (tier, bucket) is a CUDA graph, captured by
+    ``warmup()`` and replayed by ``query``; ``graph_stats`` counts both
+    (``graph_counts()``, in the HTTP server's /api/stats)."""
 
     def __init__(
         self,
@@ -187,13 +422,27 @@ class QueryEngine:
         self.requested_k = k
         self.k = min(k, index.num_real)
         self.pallas_variant = pallas_variant
+        self.graph_stats = GraphStats()
+        self.last_warmup: Dict[str, Any] = {}
         self._fused = self._build_fused(self.k)
 
     def _build_fused(self, k: int) -> Callable:
         return build_fused_query_fn(
             self.model_cfg, k=k, num_real=self.index.num_real,
-            pallas_variant=self.pallas_variant, mesh=self.mesh,
+            pallas_variant=self.pallas_variant, mesh=self.mesh, stats=self.graph_stats,
         )
+
+    @property
+    def captures_graphs(self) -> bool:
+        """Whether dispatches replay CUDA graphs: one card, not a grid."""
+        return self.mesh is None and self.device.type == "cuda"
+
+    def graph_counts(self) -> Dict[str, int]:
+        """Graph captures and replays since the engine was built, and the
+        graphs the current function holds."""
+        fn = self._fused
+        cached = len(fn.cache.graphs) if isinstance(fn, CapturedQuery) else 0
+        return {**self.graph_stats.counts(), "graphs_cached": cached}
 
     # --------------------------------------------------------------- host
     # Length buckets: a batch is padded to the smallest bucket that holds
@@ -217,20 +466,31 @@ class QueryEngine:
         return self._batch_tiers()[-1]
 
     def warmup(self, fused: Optional[Callable] = None) -> float:
-        """Run every (batch tier, length bucket) shape once — this builds
-        the CUDA kernels and warms the allocator before traffic arrives.
-        Returns elapsed seconds."""
-        import time as _time
-
+        """Run every (batch tier, length bucket) shape once on the
+        published index, as the JAX engine compiles each program before
+        traffic arrives: on one card this captures the shape's CUDA graph
+        (and builds the kernels), elsewhere it builds the kernels and warms
+        the allocator. The largest shape goes first: a function's graphs
+        share one memory pool, so the smaller ones then take their
+        buffers from the blocks the largest one left free. ``fused`` warms
+        a function not yet published (a k rebuild). Returns elapsed
+        seconds; ``last_warmup`` keeps the seconds, the captures it made
+        and their readings."""
         fn = self._fused if fused is None else fused
-        t0 = _time.perf_counter()
-        for b in self._batch_tiers():
-            for w in self._bucket_widths():
+        before = self.graph_stats.counts()["graph_captures"]
+        t0 = time.perf_counter()
+        emb, nr = self.index.pub[:2]
+        for b in reversed(self._batch_tiers()):
+            for w in reversed(self._bucket_widths()):
                 toks = torch.zeros((b, w), dtype=torch.int32, device=self.device)
                 lengths = torch.ones((b,), dtype=torch.int32, device=self.device)
-                vals, _ = fn(self.params, self.index.emb, toks, lengths)
+                vals, _ = fn(self.params, emb, toks, lengths, nr)
                 vals.cpu()  # completion barrier
-        return _time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        made = self.graph_stats.counts()["graph_captures"] - before
+        self.last_warmup = {"seconds": seconds, "captures": made,
+                            "graphs": list(self.graph_stats.log)[-made:] if made else []}
+        return seconds
 
     def encode_queries(self, texts: Sequence[str]):
         """Tokenize and pad a query batch to a batch tier and length
@@ -275,9 +535,13 @@ class QueryEngine:
         return self.index.num_real
 
     def delete_documents(self, ids: Sequence[str]) -> int:
-        """Swap-with-last removal (see ShardedIndex.delete). Returns the
-        new num_real."""
-        return self.index.delete(list(ids))
+        """Swap-with-last removal (see ShardedIndex.delete). The index
+        buffer is copied, so on one card the graphs of the new snapshot are
+        captured before this returns. Returns the new num_real."""
+        n = self.index.delete(list(ids))
+        if self.captures_graphs:
+            self.warmup()
+        return n
 
     def query(self, texts: Sequence[str]) -> List[List[Dict[str, Any]]]:
         """Query strings → per-query top-k

@@ -15,6 +15,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
+from sse_tpu_torch import ops
 from sse_tpu_torch.serve.engine import QueryEngine
 from sse_tpu_torch.serve.stats import ServingStats
 
@@ -143,13 +144,17 @@ def make_handler(
             if url.path == "/api/stats":
                 snap = stats.snapshot()
                 snap["index_num_targets"] = engine.index.num_real
+                # the engine's graph captures and replays beside the
+                # kernels' launch counts (each replay adds its launches)
+                snap.update(engine.graph_counts())
+                snap["kernel_launches"] = ops.launch_counts()
                 self._send(
                     200, json.dumps(snap).encode(), "application/json"
                 )
                 return
             if url.path == "/metrics":
                 body = stats.prometheus(
-                    {"index_num_targets": engine.index.num_real}
+                    {"index_num_targets": engine.index.num_real, **engine.graph_counts()}
                 ).encode()
                 self._send(
                     200, body, "text/plain; version=0.0.4; charset=utf-8"

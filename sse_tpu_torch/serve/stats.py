@@ -90,7 +90,7 @@ class ServingStats:
         gauges = {
             "latency_p50_ms", "latency_p90_ms", "latency_p99_ms",
             "latency_max_ms", "latency_window", "qps_lifetime", "uptime_s",
-            "index_num_targets",
+            "index_num_targets", "graphs_cached",
         }
         lines = []
         for k, v in s.items():

@@ -266,6 +266,9 @@ def test_engine_query_add_delete(setup):
     ids = {h["targetId"] for hits in eng.query([s for s, _ in ev[:4]]) for h in hits}
     assert "new1" not in ids and tspace.ids[0] not in ids
     assert eng.warmup() >= 0.0
+    # the plain versions run eagerly on the CPU: no graph is captured
+    assert not eng.captures_graphs and eng.last_warmup["captures"] == 0
+    assert eng.graph_counts() == {"graph_captures": 0, "graph_replays": 0, "graphs_cached": 0}
 
 
 def test_engine_k_grows_with_the_index(setup):
@@ -276,6 +279,7 @@ def test_engine_k_grows_with_the_index(setup):
     assert eng.k == 3 and len(eng.query(["x"])[0]) == 3
     eng.add_documents(["d", "e", "f"], ["one", "two", "three"])
     assert eng.k == 5 and len(eng.query(["x"])[0]) == 5
+    assert eng.graph_counts() == {"graph_captures": 0, "graph_replays": 0, "graphs_cached": 0}
 
 
 def _free_port():
@@ -320,6 +324,8 @@ def test_http_api(setup):
         assert _call(base + "/api/query?keywords=")[0] == 400
         stats = json.loads(_call(base + "/api/stats")[1])
         assert stats["queries"] == 10 and stats["index_num_targets"] == 24
+        assert stats["graph_captures"] == stats["graph_replays"] == 0  # no card here
+        assert set(stats["kernel_launches"]) >= {"gru_fwd", "topk_stream", "twophase_p1"}
         assert b"sse_queries 10" in _call(base + "/metrics")[1]
     finally:
         server.shutdown()
