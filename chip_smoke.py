@@ -12,6 +12,7 @@ CLI.
     python3 chip_smoke.py --encode   # only the subword encoder's phase (3.)
     python3 chip_smoke.py --chain    # only the dispatch-chaining phase (9.)
     python3 chip_smoke.py --graphs   # only the served-graphs phase (10.)
+    python3 chip_smoke.py --evals    # only the Evaluator / index-build graphs phase (11.)
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
 cell, and a served qna query by part: qna_query_costs), ``--twophase``
@@ -168,6 +169,20 @@ commits compare in one run, taken in turns.
    residual LSTM) replayed against eager; 1,000 documents added in ten
    calls while a thread serves (no capture, each added text ranks its
    document first) and a delete's recapture, then replay == eager.
+11. The Evaluator's and the index build's programs as CUDA graphs
+   (evals_slice): the bench's GRU model over 1,249,280 random target
+   texts (L=50, seeded numpy) and 4,096 eval sources, and the qna model
+   over 262,144: the Evaluator replayed against ``capture=False`` bit for
+   bit (2 captures on the first evaluate, 0 on a second with other
+   params; encode_targets and top_rows ms each way; the graphs' seconds
+   and MiB), ``build_index`` (bf16, 64 x 256-row chunks) replayed
+   against eager bit for bit (docs/s each way, one capture a build);
+   the ``ranking`` preset through train() at steps_per_dispatch 8 with
+   the evals replayed against eager; the index bench replayed and
+   eager; and the precision flags: ``_TensorCoreDot`` forward and
+   backward, a served transformer query and the Evaluator replays in a
+   fresh process (``--flags-probe``) under PyTorch's default flags
+   against the same calls under the flags main sets, bit for bit.
 Each kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
 operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8) is computed from
@@ -177,7 +192,8 @@ kernels as their library yardstick; the port never calls it.
 
 Any failure raises (non-zero exit). Before the last two lines, a JSON
 line {"encode": {...}} holds phase 3's host readings and one
-{"graphs": {...}} phase 10's readings. The line before
+{"graphs": {...}} phase 10's readings and one {"evals": {...}} phase
+11's. The line before
 the last is a JSON object with each kernel's launches, error, times and bound (the
 streaming kernels also by batch size: time, bound and the served runs'
 launches at each B checked); the last line is {"ok": true, "device":
@@ -3558,20 +3574,14 @@ def chain_run(card: str, label: str, s, per_step: dict, want: tuple) -> dict:
     return counts
 
 
-def chain_preset(card: str) -> dict:
-    """The ``ranking`` preset at its widths (GRU, E=H=D=128, 128 sampled
-    and 16 mined negatives, Adam, EMA) through train() on a synthetic
-    ranking corpus of 8,192 pairs (64 steps an epoch at B=128), 2 epochs,
-    a log record and eval every 50 steps: once at steps_per_dispatch=8
-    (chunks of 8 replayed, clamped at the checkpoints) and once at 1. The
-    same log steps, finite falling loss in both, the same
-    launches but for one eager warm-up step of each captured graph.
-    Returns the chained run's launch counts (reset just before it)."""
-    from sse_tpu_torch import configs, ops
+def ranking_chain_corpus():
+    """(model config, task, train pairs, eval pairs, target space) of the
+    ``ranking`` preset at its widths on a synthetic ranking corpus of 8,192
+    pairs over 256 targets, 2 epochs, a log record and eval every 50
+    steps."""
+    from sse_tpu_torch import configs
     from sse_tpu_torch.data import synthetic
     from sse_tpu_torch.data.corpus import build_vocab, encode_pairs, encode_target_space
-    from sse_tpu_torch.evals import Evaluator
-    from sse_tpu_torch.train import init_train_state, train
 
     rows, evrows, targets = synthetic.make_corpus(task="ranking", num_targets=256,
                                                   train_per_target=32, seed=SEED)
@@ -3581,7 +3591,24 @@ def chain_preset(card: str) -> dict:
     tspace = encode_target_space(vocab, targets, task.max_seq_length)
     pairs = encode_pairs(vocab, rows, tspace, task.max_seq_length)
     mc = task.model_config(vocab.vocab_size, tspace.num_targets)
-    evaluator = Evaluator(mc, encode_pairs(vocab, evrows, tspace, task.max_seq_length), tspace)
+    return (mc, task, pairs, encode_pairs(vocab, evrows, tspace, task.max_seq_length), tspace)
+
+
+def chain_preset(card: str) -> dict:
+    """The ``ranking`` preset at its widths (GRU, E=H=D=128, 128 sampled
+    and 16 mined negatives, Adam, EMA) through train() on a synthetic
+    ranking corpus of 8,192 pairs (64 steps an epoch at B=128), 2 epochs,
+    a log record and eval every 50 steps: once at steps_per_dispatch=8
+    (chunks of 8 replayed, clamped at the checkpoints) and once at 1. The
+    same log steps, finite falling loss in both, the same
+    launches but for one eager warm-up step of each captured graph.
+    Returns the chained run's launch counts (reset just before it)."""
+    from sse_tpu_torch import ops
+    from sse_tpu_torch.evals import Evaluator
+    from sse_tpu_torch.train import init_train_state, train
+
+    mc, task, pairs, evpairs, tspace = ranking_chain_corpus()
+    evaluator = Evaluator(mc, evpairs, tspace)
     out, runs = {}, {}
     for k in (CHAIN, 1):
         tc = dataclasses.replace(task.train_config(), steps_per_dispatch=k)
@@ -3932,6 +3959,307 @@ def graphs_slice(card: str, corpus=None) -> tuple:
     return dict(total), readings
 
 
+# ------------------------------------------------------------ phase 11
+# the Evaluator's and the index build's programs as CUDA graphs: the bench
+# tower over EVAL_ROWS random target texts, the qna model over QNA_ROWS
+EVAL_ROWS = T_PAD
+QNA_ROWS = 262_144
+EVAL_SOURCES = 4096
+EVAL_KERNELS = ("gru_fwd", "lstm_fwd", "rnn_scan")
+
+
+def eval_data(t: int, n: int, seed: int = SEED):
+    """(target space, eval pairs): ``t`` target texts and ``n`` eval
+    sources of random token ids at L=50 (lengths 8-50) from a seeded numpy
+    generator, one label each."""
+    from sse_tpu_torch.data.corpus import EncodedPairs, TargetSpace
+
+    rng = np.random.default_rng(seed)
+
+    def tokens(m):
+        lens = rng.integers(8, 51, size=(m,), dtype=np.int32)
+        toks = rng.integers(2, 8000, size=(m, 50), dtype=np.int32)
+        toks[np.arange(50)[None, :] >= lens[:, None]] = 0
+        return toks, lens
+
+    toks, lens = tokens(t)
+    ids = [f"r{i}" for i in range(t)]
+    tspace = TargetSpace(ids=ids, texts=ids, tokens=toks, lengths=lens, id_to_row={})
+    src, src_len = tokens(n)
+    labels = rng.integers(0, t, size=(n,), dtype=np.int32)
+    return tspace, EncodedPairs(src=src, src_len=src_len, labels=labels,
+                                label_sets=[(int(x),) for x in labels])
+
+
+def nudged(params, seed: int):
+    """Params of the same shapes with other values (a later checkpoint's)."""
+    from sse_tpu_torch.train.loop import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tree_map(lambda x: x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda"),
+                    params)
+
+
+def synced_s(fn):
+    """(fn()'s result, host seconds to its completion on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def eval_run(card: str, label: str, cfg, params, tspace, pairs) -> dict:
+    """One Evaluator replayed against the same Evaluator eager
+    (``capture=False``): the first ``evaluate`` captures 2 graphs, a
+    second with other param values none; its target embeddings and top
+    rows equal eager's bit for bit; ``encode_targets`` and ``top_rows``
+    (given the targets) timed replayed and eager (host clock to
+    completion, after the checked call); the graphs' seconds and MiB."""
+    from sse_tpu_torch.evals import Evaluator
+
+    t, n = tspace.num_targets, pairs.num_examples
+    ev = Evaluator(cfg, pairs, tspace, ks=(1, 10))
+    eager = Evaluator(cfg, pairs, tspace, ks=(1, 10), capture=False)
+    first, first_s = synced_s(lambda: ev.evaluate(params))
+    check(ev.graph_stats.counts()["graph_captures"] == 2, f"{label}: {ev.graph_stats.counts()}")
+    other = nudged(params, 7)
+    rows, second_s = synced_s(lambda: ev.top_rows(other))
+    emb = ev.encode_targets(other)
+    check(ev.graph_stats.counts()["graph_captures"] == 2,
+          f"{label}: the second evaluate captured: {ev.graph_stats.counts()}")
+    want_emb = uncounted(lambda: eager.encode_targets(other))
+    check(torch.equal(emb, want_emb), f"{label}: target embeddings replayed != eager")
+    want_rows = uncounted(lambda: eager.top_rows(other, want_emb))
+    check(np.array_equal(rows, want_rows) and rows.shape == (n, 10),
+          f"{label}: top rows replayed != eager at {np.argwhere(rows != want_rows)[:5]}")
+    check(np.all((rows >= 0) & (rows < t)), f"{label}: rows out of range")
+    _, enc_s = synced_s(lambda: ev.encode_targets(other))
+    _, enc_eager_s = uncounted(lambda: synced_s(lambda: eager.encode_targets(other)))
+    _, top_s = synced_s(lambda: ev.top_rows(other, emb))  # emb: its own buffer, not copied
+    _, top_eager_s = uncounted(lambda: synced_s(lambda: eager.top_rows(other, want_emb)))
+    graphs = list(ev.graph_stats.log)
+    mib = sum(g["mib"] for g in graphs)
+    log(f"evals {label} ({t:,} targets, {n:,} sources, batch 256): replay == eager bit for bit "
+        f"(targets and top rows); first evaluate {first_s:.2f} s (2 captures: "
+        + ", ".join(f"{g['shape'][0]} {g['seconds']:.3f} s {g['mib']:.1f} MiB" for g in graphs)
+        + f"), recall@1 {first['recall@1']:.4f}; a second with other params {second_s:.2f} s, "
+        f"0 captures; encode_targets replayed / eager {enc_s * 1e3:.1f} / {enc_eager_s * 1e3:.1f}"
+        f" ms ({t / enc_s:,.0f} / {t / enc_eager_s:,.0f} docs/s); top_rows given the targets "
+        f"{top_s * 1e3:.1f} / {top_eager_s * 1e3:.1f} ms [{card}]")
+    return {"targets": t, "sources": n, "first_evaluate_s": first_s,
+            "second_evaluate_s": second_s, "captures": [2, 0],
+            "encode_targets_ms": [enc_s * 1e3, enc_eager_s * 1e3],
+            "encode_docs_per_s": [t / enc_s, t / enc_eager_s],
+            "top_rows_ms": [top_s * 1e3, top_eager_s * 1e3], "pool_mib": mib,
+            "graphs": [[g["shape"][0], g["seconds"], g["mib"]] for g in graphs]}
+
+
+def index_run(card: str, label: str, cfg, params, tspace) -> dict:
+    """build_index (bf16, 64 x 256-row chunks) replayed against eager:
+    the buffers equal bit for bit, the reserve rows zero, one capture and
+    a replay a further chunk, JAX's progress calls; docs/s each way, the
+    capture's seconds and MiB."""
+    from sse_tpu_torch.index import build_index
+    from sse_tpu_torch.utils.graphs import GraphStats
+
+    t = tspace.num_targets
+    stats, calls = GraphStats(), []
+    kw = dict(batch_size=256, dtype=torch.bfloat16, chunk_batches=64)
+    idx, s = synced_s(lambda: build_index(params, cfg, tspace, graph_stats=stats,
+                                          progress=lambda *a: calls.append(a), **kw))
+    want, eager_s = uncounted(lambda: synced_s(lambda: build_index(params, cfg, tspace,
+                                                                   capture=False, **kw)))
+    chunks = -(-t // 16384)
+    check(torch.equal(idx.emb, want.emb) and not idx.emb[t:].any(),
+          f"{label}: index replayed != eager")
+    check(stats.counts() == {"graph_captures": 1, "graph_replays": chunks - 1}
+          and calls == [(min(hi, t), t) for hi in range(16384, t + 16384, 16384)],
+          f"{label}: {stats.counts()}, progress {calls[:3]}...")
+    check(bool(torch.isfinite(idx.emb[:t].float()).all()), f"{label}: non-finite rows")
+    g = stats.log[-1]
+    log(f"index {label} ({t:,} targets, bf16, {chunks} chunks of 64 x 256): replayed == eager "
+        f"bit for bit, reserve rows zero; {s:.2f} s ({t / s:,.0f} docs/s, the capture included: "
+        f"{g['seconds']:.3f} s, {g['mib']:.1f} MiB) against eager {eager_s:.2f} s "
+        f"({t / eager_s:,.0f} docs/s) [{card}]")
+    return {"targets": t, "chunks": chunks, "docs_per_s": [t / s, t / eager_s],
+            "seconds": [s, eager_s], "capture_s": g["seconds"], "capture_mib": g["mib"]}
+
+
+def eval_preset(card: str) -> dict:
+    """The ``ranking`` preset through train() at steps_per_dispatch 8 (as
+    chain_preset runs it) with the Evaluator's programs replayed, against
+    the same run with them eager: the same log steps, finite falling
+    loss, seconds each. Returns the readings; the replayed run is the
+    last, so its launches are what the caller reads after it."""
+    from sse_tpu_torch import ops
+    from sse_tpu_torch.evals import Evaluator
+    from sse_tpu_torch.train import init_train_state, train
+
+    mc, task, pairs, evpairs, tspace = ranking_chain_corpus()
+    tc = dataclasses.replace(task.train_config(), steps_per_dispatch=CHAIN)
+    runs = {}
+    for capture in (False, True):
+        evaluator = Evaluator(mc, evpairs, tspace, capture=capture)
+        records = []
+        state = init_train_state(mc, tc)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train(mc, tc, pairs, tspace, eval_fn=evaluator.evaluate, log_fn=records.append,
+                      state=state)
+        torch.cuda.synchronize()
+        runs[capture] = (time.perf_counter() - t0, records, evaluator.graph_stats.counts())
+        check(state.step == 128 and all(math.isfinite(r["loss"]) for r in records)
+              and records[-1]["loss"] < records[0]["loss"], f"ranking evals {capture}: {records}")
+    (se, re, _), (sr, rr, graphs) = runs[False], runs[True]
+    check([r["step"] for r in re] == [r["step"] for r in rr] and graphs["graph_captures"] == 2,
+          f"ranking evals: {re} against {rr}, graphs {graphs}")
+    log(f"ranking preset through train() at steps_per_dispatch={CHAIN}, 128 steps, an eval every "
+        f"50 steps and at the end: evals replayed {sr:.2f} s against eager {se:.2f} s "
+        f"({se / sr:.2f}x); the Evaluator's graphs {graphs}; recall@1 {rr[-1]['recall@1']:.4f} "
+        f"(eager evals {re[-1]['recall@1']:.4f}) [{card}]")
+    return {"seconds": [sr, se], "graphs": graphs}
+
+
+FLAG_NAMES = ("matmul.allow_tf32", "matmul.allow_bf16_reduced_precision_reduction",
+              "cudnn.allow_tf32")
+
+
+def set_flags() -> None:
+    """The precision flags main sets (ROADMAP's precision policy)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def flags_probe() -> None:
+    """Run in a fresh process (``--flags-probe``) with PyTorch's default
+    flags: ``_TensorCoreDot`` forward and backward, a served transformer
+    query (B=8 and 4096, replayed) and an Evaluator replay (transformer and
+    GRU towers), then the same calls anew under ``set_flags``; prints one
+    JSON line: the default flags and, for each call, whether every bit
+    matched."""
+    from sse_tpu_torch.evals import Evaluator
+    from sse_tpu_torch.models import sse, towers
+    from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
+    from sse_tpu_torch.models.towers import TowerConfig
+    from sse_tpu_torch.serve.engine import build_fused_query_fn
+
+    defaults = {
+        "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "matmul.allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    tcfg = transformer_config()
+    gcfg = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(
+        cell="gru", vocab_size=8000, embed_dim=128, hidden=128, encoding_dim=128))
+    tparams = sse.init_params(tcfg, torch.Generator().manual_seed(SEED))
+    gparams = sse.init_params(gcfg, torch.Generator().manual_seed(SEED))
+    tspace, pairs = eval_data(16384, 1024, SEED + 3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    a = torch.randn((256 * 50, 128), generator=gen, device="cuda")
+    w = torch.randn((128, 512), generator=gen, device="cuda")
+    g = torch.randn((256 * 50, 512), generator=gen, device="cuda")
+    emb = unit_rows(65536, gen).to(torch.bfloat16)
+    toks = {b: torch.randint(2, 8000, (b, 50), generator=gen, device="cuda", dtype=torch.int32)
+            for b in (8, 4096)}
+    full = {b: torch.full((b,), 50, dtype=torch.int32, device="cuda") for b in (8, 4096)}
+
+    def calls():
+        x, y = a.clone().requires_grad_(), w.clone().requires_grad_()
+        out = towers._TensorCoreDot.apply(x, y)
+        dx, dy = torch.autograd.grad(out, (x, y), g)
+        fused = build_fused_query_fn(tcfg, K, 65536)
+        served = [fused(tparams, emb, toks[b], full[b]) for b in (8, 4096)]
+        served += [fused(tparams, emb, toks[b], full[b]) for b in (8, 4096)]  # replays
+        evs = {}
+        for name, cfg, params in (("transformer", tcfg, tparams), ("gru", gcfg, gparams)):
+            ev = Evaluator(cfg, pairs, tspace)
+            ev.evaluate(params)
+            evs[name] = (ev.top_rows(params), ev.encode_targets(params).clone())
+        torch.cuda.synchronize()
+        return {"_TensorCoreDot forward": [out.detach()],
+                "_TensorCoreDot backward": [dx, dy],
+                "served transformer query B=8 / 4096": [t for vr in served for t in vr],
+                "Evaluator replay, transformer": [torch.from_numpy(evs["transformer"][0]),
+                                                  evs["transformer"][1]],
+                "Evaluator replay, GRU": [torch.from_numpy(evs["gru"][0]), evs["gru"][1]]}
+
+    base = calls()
+    set_flags()
+    flagged = calls()
+    same_bits = {k: all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(base[k], flagged[k]))
+                 for k in base}
+    print(json.dumps({"flags_probe": {"defaults": defaults, "same": same_bits}}))
+
+
+def flags_check(card: str) -> dict:
+    """ROADMAP §3 open check 1: ``flags_probe`` in a fresh process; logs
+    and returns which calls kept every bit under the flags main sets."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--flags-probe"],
+                          capture_output=True, text=True, timeout=300)
+    line = next((ln for ln in reversed(proc.stdout.splitlines()) if '"flags_probe"' in ln), None)
+    check(proc.returncode == 0 and line is not None,
+          f"flags probe exited {proc.returncode}: {proc.stderr[-2000:]}")
+    got = json.loads(line)["flags_probe"]
+    log(f"precision flags: PyTorch's defaults {got['defaults']}; bit for bit the same under "
+        f"{FLAG_NAMES} off: {got['same']} [{card}]")
+    return got
+
+
+def evals_slice(card: str) -> tuple:
+    """The Evaluator's and the index build's programs as CUDA graphs: the
+    bench tower (shared-encoder GRU, E=H=D=128) over EVAL_ROWS random
+    target texts and EVAL_SOURCES eval sources (eval_run, index_run), the
+    qna model (dual-encoder LSTM, attention readout) over QNA_ROWS, the
+    ranking preset through train() with replayed evals against eager ones
+    (eval_preset), the index bench (replayed and eager), and the
+    precision flags' check (flags_check). Returns (the launch counts of
+    the phase, reset at its start; the readings)."""
+    from sse_tpu_torch import bench, ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    readings = {}
+    gcfg, gparams = graph_model("gru")
+    tspace, pairs = eval_data(EVAL_ROWS, EVAL_SOURCES)
+    readings["GRU Evaluator"] = eval_run(card, "GRU", gcfg, gparams, tspace, pairs)
+    readings["GRU index"] = index_run(card, "GRU", gcfg, gparams, tspace)
+    total = collections.Counter(ops.launch_counts())
+    del tspace, pairs
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    from sse_tpu_torch.models import sse
+
+    qcfg = qna_config()
+    qparams = sse.init_params(qcfg, torch.Generator().manual_seed(SEED))
+    tspace, pairs = eval_data(QNA_ROWS, EVAL_SOURCES, SEED + 1)
+    readings["qna Evaluator"] = eval_run(card, "qna", qcfg, qparams, tspace, pairs)
+    readings["qna index"] = index_run(card, "qna", qcfg, qparams, tspace)
+    counts = ops.launch_counts()
+    check(counts["lstm_fwd"] > 0 and counts["rnn_scan"] > 0, f"qna evals: launches {counts}")
+    total.update(counts)
+    del tspace, pairs
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    readings["ranking preset"] = eval_preset(card)
+    total.update(ops.launch_counts())
+    ops.reset_launch_counts()
+    result = bench.run_index_bench(seconds=1.0)
+    check(result["value"] > 0 and result["docs_per_sec_eager"] > 0, f"index bench {result}")
+    log(f"index bench (B=512, L=50): replayed {result['value']:,.1f} docs/s "
+        f"({result['ms_per_batch']} ms), eager {result['docs_per_sec_eager']:,.1f} "
+        f"({result['ms_per_batch_eager']} ms) [{card}]")
+    readings["index bench"] = result
+    total.update(ops.launch_counts())
+    readings["flags"] = flags_check(card)
+    log(f"evals phase: {time.perf_counter() - t0:.1f} s")
+    return dict(total), readings
+
+
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
     "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
@@ -3961,9 +4289,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         sys.exit(2)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    torch.backends.cudnn.allow_tf32 = False
+    if "--flags-probe" in sys.argv[1:]:  # flags_check's fresh process: PyTorch's defaults
+        flags_probe()
+        return
+    set_flags()
     if "--sharded-rank" in sys.argv[1:]:  # one rank of sharded_processes
         at = sys.argv.index("--sharded-rank")
         sharded_rank(int(sys.argv[at + 1]), sys.argv[at + 2])
@@ -4016,6 +4345,12 @@ def main() -> None:
         check(not missing, f"kernels never launched on the graphs phase's path: {missing}")
         print(json.dumps({"graphs": no_nan(readings)}, allow_nan=False))
         return
+    if "--evals" in sys.argv[1:]:
+        counts, readings = evals_slice(card)
+        missing = [n for n in EVAL_KERNELS if counts.get(n, 0) < 1]
+        check(not missing, f"kernels never launched on the evals phase's path: {missing}")
+        print(json.dumps({"evals": no_nan(readings)}, allow_nan=False))
+        return
     if "--encode" in sys.argv[1:]:
         _, counts, readings = encode_slice(card)
         missing = [n for n in ENCODE_KERNELS if counts.get(n, 0) < 1]
@@ -4040,6 +4375,7 @@ def main() -> None:
     gru = SSEConfig(mode=NetworkMode.SHARED_ENCODER, src_tower=TowerConfig(cell="gru", **width))
     qna = qna_config()
     graph_counts, graph_readings = graphs_slice(card, corpus)
+    eval_counts, eval_readings = evals_slice(card)
     runs = {
         "encode": encode_counts,
         "served GRU": served_slice("served GRU", gru, corpus, (1024,)),
@@ -4048,6 +4384,7 @@ def main() -> None:
         "served transformer": served_slice("served transformer", transformer_config(), corpus,
                                            (1024, 4096)),
         "graphs": graph_counts,
+        "evals": eval_counts,
         "sharded": sharded_slice(card),
         **bench_slice(card),  # checks each run's kernels itself; "GRU train bench" too
         "compositional train bench": train_bench_slice(
@@ -4082,6 +4419,7 @@ def main() -> None:
         "train grid": ("gru_fwd", "gru_bwd"),
         "chain": RNN_KERNELS,
         "graphs": GRAPH_KERNELS,
+        "evals": EVAL_KERNELS,
     }
     for run, names in need.items():
         missing = [n for n in names if runs[run].get(n, 0) < 1]
@@ -4104,6 +4442,7 @@ def main() -> None:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"encode": no_nan(encode_readings)}, allow_nan=False))
     print(json.dumps({"graphs": no_nan(graph_readings)}, allow_nan=False))
+    print(json.dumps({"evals": no_nan(eval_readings)}, allow_nan=False))
     print(json.dumps({"kernels": no_nan(kernels)}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

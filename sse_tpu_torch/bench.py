@@ -7,10 +7,10 @@ takes the next of 16 distinct inputs, windows of 32 asynchronous
 dispatches end in a drain, and each bench reports the best window (the
 headline ``value``) beside the whole-stream mean (the train bench's
 too, where the JAX bench's one-step branch repeats its best window).
-The drain is ``torch.cuda.synchronize``; the port issues its kernels
-eagerly, so a window's wall time holds the host path too, which is what
-a caller of the port gets. All data is made on the device from
-seeded ``torch.Generator``s: nothing is uploaded from the host.
+The drain is ``torch.cuda.synchronize``; a window's wall time holds the
+host path too, which is what a caller of the port gets. All data is made
+on the device from seeded ``torch.Generator``s: nothing is uploaded from
+the host.
 
 Every bench runs on the card unless the caller passes ``device="cpu"``,
 and raises where there is no card. The roofline fields (``mfu_pct``,
@@ -23,7 +23,9 @@ bf16 peak and HBM rate; an unknown card and the CPU get none.
 The train bench times ``chain`` steps a dispatch (8, as the JAX bench):
 on the card one replay of a captured CUDA graph (``train.loop``'s
 ``make_train_step(chain=)``), whose rate per step is the headline, and
-the one-step dispatch beside it.
+the one-step dispatch beside it. The query bench times the captured
+query function (``serve/engine.py`` ``CapturedQuery``), and the index
+bench the encode as one captured graph, with its eager rate beside it.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
 from sse_tpu_torch.models.towers import TowerConfig
 from sse_tpu_torch.utils.device import env_device
+from sse_tpu_torch.utils import graphs
+from sse_tpu_torch.utils.graphs import Program
 from sse_tpu_torch.utils.profiling import wait_for
 
 # the headline index: the north star's 10M items over 8 chips, per chip
@@ -487,7 +491,12 @@ def run_index_bench(
     """Index-build throughput: target-tower encode docs/sec (the bench
     tower, random weights, one ``batch_size`` batch a dispatch).
     ``num_targets`` is taken for the CLI's flag and, as in the JAX bench,
-    not used: the rate is the encode's."""
+    not used: the rate is the encode's. As the JAX bench times its jitted
+    encode, the headline times the encode as one fixed-shape program
+    (``utils.graphs.Program``: a replayed CUDA graph on a card, each
+    dispatch the copy of its tokens into the graph's input and a replay);
+    ``docs_per_sec_eager`` times the same encode issued op by op, as the
+    train bench reports its one-step rate beside the chained one."""
     device = _bench_device(device)
     model_cfg = _default_model(encoding_dim=encoding_dim)
     params = sse.init_params(model_cfg, torch.Generator().manual_seed(0), device)
@@ -497,18 +506,28 @@ def run_index_bench(
         _random_tokens(gen, (batch_size, max_seq_length), model_cfg.src_tower.vocab_size, device)
         for _ in range(NUM_VARIANTS)
     ]
+    tokens_in = torch.empty_like(variants[0])
 
     def encode(tokens):
         with torch.no_grad():
             return sse.target_embeddings(params, model_cfg, tokens=tokens, lengths=lengths)
 
-    per_iter, per_iter_mean = _throughput_time(encode, variants, seconds)
+    program = Program(lambda: encode(tokens_in), graphs.pool_for(device))
+
+    def replayed(tokens):
+        tokens_in.copy_(tokens)
+        return program()
+
+    per_iter, per_iter_mean = _throughput_time(replayed, variants, seconds)
+    eager_iter, _ = _throughput_time(encode, variants, seconds)
     return {
         "metric": "index_docs_per_sec",
         "value": round(batch_size / per_iter, 1),
         "unit": f"docs/sec, best sustained window (batch={batch_size}, L={max_seq_length})",
         "ms_per_batch": round(per_iter * 1000, 3),
         "docs_per_sec_stream_mean": round(batch_size / per_iter_mean, 1),
+        "docs_per_sec_eager": round(batch_size / eager_iter, 1),
+        "ms_per_batch_eager": round(eager_iter * 1000, 3),
         "device": _device_kind(device),
     }
 

@@ -33,7 +33,7 @@ import glob
 import json
 import os
 import shutil
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,8 @@ from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
 from sse_tpu_torch.parallel import distributed
 from sse_tpu_torch.parallel.mesh import Mesh, RowShards, replicate
+from sse_tpu_torch.utils import graphs
+from sse_tpu_torch.utils.graphs import GraphPool, GraphStats, Program
 
 INT8_SCALE = 127  # L2-normalized rows live in [-1, 1]; symmetric int8
 
@@ -491,6 +493,43 @@ def _params_device(params) -> torch.device:
     return params["src_tower"]["embed"].device
 
 
+def _encode_chunks(params, model_cfg: SSEConfig, toks, lens, buf: torch.Tensor, s: int,
+                   eff_bs: int, progress, pool: Optional[GraphPool],
+                   graph_stats: Optional[GraphStats]) -> None:
+    """``build_index``'s one-device loop: each chunk of ``s`` x ``eff_bs``
+    documents goes up once (pinned, asynchronously, on a card) into fixed
+    token buffers, ``encode_chunk`` (a ``Program``: a CUDA graph with a
+    ``pool``) turns them into [s·eff_bs, D] quantized rows, and the chunk's
+    real rows are copied into ``buf``."""
+    t, l = toks.shape
+    dev = buf.device
+    chunk_docs = s * eff_bs
+    tok_in = torch.empty((s, eff_bs, l), dtype=torch.int32, device=dev)
+    len_in = torch.empty((s, eff_bs), dtype=torch.int32, device=dev)
+
+    def encode_chunk():  # the counterpart of JAX's lax.map over sub-batches
+        out = torch.cat([sse.target_embeddings(params, model_cfg, tokens=tok_in[i],
+                                               lengths=len_in[i]) for i in range(s)])
+        return quantize_rows(out, buf.dtype)
+
+    program = Program(encode_chunk, pool, graph_stats, (s, eff_bs, l))
+    pinned = dev.type == "cuda"
+    with torch.no_grad():
+        for lo in range(0, t, chunk_docs):
+            hi = min(lo + chunk_docs, t)
+            tb, lb = np.asarray(toks[lo:hi], np.int32), np.asarray(lens[lo:hi], np.int32)
+            if hi - lo < chunk_docs:  # pad the tail chunk
+                pad = chunk_docs - (hi - lo)
+                tb = np.concatenate([tb, np.zeros((pad, l), np.int32)])
+                lb = np.concatenate([lb, np.ones((pad,), np.int32)])
+            for buf_in, a in ((tok_in, tb), (len_in, lb)):
+                host = torch.from_numpy(np.ascontiguousarray(a)).view(buf_in.shape)
+                buf_in.copy_(host.pin_memory() if pinned else host, non_blocking=pinned)
+            buf[lo:hi].copy_(program()[: hi - lo])  # the padding rows stay zero
+            if progress:
+                progress(hi, t)
+
+
 def build_index(
     params,
     model_cfg: SSEConfig,
@@ -500,20 +539,40 @@ def build_index(
     capacity: Optional[int] = None,
     mesh: Optional[Mesh] = None,
     cp_shards: int = 0,
+    *,
+    progress: Optional[Callable[[int, int], None]] = None,
+    chunk_batches: int = 64,
+    capture: bool = True,
+    graph_stats: Optional[GraphStats] = None,
 ) -> ShardedIndex:
     """Encode the whole target space into an index on the params' device,
     or row-sharded over ``mesh``.
 
-    SOURCE_ENCODER_ONLY: the learned table is the index. Tower modes:
-    token batches of ``batch_size`` go through the target tower (the GRU
-    kernel on a GPU) and land in the preallocated buffer; rows in
-    ``[num_targets, T_pad)`` stay zero. On a grid the batches are the
-    same, each encoded on a device of the first block it lands in (a
-    process encodes only the batches that reach its own blocks) and
-    written into every copy of the blocks it spans.
+    SOURCE_ENCODER_ONLY: the learned table is the index. Tower modes, as
+    the JAX build: the documents go in chunks of ``chunk_batches``
+    sub-batches of ``min(batch_size, T rounded up to 8)`` rows (a corpus
+    smaller than a full chunk takes fewer sub-batches), the tail chunk
+    padded with zero tokens and length 1; rows in ``[num_targets, T_pad)``
+    stay zero, the tail chunk's padding rows too. ``progress(hi, T)`` is
+    called once a chunk.
 
-    ``cp_shards`` > 1 (a transformer tower with the mean readout): the
-    target tower encodes each batch context-parallel on its own
+    On one device (no ``mesh``, ``cp_shards`` ≤ 1) encoding a chunk is one
+    fixed-shape program, the counterpart of JAX's ``encode_chunk``: the
+    sub-batches' target-tower encodes and the quantization into one
+    ``[chunk, D]`` buffer. On a card (with ``capture``, the default) it is
+    one CUDA graph a build (``utils.graphs.Program``): the first chunk's
+    dispatch is the capture's warm-up, every later chunk a replay
+    (``graph_stats`` counts them); a capture that fails raises.
+    ``capture=False`` runs it eagerly. Each chunk's tokens go up once, and
+    its rows reach the index buffer in one device copy.
+
+    The grid and the context-parallel paths stay eager, one
+    ``batch_size`` batch at a time, as they issue work to several devices
+    from one thread: on a grid each batch is encoded on a device of the
+    first block it lands in (a process encodes only the batches that
+    reach its own blocks) and written into every copy of the blocks it
+    spans. ``cp_shards`` > 1 (a transformer tower with the mean readout):
+    the target tower encodes each batch context-parallel on its own
     ``{'seq': cp_shards}`` grid of this process's devices
     (``parallel.context.local_cp_mesh`` beside the params' device), the
     token width padded to a multiple of the shards; the encoded rows are
@@ -530,6 +589,15 @@ def build_index(
     toks, lens = target_space.tokens, target_space.lengths
     t = toks.shape[0]
     rows = _padded_rows(t, capacity, _shard_count(mesh))
+    eff_bs = min(batch_size, _round_up(t, 8))
+    s = max(1, min(chunk_batches, -(-t // eff_bs)))
+    chunk_docs = s * eff_bs
+    if mesh is None and cp_shards <= 1:
+        buf = torch.zeros((rows, model_cfg.encoding_dim), dtype=dtype, device=device)
+        _encode_chunks(params, model_cfg, toks, lens, buf, s, eff_bs, progress,
+                       graphs.pool_for(device, capture), graph_stats)
+        return ShardedIndex(emb=buf, num_real=t, ids=list(target_space.ids),
+                            texts=list(target_space.texts))
     encode = None
     if cp_shards > 1:
         from sse_tpu_torch.parallel.context import local_cp_mesh, make_cp_encoder
@@ -558,23 +626,27 @@ def build_index(
         for lo in range(0, t, batch_size):
             hi = min(lo + batch_size, t)
             dev = device
+            mine = True
             if mesh is not None:
                 t_local = buf.rows_per_shard
                 mine = [s for s in range(lo // t_local, -(-hi // t_local)) if buf.blocks[s]]
-                if not mine:
-                    continue
-                dev = mesh.column_devices(mine[0])[0]
-            tb = torch.from_numpy(np.ascontiguousarray(toks[lo:hi])).to(dev)
-            lb = torch.from_numpy(np.ascontiguousarray(lens[lo:hi])).to(dev)
-            if encode is not None:
-                out = encode(tb, lb).to(dev)
-            else:
-                out = sse.target_embeddings(
-                    params if mesh is None else copies[dev], model_cfg, tokens=tb, lengths=lb)
-            if mesh is None:
-                buf[lo:hi] = quantize_rows(out, dtype)
-            else:
-                _write_rows(buf, lo, quantize_rows(out, dtype))
+                if mine:
+                    dev = mesh.column_devices(mine[0])[0]
+            if mine:
+                tb = torch.from_numpy(np.ascontiguousarray(toks[lo:hi])).to(dev)
+                lb = torch.from_numpy(np.ascontiguousarray(lens[lo:hi])).to(dev)
+                if encode is not None:
+                    out = encode(tb, lb).to(dev)
+                else:
+                    out = sse.target_embeddings(
+                        params if mesh is None else copies[dev], model_cfg, tokens=tb,
+                        lengths=lb)
+                if mesh is None:
+                    buf[lo:hi] = quantize_rows(out, dtype)
+                else:
+                    _write_rows(buf, lo, quantize_rows(out, dtype))
+            if progress and (hi == t or hi % chunk_docs == 0):  # the chunks' ends
+                progress(hi, t)
     return ShardedIndex(
         emb=buf, num_real=t, ids=list(target_space.ids), texts=list(target_space.texts),
         mesh=mesh,

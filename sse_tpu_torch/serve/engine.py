@@ -8,9 +8,10 @@ CUDA graph (``QueryGraph``: the encode, the query quantization, the top-k
 kernels, the mid-pass, the merge and the decode) and replayed from then
 on. ``num_real`` is a device operand of the top-k kernels, so an ``add``
 (rows written in place) needs no new capture; a ``delete`` copies the
-index buffer, and the graphs of the old buffer are replaced
-(``GraphCache``). ``QueryEngine.warmup`` captures every (batch tier,
-length bucket) before traffic arrives. CPU tensors run the plain versions
+index buffer, and its ``warmup`` replaces the graphs of the old buffer
+(``GraphCache``); a query still on the old buffer then runs eagerly and
+drops nothing. ``QueryEngine.warmup`` captures every (batch tier, length
+bucket) before traffic arrives. CPU tensors run the plain versions
 eagerly; the grid stays eager (it issues work to several cards from one
 thread).
 
@@ -47,7 +48,6 @@ from sse_tpu_torch.text.subword import SubwordVocab
 from sse_tpu_torch.index.sharded_index import ShardedIndex
 from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
-from sse_tpu_torch.ops import GraphLaunches
 from sse_tpu_torch.ops.topk import (
     _EMPTY,
     TWOPHASE_MIN_BATCH,
@@ -62,6 +62,7 @@ from sse_tpu_torch.parallel import distributed
 from sse_tpu_torch.parallel.mesh import Mesh, RowShards, replicate
 from sse_tpu_torch.parallel.topk import lift, merge
 from sse_tpu_torch.train.loop import tree_leaves
+from sse_tpu_torch.utils.graphs import Captured, GraphStats
 
 # graphs one query function keeps; an engine needs tiers x buckets (8 with
 # a bulk tier and max_seq_length 50)
@@ -131,35 +132,11 @@ def _sharded_fn(model_cfg: SSEConfig, k: int, num_real: Optional[int], variant: 
     return fused
 
 
-class GraphStats:
-    """Captures and replays of one engine's query graphs, shared by the
-    functions it builds (a k rebuild makes another), and the readings of
-    the last captures (shape, seconds, MiB reserved). Thread-safe."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.captures = 0
-        self.replays = 0
-        self.log: collections.deque = collections.deque(maxlen=64)
-
-    def captured(self, reading: dict) -> None:
-        with self._lock:
-            self.captures += 1
-            self.log.append(reading)
-
-    def replayed(self) -> None:
-        with self._lock:
-            self.replays += 1
-
-    def counts(self) -> Dict[str, int]:
-        with self._lock:
-            return {"graph_captures": self.captures, "graph_replays": self.replays}
-
-
 class GraphCache:
     """The graphs of one query function, one a key, all over one index
-    buffer. A call with another ``emb`` (a delete copies the buffer)
-    drops every graph of the old one first; past ``MAX_GRAPHS`` the least
+    buffer. ``get`` with another ``emb`` adopts it: every graph of the old
+    buffer goes first (``CapturedQuery`` lets only the engine's warmup and
+    a function's first call do that); past ``MAX_GRAPHS`` the least
     recently used goes. On a miss ``make()`` captures the graph; if it
     raises, nothing is cached and the caller sees the error. Capture and
     replay run under ``lock``: a graph's buffers are shared."""
@@ -186,72 +163,31 @@ class GraphCache:
         return graph
 
 
-def _abandon_capture(graph: torch.cuda.CUDAGraph, dev: torch.device, pool) -> None:
-    """End a capture that failed, and the allocator's recording into
-    ``pool``, which ``capture_end`` skips when CUDA invalidated the
-    capture; errors of either are dropped (the caller raises the one that
-    broke the capture)."""
-    try:
-        graph.capture_end()
-    except Exception:  # noqa: BLE001
-        pass
-    try:
-        torch.cuda.memory._cuda_endAllocateToPool(dev.index, pool)
-    except Exception:  # noqa: BLE001
-        pass
-
-
 class QueryGraph:
-    """One query shape captured as a CUDA graph over fixed buffers. Before
-    each replay the caller's tokens, lengths and num_real are copied into
-    the buffers the graph reads (num_real: a 0-d int32 tensor, filled from
-    an int with no host copy); the graph's last op packs (vals, rows) into
-    one int32 [2, B, k] buffer, and each call returns a clone of it, so a
-    result outlives the next replay.
-
-    Capture follows PyTorch's whole-network recipe: ``run`` once on the
-    side stream ``side`` (it builds the kernels and warms the allocator),
-    then the capture on it into ``pool``. The warm-up is the capturing
-    call's own dispatch: ``take_first()`` hands its result to that caller,
-    so each call launches its kernels once, eagerly or in a replay. The
-    capture is thread-local: another thread may sync the card or serve
-    meanwhile (``/api/reload`` warms a new engine while the old one
-    serves). Nothing in ``run`` may read a device value on the host; a
-    capture that fails raises.
-    ``seconds`` and ``mib``: the host time of the warm-up and the capture,
-    and what the capture added to the allocator's reserve."""
+    """One query shape captured as a CUDA graph over fixed buffers
+    (``utils.graphs.Captured``: a warm-up on the side stream ``side``,
+    whose result ``take_first()`` hands to the capturing call, then the
+    thread-local capture into ``pool``, so ``/api/reload`` can warm a new
+    engine while the old one serves). Before each replay the caller's
+    tokens, lengths and num_real are copied into the buffers the graph
+    reads (num_real: a 0-d int32 tensor, filled from an int with no host
+    copy); the graph's last op packs (vals, rows) into one int32 [2, B, k]
+    buffer, and each call returns a clone of it, so a result outlives the
+    next replay. ``seconds`` and ``mib``: the capture's readings."""
 
     def __init__(self, run: Callable, params, emb: torch.Tensor, tokens: torch.Tensor,
                  lengths: torch.Tensor, nr, pool, side: torch.cuda.Stream) -> None:
         dev = emb.device
-        t0 = time.perf_counter()
         self.refs = (params, emb)  # the graph reads their memory
         self.tokens = torch.empty_like(tokens, device=dev)
         self.lengths = torch.empty_like(lengths, device=dev)
         self.nr = torch.zeros((), dtype=torch.int32, device=dev)
         self.rows = emb.shape[0]
-        self.launches = GraphLaunches()
-        self.graph = torch.cuda.CUDAGraph()
         self.load(tokens, lengths, nr)
-        cur = torch.cuda.current_stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self.first = run(params, emb, self.tokens, self.lengths, self.nr)
-        cur.wait_stream(side)
-        for x in self.first:  # the caller reads it on its own stream
-            x.record_stream(cur)
-        reserved = torch.cuda.memory_reserved(dev)
-        with self.launches.capturing(), torch.cuda.stream(side):
-            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            try:
-                vals, rows = run(params, emb, self.tokens, self.lengths, self.nr)
-                self.out = torch.stack([vals.view(torch.int32), rows])
-            except BaseException:
-                _abandon_capture(self.graph, dev, pool)
-                raise
-            self.graph.capture_end()
-        self.mib = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
-        self.seconds = time.perf_counter() - t0
+        self.captured = Captured(
+            lambda: run(params, emb, self.tokens, self.lengths, self.nr), dev, pool, side,
+            pack=lambda out: torch.stack([out[0].view(torch.int32), out[1]]))
+        self.seconds, self.mib = self.captured.seconds, self.captured.mib
 
     def load(self, tokens: torch.Tensor, lengths: torch.Tensor, nr) -> None:
         self.tokens.copy_(tokens)
@@ -263,14 +199,11 @@ class QueryGraph:
 
     def take_first(self):
         """The warm-up's (vals, rows), once: the capturing call's result."""
-        out, self.first = self.first, None
-        return out
+        return self.captured.take_first()
 
     def __call__(self, tokens: torch.Tensor, lengths: torch.Tensor, nr):
         self.load(tokens, lengths, nr)
-        self.graph.replay()
-        self.launches.replayed()
-        out = self.out.clone()
+        out = self.captured.replay().clone()
         return out[0].view(torch.float32), out[1]
 
 
@@ -278,12 +211,19 @@ class CapturedQuery:
     """``build_fused_query_fn``'s one-card function: ``run`` (the eager
     query path) on CPU tensors; on the card one ``QueryGraph`` a key —
     (tokens shape and type, lengths shape and type, the identity of the
-    params' tensors) over the index buffer ``emb`` — captured on the first
-    call, which returns the result of the capture's warm-up, and replayed
-    on every later call (``GraphCache``). ``stats`` counts captures and
-    replays (an engine shares its own among the functions it builds).
-    The graphs of one function share one memory pool and one capture
-    stream (the allocator reuses a block only on the stream it was
+    params' tensors) over the index buffer the graphs belong to — captured
+    on the first call, which returns the result of the capture's warm-up,
+    and replayed on every later call (``GraphCache``). ``stats`` counts
+    captures and replays (an engine shares its own among the functions it
+    builds).
+
+    The buffer the graphs belong to changes only on the function's first
+    call and through ``replay`` (the engine's ``warmup`` of a new buffer);
+    a call with any other buffer (a query that read the index before a
+    delete published its copy) runs ``run`` eagerly on the card, and
+    captures and drops nothing, as the JAX engine never compiles on a
+    delete. The graphs of one function share one memory pool and one
+    capture stream (the allocator reuses a block only on the stream it was
     allocated on): their replays are serialized and their outputs cloned
     out, so each capture takes the blocks the ones before it left free."""
 
@@ -300,20 +240,27 @@ class CapturedQuery:
         nr = self.num_real if nr is None else nr
         if not emb.is_cuda:
             return self.run(params, emb, tokens, lengths, nr)
-        return self.replay(params, emb, tokens, lengths, nr)
+        return self.replay(params, emb, tokens, lengths, nr, adopt=False)
 
-    def replay(self, params, emb, tokens, lengths, nr):
+    def replay(self, params, emb, tokens, lengths, nr, adopt: bool = True):
         """The call through the graph of its key: a replay, or on a miss
-        the capture, whose warm-up is this call's dispatch."""
+        the capture, whose warm-up is this call's dispatch. ``emb`` becomes
+        the buffer the graphs belong to unless ``adopt`` is false and the
+        function already has one: then a call on another buffer runs
+        ``run`` eagerly."""
         key = (tuple(tokens.shape), tokens.dtype, tuple(lengths.shape), lengths.dtype,
                tuple(id(x) for x in tree_leaves(params)))
         with self.cache.lock:
-            graph = self.cache.get(emb, key, lambda: self._capture(params, emb, tokens, lengths,
-                                                                   nr))
-            first = graph.take_first()
-            if first is not None:
-                return first
-            out = graph(tokens, lengths, nr)
+            stale = not adopt and self.cache.emb is not None and emb is not self.cache.emb
+            if not stale:
+                graph = self.cache.get(emb, key, lambda: self._capture(params, emb, tokens,
+                                                                       lengths, nr))
+                first = graph.take_first()
+                if first is not None:
+                    return first
+                out = graph(tokens, lengths, nr)
+        if stale:
+            return self.run(params, emb, tokens, lengths, nr)
         self.stats.replayed()
         return out
 
@@ -472,19 +419,21 @@ class QueryEngine:
         (and builds the kernels), elsewhere it builds the kernels and warms
         the allocator. The largest shape goes first: a function's graphs
         share one memory pool, so the smaller ones then take their
-        buffers from the blocks the largest one left free. ``fused`` warms
-        a function not yet published (a k rebuild). Returns elapsed
+        buffers from the blocks the largest one left free; the graphs then
+        belong to the published buffer (``CapturedQuery.replay``). ``fused``
+        warms a function not yet published (a k rebuild). Returns elapsed
         seconds; ``last_warmup`` keeps the seconds, the captures it made
         and their readings."""
         fn = self._fused if fused is None else fused
         before = self.graph_stats.counts()["graph_captures"]
         t0 = time.perf_counter()
         emb, nr = self.index.pub[:2]
+        call = fn.replay if self.captures_graphs else fn
         for b in reversed(self._batch_tiers()):
             for w in reversed(self._bucket_widths()):
                 toks = torch.zeros((b, w), dtype=torch.int32, device=self.device)
                 lengths = torch.ones((b,), dtype=torch.int32, device=self.device)
-                vals, _ = fn(self.params, emb, toks, lengths, nr)
+                vals, _ = call(self.params, emb, toks, lengths, nr)
                 vals.cpu()  # completion barrier
         seconds = time.perf_counter() - t0
         made = self.graph_stats.counts()["graph_captures"] - before

@@ -1,0 +1,186 @@
+"""Fixed-shape programs as CUDA graphs, the port's counterpart of a
+``jax.jit`` program a shape: captured once on the card, then replayed.
+
+``Captured`` is one capture (PyTorch's whole-network recipe: a warm-up
+on a side stream, then the capture into a memory pool), ``GraphPool``
+the pool and capture stream that the graphs of one owner share, and
+``Program`` a function over fixed input buffers that captures itself on
+its first call on a card and replays after, or runs eagerly. The served
+query (``serve/engine.py`` ``QueryGraph``), the Evaluator
+(``evals/recall.py``), the index build (``index/sharded_index.py``) and
+the index bench (``bench.py``) capture through them. A capture that
+fails raises: nothing on the card falls back to eager quietly.
+"""
+
+from __future__ import annotations
+
+import collections
+import gc
+import threading
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from sse_tpu_torch.ops import GraphLaunches
+
+
+class GraphStats:
+    """Captures and replays of an owner's graphs, and the readings of the
+    last captures (shape, seconds, MiB reserved). Thread-safe."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.captures = 0
+        self.replays = 0
+        self.log: collections.deque = collections.deque(maxlen=64)
+
+    def captured(self, reading: dict) -> None:
+        with self._lock:
+            self.captures += 1
+            self.log.append(reading)
+
+    def replayed(self) -> None:
+        with self._lock:
+            self.replays += 1
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return {"graph_captures": self.captures, "graph_replays": self.replays}
+
+
+def abandon_capture(graph: torch.cuda.CUDAGraph, dev: torch.device, pool) -> None:
+    """End a capture that failed, and the allocator's recording into
+    ``pool``, which ``capture_end`` skips when CUDA invalidated the
+    capture; errors of either are dropped (the caller raises the one that
+    broke the capture)."""
+    try:
+        graph.capture_end()
+    except Exception:  # noqa: BLE001
+        pass
+    try:
+        torch.cuda.memory._cuda_endAllocateToPool(dev.index, pool)
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def _tensors(x):
+    return x if isinstance(x, (tuple, list)) else (x,)
+
+
+class Captured:
+    """``run()`` captured as one CUDA graph on ``dev``; ``run`` reads only
+    tensors that stay put between replays (its caller copies each call's
+    inputs into them) and may read no device value on the host.
+
+    ``run`` goes once on the side stream ``side`` (it builds the kernels
+    and warms the allocator); ``take_first()`` hands that result to the
+    capturing call, so each call launches its kernels once, eagerly or in
+    a replay. Then the capture on ``side`` into ``pool``, thread-local:
+    another thread may sync the card or run meanwhile; the cyclic garbage
+    collector is off during it, as a CUDA graph it destroyed in this
+    thread would invalidate the capture. ``pack`` maps
+    ``run()``'s result, inside the capture, to the tensors a replay leaves
+    its result in (``out``, overwritten by the next replay). A capture
+    that fails is ended and raises. ``seconds`` and ``mib``: the host time
+    of the warm-up and the capture, and what the capture added to the
+    allocator's reserve; ``launches`` counts a replay's kernels."""
+
+    def __init__(self, run: Callable[[], Any], dev: torch.device, pool,
+                 side: torch.cuda.Stream, pack: Optional[Callable] = None) -> None:
+        t0 = time.perf_counter()
+        self.launches = GraphLaunches()
+        self.graph = torch.cuda.CUDAGraph()
+        cur = torch.cuda.current_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.first = run()
+        cur.wait_stream(side)
+        for x in _tensors(self.first):  # the caller reads it on its own stream
+            x.record_stream(cur)
+        reserved = torch.cuda.memory_reserved(dev)
+        collecting = gc.isenabled()
+        gc.disable()  # a graph or buffer the collector frees here would end the capture
+        try:
+            with self.launches.capturing(), torch.cuda.stream(side):
+                self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    out = run()
+                    self.out = out if pack is None else pack(out)
+                except BaseException:
+                    abandon_capture(self.graph, dev, pool)
+                    raise
+                self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        self.mib = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        self.seconds = time.perf_counter() - t0
+
+    def take_first(self):
+        """The warm-up's result, once: the capturing call's."""
+        out, self.first = self.first, None
+        return out
+
+    def replay(self):
+        self.graph.replay()
+        self.launches.replayed()
+        return self.out
+
+
+class GraphPool:
+    """One memory pool and capture stream on a card, shared by graphs that
+    replay one at a time on one stream (the allocator reuses a block only
+    on the stream it was allocated on, so each capture takes the blocks
+    the ones before it left free). A capture that fails may leave the pool
+    inconsistent: the next capture takes a new pool."""
+
+    def __init__(self, dev: torch.device) -> None:
+        self.dev = dev
+        self.handle = None
+        self.side: Optional[torch.cuda.Stream] = None
+
+    def capture(self, run: Callable[[], Any]) -> Captured:
+        if self.handle is None:
+            self.handle = torch.cuda.graph_pool_handle()
+        if self.side is None:
+            self.side = torch.cuda.Stream(self.dev)
+        try:
+            return Captured(run, self.dev, self.handle, self.side)
+        except BaseException:
+            self.handle = None
+            raise
+
+
+def pool_for(dev: torch.device, capture: bool = True) -> Optional[GraphPool]:
+    """A new ``GraphPool`` where programs capture: a card, unless the
+    caller asks for eager (``capture=False``); None elsewhere."""
+    return GraphPool(dev) if capture and dev.type == "cuda" else None
+
+
+class Program:
+    """``run()`` over fixed input buffers: with a ``pool`` (a card), its
+    first call captures it into the pool (that call returns the warm-up's
+    result) and each later call replays it, returning the graph's output
+    buffers; with ``pool=None`` each call runs ``run()`` eagerly (the CPU,
+    or a caller that asks for eager). ``stats`` counts captures and
+    replays; ``shape`` labels the capture's reading."""
+
+    def __init__(self, run: Callable[[], Any], pool: Optional[GraphPool],
+                 stats: Optional[GraphStats] = None, shape: Any = None) -> None:
+        self.run, self.pool, self.shape = run, pool, shape
+        self.stats = GraphStats() if stats is None else stats
+        self.graph: Optional[Captured] = None
+
+    def __call__(self):
+        if self.pool is None:
+            return self.run()
+        if self.graph is None:
+            graph = self.pool.capture(self.run)
+            self.graph = graph
+            self.stats.captured({"shape": self.shape, "seconds": graph.seconds,
+                                 "mib": graph.mib})
+            return graph.take_first()
+        out = self.graph.replay()
+        self.stats.replayed()
+        return out
