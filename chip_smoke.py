@@ -110,17 +110,25 @@ commits compare in one run, taken in turns.
    data replica the rows and values equal the unsharded call's bit for
    bit; on (2, 2) they equal it wherever a replica's q equals the whole
    batch's, equal the unsharded top-k of the replicas' own q everywhere,
-   and hold against topk_reference where q differs. Each call launches
-   each of its top-k kernels data x model times. The device ms of the
-   sharded and unsharded calls at B=8 and 4096 (shards sharing one card:
-   not a multi-card speed); the bench's query setup on a (1, 2) grid; a
-   (2, 2) engine served over HTTP (GET, POST of 4,096 texts) against
-   topk_reference on the whole index; an add across a block boundary and
-   a delete from both blocks of a (1, 2) engine against the same on one
-   device; two processes (``chip_smoke.py --sharded-rank R``) joined by
-   ``parallel.distributed`` (gloo on one card, NCCL on two) serving a
-   (1, 2) grid across them, whose rows equal the single process's and
-   whose two-process index save loads back equal.
+   and hold against topk_reference where q differs. Each grid function
+   captures one CUDA graph a distinct card, and its replays (every card
+   replayed before the merge, under sync debug "error") equal the eager
+   grid call bit for bit and launch each of its top-k kernels data x
+   model times. Ms a call (CUDA events), device ms and each card's busy
+   share of a window of 32 calls, replayed and eager, of the sharded and
+   unsharded calls at B=8 and 4096 (shards sharing one card: not a
+   multi-card speed); the bench's query setup on a (1, 2) grid; a (2, 2)
+   engine served over HTTP (GET, POST of 4,096 texts, /api/stats)
+   against topk_reference on the whole index; an add across a block
+   boundary (no capture) and a delete from both blocks (captures only
+   through its warmup; a call on the old RowShards runs eagerly) of a
+   (1, 2) engine against the same on one device; two processes
+   (``chip_smoke.py --sharded-rank R``) joined by ``parallel.distributed``
+   (gloo on one card, NCCL on two) serving a (1, 2) grid across them,
+   whose rows equal the single process's and whose two-process index
+   save loads back equal; the grid build (GRU, bf16, 1,249,280 documents
+   on (1, 2) and (1, 4): rows equal the one-card build's bit for bit,
+   docs/s replayed and eager beside the one card's).
 8. Training on a grid (train_grid_slice, ``train.grid`` and
    ``parallel.context``; grid entries as in 7.): the ranking preset at
    its widths (GRU, E=H=D=128, 128 sampled and 16 mined negatives,
@@ -2532,16 +2540,20 @@ def held_sharded(label: str, mesh, got, want, q_rep, q_full, emb, k: int, varian
 def sharded_slice(card: str) -> dict:
     """Sharded serving (``sse_tpu_torch.parallel``) on the bench's GRU
     model and a 1,249,280-row index of random unit rows: the (1, 2),
-    (1, 4) and (2, 2) grids against the unsharded fused query (bf16 and
-    int8, B=8 streaming and B=4096 two-phase a shard, k=10 and 100; the
-    exact variant at B=8), with each call's launches (one a shard and
-    kernel: data x model); the sharded and unsharded calls' device ms at
-    B=8 and 4096; the bench's query setup on a grid; a (2, 2) engine
-    served over HTTP (GET, POST of 4,096 texts) held against
+    (1, 4) and (2, 2) grids' captured functions (one CUDA graph a
+    distinct card) against the unsharded fused query (bf16 and int8, B=8
+    streaming and B=4096 two-phase a shard, k=10 and 100; the exact
+    variant at B=8): a replay equals the eager grid call (``.run``) bit
+    for bit with no host sync, and its launches are one a shard and
+    kernel (data x model); the grids' and the unsharded call's ms a call,
+    replayed and eager, and each card's busy share at B=8 and 4096
+    (sharded_timing); the bench's query setup on a grid; a (2, 2) engine
+    served over HTTP (GET, POST of 4,096 texts, /api/stats) held against
     topk_reference on the whole index; an add and a delete across a shard
-    boundary on a (1, 2) engine against the same on one device; and two
-    processes joined by parallel.distributed (sharded_processes). Returns
-    the launch counts of the HTTP run (reset just before it)."""
+    boundary on a (1, 2) engine against the same on one device; two
+    processes joined by parallel.distributed (sharded_processes); and the
+    grid index build (sharded_build). Returns the launch counts of the
+    HTTP run (reset just before it)."""
     from sse_tpu_torch import bench, ops
     from sse_tpu_torch.models import sse
     from sse_tpu_torch.parallel import RowShards, make_mesh, replicate
@@ -2574,15 +2586,31 @@ def sharded_slice(card: str) -> dict:
         for b, k, variant in ((8, 10, "packed"), (8, 100, "packed"), (4096, 10, "packed"),
                               (4096, 100, "packed"), (8, 10, "exact")):
             toks, lens = sharded_tokens(b, 100 + b + k)
-            want = build_fused_query_fn(cfg, k, SHARDED_ROWS, variant)(params, full, toks, lens)
+            unsharded = build_fused_query_fn(cfg, k, SHARDED_ROWS, variant)
+            want = unsharded(params, full, toks, lens)
             with torch.no_grad():
                 q_full = sse.encode_source(params, cfg, toks, lens)
             for shape, mesh in meshes.items():
+                label = f"{shape} {dtype} B={b} k={k} {variant}"
                 fn = build_fused_query_fn(cfg, k, SHARDED_ROWS, variant, mesh=mesh)
+                cards = mesh.entries_by_device()
+                first = fn(reps[shape], shards[shape], toks, lens)  # a capture a distinct card
+                torch.cuda.synchronize()
                 ops.reset_launch_counts()
-                got = fn(reps[shape], shards[shape], toks, lens)
+                torch.cuda.set_sync_debug_mode("error")  # no host sync from the copies in on
+                try:
+                    got = fn(reps[shape], shards[shape], toks, lens)  # every card, then the merge
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
                 torch.cuda.synchronize()
                 counts = ops.launch_counts()
+                eager = uncounted(lambda: fn.run(reps[shape], shards[shape], toks, lens,
+                                                 SHARDED_ROWS))
+                same(f"{label}: replay against eager", got, eager)
+                same(f"{label}: the capture's warm-up against eager", first, eager)
+                check(fn.stats.counts() == {"graph_captures": len(cards),
+                                            "graph_replays": len(cards)},
+                      f"{label}: {fn.stats.counts()} for {len(cards)} distinct cards")
                 data, s = shape
                 two = (variant == "packed" and b // data >= ops.topk.TWOPHASE_MIN_BATCH
                        and ops.topk.twophase_block_t(shards[shape].rows_per_shard, k) is not None)
@@ -2598,24 +2626,19 @@ def sharded_slice(card: str) -> dict:
                     q_rep = torch.cat([sse.encode_source(params, cfg, toks[d * bl:(d + 1) * bl],
                                                          lens[d * bl:(d + 1) * bl])
                                        for d in range(data)])
-                how = held_sharded(f"{shape} {dtype} B={b} k={k} {variant}", mesh, got, want,
-                                   q_rep, q_full, full, k, variant)
-                log(f"sharded {shape} {str(dtype)[6:]} B={b} k={k} {variant}: launches "
-                    f"{ {n: counts[n] for n in names} } ({data * s} a kernel), rows {how}")
+                how = held_sharded(label, mesh, got, want, q_rep, q_full, full, k, variant)
+                log(f"sharded {shape} {str(dtype)[6:]} B={b} k={k} {variant}: one graph on each "
+                    f"of {len(cards)} distinct cards, a replay == eager bit for bit with no host "
+                    f"sync; launches a replay {({n: counts[n] for n in names})} ({data * s} a "
+                    f"kernel), gru_fwd {counts['gru_fwd']}; rows {how}")
                 if dtype == torch.bfloat16 and k == 10 and variant == "packed":
                     timings.append((shape, b, fn, reps[shape], shards[shape], toks, lens))
             if dtype == torch.bfloat16 and k == 10 and variant == "packed":
-                timings.append(((1, 1), b, build_fused_query_fn(cfg, k, SHARDED_ROWS), params,
-                                full, toks, lens))
+                timings.append(((1, 1), b, unsharded, params, full, toks, lens))
         if dtype == torch.bfloat16:
             for shape, b, fn, p, emb, toks, lens in sorted(timings, key=lambda t: (t[1], t[0])):
-                run = lambda: fn(p, emb, toks, lens)  # noqa: E731
-                times = profiled(run, 3)
-                dev = NOT_MEASURED if times is None else sum(times.values()) / 3
-                log(f"sharded timing {shape} bf16 B={b} k=10: device {dev:.4f} ms a call "
-                    f"(torch.profiler, kernels and copies, summed over the cards), "
-                    f"{cuda_ms(run, 3):.4f} ms a call (CUDA events) -- {where}"
-                    f"{'; not a multi-card speed' if count == 1 else ''} [{card}]")
+                sharded_timing(card, where if shape != (1, 1) else "one card, unsharded",
+                               shape, b, fn, p, emb, toks, lens)
             timings.clear()
             s = bench.query_setup(num_targets=SHARDED_ROWS, encoding_dim=D, batch=8, k=K,
                                   index_dtype=torch.bfloat16, mesh=meshes[(1, 2)])
@@ -2630,8 +2653,116 @@ def sharded_slice(card: str) -> dict:
 
     counts = sharded_engines(cfg, params, meshes)
     sharded_processes(cfg, params)
+    sharded_build(card, meshes)
     log(f"sharded slice: {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+def card_busy(calls, window: int = 32) -> tuple:
+    """Wall ms of ``window`` calls (``calls``: functions run in turn)
+    ending in a drain, under torch.profiler, and each card's busy ms in
+    it (the union of its kernels' and copies' spans on the device
+    timeline): (wall, {card index: busy ms}), busy NOT_MEASURED where the
+    session saw no device event."""
+    calls[0]()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(window):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = collections.defaultdict(list)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.end > ev.time_range.start:
+            spans[ev.device_index].append((ev.time_range.start, ev.time_range.end))
+    busy = {}
+    for dev, ranges in spans.items():
+        total, end = 0.0, -math.inf
+        for a, b in sorted(ranges):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        busy[dev] = total / 1e3
+    if not busy:
+        warn("torch.profiler saw no device event in a window of grid calls: busy not measured")
+        busy = {torch.cuda.current_device(): NOT_MEASURED}
+    return wall, busy
+
+
+def sharded_timing(card: str, where: str, shape, b: int, fn, p, emb, toks, lens) -> None:
+    """One grid function (or the unsharded one, shape (1, 1)) at B=b:
+    replayed and eager (``fn.run``), ms a call by CUDA events, device ms
+    a call (torch.profiler: kernels and copies summed over the cards), and
+    each card's busy share of a window of 32 calls on random tokens."""
+    from sse_tpu_torch import bench
+
+    gen = torch.Generator(device="cuda").manual_seed(200 + b)
+    variants = [bench._random_tokens(gen, (b, 50), 8000, "cuda") for _ in range(4)]
+    full = torch.full((b,), 50, dtype=torch.int32, device="cuda")
+    parts = []
+    for how, call in (("replayed", lambda t, l: fn(p, emb, t, l)),
+                      ("eager", lambda t, l: fn.run(p, emb, t, l, SHARDED_ROWS))):
+        def measure():
+            run = lambda: call(toks, lens)  # noqa: E731
+            times = profiled(run, 3)
+            dev = NOT_MEASURED if times is None else sum(times.values()) / 3
+            ms = cuda_ms(run, 5)
+            wall, busy = card_busy([lambda v=v: call(v, full) for v in variants])
+            return dev, ms, wall, busy
+
+        dev, ms, wall, busy = measure() if how == "replayed" else uncounted(measure)
+        shares = ", ".join(f"cuda:{i} {100.0 * t / wall:.1f}%" for i, t in sorted(busy.items()))
+        parts.append(f"{how} {ms:.4f} ms a call (CUDA events), device {dev:.4f} ms a call "
+                     f"(torch.profiler, summed over the cards), a window of 32: {wall:.3f} ms, "
+                     f"busy {shares}")
+    log(f"sharded timing {shape} bf16 B={b} k=10: " + "; ".join(parts) + f" -- {where}"
+        f"{'; not a multi-card speed' if torch.cuda.device_count() == 1 else ''} [{card}]")
+
+
+def sharded_build(card: str, meshes) -> None:
+    """build_index (the bench's GRU tower, bf16, EVAL_ROWS random target
+    texts, 64 x 256-row chunks) on the (1, 2) and (1, 4) grids against the
+    one-card build: the grid's rows equal the one card's bit for bit, the
+    padding rows zero, one capture a card that encodes a chunk, JAX's
+    progress calls; docs/s replayed and eager beside the one card's."""
+    from sse_tpu_torch.index import build_index
+    from sse_tpu_torch.utils.graphs import GraphStats
+
+    cfg, params = graph_model("gru")
+    tspace, _ = eval_data(EVAL_ROWS, 1)
+    t = tspace.num_targets
+    kw = dict(batch_size=256, dtype=torch.bfloat16, chunk_batches=64)
+    one, one_s = synced_s(lambda: build_index(params, cfg, tspace, **kw))
+    _, one_eager_s = uncounted(lambda: synced_s(
+        lambda: build_index(params, cfg, tspace, capture=False, **kw)))
+    want = [(min(hi, t), t) for hi in range(16384, t + 16384, 16384)]
+    for shape in ((1, 2), (1, 4)):
+        mesh = meshes[shape]
+        stats, calls = GraphStats(), []
+        grid, s = synced_s(lambda: build_index(params, cfg, tspace, mesh=mesh, graph_stats=stats,
+                                               progress=lambda *a: calls.append(a), **kw))
+        eager, eager_s = uncounted(lambda: synced_s(
+            lambda: build_index(params, cfg, tspace, mesh=mesh, capture=False, **kw)))
+        rows = grid.emb[:]
+        check(torch.equal(rows[:t], one.emb[:t]) and not rows[t:].any(),
+              f"grid build {shape}: rows != the one-card build's")
+        check(torch.equal(rows, eager.emb[:]), f"grid build {shape}: replayed != eager")
+        t_local = grid.emb.rows_per_shard
+        used = {mesh.column_devices(lo // t_local)[0] for lo in range(0, t, 16384)}
+        chunks = len(want)
+        check(calls == want and stats.counts() == {"graph_captures": len(used),
+                                                   "graph_replays": chunks - len(used)},
+              f"grid build {shape}: {stats.counts()}, progress {calls[:3]}...")
+        log(f"sharded build {shape} ({t:,} targets, bf16, {chunks} chunks of 64 x 256): rows == "
+            f"the one-card build's bit for bit, padding zero; {len(used)} captures ("
+            + ", ".join(f"{g['seconds']:.3f} s {g['mib']:.1f} MiB" for g in stats.log)
+            + f"), {stats.counts()['graph_replays']} replays; {s:.2f} s ({t / s:,.0f} docs/s, "
+            f"the captures included) against eager {eager_s:.2f} s ({t / eager_s:,.0f} docs/s); "
+            f"one card {one_s:.2f} s ({t / one_s:,.0f} docs/s), eager {one_eager_s:.2f} s "
+            f"({t / one_eager_s:,.0f} docs/s) [{card}]")
+        del grid, eager, rows
+        torch.cuda.empty_cache()
 
 
 def sharded_engines(cfg, params, meshes) -> dict:
@@ -2656,7 +2787,16 @@ def sharded_engines(cfg, params, meshes) -> dict:
                          num_real=SHARDED_ROWS, ids=ids, texts=ids, mesh=mesh)
     engine = QueryEngine(params, cfg, vocab, index, max_seq_length=50, max_batch=8, k=K,
                          bulk_batch=4096)
-    log(f"sharded (2, 2) engine warmup: {engine.warmup():.2f} s")
+    warm_s = engine.warmup()
+    cards = len(mesh.entries_by_device())
+    shapes = len(engine._batch_tiers()) * len(engine._bucket_widths())
+    check(engine.captures_graphs and engine.graph_counts() == {
+        "graph_captures": shapes * cards, "graph_replays": 0, "graphs_cached": shapes * cards},
+          f"sharded (2, 2) warmup: {engine.graph_counts()}, want {shapes} x {cards} captures")
+    log(f"sharded (2, 2) engine warmup: {warm_s:.2f} s, {shapes * cards} captures ({shapes} "
+        f"shapes x {cards} distinct cards): "
+        + ", ".join(f"{g['shape']} {g['card']} {g['seconds']:.3f} s {g['mib']:.1f} MiB"
+                    for g in engine.last_warmup["graphs"]))
     texts = [s for s, _ in evalp[:4096]]
     check(len(texts) == 4096, "4,096 eval texts")
     ops.reset_launch_counts()
@@ -2667,6 +2807,7 @@ def sharded_engines(cfg, params, meshes) -> dict:
         t0 = time.perf_counter()
         bulk = http_json(base_url + "/api/query", {"queries": texts})["results"]
         log(f"sharded (2, 2) POST /api/query with 4096 texts: {time.perf_counter() - t0:.3f} s")
+        stats = http_json(base_url + "/api/stats")
     finally:
         server.shutdown()
         server.server_close()
@@ -2677,6 +2818,11 @@ def sharded_engines(cfg, params, meshes) -> dict:
         f"{dict(ops.topk.launches)}")
     check(len(bulk) == 4096 and all(len(h) == K for h in bulk) and len(got["results"]) == K,
           "sharded served result shapes")
+    check(stats["graph_captures"] == shapes * cards == stats["graphs_cached"]
+          and stats["graph_replays"] >= 2 * cards and stats["graph_replays"] % cards == 0,
+          f"sharded (2, 2) /api/stats: {stats}")
+    log(f"sharded (2, 2) /api/stats: graph_captures {stats['graph_captures']}, graph_replays "
+        f"{stats['graph_replays']} ({cards} a dispatch), graphs_cached {stats['graphs_cached']}")
     full = base[:SHARDED_ROWS]
     for name, tx, res in (("GET", texts[:1], [got["results"]]), ("POST", texts, bulk)):
         tokens, lengths = engine.encode_queries(tx)
@@ -2701,17 +2847,41 @@ def sharded_engines(cfg, params, meshes) -> dict:
                        ids=ids[:nr], texts=ids[:nr], mesh=m12)
     engines = [QueryEngine(params, cfg, vocab, ix, max_seq_length=50, max_batch=8, k=K)
                for ix in (two, one)]
+    for e in engines:
+        e.warmup()
+    grid = engines[0]
+    cards = len(m12.entries_by_device())
+    shapes = len(grid._bucket_widths())
     new = [f"new{i}" for i in range(10)]
     gone = ["r5", "new9", f"r{edge - 600}", "new2", f"r{edge // 2}"]
     for e in engines:
         check(e.add_documents(new, texts[:10]) == nr + 10, "add")
+    check(grid.graph_counts()["graph_captures"] == shapes * cards,
+          f"the add across the blocks captured: {grid.graph_counts()}")
+    a, b = (e.query(texts[:8]) for e in engines)
+    check(a == b, "queries after the add differ between the grid and one device")
+    old_emb, old_nr = two.pub[:2]
+    for e in engines:
         check(e.delete_documents(gone) == nr + 5, "delete")
+    check(grid.graph_counts()["graph_captures"] == 2 * shapes * cards
+          and grid.last_warmup["captures"] == shapes * cards,
+          f"the delete's warmup: {grid.graph_counts()}, {grid.last_warmup['captures']}")
+    fn = grid._fused
+    tokens, lengths = grid.encode_queries(texts[:8])
+    stale = fn(grid.params, old_emb, tokens, lengths, old_nr)  # the replaced RowShards
+    same("a call on the replaced RowShards against eager", stale,
+         uncounted(lambda: fn.run(grid.params, old_emb, tokens, lengths, old_nr)))
+    check(grid.graph_counts()["graph_captures"] == 2 * shapes * cards
+          and grid.graph_counts()["graphs_cached"] == shapes * cards,
+          f"a call on the replaced RowShards captured or dropped: {grid.graph_counts()}")
     check(torch.equal(two.emb[:], one.emb), "sharded add/delete rows != one device's")
     check(two.ids == one.ids, "sharded add/delete ids != one device's")
     a, b = (e.query(texts[:8]) for e in engines)
     check(a == b, "queries after add/delete differ between the grid and one device")
-    log(f"sharded (1, 2) add of 10 across row {edge} and delete of 5 from both shards: rows, "
-        f"ids and the next 8 queries == one device's")
+    log(f"sharded (1, 2) add of 10 across row {edge}: no capture; delete of 5 from both shards: "
+        f"{shapes * cards} captures, all through its warmup; a call on the replaced RowShards "
+        f"ran eagerly (== eager) and dropped nothing; rows, ids and the next 8 queries == one "
+        f"device's")
     return counts
 
 

@@ -24,8 +24,10 @@ The train bench times ``chain`` steps a dispatch (8, as the JAX bench):
 on the card one replay of a captured CUDA graph (``train.loop``'s
 ``make_train_step(chain=)``), whose rate per step is the headline, and
 the one-step dispatch beside it. The query bench times the captured
-query function (``serve/engine.py`` ``CapturedQuery``), and the index
-bench the encode as one captured graph, with its eager rate beside it.
+query function (``serve/engine.py`` ``CapturedQuery``; on a grid
+``GridQuery``, one graph a card replayed before the merge), and the
+index bench the encode as one captured graph, with its eager rate
+beside it.
 """
 
 from __future__ import annotations
@@ -225,8 +227,9 @@ def query_setup(
     engine clamps to the index's real rows; on the workspace's grid where
     it has one). Otherwise the bench tower with random weights (seed 0)
     over ``_device_index``, row-sharded over ``mesh`` when given (then
-    ``device`` is the grid's first device and ``batch`` must divide over
-    its 'data' axis)."""
+    ``device`` is the grid's first device, ``batch`` must divide over
+    its 'data' axis, and the timed function replays one CUDA graph a
+    card of the grid)."""
     if mesh is not None:
         device = mesh.local_devices[0]
     device = _bench_device(device)

@@ -493,39 +493,55 @@ def _params_device(params) -> torch.device:
     return params["src_tower"]["embed"].device
 
 
-def _encode_chunks(params, model_cfg: SSEConfig, toks, lens, buf: torch.Tensor, s: int,
-                   eff_bs: int, progress, pool: Optional[GraphPool],
-                   graph_stats: Optional[GraphStats]) -> None:
-    """``build_index``'s one-device loop: each chunk of ``s`` x ``eff_bs``
-    documents goes up once (pinned, asynchronously, on a card) into fixed
-    token buffers, ``encode_chunk`` (a ``Program``: a CUDA graph with a
-    ``pool``) turns them into [s·eff_bs, D] quantized rows, and the chunk's
-    real rows are copied into ``buf``."""
+class _ChunkEncoder:
+    """``build_index``'s program on one device: fixed token buffers for a
+    chunk of ``s`` x ``eff_bs`` documents, and ``encode_chunk`` (a
+    ``Program``: a CUDA graph with a ``pool``) turning them into [s·eff_bs,
+    D] quantized rows, the counterpart of JAX's ``encode_chunk``."""
+
+    def __init__(self, params, model_cfg: SSEConfig, dev: torch.device, s: int, eff_bs: int,
+                 length: int, dtype: torch.dtype, pool: Optional[GraphPool],
+                 graph_stats: Optional[GraphStats]) -> None:
+        self.tok_in = torch.empty((s, eff_bs, length), dtype=torch.int32, device=dev)
+        self.len_in = torch.empty((s, eff_bs), dtype=torch.int32, device=dev)
+        self.pinned = dev.type == "cuda"
+
+        def encode_chunk():  # the counterpart of JAX's lax.map over sub-batches
+            out = torch.cat([sse.target_embeddings(params, model_cfg, tokens=self.tok_in[i],
+                                                   lengths=self.len_in[i]) for i in range(s)])
+            return quantize_rows(out, dtype)
+
+        self.program = Program(encode_chunk, pool, graph_stats, (s, eff_bs, length))
+
+    def __call__(self, tb: np.ndarray, lb: np.ndarray) -> torch.Tensor:
+        """The rows of one padded chunk's tokens (host arrays), which go
+        up once (pinned, asynchronously, on a card)."""
+        for buf_in, a in ((self.tok_in, tb), (self.len_in, lb)):
+            host = torch.from_numpy(np.ascontiguousarray(a)).view(buf_in.shape)
+            buf_in.copy_(host.pin_memory() if self.pinned else host, non_blocking=self.pinned)
+        return self.program()
+
+
+def _encode_chunks(toks, lens, chunk_docs: int, progress,
+                   encoder_for: Callable[[int, int], Optional[_ChunkEncoder]],
+                   write: Callable[[int, torch.Tensor], None]) -> None:
+    """``build_index``'s loop: the documents in chunks of ``chunk_docs``,
+    the tail chunk padded with zero tokens and length 1; each chunk goes
+    through ``encoder_for(lo, hi)`` (None: no block of this process holds
+    it), and its real rows to ``write(lo, rows)``. ``progress(hi, T)``
+    once a chunk, as JAX calls it."""
     t, l = toks.shape
-    dev = buf.device
-    chunk_docs = s * eff_bs
-    tok_in = torch.empty((s, eff_bs, l), dtype=torch.int32, device=dev)
-    len_in = torch.empty((s, eff_bs), dtype=torch.int32, device=dev)
-
-    def encode_chunk():  # the counterpart of JAX's lax.map over sub-batches
-        out = torch.cat([sse.target_embeddings(params, model_cfg, tokens=tok_in[i],
-                                               lengths=len_in[i]) for i in range(s)])
-        return quantize_rows(out, buf.dtype)
-
-    program = Program(encode_chunk, pool, graph_stats, (s, eff_bs, l))
-    pinned = dev.type == "cuda"
     with torch.no_grad():
         for lo in range(0, t, chunk_docs):
             hi = min(lo + chunk_docs, t)
-            tb, lb = np.asarray(toks[lo:hi], np.int32), np.asarray(lens[lo:hi], np.int32)
-            if hi - lo < chunk_docs:  # pad the tail chunk
-                pad = chunk_docs - (hi - lo)
-                tb = np.concatenate([tb, np.zeros((pad, l), np.int32)])
-                lb = np.concatenate([lb, np.ones((pad,), np.int32)])
-            for buf_in, a in ((tok_in, tb), (len_in, lb)):
-                host = torch.from_numpy(np.ascontiguousarray(a)).view(buf_in.shape)
-                buf_in.copy_(host.pin_memory() if pinned else host, non_blocking=pinned)
-            buf[lo:hi].copy_(program()[: hi - lo])  # the padding rows stay zero
+            encoder = encoder_for(lo, hi)
+            if encoder is not None:
+                tb, lb = np.asarray(toks[lo:hi], np.int32), np.asarray(lens[lo:hi], np.int32)
+                if hi - lo < chunk_docs:  # pad the tail chunk
+                    pad = chunk_docs - (hi - lo)
+                    tb = np.concatenate([tb, np.zeros((pad, l), np.int32)])
+                    lb = np.concatenate([lb, np.ones((pad,), np.int32)])
+                write(lo, encoder(tb, lb)[: hi - lo])  # the padding rows stay zero
             if progress:
                 progress(hi, t)
 
@@ -556,24 +572,30 @@ def build_index(
     stay zero, the tail chunk's padding rows too. ``progress(hi, T)`` is
     called once a chunk.
 
-    On one device (no ``mesh``, ``cp_shards`` ≤ 1) encoding a chunk is one
-    fixed-shape program, the counterpart of JAX's ``encode_chunk``: the
-    sub-batches' target-tower encodes and the quantization into one
-    ``[chunk, D]`` buffer. On a card (with ``capture``, the default) it is
-    one CUDA graph a build (``utils.graphs.Program``): the first chunk's
-    dispatch is the capture's warm-up, every later chunk a replay
-    (``graph_stats`` counts them); a capture that fails raises.
-    ``capture=False`` runs it eagerly. Each chunk's tokens go up once, and
-    its rows reach the index buffer in one device copy.
+    Encoding a chunk is one fixed-shape program, the counterpart of JAX's
+    ``encode_chunk``: the sub-batches' target-tower encodes and the
+    quantization into one ``[chunk, D]`` buffer (``_ChunkEncoder``). On a
+    card (with ``capture``, the default) it is one CUDA graph a build and
+    card (``utils.graphs.Program``): the first chunk's dispatch on a card
+    is the capture's warm-up, every later one a replay (``graph_stats``
+    counts them); a capture that fails raises. ``capture=False`` runs it
+    eagerly. Each chunk's tokens go up once, and its rows reach each copy
+    of a row block in one device copy.
 
-    The grid and the context-parallel paths stay eager, one
-    ``batch_size`` batch at a time, as they issue work to several devices
-    from one thread: on a grid each batch is encoded on a device of the
-    first block it lands in (a process encodes only the batches that
-    reach its own blocks) and written into every copy of the blocks it
-    spans. ``cp_shards`` > 1 (a transformer tower with the mean readout):
-    the target tower encodes each batch context-parallel on its own
-    ``{'seq': cp_shards}`` grid of this process's devices
+    On a grid (``mesh``, ``cp_shards`` ≤ 1) each card has its own program
+    and memory pool. A chunk is encoded once, on a card of the first row
+    block it lands in (a process encodes only the chunks that reach its
+    own blocks), and its real rows are written into every copy of the
+    blocks it spans. JAX replicates ``encode_chunk`` on every device
+    (``out_shardings=rep``, ``sse_tpu/index/sharded_index.py:664``);
+    encoding once gives the same rows, bit for bit the one-device
+    build's, as the chunks have the same shape.
+
+    ``cp_shards`` > 1 (a transformer tower with the mean readout) stays
+    eager, one ``batch_size`` batch at a time: one context-parallel
+    encode spans several cards inside one op sequence, so no graph of one
+    card holds it. The target tower encodes each batch context-parallel
+    on its own ``{'seq': cp_shards}`` grid of this process's devices
     (``parallel.context.local_cp_mesh`` beside the params' device), the
     token width padded to a multiple of the shards; the encoded rows are
     then written into the index, on ``mesh`` where there is one, so the two
@@ -592,36 +614,49 @@ def build_index(
     eff_bs = min(batch_size, _round_up(t, 8))
     s = max(1, min(chunk_batches, -(-t // eff_bs)))
     chunk_docs = s * eff_bs
-    if mesh is None and cp_shards <= 1:
-        buf = torch.zeros((rows, model_cfg.encoding_dim), dtype=dtype, device=device)
-        _encode_chunks(params, model_cfg, toks, lens, buf, s, eff_bs, progress,
-                       graphs.pool_for(device, capture), graph_stats)
-        return ShardedIndex(emb=buf, num_real=t, ids=list(target_space.ids),
-                            texts=list(target_space.texts))
-    encode = None
-    if cp_shards > 1:
-        from sse_tpu_torch.parallel.context import local_cp_mesh, make_cp_encoder
-
-        tower = "tgt_tower" if model_cfg.mode == NetworkMode.DUAL_ENCODER else "src_tower"
-        cp_enc = make_cp_encoder(getattr(model_cfg, tower), local_cp_mesh(cp_shards, device))
-        l_cp = -(-toks.shape[1] // cp_shards) * cp_shards  # token width a shard count divides
-
-        def encode(tokens, lengths):
-            tokens = torch.nn.functional.pad(tokens, (0, l_cp - tokens.shape[1]))
-            return cp_enc(params[tower], tokens, lengths)
-
     d = model_cfg.encoding_dim
     if mesh is not None:
         shards = mesh.shape["model"]
         blocks = [
             {dev: torch.zeros((rows // shards, d), dtype=dtype, device=dev)
-             for dev in mesh.column_devices(s)}
-            for s in range(shards)
+             for dev in mesh.column_devices(c)}
+            for c in range(shards)
         ]
         buf = RowShards(mesh, blocks, (rows, d), dtype)
-        copies = replicate(params, mesh)
     else:
         buf = torch.zeros((rows, d), dtype=dtype, device=device)
+    if cp_shards <= 1:
+        copies = {device: params} if mesh is None else replicate(params, mesh)
+        encoders = {}
+
+        def encoder_for(lo: int, hi: int) -> Optional[_ChunkEncoder]:
+            dev = device
+            if mesh is not None:
+                t_local = buf.rows_per_shard
+                mine = [c for c in range(lo // t_local, -(-hi // t_local)) if buf.blocks[c]]
+                if not mine:
+                    return None
+                dev = mesh.column_devices(mine[0])[0]
+            if dev not in encoders:
+                encoders[dev] = _ChunkEncoder(copies[dev], model_cfg, dev, s, eff_bs,
+                                              toks.shape[1], dtype,
+                                              graphs.pool_for(dev, capture), graph_stats)
+            return encoders[dev]
+
+        def write(lo: int, out: torch.Tensor) -> None:
+            if mesh is None:
+                buf[lo : lo + out.shape[0]].copy_(out)
+            else:
+                _write_rows(buf, lo, out)
+
+        _encode_chunks(toks, lens, chunk_docs, progress, encoder_for, write)
+        return ShardedIndex(emb=buf, num_real=t, ids=list(target_space.ids),
+                            texts=list(target_space.texts), mesh=mesh)
+    from sse_tpu_torch.parallel.context import local_cp_mesh, make_cp_encoder
+
+    tower = "tgt_tower" if model_cfg.mode == NetworkMode.DUAL_ENCODER else "src_tower"
+    cp_enc = make_cp_encoder(getattr(model_cfg, tower), local_cp_mesh(cp_shards, device))
+    l_cp = -(-toks.shape[1] // cp_shards) * cp_shards  # token width a shard count divides
     with torch.no_grad():
         for lo in range(0, t, batch_size):
             hi = min(lo + batch_size, t)
@@ -629,22 +664,18 @@ def build_index(
             mine = True
             if mesh is not None:
                 t_local = buf.rows_per_shard
-                mine = [s for s in range(lo // t_local, -(-hi // t_local)) if buf.blocks[s]]
+                mine = [c for c in range(lo // t_local, -(-hi // t_local)) if buf.blocks[c]]
                 if mine:
                     dev = mesh.column_devices(mine[0])[0]
             if mine:
                 tb = torch.from_numpy(np.ascontiguousarray(toks[lo:hi])).to(dev)
                 lb = torch.from_numpy(np.ascontiguousarray(lens[lo:hi])).to(dev)
-                if encode is not None:
-                    out = encode(tb, lb).to(dev)
-                else:
-                    out = sse.target_embeddings(
-                        params if mesh is None else copies[dev], model_cfg, tokens=tb,
-                        lengths=lb)
+                tb = torch.nn.functional.pad(tb, (0, l_cp - tb.shape[1]))
+                out = quantize_rows(cp_enc(params[tower], tb, lb).to(dev), dtype)
                 if mesh is None:
-                    buf[lo:hi] = quantize_rows(out, dtype)
+                    buf[lo:hi] = out
                 else:
-                    _write_rows(buf, lo, quantize_rows(out, dtype))
+                    _write_rows(buf, lo, out)
             if progress and (hi == t or hi % chunk_docs == 0):  # the chunks' ends
                 progress(hi, t)
     return ShardedIndex(

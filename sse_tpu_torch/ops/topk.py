@@ -169,7 +169,7 @@ def decode(
     key = (comp >> 32).to(torch.int32)
     rows = torch.where(empty, 0, (_LOW32 - (comp & _LOW32)).to(torch.int32))
     if exact:
-        neg = torch.tensor(NEG, dtype=torch.float32, device=comp.device)
+        neg = torch.full((), NEG, dtype=torch.float32, device=comp.device)  # no host copy
         return torch.where(empty, neg, from_sortable(key)), rows
     key = torch.where(empty, _INT_SINK if int_exact else _NEG_SINK, key)
     return dec_val(key, int_exact), rows

@@ -7,10 +7,11 @@ are split over 'model' into equal row blocks, one a column of the grid,
 replicated over 'data'; the tower params are replicated on every device.
 
 A device may appear more than once in a grid. Then several shards share
-one card, and their kernel launches run one after another on it: this is
-how one card runs a (2, 2) or (1, 4) grid in ``chip_smoke.py``, and the
-CPU tests a grid of eight CPU entries, as JAX's eight fake CPU devices do
-in ``tests/conftest.py``. It checks the sharded path; it is not a
+one card, and their kernel launches run one after another on it (in one
+CUDA graph of the served query, ``entries_by_device``): this is how one
+card runs a (2, 2) or (1, 4) grid in ``chip_smoke.py``, and the CPU
+tests a grid of eight CPU entries, as JAX's eight fake CPU devices do in
+``tests/conftest.py``. It checks the sharded path; it is not a
 speed-up.
 
 Across processes (``parallel.distributed.initialize``) the grid is
@@ -33,7 +34,7 @@ order (``batch_rows``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,10 +84,16 @@ class Mesh:
     @property
     def local_devices(self) -> List[torch.device]:
         """This process's distinct devices, in grid order."""
-        out: List[torch.device] = []
+        return list(self.entries_by_device())
+
+    def entries_by_device(self) -> Dict[torch.device, List[Tuple[int, int]]]:
+        """This process's grid entries (d, s) grouped by distinct device:
+        device → its entries in grid order, the devices in grid order. A
+        card named more than once holds every entry that names it."""
+        out: Dict[torch.device, List[Tuple[int, int]]] = {}
         for (d, s), dev in np.ndenumerate(self.devices):
-            if self.is_local(d, s) and dev not in out:
-                out.append(dev)
+            if self.is_local(d, s):
+                out.setdefault(dev, []).append((d, s))
         return out
 
     def owner(self, s: int) -> int:

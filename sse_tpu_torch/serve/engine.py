@@ -12,8 +12,7 @@ index buffer, and its ``warmup`` replaces the graphs of the old buffer
 (``GraphCache``); a query still on the old buffer then runs eagerly and
 drops nothing. ``QueryEngine.warmup`` captures every (batch tier, length
 bucket) before traffic arrives. CPU tensors run the plain versions
-eagerly; the grid stays eager (it issues work to several cards from one
-thread).
+eagerly.
 
 Routing carried over from the JAX package and NOT yet measured on the
 H100: with the default ``pallas_variant="packed"``, batches of
@@ -32,6 +31,19 @@ chosen on the replica's batch, as JAX chooses it inside ``shard_map``.
 The shards' composites are merged exactly (``parallel.topk``) on the
 replica's first device, or, across processes, on every rank after an
 exchange of the [B, S·k] composites.
+
+On a grid of cards the query is one program a distinct card and shape,
+as JAX's ``jax.jit(shard_map(...))`` is one program on every device
+(``GridQuery``): each card's body (the encode of every replica slice it
+holds, then the top-k of every grid entry on it, ``num_real - row0``
+computed on the device, and the merge of every replica whose blocks all
+lie on it) is captured once as a CUDA graph (``CardQuery``, through
+``utils.graphs.PerCard``) and replayed. A call copies the token slices
+into every card's buffers, replays every card's graph, and only then
+copies the composites of the replicas that span cards to their merging
+cards and merges them there eagerly; no graph holds a copy between
+cards, and nothing waits on the host between the first replay and the
+merge.
 """
 
 from __future__ import annotations
@@ -62,21 +74,28 @@ from sse_tpu_torch.parallel import distributed
 from sse_tpu_torch.parallel.mesh import Mesh, RowShards, replicate
 from sse_tpu_torch.parallel.topk import lift, merge
 from sse_tpu_torch.train.loop import tree_leaves
-from sse_tpu_torch.utils.graphs import Captured, GraphStats
+from sse_tpu_torch.utils.graphs import Captured, GraphStats, PerCard
 
 # graphs one query function keeps; an engine needs tiers x buckets (8 with
 # a bulk tier and max_seq_length 50)
 MAX_GRAPHS = 32
 
 
-def _shard_topk(q: torch.Tensor, block: torch.Tensor, k: int, num_real: int, row0: int,
+def _shard_topk(q: torch.Tensor, block: torch.Tensor, k: int, num_real, row0: int,
                 variant: str) -> torch.Tensor:
     """One row block's top-k as composites with GLOBAL rows: the block
     holds rows [row0, row0 + t_local), of which the first
-    clip(num_real - row0, 0, t_local) are real. The route is gated as in
-    the unsharded function, on this call's batch and this block's rows."""
+    clip(num_real - row0, 0, t_local) are real. ``num_real``: an int (the
+    local count is clipped on the host) or a 0-d int32 tensor on the
+    block's device (``num_real - row0`` is computed there; the kernels
+    clamp it to [0, t_local], the plain versions clip it). The route is
+    gated as in the unsharded function, on this call's batch and this
+    block's rows."""
     t_local = block.shape[0]
-    nr_local = min(max(num_real - row0, 0), t_local)
+    if torch.is_tensor(num_real):
+        nr_local = num_real - row0 if row0 else num_real
+    else:
+        nr_local = min(max(num_real - row0, 0), t_local)
     if variant == "packed":
         bt = twophase_block_t(t_local, k)
         if q.shape[0] >= TWOPHASE_MIN_BATCH and bt is not None and 0 < k <= 128:
@@ -85,51 +104,37 @@ def _shard_topk(q: torch.Tensor, block: torch.Tensor, k: int, num_real: int, row
     return lift(fused_score_topk(q, block, k, nr_local, variant=variant, composites=True), row0)
 
 
-def _sharded_fn(model_cfg: SSEConfig, k: int, num_real: Optional[int], variant: str,
-                mesh: Mesh) -> Callable:
-    """The grid form of ``build_fused_query_fn`` (its docstring)."""
-    data, shards = mesh.shape["data"], mesh.shape["model"]
+def _pack(vals: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(float32 values, int32 rows) [B, k] → one int32 [2, B, k] tensor."""
+    return torch.stack([vals.view(torch.int32), rows])
 
-    def fused(params, emb: RowShards, tokens, lengths, nr=None):
-        nr = num_real if nr is None else nr
-        b = tokens.shape[0]
-        if b % data:
-            raise ValueError(f"the batch ({b}) must divide over the 'data' axis ({data})")
-        bl, t_local = b // data, emb.rows_per_shard
-        copies = replicate(params, mesh)
-        int_exact = emb.dtype == torch.int8
-        groups = []  # per data replica: [(shard, composites)]
+
+def _card_body(model_cfg: SSEConfig, k: int, variant: str, entries, t_local: int,
+               merged: Sequence[int], rest, int_exact: bool) -> Callable:
+    """One card's share of a grid query: each data replica with an entry
+    on the card encodes its slice once, then each entry (d, s) of
+    ``entries`` scores row block s (composites with global rows), and
+    each replica of ``merged`` (whose every block lies on this card) is
+    merged and decoded here too. ``body(params, blocks, tokens, lengths,
+    nr)`` (this card's params copy, its blocks s → tensor, the replicas'
+    slices d → tensor, all on the card) → (the merged replicas' (values,
+    rows) packed, int32 [len(merged), 2, B / data, k]; the int64
+    composites [len(rest), B / data, k] of the entries ``rest`` of the
+    other replicas), either of size 0 where empty."""
+    replicas = list(dict.fromkeys(d for d, _ in entries))
+
+    def body(params, blocks, tokens, lengths, nr):
+        dev = next(iter(blocks.values())).device
         with torch.no_grad():
-            for d in range(data):
-                q = {}  # this replica's queries, encoded once a device
-                got = []
-                for s in range(shards):
-                    if not mesh.is_local(d, s):
-                        continue
-                    dev = mesh.devices[d, s]
-                    if dev not in q:
-                        q[dev] = sse.encode_source(
-                            copies[dev], model_cfg, tokens[d * bl : (d + 1) * bl].to(dev),
-                            lengths[d * bl : (d + 1) * bl].to(dev))
-                    got.append((s, _shard_topk(q[dev], emb.block(s, dev), k, nr, s * t_local,
-                                               variant)))
-                groups.append(got)
-        if not mesh.multi_process:
-            out = mesh.devices[0, 0]
-            comp = torch.cat([merge([c for _, c in got], k, mesh.devices[d, 0]).to(out)
-                              for d, got in enumerate(groups)])
-            return decode(comp, int_exact, variant == "exact")
-        # across processes: each rank fills the cells of its own entries,
-        # the rest stay empty, and the element-wise max over the ranks
-        # assembles every replica's [B / data, S·k] candidates on each rank
-        cells = torch.full((b, shards * k), _EMPTY, dtype=torch.int64, device=emb.device)
-        for d, got in enumerate(groups):
-            for s, c in got:
-                cells[d * bl : (d + 1) * bl, s * k : (s + 1) * k] = c.to(emb.device)
-        comp = _topk_desc(distributed.all_gather(cells).amax(dim=0), k)
-        return decode(comp, int_exact, variant == "exact")
+            q = {d: sse.encode_source(params, model_cfg, tokens[d], lengths[d]) for d in replicas}
+            comps = {(d, s): _shard_topk(q[d], blocks[s], k, nr, s * t_local, variant)
+                     for d, s in entries}
+            done = [_pack(*decode(merge([c for e, c in comps.items() if e[0] == d], k, dev),
+                                  int_exact, variant == "exact")) for d in merged]
+            return (torch.stack(done) if done else torch.empty(0, device=dev),
+                    torch.stack([comps[e] for e in rest]) if rest else torch.empty(0, device=dev))
 
-    return fused
+    return body
 
 
 class GraphCache:
@@ -141,13 +146,14 @@ class GraphCache:
     raises, nothing is cached and the caller sees the error. Capture and
     replay run under ``lock``: a graph's buffers are shared."""
 
-    def __init__(self, stats: GraphStats) -> None:
+    def __init__(self, stats: GraphStats, cards: int = 1) -> None:
         self.lock = threading.Lock()
         self.stats = stats
+        self.cards = cards  # a grid keeps MAX_GRAPHS a distinct card
         self.graphs: "collections.OrderedDict[tuple, Any]" = collections.OrderedDict()
         self.emb = None  # the buffer every cached graph reads
 
-    def get(self, emb, key: tuple, make: Callable[[], Any]):
+    def get(self, emb, key: tuple, make: Callable[[], Any], label: Optional[dict] = None):
         if emb is not self.emb:
             self.graphs.clear()
             self.emb = emb
@@ -157,8 +163,9 @@ class GraphCache:
             return graph
         graph = make()
         self.graphs[key] = graph
-        self.stats.captured({"shape": key[0], "seconds": graph.seconds, "mib": graph.mib})
-        while len(self.graphs) > MAX_GRAPHS:
+        self.stats.captured({"shape": key[0], **(label or {}), "seconds": graph.seconds,
+                             "mib": graph.mib})
+        while len(self.graphs) > MAX_GRAPHS * self.cards:
             self.graphs.popitem(last=False)
         return graph
 
@@ -186,7 +193,7 @@ class QueryGraph:
         self.load(tokens, lengths, nr)
         self.captured = Captured(
             lambda: run(params, emb, self.tokens, self.lengths, self.nr), dev, pool, side,
-            pack=lambda out: torch.stack([out[0].view(torch.int32), out[1]]))
+            pack=lambda out: _pack(*out))
         self.seconds, self.mib = self.captured.seconds, self.captured.mib
 
     def load(self, tokens: torch.Tensor, lengths: torch.Tensor, nr) -> None:
@@ -282,6 +289,210 @@ class CapturedQuery:
             raise
 
 
+class CardQuery:
+    """One card's share of a grid query shape, captured as a CUDA graph
+    on that card (``utils.graphs.PerCard.capture``): the card's body
+    (``_card_body``) over fixed buffers on the card, one tokens and one
+    lengths buffer a data replica it serves and one 0-d int32 num_real
+    (filled from an int with no host copy; the body computes each block's
+    local count from it on the device). Its outputs (``_card_body``: the
+    replicas merged on the card, and the other entries' composites) are
+    overwritten by the next replay. ``seconds`` and ``mib``: the
+    capture's readings."""
+
+    def __init__(self, body: Callable, dev: torch.device, params, blocks: Dict[int, torch.Tensor],
+                 tokens: Dict[int, torch.Tensor], lengths: Dict[int, torch.Tensor], nr,
+                 rows: int, per_card: PerCard) -> None:
+        self.refs = (params, blocks)  # the graph reads their memory
+        self.tokens = {d: torch.empty_like(t, device=dev) for d, t in tokens.items()}
+        self.lengths = {d: torch.empty_like(t, device=dev) for d, t in lengths.items()}
+        self.nr = torch.zeros((), dtype=torch.int32, device=dev)
+        self.rows = rows
+        self.load(tokens, lengths, nr)
+        self.captured = per_card.capture(
+            dev, lambda: body(params, blocks, self.tokens, self.lengths, self.nr))
+        self.seconds, self.mib = self.captured.seconds, self.captured.mib
+
+    def load(self, tokens: Dict[int, torch.Tensor], lengths: Dict[int, torch.Tensor], nr) -> None:
+        """Copy a call's slices (from any device) and num_real in."""
+        for d, t in tokens.items():
+            self.tokens[d].copy_(t)
+            self.lengths[d].copy_(lengths[d])
+        if torch.is_tensor(nr):
+            self.nr.copy_(nr)
+        else:
+            self.nr.fill_(max(0, min(int(nr), self.rows)))
+
+
+class GridQuery:
+    """``build_fused_query_fn``'s function on a grid: one program a
+    distinct card, as JAX's sharded query is one program on every device.
+    ``run`` issues each card's body (``_card_body``) eagerly and merges
+    (CPU tensors, and a stale index); on the card, ``replay`` keeps one
+    ``CardQuery`` a card and key — (tokens shape and type, lengths shape
+    and type, the card, the identity of the card's params copy's tensors,
+    the identity of the card's row blocks) — captured on its first call,
+    whose result is the capture's warm-up, and replayed after.
+
+    A call copies every card's slices into its buffers, replays every
+    card's graph (``PerCard.replay``), and only then copies the
+    composites of a replica that spans cards to its first card, merges
+    them there and gathers the replicas' rows on the grid's first
+    device: every card is launched before the merge, no graph copies
+    between cards, and nothing syncs the host. A replica whose blocks
+    all lie on one card (every replica of a grid on one card) is merged
+    and decoded inside that card's graph.
+
+    The graphs belong to one ``RowShards``, as a ``CapturedQuery``'s to
+    one buffer: ``replay(..., adopt=True)`` (the engine's warmup, a
+    function's first call) adopts a new one and drops every graph of the
+    old; a call on any other ``RowShards`` runs eagerly and drops
+    nothing. ``stats`` counts a capture and a replay a card. Across
+    processes each rank captures and replays its own cards' bodies; the
+    exchange of the composites (``distributed.all_gather``) stays eager,
+    as a gloo collective cannot be captured.
+
+    ``params``: the ``parallel.replicate`` copies (the engine and the
+    bench pass them); a plain pytree is copied to each other card on every
+    call, and each such copy is a new key there."""
+
+    def __init__(self, model_cfg: SSEConfig, k: int, num_real: Optional[int], variant: str,
+                 mesh: Mesh, stats: Optional[GraphStats] = None) -> None:
+        self.model_cfg, self.k, self.num_real, self.variant = model_cfg, k, num_real, variant
+        self.mesh = mesh
+        self.cards = mesh.entries_by_device()
+        shards = mesh.shape["model"]
+        # the replicas a card merges itself (all their blocks on it; one
+        # process), and the entries whose composites leave the card
+        self.merged = {dev: [] if mesh.multi_process else
+                       [d for d in dict.fromkeys(d for d, _ in entries)
+                        if sum(e[0] == d for e in entries) == shards]
+                       for dev, entries in self.cards.items()}
+        self.rest = {dev: [e for e in entries if e[0] not in self.merged[dev]]
+                     for dev, entries in self.cards.items()}
+        self.stats = GraphStats() if stats is None else stats
+        self.cache = GraphCache(self.stats, cards=len(self.cards))
+        self.per_card = PerCard()
+
+    def __call__(self, params, emb: RowShards, tokens, lengths, nr=None):
+        nr = self.num_real if nr is None else nr
+        if emb.device.type != "cuda":
+            return self.run(params, emb, tokens, lengths, nr)
+        return self.replay(params, emb, tokens, lengths, nr, adopt=False)
+
+    def _slices(self, tokens, lengths):
+        """The replicas' slices of the batch (views on the caller's
+        device): d → tokens, d → lengths."""
+        data = self.mesh.shape["data"]
+        b = tokens.shape[0]
+        if b % data:
+            raise ValueError(f"the batch ({b}) must divide over the 'data' axis ({data})")
+        bl = b // data
+        return ({d: tokens[d * bl : (d + 1) * bl] for d in range(data)},
+                {d: lengths[d * bl : (d + 1) * bl] for d in range(data)})
+
+    def _body(self, emb: RowShards, dev: torch.device) -> Callable:
+        return _card_body(self.model_cfg, self.k, self.variant, self.cards[dev],
+                          emb.rows_per_shard, self.merged[dev], self.rest[dev],
+                          emb.dtype == torch.int8)
+
+    def run(self, params, emb: RowShards, tokens, lengths, nr):
+        """The grid call issued eagerly, card by card."""
+        copies = replicate(params, self.mesh)
+        toks, lens = self._slices(tokens, lengths)
+        outs = {}
+        for dev, entries in self.cards.items():
+            mine = {d for d, _ in entries}
+            outs[dev] = self._body(emb, dev)(
+                copies[dev], {s: emb.block(s, dev) for _, s in entries},
+                {d: toks[d].to(dev) for d in mine}, {d: lens[d].to(dev) for d in mine},
+                nr.to(dev) if torch.is_tensor(nr) else nr)
+        return self._merge(outs, emb, tokens.shape[0])
+
+    def replay(self, params, emb: RowShards, tokens, lengths, nr, adopt: bool = True):
+        """The call through each card's graph of its key: a replay, or on
+        a miss the capture, whose warm-up is this call's share on that
+        card. ``emb`` becomes the index the graphs belong to unless
+        ``adopt`` is false and the function already has one: then a call
+        on another index runs ``run`` eagerly."""
+        copies = replicate(params, self.mesh)
+        toks, lens = self._slices(tokens, lengths)
+        with self.cache.lock:
+            stale = not adopt and self.cache.emb is not None and emb is not self.cache.emb
+            if not stale:
+                firsts, graphs = {}, {}
+                for dev, entries in self.cards.items():
+                    blocks = {s: emb.block(s, dev) for _, s in entries}
+                    mine = {d for d, _ in entries}
+                    card_toks, card_lens = {d: toks[d] for d in mine}, {d: lens[d] for d in mine}
+                    key = (tuple(tokens.shape), dev, tokens.dtype, tuple(lengths.shape),
+                           lengths.dtype, tuple(id(x) for x in tree_leaves(copies[dev])),
+                           tuple(id(b) for b in blocks.values()))
+                    graph = self.cache.get(
+                        emb, key,
+                        lambda: self._capture(dev, copies[dev], emb, blocks, card_toks,
+                                              card_lens, nr),
+                        {"card": str(dev)})
+                    first = graph.captured.take_first()
+                    if first is not None:
+                        firsts[dev] = first
+                    else:
+                        graph.load(card_toks, card_lens, nr)
+                        graphs[dev] = graph.captured
+                outs = {**PerCard.replay(graphs), **firsts}
+                for _ in graphs:
+                    self.stats.replayed()
+                # merged while the lock holds the graphs' outputs
+                out = self._merge(outs, emb, tokens.shape[0])
+        if stale:
+            return self.run(params, emb, tokens, lengths, nr)
+        return out
+
+    def _capture(self, dev, params, emb: RowShards, blocks, tokens, lengths, nr) -> CardQuery:
+        """A new graph of ``dev``'s body in the card's pool: a card with
+        no graph left in the cache (a new index, or all evicted) takes a
+        new pool, as does one a capture failed in (``GraphPool``)."""
+        if not any(key[1] == dev for key in self.cache.graphs):
+            self.per_card.drop(dev)
+        return CardQuery(self._body(emb, dev), dev, params, blocks, tokens, lengths, nr,
+                         emb.shape[0], self.per_card)
+
+    def _merge(self, outs: Dict[torch.device, tuple], emb: RowShards, b: int):
+        """The cards' outputs → (vals, rows) of the whole batch on the
+        grid's first device (a new tensor: it outlives the next replay).
+        A replica no card merged has its shards' composites merged on its
+        first card; across processes every rank assembles every replica's
+        candidates after the exchange, and merges them."""
+        mesh, k = self.mesh, self.k
+        data, shards = mesh.shape["data"], mesh.shape["model"]
+        packed: Dict[int, torch.Tensor] = {}
+        groups: Dict[int, list] = {d: [] for d in range(data)}
+        for dev, (done, rest) in outs.items():
+            for i, d in enumerate(self.merged[dev]):
+                packed[d] = done[i]
+            for (d, s), c in zip(self.rest[dev], rest):
+                groups[d].append((s, c))
+        int_exact, exact = emb.dtype == torch.int8, self.variant == "exact"
+        if mesh.multi_process:
+            # each rank fills the cells of its own entries, the rest stay
+            # empty, and the element-wise max over the ranks assembles
+            # every replica's [B / data, S·k] candidates on each rank
+            bl = b // data
+            cells = torch.full((b, shards * k), _EMPTY, dtype=torch.int64, device=emb.device)
+            for d, got in groups.items():
+                for s, c in got:
+                    cells[d * bl : (d + 1) * bl, s * k : (s + 1) * k] = c.to(emb.device)
+            comp = _topk_desc(distributed.all_gather(cells).amax(dim=0), k)
+            return decode(comp, int_exact, exact)
+        for d, got in groups.items():
+            if got:
+                comp = merge([c for _, c in sorted(got, key=lambda x: x[0])], k,
+                             mesh.devices[d, 0])
+                packed[d] = _pack(*decode(comp, int_exact, exact))
+        out = torch.cat([packed[d].to(mesh.devices[0, 0]) for d in range(data)], dim=1)
+        return out[0].view(torch.float32), out[1]
+
+
 def build_fused_query_fn(
     model_cfg: SSEConfig,
     k: int,
@@ -304,18 +515,20 @@ def build_fused_query_fn(
     it runs the plain versions.
 
     With ``mesh`` (the 2D serving grid, e.g. {data: 2, model: 4}), ``emb``
-    is the index's ``RowShards`` and ``params`` a pytree or its
-    ``parallel.replicate`` copies: queries are split over 'data' (B must
-    divide the axis, as in JAX), each replica scores its slice against
-    every row block of its grid row (``_shard_topk``: the two-phase route
-    when the replica's batch is at least ``TWOPHASE_MIN_BATCH``), and the
-    shards' candidates are merged exactly. The results lie on the grid's
-    first device, in batch order; across processes every rank gets all
-    of them, on its own first device. The grid runs eagerly."""
+    is the index's ``RowShards`` and ``params`` its ``parallel.replicate``
+    copies (or a pytree): queries are split over 'data' (B must divide
+    the axis, as in JAX), each replica scores its slice against every row
+    block of its grid row (``_shard_topk``: the two-phase route when the
+    replica's batch is at least ``TWOPHASE_MIN_BATCH``), and the shards'
+    candidates are merged exactly. The results lie on the grid's first
+    device, in batch order; across processes every rank gets all of
+    them, on its own first device. The function is a ``GridQuery``: on
+    cards, one CUDA graph a distinct card and shape, every card's graph
+    replayed before the merge; ``.run`` is the same path eager."""
     if pallas_variant not in VARIANTS:
         raise ValueError(f"pallas_variant must be one of {VARIANTS}, got {pallas_variant!r}")
     if mesh is not None:
-        return _sharded_fn(model_cfg, k, num_real, pallas_variant, mesh)
+        return GridQuery(model_cfg, k, num_real, pallas_variant, mesh, stats)
 
     def run(params, emb, tokens, lengths, nr):
         with torch.no_grad():
@@ -335,9 +548,10 @@ class QueryEngine:
     device). Queries are padded to a batch tier (``max_batch``, or
     ``bulk_batch`` for bulk calls) and a length bucket, as in the JAX
     engine; with a mesh, each tier must divide over the 'data' axis. On
-    one card every (tier, bucket) is a CUDA graph, captured by
-    ``warmup()`` and replayed by ``query``; ``graph_stats`` counts both
-    (``graph_counts()``, in the HTTP server's /api/stats)."""
+    cards every (tier, bucket) is a CUDA graph (on a grid, one a distinct
+    card), captured by ``warmup()`` and replayed by ``query``;
+    ``graph_stats`` counts both (``graph_counts()``, in the HTTP server's
+    /api/stats)."""
 
     def __init__(
         self,
@@ -381,14 +595,16 @@ class QueryEngine:
 
     @property
     def captures_graphs(self) -> bool:
-        """Whether dispatches replay CUDA graphs: one card, not a grid."""
-        return self.mesh is None and self.device.type == "cuda"
+        """Whether dispatches replay CUDA graphs: an index on cards, one
+        or a grid of them."""
+        return self.device.type == "cuda"
 
     def graph_counts(self) -> Dict[str, int]:
         """Graph captures and replays since the engine was built, and the
-        graphs the current function holds."""
+        graphs the current function holds; on a grid each card's graph
+        counts (a dispatch replays one a distinct card)."""
         fn = self._fused
-        cached = len(fn.cache.graphs) if isinstance(fn, CapturedQuery) else 0
+        cached = len(fn.cache.graphs) if isinstance(fn, (CapturedQuery, GridQuery)) else 0
         return {**self.graph_stats.counts(), "graphs_cached": cached}
 
     # --------------------------------------------------------------- host
@@ -415,9 +631,9 @@ class QueryEngine:
     def warmup(self, fused: Optional[Callable] = None) -> float:
         """Run every (batch tier, length bucket) shape once on the
         published index, as the JAX engine compiles each program before
-        traffic arrives: on one card this captures the shape's CUDA graph
-        (and builds the kernels), elsewhere it builds the kernels and warms
-        the allocator. The largest shape goes first: a function's graphs
+        traffic arrives: on cards this captures the shape's CUDA graph (on
+        a grid, one on every distinct card; and builds the kernels), on
+        the CPU it runs the shape once. The largest shape goes first: a function's graphs
         share one memory pool, so the smaller ones then take their
         buffers from the blocks the largest one left free; the graphs then
         belong to the published buffer (``CapturedQuery.replay``). ``fused``
@@ -485,8 +701,9 @@ class QueryEngine:
 
     def delete_documents(self, ids: Sequence[str]) -> int:
         """Swap-with-last removal (see ShardedIndex.delete). The index
-        buffer is copied, so on one card the graphs of the new snapshot are
-        captured before this returns. Returns the new num_real."""
+        buffer (on a grid, each block it touches) is copied, so on cards
+        the graphs of the new snapshot are captured before this returns.
+        Returns the new num_real."""
         n = self.index.delete(list(ids))
         if self.captures_graphs:
             self.warmup()

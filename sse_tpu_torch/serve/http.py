@@ -145,7 +145,8 @@ def make_handler(
                 snap = stats.snapshot()
                 snap["index_num_targets"] = engine.index.num_real
                 # the engine's graph captures and replays beside the
-                # kernels' launch counts (each replay adds its launches)
+                # kernels' launch counts (each replay adds its launches;
+                # on a grid a dispatch replays one graph a card)
                 snap.update(engine.graph_counts())
                 snap["kernel_launches"] = ops.launch_counts()
                 self._send(

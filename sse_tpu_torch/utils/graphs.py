@@ -5,10 +5,12 @@
 on a side stream, then the capture into a memory pool), ``GraphPool``
 the pool and capture stream that the graphs of one owner share, and
 ``Program`` a function over fixed input buffers that captures itself on
-its first call on a card and replays after, or runs eagerly. The served
-query (``serve/engine.py`` ``QueryGraph``), the Evaluator
-(``evals/recall.py``), the index build (``index/sharded_index.py``) and
-the index bench (``bench.py``) capture through them. A capture that
+its first call on a card and replays after, or runs eagerly, and
+``PerCard`` the graphs of a grid's program, one body a distinct card.
+The served query (``serve/engine.py`` ``QueryGraph``, and ``CardQuery``
+on a grid), the Evaluator (``evals/recall.py``), the index build
+(``index/sharded_index.py``, one ``Program`` a card on a grid) and the
+index bench (``bench.py``) capture through them. A capture that
 fails raises: nothing on the card falls back to eager quietly.
 """
 
@@ -140,16 +142,50 @@ class GraphPool:
         self.handle = None
         self.side: Optional[torch.cuda.Stream] = None
 
-    def capture(self, run: Callable[[], Any]) -> Captured:
+    def capture(self, run: Callable[[], Any], pack: Optional[Callable] = None) -> Captured:
         if self.handle is None:
             self.handle = torch.cuda.graph_pool_handle()
         if self.side is None:
             self.side = torch.cuda.Stream(self.dev)
         try:
-            return Captured(run, self.dev, self.handle, self.side)
+            return Captured(run, self.dev, self.handle, self.side, pack)
         except BaseException:
             self.handle = None
             raise
+
+
+class PerCard:
+    """The graphs of a program that a grid runs as one body a distinct
+    card: one ``GraphPool`` a card, and a ``Captured`` a card and key.
+    ``capture(dev, run)`` captures ``run`` (which touches only ``dev``'s
+    memory: no copy between cards inside a capture) under
+    ``torch.cuda.device(dev)`` into that card's pool and side stream;
+    ``replay(graphs)`` launches every card's graph, in the order given,
+    before it returns anything, and gives each card's outputs back on
+    that card (each replay runs on its card's current stream, so copies
+    between cards made after it are ordered after it). ``drop(dev)``
+    forgets a card's pool: its next capture takes a new one, as a pool
+    whose graphs are all gone may not take another capture."""
+
+    def __init__(self) -> None:
+        self.pools: Dict[torch.device, GraphPool] = {}
+
+    def capture(self, dev: torch.device, run: Callable[[], Any],
+                pack: Optional[Callable] = None) -> Captured:
+        pool = self.pools.setdefault(dev, GraphPool(dev))
+        with torch.cuda.device(dev):
+            return pool.capture(run, pack)
+
+    def drop(self, dev: torch.device) -> None:
+        self.pools.pop(dev, None)
+
+    @staticmethod
+    def replay(graphs: Dict[torch.device, Captured]) -> Dict[torch.device, Any]:
+        outs = {}
+        for dev, graph in graphs.items():
+            with torch.cuda.device(dev):
+                outs[dev] = graph.replay()
+        return outs
 
 
 def pool_for(dev: torch.device, capture: bool = True) -> Optional[GraphPool]:

@@ -13,7 +13,8 @@ and the served function's rule for a stale index buffer.
 - ``build_index`` takes ``chunk_batches`` and ``progress`` with JAX's
   meaning: at corpus sizes around a chunk boundary its rows match JAX's
   (atol 2e-3, rtol 1e-3, as ``tests/test_torch_serve.py`` holds them),
-  the reserve rows are zero and the ``progress`` calls are JAX's.
+  the reserve rows are zero and the ``progress`` calls are JAX's; on a
+  grid its rows equal the one-device build's exactly.
 - ``CapturedQuery``: a call on a buffer other than the one its graphs
   belong to runs eagerly and drops nothing; the engine's warmup after a
   delete keeps the new buffer's graphs when a query on the old buffer
@@ -212,8 +213,8 @@ def test_build_index_chunks_match_jax(chunk_batches, t):
 
 
 def test_build_index_grid_path_reports_jax_progress():
-    """The grid path stays one batch at a time, eagerly, and reports the
-    chunks' ends as JAX does."""
+    """The grid path encodes in JAX's chunks, reports them as JAX does,
+    and writes the one-device build's rows bit for bit."""
     from sse_tpu_torch.parallel import make_mesh
 
     tspace, _ = _data(t=40, n=1)
@@ -226,7 +227,7 @@ def test_build_index_grid_path_reports_jax_progress():
                               progress=lambda *a: tcalls.append(a))
     one = tindex.build_index(tp, tm, tspace, batch_size=BS, chunk_batches=2)
     assert tcalls == jcalls == [(16, 40), (32, 40), (40, 40)]
-    np.testing.assert_allclose(grid.emb[:][:40].numpy(), one.emb[:40].numpy(), atol=2e-6)
+    assert torch.equal(grid.emb[:][:40], one.emb[:40]) and not grid.emb[:][40:].any()
 
 
 # --------------------------------------------- the served function's buffer
