@@ -151,7 +151,19 @@ commits compare in one run, taken in turns.
    --num_processes 2`` (GRU and transformer; gloo on one card, NCCL too on
    two) against one process, then ``index --cp_shards 2``. Each grid's
    ms a step and split by part, and each CP encode's ms (the entries
-   queue on one card: checks of the path, not a multi-card speed).
+   queue on one card: checks of the path, not a multi-card speed). The
+   grid's chained steps (grid_chains, ``make_train_step(mesh=,
+   chain=8)``): the ranking preset on (2, 1) and (4, 1) and the
+   classification preset with the 1,249,280-row table on (1, 2), (1, 4)
+   and (2, 2), each captured (graphs a card, copies between cards,
+   seconds and MiB a card), a replay held against 8 eager grid steps
+   from one state (bit for bit where two eager runs are) whose steps are
+   held against the one-card step from their input states, four replays
+   under sync debug "error", every copy identical, the recurrent
+   launches a replayed step data x the one-card step's, ms a step
+   chained against eager over 48 batches and each card's busy share of 8
+   replays; then the ranking preset through train() on a (2, 1) grid at
+   steps_per_dispatch 8 against 1 (the same log steps and losses).
 9. Dispatch chaining (chain_slice, ``make_train_step(chain=8)``: 8 train
    steps captured as one CUDA graph and replayed): the train bench's GRU,
    the compositional LSTM stack (dropout) and the transformer towers at
@@ -3614,25 +3626,289 @@ def dryrun_multichip(n: int) -> None:
         f"(unsharded {float(rm['loss']):.6f}), the table within rtol 3e-3 / atol 3e-5")
 
 
+GRID_CHAIN_RUNS = (("ranking", (2, 1)), ("ranking", (4, 1)), ("classification", (1, 2)),
+                   ("classification", (1, 4)), ("classification", (2, 2)))
+
+
+def sync_cards() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def grid_chain_problem(task: str, shape):
+    """(model config, train config, mesh, state on it, chunks, target
+    tokens, lengths, mining cache (``Replicated``), label columns, B) of a
+    chained grid run: the ranking preset as dp_grids trains it
+    (flagship_problem: B=256, 128 sampled and 16 mined negatives, 4,096
+    targets, multi-label rows), the classification preset as tp_grids
+    steps it (B=128, GRID_TABLE rows, dropout 0.1, EMA); 6 chunks of CHAIN
+    packed batches each, on the lead card."""
+    from sse_tpu_torch import configs
+    from sse_tpu_torch.data.batching import Batch
+    from sse_tpu_torch.parallel import make_mesh
+    from sse_tpu_torch.parallel.mesh import Replicated
+    from sse_tpu_torch.train import grid, init_train_state, loop
+
+    mesh = make_mesh(*shape, devices=mesh_cards(shape[0] * shape[1]))
+    lead = mesh.local_devices[0]
+    copies = lambda x: Replicated({c: x.to(c) for c in mesh.local_devices})  # noqa: E731
+    n = 6 * CHAIN
+    if task == "ranking":
+        mc, tc, pairs, tspace = flagship_problem(steps=n)
+        tc = dataclasses.replace(tc, steps_per_dispatch=CHAIN)
+        it = loop.BatchIterator(pairs, tc.batch_size, seed=tc.seed)
+        packed = [loop.pack_batch(x) for x in it.epoch_batches(0)][:n]
+        tt, tl = (torch.from_numpy(x).to(lead) for x in (tspace.tokens, tspace.lengths))
+        cols = 2
+    else:
+        b, t, length = 128, GRID_TABLE, 50
+        task_cfg = configs.preset("classification", batch_size=b, steps_per_dispatch=CHAIN)
+        mc, tc = task_cfg.model_config(8000, t), task_cfg.train_config()
+        rng = np.random.default_rng(SEED + 2)
+        packed = [loop.pack_batch(Batch(
+            rng.integers(2, 8000, size=(b, length)).astype(np.int32),
+            rng.integers(1, length + 1, size=b).astype(np.int32),
+            rng.integers(0, t, size=b).astype(np.int32), np.ones(b, np.float32)))
+            for _ in range(n)]
+        tt = torch.zeros((t, 1), dtype=torch.int32, device=lead)
+        tl = torch.ones((t,), dtype=torch.int32, device=lead)
+        cols = 1
+    chunks = [torch.from_numpy(np.stack(packed[i : i + CHAIN])).to(lead)
+              for i in range(0, n, CHAIN)]
+    state = grid.place_state(init_train_state(mc, tc, device=lead), mesh)
+    cache = None
+    if task == "ranking":
+        with torch.no_grad():
+            cache = copies(loop.sse.target_embeddings(loop.inference_params(state), mc,
+                                                      tokens=tt, lengths=tl))
+    return mc, tc, mesh, state, chunks, copies(tt), copies(tl), cache, cols, tc.batch_size
+
+
+def grid_state_copy(state):
+    from sse_tpu_torch.train import grid
+
+    return grid.with_tensors(state, [x.clone() for x in grid.state_tensors(state)], state.step)
+
+
+def grid_chain_run(card: str, task: str, shape) -> dict:
+    """One chained grid run (``make_train_step(mesh=, chain=CHAIN)``,
+    ``loop._GridChain``): a replay from the run's state against CHAIN
+    eager grid steps from it, and a second replay carrying the state the
+    first returned (its buffers, the next steps' seeds) against CHAIN
+    more (bit for bit where two eager runs are, else as held_state holds
+    a state); the eager steps of that chain (every one
+    for the ranking preset, the first for the classification preset)
+    held against the one-card step from their own input states
+    (shadow_step, as dp_grids and tp_grids hold a grid step), so the
+    replay is held against the one-card step through them; four replays under
+    ``torch.cuda.set_sync_debug_mode("error")`` and every copy identical
+    after them; the recurrent launches a replayed step, data x the
+    one-card step's; the captures (graphs a card, copies), the seconds and
+    MiB a card of the capture; ms a step chained against eager over the
+    same 6 x CHAIN batches, each run carrying its state (host clock to
+    every card synchronized); each card's busy share of a window of 8
+    replays (card_busy). Returns the launch counts of the timed replays."""
+    from sse_tpu_torch import ops
+    from sse_tpu_torch.train import grid, loop
+
+    mc, tc, mesh, state, chunks, tt, tl, cache, cols, b = grid_chain_problem(task, shape)
+    width = 50
+    single = loop.make_train_step(mc, tc, packed_width=width, num_label_cols=cols, mesh=mesh)
+    eager = loop._eager_chain(single, CHAIN)
+    chain = loop.make_train_step(mc, tc, packed_width=width, num_label_cols=cols, mesh=mesh,
+                                 chain=CHAIN)
+    label = f"{task} {shape}"
+    e1, em = eager(state, chunks[1], tt, tl, cache)
+    e1, em = grid_state_copy(e1), {k: v.clone() for k, v in em.items()}
+    e2, _ = eager(state, chunks[1], tt, tl, cache)
+    sync_cards()
+    reserved = {c: torch.cuda.memory_reserved(c) for c in mesh.local_devices}
+    t0 = time.perf_counter()
+    chain(state, chunks[0], tt, tl, cache)  # warm-up step, capture, first replay
+    sync_cards()
+    capture_s = time.perf_counter() - t0
+    pool_mib = {str(c): round((torch.cuda.memory_reserved(c) - r) / 2**20, 1)
+                for c, r in reserved.items()}
+    made = next(iter(chain.chains.values()))
+    graphs_a_card = {str(c): n for c, n in made.rec.graphs.items()}
+    n_copies = sum(a[0] == "copy" for a in made.rec.actions)
+    if len(mesh.local_devices) == 1:
+        check(made.rec.graphs == {mesh.local_devices[0]: 1} and n_copies == 0,
+              f"{label}: one card took {made.rec.graphs} graphs and {n_copies} copies, want 1, 0")
+    gr, gm = chain(state, chunks[1], tt, tl, cache)
+    g, gm = grid_state_copy(gr), {k: v.clone() for k, v in gm.items()}
+    # a second replay carries the state the first returned (its buffers, new seeds)
+    g2, gm2 = chain(gr, chunks[2], tt, tl, cache)
+    g2, gm2 = grid_state_copy(g2), {k: v.clone() for k, v in gm2.items()}
+    e3, em3 = eager(e1, chunks[2], tt, tl, cache)
+    leaves = grid.state_tensors
+    if all(torch.equal(x, y) for x, y in zip(leaves(e1), leaves(e2))):
+        for got, gms, ref, ems, which in ((g, gm, e1, em, "a replay"),
+                                          (g2, gm2, e3, em3, "a replay carrying the state")):
+            check(all(torch.equal(x, y) for x, y in zip(leaves(got), leaves(ref))) and all(
+                torch.equal(gms[k], ems[k]) for k in ems),
+                f"{label}: {which} differs from the eager grid steps, which are bit for bit run "
+                f"to run")
+        held = "bit for bit, and a second replay carrying its state too (two eager runs are bit " \
+               "for bit)"
+    else:
+        drift_ = held_state(f"{label} eager against eager", grid.gather_state(e2),
+                            grid.gather_state(e1))
+        got = held_state(f"{label} replay against eager", grid.gather_state(g),
+                         grid.gather_state(e1))
+        held_state(f"{label} replay carrying the state against eager", grid.gather_state(g2),
+                   grid.gather_state(e3))
+        for k in ("loss", "grad_norm"):
+            for gms, ems in ((gm, em), (gm2, em3)):
+                rel = float(((gms[k] - ems[k]).abs() / ems[k].abs()).max())
+                check(rel <= 2e-4, f"{label}: replay's {k} {rel:.3g} from the eager steps' "
+                                   f"(rtol 2e-4)")
+        held = (f"held as held_state holds a state, a second replay carrying its state too: "
+                f"params max |d| {got[0]:.3g}, {got[1]} elements left out, moments {got[3]:.3g} "
+                f"(eager against eager: {drift_[0]:.3g}, {drift_[1]}, {drift_[3]:.3g})")
+    del gr, g2, e3
+    # the eager steps of that chain against the one-card step from their own input states: every
+    # one of the ranking preset's (as dp_grids), the classification preset's first (as tp_grids;
+    # on (2, 2) a second step left one element of a (256, 384) GRU weight 2.8e-4 out where Adam's
+    # update is conditioned: the weights' gradients keep a rounding a replica, train/grid.py)
+    plain = loop.make_train_step(mc, tc, packed_width=width, num_label_cols=cols)
+    s, shadow = state, []
+    for i in range(CHAIN if task == "ranking" else 1):
+        new, m = single(s, chunks[1][i], tt, tl, cache)
+        shadow.append(shadow_step(plain, s, new, m, (chunks[1][i], tt, tl),
+                                  {"tgt_emb_cache": cache}, i + 1))
+        s = new
+    del s, new
+    worst = max(h[0] for h in shadow)
+    # four replays under sync debug: from the state the last replay returned, a rebound lr,
+    # another state
+    host = chunks[2].cpu().pin_memory()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, m = chain(state, host, tt, tl, cache)
+        st, m = chain(st, host, tt, tl, cache)
+        st, m = chain(dataclasses.replace(st, lr=st.lr * 0.5), host, tt, tl, cache)
+        st, m = chain(state, host, tt, tl, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_cards()
+    check(bool(torch.isfinite(m["loss"]).all()), f"{label}: non-finite loss {m['loss']}")
+    check(grid.copies_identical(st), f"{label}: the copies differ after the replays")
+    # the recurrent launches of a replayed step against the one-card step's
+    one = loop.init_train_state(mc, tc, device=mesh.local_devices[0])
+    on = lambda x: None if x is None else next(iter(x.values()))  # noqa: E731
+    ops.reset_launch_counts()
+    plain(one, chunks[0][0], on(tt), on(tl), on(cache))
+    sync_cards()
+    per_step = {n: c for n, c in ops.launch_counts().items() if n in RNN_KERNELS and c}
+    del one
+    # ms a step over the same 48 batches, chained and eager, each carrying its state
+    times = {}
+    for how, fn in (("chained", chain), ("eager", eager)):
+        st = state
+        ops.reset_launch_counts()
+        sync_cards()
+        t0 = time.perf_counter()
+        for c in chunks:
+            st, m = fn(st, c, tt, tl, cache)
+        sync_cards()
+        times[how] = (time.perf_counter() - t0) * 1e3 / (len(chunks) * CHAIN)
+        if how == "chained":
+            counts = ops.launch_counts()
+    check(all(counts[n] == shape[0] * c * len(chunks) * CHAIN for n, c in per_step.items())
+          and per_step, f"{label}: {len(chunks)} replays launched {counts}, want data x "
+                        f"{per_step} a step")
+    wall, busy = card_busy([lambda c=c: chain(state, c, tt, tl, cache) for c in chunks[:2]],
+                           window=8)
+    shares = ", ".join(f"cuda:{i} {100.0 * t / wall:.1f}%" for i, t in sorted(busy.items()))
+    log(f"train grid chain {label} (B={b}, {CHAIN} steps a chunk): capture {capture_s:.3f} s "
+        f"(warm-up step, recording, first replay; {made.rec.seconds:.3f} s the warm-up and "
+        f"recording), graphs a card {graphs_a_card}, {n_copies} copies between cards, memory "
+        f"reserved by it a card (MiB) {pool_mib}, of which the recording's pools "
+        f"{ {str(c): round(v, 1) for c, v in made.rec.mib.items()} }; replay against {CHAIN} eager grid steps from "
+        f"one state: {held}; {len(shadow)} eager steps against the one-card step from their "
+        f"input states (shadow_step): params max |d| {worst:.3g}, {sum(h[1] for h in shadow)} elements left "
+        f"out; 4 replays under set_sync_debug_mode('error'), copies identical; launches a "
+        f"replayed step { {n: counts[n] // (len(chunks) * CHAIN) for n in per_step} } (one card "
+        f"{per_step}); ms a step over {len(chunks) * CHAIN} batches chained {times['chained']:.4f}"
+        f" against eager {times['eager']:.4f}, {times['eager'] / times['chained']:.2f}x; busy "
+        f"over 8 replays ({wall:.2f} ms): {shares} [{card}]")
+    return counts
+
+
+def grid_chain_train(card: str) -> None:
+    """The ranking preset through train() on a (2, 1) grid at
+    steps_per_dispatch CHAIN against 1 (ranking_chain_corpus, one epoch of
+    64 steps at B=128, a log record every 16 steps): the same log steps,
+    finite losses, and the same losses where the eager grid step is bit
+    for bit run to run (else within rtol 2e-4 of each other at the first
+    log step, the drift after it logged)."""
+    from sse_tpu_torch.parallel import make_mesh
+    from sse_tpu_torch.train import init_train_state, train
+
+    mc, task, pairs, _, tspace = ranking_chain_corpus()
+    logs, secs = {}, {}
+    for k in (CHAIN, 1):
+        tc = dataclasses.replace(task.train_config(), steps_per_dispatch=k, max_epochs=1,
+                                 steps_per_checkpoint=16)
+        mesh = make_mesh(2, 1, devices=mesh_cards(2))
+        records = []
+        state = init_train_state(mc, tc, device=mesh.local_devices[0])
+        sync_cards()
+        t0 = time.perf_counter()
+        state = train(mc, tc, pairs, tspace, log_fn=records.append, state=state, mesh=mesh)
+        sync_cards()
+        secs[k] = time.perf_counter() - t0
+        check(state.step == 64 and all(math.isfinite(r["loss"]) for r in records),
+              f"train grid K={k}: {state.step} steps, {records}")
+        logs[k] = records
+    r8, r1 = logs[CHAIN], logs[1]
+    check([r["step"] for r in r8] == [r["step"] for r in r1], f"train grid: log steps {r8} / {r1}")
+    same = [r["loss"] for r in r8] == [r["loss"] for r in r1]
+    check(same or abs(r8[0]["loss"] - r1[0]["loss"]) <= 2e-4 * abs(r1[0]["loss"]),
+          f"train grid: losses {[r['loss'] for r in r8]} against {[r['loss'] for r in r1]}")
+    log(f"train(mesh=(2, 1)) ranking preset, 64 steps (B=128, a log record every 16): "
+        f"steps_per_dispatch={CHAIN} {secs[CHAIN]:.2f} s against 1: {secs[1]:.2f} s; log steps "
+        f"{[r['step'] for r in r8]} equal; window losses {'equal' if same else 'differ'}: "
+        f"{[round(r['loss'], 6) for r in r8]} against {[round(r['loss'], 6) for r in r1]} [{card}]")
+
+
+def grid_chains(card: str) -> dict:
+    """The grid's chained train steps (phase 8's captured chain): each of
+    GRID_CHAIN_RUNS through grid_chain_run, then grid_chain_train. Returns
+    the replays' launch counts, summed."""
+    t0 = time.perf_counter()
+    counts = collections.Counter()
+    for task, shape in GRID_CHAIN_RUNS:
+        counts.update(grid_chain_run(card, task, shape))
+        torch.cuda.empty_cache()
+    grid_chain_train(card)
+    log(f"train grid chains: {time.perf_counter() - t0:.1f} s")
+    return dict(counts)
+
+
 def train_grid_slice(card: str) -> dict:
     """Training on a grid (``train.grid``, ``parallel.context``): DP with the
     flagship loss (dp_grids), TP with the 'model'-sharded table
-    (tp_grids), the context-parallel encode (cp_encodes), two ranks
-    through the CLI and index --cp_shards (mp_train), dryrun_multichip(4).
-    Every grid entry is cuda:0 on one card (entry i on cuda:(i mod n)
-    where there are n). Returns the launch counts of the (2, 1) DP run."""
+    (tp_grids), the chained grid steps (grid_chains), the
+    context-parallel encode (cp_encodes), two ranks through the CLI and
+    index --cp_shards (mp_train), dryrun_multichip(4). Every grid entry
+    is cuda:0 on one card (entry i on cuda:(i mod n) where there are n).
+    Returns the launch counts of the (2, 1) DP run and of the chained
+    runs' timed replays."""
     t0 = time.perf_counter()
     count = torch.cuda.device_count()
     log("train grid: " + ("every grid entry is cuda:0: the entries share one card and their "
                           "launches run one after another" if count == 1 else
                           f"{count} cards: grid entry i is cuda:(i mod {count})"))
-    counts = dp_grids(card)
+    counts = collections.Counter(dp_grids(card))
     tp_grids(card)
+    counts.update(grid_chains(card))
     cp_encodes(card)
     dryrun_multichip(4)
     mp_train(card)
     log(f"train grid phase: {time.perf_counter() - t0:.1f} s")
-    return counts
+    return dict(counts)
 
 
 # ------------------------------------------------------------ phase 9

@@ -145,10 +145,16 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
 
 
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """The sum of every rank's ``t`` (same shape and type on every rank),
-    summed in rank order on ``t``'s device: bit for bit the same on every
-    rank."""
-    return all_gather(t.detach()).sum(0)
+    """The sum of every rank's ``t`` (same shape and type on every rank) on
+    ``t``'s device, by one ``all_reduce``: bit for bit the same on every
+    rank (each part of the sum is reduced once and then shared), in the
+    collective's order of summation. Each rank holds one copy of ``t``,
+    not one a rank; under gloo it crosses through host memory. ``t`` is
+    left as it was."""
+    on_host = _state["backend"] != "nccl"
+    out = t.detach().to("cpu" if on_host else local_device(), copy=True).contiguous()
+    dist.all_reduce(out, group=_state["group"])
+    return out.to(t.device)
 
 
 class _GatherRows(torch.autograd.Function):

@@ -59,6 +59,25 @@ projected rows is summed over the ranks before the projection's backward
 cotangent and the projection's whole gradient, rounded once, as on one
 device.
 
+The step is written as per-card calls (``rt.call(card, fn, *args)``)
+with the values that cross cards moved between them, so that it runs
+two ways with the same sums: plain (``_Plain``: one autograd graph over
+every card, the moves ``Tensor.to``, one ``autograd.grad``; a grid whose
+entries lie on one card, and a grid across processes) or segmented
+(``_Segments``, the default on a single-process grid of several cards):
+each call's autograd graph lies on its card, a differentiable value
+enters a call as a leaf of its own, and the backward walks the calls in
+reverse, each call's backward on its card, the cotangents copied back
+between them. Either way a ``utils.graphs.Recorder`` can take each
+card's work as CUDA graphs in that card's pool and the copies between
+cards as the work issued between the replays: the chain of
+``loop.make_train_step(mesh=, chain=K)`` (``loop._GridChain``). The step
+reads no device value on the host: its step number for the EMA and its
+generators come from ``draws`` (a chain's, seeded before each replay) or
+are made from ``state.step``. A grid across processes is not captured:
+its collectives run over gloo through host memory (ROADMAP.md §1
+item 4).
+
 The step is the one-device step's profiler ranges plus
 ``sse.train.grad_sum`` (the sum over 'data') and, with a sharded table,
 ``sse.train.combine`` (the cross-block log-softmax combine).
@@ -90,16 +109,18 @@ from sse_tpu_torch.train.loop import (
     ScaleByAdamState,
     TrainConfig,
     TrainState,
+    _bias_correction,
+    _Draws,
     _dropout_seed,
     _step_seed,
     adam_count,
+    adam_direction,
     clip_to,
     ema_update,
     make_negatives,
-    make_optimizer,
-    scale_by_adam_update,
     step_plan,
 )
+from sse_tpu_torch.utils import graphs
 
 
 # ------------------------------------------------------------- placement
@@ -147,16 +168,18 @@ def _leaves(tree: Any, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
 
 
 def _rebuild(tree: Any, leaves: List[Any]) -> Any:
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if is_placed(t):
-            return next(it)
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return type(t)(build(v) for v in t)
 
-    return build(tree)
+def _build(t: Any, it) -> Any:
+    """``t``'s structure over the placed leaves ``it`` yields (no closure:
+    a recursive one is a reference cycle that keeps the leaves alive until
+    the cyclic collector runs, which is off while a chain records)."""
+    if is_placed(t):
+        return next(it)
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return type(t)(_build(v, it) for v in t)
 
 
 class _Copies:
@@ -228,21 +251,192 @@ def _normalized(t: torch.Tensor) -> torch.Tensor:
     return t / torch.clamp(torch.linalg.norm(t, dim=-1, keepdim=True), min=1e-6)
 
 
+# ------------------------------------------------------------- runtimes
+def _tensors(out: Any) -> List[torch.Tensor]:
+    """The tensors of a call's result (a tensor, or nested tuples/lists)."""
+    if torch.is_tensor(out):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for x in out for t in _tensors(x)]
+    return []
+
+
+class _Plain:
+    """The step's work as one autograd graph over every card (the plain
+    version, and the step of a grid whose entries lie on one card or span
+    processes): a call runs as it comes, a value moves by ``Tensor.to``
+    (autograd sees the move), and one ``autograd.grad`` from the loss
+    gives every copy's gradient. ``rec`` (``utils.graphs.EAGER``, or a
+    ``Recorder`` on a grid of one card) receives each card's work."""
+
+    def __init__(self, rec=graphs.EAGER) -> None:
+        self.rec = rec
+
+    @staticmethod
+    def at(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def to(x: Optional[torch.Tensor], dev: torch.device) -> Optional[torch.Tensor]:
+        return None if x is None else x.to(dev)
+
+    def call(self, dev: torch.device, fn: Callable, *args, gens=()):
+        args = [self.to(a, dev) if torch.is_tensor(a) else a for a in args]
+        with self.rec.on(dev, gens):
+            return fn(*args)
+
+    def grads(self, loss, req, devices, lead) -> List[torch.Tensor]:
+        with self.rec.on(lead):
+            grads = torch.autograd.grad(loss, req, allow_unused=True)
+            return [torch.zeros_like(p) if g is None else g for p, g in zip(req, grads)]
+
+
+class _Call:
+    """One call of a segmented step: its card, the differentiable values it
+    took ((the call that made one, its output's index, the leaf it entered
+    as)) and its outputs."""
+
+    __slots__ = ("dev", "edges", "outs")
+
+    def __init__(self, dev, edges, outs) -> None:
+        self.dev, self.edges, self.outs = dev, edges, outs
+
+
+class _Segments:
+    """The step cut at every call, so that each call's autograd graph lies
+    on its card: a differentiable value a call takes (another call's
+    output; copied where it crosses cards) enters it as a leaf of its own,
+    and any other value moves by a copy where it crosses cards. ``grads``
+    walks the calls backwards: a call's backward (``autograd.grad`` from
+    its outputs, each output's cotangent the sum of what its readers gave
+    back, in the order they gave it) gives the cotangents of the values it
+    took, each copied back to the card that made it, and its card's part
+    of each parameter's gradient; a parameter's parts are summed in the
+    same order. With a ``Recorder`` a card's forward and backward work
+    land in its graphs, and the copies are kept for the replays. ``where``
+    knows the card of every value the step made (the CPU tests label
+    devices; a CPU tensor drops the label)."""
+
+    def __init__(self, rec=graphs.EAGER) -> None:
+        self.rec = rec
+        self.where: Dict[int, Tuple[torch.Tensor, torch.device]] = {}
+        self.calls: List[_Call] = []
+        self.made: Dict[int, Tuple[_Call, int]] = {}
+
+    def at(self, x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        self.where[id(x)] = (x, dev)
+        return x
+
+    def device_of(self, x: torch.Tensor) -> torch.device:
+        hit = self.where.get(id(x))
+        return hit[1] if hit is not None and hit[0] is x else x.device
+
+    def _move(self, x: torch.Tensor, src: torch.device, dev: torch.device) -> torch.Tensor:
+        return x if src == dev else self.at(self.rec.copy(x, dev), dev)
+
+    def to(self, x: Optional[torch.Tensor], dev: torch.device) -> Optional[torch.Tensor]:
+        if x is None:
+            return None
+        if x.requires_grad:
+            raise RuntimeError("a differentiable value moves between cards only into a call")
+        return self._move(x, self.device_of(x), dev)
+
+    def call(self, dev: torch.device, fn: Callable, *args, gens=()):
+        ins, edges = [], []
+        for a in args:
+            if torch.is_tensor(a) and a.requires_grad:
+                made = self.made.get(id(a))
+                if made is None or made[0].outs[made[1]] is not a:
+                    raise RuntimeError("a differentiable value enters a call only as another "
+                                       "call's output")
+                y = self._move(a.detach(), made[0].dev, dev).detach().requires_grad_(True)
+                edges.append((made[0], made[1], self.at(y, dev)))
+                ins.append(y)
+            else:
+                ins.append(self.to(a, dev) if torch.is_tensor(a) else a)
+        with self.rec.on(dev, gens):
+            out = fn(*ins)
+        call = _Call(dev, edges, _tensors(out))
+        for j, o in enumerate(call.outs):
+            self.at(o, dev)
+            if o.requires_grad:
+                self.made[id(o)] = (call, j)
+        self.calls.append(call)
+        return out
+
+    def grads(self, loss, req, devices, lead) -> List[torch.Tensor]:
+        own: Dict[torch.device, List[int]] = {}
+        for i, d in enumerate(devices):
+            own.setdefault(d, []).append(i)
+        cots: Dict[Tuple[int, int], List[Any]] = {}
+        made = self.made[id(loss)]
+        cots[id(made[0]), made[1]] = [None]  # the loss: d loss / d loss = 1
+        parts: List[List[torch.Tensor]] = [[] for _ in req]
+        for call in reversed(self.calls):
+            roots = [(o, cots[id(call), j]) for j, o in enumerate(call.outs)
+                     if (id(call), j) in cots]
+            if not roots:
+                continue
+            mine = own.get(call.dev, [])
+            ins = [y for _, _, y in call.edges] + [req[i] for i in mine]
+            with self.rec.on(call.dev):
+                gouts = [torch.ones_like(o) if cs[0] is None else _summed(cs) for o, cs in roots]
+                gs = torch.autograd.grad([o for o, _ in roots], ins, grad_outputs=gouts,
+                                         allow_unused=True)
+            for (src, j, _), g in zip(call.edges, gs):
+                if g is not None:
+                    cots.setdefault((id(src), j), []).append(
+                        self._move(self.at(g, call.dev), call.dev, src.dev))
+            for i, g in zip(mine, gs[len(call.edges):]):
+                if g is not None:
+                    parts[i].append(g)
+        out: List[Optional[torch.Tensor]] = [None] * len(req)
+        for dev, idx in own.items():
+            def total(idx=idx):
+                return [torch.zeros_like(req[i]) if not parts[i] else _summed(parts[i])
+                        for i in idx]
+
+            for i, g in zip(idx, self.call(dev, total)):
+                out[i] = g
+        return out
+
+
+def _summed(xs: List[torch.Tensor]) -> torch.Tensor:
+    """((x0 + x1) + x2) + ...: the order autograd adds a value's
+    cotangents in as its readers' backwards run, last reader first."""
+    total = xs[0]
+    for x in xs[1:]:
+        total = total + x
+    return total
+
+
 # ------------------------------------------------------------------ step
 def make_grid_step(
     model_cfg: SSEConfig,
     cfg: TrainConfig,
     mesh: Mesh,
     sample_negatives: Optional[Callable[[int, int, int], torch.Tensor]] = None,
+    segmented: bool = True,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step_fn(state, src, src_len, labels, weight, tgt_tokens, tgt_lens
-    [, tgt_emb_cache, labels_multi])`` on ``mesh``, the one-device step's
-    signature: the batch operands are this process's rows of the global
-    batch of ``cfg.batch_size`` (all of it in one process);
-    ``tgt_tokens``, ``tgt_lens`` and ``tgt_emb_cache`` are tensors or
-    ``Replicated`` copies on this process's devices. Raises where a
-    process holds part of a grid row, or where 'data' does not divide the
-    batch."""
+    [, tgt_emb_cache, labels_multi], draws=None, rec=EAGER)`` on ``mesh``,
+    the one-device step's signature: the batch operands are this
+    process's rows of the global batch of ``cfg.batch_size`` (all of it in
+    one process); ``tgt_tokens``, ``tgt_lens`` and ``tgt_emb_cache`` are
+    tensors or ``Replicated`` copies on this process's devices. Raises
+    where a process holds part of a grid row, or where 'data' does not
+    divide the batch.
+
+    ``segmented`` (a grid of several cards in one process): the step runs
+    as per-card calls with the copies between them (``_Segments``), and
+    equals the plain step (``segmented=False``, one autograd graph over
+    every card) bit for bit where no value takes more than two
+    contributions from other calls of one card; ``"always"`` cuts a grid
+    of one card too (a check of the segments on one card). ``draws`` (a chained
+    step's ``loop._Draws``: ``step_t`` a card → its int32 step, and a
+    replica → its negatives' and dropout generators) replaces the ones
+    the step makes from ``state.step``; ``rec`` receives each card's work
+    (``utils.graphs.Recorder``)."""
     data, model = mesh.shape["data"], mesh.shape["model"]
     reps = [d for d in range(data) if mesh.is_local(d, 0)]
     for d in range(data):
@@ -258,8 +452,10 @@ def make_grid_step(
     B = cfg.batch_size
     dev = {d: mesh.devices[d, 0] for d in reps}
     lead = dev[reps[0]]
-    tx = make_optimizer(cfg)
+    cards = mesh.local_devices
+    cut = segmented == "always" or (segmented and not multi and len(cards) > 1)
     loss_cfg = cfg.loss
+    sampled = loss_cfg.kind == "sampled"
     use_dropout, merged_scan = step_plan(model_cfg, cfg)
     negatives = make_negatives(cfg, sample_negatives)
     seo = model_cfg.mode == NetworkMode.SOURCE_ENCODER_ONLY
@@ -267,185 +463,246 @@ def make_grid_step(
     # their gradients whole (with the full softmax, from the cotangent
     # summed over the ranks)
     whole = PROJECTION
-
-    def cat_global(parts: List[torch.Tensor], rows: Optional[int] = None) -> torch.Tensor:
-        """The local replicas' parts (each padded to ``rows``) in global
-        order on ``lead``: across processes every rank's, by gather_rows."""
-        if rows is not None:
-            parts = [_rows(p, rows) for p in parts]
-        x = torch.cat([p.to(lead) for p in parts])
-        return distributed.gather_rows(x) if multi else x
-
-    def table_rows(table: RowShards, rows: torch.Tensor, d: int) -> torch.Tensor:
-        """Normalized table rows ``rows`` on replica d's device, read from
-        the block copies of grid row d."""
-        t = table.rows_per_shard
-        out = None
-        for s in range(model):
-            at = mesh.devices[d, s]
-            local = rows.to(at) - s * t
-            here = ((local >= 0) & (local < t)).float()[:, None]
-            part = (table.blocks[s][at][local.clamp(0, t - 1)] * here).to(dev[d])
-            out = part if out is None else out + part
-        return _normalized(out)
-
-    def full_terms(table: RowShards, src_emb, labels, weight, lm, d):
-        """Replica d's per-row weighted log-probabilities of the label and
-        accuracy hits, over every block of the table."""
-        t = table.rows_per_shard
-        parts = []
-        for s in range(model):
-            at = mesh.devices[d, s]
-            tbl = _normalized(table.blocks[s][at])
-            part = losses_lib.block_softmax(
-                src_emb.to(at), tbl, labels.to(at), s * t, loss_cfg.scale, loss_cfg.margin,
-                None if lm is None else lm.to(at))
-            parts.append([x.to(dev[d]) for x in part])
-        with record_function("sse.train.combine"):
-            logp, arg = losses_lib.combine_blocks(parts)
-        return logp * weight, (arg == labels).float() * weight
-
     src_side = ("src_tower", model_cfg.src_tower)
     tgt_side = ("tgt_tower", model_cfg.tgt_tower) if model_cfg.mode == NetworkMode.DUAL_ENCODER \
         else src_side
 
-    def features(views, side, d, tokens, lengths, dropout):
-        name, tower = side
-        return towers.encode_features(views[dev[d]][name], tower, tokens, lengths, dropout)
+    def glob(x: torch.Tensor) -> torch.Tensor:
+        """Across processes every rank's rows, in rank order (gather_rows)."""
+        return distributed.gather_rows(x) if multi else x
 
-    def project(views, side, feats):
-        return towers.project(views[lead][side[0]], feats)
+    def cat(*parts):
+        return glob(torch.cat(parts))
 
-    def loss_fn(views, table, inputs, tgt_tokens, tgt_lens, cache, step):
-        gens = {}
-        if use_dropout:
-            for d in reps:
-                gens[d] = torch.Generator(device=dev[d]).manual_seed(
-                    _step_seed(_dropout_seed(cfg.seed), step))
-        labels_g = cat_global([x[2] for x in inputs.values()])
-        weight_g = cat_global([x[3] for x in inputs.values()])
-        lm_g = None
-        if inputs[reps[0]][4] is not None:
-            lm_g = cat_global([x[4] for x in inputs.values()])
-        num_targets = _target_rows(tgt_tokens)
+    def cand_split(c):
+        per = -(-c // data)
+        return per, {d: (min(d * per, c), min((d + 1) * per, c)) for d in reps}
 
-        def cand_split(c):
-            per = -(-c // data)
-            return per, {d: (min(d * per, c), min((d + 1) * per, c)) for d in reps}
+    def eager_draws(rt, step: int) -> _Draws:
+        gen = lambda d, seed: torch.Generator(device=dev[d]).manual_seed(  # noqa: E731
+            _step_seed(seed, step))
+        step_t = None
+        if cfg.ema_decay > 0:
+            step_t = {c: rt.call(c, lambda c=c: torch.full((), step, dtype=torch.int32,
+                                                             device=c)) for c in cards}
+        return _Draws(
+            step=step, step_t=step_t,
+            negatives={d: gen(d, cfg.seed) for d in reps}
+            if sampled and sample_negatives is None else None,
+            dropout={d: gen(d, _dropout_seed(cfg.seed)) for d in reps} if use_dropout else None)
 
-        def cand_rows_at(d, hard_g):
-            parts = [labels_g.to(dev[d])]
-            if hard_g is not None:
-                parts.append(hard_g.to(dev[d]))
-            if loss_cfg.kind == "sampled":
-                parts.append(negatives(step, num_targets, dev[d]))
-            return torch.cat(parts)
+    def loss_fn(rt, views, table, batch, tgt_tokens, tgt_lens, cache, draws):
+        def features(side, d, tokens, lengths, dropout):
+            name, tower = side
+            return towers.encode_features(views[dev[d]][name], tower, tokens, lengths, dropout)
+
+        src, src_len, labels, weight, labels_multi = batch
+        neg_gen = lambda d: None if draws.negatives is None else draws.negatives[d]  # noqa: E731
+        drop_gen = lambda d: None if draws.dropout is None else draws.dropout[d]  # noqa: E731
 
         def drop(d, rows, segments):
-            return RowDraw(gens[d], rows, segments) if use_dropout else None
+            return RowDraw(draws.dropout[d], rows, segments) if use_dropout else None
 
-        src_feats, cand_feats = [], []
+        inputs = {}
+        for i, d in enumerate(reps):
+            sl = slice(i * b, (i + 1) * b)
+            inputs[d] = rt.call(dev[d], _batch, src[sl], src_len[sl], labels[sl], weight[sl],
+                                None if labels_multi is None else labels_multi[sl])
+        # this process's rows are its replicas' rows in grid order: the global
+        # operands come from the batch on the first card
+        labels_g, weight_g, lm_g = rt.call(lead, lambda x, w, m: (
+            glob(x.long()), glob(w), None if m is None else glob(m.long())),
+            labels, weight, labels_multi)
+        num_targets = _target_rows(tgt_tokens)
+
+        def cand_rows(d, hard_g):
+            """Replica d's copy of the global candidate rows (labels, mined
+            rows, the step's uniform negatives from its own generator)."""
+            def rows(labels_g, hard_g):
+                parts = [labels_g] if hard_g is None else [labels_g, hard_g]
+                if sampled:
+                    parts.append(negatives(draws.step, num_targets, dev[d], neg_gen(d)))
+                return torch.cat(parts)
+
+            return rt.call(dev[d], rows, labels_g, hard_g, gens=(neg_gen(d),))
+
         if merged_scan:  # one tower pass a replica, one projection of all rows
-            c = B + (loss_cfg.num_negatives if loss_cfg.kind == "sampled" else 0)
+            c = B + (loss_cfg.num_negatives if sampled else 0)
             per, share = cand_split(c)
-            for d, (src, src_len, *_rest) in inputs.items():
-                rows = cand_rows_at(d, None)
+            rows = {d: cand_rows(d, None) for d in reps}
+            src_feats, cand_feats = [], []
+            for d in reps:
                 lo, hi = share[d]
-                ct, cl = _at(tgt_tokens, dev[d])[rows[lo:hi]], _at(tgt_lens, dev[d])[rows[lo:hi]]
-                width = max(src.shape[1], ct.shape[1])
-                pad = lambda x: F.pad(x, (0, width - x.shape[1]))  # noqa: E731
-                f = features(views, src_side, d, torch.cat([pad(src), pad(ct)]),
-                             torch.cat([src_len, cl]),
-                             drop(d, B + c, ((d * b, b), (B + lo, hi - lo))))
-                src_feats.append(f[:b])
-                cand_feats.append(f[b:])
-            emb = project(views, src_side, torch.cat([cat_global(src_feats),
-                                                      cat_global(cand_feats, per)[:c]]))
-            return losses_lib.similarity_loss(
-                loss_cfg, emb[:B], labels_g, weight_g, cand_emb=emb[B:],
-                cand_rows=cand_rows_at(reps[0], None), labels_multi=lm_g)
 
-        for d, (src, src_len, *_rest) in inputs.items():
-            src_feats.append(features(views, src_side, d, src, src_len, drop(d, B, ((d * b, b),))))
-        src_emb = project(views, src_side, cat_global(src_feats))
+                def encode(src, src_len, rows, tt, tl, d=d, lo=lo, hi=hi):
+                    ct, cl = tt[rows[lo:hi]], tl[rows[lo:hi]]
+                    width = max(src.shape[1], ct.shape[1])
+                    pad = lambda x: F.pad(x, (0, width - x.shape[1]))  # noqa: E731
+                    f = features(src_side, d, torch.cat([pad(src), pad(ct)]),
+                                 torch.cat([src_len, cl]),
+                                 drop(d, B + c, ((d * b, b), (B + lo, hi - lo))))
+                    return f[:b], f[b:]
+
+                fs, fc = rt.call(dev[d], encode, inputs[d][0], inputs[d][1], rows[d],
+                                 _at(tgt_tokens, dev[d]), _at(tgt_lens, dev[d]),
+                                 gens=(drop_gen(d),))
+                src_feats.append(fs)
+                cand_feats.append(fc)
+
+            def merged_loss(labels_g, weight_g, lm_g, rows0, *feats):
+                n = len(reps)
+                cands = glob(torch.cat([_rows(x, per) for x in feats[n:]]))[:c]
+                emb = towers.project(views[lead][src_side[0]],
+                                     torch.cat([cat(*feats[:n]), cands]))
+                return losses_lib.similarity_loss(
+                    loss_cfg, emb[:B], labels_g, weight_g, cand_emb=emb[B:], cand_rows=rows0,
+                    labels_multi=lm_g)
+
+            return rt.call(lead, merged_loss, labels_g, weight_g, lm_g, rows[reps[0]],
+                           *src_feats, *cand_feats)
+
+        src_feats = [rt.call(dev[d], lambda x, n, d=d: features(src_side, d, x, n, drop(
+            d, B, ((d * b, b),))), inputs[d][0], inputs[d][1], gens=(drop_gen(d),))
+            for d in reps]
         if loss_cfg.kind == "full":
-            if multi:  # each rank's terms give the cotangent of its own rows
-                src_emb = distributed.sum_grads_over_ranks(src_emb)
+            def project_src(*feats):
+                emb = towers.project(views[lead][src_side[0]], cat(*feats))
+                if multi:  # each rank's terms give the cotangent of its own rows
+                    emb = distributed.sum_grads_over_ranks(emb)
+                return tuple(emb[d * b : (d + 1) * b] for d in reps)
+
+            slices = dict(zip(reps, _tensors(rt.call(lead, project_src, *src_feats))))
             terms, hits = [], []
-            for d, (_s, _l, labels, weight, lm) in inputs.items():
-                term, hit = full_terms(table, src_emb[d * b : (d + 1) * b], labels, weight, lm, d)
+            for d in reps:
+                parts = []
+                for s in range(model):
+                    at = mesh.devices[d, s]
+
+                    def block(x, labels, lm, s=s, at=at):
+                        tbl = _normalized(table.blocks[s][at])
+                        return losses_lib.block_softmax(x, tbl, labels, s * table.rows_per_shard,
+                                                        loss_cfg.scale, loss_cfg.margin, lm)
+
+                    parts.extend(rt.call(at, block, slices[d], inputs[d][2], inputs[d][4]))
+
+                def combine(labels, weight, *ps):
+                    with record_function("sse.train.combine"):
+                        logp, arg = losses_lib.combine_blocks(
+                            [ps[i : i + 4] for i in range(0, len(ps), 4)])
+                    return logp * weight, (arg == labels).float() * weight
+
+                term, hit = rt.call(dev[d], combine, inputs[d][2], inputs[d][3], *parts)
                 terms.append(term)
                 hits.append(hit)
-            denom = torch.clamp(weight_g.sum(), min=1.0)
-            with record_function("sse.train.loss"):
-                loss = -cat_global(terms).sum() / denom
-                acc = cat_global(hits).sum() / denom
-            return loss, acc.detach()
+
+            def full_loss(weight_g, *th):
+                n = len(th) // 2
+                denom = torch.clamp(weight_g.sum(), min=1.0)
+                with record_function("sse.train.loss"):
+                    loss = -cat(*th[:n]).sum() / denom
+                    acc = cat(*th[n:]).sum() / denom
+                return loss, acc.detach()
+
+            return rt.call(lead, full_loss, weight_g, *terms, *hits)
+        mine = loss_cfg.num_hard_negatives > 0 and cache is not None
+
+        def project_src(*feats):
+            emb = towers.project(views[lead][src_side[0]], cat(*feats))
+            return emb, *[emb[d * b : (d + 1) * b].detach() for d in reps if mine]
+
+        src_emb, *mined_of = rt.call(lead, project_src, *src_feats)
         hard_g = None
-        if loss_cfg.num_hard_negatives > 0 and cache is not None:
+        if mine:
             with record_function("sse.train.mine"):
-                hard_g = cat_global([
-                    losses_lib.mine_hard_negative_rows(
-                        src_emb[d * b : (d + 1) * b].to(dev[d]), _at(cache, dev[d]), x[2],
-                        loss_cfg.num_hard_negatives, labels_multi=x[4])
-                    for d, x in inputs.items()])
+                hard = [rt.call(dev[d], lambda e, cc, labels, lm: losses_lib.mine_hard_negative_rows(
+                    e, cc, labels, loss_cfg.num_hard_negatives, labels_multi=lm),
+                    e, _at(cache, dev[d]), inputs[d][2], inputs[d][4])
+                    for d, e in zip(reps, mined_of)]
+                hard_g = rt.call(lead, cat, *hard)
         c = B + (0 if hard_g is None else hard_g.shape[0]) + (
-            loss_cfg.num_negatives if loss_cfg.kind == "sampled" else 0)
+            loss_cfg.num_negatives if sampled else 0)
         per, share = cand_split(c)
-        cand_rows = cand_rows_at(reps[0], hard_g)
-        if seo:
-            cand_emb = cat_global([table_rows(table, cand_rows_at(d, hard_g)[slice(*share[d])], d)
-                                   for d in reps], per)[:c]
-        else:
-            for d in reps:
-                rows = cand_rows_at(d, hard_g)
-                lo, hi = share[d]
-                if hi > lo:
-                    cand_feats.append(features(
-                        views, tgt_side, d, _at(tgt_tokens, dev[d])[rows[lo:hi]],
-                        _at(tgt_lens, dev[d])[rows[lo:hi]], drop(d, c, ((lo, hi - lo),))))
-                else:
-                    cand_feats.append(torch.zeros((0, tgt_side[1].hidden), device=dev[d]))
-            cand_emb = project(views, tgt_side, cat_global(cand_feats, per)[:c])
-        return losses_lib.similarity_loss(
-            loss_cfg, src_emb, labels_g, weight_g, cand_emb=cand_emb, cand_rows=cand_rows,
-            labels_multi=lm_g)
+        rows = {d: cand_rows(d, hard_g) for d in reps}
+        cands = []
+        for d in reps:
+            lo, hi = share[d]
+            if seo:
+                cands.append(_table_rows(rt, mesh, table, rows[d], (lo, hi), d, dev[d]))
+            elif hi > lo:
+                cands.append(rt.call(dev[d], lambda r, tt, tl, d=d, lo=lo, hi=hi: features(
+                    tgt_side, d, tt[r[lo:hi]], tl[r[lo:hi]], drop(d, c, ((lo, hi - lo),))),
+                    rows[d], _at(tgt_tokens, dev[d]), _at(tgt_lens, dev[d]),
+                    gens=(drop_gen(d),)))
+            else:
+                cands.append(rt.call(dev[d], lambda d=d: torch.zeros(
+                    (0, tgt_side[1].hidden), device=dev[d])))
+
+        def cand_loss(src_emb, labels_g, weight_g, lm_g, rows0, *xs):
+            ce = glob(torch.cat([_rows(x, per) for x in xs]))[:c]
+            if not seo:
+                ce = towers.project(views[lead][tgt_side[0]], ce)
+            return losses_lib.similarity_loss(
+                loss_cfg, src_emb, labels_g, weight_g, cand_emb=ce, cand_rows=rows0,
+                labels_multi=lm_g)
+
+        return rt.call(lead, cand_loss, src_emb, labels_g, weight_g, lm_g, rows[reps[0]], *cands)
 
     def step_fn(state, src, src_len, labels, weight, tgt_tokens, tgt_lens,
-                tgt_emb_cache=None, labels_multi=None):
+                tgt_emb_cache=None, labels_multi=None, draws: Optional[_Draws] = None,
+                rec=graphs.EAGER):
         if state.mesh is not mesh:
             raise ValueError("the state is not on this step's grid (train.grid.place_state)")
         if src.shape[0] != len(reps) * b:
             raise ValueError(f"this process feeds {len(reps) * b} rows of the global batch "
                              f"of {B}, got {src.shape[0]}")
+        rt = _Segments(rec) if cut else _Plain(rec)
+        rec.new_pass()
         flat = _Copies(state.params)
-        req = [t.detach().requires_grad_(True) for t in flat.tensors]
+        req = [rt.at(t.detach().requires_grad_(True), d)
+               for t, d in zip(flat.tensors, flat.devices)]
         params = flat.rebuild(req)
         views = {dev[d]: _view(params, dev[d]) for d in reps}
-        table = params.get("target_table")
-        inputs = {}
-        for i, d in enumerate(reps):
-            sl = slice(i * b, (i + 1) * b)
-            inputs[d] = (
-                src[sl].to(dev[d]), src_len[sl].to(dev[d]), labels[sl].to(dev[d]).long(),
-                weight[sl].to(dev[d]),
-                None if labels_multi is None else labels_multi[sl].to(dev[d]).long(),
-            )
+        if draws is None:  # else a captured chain's position: its generators, its step
+            draws = eager_draws(rt, state.step)
+        batch = (src, src_len, labels, weight, labels_multi)
         with record_function("sse.train.forward"):
-            loss, acc = loss_fn(views, table, inputs, tgt_tokens, tgt_lens, tgt_emb_cache,
-                                state.step)
+            loss, acc = loss_fn(rt, views, params.get("target_table"), batch, tgt_tokens,
+                                tgt_lens, tgt_emb_cache, draws)
         with record_function("sse.train.backward"):
-            grads = torch.autograd.grad(loss, req, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(req, grads)]
+            grads = rt.grads(loss, req, flat.devices, lead)
         with torch.no_grad():
             with record_function("sse.train.grad_sum"):
-                grads, totals = _sum_over_data(flat, grads, multi, whole)
+                grads, totals = _sum_over_data(rt, flat, grads, multi, whole)
             with record_function("sse.train.update"):
-                new_state, gnorm = _update(state, flat, grads, totals, tx, cfg, lead)
+                new_state, gnorm = _update(rt, state, flat, grads, totals, cfg, lead, draws)
         metrics = {"loss": loss.detach(), "accuracy": acc, "grad_norm": gnorm}
         return new_state, metrics
 
     return step_fn
+
+
+def _batch(src, src_len, labels, weight, labels_multi):
+    """A replica's rows of the batch, its labels as int64."""
+    return (src, src_len, labels.long(), weight,
+            None if labels_multi is None else labels_multi.long())
+
+
+def _table_rows(rt, mesh: Mesh, table: RowShards, rows: torch.Tensor, span, d: int,
+                home: torch.device) -> torch.Tensor:
+    """Normalized table rows ``rows[span]`` on replica d's card ``home``,
+    read from the block copies of grid row d."""
+    t = table.rows_per_shard
+    parts = []
+    for s in range(mesh.shape["model"]):
+        at = mesh.devices[d, s]
+
+        def part(rows, s=s, at=at):
+            local = rows[slice(*span)] - s * t
+            here = ((local >= 0) & (local < t)).float()[:, None]
+            return table.blocks[s][at][local.clamp(0, t - 1)] * here
+
+        parts.append(rt.call(at, part, rows))
+    return rt.call(home, lambda *ps: _normalized(_summed(list(ps))), *parts)
 
 
 def _target_rows(tgt_tokens: Any) -> int:
@@ -454,64 +711,173 @@ def _target_rows(tgt_tokens: Any) -> int:
         else tgt_tokens.shape[0]
 
 
-def _sum_over_data(flat: _Copies, grads: List[torch.Tensor], multi: bool, whole=()):
+def _bundled(rt, xs: Dict[int, torch.Tensor], src: Dict[int, torch.device],
+             dst: Dict[int, torch.device]) -> Dict[int, torch.Tensor]:
+    """``xs[i]`` (on ``src[i]``) on ``dst[i]``: what one card sends another
+    goes as one flat vector a pair of cards and type, cut back into views
+    there (the same values; one copy a pair, not one a tensor)."""
+    groups: Dict[tuple, List[int]] = {}
+    out = {}
+    for i, x in xs.items():
+        if src[i] == dst[i]:
+            out[i] = x
+        else:
+            groups.setdefault((src[i], dst[i], x.dtype), []).append(i)
+    for (a, b, _), idx in groups.items():
+        vec = rt.to(rt.call(a, lambda *ts: torch.cat([t.reshape(-1) for t in ts]),
+                            *[xs[i] for i in idx]), b)
+        cut = torch.split(vec, [xs[i].numel() for i in idx])  # views: no device work
+        out.update({i: rt.at(p.view(xs[i].shape), b) for i, p in zip(idx, cut)})
+    return out
+
+
+def _sum_over_data(rt, flat: _Copies, grads: List[torch.Tensor], multi: bool, whole=()):
     """Each part's gradient summed over its copies (the replicas on each
-    device) and, across processes, over the ranks, except the leaves named
-    in ``whole``, whose gradient every rank computed whole; copied back to
-    every copy. Returns (the copies' gradients, each part's total)."""
-    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    device), the home copy first and the others in flat order, and, across
+    processes, over the ranks, except the leaves named in ``whole``, whose
+    gradient every rank computed whole; copied back to every copy. The
+    other copies move to their part's home first (``_bundled``), then each
+    home card sums its parts, then the totals move out. Returns (the
+    copies' gradients, each part's total)."""
+    parts = flat.parts()
+    home = {i: flat.devices[idxs[0]] for idxs in parts.values() for i in idxs}
+    on = dict(enumerate(flat.devices))
+    moved = _bundled(rt, dict(enumerate(grads)), on, home)
+    homes: Dict[torch.device, List[Tuple[int, int]]] = {}
+    for part, idxs in parts.items():
+        homes.setdefault(flat.devices[idxs[0]], []).append(part)
     totals = {}
-    for part, idxs in flat.parts().items():
-        home = flat.devices[idxs[0]]
-        total = grads[idxs[0]]
-        for i in idxs[1:]:
-            total = total + grads[i].to(home)
-        if multi and flat.paths[part[0]][-1] not in whole:
-            total = distributed.sum_over_ranks(total)
-        totals[part] = total
-        for i in idxs:
-            out[i] = total if flat.devices[i] == home else total.to(flat.devices[i])
-    return out, totals
+    for card, mine in homes.items():
+        def add(mine=mine):
+            out = []
+            for part in mine:
+                idxs = parts[part]
+                total = grads[idxs[0]]
+                for i in idxs[1:]:
+                    total = total + moved[i]
+                if multi and flat.paths[part[0]][-1] not in whole:
+                    total = distributed.sum_over_ranks(total)
+                out.append(total)
+            return out
+
+        totals.update(zip(mine, rt.call(card, add)))
+    totals = {part: totals[part] for part in parts}
+    out = _bundled(rt, {i: totals[part] for part, idxs in parts.items() for i in idxs}, home, on)
+    return [out[i] for i in range(len(grads))], totals
 
 
-def _norm(flat: _Copies, totals: Dict[Tuple[int, int], torch.Tensor], lead) -> torch.Tensor:
+def _norm(rt, flat: _Copies, totals: Dict[Tuple[int, int], torch.Tensor], lead) -> torch.Tensor:
     """The global norm of a placed tree given each part's tensor: every
-    element once (one copy of a replicated leaf, each block once)."""
-    sq = [torch.sum(t * t).to(lead) for t in totals.values()]
-    return torch.sqrt(sum(sq))
+    element once (one copy of a replicated leaf, each block once), each
+    part's square sum on its home card, summed in part order on ``lead``."""
+    parts = flat.parts()
+    homes: Dict[torch.device, List[Tuple[int, int]]] = {}
+    for part in totals:
+        homes.setdefault(flat.devices[parts[part][0]], []).append(part)
+    sq = {}
+    for home, mine in homes.items():
+        sq.update(zip(mine, rt.call(home, lambda *ts: [torch.sum(t * t) for t in ts],
+                                    *[totals[p] for p in mine])))
+    return rt.call(lead, lambda *xs: torch.sqrt(sum(xs)), *[sq[p] for p in totals])
 
 
-def _update(state: TrainState, flat: _Copies, grads, totals, tx, cfg: TrainConfig, lead):
-    g_norm = _norm(flat, totals, lead)
-    at = {d: (g_norm.to(d), state.lr.to(d)) for d in set(flat.devices)}
-    clipped = [clip_to(g, at[d][0], cfg.max_gradient_norm) for g, d in zip(grads, flat.devices)]
+def _update(rt, state: TrainState, flat: _Copies, grads, totals, cfg: TrainConfig, lead,
+            draws: _Draws):
+    """Clip, Adam, ``p - lr·u`` and the bias-corrected EMA: the norm, the
+    lr and Adam's bias corrections on ``lead``, copied once to each card
+    as one vector; then each card's update of its copies, the cards'
+    updates free to overlap."""
+    g_norm = _norm(rt, flat, totals, lead)
     opt = state.opt_state
-    if opt is None:
-        updates, new_opt = clipped, None
-    else:
+
+    def scalars(g_norm, lr, count):
+        xs = [g_norm, lr]
+        if count is not None:
+            count = count + 1
+            xs += [_bias_correction(0.9, count), _bias_correction(0.999, count)]
+        return torch.stack(xs), count
+
+    vec, count = rt.call(lead, scalars, g_norm, state.lr, None if opt is None else opt.count)
+    mu = nu = ema = None
+    if opt is not None:
         mu, nu = _Copies(opt.mu), _Copies(opt.nu)
-        updates, adam = scale_by_adam_update(
-            clipped, ScaleByAdamState(count=opt.count, mu=mu.tensors, nu=nu.tensors))
-        new_opt = ScaleByAdamState(count=adam.count, mu=mu.rebuild(adam.mu),
-                                   nu=nu.rebuild(adam.nu))
+    if state.ema_params is not None:
+        ema = _Copies(state.ema_params)
+    n = len(flat.tensors)
+    updates, new, new_mu, new_nu, new_ema = ([None] * n for _ in range(5))
+    # the vector reaches every card before any card's update is issued: a copy
+    # issued after one card's update would hold the next card's until it ends
+    vecs = {card: rt.to(vec, card) for card in dict.fromkeys(flat.devices)}
+    for card in dict.fromkeys(flat.devices):
+        idx = [i for i, d in enumerate(flat.devices) if d == card]
+
+        def update(vec, step_t, idx=idx):
+            g_norm, lr = vec[0], vec[1]
+            ups = [clip_to(grads[i], g_norm, cfg.max_gradient_norm) for i in idx]
+            m = v = e = None
+            if opt is not None:
+                ups, m, v = adam_direction(ups, [mu.tensors[i] for i in idx],
+                                           [nu.tensors[i] for i in idx], vec[2], vec[3])
+            ps = [flat.tensors[i] - lr * u for i, u in zip(idx, ups)]
+            if ema is not None:
+                e = ema_update(cfg.ema_decay, [ema.tensors[i] for i in idx], ps, step_t)
+            return ups, ps, m, v, e
+
+        ups, ps, m, v, e = rt.call(card, update, vecs[card],
+                                   None if draws.step_t is None else draws.step_t[card])
+        for j, i in enumerate(idx):
+            updates[i], new[i] = ups[j], ps[j]
+            if m is not None:
+                new_mu[i], new_nu[i] = m[j], v[j]
+            if e is not None:
+                new_ema[i] = e[j]
     if cfg.norm_metric == "update":
-        parts = {}
+        first = {}
         for g, u in zip(flat.groups, updates):
-            parts.setdefault(g, u)
-        gnorm = _norm(flat, parts, lead)
+            first.setdefault(g, u)
+        gnorm = _norm(rt, flat, first, lead)
     elif cfg.norm_metric == "grad":
         gnorm = g_norm
     else:
-        gnorm = torch.zeros((), dtype=torch.float32, device=lead)
-    new = [p - at[d][1] * u for p, u, d in zip(flat.tensors, updates, flat.devices)]
-    ema = state.ema_params
-    if ema is not None:
-        ema_flat = _Copies(ema)
-        step_t = torch.full((), state.step, dtype=torch.int32, device=lead)
-        ema = ema_flat.rebuild(ema_update(cfg.ema_decay, ema_flat.tensors, new, step_t))
+        gnorm = rt.call(lead, lambda: torch.zeros((), dtype=torch.float32, device=lead))
+    new_opt = None if opt is None else ScaleByAdamState(count=count, mu=mu.rebuild(new_mu),
+                                                        nu=nu.rebuild(new_nu))
     new_state = TrainState(params=flat.rebuild(new), opt_state=new_opt, step=state.step + 1,
-                           lr=state.lr, ema_params=ema, mesh=state.mesh)
+                           lr=state.lr, ema_params=None if ema is None else ema.rebuild(new_ema),
+                           mesh=state.mesh)
     return new_state, gnorm
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor of a state on a grid, each copy on its card, in a
+    fixed order: params, Adam's count and moments, lr, EMA params."""
+    opt = state.opt_state
+    adam = [] if opt is None else [opt.count, *_Copies(opt.mu).tensors, *_Copies(opt.nu).tensors]
+    ema = [] if state.ema_params is None else _Copies(state.ema_params).tensors
+    return [*_Copies(state.params).tensors, *adam, state.lr, *ema]
+
+
+def state_cards(state: TrainState) -> List[torch.device]:
+    """The card of each of ``state_tensors(state)``."""
+    lead = state.mesh.local_devices[0]
+    opt = state.opt_state
+    adam = [] if opt is None else [lead, *_Copies(opt.mu).devices, *_Copies(opt.nu).devices]
+    ema = [] if state.ema_params is None else _Copies(state.ema_params).devices
+    return [*_Copies(state.params).devices, *adam, lead, *ema]
+
+
+def with_tensors(state: TrainState, tensors: List[torch.Tensor], step: int) -> TrainState:
+    """``state``'s structure over ``tensors`` (``state_tensors`` order)."""
+    it = iter(tensors)
+    take = lambda tree: _Copies(tree).rebuild([next(it) for _ in _Copies(tree).tensors])  # noqa: E731
+    params = take(state.params)
+    opt = state.opt_state
+    if opt is not None:
+        opt = ScaleByAdamState(count=next(it), mu=take(opt.mu), nu=take(opt.nu))
+    lr = next(it)
+    ema = None if state.ema_params is None else take(state.ema_params)
+    return TrainState(params=params, opt_state=opt, step=step, lr=lr, ema_params=ema,
+                      mesh=state.mesh)
 
 
 def copies_identical(state: TrainState) -> bool:
@@ -532,4 +898,5 @@ def copies_identical(state: TrainState) -> bool:
     return True
 
 
-__all__ = ["copies_identical", "gather_state", "make_grid_step", "place_state"]
+__all__ = ["copies_identical", "gather_state", "make_grid_step", "place_state", "state_cards",
+           "state_tensors", "with_tensors"]

@@ -7,18 +7,22 @@ hand-written kernel on a CUDA device), clip-then-Adam, ``p - lr·u`` and
 the bias-corrected EMA, with no host sync inside it.
 
 Dispatch chaining. The JAX package runs ``steps_per_dispatch`` steps as
-one XLA program (``make_train_step(chain=K)``, a ``lax.scan``). Here the
-same call captures K steps as one CUDA graph on a card and replays it
-(``_GraphChain``: one upload of the packed chunk, one launch of the
-graph); on the CPU, which only the tests ask for, and on a grid
-(``mesh=``) the chain runs its K steps eagerly. ``train()`` chunks as
-JAX's does: a chunk ends exactly at the next checkpoint or mining-
-refresh step and never crosses an epoch; a full chunk is one chain
-call, a short one runs as single steps. So chained and unchained runs
-take the same steps, and log, eval and refresh steps and the lr
-sequence fall at the same steps. A grid step is not captured: it
-issues work to several cards from one thread, and its block softmax's
-backward reads ``nonzero()``, a host sync (ROADMAP.md §1 item 4).
+one XLA program (``make_train_step(chain=K)``, a ``lax.scan``; on a grid
+one SPMD program, the gradients reduced inside it). Here the same call
+captures K steps on the cards and replays them: on one card as one CUDA
+graph (``_GraphChain``: one upload of the packed chunk, one launch of
+the graph); on a grid of one process (``mesh=``) as ``_GridChain``,
+each card's share of the steps as graphs in that card's pool and the
+copies between cards issued between their replays (one graph, as on one
+card, where every grid entry lies on one card). On the CPU, which only
+the tests ask for, and on a grid that spans processes, the chain runs
+its K steps eagerly: the processes' collectives go through gloo and
+host memory, which no CUDA graph holds (ROADMAP.md §1 item 4).
+``train()`` chunks as JAX's does: a chunk ends exactly at the next
+checkpoint or mining-refresh step and never crosses an epoch; a full
+chunk is one chain call, a short one runs as single steps. So chained
+and unchained runs take the same steps, and log, eval and refresh steps
+and the lr sequence fall at the same steps.
 
 A replay cannot read the host, so what a step takes from its step
 number lives on the device: Adam's ``count`` is an int32 tensor, the
@@ -48,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -61,6 +66,7 @@ from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
 from sse_tpu_torch.ops import GraphLaunches
 from sse_tpu_torch.train import losses as losses_lib
 from sse_tpu_torch.train.losses import LossConfig
+from sse_tpu_torch.utils import graphs
 
 Tree = Any
 
@@ -86,16 +92,18 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
 
 def _unflatten(tree: Tree, leaves: List[torch.Tensor]) -> Tree:
     """``tree``'s structure with ``leaves`` (in tree_leaves order)."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
 
-    return build(tree)
+def _build(t: Tree, it) -> Tree:
+    """``t``'s structure over the leaves ``it`` yields (no closure: a
+    recursive one is a reference cycle that keeps the leaves alive until
+    the cyclic collector runs, which is off while a chain records)."""
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
@@ -199,18 +207,27 @@ def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
     return 1.0 - torch.pow(decay, count.float())
 
 
+def adam_direction(grads: Tree, mu: Tree, nu: Tree, c1: torch.Tensor, c2: torch.Tensor,
+                   b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """Adam's moments and ``m̂ / (sqrt(v̂) + eps)`` given the bias
+    corrections ``c1``, ``c2`` (scalars; copied to each leaf's device):
+    (direction, first moment, second moment)."""
+    mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, mu)
+    nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, nu)
+    updates = tree_map(
+        lambda m, v: (m / c1.to(m.device)) / (torch.sqrt(v / c2.to(v.device)) + eps), mu, nu)
+    return updates, mu, nu
+
+
 def scale_by_adam_update(
     grads: Tree, state: ScaleByAdamState, b1: float = 0.9, b2: float = 0.999,
     eps: float = 1e-8,
 ) -> Tuple[Tree, ScaleByAdamState]:
     """optax.scale_by_adam (eps_root 0): moments, bias correction with the
     incremented count, ``m̂ / (sqrt(v̂) + eps)``."""
-    mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
-    nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state.nu)
     count = state.count + 1
     c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
-    updates = tree_map(
-        lambda m, v: (m / c1.to(m.device)) / (torch.sqrt(v / c2.to(v.device)) + eps), mu, nu)
+    updates, mu, nu = adam_direction(grads, state.mu, state.nu, c1, c2, b1, b2, eps)
     return updates, ScaleByAdamState(count=count, mu=mu, nu=nu)
 
 
@@ -312,12 +329,14 @@ class _Draws:
     """What a step reads of its step number s: s on the host (the injected
     ``sample_negatives`` hook's argument), s as an int32 scalar on the
     device (the EMA's weights; None without an EMA), and its negatives'
-    and dropout generators (None where the step draws none)."""
+    and dropout generators (None where the step draws none). A grid step
+    takes ``step_t`` as a card → its scalar, and each generator as a data
+    replica → one on the replica's card, all seeded alike."""
 
     step: int
-    step_t: Optional[torch.Tensor]
-    negatives: Optional[torch.Generator]
-    dropout: Optional[torch.Generator]
+    step_t: Any
+    negatives: Any
+    dropout: Any
 
 
 # ---------------------------------------------------------------- step
@@ -350,9 +369,16 @@ def make_train_step(
 
     With ``mesh`` (a ``parallel.Mesh``) the step runs on that grid
     (``train.grid``): the state is one placed by ``grid.place_state``, and
-    the batch operands are this process's rows of the global batch."""
+    the batch operands are this process's rows of the global batch. A
+    chain on a grid of cards in one process is captured (``_GridChain``;
+    the function keeps one a chunk shape in ``.chains``); across
+    processes it runs eagerly."""
     if chain > 1 and packed_width is None:
         raise ValueError("a chain of steps takes packed batches (packed_width)")
+    tx = make_optimizer(cfg)
+    loss_cfg = cfg.loss
+    use_dropout, merged_scan = step_plan(model_cfg, cfg)
+    sampled = loss_cfg.kind == "sampled"
     if mesh is not None:
         from sse_tpu_torch.train import grid
 
@@ -360,11 +386,29 @@ def make_train_step(
         if packed_width is None:
             return step
         packed = _packed(step, packed_width, num_label_cols)
-        return packed if chain <= 1 else _eager_chain(packed, chain)
-    tx = make_optimizer(cfg)
-    loss_cfg = cfg.loss
-    use_dropout, merged_scan = step_plan(model_cfg, cfg)
-    sampled = loss_cfg.kind == "sampled"
+        if chain <= 1:
+            return packed
+        eager = _eager_chain(packed, chain)
+        if mesh.multi_process:  # gloo's collectives go through host memory: no graph holds them
+            return eager
+        chains: Dict[tuple, _GridChain] = {}
+
+        def grid_chain_fn(state, packed_k, tgt_tokens, tgt_lens, tgt_emb_cache=None):
+            if not _captures(mesh.local_devices[0]):
+                return eager(state, packed_k, tgt_tokens, tgt_lens, tgt_emb_cache)
+            if sampled and sample_negatives is not None:
+                raise ValueError("a chain on a CUDA device cannot capture the sample_negatives hook")
+            key = (tuple(packed_k.shape), *(None if x is None else tuple(_one(x).shape)
+                                            for x in (tgt_tokens, tgt_lens, tgt_emb_cache)))
+            chained = chains.get(key)
+            if chained is None:
+                chained = chains[key] = _GridChain(
+                    packed, chain, cfg, sampled, use_dropout, state, packed_k, tgt_tokens,
+                    tgt_lens, tgt_emb_cache)
+            return chained(state, packed_k, tgt_tokens, tgt_lens, tgt_emb_cache)
+
+        grid_chain_fn.chains = chains  # the captured chains, by shape
+        return grid_chain_fn
     negatives = make_negatives(cfg, sample_negatives)
 
     def eager_draws(step: int, dev) -> _Draws:
@@ -471,7 +515,7 @@ def make_train_step(
     if chain <= 1:
         return packed
     eager = _eager_chain(packed, chain)
-    graphs: Dict[tuple, _GraphChain] = {}
+    chains: Dict[tuple, _GraphChain] = {}
 
     def chain_fn(state, packed_k, tgt_tokens, tgt_lens, tgt_emb_cache=None):
         dev = tree_leaves(state.params)[0].device
@@ -481,9 +525,9 @@ def make_train_step(
             raise ValueError("a chain on a CUDA device cannot capture the sample_negatives hook")
         key = (tuple(packed_k.shape), tuple(tgt_tokens.shape), tuple(tgt_lens.shape),
                None if tgt_emb_cache is None else tuple(tgt_emb_cache.shape))
-        graph = graphs.get(key)
+        graph = chains.get(key)
         if graph is None:
-            graph = graphs[key] = _GraphChain(
+            graph = chains[key] = _GraphChain(
                 packed, chain, cfg.seed, sampled, use_dropout, state, packed_k, tgt_tokens,
                 tgt_lens, tgt_emb_cache)
         return graph(state, packed_k, tgt_tokens, tgt_lens, tgt_emb_cache)
@@ -618,6 +662,130 @@ class _GraphChain:
         return _with_leaves(self.template, self.leaves, state.step + self.k), self.metrics
 
 
+def _captures(dev: torch.device) -> bool:
+    """Whether a grid's chain captures its steps: on a card."""
+    return dev.type == "cuda"
+
+
+def _one(x):
+    """A tensor, or the first copy of a ``Replicated``."""
+    return next(iter(x.values())) if isinstance(x, dict) else x
+
+
+class _GridChain:
+    """K steps of a single-process grid captured on its cards for one set
+    of input shapes (the counterpart of the one SPMD program a chunk that
+    JAX compiles for a grid), replayed once a call.
+
+    The steps read fixed buffers: every copy of every state tensor on its
+    card, the packed chunk on the grid's first card (one upload, split
+    over the replicas by copies between cards inside the chunk), a copy
+    of the target tokens, lengths and mining cache on each card, and each
+    card's step numbers. ``load`` fills them as ``_GraphChain.load``
+    does (an input or a state tensor only where the caller passes another
+    tensor than the one the buffer last took), writes each card's step
+    numbers of the chunk (s + [0, K)), and seeds one negatives and one
+    dropout generator a replica and a position for its step.
+
+    The steps run as the grid step's per-card calls
+    (``grid.make_grid_step``) recorded by a ``utils.graphs.Recorder``: each
+    card's runs of work between copies become graphs in the card's pool,
+    forward and backward alike, and the copies between cards are issued
+    between the replays, so the host launches replays and copies and
+    waits on nothing. Where every grid entry lies on one card there is no
+    copy: the chunk is one graph (its generators all registered with it),
+    as ``_GraphChain``'s (``split``: one graph a call of the step, a check
+    of the graphs' order on one card). The last work of each card copies
+    the K-th state into the buffers, so the state a replay returns is
+    those buffers. One eager warm-up step on the cards' side streams
+    comes first; a capture that fails raises."""
+
+    def __init__(self, packed_step, k: int, cfg: TrainConfig, sampled: bool, dropout: bool,
+                 state: TrainState, packed_k, tgt_tokens, tgt_lens, cache,
+                 split: bool = False) -> None:
+        from sse_tpu_torch.parallel.mesh import Replicated
+        from sse_tpu_torch.train import grid
+
+        mesh = state.mesh
+        self.grid, self.packed_step, self.k, self.seed = grid, packed_step, k, cfg.seed
+        self.cards = mesh.local_devices
+        self.lead = self.cards[0]
+        self.ema = cfg.ema_decay > 0
+        self.leaves = [torch.empty_like(x) for x in grid.state_tensors(state)]
+        self.template = grid.with_tensors(state, self.leaves, 0)
+        self.packed = torch.empty(tuple(packed_k.shape), dtype=torch.int32, device=self.lead)
+        self.inputs = [None if x is None else Replicated(
+            {c: torch.empty(_one(x).shape, dtype=_one(x).dtype, device=c) for c in self.cards})
+            for x in (tgt_tokens, tgt_lens, cache)]
+        self.seen: List[Any] = [None] * 3
+        # each card's step numbers of the chunk's positions: s + [0, K)
+        self.offsets = {c: torch.arange(k, dtype=torch.int32, device=c) for c in self.cards}
+        self.steps = {c: torch.zeros(k, dtype=torch.int32, device=c) for c in self.cards}
+        reps = {d: mesh.devices[d, 0] for d in range(mesh.shape["data"])}
+        gen = lambda on: {d: torch.Generator(device=c) for d, c in reps.items()} if on \
+            else None  # noqa: E731
+        self.gens = [(gen(sampled), gen(dropout)) for _ in range(k)]
+        self.rec = graphs.Recorder(self.cards, split=split)
+        self.load(state, packed_k, tgt_tokens, tgt_lens, cache)
+        self.rec.warm(lambda: self._steps(graphs.EAGER, 1))
+        whole = [g for pos in self.gens for kind in pos if kind for g in kind.values()]
+        where = grid.state_cards(state)
+
+        def run():
+            one = self.rec.on(self.lead, whole) if len(self.cards) == 1 and not split \
+                else nullcontext()
+            with one:
+                final, metrics = self._steps(self.rec, k)
+                leaves = grid.state_tensors(final)
+                for card in self.cards:
+                    with self.rec.on(card):
+                        for buf, x, at in zip(self.leaves, leaves, where):
+                            if at == card:
+                                buf.copy_(x)
+            return metrics
+
+        self.metrics = self.rec.record(run)
+        self.launches = self.rec.launches
+
+    def _steps(self, rec, n: int):
+        state = self.grid.with_tensors(self.template, self.leaves, 0)
+        tokens, lengths, cache = self.inputs
+        metrics = []
+        for i in range(n):
+            step_t = {c: steps[i] for c, steps in self.steps.items()} if self.ema else None
+            state, m = self.packed_step(state, self.packed[i], tokens, lengths, cache,
+                                        draws=_Draws(i, step_t, *self.gens[i]), rec=rec)
+            metrics.append(m)
+        with rec.on(self.lead):
+            return state, _stacked(metrics)
+
+    def load(self, state: TrainState, packed_k, tgt_tokens, tgt_lens, cache) -> None:
+        leaves = self.grid.state_tensors(state)
+        if tuple(packed_k.shape) != tuple(self.packed.shape) or len(leaves) != len(self.leaves):
+            raise ValueError("the chain's inputs do not match the captured graphs'")
+        self.packed.copy_(packed_k, non_blocking=packed_k.is_pinned())
+        for j, x in enumerate((tgt_tokens, tgt_lens, cache)):
+            if x is not self.seen[j]:
+                for c, buf in self.inputs[j].items():
+                    buf.copy_(x[c] if isinstance(x, dict) else x)
+                self.seen[j] = x
+        for buf, x in zip(self.leaves, leaves):
+            if x is not buf:
+                buf.copy_(x)
+        for c, steps in self.steps.items():
+            torch.add(self.offsets[c], state.step, out=steps)
+        for i, (neg, drop) in enumerate(self.gens):
+            for g in (neg or {}).values():
+                g.manual_seed(_step_seed(self.seed, state.step + i))
+            for g in (drop or {}).values():
+                g.manual_seed(_step_seed(_dropout_seed(self.seed), state.step + i))
+
+    def __call__(self, state: TrainState, packed_k, tgt_tokens, tgt_lens, cache):
+        self.load(state, packed_k, tgt_tokens, tgt_lens, cache)
+        metrics = self.rec.replay()
+        return self.grid.with_tensors(self.template, self.leaves, state.step + self.k), metrics
+
+
 def make_negatives(cfg: TrainConfig, sample_negatives=None):
     """``negatives(step, num_targets, device, generator=None)``: the
     uniform negative rows of a step, from ``generator`` or else a
@@ -643,8 +811,10 @@ def _packed(step_fn, packed_width: int, num_label_cols: int):
     def packed_step(state, packed, tgt_tokens, tgt_lens, tgt_emb_cache=None, **kw):
         labels = packed[:, l + 1]
         labels_multi = None
-        if extra > 0:
-            labels_multi = torch.cat([labels[:, None], packed[:, l + 3 : l + 3 + extra]], dim=1)
+        if extra > 0:  # a grid chain's recorder (``rec``) takes the operand's one kernel
+            with kw.get("rec", graphs.EAGER).on(packed.device):
+                labels_multi = torch.cat([labels[:, None], packed[:, l + 3 : l + 3 + extra]],
+                                         dim=1)
         return step_fn(
             state, packed[:, :l], packed[:, l], labels,
             packed[:, l + 2].view(torch.float32), tgt_tokens, tgt_lens,
@@ -742,7 +912,7 @@ def train(
     tgt_tokens, tgt_lens = copies(tokens), copies(lengths)
     upload = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     # a captured chain uploads its chunk itself: once, from pinned memory
-    pinned = dev.type == "cuda" and mesh is None
+    pinned = dev.type == "cuda" and (mesh is None or not mesh.multi_process)
     upload_chunk = lambda a: torch.from_numpy(a).pin_memory() if pinned else upload(a)  # noqa: E731
 
     mine = cfg.loss.num_hard_negatives > 0 and cfg.loss.kind != "full"

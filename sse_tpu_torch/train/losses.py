@@ -136,12 +136,22 @@ class _BlockSoftmax(torch.autograd.Function):
             here = (local >= 0) & (local < hi - lo)
             if extra is not None:  # a masked label column takes no gradient
                 here &= ~(extra == labels[:, None]).any(dim=1)
-            here = here.nonzero()[:, 0]
-            d[here, local[here]] += g_ll[here]
+            _add_at_label(d, local, here, g_ll)
             d = d * ctx.scale
             d_src += d @ tbl[lo:hi]
             d_tbl[lo:hi] = d.t() @ src
         return d_src, d_tbl, None, None, None, None, None
+
+
+def _add_at_label(d: torch.Tensor, local: torch.Tensor, here: torch.Tensor,
+                  g_ll: torch.Tensor) -> torch.Tensor:
+    """``d[r, local[r]] += g_ll[r]`` for the rows r where ``here``, in place,
+    with fixed shapes (no host sync): each row's label column is gathered
+    and written back, as it was where not ``here``, bit for bit (a masked
+    add of 0.0 would turn a -0.0 into +0.0)."""
+    col = local.clamp(0, d.shape[1] - 1)[:, None]
+    cur = torch.gather(d, 1, col)
+    return d.scatter_(1, col, torch.where(here[:, None], cur + g_ll[:, None], cur))
 
 
 def _first_max(bests, args):

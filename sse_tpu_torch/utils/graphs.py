@@ -6,21 +6,26 @@ on a side stream, then the capture into a memory pool), ``GraphPool``
 the pool and capture stream that the graphs of one owner share, and
 ``Program`` a function over fixed input buffers that captures itself on
 its first call on a card and replays after, or runs eagerly, and
-``PerCard`` the graphs of a grid's program, one body a distinct card.
-The served query (``serve/engine.py`` ``QueryGraph``, and ``CardQuery``
-on a grid), the Evaluator (``evals/recall.py``), the index build
-(``index/sharded_index.py``, one ``Program`` a card on a grid) and the
-index bench (``bench.py``) capture through them. A capture that
-fails raises: nothing on the card falls back to eager quietly.
+``PerCard`` the graphs of a grid's program, one body a distinct card,
+and ``Recorder`` a program that moves values between cards as per-card
+graphs with the copies between them. The served query
+(``serve/engine.py`` ``QueryGraph``, and ``CardQuery`` on a grid), the
+Evaluator (``evals/recall.py``), the index build
+(``index/sharded_index.py``, one ``Program`` a card on a grid), the
+index bench (``bench.py``) and the grid's chain of train steps
+(``train/loop.py`` ``_GridChain``, through a ``Recorder``) capture
+through them. A capture that fails raises: nothing on the card falls
+back to eager quietly.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import threading
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -179,6 +184,15 @@ class PerCard:
     def drop(self, dev: torch.device) -> None:
         self.pools.pop(dev, None)
 
+    def pool(self, dev: torch.device) -> GraphPool:
+        """``dev``'s pool, its handle and side stream made."""
+        pool = self.pools.setdefault(dev, GraphPool(dev))
+        if pool.handle is None:
+            pool.handle = torch.cuda.graph_pool_handle()
+        if pool.side is None:
+            pool.side = torch.cuda.Stream(dev)
+        return pool
+
     @staticmethod
     def replay(graphs: Dict[torch.device, Captured]) -> Dict[torch.device, Any]:
         outs = {}
@@ -220,3 +234,184 @@ class Program:
         out = self.graph.replay()
         self.stats.replayed()
         return out
+
+
+class _Eager:
+    """A ``Recorder``'s interface that records nothing: work runs where it
+    is issued and a copy is ``Tensor.to``."""
+
+    @staticmethod
+    def on(dev: torch.device, gens: Sequence[torch.Generator] = ()):
+        return contextlib.nullcontext()
+
+    @staticmethod
+    def copy(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        return x.to(dev)
+
+    @staticmethod
+    def new_pass() -> None:
+        pass
+
+
+EAGER = _Eager()
+
+
+class Recorder:
+    """A program over several cards as per-card CUDA graphs and the copies
+    between them. The program issues its work on a card inside ``on(dev,
+    gens)`` and moves a value to another card by ``copy(x, dev)``; it may
+    issue no other device work. ``record(run)`` runs ``run()`` once and
+    captures it: consecutive work on one card with no copy between is one
+    graph, captured in the card's pool (``PerCard.pool``) on its side
+    stream, so the graphs that a card's work spans (a forward and the
+    backward that reads what the forward saved, say) share the pool and
+    replay in the order they were captured; a copy ends the open capture
+    and is kept with a fixed destination buffer on the other card (the
+    k-th copy of each pass, ``new_pass``, reuses the k-th buffer: a card's
+    work runs in issue order on its stream, so a pass's copy follows every
+    read of the buffer before it). ``gens``: generators the work draws
+    from, registered with the graph it lands in; work that brings another
+    generator opens a new graph (one ``on(dev, all_gens)`` around a whole
+    program keeps it one graph). ``warm(run)`` runs ``run()`` eagerly on
+    every card's side stream first (the kernels built, the allocator and
+    the libraries' workspaces warmed). ``replay()`` replays every graph on
+    its card's current stream and issues every copy (ordered against
+    both cards' current streams by ``Tensor.copy_``) in the recorded
+    order, and returns ``run()``'s result as recorded. ``graphs`` counts
+    the graphs a card, ``seconds`` and ``mib`` (a card) are the host time
+    of the warm-up and the recording and what the recording added to
+    each card's reserve, and ``launches`` counts a replay's kernels. A
+    capture that fails is ended and raises; its card's pool is dropped
+    (``PerCard.drop``)."""
+
+    def __init__(self, cards: Sequence[torch.device], per_card: Optional[PerCard] = None,
+                 split: bool = False) -> None:
+        self.cards = list(cards)
+        self.split = split  # each ``on`` its own graph (a check of the graphs' order on one card)
+        self.per_card = PerCard() if per_card is None else per_card
+        self.actions: List[tuple] = []
+        self.launches = GraphLaunches()
+        self.graphs: Dict[torch.device, int] = collections.Counter()
+        self.buffers: List[torch.Tensor] = []
+        self.out = None
+        self.seconds = 0.0
+        self.mib: Dict[torch.device, float] = {}
+        self._open = None  # (dev, graph, registered generators)
+        self._recording = False
+        self._k = 0  # copies so far in this pass
+
+    def _side(self, dev: torch.device):
+        return self.per_card.pool(dev).side
+
+    @contextlib.contextmanager
+    def _sides(self):
+        """Every card's side stream current, ordered after (and then before)
+        the card's current stream."""
+        sides = {dev: self._side(dev) for dev in self.cards}
+        for dev, side in sides.items():
+            side.wait_stream(torch.cuda.current_stream(dev))
+        with contextlib.ExitStack() as stack:
+            for side in sides.values():
+                stack.enter_context(torch.cuda.stream(side))
+            yield
+        for dev, side in sides.items():
+            torch.cuda.current_stream(dev).wait_stream(side)
+
+    def warm(self, run: Callable[[], Any]) -> None:
+        t0 = time.perf_counter()
+        with self._sides():
+            run()
+        self.seconds += time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def on(self, dev: torch.device, gens: Sequence[torch.Generator] = ()):
+        if not self._recording:
+            yield
+            return
+        gens = [g for g in gens if g is not None]
+        if self._open is not None and (self._open[0] != dev or
+                                       any(g not in self._open[2] for g in gens)):
+            self._close()
+        if self._open is None:
+            pool = self.per_card.pool(dev)
+            with torch.cuda.device(dev):
+                graph = torch.cuda.CUDAGraph()
+                # a generator's first registration puts its graph-safe seed and
+                # offset on the current card: it must be the generator's own, or
+                # the graphs read them across cards, unordered with each replay's
+                # refill of them
+                for g in gens:
+                    graph.register_generator_state(g)
+                with torch.cuda.stream(pool.side):
+                    graph.capture_begin(pool=pool.handle, capture_error_mode="thread_local")
+            self._open = (dev, graph, gens)
+        with torch.cuda.device(dev), torch.cuda.stream(self._side(dev)):
+            yield
+        if self.split and self._open is not None:
+            self._close()
+
+    def _close(self) -> None:
+        dev, graph, _ = self._open
+        self._open = None
+        with torch.cuda.device(dev), torch.cuda.stream(self._side(dev)):
+            graph.capture_end()
+        self.actions.append(("graph", dev, graph))
+        self.graphs[dev] += 1
+
+    def copy(self, x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        if not self._recording:
+            return x.to(dev)
+        if self._open is not None:
+            self._close()
+        buf = self.buffers[self._k] if self._k < len(self.buffers) else None
+        if buf is None or buf.shape != x.shape or buf.dtype != x.dtype or buf.device != dev:
+            buf = torch.empty(x.shape, dtype=x.dtype, device=dev)
+            if self._k < len(self.buffers):
+                self.buffers[self._k] = buf
+            else:
+                self.buffers.append(buf)
+        self._k += 1
+        self.actions.append(("copy", x, buf))
+        return buf
+
+    def new_pass(self) -> None:
+        self._k = 0
+
+    def record(self, run: Callable[[], Any]):
+        t0 = time.perf_counter()
+        reserved = {dev: torch.cuda.memory_reserved(dev) for dev in self.cards}
+        collecting = gc.isenabled()
+        gc.disable()  # a graph or buffer the collector frees here would end a capture
+        self._recording = True
+        try:
+            with self.launches.capturing():
+                self.out = run()
+                if self._open is not None:
+                    self._close()
+        except BaseException:
+            if self._open is not None:
+                dev, graph, _ = self._open
+                self._open = None
+                with torch.cuda.device(dev), torch.cuda.stream(self._side(dev)):
+                    abandon_capture(graph, dev, self.per_card.pool(dev).handle)
+            for dev in self.cards:
+                self.per_card.drop(dev)
+            raise
+        finally:
+            self._recording = False
+            if collecting:
+                gc.enable()
+        self.mib = {dev: (torch.cuda.memory_reserved(dev) - r) / 2**20
+                    for dev, r in reserved.items()}
+        self.seconds += time.perf_counter() - t0
+        return self.out
+
+    def replay(self):
+        for action in self.actions:
+            if action[0] == "graph":
+                with torch.cuda.device(action[1]):
+                    action[2].replay()
+            else:
+                action[2].copy_(action[1])
+        self.launches.replayed()
+        return self.out

@@ -140,6 +140,14 @@ def saved_problem():
     return emb, [f"d{i}" for i in range(50)], [f"text\t{i}\n" for i in range(50)]
 
 
+def sum_problem(pid: int) -> torch.Tensor:
+    """Rank ``pid``'s addend for ``sum_over_ranks``: float32 values over
+    twelve orders of magnitude, whose sum rounds."""
+    rng = np.random.default_rng(100 + pid)
+    x = rng.standard_normal((37, 5)) * 10.0 ** rng.integers(-6, 6, size=(37, 5))
+    return torch.from_numpy(x.astype(np.float32))
+
+
 def main() -> int:
     pid, nproc, coord, mode = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     distributed.initialize(coord, nproc, pid)
@@ -156,6 +164,15 @@ def main() -> int:
         table_sum, table_abs = params_sums(inference_params(state))
         out = {"pid": pid, "step": int(state.step), "table_sum": table_sum,
                "table_abs": table_abs, "copies_identical": copies_identical(state)}
+        print("RESULT " + json.dumps(out), flush=True)
+        torch.distributed.destroy_process_group()
+        return 0
+    if mode == "sum":
+        t = sum_problem(pid)
+        before = t.clone()
+        total = distributed.sum_over_ranks(t)
+        out = {"pid": pid, "bits": total.view(torch.int32).reshape(-1).tolist(),
+               "left_as_it_was": bool(torch.equal(t.view(torch.int32), before.view(torch.int32)))}
         print("RESULT " + json.dumps(out), flush=True)
         torch.distributed.destroy_process_group()
         return 0

@@ -10,7 +10,8 @@ feeding its slice of the global batch) gives both ranks the same params
 (rel 2e-4, as the JAX test holds its own), in the ``full`` and
 ``flagship`` modes, with Adam (the JAX test's optimizer) and with SGD. The context-parallel encode over a {'seq': 4} grid
 across the two processes gives the single process's output and
-gradients. Each process runs under its own time limit."""
+gradients. ``distributed.sum_over_ranks`` (one ``all_reduce``) gives
+both ranks the same bits. Each process runs under its own time limit."""
 
 import json
 import os
@@ -123,6 +124,20 @@ def test_two_process_train(mode, optimizer):
     ref_sum, ref_abs = worker.params_sums(state.params)
     assert r0["table_sum"] == pytest.approx(ref_sum, rel=2e-4)
     assert r0["table_abs"] == pytest.approx(ref_abs, rel=2e-4)
+
+
+def test_sum_over_ranks_gives_every_rank_the_same_bits():
+    """``distributed.sum_over_ranks`` (one ``all_reduce``) over two gloo
+    ranks: both ranks get the same float32 bits, within one rounding of
+    each addend (rtol 1e-6 of the float64 sum's magnitude) of the exact
+    sum, and each rank's own tensor is left as it was."""
+    results = _run_pair("sum")
+    r0, r1 = results[0], results[1]
+    assert r0["bits"] == r1["bits"]
+    assert r0["left_as_it_was"] and r1["left_as_it_was"]
+    got = np.asarray(r0["bits"], np.int32).view(np.float32).reshape(37, 5)
+    a, b = (worker.sum_problem(p).double().numpy() for p in (0, 1))
+    assert np.all(np.abs(got - (a + b)) <= 1e-6 * (np.abs(a) + np.abs(b)))
 
 
 def test_two_process_context_parallel_encode():
