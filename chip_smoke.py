@@ -13,6 +13,7 @@ CLI.
     python3 chip_smoke.py --chain    # only the dispatch-chaining phase (9.)
     python3 chip_smoke.py --graphs   # only the served-graphs phase (10.)
     python3 chip_smoke.py --evals    # only the Evaluator / index-build graphs phase (11.)
+    python3 chip_smoke.py --processes  # only the grids across processes over NCCL (12.)
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
 cell, and a served qna query by part: qna_query_costs), ``--twophase``
@@ -203,6 +204,24 @@ commits compare in one run, taken in turns.
    backward, a served transformer query and the Evaluator replays in a
    fresh process (``--flags-probe``) under PyTorch's default flags
    against the same calls under the flags main sets, bit for bit.
+12. Grids across processes over NCCL, a card a rank (process_chains;
+   needs two cards, and takes four where there are: on one card it says
+   so, and ``--processes`` runs the gloo runs of 7. and 8. instead): for
+   n = 2 and 4, n rank processes (``chip_smoke.py --process-rank R n
+   COORD``) run grid_chain_run on the ranking preset on (n, 1) and, at n
+   = 2, the classification preset with the 1,249,280-row table on (2, 1)
+   and (2, 2) (each rank's card both blocks of its row): the chain one
+   graph a rank, its collectives inside, a replay against K eager steps
+   of the same n-rank grid, the eager steps against the one-card step,
+   every rank's state bits equal, replays under sync debug "error", ms a
+   step chained and eager (the slowest rank), each card's busy share, the
+   capture's seconds and MiB, kernels and collectives a replayed step,
+   the device ms of ``sse.train.grad_sum``; then a (1, n) served grid
+   (bf16 and int8, B=8 and 4096): replay == eager == the single
+   process's unsharded rows bit for bit, ms a call replayed and eager.
+   Then ``cli train --num_processes n`` at steps_per_dispatch 8 against
+   1 (mp_chain_train). Each rank logs NCCL's version and
+   ``TORCH_NCCL_ASYNC_ERROR_HANDLING`` (left at PyTorch's default).
 Each kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
 operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8) is computed from
@@ -3003,6 +3022,7 @@ MP_RUNNER = (
     "    leaves = loop.tree_leaves(inference_params(s))\n"
     "    print('[params] ' + json.dumps([float(sum(x.double().sum() for x in leaves)),\n"
     "          float(sum(x.double().abs().sum() for x in leaves))]), flush=True)\n"
+    "    print('[chains] ' + json.dumps(chip_smoke.CHAIN_CHECKS), flush=True)\n"
     "    held = [r[4] for r in steps if r[4] is not None]\n"
     "    print('[held] ' + json.dumps([len(steps), len(held), max([h[0] for h in held] or [0]),\n"
     "          sum(h[1] for h in held), max([h[2] for h in held] or [0]),\n"
@@ -3014,15 +3034,24 @@ MP_RUNNER = (
 )
 
 
+# what recording_steps found of each captured grid chain it held against
+# its eager steps: "bit for bit", or held_state's reading
+CHAIN_CHECKS: list = []
+
+
 def recording_steps(records: list, shadow: bool = False):
     """Patch loop.make_train_step so that every step it builds appends
     (loss, grad_norm, host ms, the recurrent kernels it launched, and with
     ``shadow`` what shadow_step found and every kernel the shadow step
-    launched) to ``records``; a chain it builds runs its steps one by one
-    (a grid's chain does so anyway), each recorded and shadowed as a step.
+    launched) to ``records``; a chain it builds runs its steps one by one,
+    each recorded and shadowed as a step. With ``shadow`` on a grid whose
+    chain is captured (a single-process grid of cards, or ranks over
+    NCCL), the captured chain then replays the chunk from the same state,
+    is held against those steps (bit for bit where they agree, else as
+    held_state holds a state; CHAIN_CHECKS) and gives the result.
     Returns the undo."""
     from sse_tpu_torch import ops
-    from sse_tpu_torch.train import loop
+    from sse_tpu_torch.train import grid, loop
 
     real = loop.make_train_step
 
@@ -3046,11 +3075,26 @@ def recording_steps(records: list, shadow: bool = False):
         if chain <= 1:
             return run
         steps = loop._eager_chain(run, chain)
+        captured = real(*args, chain=chain, **kw) if shadow and kw.get("mesh") else None
+        if not hasattr(captured, "chains"):  # an eager chain: its steps are the ones above
+            captured = None
 
         def chained(state, packed_k, *a, **k):
-            if state.mesh is None:  # one card's chunk comes in pinned host memory
-                packed_k = packed_k.to(loop.tree_leaves(state.params)[0].device)
-            return steps(state, packed_k, *a, **k)
+            lead = state.mesh.local_devices[0] if state.mesh is not None else \
+                loop.tree_leaves(state.params)[0].device
+            new, m = steps(state, packed_k.to(lead), *a, **k)  # a chunk may come pinned
+            if captured is None:
+                return new, m
+            want, wm = grid_state_copy(new), {n: v.clone() for n, v in m.items()}
+            got, gm = captured(state, packed_k, *a, **k)
+            leaves = grid.state_tensors
+            if all(torch.equal(x, y) for x, y in zip(leaves(got), leaves(want))) and all(
+                    torch.equal(gm[n], wm[n]) for n in wm):
+                CHAIN_CHECKS.append("bit for bit")
+            else:
+                CHAIN_CHECKS.append(held_state(f"chain at step {state.step}",
+                                               grid.gather_state(got), grid.gather_state(want)))
+            return got, gm
 
         return chained
 
@@ -3172,11 +3216,11 @@ def held_state(label: str, got, ref) -> tuple:
     return worst, skipped + more, max(share, ema_share), moments
 
 
-def grid_split(label: str, run, card: str, reps: int = 3) -> None:
+def grid_split(label: str, run, card: str, reps: int = 3) -> dict:
     """A grid step's device time by part (step_split over ``reps`` steps of
     ``run()``): forward, backward, the gradient sum over 'data', the
     update and, with a sharded table, the cross-block combine; the wall ms
-    and the device-busy share."""
+    and the device-busy share. Returns the split (ms a step by range)."""
     run()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -3192,6 +3236,7 @@ def grid_split(label: str, run, card: str, reps: int = 3) -> None:
     log(f"{label} split (torch.profiler, {reps} steps, ms a step): wall {wall:.4f}, device busy "
         f"{busy:.4f} ({100.0 * busy / wall:.1f}%); by range (step_split): {json.dumps(split)} "
         f"[{card}]")
+    return split
 
 
 def flagship_problem(steps: int = GRID_STEPS, b: int = 256, t: int = 4096, length: int = 50):
@@ -3631,6 +3676,14 @@ GRID_CHAIN_RUNS = (("ranking", (2, 1)), ("ranking", (4, 1)), ("classification", 
 
 
 def sync_cards() -> None:
+    """Every card of this process synchronized; in a rank of a process
+    group, its own card, then every rank at a barrier."""
+    from sse_tpu_torch.parallel import distributed
+
+    if distributed.world_size() > 1:
+        torch.cuda.synchronize(distributed.local_device())
+        distributed.barrier()
+        return
     for i in range(torch.cuda.device_count()):
         torch.cuda.synchronize(i)
 
@@ -3642,14 +3695,19 @@ def grid_chain_problem(task: str, shape):
     (flagship_problem: B=256, 128 sampled and 16 mined negatives, 4,096
     targets, multi-label rows), the classification preset as tp_grids
     steps it (B=128, GRID_TABLE rows, dropout 0.1, EMA); 6 chunks of CHAIN
-    packed batches each, on the lead card."""
+    packed batches each, on the lead card. In a rank of a process group
+    the grid spans the ranks, each holding whole grid rows on its card,
+    and its chunks hold its rows of each global batch."""
     from sse_tpu_torch import configs
     from sse_tpu_torch.data.batching import Batch
-    from sse_tpu_torch.parallel import make_mesh
+    from sse_tpu_torch.parallel import distributed, make_mesh
     from sse_tpu_torch.parallel.mesh import Replicated
     from sse_tpu_torch.train import grid, init_train_state, loop
 
-    mesh = make_mesh(*shape, devices=mesh_cards(shape[0] * shape[1]))
+    ranks, rank = distributed.world_size(), distributed.rank()
+    entries = shape[0] * shape[1]
+    mesh = make_mesh(*shape, devices=mesh_cards(entries) if ranks == 1 else
+                     [distributed.local_device()] * (entries // ranks))
     lead = mesh.local_devices[0]
     copies = lambda x: Replicated({c: x.to(c) for c in mesh.local_devices})  # noqa: E731
     n = 6 * CHAIN
@@ -3673,8 +3731,9 @@ def grid_chain_problem(task: str, shape):
         tt = torch.zeros((t, 1), dtype=torch.int32, device=lead)
         tl = torch.ones((t,), dtype=torch.int32, device=lead)
         cols = 1
-    chunks = [torch.from_numpy(np.stack(packed[i : i + CHAIN])).to(lead)
-              for i in range(0, n, CHAIN)]
+    bl = tc.batch_size // ranks  # this rank's rows of each global batch
+    chunks = [torch.from_numpy(np.stack(packed[i : i + CHAIN])[:, rank * bl : (rank + 1) * bl]
+                               ).to(lead) for i in range(0, n, CHAIN)]
     state = grid.place_state(init_train_state(mc, tc, device=lead), mesh)
     cache = None
     if task == "ranking":
@@ -3707,17 +3766,29 @@ def grid_chain_run(card: str, task: str, shape) -> dict:
     MiB a card of the capture; ms a step chained against eager over the
     same 6 x CHAIN batches, each run carrying its state (host clock to
     every card synchronized); each card's busy share of a window of 8
-    replays (card_busy). Returns the launch counts of the timed replays."""
+    replays (card_busy). Returns the launch counts of the timed replays.
+
+    In a rank of a process group over NCCL (process_rank) the grid spans
+    the ranks, a card each, and the chain is one graph a rank with its
+    collectives inside: the same checks on every rank, and besides, every
+    rank's state bits after the replays equal (a digest compared over
+    gloo), the collectives of a replayed step, the slowest rank's ms a
+    step, and the device ms of ``sse.train.grad_sum`` (the gradients'
+    all_reduces) a step, from three eager steps under torch.profiler."""
     from sse_tpu_torch import ops
+    from sse_tpu_torch.parallel import distributed
     from sse_tpu_torch.train import grid, loop
 
     mc, tc, mesh, state, chunks, tt, tl, cache, cols, b = grid_chain_problem(task, shape)
+    ranks = distributed.world_size()
     width = 50
     single = loop.make_train_step(mc, tc, packed_width=width, num_label_cols=cols, mesh=mesh)
     eager = loop._eager_chain(single, CHAIN)
     chain = loop.make_train_step(mc, tc, packed_width=width, num_label_cols=cols, mesh=mesh,
                                  chain=CHAIN)
-    label = f"{task} {shape}"
+    label = f"{task} {shape}" + (f" rank {distributed.rank()} of {ranks}" if ranks > 1 else "")
+    check(ranks == 1 or (distributed.captures() and hasattr(chain, "chains")),
+          f"{label}: the chain across processes is not captured (backend {distributed.backend()})")
     e1, em = eager(state, chunks[1], tt, tl, cache)
     e1, em = grid_state_copy(e1), {k: v.clone() for k, v in em.items()}
     e2, _ = eager(state, chunks[1], tt, tl, cache)
@@ -3794,6 +3865,9 @@ def grid_chain_run(card: str, task: str, shape) -> dict:
     sync_cards()
     check(bool(torch.isfinite(m["loss"]).all()), f"{label}: non-finite loss {m['loss']}")
     check(grid.copies_identical(st), f"{label}: the copies differ after the replays")
+    if ranks > 1:
+        digests = distributed.all_gather_object(state_digest(grid.state_tensors(st)))
+        check(len(set(digests)) == 1, f"{label}: the ranks' states differ after the replays")
     # the recurrent launches of a replayed step against the one-card step's
     one = loop.init_train_state(mc, tc, device=mesh.local_devices[0])
     on = lambda x: None if x is None else next(iter(x.values()))  # noqa: E731
@@ -3815,9 +3889,20 @@ def grid_chain_run(card: str, task: str, shape) -> dict:
         times[how] = (time.perf_counter() - t0) * 1e3 / (len(chunks) * CHAIN)
         if how == "chained":
             counts = ops.launch_counts()
-    check(all(counts[n] == shape[0] * c * len(chunks) * CHAIN for n, c in per_step.items())
+    data = shape[0] // ranks  # this process's replicas
+    check(all(counts[n] == data * c * len(chunks) * CHAIN for n, c in per_step.items())
           and per_step, f"{label}: {len(chunks)} replays launched {counts}, want data x "
                         f"{per_step} a step")
+    collectives = {n: c // CHAIN for n, c in made.launches.collectives.items()}
+    slowest, grad_sum = "", ""
+    if ranks > 1:
+        every = distributed.all_gather_object(times)
+        slowest = (f"; the slowest rank's ms a step chained {max(t['chained'] for t in every):.4f}"
+                   f" against eager {max(t['eager'] for t in every):.4f}")
+        split = grid_split(f"train grid {label} eager step",
+                           lambda: single(state, chunks[0][0], tt, tl, cache), card)
+        grad_sum = (f"; sse.train.grad_sum {split.get('sse.train.grad_sum', NOT_MEASURED):.4f} ms "
+                    f"a step (torch.profiler, eager steps)")
     wall, busy = card_busy([lambda c=c: chain(state, c, tt, tl, cache) for c in chunks[:2]],
                            window=8)
     shares = ", ".join(f"cuda:{i} {100.0 * t / wall:.1f}%" for i, t in sorted(busy.items()))
@@ -3830,9 +3915,10 @@ def grid_chain_run(card: str, task: str, shape) -> dict:
         f"input states (shadow_step): params max |d| {worst:.3g}, {sum(h[1] for h in shadow)} elements left "
         f"out; 4 replays under set_sync_debug_mode('error'), copies identical; launches a "
         f"replayed step { {n: counts[n] // (len(chunks) * CHAIN) for n in per_step} } (one card "
-        f"{per_step}); ms a step over {len(chunks) * CHAIN} batches chained {times['chained']:.4f}"
-        f" against eager {times['eager']:.4f}, {times['eager'] / times['chained']:.2f}x; busy "
-        f"over 8 replays ({wall:.2f} ms): {shares} [{card}]")
+        f"{per_step}), collectives a replayed step {collectives}; ms a step over "
+        f"{len(chunks) * CHAIN} batches chained {times['chained']:.4f} against eager "
+        f"{times['eager']:.4f}, {times['eager'] / times['chained']:.2f}x{slowest}; busy over 8 "
+        f"replays ({wall:.2f} ms): {shares}{grad_sum} [{card}]")
     return counts
 
 
@@ -3908,6 +3994,292 @@ def train_grid_slice(card: str) -> dict:
     dryrun_multichip(4)
     mp_train(card)
     log(f"train grid phase: {time.perf_counter() - t0:.1f} s")
+    return dict(counts)
+
+
+# ------------------------------------ grids across processes (phase 12)
+PROCESS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "process_chains")
+PROCESS_LIMIT = 600  # seconds a group of rank processes may take
+PROCESS_KERNELS = ("gru_fwd", "gru_bwd", "topk_stream", "twophase_p1", "twophase_p2")
+
+
+def state_digest(tensors) -> str:
+    """sha256 over the tensors' bytes: equal digests are equal bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def process_runs(n: int) -> tuple:
+    """The chained grid runs of a group of n ranks: the ranking preset on
+    (n, 1); at n = 2 also the classification preset on (2, 1) and on (2,
+    2), where each rank's card holds both blocks of its grid row."""
+    more = (("classification", (2, 1)), ("classification", (2, 2))) if n == 2 else ()
+    return (("ranking", (n, 1)),) + more
+
+
+def run_ranks(jobs: dict, limit: float, where: str, cwd=None, envs=None) -> dict:
+    """Start every job (name → argv; its environment ``envs[name]``, else
+    this process's) at once, its output in files under ``where``, and
+    wait for all within ``limit`` s; a job that fails ends the others (a
+    rank left in a collective would wait for NCCL's timeout). Returns
+    name → (exit code, stdout, stderr)."""
+    os.makedirs(where, exist_ok=True)
+    files, procs = {}, {}
+    for name, argv in jobs.items():
+        stem = os.path.join(where, name.replace(" ", "_"))
+        files[name] = (open(stem + ".out", "w+"), open(stem + ".err", "w+"))
+        procs[name] = subprocess.Popen(argv, stdout=files[name][0], stderr=files[name][1],
+                                       text=True, cwd=cwd, env=(envs or {}).get(name))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs.values()):
+            if time.perf_counter() - t0 > limit or any(p.poll() for p in procs.values()):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    out = {}
+    for name, (o, e) in files.items():
+        o.seek(0)
+        e.seek(0)
+        out[name] = (procs[name].returncode, o.read(), e.read())
+        o.close()
+        e.close()
+    return out
+
+
+def process_rank(rank: int, n: int, coord: str) -> None:
+    """One rank of process_group: joins the group (card ``rank``, NCCL),
+    runs process_runs(n) through grid_chain_run and process_serving, and
+    prints its launch counts on a RESULT line."""
+    from sse_tpu_torch.parallel import distributed
+
+    distributed.initialize(coord, n, rank)
+    card = card_line()
+    check(distributed.captures(), f"rank {rank}: device collectives over "
+                                  f"{distributed.backend()}, not NCCL on a card a rank")
+    handling = os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING", "unset: PyTorch's default")
+    log(f"rank {rank} of {n} on {distributed.local_device()}: NCCL {distributed.nccl_version()}, "
+        f"TORCH_NCCL_ASYNC_ERROR_HANDLING {handling}, torch {torch.__version__}")
+    counts = collections.Counter()
+    for task, shape in process_runs(n):
+        counts.update(grid_chain_run(card, task, shape))
+        torch.cuda.empty_cache()
+    counts.update(process_serving(card, n))
+    print("RESULT " + json.dumps(dict(counts)), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def process_serving(card: str, n: int) -> dict:
+    """In a rank: a (1, n) grid across the n ranks serving the bench's GRU
+    model over SHARDED_ROWS random unit rows, bf16 and int8, B=8 and 4096,
+    k=10. The capturing call, a replay under sync debug "error" and the
+    eager call (``.run``) bit for bit; the exchange and the merge inside
+    the rank's graph (``GridQuery.exchange``), one capture a shape; the
+    replay's rows and values saved for process_group to hold against the
+    single process's unsharded call; ms a call replayed and eager (CUDA
+    events, every rank's). Returns the replays' launch counts."""
+    from sse_tpu_torch import bench, ops
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.parallel import RowShards, distributed, make_mesh
+    from sse_tpu_torch.serve.engine import build_fused_query_fn
+
+    rank, dev = distributed.rank(), distributed.local_device()
+    mesh = make_mesh(1, n, devices=[dev])
+    cfg = bench._default_model()
+    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    counts = collections.Counter()
+    for dtype in (torch.bfloat16, torch.int8):
+        name = str(dtype)[6:]
+        emb = RowShards.from_tensor(bench._device_index(SHARDED_ROWS, D, dtype, dev, shards=n),
+                                    mesh)
+        torch.cuda.empty_cache()
+        fn = build_fused_query_fn(cfg, K, SHARDED_ROWS, mesh=mesh)
+        check(fn.exchange, f"rank {rank}: the grid query's exchange is not captured")
+        for i, b in enumerate((8, 4096)):
+            label = f"served (1, {n}) rank {rank} {name} B={b}"
+            toks, lens = sharded_tokens(b, 7 + b, dev)
+            first = fn(params, emb, toks, lens)  # the capture, its warm-up this call's result
+            sync_cards()
+            before = ops.launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = fn(params, emb, toks, lens)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sync_cards()
+            after = ops.launch_counts()
+            launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+            counts.update(launched)
+            eager = uncounted(lambda: fn.run(params, emb, toks, lens, SHARDED_ROWS))
+            same(f"{label}: replay against eager", got, eager)
+            same(f"{label}: the capture's warm-up against eager", first, eager)
+            check(fn.stats.counts() == {"graph_captures": i + 1, "graph_replays": 1 + 7 * i},
+                  f"{label}: {fn.stats.counts()}")
+            torch.save((got[0].cpu().clone(), got[1].cpu().clone()),
+                       os.path.join(PROCESS_DIR, f"n{n}_rank{rank}_{name}_b{b}.pt"))
+            replayed = cuda_ms(lambda: fn(params, emb, toks, lens), 5)
+            eager_ms = uncounted(lambda: cuda_ms(
+                lambda: fn.run(params, emb, toks, lens, SHARDED_ROWS), 5))
+            every = distributed.all_gather_object((replayed, eager_ms))
+            if rank == 0:
+                log(f"served (1, {n}) across {n} processes over NCCL, {name} B={b} k={K}: one "
+                    f"capture a rank (the exchange and the merge inside its graph), a replay == "
+                    f"eager == the capture's warm-up bit for bit under sync debug 'error'; "
+                    f"launches a replay {launched}; ms a call (CUDA events) replayed / eager by "
+                    f"rank: {', '.join(f'{r:.4f} / {e:.4f}' for r, e in every)} [{card}]")
+        del emb, fn
+        torch.cuda.empty_cache()
+    return dict(counts)
+
+
+def process_group(card: str, n: int) -> dict:
+    """n rank processes (``chip_smoke.py --process-rank R n COORD``), rank r
+    on card r over NCCL, each running process_runs(n) (grid_chain_run) and
+    process_serving; their logs relayed. Then every rank's served rows and
+    values against the single process's unsharded call on the same index
+    and tokens, bit for bit. Returns the ranks' launch counts, summed."""
+    from sse_tpu_torch import bench
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.serve.engine import build_fused_query_fn
+
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    jobs = {f"rank {r} of {n}": [sys.executable, os.path.abspath(__file__), "--process-rank",
+                                 str(r), str(n), coord] for r in range(n)}
+    outs = run_ranks(jobs, PROCESS_LIMIT, os.path.join(PROCESS_DIR, f"logs{n}"))
+    counts = collections.Counter()
+    for name, (rc, out, err) in outs.items():
+        for line in out.splitlines():
+            if line.startswith("RESULT "):
+                counts.update(json.loads(line[len("RESULT "):]))
+            else:
+                log(f"  {name}: {line}")
+        for line in err.splitlines():
+            if line.startswith("[sse]"):
+                log(f"  {name}: {line}")
+        check(rc == 0, f"{name} failed ({rc}):\n{out[-3000:]}\n{err[-5000:]}")
+    log(f"process group of {n}: every rank done in {time.perf_counter() - t0:.1f} s")
+    cfg = bench._default_model()
+    params = sse.init_params(cfg, torch.Generator().manual_seed(SEED), "cuda")
+    for dtype in (torch.bfloat16, torch.int8):
+        full = sharded_rows(dtype)[:SHARDED_ROWS]
+        fn = build_fused_query_fn(cfg, K, SHARDED_ROWS)
+        for b in (8, 4096):
+            toks, lens = sharded_tokens(b, 7 + b)
+            want = fn(params, full, toks, lens)
+            for r in range(n):
+                got = torch.load(os.path.join(PROCESS_DIR, f"n{n}_rank{r}_{str(dtype)[6:]}_b{b}.pt"))
+                same(f"(1, {n}) rank {r} {dtype} B={b} against one process",
+                     (got[0].cuda(), got[1].cuda()), want)
+        del full
+        torch.cuda.empty_cache()
+    log(f"served (1, {n}) across {n} processes: every rank's rows and values at B=8 and 4096, "
+        f"bf16 and int8, == the single process's unsharded call bit for bit")
+    return dict(counts)
+
+
+def mp_chain_train(card: str, n: int) -> None:
+    """``cli train --num_processes n`` over NCCL (a card a rank) on the
+    demo ranking corpus (24 steps, a log record every 8) at
+    steps_per_dispatch 8, its captured chains replaying 2 chunks, against
+    1, twice: both log the same steps, and the same losses bit for bit
+    where the two K=1 runs agree (else within rtol 2e-4 at the first log
+    record); every rank's final params equal. The K=8 ranks run under
+    recording_steps(shadow=True): every step also runs eagerly and is held
+    against the one-card step from the same state, and each chunk's
+    replay against those steps (CHAIN_CHECKS)."""
+    from sse_tpu_torch import cli
+
+    where = os.path.join(PROCESS_DIR, f"cli{n}")
+    os.makedirs(where, exist_ok=True)
+    check(cli.main(["demo-data", "--task", "ranking", "--out_dir",
+                    os.path.join(where, "data")]) == 0, "demo-data")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "SSE_PLATFORM"}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    base = ["train", "--data_dir", "data", "--task_type", "ranking", "--max_epochs", "2",
+            "--steps_per_checkpoint", "8"]
+    jobs, envs = {}, {}
+    for run, k in (("k8", 8), ("k1", 1), ("k1b", 1)):
+        coord = f"127.0.0.1:{free_port()}"
+        for r in range(n):
+            jobs[f"{run} rank {r}"] = [sys.executable, "-c", MP_RUNNER, *base, "--model_dir", run,
+                                       "--steps_per_dispatch", str(k), "--num_processes", str(n),
+                                       "--coordinator", coord, "--process_id", str(r)]
+            envs[f"{run} rank {r}"] = {**env, "SMOKE_SHADOW": "1" if run == "k8" else "0"}
+    t0 = time.perf_counter()
+    outs = run_ranks(jobs, PROCESS_LIMIT, os.path.join(where, "logs"), cwd=where, envs=envs)
+    for name, (rc, out, err) in outs.items():
+        check(rc == 0, f"{name} exit {rc}:\n{out[-2000:]}\n{err[-4000:]}")
+        check("over nccl" in err, f"{name}: not over NCCL: {err[-1000:]}")
+
+    def line(name, tag):
+        return json.loads([x for x in outs[name][1].splitlines() if x.startswith(tag)][-1][len(tag):])
+
+    params = {name: line(name, "[params] ") for name in jobs}
+    for run in ("k8", "k1", "k1b"):
+        check(all(params[f"{run} rank {r}"] == params[f"{run} rank 0"] for r in range(n)),
+              f"{run}: the ranks' final params differ: {[params[f'{run} rank {r}'] for r in range(n)]}")
+    chains = line("k8 rank 0", "[chains] ")
+    n_steps, held = line("k8 rank 0", "[held] ")[:2]
+    check(len(chains) == 2 and n_steps == held == 24,
+          f"K=8: {len(chains)} chains held, {held} of {n_steps} steps held")
+    logs = {}
+    for run in ("k8", "k1", "k1b"):
+        with open(os.path.join(where, run, "metrics.jsonl")) as f:
+            logs[run] = [json.loads(x) for x in f if '"loss"' in x and '"final"' not in x]
+    steps = {run: [r["step"] for r in recs] for run, recs in logs.items()}
+    losses = {run: [r["loss"] for r in recs] for run, recs in logs.items()}
+    check(steps["k8"] == steps["k1"] == steps["k1b"] == [8, 16, 24], f"log steps {steps}")
+    repeat = losses["k1"] == losses["k1b"]
+    if repeat:
+        check(losses["k8"] == losses["k1"], f"K=8 losses {losses['k8']} against K=1's "
+                                            f"{losses['k1']}, which repeat bit for bit")
+    else:
+        check(abs(losses["k8"][0] - losses["k1"][0]) <= 2e-4 * abs(losses["k1"][0]),
+              f"K=8 losses {losses['k8']} against K=1's {losses['k1']}")
+    log(f"cli train --num_processes {n} over NCCL (ranking preset, 24 steps, a log record every "
+        f"8): steps_per_dispatch 8, its 2 chunks replayed from captured chains, each replay "
+        f"against its eager steps {chains}, every step within the one-card step's tolerances "
+        f"from the same state; against 1 (twice): log steps {steps['k8']} equal, losses "
+        f"{'bit for bit' if losses['k8'] == losses['k1'] else 'apart'} ({losses['k8']} / "
+        f"{losses['k1']}; two K=1 runs {'agree' if repeat else 'differ'}); every rank's final "
+        f"params equal (sum / sum |.| {params['k8 rank 0']}); {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+
+
+def process_chains(card: str) -> dict:
+    """Phase 12 (``--processes``): grids across processes over NCCL, a card
+    a rank, for n = 2 and, where the machine has four cards, n = 4: a
+    process group (process_group: the chained grid runs of process_runs(n)
+    and the (1, n) served grid), then ``cli train --num_processes n`` at
+    steps_per_dispatch 8 against 1 (mp_chain_train). NCCL takes a card a
+    rank: on one card the phase only says so (the gloo runs are phase 7's
+    sharded_processes and phase 8's mp_train). Returns the ranks' launch
+    counts."""
+    import shutil
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log("process chains: NCCL takes a card a rank and this machine has one card: the NCCL "
+            "runs need two or four (the gloo runs across processes: sharded_processes, mp_train)")
+        return {}
+    shutil.rmtree(PROCESS_DIR, ignore_errors=True)
+    os.makedirs(PROCESS_DIR)
+    t0 = time.perf_counter()
+    counts = collections.Counter()
+    for n in (2, 4) if count >= 4 else (2,):
+        counts.update(process_group(card, n))
+        mp_chain_train(card, n)
+    log(f"process chains: {time.perf_counter() - t0:.1f} s")
     return dict(counts)
 
 
@@ -4743,6 +5115,10 @@ def main() -> None:
         at = sys.argv.index("--sharded-rank")
         sharded_rank(int(sys.argv[at + 1]), sys.argv[at + 2])
         return
+    if "--process-rank" in sys.argv[1:]:  # one rank of process_group
+        at = sys.argv.index("--process-rank")
+        process_rank(int(sys.argv[at + 1]), int(sys.argv[at + 2]), sys.argv[at + 3])
+        return
 
     from sse_tpu_torch import bench
     from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
@@ -4779,6 +5155,20 @@ def main() -> None:
         return
     if "--grid" in sys.argv[1:]:
         train_grid_slice(card)
+        return
+    if "--processes" in sys.argv[1:]:
+        if torch.cuda.device_count() < 2:  # NCCL takes a card a rank: the gloo runs alone
+            process_chains(card)
+            cfg = bench._default_model()
+            from sse_tpu_torch.models import sse
+
+            sharded_processes(cfg, sse.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                                   "cuda"))
+            mp_train(card)
+            return
+        counts = process_chains(card)
+        missing = [n for n in PROCESS_KERNELS if counts.get(n, 0) < 1]
+        check(not missing, f"kernels never launched on the process chains' path: {missing}")
         return
     if "--chain" in sys.argv[1:]:
         counts = chain_slice(card)
@@ -4849,6 +5239,7 @@ def main() -> None:
         "transformer preset": preset_slice(card, "ranking", "transformer", recipe="transformer"),
         "cli": cli_slice(card),
         "train grid": train_grid_slice(card),
+        "process chains": process_chains(card),
     }
     need = {
         "encode": ENCODE_KERNELS,
@@ -4867,6 +5258,8 @@ def main() -> None:
         "graphs": GRAPH_KERNELS,
         "evals": EVAL_KERNELS,
     }
+    if runs["process chains"]:  # NCCL's runs need two cards
+        need["process chains"] = PROCESS_KERNELS
     for run, names in need.items():
         missing = [n for n in names if runs[run].get(n, 0) < 1]
         check(not missing, f"kernels never launched on the {run} path: {missing}")

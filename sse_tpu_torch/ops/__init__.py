@@ -37,28 +37,40 @@ class GraphLaunches:
     wrapper counts its launch while the graph is captured, where nothing
     runs; ``with g.capturing():`` around the capture takes those counts
     back out and keeps them, and ``g.replayed()`` adds them once a
-    replay, so the counters see every launch a replay makes."""
+    replay, so the counters see every launch a replay makes. The device
+    collectives a graph holds (``parallel.distributed.collectives``, by
+    op) are counted the same way, in ``collectives``."""
 
     def __init__(self) -> None:
         self.rnn: dict = {}
         self.topk: Counter = Counter()
+        self.collectives: Counter = Counter()
 
     @contextlib.contextmanager
     def capturing(self):
+        from sse_tpu_torch.parallel import distributed  # not at import: parallel imports ops
+
         rnn0, topk0 = dict(rnn.launches), Counter(topk.launches)
+        coll0 = Counter(distributed.collectives)
         try:
             yield self
         finally:
             self.rnn = {k: rnn.launches[k] - rnn0[k] for k in rnn0}
             self.topk = topk.launches - topk0
+            self.collectives = distributed.collectives - coll0
             rnn.launches.update(rnn0)
             topk.launches.clear()
             topk.launches.update(topk0)
+            distributed.collectives.clear()
+            distributed.collectives.update(coll0)
 
     def replayed(self) -> None:
+        from sse_tpu_torch.parallel import distributed
+
         for name, n in self.rnn.items():
             rnn.launches[name] += n
         topk.launches.update(self.topk)
+        distributed.collectives.update(self.collectives)
 
 
 __all__ = [

@@ -14,7 +14,13 @@ across several processes.
   ``encode_context_parallel``);
 * ``distributed``: ``torch.distributed`` bring-up (NCCL when every rank
   has a card of its own, gloo otherwise) and the collectives that carry
-  gradients.
+  gradients. The backend decides what is captured across processes
+  (``distributed.captures()``): over NCCL a grid's chunk of train steps
+  (``train.loop._GridChain``) and its query (``serve.engine.GridQuery``,
+  the exchange and the merge included) are one CUDA graph a rank with
+  their collectives inside; over gloo, whose collectives run on the
+  host, both run eagerly, as do the context-parallel encode, the mining
+  refresh and a delete's row gather on any backend.
 """
 
 from sse_tpu_torch.parallel import distributed

@@ -30,7 +30,7 @@ block's own ``num_real`` and first row (``_shard_topk``); the route is
 chosen on the replica's batch, as JAX chooses it inside ``shard_map``.
 The shards' composites are merged exactly (``parallel.topk``) on the
 replica's first device, or, across processes, on every rank after an
-exchange of the [B, S·k] composites.
+exchange of the [B, S·k] composites (``_across_ranks``).
 
 On a grid of cards the query is one program a distinct card and shape,
 as JAX's ``jax.jit(shard_map(...))`` is one program on every device
@@ -43,7 +43,11 @@ into every card's buffers, replays every card's graph, and only then
 copies the composites of the replicas that span cards to their merging
 cards and merges them there eagerly; no graph holds a copy between
 cards, and nothing waits on the host between the first replay and the
-merge.
+merge. Across processes over NCCL (``distributed.captures()``: a card a
+rank) the exchange of the composites and the merge run inside the
+rank's graph, after its shards, so a replay returns the merged [B, k]
+rows on every rank; over gloo, whose collectives run on the host, they
+stay eager after the replay.
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ from sse_tpu_torch.parallel import distributed
 from sse_tpu_torch.parallel.mesh import Mesh, RowShards, replicate
 from sse_tpu_torch.parallel.topk import lift, merge
 from sse_tpu_torch.train.loop import tree_leaves
-from sse_tpu_torch.utils.graphs import Captured, GraphStats, PerCard
+from sse_tpu_torch.utils.graphs import Captured, GraphStats, PerCard, agree
 
 # graphs one query function keeps; an engine needs tiers x buckets (8 with
 # a bulk tier and max_seq_length 50)
@@ -135,6 +139,22 @@ def _card_body(model_cfg: SSEConfig, k: int, variant: str, entries, t_local: int
                     torch.stack([comps[e] for e in rest]) if rest else torch.empty(0, device=dev))
 
     return body
+
+
+def _across_ranks(mesh: Mesh, k: int, b: int, got, dev: torch.device, int_exact: bool,
+                  exact: bool):
+    """(vals, rows) [b, k] of the whole batch, the same on every rank: each
+    rank fills the cells of its own entries (``got``: (d, s) → composites
+    [b / data, k]), the rest stay empty, and the element-wise max over the
+    ranks (one ``distributed.all_gather``) assembles every replica's
+    [b / data, S·k] candidates, merged on ``dev``."""
+    data, shards = mesh.shape["data"], mesh.shape["model"]
+    bl = b // data
+    cells = torch.full((b, shards * k), _EMPTY, dtype=torch.int64, device=dev)
+    for (d, s), c in got:
+        cells[d * bl : (d + 1) * bl, s * k : (s + 1) * k] = c.to(dev)
+    comp = _topk_desc(distributed.all_gather(cells).amax(dim=0), k)
+    return decode(comp, int_exact, exact)
 
 
 class GraphCache:
@@ -347,10 +367,18 @@ class GridQuery:
     one buffer: ``replay(..., adopt=True)`` (the engine's warmup, a
     function's first call) adopts a new one and drops every graph of the
     old; a call on any other ``RowShards`` runs eagerly and drops
-    nothing. ``stats`` counts a capture and a replay a card. Across
-    processes each rank captures and replays its own cards' bodies; the
-    exchange of the composites (``distributed.all_gather``) stays eager,
-    as a gloo collective cannot be captured.
+    nothing. ``stats`` counts a capture and a replay a card.
+
+    Across processes each rank captures and replays its own cards'
+    bodies, and the ranks call the function in lockstep (its exchange is a
+    collective), so every rank captures on the same calls. The backend
+    decides where the exchange runs: over NCCL, one card a rank
+    (``distributed.captures()``), the card's body ends with the exchange
+    of the composites and the merge (``_across_ranks``), so the rank's
+    graph holds the collective and a replay returns the merged rows on
+    every rank; the ranks agree on each capture (``utils.graphs.agree``)
+    before any replays it. Over gloo, whose collectives run on the host,
+    the exchange and the merge stay eager after the replays.
 
     ``params``: the ``parallel.replicate`` copies (the engine and the
     bench pass them); a plain pytree is copied to each other card on every
@@ -370,6 +398,9 @@ class GridQuery:
                        for dev, entries in self.cards.items()}
         self.rest = {dev: [e for e in entries if e[0] not in self.merged[dev]]
                      for dev, entries in self.cards.items()}
+        # across processes over NCCL: the exchange and merge inside the rank's graph
+        self.exchange = (mesh.multi_process and distributed.captures()
+                         and len(self.cards) == 1)
         self.stats = GraphStats() if stats is None else stats
         self.cache = GraphCache(self.stats, cards=len(self.cards))
         self.per_card = PerCard()
@@ -392,9 +423,23 @@ class GridQuery:
                 {d: lengths[d * bl : (d + 1) * bl] for d in range(data)})
 
     def _body(self, emb: RowShards, dev: torch.device) -> Callable:
-        return _card_body(self.model_cfg, self.k, self.variant, self.cards[dev],
-                          emb.rows_per_shard, self.merged[dev], self.rest[dev],
-                          emb.dtype == torch.int8)
+        int_exact = emb.dtype == torch.int8
+        body = _card_body(self.model_cfg, self.k, self.variant, self.cards[dev],
+                          emb.rows_per_shard, self.merged[dev], self.rest[dev], int_exact)
+        if not self.exchange:
+            return body
+        mesh, k, entries, exact = self.mesh, self.k, self.rest[dev], self.variant == "exact"
+
+        def exchanged(params, blocks, tokens, lengths, nr):
+            """The card's shards, then the exchange and the merge: the whole
+            batch's (values, rows), packed [2, B, k]."""
+            _, rest = body(params, blocks, tokens, lengths, nr)
+            b = next(iter(tokens.values())).shape[0] * mesh.shape["data"]
+            with torch.no_grad():
+                return _pack(*_across_ranks(mesh, k, b, zip(entries, rest), dev, int_exact,
+                                            exact))
+
+        return exchanged
 
     def run(self, params, emb: RowShards, tokens, lengths, nr):
         """The grid call issued eagerly, card by card."""
@@ -451,20 +496,45 @@ class GridQuery:
     def _capture(self, dev, params, emb: RowShards, blocks, tokens, lengths, nr) -> CardQuery:
         """A new graph of ``dev``'s body in the card's pool: a card with
         no graph left in the cache (a new index, or all evicted) takes a
-        new pool, as does one a capture failed in (``GraphPool``)."""
+        new pool, as does one a capture failed in (``GraphPool``). With
+        the exchange inside, every rank captures the same call and the
+        ranks agree on it: a capture that failed on any rank raises on
+        every rank, each of which drops the card's pool."""
         if not any(key[1] == dev for key in self.cache.graphs):
             self.per_card.drop(dev)
-        return CardQuery(self._body(emb, dev), dev, params, blocks, tokens, lengths, nr,
-                         emb.shape[0], self.per_card)
+        make = lambda: CardQuery(self._body(emb, dev), dev, params, blocks, tokens,  # noqa: E731
+                                 lengths, nr, emb.shape[0], self.per_card)
+        if not self.exchange:
+            return make()
+        made, error = None, None
+        try:
+            distributed.check_capturable()
+            made = make()
+        except BaseException as e:  # noqa: BLE001 (raised below, on every rank)
+            error = e
+        try:
+            agree(error, {} if made is None else {
+                "shape": list(tokens[next(iter(tokens))].shape),
+                "collectives": dict(made.captured.launches.collectives)},
+                "a grid query's capture across processes")
+        except BaseException:
+            self.per_card.drop(dev)
+            raise
+        return made
 
     def _merge(self, outs: Dict[torch.device, tuple], emb: RowShards, b: int):
         """The cards' outputs → (vals, rows) of the whole batch on the
         grid's first device (a new tensor: it outlives the next replay).
         A replica no card merged has its shards' composites merged on its
         first card; across processes every rank assembles every replica's
-        candidates after the exchange, and merges them."""
+        candidates after the exchange, and merges them (inside the rank's
+        body where the exchange is captured)."""
+        if self.exchange:  # merged inside the card's body, [2, B, k] on every rank
+            (out,) = outs.values()
+            out = out.clone()
+            return out[0].view(torch.float32), out[1]
         mesh, k = self.mesh, self.k
-        data, shards = mesh.shape["data"], mesh.shape["model"]
+        data = mesh.shape["data"]
         packed: Dict[int, torch.Tensor] = {}
         groups: Dict[int, list] = {d: [] for d in range(data)}
         for dev, (done, rest) in outs.items():
@@ -473,17 +543,9 @@ class GridQuery:
             for (d, s), c in zip(self.rest[dev], rest):
                 groups[d].append((s, c))
         int_exact, exact = emb.dtype == torch.int8, self.variant == "exact"
-        if mesh.multi_process:
-            # each rank fills the cells of its own entries, the rest stay
-            # empty, and the element-wise max over the ranks assembles
-            # every replica's [B / data, S·k] candidates on each rank
-            bl = b // data
-            cells = torch.full((b, shards * k), _EMPTY, dtype=torch.int64, device=emb.device)
-            for d, got in groups.items():
-                for s, c in got:
-                    cells[d * bl : (d + 1) * bl, s * k : (s + 1) * k] = c.to(emb.device)
-            comp = _topk_desc(distributed.all_gather(cells).amax(dim=0), k)
-            return decode(comp, int_exact, exact)
+        if mesh.multi_process:  # each rank's candidates, exchanged after the replays
+            got = [((d, s), c) for d, cs in groups.items() for s, c in cs]
+            return _across_ranks(mesh, k, b, got, emb.device, int_exact, exact)
         for d, got in groups.items():
             if got:
                 comp = merge([c for _, c in sorted(got, key=lambda x: x[0])], k,
@@ -524,7 +586,9 @@ def build_fused_query_fn(
     device, in batch order; across processes every rank gets all of
     them, on its own first device. The function is a ``GridQuery``: on
     cards, one CUDA graph a distinct card and shape, every card's graph
-    replayed before the merge; ``.run`` is the same path eager."""
+    replayed before the merge (across processes over NCCL, the exchange
+    and the merge inside each rank's graph); ``.run`` is the same path
+    eager."""
     if pallas_variant not in VARIANTS:
         raise ValueError(f"pallas_variant must be one of {VARIANTS}, got {pallas_variant!r}")
     if mesh is not None:

@@ -74,9 +74,19 @@ cards as the work issued between the replays: the chain of
 ``loop.make_train_step(mesh=, chain=K)`` (``loop._GridChain``). The step
 reads no device value on the host: its step number for the EMA and its
 generators come from ``draws`` (a chain's, seeded before each replay) or
-are made from ``state.step``. A grid across processes is not captured:
-its collectives run over gloo through host memory (ROADMAP.md §1
-item 4).
+are made from ``state.step``.
+
+Across processes the step runs ``_Plain`` on the rank's card. Its
+collectives are ``distributed.gather_rows`` (the global operands, the
+features, the candidates and the per-row terms; an ``all_gather`` each,
+no collective in the backward), the ``all_reduce`` of
+``sum_grads_over_ranks``'s backward (the full softmax) and one
+``all_reduce`` a leaf of the sum over 'data' (``_sum_over_data``); none
+reads a value on the host, and their shapes and order follow from the
+config and the batch shape alone, so every rank issues the same
+sequence. Over NCCL (``distributed.captures()``) a ``Recorder`` takes
+the whole step, its collectives included, into the rank's graph; over
+gloo, whose collectives run on the host, the step stays eager.
 
 The step is the one-device step's profiler ranges plus
 ``sse.train.grad_sum`` (the sum over 'data') and, with a sharded table,

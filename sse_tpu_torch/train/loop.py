@@ -8,16 +8,20 @@ the bias-corrected EMA, with no host sync inside it.
 
 Dispatch chaining. The JAX package runs ``steps_per_dispatch`` steps as
 one XLA program (``make_train_step(chain=K)``, a ``lax.scan``; on a grid
-one SPMD program, the gradients reduced inside it). Here the same call
-captures K steps on the cards and replays them: on one card as one CUDA
-graph (``_GraphChain``: one upload of the packed chunk, one launch of
-the graph); on a grid of one process (``mesh=``) as ``_GridChain``,
-each card's share of the steps as graphs in that card's pool and the
-copies between cards issued between their replays (one graph, as on one
-card, where every grid entry lies on one card). On the CPU, which only
-the tests ask for, and on a grid that spans processes, the chain runs
-its K steps eagerly: the processes' collectives go through gloo and
-host memory, which no CUDA graph holds (ROADMAP.md §1 item 4).
+one SPMD program, the gradients reduced inside it, across hosts too).
+Here the same call captures K steps on the cards and replays them: on
+one card as one CUDA graph (``_GraphChain``: one upload of the packed
+chunk, one launch of the graph); on a grid (``mesh=``) as
+``_GridChain``, each card's share of the steps as graphs in that card's
+pool and the copies between cards issued between their replays (one
+graph, as on one card, where every grid entry of the process lies on
+one card). Across processes the backend decides
+(``parallel.distributed.captures``): over NCCL, one rank a card, each
+rank's chunk is one graph with its collectives inside, and the ranks
+agree on each capture (``utils.graphs.agree``); over gloo (ranks that
+share a card, or the CPU) the chain runs its K steps eagerly, as a gloo
+collective runs on the host, which no CUDA graph holds. On the CPU,
+which only the tests ask for, the chain runs eagerly too.
 ``train()`` chunks as JAX's does: a chunk ends exactly at the next
 checkpoint or mining-refresh step and never crosses an epoch; a full
 chunk is one chain call, a short one runs as single steps. So chained
@@ -64,6 +68,7 @@ from sse_tpu_torch.data.corpus import EncodedPairs, TargetSpace
 from sse_tpu_torch.models import sse
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
 from sse_tpu_torch.ops import GraphLaunches
+from sse_tpu_torch.parallel import distributed
 from sse_tpu_torch.train import losses as losses_lib
 from sse_tpu_torch.train.losses import LossConfig
 from sse_tpu_torch.utils import graphs
@@ -371,8 +376,10 @@ def make_train_step(
     (``train.grid``): the state is one placed by ``grid.place_state``, and
     the batch operands are this process's rows of the global batch. A
     chain on a grid of cards in one process is captured (``_GridChain``;
-    the function keeps one a chunk shape in ``.chains``); across
-    processes it runs eagerly."""
+    the function keeps one a chunk shape in ``.chains``), as it is across
+    processes over NCCL (``distributed.captures()``: one graph a rank,
+    its collectives inside); across processes over gloo it runs
+    eagerly."""
     if chain > 1 and packed_width is None:
         raise ValueError("a chain of steps takes packed batches (packed_width)")
     tx = make_optimizer(cfg)
@@ -389,8 +396,8 @@ def make_train_step(
         if chain <= 1:
             return packed
         eager = _eager_chain(packed, chain)
-        if mesh.multi_process:  # gloo's collectives go through host memory: no graph holds them
-            return eager
+        if mesh.multi_process and not distributed.captures():
+            return eager  # gloo's collectives run on the host: no CUDA graph holds them
         chains: Dict[tuple, _GridChain] = {}
 
         def grid_chain_fn(state, packed_k, tgt_tokens, tgt_lens, tgt_emb_cache=None):
@@ -673,8 +680,8 @@ def _one(x):
 
 
 class _GridChain:
-    """K steps of a single-process grid captured on its cards for one set
-    of input shapes (the counterpart of the one SPMD program a chunk that
+    """K steps of a grid captured on this process's cards for one set of
+    input shapes (the counterpart of the one SPMD program a chunk that
     JAX compiles for a grid), replayed once a call.
 
     The steps read fixed buffers: every copy of every state tensor on its
@@ -698,7 +705,15 @@ class _GridChain:
     of the graphs' order on one card). The last work of each card copies
     the K-th state into the buffers, so the state a replay returns is
     those buffers. One eager warm-up step on the cards' side streams
-    comes first; a capture that fails raises."""
+    comes first; a capture that fails raises.
+
+    Across processes (NCCL, one card a rank) the rank's grid rows lie on
+    its card: its chunk is one graph, the collectives of every step
+    (``distributed.gather_rows``, ``sum_grads_over_ranks``, the gradient
+    sums over 'data') inside it, in an order that follows from the config
+    and the chunk's shape alone. Every rank warms up (each collective
+    issued once eagerly) and records the same chunk, and the ranks agree
+    on the recording before any replays it (``Recorder(agree=True)``)."""
 
     def __init__(self, packed_step, k: int, cfg: TrainConfig, sampled: bool, dropout: bool,
                  state: TrainState, packed_k, tgt_tokens, tgt_lens, cache,
@@ -721,11 +736,13 @@ class _GridChain:
         # each card's step numbers of the chunk's positions: s + [0, K)
         self.offsets = {c: torch.arange(k, dtype=torch.int32, device=c) for c in self.cards}
         self.steps = {c: torch.zeros(k, dtype=torch.int32, device=c) for c in self.cards}
-        reps = {d: mesh.devices[d, 0] for d in range(mesh.shape["data"])}
+        # this process's data replicas, each on the card of its grid row
+        reps = {d: mesh.devices[d, 0] for d in range(mesh.shape["data"]) if mesh.is_local(d, 0)}
         gen = lambda on: {d: torch.Generator(device=c) for d, c in reps.items()} if on \
             else None  # noqa: E731
         self.gens = [(gen(sampled), gen(dropout)) for _ in range(k)]
         self.rec = graphs.Recorder(self.cards, split=split)
+        self.rec.agree = mesh.multi_process  # the ranks agree on the recording
         self.load(state, packed_k, tgt_tokens, tgt_lens, cache)
         self.rec.warm(lambda: self._steps(graphs.EAGER, 1))
         whole = [g for pos in self.gens for kind in pos if kind for g in kind.values()]
@@ -912,7 +929,8 @@ def train(
     tgt_tokens, tgt_lens = copies(tokens), copies(lengths)
     upload = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     # a captured chain uploads its chunk itself: once, from pinned memory
-    pinned = dev.type == "cuda" and (mesh is None or not mesh.multi_process)
+    pinned = dev.type == "cuda" and (mesh is None or not mesh.multi_process
+                                     or distributed.captures())
     upload_chunk = lambda a: torch.from_numpy(a).pin_memory() if pinned else upload(a)  # noqa: E731
 
     mine = cfg.loss.num_hard_negatives > 0 and cfg.loss.kind != "full"

@@ -16,6 +16,14 @@ index bench (``bench.py``) and the grid's chain of train steps
 (``train/loop.py`` ``_GridChain``, through a ``Recorder``) capture
 through them. A capture that fails raises: nothing on the card falls
 back to eager quietly.
+
+Across processes (``parallel.distributed.captures``: NCCL, a card a
+rank) a captured program holds its collectives, and a replay launches
+them at once: every rank must replay the same collectives, or the ranks
+that went first wait for the others. So the ranks agree on each capture
+(``agree``): each tells every other, over the gloo group, whether it
+captured and what (graphs, collectives), and if any rank failed or the
+readings differ, every rank raises.
 """
 
 from __future__ import annotations
@@ -73,6 +81,29 @@ def abandon_capture(graph: torch.cuda.CUDAGraph, dev: torch.device, pool) -> Non
 
 def _tensors(x):
     return x if isinstance(x, (tuple, list)) else (x,)
+
+
+def agree(error: Optional[BaseException], reading: dict, what: str) -> None:
+    """Every rank's outcome of one capture (``error``: this rank's, or
+    None; ``reading``: what it captured, which must be the same on every
+    rank), exchanged over the gloo group. Raises on every rank where any
+    rank failed (this rank's own error where it failed) or where the
+    readings differ; returns where every rank captured the same program.
+    Every rank of the group must call it for the same capture."""
+    from sse_tpu_torch.parallel import distributed
+
+    said = None if error is None else f"{type(error).__name__}: {error}"[:2000]
+    got = distributed.all_gather_object({"error": said, "reading": reading})
+    if error is not None:
+        raise error
+    failed = [r for r, g in enumerate(got) if g["error"] is not None]
+    if failed:
+        raise RuntimeError(f"{what}: the capture failed on rank(s) {failed} "
+                           f"({got[failed[0]]['error']}); no rank replays it")
+    readings = [g["reading"] for g in got]
+    if any(r != readings[0] for r in readings):
+        raise RuntimeError(f"{what}: the ranks captured different programs {readings}; no rank "
+                           f"replays it")
 
 
 class Captured:
@@ -280,14 +311,22 @@ class Recorder:
     order, and returns ``run()``'s result as recorded. ``graphs`` counts
     the graphs a card, ``seconds`` and ``mib`` (a card) are the host time
     of the warm-up and the recording and what the recording added to
-    each card's reserve, and ``launches`` counts a replay's kernels. A
-    capture that fails is ended and raises; its card's pool is dropped
-    (``PerCard.drop``)."""
+    each card's reserve, and ``launches`` counts a replay's kernels and
+    collectives. A capture that fails is ended and raises; its card's
+    pool is dropped (``PerCard.drop``).
+
+    A device collective issued inside ``on(dev)`` (NCCL, across
+    processes) is work on the card: it stays in the open graph. With
+    ``agree`` (a program across processes) the ranks agree on the
+    recording (``agree``: every rank captured, and the same graphs,
+    copies and collectives); where they do not, every rank drops its
+    pools and raises."""
 
     def __init__(self, cards: Sequence[torch.device], per_card: Optional[PerCard] = None,
-                 split: bool = False) -> None:
+                 split: bool = False, agree: bool = False) -> None:
         self.cards = list(cards)
         self.split = split  # each ``on`` its own graph (a check of the graphs' order on one card)
+        self.agree = agree
         self.per_card = PerCard() if per_card is None else per_card
         self.actions: List[tuple] = []
         self.launches = GraphLaunches()
@@ -377,30 +416,51 @@ class Recorder:
     def new_pass(self) -> None:
         self._k = 0
 
+    def reading(self) -> dict:
+        """What was recorded, the same on every rank of a program across
+        processes: graphs, copies and collectives a replay."""
+        return {"graphs": sum(self.graphs.values()),
+                "copies": sum(a[0] == "copy" for a in self.actions),
+                "collectives": dict(sorted(self.launches.collectives.items()))}
+
     def record(self, run: Callable[[], Any]):
         t0 = time.perf_counter()
         reserved = {dev: torch.cuda.memory_reserved(dev) for dev in self.cards}
         collecting = gc.isenabled()
         gc.disable()  # a graph or buffer the collector frees here would end a capture
         self._recording = True
+        error = None
         try:
             with self.launches.capturing():
+                if self.agree:
+                    from sse_tpu_torch.parallel import distributed
+
+                    distributed.check_capturable()
                 self.out = run()
                 if self._open is not None:
                     self._close()
-        except BaseException:
+        except BaseException as e:  # noqa: BLE001 (raised below, on every rank)
+            error = e
             if self._open is not None:
                 dev, graph, _ = self._open
                 self._open = None
                 with torch.cuda.device(dev), torch.cuda.stream(self._side(dev)):
                     abandon_capture(graph, dev, self.per_card.pool(dev).handle)
-            for dev in self.cards:
-                self.per_card.drop(dev)
-            raise
         finally:
             self._recording = False
             if collecting:
                 gc.enable()
+        try:
+            if self.agree:
+                agree(error, self.reading(), "a recording across processes")
+            elif error is not None:
+                raise error
+        except BaseException:
+            self.actions.clear()
+            self.out = None
+            for dev in self.cards:
+                self.per_card.drop(dev)
+            raise
         self.mib = {dev: (torch.cuda.memory_reserved(dev) - r) / 2**20
                     for dev, r in reserved.items()}
         self.seconds += time.perf_counter() - t0
