@@ -16,7 +16,9 @@ CLI.
     python3 chip_smoke.py --processes  # only the grids across processes over NCCL (12.)
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
-cell, and a served qna query by part: qna_query_costs), ``--twophase``
+cell: each backward's kernels by part, and the products of
+csrc/products.cu beside their byte bounds; and a served qna query by
+part: qna_query_costs), ``--twophase``
 (twophase_costs), ``--stream`` (stream_costs) and ``--bench``
 (bench_sweep: the port's query bench at B=8..4096, k=10 and 100, bf16,
 int8 and float32, a 10M-row index, both routes end to end) time the
@@ -473,7 +475,7 @@ def lstm_fwd_costs(card: str, Bs=(8, 128, 256, 2304, 4096), Ts=(1, 2, 50)) -> di
     E = H = 128
     wx, wh, b = layer_weights(E, H, 4, gen)
     wh3 = layer_weights(E, H, 3, gen)[1]
-    parts = {"rnn_scan_kernel": "scan", "gemm_kernel": "x-product"}
+    parts = {"rnn_scan_kernel": "scan", "gates_product_kernel": "x-product"}
     out = {}
     for B in Bs:
         xs_all = torch.randn((max(Ts), B, E), generator=gen, device="cuda").bfloat16()
@@ -495,7 +497,8 @@ def lstm_fwd_costs(card: str, Bs=(8, 128, 256, 2304, 4096), Ts=(1, 2, 50)) -> di
             + "; " + slope_line("x-product", {t: v[1] for t, v in out[B].items()})
             + "; " + slope_line("GRU-cell scan", {t: v[2] for t, v in out[B].items()})
             + f"; layer bound at T={T} {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), the "
-            f"scan's with its ax round trip {scan_bnd['bound_ms']:.4f} ms [{card}]")
+            f"scan's with its ax round trip {scan_bnd['bound_ms']:.4f} ms, the x-product's "
+            f"{product_bounds(T, B, E, H, 4, fwd=True)['x-product']:.4f} ms (bytes) [{card}]")
     return out
 
 
@@ -529,12 +532,17 @@ def rnn_bwd_costs(card: str, cell: str, Bs=(8, 256, 384, 2304, 4096), Ts=(1, 2, 
                    else (lambda: rnn.gru_bwd_launch(*args)))
             split = bwd_split(run, cell)
             out[B][T] = (cuda_ms(run, reps=20), split["dh_loop"], sum(split.values()))
+        parts = beside_bounds(split, product_bounds(T, B, E, H, G))
         bnd = bound(nbytes(*args, *([cs] if lstm else []), *run()[:4]),
                     2.0 * T * B * G * H * 3 * (E + H))
         log(slope_line(f"{cell}_bwd B={B} E=H={H}", {t: v[0] for t, v in out[B].items()})
             + f"; its kernels' device time at T={T} {out[B][T][2]:.4f} ms, of it the dh loop: "
             + slope_line("dh", {t: v[1] for t, v in out[B].items()})
-            + f"; bound at T={T} {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
+            + f"; bound at T={T} {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); by kernel "
+            + ", ".join(f"{k} {v['ms']:.4f}" + (f" (bytes bound {v['bound_ms']:.4f})"
+                                                 if "bound_ms" in v else "")
+                        for k, v in parts.items())
+            + f" [{card}]")
     return out
 
 
@@ -550,6 +558,17 @@ def ptxas_report(log_text: str, pattern: str) -> list:
         elif name and pattern in name and ("spill" in line or "Used " in line):
             out[-1][1] += " " + line.split(":", 1)[-1].strip()
     return [f"{n}:{r}" for n, r in out if pattern in n]
+
+
+def check_products_ptxas(log_text: str) -> None:
+    """Log every ptxas C7515 (wgmma serialized) line, and fail if one names
+    a kernel of the product engine or if one of those spills."""
+    for line in log_text.splitlines():
+        if "C7515" in line:
+            log(f"ptxas: {line.strip()}")
+            check("product_kernel" not in line, f"a product kernel's wgmma is serialized: {line}")
+    for line in ptxas_report(log_text, "product_kernel"):
+        check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"a product kernel spills: {line}")
 
 
 def check_gru(card: str, results: dict) -> None:
@@ -609,7 +628,7 @@ def check_lstm(card: str, results: dict) -> None:
         err = max(err, e, e_b)
         ms = cuda_ms(lambda: rnn.rnn_layer(*args, cell="lstm"))
         dev = parts_ms(lambda: rnn.rnn_layer(*args, cell="lstm"),
-                       {"rnn_scan_kernel": "scan", "gemm_kernel": "x-product"})
+                       {"rnn_scan_kernel": "scan", "gates_product_kernel": "x-product"})
         plain = cuda_ms(lambda: rnn.rnn_layer_reference(*args, "lstm"), reps=3)
         lstm = cudnn_lstm(wx, wh, b)
         with torch.no_grad():
@@ -622,6 +641,7 @@ def check_lstm(card: str, results: dict) -> None:
         if B == 4096:
             results["lstm_fwd"].update(
                 ms=ms, device_ms=sum(dev.values()), plain_ms=plain, library_ms=lib,
+                cuda_kernels=beside_bounds(dev, product_bounds(T, B, E, H, 4, fwd=True)),
                 **bound(nbytes(*args, ys, cs, fin), 2.0 * T * B * (E + H) * 4 * H))
     results["lstm_fwd"]["max_abs_err"] = err
     lstm_fwd_costs(card)
@@ -783,7 +803,9 @@ def check_bwd(card: str, results: dict, cell: str) -> None:
                 ops = 2.0 * T * B * G * H * 3 * (E + H)
                 moved = nbytes(*args, *([cs] if lstm else []), *got)
                 results[name].update(ms=ms, plain_ms=plain, library_ms=lib,
-                                     cuda_kernels=split, **bound(moved, ops))
+                                     cuda_kernels=beside_bounds(split,
+                                                                product_bounds(T, B, E, H, G)),
+                                     **bound(moved, ops))
         log(msg + f" [{card}]")
     results[name].update(max_abs_err=err, rel_err=worst, pinned_rel_err=pinned)
     log(f"{name} kernels at T=50, B={report_b} (torch.profiler, ms per backward): "
@@ -791,14 +813,40 @@ def check_bwd(card: str, results: dict, cell: str) -> None:
 
 
 def bwd_kernels(cell: str) -> dict:
-    """CUDA kernel of csrc/{gru,lstm}_bwd.cu → what it computes."""
+    """CUDA kernel of a layer backward (csrc/{gru,lstm}_bwd.cu and the
+    product engine it launches, csrc/products.cu) → what it computes."""
     return {
-        "gemm_kernel<false, false, 0>": "gates",
+        "gates_product_kernel": "gates",
         f"{cell}_bwd_dh_kernel": "dh_loop",
-        "gemm_kernel<false, false, 1>": "dxs",
-        "gemm_kernel<true, true, 2>": "dw",
+        "dxs_product_kernel": "dxs",
+        "dw_product_kernel": "dw",
         "bwd_reduce_kernel": "reduce",
     }
+
+
+def product_bounds(T: int, B: int, E: int, H: int, G: int, fwd: bool = False) -> dict:
+    """The byte bound (ms) of each product of the engine (csrc/products.cu)
+    at these shapes: each input read once and each output written once at
+    the HBM rate. Every one is bound by bytes (2·K operations for each 2-
+    or 4-byte output, K = E+H or G·H <= 768 here, under the ~295
+    operations a byte where the tensor cores would limit). ``fwd``: the
+    LSTM forward's x-product alone, else the backward's gates, dxs and dW
+    (to the summed dW; the partials are the engine's own traffic)."""
+    M, N = T * B, G * H
+    if fwd:
+        moved = {"x-product": M * E * 2 + N * E * 2 + N * 4 + M * N * 4}
+    else:
+        moved = {"gates": M * (E + H) * 2 + N * (E + H) * 2 + N * 4 + M * N * 4,
+                 "dxs": M * N * 2 + E * N * 2 + M * E * 2,
+                 "dw": M * (E + H + N) * 2 + (E + H) * N * 4}
+    return {k: v / PEAK["bytes"] * 1e3 for k, v in moved.items()}
+
+
+def beside_bounds(split: dict, bounds: dict) -> dict:
+    """{part: {"ms": device ms, "bound_ms": its byte bound}} (the bound
+    where the part is a product of the engine)."""
+    return {k: {"ms": v, **({"bound_ms": bounds[k]} if k in bounds else {})}
+            for k, v in split.items()}
 
 
 def device_times(prof, counts: dict | None = None) -> dict:
@@ -1699,7 +1747,7 @@ def served_slice(label: str, cfg, corpus, posts: tuple, variant: str = "packed")
 
 
 # kernel name pattern → part of a served query (query_parts)
-QUERY_PARTS = {"rnn_scan_kernel": "LSTM scan", "gemm_kernel": "x-product",
+QUERY_PARTS = {"rnn_scan_kernel": "LSTM scan", "gates_product_kernel": "x-product",
                "gru_fwd_kernel": "GRU", "stream": "top-k", "select": "top-k",
                "blockmax": "top-k", "pairs": "top-k"}
 
@@ -5131,9 +5179,10 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     _build.library()
     log(f"kernel build: {_build.build_info['seconds']:.1f} s")
-    for pattern in ("gru_", "rnn_scan", "lstm_bwd"):
+    for pattern in ("gru_", "rnn_scan", "lstm_bwd", "product_kernel"):
         for line in ptxas_report(_build.build_info["log"], pattern):
             log(f"ptxas: {line}")
+    check_products_ptxas(_build.build_info["log"])
     if "--costs" in sys.argv[1:]:
         gru_fwd_costs(card)
         rnn_bwd_costs(card, "gru")

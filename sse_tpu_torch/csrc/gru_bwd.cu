@@ -14,13 +14,13 @@
 // in VMEM. On the H100 only the dh chain is serial; everything else is a
 // product over all T·B rows at once. So one backward is five launches:
 //
-//   1. gates   [T·B, 3H] fp32 = [xs ; h_prev]·[Wx ; Wh] + b   (tiled mma.sync)
+//   1. gates   [T·B, 3H] fp32 = [xs ; h_prev]·[Wx ; Wh] + b   (wgmma, TMA)
 //   2. dh      the reverse loop: one block owns 8 batch rows for all T
 //              steps; it writes dgates_b [T·B, 3H] bf16 and a per-block
 //              fp32 db partial.
-//   3. dxs     [T·B, E] = dgates_b·Wxᵀ                       (tiled mma.sync)
+//   3. dxs     [T·B, E] = dgates_b·Wxᵀ                       (wgmma, TMA)
 //   4. dW      [E+H, 3H] = [xs ; h_prev]ᵀ·dgates_b, split over T·B into
-//              fixed fp32 partial buffers                    (tiled mma.sync)
+//              fixed fp32 partial buffers                    (wgmma, TMA)
 //   5. reduce  sums the dW and db partials in a fixed order.
 //
 // Taking the gate recompute off the serial chain is what the TPU kernel's
@@ -50,10 +50,10 @@
 //     staged so the divisions (IEEE, each a branch) run back to back.
 //   * dgates_b goes to global memory from the shared tile in 16-byte
 //     stores, while the product runs.
-// The three products are ~3.8 GFLOP each at T=50, B=384 and run
-// single-buffered mma.sync tiles from shared memory, far below the
-// tensor-core peak; the gates buffer costs 2·T·B·3H·4 bytes of traffic.
-#include "gemm_tiles.cuh"
+// The three products (1, 3, 4: products.cu, bound by bytes) are ~3.8
+// GFLOP each at T=50, B=384; the gates buffer costs 2·T·B·3H·4 bytes of
+// traffic.
+#include "products.cuh"
 
 namespace {
 
@@ -349,15 +349,15 @@ extern "C" int sse_gru_bwd(const void* xs, const void* ys, const void* mask,
                            void* dxs, void* dw, void* db, int T, int B, int E, int H,
                            int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = T * B, N = 3 * H, K = E + H;
+  const int N = 3 * H;
   const auto* xs_b = static_cast<const __nv_bfloat16*>(xs);
   const auto* ys_b = static_cast<const __nv_bfloat16*>(ys);
-  const Mat xh = {xs_b, E, E, ys_b, H, B, M, K};  // [xs ; h_prev] over T·B rows
+  const sse::XH xh = {xs_b, ys_b, T * B, E, H, B};  // [xs ; h_prev] over T·B rows
   cudaError_t err;
 
   // 1. gates = [xs ; h_prev]·[Wx ; Wh] + b
-  err = launch_gates(xh, static_cast<const __nv_bfloat16*>(wt), K, M, N, K,
-                     static_cast<const float*>(bias), static_cast<float*>(gates), st);
+  err = sse::launch_gates(xh, static_cast<const __nv_bfloat16*>(wt), N,
+                          static_cast<const float*>(bias), static_cast<float*>(gates), st);
   if (err != cudaSuccess) return (int)err;
 
   // 2. the serial dh loop
@@ -374,8 +374,8 @@ extern "C" int sse_gru_bwd(const void* xs, const void* ys, const void* mask,
   const int nblk = cdiv(B, BN);
 
   // 3-5. dxs = bf16(dgates_b·Wxᵀ), the split-K dW partials, their in-order sums
-  return (int)launch_bwd_products(
-      xh, static_cast<const __nv_bfloat16*>(dgb), static_cast<const __nv_bfloat16*>(wx), M, N, E,
-      splits, static_cast<float*>(w_part), static_cast<const float*>(db_part), nblk, dxs,
-      static_cast<float*>(dw), static_cast<float*>(db), st);
+  return (int)sse::launch_bwd_products(
+      xh, static_cast<const __nv_bfloat16*>(dgb), static_cast<const __nv_bfloat16*>(wx), N, splits,
+      static_cast<float*>(w_part), static_cast<const float*>(db_part), nblk,
+      static_cast<__nv_bfloat16*>(dxs), static_cast<float*>(dw), static_cast<float*>(db), st);
 }

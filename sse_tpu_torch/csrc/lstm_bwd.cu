@@ -13,11 +13,11 @@
 //   dxs_t    = bf16(dgates_b·Wxᵀ)
 //   dWx = Σ xsᵀ·dgates_b,  dWh = Σ h_{t-1}ᵀ·dgates_b,  db = Σ dgates (unrounded)
 //
-// Design: gru_bwd.cu's five launches with N = 4H. (1) one tiled product
+// Design: gru_bwd.cu's five launches with N = 4H. (1) one product
 // recomputes the gates of all T·B rows off the serial chain; (2) the
 // serial loop carries dh and dc (below); (3) dxs, (4) the split-K dW
 // product into fixed partials, (5) their in-order sum with the loop's
-// per-block db partials (gemm_tiles.cuh). No float atomics.
+// per-block db partials (products.cu). No float atomics.
 //
 // What bounds it on the H100: the serial loop, T steps of a chain: the
 // cell backward's dh-dependent part, one barrier, and the dh product over
@@ -42,9 +42,9 @@
 //     stores while the product runs.
 // Other widths take a generic instance: Wh in shared memory, one input
 // stage (H <= 144, what shared memory allows). The products are ~4/3 of
-// the GRU's FLOPs on the same mma.sync tiles; the gates buffer costs
-// 2·T·B·4H·4 bytes of traffic.
-#include "gemm_tiles.cuh"
+// the GRU's FLOPs on the same engine (products.cu); the gates buffer
+// costs 2·T·B·4H·4 bytes of traffic.
+#include "products.cuh"
 
 namespace {
 
@@ -329,14 +329,14 @@ extern "C" int sse_lstm_bwd(const void* xs, const void* ys, const void* cs, cons
                             void* dxs, void* dw, void* db, int T, int B, int E, int H,
                             int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = T * B, N = 4 * H, K = E + H;
-  const Mat xh = {static_cast<const __nv_bfloat16*>(xs), E, E,
-                  static_cast<const __nv_bfloat16*>(ys), H, B, M, K};  // [xs ; h_prev]
+  const int N = 4 * H;
+  const sse::XH xh = {static_cast<const __nv_bfloat16*>(xs), static_cast<const __nv_bfloat16*>(ys),
+                      T * B, E, H, B};  // [xs ; h_prev] over T·B rows
   cudaError_t err;
 
   // 1. gates = [xs ; h_prev]·[Wx ; Wh] + b
-  err = launch_gates(xh, static_cast<const __nv_bfloat16*>(wt), K, M, N, K,
-                     static_cast<const float*>(bias), static_cast<float*>(gates), st);
+  err = sse::launch_gates(xh, static_cast<const __nv_bfloat16*>(wt), N,
+                          static_cast<const float*>(bias), static_cast<float*>(gates), st);
   if (err != cudaSuccess) return (int)err;
 
   // 2. the serial dh / dc loop
@@ -354,8 +354,8 @@ extern "C" int sse_lstm_bwd(const void* xs, const void* ys, const void* cs, cons
   const int nblk = cdiv(B, BN);
 
   // 3-5. dxs = bf16(dgates_b·Wxᵀ), the split-K dW partials, their in-order sums
-  return (int)launch_bwd_products(
-      xh, static_cast<const __nv_bfloat16*>(dgb), static_cast<const __nv_bfloat16*>(wx), M, N, E,
-      splits, static_cast<float*>(w_part), static_cast<const float*>(db_part), nblk, dxs,
-      static_cast<float*>(dw), static_cast<float*>(db), st);
+  return (int)sse::launch_bwd_products(
+      xh, static_cast<const __nv_bfloat16*>(dgb), static_cast<const __nv_bfloat16*>(wx), N, splits,
+      static_cast<float*>(w_part), static_cast<const float*>(db_part), nblk,
+      static_cast<__nv_bfloat16*>(dxs), static_cast<float*>(dw), static_cast<float*>(db), st);
 }

@@ -10,8 +10,8 @@
 //     emitting ys = bf16(h) [T,B,H], fin = h [B,H] fp32 and, for the
 //     LSTM forward, cs = bf16(c) [T,B,H] after the mask;
 //   * _layer_fwd_pallas, LSTM (_fwd_lstm_kernel → _fwd_core; kernel 3):
-//     sse_lstm_fwd = one tiled product for ax over all T·B rows
-//     (gemm_tiles.cuh, EPI_GATES, from the rows of [Wx;Wh]ᵀ) + this scan.
+//     sse_lstm_fwd = one product for ax over all T·B rows (products.cu
+//     gates_product_kernel, from the Wx columns of [Wx;Wh]ᵀ) + this scan.
 //     Summed in this order, ax + bf16(h)·Wh is _fwd_core's (xs·Wx + b) +
 //     h·Wh.
 //
@@ -52,7 +52,7 @@
 // The h and c carries stay fp32 in registers at the accumulators'
 // positions; bf16(h) sits in a double-buffered shared [rows][H] tile
 // that is the next step's B operand, bf16(c) in another (for cs).
-#include "gemm_tiles.cuh"
+#include "products.cuh"
 
 namespace {
 
@@ -396,11 +396,11 @@ extern "C" int sse_lstm_fwd(const void* xs, const void* mask, const void* wt,
                             const void* bias, void* ax, void* ys, void* fin, void* cs, int T,
                             int B, int E, int H, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = T * B, N = 4 * H, K = E + H;
+  const int K = E + H;
   const auto* w = static_cast<const __nv_bfloat16*>(wt);
-  const Mat x = {static_cast<const __nv_bfloat16*>(xs), E, E, nullptr, 0, 0, M, E};
-  cudaError_t err = launch_gates(x, w, K, M, N, E, static_cast<const float*>(bias),
-                                 static_cast<float*>(ax), st);
+  const sse::XH x = {static_cast<const __nv_bfloat16*>(xs), nullptr, T * B, E, H, B};
+  cudaError_t err =
+      sse::launch_gates(x, w, 4 * H, static_cast<const float*>(bias), static_cast<float*>(ax), st);
   if (err != cudaSuccess) return (int)err;
   return (int)scan<4>(static_cast<const float*>(ax), static_cast<const float*>(mask), w + E, K,
                       static_cast<__nv_bfloat16*>(ys), static_cast<float*>(fin),

@@ -241,8 +241,7 @@ def lstm_fwd_launch(xs, mask, wx, wh, b, wt=None) -> Tuple[torch.Tensor, ...]:
     wt = fused_weight_t(wx, wh) if wt is None else wt
     _check_args("lstm_fwd", {"xs": (xs, torch.bfloat16, (T, B, E)),
                              "wt": (wt, torch.bfloat16, (4 * H, E + H))})
-    if E % 16 or H % 16:
-        raise ValueError(f"lstm_fwd: needs E, H multiples of 16 (E={E}, H={H})")
+    check_widths("lstm_fwd", E, H)
     _smem("lstm_fwd", "sse_rnn_scan_smem_bytes", 4, H)
     dev = xs.device
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
@@ -522,10 +521,53 @@ def rnn_layer_bwd_reference(
 
 
 # ------------------------------------------------------------ CUDA backward
-def _dw_splits(rows: int) -> int:
-    """Slices of the T·B reduction for the dW product: ~2048 rows each, at
-    most 16, so that T=50, B=256..384 gives 7-10 x 24 output tiles."""
-    return max(1, min(16, -(-rows // 2048)))
+# The product engine's tiles (csrc/products.cu): a block computes 128 x 128
+# outputs; dW's blocks sum 64 rows of the T·B reduction a stage, its output
+# rows from xs and from ys tiled apart.
+PRODUCT_TILE = 128
+DW_ROW_TILE = 64
+DW_MAX_SPLITS = 32
+# Blocks the dW grid aims at: the H100's 132 SMs, one block each (two fit
+# an SM). A constant: the plan reads the shapes, never the card, so every
+# card and every rank computes the same slices and the same bits.
+DW_BLOCKS = 132
+DW_MIN_STEPS = 4  # 64-row stages a slice sums at least, where the rows allow
+# Rows a slice sums at most, within DW_MAX_SPLITS: wgmma's fp32 accumulator
+# drifts from a float32 matmul of the same products as a slice grows (on
+# an H100, 1.0-1.2e-5 of max-abs at 9-12K rows; the products hold 1e-5)
+DW_MAX_ROWS = 4096
+
+
+def dw_plan(rows: int, E: int, H: int, N: int) -> Tuple[int, int]:
+    """(splits, rows a slice) of the dW product's T·B reduction: slice z
+    sums rows [z·per, min(rows, (z+1)·per)), ``per`` a multiple of
+    ``DW_ROW_TILE``; no slice is empty, and
+    ``csrc/products.cuh`` ``dw_slice_rows(rows, splits)`` gives back
+    ``per``. The count fills ``DW_BLOCKS`` with the output tiles
+    ((⌈E/128⌉ + ⌈H/128⌉)·⌈N/128⌉ a slice), keeps a slice within
+    ``DW_MAX_ROWS`` rows and above ``DW_MIN_STEPS`` stages where the rows
+    allow, and stays within ``DW_MAX_SPLITS``: at E=H=128, T=50, the GRU
+    (6 tiles a slice) takes 25 slices at B=128 and 30 at B=2304, the LSTM
+    (8 tiles) 20 and 30. Shapes only."""
+    def cdiv(a: int, b: int) -> int:
+        return -(-a // b)
+
+    tiles = (cdiv(E, PRODUCT_TILE) + cdiv(H, PRODUCT_TILE)) * cdiv(N, PRODUCT_TILE)
+    want = max(1, min(DW_MAX_SPLITS, max(cdiv(DW_BLOCKS, tiles), cdiv(rows, DW_MAX_ROWS)),
+                      rows // (DW_MIN_STEPS * DW_ROW_TILE)))
+    # slices of whole stages, rounded down so that there are at least
+    # `want` of them; then the rows a slice that dw_slice_rows gives back
+    short = max(DW_ROW_TILE, rows // want // DW_ROW_TILE * DW_ROW_TILE)
+    splits = min(DW_MAX_SPLITS, cdiv(rows, short))
+    per = cdiv(cdiv(rows, splits), DW_ROW_TILE) * DW_ROW_TILE
+    return cdiv(rows, per), per
+
+
+def check_widths(kernel: str, E: int, H: int) -> None:
+    """Raise unless the recurrent kernels take (E, H): multiples of 16 (a
+    wgmma k-slice of the products, and the recurrences' m16 tiles)."""
+    if E < 16 or H < 16 or E % 16 or H % 16:
+        raise ValueError(f"{kernel}: needs E, H positive multiples of 16 (E={E}, H={H})")
 
 
 def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None) -> Tuple[torch.Tensor, ...]:
@@ -554,8 +596,7 @@ def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None) -> Tuple[
     _check_args(name, args)
     wt = fused_weight_t(wx, wh) if wt is None else wt
     _check_args(name, {"xs": args["xs"], "wt": (wt, torch.bfloat16, (N, E + H))})
-    if E % 16 or H % 16:
-        raise ValueError(f"{name}: needs E, H multiples of 16 (E={E}, H={H})")
+    check_widths(name, E, H)
     _smem(name, f"sse_{name}_smem_bytes", H)
     lib = _build.library()
     rows_fn = getattr(lib, f"sse_{name}_block_rows")
@@ -571,7 +612,7 @@ def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None) -> Tuple[
     if M == 0:
         return dxs, dw[:E].zero_(), dw[E:].zero_(), db.zero_(), gates, dgb
     nblk = -(-B // rows_fn())
-    splits = _dw_splits(M)
+    splits = dw_plan(M, E, H, N)[0]
     # scratch: the db and dW partial sums
     db_part = torch.empty((nblk, N), dtype=torch.float32, device=dev)
     w_part = torch.empty((splits, E + H, N), dtype=torch.float32, device=dev)
@@ -665,6 +706,8 @@ __all__ = [
     "RNNLayer",
     "bf16_matmul",
     "bwd_products",
+    "check_widths",
+    "dw_plan",
     "fused_weight_t",
     "gru_bwd_chain",
     "gru_bwd_launch",

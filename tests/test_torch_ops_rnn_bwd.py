@@ -316,3 +316,85 @@ def test_lstm_bwd_needs_cs():
     ys, _, _ = rnn.rnn_layer_reference(xs, mask, wx, wh, b, "lstm")
     with pytest.raises(ValueError, match="needs cs"):
         rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin, cell="lstm")
+
+
+# ------------------------------------------------------------ the products' plan
+# (T, B, E, H, G): the main path's towers (T=50, B = 128..4096), the GPU
+# tests' ragged M (T·B = 1, 99, 105,650) and their other widths
+PLAN_SHAPES = [
+    (1, 1, 128, 128, 3), (3, 33, 128, 128, 4), (50, 2113, 128, 128, 3),
+    (50, 128, 128, 128, 3), (50, 256, 128, 128, 4), (50, 384, 128, 128, 3),
+    (50, 2304, 128, 128, 3), (50, 2304, 128, 128, 4), (50, 4096, 128, 128, 4),
+    (20, 40, 16, 176, 3), (20, 40, 272, 96, 3), (20, 40, 64, 96, 4),
+    (50, 2113, 128, 144, 4), (1, 8192, 16, 16, 3), (7, 65, 16, 16, 4),
+]
+
+
+@pytest.mark.parametrize("T,B,E,H,G", PLAN_SHAPES)
+def test_dw_plan_slices_cover_the_rows(T, B, E, H, G):
+    """Every slice is a whole number of 64-row stages, the slices cover the
+    T·B rows exactly (none empty, none past the last but the ragged end),
+    the count is within its cap, a slice within DW_MAX_ROWS rows unless
+    the cap binds, and csrc/products.cuh's dw_slice_rows
+    (⌈⌈M / splits⌉ / 64⌉·64) gives back the plan's rows a slice."""
+    M = T * B
+    splits, per = rnn.dw_plan(M, E, H, G * H)
+    assert 1 <= splits <= rnn.DW_MAX_SPLITS
+    assert per % rnn.DW_ROW_TILE == 0 and per > 0
+    assert per <= rnn.DW_MAX_ROWS or splits == rnn.DW_MAX_SPLITS
+    bounds = [(z * per, min(M, (z + 1) * per)) for z in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == M
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert -(-(-(-M // splits)) // 64) * 64 == per
+
+
+def test_dw_plan_reads_shapes_only(monkeypatch):
+    """The plan never asks the card: with every torch.cuda query broken it
+    gives what it gave, and at the main path's shapes (E=H=128, T=50, B =
+    128 to 2304) its slices times the output tiles fill the 132 SMs."""
+    want = {s: rnn.dw_plan(s[0] * s[1], s[2], s[3], s[4] * s[3]) for s in PLAN_SHAPES}
+
+    def refuse(*a, **k):
+        raise AssertionError("dw_plan asked the card")
+
+    for name in ("device_count", "get_device_properties", "current_device", "is_available"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    assert {s: rnn.dw_plan(s[0] * s[1], s[2], s[3], s[4] * s[3]) for s in PLAN_SHAPES} == want
+    for B in (128, 256, 384, 2304):
+        for G in (3, 4):
+            splits, _ = rnn.dw_plan(50 * B, 128, 128, G * 128)
+            assert splits * 2 * G >= rnn.DW_BLOCKS, (B, G, splits)
+
+
+@pytest.mark.parametrize("E,H", [(128, 128), (16, 176), (272, 96), (64, 96), (128, 144),
+                                 (16, 16)])
+def test_check_widths_takes_the_abi_widths(E, H):
+    rnn.check_widths("lstm_bwd", E, H)
+
+
+@pytest.mark.parametrize("E,H", [(8, 128), (128, 24), (0, 16), (16, 0), (136, 128)])
+def test_check_widths_refuses_other_widths(E, H):
+    with pytest.raises(ValueError, match="multiples of 16"):
+        rnn.check_widths("gru_bwd", E, H)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_launch_wrappers_check_widths(monkeypatch, cell):
+    """The CUDA wrappers refuse a width the kernels do not take before
+    they build or launch anything (the device checks stubbed, so CPU
+    tensors reach the width check)."""
+    monkeypatch.setattr(rnn, "_check_args", lambda kernel, args: None)
+    monkeypatch.setattr(rnn._build, "library", lambda: pytest.fail("library built"))
+    G, T, B, E, H = rnn._GATES[cell], 2, 3, 24, 16
+    xs = torch.zeros((T, B, E), dtype=torch.bfloat16)
+    ys = torch.zeros((T, B, H), dtype=torch.bfloat16)
+    wx = torch.zeros((E, G * H), dtype=torch.bfloat16)
+    wh = torch.zeros((H, G * H), dtype=torch.bfloat16)
+    b = torch.zeros((G * H,))
+    mask = torch.ones((T, 1, B))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        rnn._bwd_launch(cell, xs, ys, ys, mask, wx, wh, b, ys, torch.zeros((B, H)))
+    if cell == "lstm":
+        with pytest.raises(ValueError, match="multiples of 16"):
+            rnn.lstm_fwd_launch(xs, mask, wx, wh, b)
