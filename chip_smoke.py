@@ -14,6 +14,7 @@ CLI.
     python3 chip_smoke.py --graphs   # only the served-graphs phase (10.)
     python3 chip_smoke.py --evals    # only the Evaluator / index-build graphs phase (11.)
     python3 chip_smoke.py --processes  # only the grids across processes over NCCL (12.)
+    python3 chip_smoke.py --wide     # only the recurrent widths beyond E=H=128 (13.)
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
 cell: each backward's kernels by part, and the products of
@@ -224,6 +225,19 @@ commits compare in one run, taken in turns.
    Then ``cli train --num_processes n`` at steps_per_dispatch 8 against
    1 (mp_chain_train). Each rank logs NCCL's version and
    ``TORCH_NCCL_ASYNC_ERROR_HANDLING`` (left at PyTorch's default).
+13. The recurrent widths beyond E=H=128 (``ops/rnn.py`` ``layer_plan``):
+   check_wide, in phase 2, holds the cluster instances against their
+   plain versions at T=50, H=256 and 384 (the split GRU forward and the
+   LSTM forward's cluster scan at B=4096, the GRU backward at B=384, the
+   LSTM's at B=256; Glorot weights; fin, ys and the backward as phase 2
+   bounds them) with their times, cuDNN's LSTM beside the LSTM rows and
+   the bounds; wide_slice, among the runs, trains the ranking preset at
+   hidden 256 (50 steps through train(), then a query served and
+   replayed), chains the compositional recipe at hidden 256, and trains
+   the ranking preset at embed_dim 256 and at hidden 100, each with the
+   plain recurrent layer barred from the card (OnTheKernels) and its
+   instances' counters > 0. ``--costs`` ends with wide_costs (µs a step
+   at H=256 beside H=128).
 Each kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
 operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8) is computed from
@@ -245,6 +259,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -817,7 +832,7 @@ def bwd_kernels(cell: str) -> dict:
     product engine it launches, csrc/products.cu) → what it computes."""
     return {
         "gates_product_kernel": "gates",
-        f"{cell}_bwd_dh_kernel": "dh_loop",
+        f"{cell}_bwd_dh_": "dh_loop",  # the single-block and the cluster instances
         "dxs_product_kernel": "dxs",
         "dw_product_kernel": "dw",
         "bwd_reduce_kernel": "reduce",
@@ -5126,6 +5141,353 @@ def evals_slice(card: str) -> tuple:
     return dict(total), readings
 
 
+# ------------------------------------------------------------ the wide layers
+# The recurrent widths the JAX package trains beyond E=H=128 (ops/rnn.py
+# layer_plan): the cluster instances of the scan and of the dh loops, the
+# GRU forward's split route, zero-padded odd widths.
+WIDE_KERNELS = {  # name → (source, the TPU kernel it replaces)
+    "gru_fwd_split": ("sse_tpu_torch/csrc/rnn_scan.cu", "sse_tpu/ops/pallas_rnn.py:337"),
+    "rnn_scan_cluster": ("sse_tpu_torch/csrc/rnn_scan.cu", "sse_tpu/ops/pallas_rnn.py:102"),
+    "gru_bwd_cluster": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
+    "lstm_bwd_cluster": ("sse_tpu_torch/csrc/lstm_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
+}
+WIDE_H = (256, 384)
+SCAN_PARTS = {"rnn_scan_": "scan", "gates_product_kernel": "x-product"}
+
+
+def glorot_weights(E: int, H: int, G: int, gen):
+    """Wx, Wh (bf16) and b of a G-gate layer drawn as the towers initialize
+    them (towers.py ``_glorot``: std sqrt(2 / (fan_in + fan_out))), so a
+    check at H=384 sees the pre-activations a model of that width starts
+    from (layer_weights' fixed 0.08 is H=128's scale)."""
+    wx = (torch.randn((E, G * H), generator=gen, device="cuda")
+          * math.sqrt(2.0 / (E + G * H))).bfloat16()
+    wh = (torch.randn((H, G * H), generator=gen, device="cuda")
+          * math.sqrt(2.0 / (H + G * H))).bfloat16()
+    b = torch.randn((G * H,), generator=gen, device="cuda") * 0.05
+    return wx, wh, b
+
+
+def wide_fwd(card: str, cell: str, H: int, B: int, gen, T: int = 50, E: int = 128) -> dict:
+    """The split layer forward (the x-product, then the cluster scan) of
+    ``cell`` at (E, H), B rows, T=50, ragged lengths, Glorot weights
+    (glorot_weights): held against the
+    plain version (hold_layer); its time (CUDA events), device time by
+    part, the plain version's time, cuDNN's LSTM (LSTM only) and the
+    bound. Returns the row's readings."""
+    from sse_tpu_torch.ops import rnn
+
+    G = 4 if cell == "lstm" else 3
+    wx, wh, b = glorot_weights(E, H, G, gen)
+    xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
+    args = (xs, ragged_mask(T, B, gen), wx, wh, b)
+    plan = rnn.layer_plan(cell, E, H)
+    before = dict(rnn.launches)
+    if cell == "lstm":
+        ys, fin, cs, _ = rnn.rnn_fwd_launch(*args, "lstm", cluster=plan.scan_cluster)
+        got = (ys, fin, cs)
+    else:
+        got = rnn.rnn_layer(*args)
+    torch.cuda.synchronize()
+    check(rnn.launches["rnn_scan_cluster"] == before["rnn_scan_cluster"] + 1,
+          f"{cell} forward H={H}: launches {rnn.launches} from {before}")
+    want = rnn.rnn_layer_reference(*args, cell)
+    e, e_b, flips = hold_layer(f"{cell} forward H={H} B={B}", got, want[:len(got)])
+    run = lambda: rnn.rnn_layer(*args, cell=cell)  # noqa: E731
+    ms = cuda_ms(run)
+    dev = parts_ms(run, SCAN_PARTS)
+    plain = cuda_ms(lambda: rnn.rnn_layer_reference(*args, cell), reps=2)
+    lib = None
+    if cell == "lstm":
+        lstm = cudnn_lstm(wx, wh, b)
+        with torch.no_grad():
+            lib = cuda_ms(lambda: lstm(xs))
+    moved = nbytes(*args, *got)
+    bnd = bound(moved, 2.0 * T * B * (E + H) * G * H)
+    log(f"{cell} forward (split, scan on {plan.scan_cluster} blocks) T={T} B={B} E={E} H={H}: "
+        f"fin max_abs_err {e:.3g}, {flips} bf16 values differ (max {e_b:.3g}, one ulp); kernel "
+        f"{ms:.4f} ms (device {sum(dev.values()):.4f}: scan {dev['scan']:.4f}, x-product "
+        f"{dev['x-product']:.4f}), plain {plain:.4f} ms"
+        + (f", cuDNN LSTM (full lengths) {lib:.4f} ms" if lib is not None else "")
+        + f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
+    return dict(ms=ms, device_ms=sum(dev.values()), cuda_kernels=dev, plain_ms=plain,
+                library_ms=lib, max_abs_err=max(e, e_b), B=B, H=H, E=E, T=T,
+                clusters=plan.scan_cluster, **bnd)
+
+
+def wide_bwd(card: str, cell: str, H: int, B: int, gen, T: int = 50, E: int = 128) -> dict:
+    """The layer backward whose dh loop runs on the cluster instance, at
+    (E, H), B rows, T=50, Glorot weights, fed the kernels' forward: held as check_bwd
+    holds it end to end (dWx, dWh, db to 1e-3 of max-abs; dxs to one ulp
+    plus 1e-4 of max-abs at the loop's first step, 1e-2 over all steps);
+    its time, device time by kernel, the plain version's, cuDNN's LSTM
+    backward (LSTM only) and the bound. Returns the row's readings."""
+    from sse_tpu_torch.ops import rnn
+
+    lstm = cell == "lstm"
+    G = 4 if lstm else 3
+    wx, wh, b = glorot_weights(E, H, G, gen)
+    xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
+    mask = ragged_mask(T, B, gen)
+    plan = rnn.layer_plan(cell, E, H)
+    if lstm:
+        ys, _, cs, _ = rnn.rnn_fwd_launch(xs, mask, wx, wh, b, "lstm", cluster=plan.scan_cluster)
+    else:
+        (ys, _), cs = rnn.rnn_layer(xs, mask, wx, wh, b), None
+    dys = (torch.randn((T, B, H), generator=gen, device="cuda") * 0.1).bfloat16()
+    dfin = torch.randn((B, H), generator=gen, device="cuda")
+    args = (xs, ys, mask, wx, wh, b, dys, dfin)
+    run = lambda: rnn.rnn_layer_bwd(*args, cs=cs, cell=cell)  # noqa: E731
+    before = dict(rnn.launches)
+    got = run()
+    torch.cuda.synchronize()
+    check(rnn.launches[f"{cell}_bwd_cluster"] == before[f"{cell}_bwd_cluster"] + 1,
+          f"{cell} backward H={H}: launches {rnn.launches} from {before}")
+    want = rnn.rnn_layer_bwd_reference(*args, cs, cell)
+    gx, wx_ = got[0].float(), want[0].float()
+    torch.testing.assert_close(gx[-1], wx_[-1], atol=1e-4 * float(wx_.abs().max()),
+                               rtol=2.0**-7)
+    rels, err = {}, 0.0
+    for part, g, w in zip(("dxs", "dwx", "dwh", "db"), got, want):
+        e = float((g.float() - w.float()).abs().max())
+        rels[part] = e / max(float(w.float().abs().max()), 1e-30)
+        check(rels[part] <= (1e-2 if part == "dxs" else 1e-3),
+              f"{cell} backward H={H} B={B} {part}: {rels[part]:.3g} of max-abs")
+        err = max(err, e)
+    ms = cuda_ms(run)
+    split = bwd_split(run, cell)
+    plain = cuda_ms(lambda: rnn.rnn_layer_bwd_reference(*args, cs, cell), reps=2)
+    lib = None
+    if lstm:
+        lstm_mod = cudnn_lstm(wx, wh, b)
+        x_l = xs.clone().requires_grad_(True)
+        y_l, _ = lstm_mod(x_l)
+        inputs = [x_l, *lstm_mod.parameters()]
+        lib = cuda_ms(lambda: torch.autograd.grad(y_l, inputs, dys, retain_graph=True))
+    bnd = bound(nbytes(*args, *([cs] if lstm else []), *got), 2.0 * T * B * G * H * 3 * (E + H))
+    log(f"{cell} backward (dh loop on {plan.dh_cluster} blocks) T={T} B={B} E={E} H={H}: "
+        + ", ".join(f"{k} {v:.2g} of max-abs" for k, v in rels.items())
+        + f"; kernel {ms:.4f} ms (device by kernel {json.dumps(split)}), plain {plain:.4f} ms"
+        + (f", cuDNN LSTM backward (full lengths) {lib:.4f} ms" if lib is not None else "")
+        + f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
+    return dict(ms=ms, device_ms=sum(split.values()), cuda_kernels=split, plain_ms=plain,
+                library_ms=lib, max_abs_err=err, rel_err=rels, B=B, H=H, E=E, T=T,
+                clusters=plan.dh_cluster, **bnd)
+
+
+def check_wide(card: str, results: dict) -> None:
+    """The kernels line's rows of the wide instances, at H=256 (the row)
+    and H=384 (its ``at_384``), T=50, E=128: the GRU's split forward and
+    the LSTM forward's cluster scan at B=4096 (the served bulk tier), the
+    GRU backward at B=384 and the LSTM's at B=256 (the train bench's
+    target and source towers), as the H=128 rows measure them."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    t0 = time.perf_counter()
+    for H in WIDE_H:
+        rows = {"gru_fwd_split": wide_fwd(card, "gru", H, 4096, gen),
+                "rnn_scan_cluster": wide_fwd(card, "lstm", H, 4096, gen),
+                "gru_bwd_cluster": wide_bwd(card, "gru", H, 384, gen),
+                "lstm_bwd_cluster": wide_bwd(card, "lstm", H, 256, gen)}
+        for name, row in rows.items():
+            if H == WIDE_H[0]:
+                results[name].update(row)
+            else:
+                results[name][f"at_{H}"] = {k: row[k] for k in (
+                    "ms", "device_ms", "plain_ms", "library_ms", "max_abs_err", "bound_ms",
+                    "bound_by", "B", "clusters")}
+        torch.cuda.empty_cache()
+    log(f"wide kernel checks: {time.perf_counter() - t0:.1f} s")
+
+
+def wide_costs(card: str, Bs=(8, 256, 4096), Ts=(1, 2, 50)) -> None:
+    """The recurrences' cost a step at H=256 (the cluster instances) beside
+    H=128 (the fixed ones), from the kernels' torch.profiler device time
+    at T=1, 2, 50 (slope_line): the scan of each cell (scan_layer over a
+    precomputed ax) and each cell's dh loop (the backward's dh kernel
+    alone), full lengths, E=128."""
+    from sse_tpu_torch.ops import rnn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    for cell, G in (("gru", 3), ("lstm", 4)):
+        for H in (128, 256):
+            plan = rnn.layer_plan(cell, 128, H)
+            wx, wh, b = layer_weights(128, H, G, gen)
+            for B in Bs:
+                scan, dh = {}, {}
+                for T in Ts:
+                    ax = torch.randn((T, B, G * H), generator=gen, device="cuda")
+                    mask = torch.ones((T, 1, B), device="cuda")
+                    scan[T] = kernel_ms(lambda: rnn.scan_layer(ax, mask, wh, cell), "rnn_scan_")
+                    xs = torch.randn((T, B, 128), generator=gen, device="cuda").bfloat16()
+                    ys, _, cs = rnn._scan_reference(rnn._x_product(xs, wx, b), mask, wh, cell)
+                    dys = (torch.randn((T, B, H), generator=gen, device="cuda") * 0.1).bfloat16()
+                    dfin = torch.randn((B, H), generator=gen, device="cuda")
+                    dh[T] = kernel_ms(lambda: rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin,
+                                                                cs, cell), f"{cell}_bwd_dh_")
+                log(slope_line(f"{cell} scan H={H} ({plan.scan_cluster} blocks) B={B}", scan)
+                    + "; " + slope_line(f"dh loop ({plan.dh_cluster} blocks)", dh) + f" [{card}]")
+
+
+class OnTheKernels:
+    """Inside it, a recurrent layer that ran its plain version on a card
+    fails the run: the plain forward and backward raise on CUDA tensors."""
+
+    def __enter__(self):
+        from sse_tpu_torch.ops import rnn
+
+        self.saved = rnn._scan_reference, rnn.rnn_layer_bwd_reference
+
+        def guard(fn):
+            def run(*args, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    raise AssertionError(f"a recurrent layer ran {fn.__name__} on the card")
+                return fn(*args, **kw)
+            return run
+
+        rnn._scan_reference, rnn.rnn_layer_bwd_reference = (guard(f) for f in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        from sse_tpu_torch.ops import rnn
+
+        rnn._scan_reference, rnn.rnn_layer_bwd_reference = self.saved
+
+
+def wide_train(card: str, label: str, task_name: str, need: tuple, epochs: int,
+               recipe: str | None = None, serve: bool = False, **widths) -> dict:
+    """A task preset at other widths (``widths``: TaskConfig overrides)
+    trained through train() for ``epochs`` epochs of its demo corpus (5
+    steps an epoch, a log record and eval every half of them) with the
+    Evaluator as eval_fn, inside OnTheKernels; its counters in ``need``
+    must be > 0, its loss finite and, from 10 epochs on, falling.
+    ``serve``: its EMA params then serve one query through QueryEngine,
+    twice, the second a replay of the captured graph, held against
+    topk_reference. Returns the training run's launch counts."""
+    from sse_tpu_torch import configs, ops
+    from sse_tpu_torch.data import synthetic
+    from sse_tpu_torch.data.corpus import build_vocab, encode_pairs, encode_target_space
+    from sse_tpu_torch.evals import Evaluator
+    from sse_tpu_torch.index import build_index
+    from sse_tpu_torch.ops import rnn
+    from sse_tpu_torch.serve import QueryEngine
+    from sse_tpu_torch.train import inference_params, init_train_state, train
+
+    task = configs.preset(task_name, recipe=recipe, max_epochs=epochs,
+                          steps_per_checkpoint=5 * epochs // 2, **widths)
+    rows, evrows, targets = synthetic.make_corpus(task=task_name, seed=SEED)
+    vocab = build_vocab(task.vocab_size, rows, targets,
+                        max_subtoken_length=task.max_subtoken_length, vocab_mode=task.vocab_mode)
+    tspace = encode_target_space(vocab, targets, task.max_seq_length)
+    pairs = encode_pairs(vocab, rows, tspace, task.max_seq_length)
+    evpairs = encode_pairs(vocab, evrows, tspace, task.max_seq_length)
+    mc = task.model_config(vocab.vocab_size, tspace.num_targets)
+    tower = mc.src_tower
+    plan = rnn.layer_plan(tower.cell, tower.embed_dim, tower.hidden)
+    tc = task.train_config()
+    evaluator = Evaluator(mc, evpairs, tspace)
+    state = init_train_state(mc, tc)
+    records = []
+    with OnTheKernels():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train(mc, tc, pairs, tspace, eval_fn=evaluator.evaluate, log_fn=records.append,
+                      state=state)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        missing = [n for n in need if counts.get(n, 0) < 1]
+        check(not missing, f"{label}: never launched {missing}: {counts}")
+        check(len(records) == 2 and all(math.isfinite(r["loss"]) for r in records)
+              and (epochs < 10 or records[-1]["loss"] < records[0]["loss"]),
+              f"{label}: loss {records}")
+        line = (f"{label} ({tower.cell} x{tower.num_layers}, E={tower.embed_dim}, "
+                f"H={tower.hidden}: {plan}): {state.step} steps through train() in {secs:.2f} s "
+                f"(evals included), window loss {records[0]['loss']:.4f} -> "
+                f"{records[-1]['loss']:.4f}, recall@1 {records[-1]['recall@1']:.4f}; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+        if serve:
+            params = inference_params(state)
+            index = build_index(params, mc, tspace, batch_size=256, dtype=torch.bfloat16)
+            engine = QueryEngine(params, mc, vocab, index, max_seq_length=task.max_seq_length,
+                                 max_batch=8, k=K)
+            text = evrows[0][0]
+            engine.query([text])
+            replays = engine.graph_counts()["graph_replays"]
+            hits = engine.query([text])
+            check(engine.graph_counts()["graph_replays"] > replays and len(hits[0]) == K,
+                  f"{label} query: {hits}, graphs {engine.graph_counts()}")
+            n = same_as_reference(engine, params, mc, index, [text], hits)
+            line += (f"; served {text!r} replayed ({engine.graph_counts()}): top-{K} == "
+                     f"topk_reference ({n} positions differ, each within one key bucket)")
+    log(line + f" [{card}]")
+    return counts
+
+
+def wide_chain(card: str) -> dict:
+    """The compositional recipe's towers (3-layer residual LSTM, dropout
+    0.1) at hidden 256 on the train bench's shape (E=D=128, B=256, 128
+    negatives, L=50), CHAIN steps a CUDA graph: the first call (warm-up,
+    capture, replay) and two replays, inside OnTheKernels, a finite loss,
+    the LSTM's cluster instances launched every step; ms a step chained.
+    Returns the launch counts of the two replays."""
+    from sse_tpu_torch import bench, ops
+    from sse_tpu_torch.models.towers import TowerConfig
+
+    tower = TowerConfig(vocab_size=8000, embed_dim=128, hidden=256, encoding_dim=128,
+                        cell="lstm", num_layers=3, residual=True, dropout=0.1)
+    # train/loop.py's _GraphChain captures with the cyclic collector on
+    # (ROADMAP §3 fault 3.7): the garbage of the runs before, their CUDA
+    # graphs among it, is collected here, not in the middle of the capture
+    freed = gc.collect()
+    s = bench.train_setup(tower=tower, chain=CHAIN)
+    pk, args = s.packed_variants, (s.tgt_tokens, s.tgt_lens)
+    with OnTheKernels():
+        t0 = time.perf_counter()
+        state, m = s.chain_fn(s.state, pk[0], *args)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(2):
+            state, m = s.chain_fn(state, pk[1 + i], *args)
+        end.record()
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(bool(torch.isfinite(m["loss"]).all()), f"compositional H=256: loss {m['loss']}")
+    per_step = {"lstm_fwd": 6, "rnn_scan_cluster": 6, "lstm_bwd": 6, "lstm_bwd_cluster": 6}
+    check(all(counts[k] == v * 2 * CHAIN for k, v in per_step.items()),
+          f"compositional H=256 chained: launches {counts}, want {per_step} a step")
+    log(f"compositional recipe at hidden 256 chained ({CHAIN} steps a CUDA graph, B=256, L=50; "
+        f"{freed} objects of earlier runs collected first): first call {capture_s:.2f} s (warm-up, capture, replay), {start.elapsed_time(end) / (2 * CHAIN):.3f} "
+        f"ms a step over 2 replays, loss {float(m['loss'].mean()):.4f}; launches a step "
+        f"{ {k: counts[k] // (2 * CHAIN) for k in per_step} } [{card}]")
+    del s
+    torch.cuda.empty_cache()
+    return counts
+
+
+def wide_slice(card: str) -> dict:
+    """The wide widths end to end: the ranking preset (GRU) at hidden 256
+    trained 50 steps and serving a query replayed; the compositional
+    recipe at hidden 256 chained; a GRU at embed_dim 256, hidden 128 (the
+    split forward) and the ranking preset at hidden 100 (padded to 112),
+    10 steps each. Returns each run's launch counts."""
+    t0 = time.perf_counter()
+    runs = {
+        "wide ranking": wide_train(card, "ranking preset at hidden 256", "ranking",
+                                   ("gru_fwd_split", "rnn_scan_cluster", "gru_bwd",
+                                    "gru_bwd_cluster"), 10, serve=True, hidden=256),
+        "wide compositional": wide_chain(card),
+        "wide embed": wide_train(card, "ranking preset at embed_dim 256", "ranking",
+                                 ("gru_fwd_split", "rnn_scan", "gru_bwd"), 2, embed_dim=256),
+        "odd hidden": wide_train(card, "ranking preset at hidden 100", "ranking",
+                                 ("gru_fwd", "gru_bwd"), 2, hidden=100),
+    }
+    log(f"wide phase: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
     "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
@@ -5137,6 +5499,7 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                    'sse_tpu/ops/fused_topk.py:1056 (variant="exact")'),
     "twophase_p1": ("sse_tpu_torch/csrc/topk_twophase.cu", "sse_tpu/ops/fused_topk.py:762"),
     "twophase_p2": ("sse_tpu_torch/csrc/topk_twophase.cu", "sse_tpu/ops/fused_topk.py:850"),
+    **WIDE_KERNELS,
 }
 
 
@@ -5189,6 +5552,13 @@ def main() -> None:
         lstm_fwd_costs(card)
         rnn_bwd_costs(card, "lstm", Bs=(8, 128, 256, 2304))
         qna_query_costs(card)
+        wide_costs(card)
+        return
+    if "--wide" in sys.argv[1:]:
+        results = {name: {} for name in WIDE_KERNELS}
+        check_wide(card, results)
+        wide_slice(card)
+        print(json.dumps({"wide": no_nan(results)}, allow_nan=False))
         return
     if "--twophase" in sys.argv[1:]:
         twophase_costs(card)
@@ -5250,6 +5620,7 @@ def main() -> None:
     rnn_bwd_costs(card, "gru")
     check_bwd(card, results, "lstm")
     rnn_bwd_costs(card, "lstm", Bs=(8, 128, 256, 2304))
+    check_wide(card, results)
     check_topk(card, results)
     check_topk_exact(card, results)
     check_transformer(card)
@@ -5289,6 +5660,7 @@ def main() -> None:
         "cli": cli_slice(card),
         "train grid": train_grid_slice(card),
         "process chains": process_chains(card),
+        **wide_slice(card),
     }
     need = {
         "encode": ENCODE_KERNELS,
@@ -5306,6 +5678,10 @@ def main() -> None:
         "chain": RNN_KERNELS,
         "graphs": GRAPH_KERNELS,
         "evals": EVAL_KERNELS,
+        "wide ranking": ("gru_fwd_split", "rnn_scan_cluster", "gru_bwd_cluster"),
+        "wide compositional": ("lstm_fwd", "rnn_scan_cluster", "lstm_bwd_cluster"),
+        "wide embed": ("gru_fwd_split", "gru_bwd"),
+        "odd hidden": ("gru_fwd", "gru_bwd"),
     }
     if runs["process chains"]:  # NCCL's runs need two cards
         need["process chains"] = PROCESS_KERNELS

@@ -1,0 +1,97 @@
+// Thread-block clusters for the recurrences whose weights outgrow one SM
+// (rnn_scan.cu, gru_bwd.cu, lstm_bwd.cu): C blocks on neighbouring SMs
+// split the hidden units, each holds the weight rows of its own units in
+// its shared memory, and each step every block writes its slice of the
+// step's operand into every block's shared memory (distributed shared
+// memory), then the cluster meets at one barrier.
+#pragma once
+
+#include <tuple>
+
+#include "hopper.cuh"
+
+namespace sse {
+
+constexpr int kMaxCluster = 8;  // the portable cluster size
+
+// This block's rank in its cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// The cluster barrier, split in two: every thread of every block arrives
+// (release: its earlier shared-memory writes, local and remote, are
+// visible to the cluster once the barrier completes), then waits
+// (acquire). It orders a block's own threads too, as __syncthreads does.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// 16 bytes from this block's shared memory at `p` to the same offset in
+// the shared memory of block `rank` of the cluster (every block has the
+// same layout).
+__device__ __forceinline__ void copy_to_rank(const void* p, int rank) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Launch `kernel` as clusters of C blocks along x (C <= kMaxCluster;
+// `blocks` a multiple of C) on `st`. The first launch on a card of a
+// (kernel, C, threads, shared memory) asks the occupancy calculator
+// whether one such cluster fits the card at all and returns
+// cudaErrorInvalidConfiguration if not, before anything runs. The
+// kernel's dynamic shared memory is allowed up to the opt-in most once
+// per (kernel, card): the bytes vary with H and C. A cluster launch on a
+// stream is captured into a CUDA graph like any other.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int blocks, int threads, int smem, int C,
+                           cudaStream_t st, Args... args) {
+  if (const cudaError_t err = allow_smem((const void*)kernel, 232448); err != cudaSuccess)
+    return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  {
+    static std::mutex mu;
+    static std::set<std::tuple<const void*, int, int, int, int>> fits;
+    int dev = 0;
+    if (const cudaError_t err = cudaGetDevice(&dev); err != cudaSuccess) return err;
+    const auto key = std::make_tuple((const void*)kernel, dev, C, threads, smem);
+    std::lock_guard<std::mutex> lock(mu);
+    if (!fits.count(key)) {
+      int n = 0;
+      if (const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+          err != cudaSuccess)
+        return err;
+      if (n < 1) return cudaErrorInvalidConfiguration;
+      fits.insert(key);
+    }
+  }
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+}  // namespace sse

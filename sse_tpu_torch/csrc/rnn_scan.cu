@@ -10,10 +10,13 @@
 //     emitting ys = bf16(h) [T,B,H], fin = h [B,H] fp32 and, for the
 //     LSTM forward, cs = bf16(c) [T,B,H] after the mask;
 //   * _layer_fwd_pallas, LSTM (_fwd_lstm_kernel → _fwd_core; kernel 3):
-//     sse_lstm_fwd = one product for ax over all T·B rows (products.cu
+//     sse_rnn_fwd = one product for ax over all T·B rows (products.cu
 //     gates_product_kernel, from the Wx columns of [Wx;Wh]ᵀ) + this scan.
 //     Summed in this order, ax + bf16(h)·Wh is _fwd_core's (xs·Wx + b) +
-//     h·Wh.
+//     h·Wh. The GRU layer forward (kernel 2) takes the same route where
+//     gru_fwd.cu cannot hold its [Wx;Wh]ᵀ (E=256 at H=128, E=128 at H >
+//     128, every H above 176): the order is also that of JAX's lax.scan
+//     layer (towers.py _rnn_layer: ax + h·Wh).
 //
 // Why two launches for the LSTM, where gru_fwd.cu fuses its layer: with
 // four gates Whᵀ alone takes the 128 registers a thread that gru_fwd.cu
@@ -47,11 +50,16 @@
 // * H=128 is a template instance (both cells). Other widths take a
 //   generic one-tile instance: Whᵀ in shared memory, ax and the mask read
 //   from global memory; shared memory caps it at H=160 (LSTM) and H=176
-//   (GRU), which the wrappers check before launching.
+//   (GRU).
+// * Wider layers take the cluster instance (rnn_scan_cluster_kernel,
+//   below): Whᵀ split over C <= 8 blocks of a thread-block cluster. The
+//   wrapper's plan (ops/rnn.py layer_plan) picks the instance and C from
+//   the shapes and checks the shared memory before launching.
 //
 // The h and c carries stay fp32 in registers at the accumulators'
 // positions; bf16(h) sits in a double-buffered shared [rows][H] tile
 // that is the next step's B operand, bf16(c) in another (for cs).
+#include "cluster.cuh"
 #include "products.cuh"
 
 namespace {
@@ -339,6 +347,238 @@ cudaError_t launch_scan(const float* ax, const float* mask, const __nv_bfloat16*
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- clusters
+// The cluster instance, for layers whose Whᵀ (G·H rows of H) outgrows one
+// SM's shared memory: at H=256 the GRU's is 405,504 B, the LSTM's 540,672
+// B. A cluster of C blocks owns one tile of 8 batch rows, and block r of
+// the cluster owns units [r·H/C, (r+1)·H/C) of every gate: it holds the
+// Whᵀ rows of those units (G·H/C rows of H) in its shared memory for all
+// T steps, so a block does the multiply-adds of a layer C times narrower.
+// What the blocks share is the step's B operand, the full bf16(h) tile
+// [8][H]: double-buffered in every block. Each step, each warp
+//   1. computes its 16 units' gates, ax_t + bf16(h_{t-1})·Wh, summed over
+//      k in the generic instance's order (so C=2 and C=1 give the same
+//      bits), and runs the staged cell on them;
+//   2. writes its bf16(h_t) slice into its own block's next h tile, then
+//      copies those 8 rows x 16 units (16 pieces of 16 bytes) into the
+//      next h tile of every other block of the cluster (st.shared::cluster);
+//   3. meets the whole cluster at one barrier (arrive.release, then
+//      wait.acquire).
+// One barrier a step is enough because h is double-buffered: in step t a
+// block writes only the tile that step t reads none of, and it can write
+// that tile again (step t+2) only after passing the barrier of step t+1,
+// which no block reaches before it has finished reading that tile in step
+// t+1's products. A block exits only after the last step's barrier, past
+// which nothing writes into another block, and nothing writes into a
+// block before the barrier that follows its own set-up. ys, cs and fin
+// leave from the block that owns the unit.
+//
+// What bounds it: the chain over T, as for the single block, plus one
+// exchange and one cluster barrier a step. ax is read from global memory
+// one step ahead into registers.
+struct ClusterLayout {
+  int hc, ldw, ldh, ldc, w, h, c, total;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int G, int H, int C) {
+  ClusterLayout L;
+  L.hc = H / C;
+  L.ldw = H + KPAD;
+  L.ldh = H + KPAD;
+  L.ldc = L.hc + KPAD;
+  L.w = 0;
+  L.h = L.w + G * L.hc * L.ldw * 2;
+  L.c = L.h + 2 * BN * L.ldh * 2;
+  L.total = L.c + (G == 4 ? 2 * BN * L.ldc * 2 : 0);
+  return L;
+}
+
+constexpr int CL_THREADS = 256;  // 8 warps: 128 units a block at most
+
+template <int G>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+rnn_scan_cluster_kernel(const float* __restrict__ ax, const float* __restrict__ mask,
+                        const __nv_bfloat16* __restrict__ wt, int ldwt,
+                        __nv_bfloat16* __restrict__ ys, float* __restrict__ fin,
+                        __nv_bfloat16* __restrict__ cs,  // LSTM only; may be null
+                        int T, int B, int H, int C) {
+  const int N = G * H;
+  const ClusterLayout L = cluster_layout(G, H, C);
+  const int HC = L.hc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + L.h);
+  __nv_bfloat16* cts = reinterpret_cast<__nv_bfloat16*>(smem + L.c);
+  const int rank = sse::cluster_rank();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int row0 = (blockIdx.x / C) * BN;
+  const int v0 = rank * HC;        // this block's first unit
+  const int ul = warp * WH + grp;  // this thread's units, local: ul and ul + 8
+  const int u0 = v0 + ul;          // ... and in the layer
+  const bool want_c = G == 4 && cs != nullptr;
+
+  // the Whᵀ rows of this block's units, gate by gate: local row g·HC + j
+  // is row g·H + v0 + j of wt
+  const int wpieces = H / 8;
+  for (int q = tid; q < G * HC * wpieces; q += blockDim.x) {
+    const int n = q / wpieces, c = (q - n * wpieces) * 8;
+    const int g = n / HC, j = n - g * HC;
+    sse::cp_async16(ws + n * L.ldw + c, wt + (size_t)(g * H + v0 + j) * ldwt + c, true);
+  }
+  sse::cp_async_commit();
+  for (int i = tid; i < 2 * BN * L.ldh; i += blockDim.x) hs[i] = __float2bfloat16(0.f);
+  if (G == 4)
+    for (int i = tid; i < 2 * BN * L.ldc; i += blockDim.x) cts[i] = __float2bfloat16(0.f);
+  sse::cp_async_wait<0>();
+  sse::cluster_sync();  // every block of the cluster set up (Whᵀ, zero tiles)
+
+  // step t's ax values and mask at this thread's fragment positions
+  float an[G][4], mn[2];
+  auto load = [&](int t) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = row0 + 2 * tig + e;
+      mn[e] = r < B ? mask[(size_t)t * B + r] : 0.f;
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = row0 + 2 * tig + (q & 1), u = g * H + u0 + 8 * (q >> 1);
+        an[g][q] = r < B ? ax[((size_t)t * B + r) * N + u] : 0.f;
+      }
+  };
+  // the rows < B of this block's columns of a shared bf16 tile into out_s
+  // [B, H], 16 bytes a store (c tiles hold only this block's columns)
+  auto store_own = [&](__nv_bfloat16* out_s, const __nv_bfloat16* tile, int ld, int col0) {
+    for (int q = tid; q < BN * (HC / 8); q += blockDim.x) {
+      const int r = q / (HC / 8), c = (q - r * (HC / 8)) * 8;
+      if (row0 + r < B)
+        *reinterpret_cast<uint4*>(out_s + (size_t)(row0 + r) * H + v0 + c) =
+            *reinterpret_cast<const uint4*>(tile + r * ld + col0 + c);
+    }
+  };
+
+  load(0);
+  float h[4] = {}, c[4] = {};
+  int cur = 0;
+  for (int t = 0; t < T; ++t) {
+    const __nv_bfloat16* hc = hs + cur * BN * L.ldh;
+    float a[G][4], m[2] = {mn[0], mn[1]};
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[g][q] = an[g][q];
+
+    // bf16(h_{t-1})·Wh for this warp's units: the chain
+    float acc[G][4] = {};
+    for (int kq = 0; kq < H / 16; ++kq) {
+      const __nv_bfloat16* p = hc + grp * L.ldh + 16 * kq + 2 * tig;
+      const uint32_t b0 = sse::ld32(p), b1 = sse::ld32(p + 8);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        uint32_t f[4];
+        sse::frag_a(f, ws + (g * HC + ul) * L.ldw + 16 * kq + 2 * tig, L.ldw);
+        sse::mma_bf16(acc[g], f, b0, b1);
+      }
+    }
+    // while it runs: step t+1's inputs, and ys_{t-1} (cs_{t-1})
+    if (t + 1 < T) load(t + 1);
+    if (t > 0) {
+      store_own(ys + (size_t)(t - 1) * B * H, hc, L.ldh, v0);
+      if (want_c) store_own(cs + (size_t)(t - 1) * B * H, cts + cur * BN * L.ldc, L.ldc, 0);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[g][q] = a[g][q] + acc[g][q];
+
+    // the cell, staged as in rnn_scan_kernel (the same values, bit for bit)
+    float hnew[4];
+    if constexpr (G == 3) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[0][q] = expf(-acc[0][q]);
+        acc[1][q] = expf(-acc[1][q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[0][q] = sse::sigmoid_exp(acc[0][q]);
+        acc[1][q] = sse::sigmoid_exp(acc[1][q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float z = acc[0][q], n = tanhf(acc[2][q] * acc[1][q]);
+        hnew[q] = (1.f - z) * n + z * h[q];
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[0][q] = expf(-acc[0][q]);
+        acc[1][q] = expf(-(acc[1][q] + 1.f));
+        acc[G - 1][q] = expf(-acc[G - 1][q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[0][q] = sse::sigmoid_exp(acc[0][q]);
+        acc[1][q] = sse::sigmoid_exp(acc[1][q]);
+        acc[G - 1][q] = sse::sigmoid_exp(acc[G - 1][q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[2][q] = tanhf(acc[2][q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float cp = c[q];
+        const float cnew = acc[1][q] * cp + acc[0][q] * acc[2][q];
+        hnew[q] = acc[G - 1][q] * tanhf(cnew);
+        c[q] = m[q & 1] * cnew + (1.f - m[q & 1]) * cp;
+      }
+    }
+
+    // masked carry; bf16(h_t) into this block's next h tile (and bf16(c_t)
+    // into its next c tile), then the warp's slice into every other block's
+    __nv_bfloat16* hn = hs + (cur ^ 1) * BN * L.ldh;
+    __nv_bfloat16* cn = cts + (cur ^ 1) * BN * L.ldc;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float mq = m[q & 1];
+      h[q] = mq * hnew[q] + (1.f - mq) * h[q];
+      const int r = 2 * tig + (q & 1), du = 8 * (q >> 1);
+      hn[r * L.ldh + u0 + du] = __float2bfloat16(h[q]);
+      if (G == 4) cn[r * L.ldc + ul + du] = __float2bfloat16(c[q]);
+    }
+    __syncwarp();
+    for (int p = lane; p < 16 * (C - 1); p += 32) {
+      const int piece = p & 15, other = p >> 4;
+      sse::copy_to_rank(hn + (piece >> 1) * L.ldh + v0 + warp * WH + (piece & 1) * 8,
+                        other + (other >= rank));
+    }
+    sse::cluster_sync();  // step t's h tile complete in every block
+    cur ^= 1;
+  }
+  if (T > 0) {
+    store_own(ys + (size_t)(T - 1) * B * H, hs + cur * BN * L.ldh, L.ldh, v0);
+    if (want_c) store_own(cs + (size_t)(T - 1) * B * H, cts + cur * BN * L.ldc, L.ldc, 0);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = row0 + 2 * tig + (q & 1);
+    if (r < B) fin[(size_t)r * H + u0 + 8 * (q >> 1)] = h[q];
+  }
+}
+
+template <int G>
+cudaError_t launch_scan_cluster(const float* ax, const float* mask, const __nv_bfloat16* wt,
+                                int ldwt, __nv_bfloat16* ys, float* fin, __nv_bfloat16* cs,
+                                int T, int B, int H, int C, cudaStream_t st) {
+  if (C < 2 || C > sse::kMaxCluster || H % (WH * C) || H / C > CL_THREADS / 2)
+    return cudaErrorInvalidValue;
+  return sse::launch_cluster(rnn_scan_cluster_kernel<G>, C * cdiv(B, BN), 2 * (H / C),
+                             cluster_layout(G, H, C).total, C, st, ax, mask, wt, ldwt, ys, fin,
+                             cs, T, B, H, C);
+}
+
 // Blocks of 8 rows, or of 16 (H=128 only) where that halves the waves of
 // blocks over the SMs (one block fits an SM). Measured on an H100, a
 // 16-row step takes ~1.9x an 8-row one (~3.4 against 1.8 µs, LSTM), so
@@ -352,10 +592,12 @@ bool two_tiles(int B) {
   return cdiv(cdiv(B, BN), sms) >= 2 * cdiv(cdiv(B, 2 * BN), sms);
 }
 
+// C >= 2: the cluster instance; C = 1: one block a tile.
 template <int G>
 cudaError_t scan(const float* ax, const float* mask, const __nv_bfloat16* wt, int ldwt,
-                 __nv_bfloat16* ys, float* fin, __nv_bfloat16* cs, int T, int B, int H,
+                 __nv_bfloat16* ys, float* fin, __nv_bfloat16* cs, int T, int B, int H, int C,
                  cudaStream_t st) {
+  if (C > 1) return launch_scan_cluster<G>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, C, st);
   if (H == 128)
     return two_tiles(B) ? launch_scan<G, 128, 2>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, st)
                         : launch_scan<G, 128, 1>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, st);
@@ -365,44 +607,57 @@ cudaError_t scan(const float* ax, const float* mask, const __nv_bfloat16* wt, in
 }  // namespace
 
 // Shared memory one scan block needs for G gates, at most (H=128: the
-// ring, 16 rows; else Whᵀ, 8 rows); the wrappers reject shapes above the
-// 232,448-byte opt-in limit before launching.
+// ring, 16 rows; else Whᵀ, 8 rows); ops/rnn.py scan_smem mirrors it and
+// the plan rejects shapes above the 232,448-byte opt-in limit.
 extern "C" int sse_rnn_scan_smem_bytes(int G, int H) {
   const bool fixed = H == 128;
   return layout(G, H, fixed, fixed ? 2 * BN : BN).total;
 }
 
+// The same for a block of the cluster instance on C blocks.
+extern "C" int sse_rnn_scan_cluster_smem_bytes(int G, int H, int C) {
+  return cluster_layout(G, H, C).total;
+}
+
 // Kernel 1. ax [T,B,G·H] fp32, mask [T,1,B] fp32, wht = Whᵀ [G·H,H] bf16
 // → ys [T,B,H] bf16, fin [B,H] fp32 (no c stream: the scan alone has no
-// backward). T, B >= 1; H a multiple of 16; every pointer 16-byte aligned.
+// backward), on clusters of C blocks (1: one block a tile). T, B >= 1; H
+// a multiple of 16·C; every pointer 16-byte aligned.
 extern "C" int sse_rnn_scan(const void* ax, const void* mask, const void* wht, void* ys,
-                            void* fin, int T, int B, int H, int G, void* stream) {
+                            void* fin, int T, int B, int H, int G, int C, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const float*>(ax);
   const auto* m = static_cast<const float*>(mask);
   const auto* w = static_cast<const __nv_bfloat16*>(wht);
   auto* y = static_cast<__nv_bfloat16*>(ys);
   auto* f = static_cast<float*>(fin);
-  if (G == 3) return (int)scan<3>(a, m, w, H, y, f, nullptr, T, B, H, st);
-  if (G == 4) return (int)scan<4>(a, m, w, H, y, f, nullptr, T, B, H, st);
+  if (G == 3) return (int)scan<3>(a, m, w, H, y, f, nullptr, T, B, H, C, st);
+  if (G == 4) return (int)scan<4>(a, m, w, H, y, f, nullptr, T, B, H, C, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel 3, the LSTM layer forward. xs [T,B,E] bf16, mask [T,1,B] fp32,
-// wt = [Wx;Wh]ᵀ [4H,E+H] bf16, bias [4H] fp32; scratch ax [T·B,4H] fp32.
-// Out: ys, cs [T,B,H] bf16 and fin [B,H] fp32. T, B >= 1; E, H multiples
-// of 16; every pointer 16-byte aligned.
-extern "C" int sse_lstm_fwd(const void* xs, const void* mask, const void* wt,
-                            const void* bias, void* ax, void* ys, void* fin, void* cs, int T,
-                            int B, int E, int H, void* stream) {
+// Kernel 3 (the LSTM layer forward, G = 4) and the GRU layer forward
+// where gru_fwd.cu cannot hold [Wx;Wh]ᵀ (G = 3): the x-product, then the
+// scan on clusters of C blocks. xs [T,B,E] bf16, mask [T,1,B] fp32,
+// wt = [Wx;Wh]ᵀ [G·H,E+H] bf16, bias [G·H] fp32; scratch ax [T·B,G·H]
+// fp32. Out: ys [T,B,H] bf16, fin [B,H] fp32 and, for the LSTM, cs
+// [T,B,H] bf16 (null for the GRU). T, B >= 1; E a multiple of 16, H of
+// 16·C; every pointer 16-byte aligned.
+extern "C" int sse_rnn_fwd(const void* xs, const void* mask, const void* wt, const void* bias,
+                           void* ax, void* ys, void* fin, void* cs, int T, int B, int E, int H,
+                           int G, int C, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G != 3 && G != 4) return (int)cudaErrorInvalidValue;
   const int K = E + H;
   const auto* w = static_cast<const __nv_bfloat16*>(wt);
   const sse::XH x = {static_cast<const __nv_bfloat16*>(xs), nullptr, T * B, E, H, B};
   cudaError_t err =
-      sse::launch_gates(x, w, 4 * H, static_cast<const float*>(bias), static_cast<float*>(ax), st);
+      sse::launch_gates(x, w, G * H, static_cast<const float*>(bias), static_cast<float*>(ax), st);
   if (err != cudaSuccess) return (int)err;
-  return (int)scan<4>(static_cast<const float*>(ax), static_cast<const float*>(mask), w + E, K,
-                      static_cast<__nv_bfloat16*>(ys), static_cast<float*>(fin),
-                      static_cast<__nv_bfloat16*>(cs), T, B, H, st);
+  const auto* a = static_cast<const float*>(ax);
+  const auto* m = static_cast<const float*>(mask);
+  auto* y = static_cast<__nv_bfloat16*>(ys);
+  auto* f = static_cast<float*>(fin);
+  if (G == 3) return (int)scan<3>(a, m, w + E, K, y, f, nullptr, T, B, H, C, st);
+  return (int)scan<4>(a, m, w + E, K, y, f, static_cast<__nv_bfloat16*>(cs), T, B, H, C, st);
 }

@@ -8,8 +8,9 @@ Four TPU kernels have their Hopper counterparts here:
   float32 sums), the cell, and the masked carry freeze ``h = m·h_new +
   (1-m)·h`` (and ``c`` likewise for the LSTM). Returns ``(ys [T,B,H]
   bf16, fin [B,H] fp32)``; the LSTM also keeps ``cs = bf16(c)`` for its
-  backward. GRU: ``csrc/gru_fwd.cu``; LSTM: ``csrc/rnn_scan.cu``
-  ``sse_lstm_fwd`` (x-product, then the scan).
+  backward. GRU: ``csrc/gru_fwd.cu`` where it holds [Wx;Wh]ᵀ; LSTM, and
+  the GRU elsewhere: ``csrc/rnn_scan.cu`` ``sse_rnn_fwd`` (x-product,
+  then the scan).
 * ``scan_layer`` — the recurrence over precomputed x-side pre-activations
   ``ax`` (``scan_layer``, kernel 1), either cell: ``csrc/rnn_scan.cu``.
   ``rnn_encode`` stacks it into a forward-only multi-layer encode.
@@ -24,22 +25,40 @@ On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version of the same function
 (``*_reference``, ``*_chain``). See the kernel sources for what bounds
 them on the H100.
+
+Widths. ``layer_plan(cell, E, H)`` places every layer the JAX package
+trains (H up to 384) on a kernel instance before anything launches: E
+padded to a multiple of 16, H to a multiple of 16·C, where C is the
+number of blocks of a thread-block cluster that split Whᵀ (the scan) or
+Wh (the backward's dh loop) between their shared memories, the
+smallest of 1, 2, 4, 8 whose layout fits one SM. The padding is exact
+(zero weights, bias and carry keep a padded unit at 0) and happens
+inside the CUDA route (``pad_layer``, ``unpad_grads``); the CPU route
+runs unpadded.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from sse_tpu_torch.ops import _build
 
 # Launches of each CUDA kernel wrapper (incremented only where it launches).
-# ``rnn_scan`` counts every launch of the scan kernel: ``scan_layer``'s and
-# the one inside each LSTM layer forward (``sse_lstm_fwd`` runs it after
-# the x-product).
-launches = {"gru_fwd": 0, "gru_bwd": 0, "lstm_fwd": 0, "lstm_bwd": 0, "rnn_scan": 0}
+# ``rnn_scan`` counts every launch of the scan: ``scan_layer``'s and the
+# one inside each split layer forward (``sse_rnn_fwd`` runs it after the
+# x-product: every LSTM forward, counted in ``lstm_fwd``, and the GRU
+# forwards that ``gru_fwd.cu`` cannot hold, in ``gru_fwd_split``).
+# ``gru_fwd`` counts ``gru_fwd.cu`` alone. The ``*_cluster`` counters count
+# the launches, among those, whose scan or dh loop ran on the cluster
+# instance (C >= 2).
+launches = {"gru_fwd": 0, "gru_bwd": 0, "lstm_fwd": 0, "lstm_bwd": 0, "rnn_scan": 0,
+            "gru_fwd_split": 0, "rnn_scan_cluster": 0, "gru_bwd_cluster": 0,
+            "lstm_bwd_cluster": 0}
 
 _MAX_SMEM = 232_448  # opt-in dynamic shared memory per block on sm_90
 _GATES = {"gru": 3, "lstm": 4}
@@ -147,6 +166,218 @@ def rnn_layer_reference(
     return (ys, fin) if cell == "gru" else (ys, fin, cs)
 
 
+# ------------------------------------------------------------ the layer plan
+# The kernels' shared-memory layouts, mirrored from the sources (a GPU test
+# holds each mirror against the library's ``sse_*_smem_bytes``): bf16 rows
+# padded by KPAD, fp32 rows by 4, 8 batch rows (one n8 tile) a block, 16
+# hidden units a warp.
+_KPAD, _FPAD, _BN, _WH = 8, 4, 8, 16
+CLUSTERS = (1, 2, 4, 8)  # blocks a cluster: 8 is the portable most
+CLUSTER_UNITS = 128  # units a cluster block owns at most: 8 warps
+DH_CLUSTER_STAGES = 2  # input stages of the cluster dh loop
+# Units a single-block instance takes at most: its threads' launch bound
+# (2H threads: 352 for the scan, the GRU forward and the GRU dh loop, 288
+# for the LSTM dh loop)
+_ONE_BLOCK_UNITS = {"scan": 176, "gru_dh": 176, "lstm_dh": 144, "gru_fwd": 176}
+
+
+def gru_fwd_smem(E: int, H: int) -> int:
+    """Bytes of shared memory a ``gru_fwd.cu`` block takes (its
+    ``layout``): at E=H=128 Wxᵀ, the h tiles, the xs ring and the masks
+    for 16 rows; else [Wx;Wh]ᵀ and the h tiles for 8 rows."""
+    fixed = E == H == 128
+    rows = 2 * _BN if fixed else _BN
+    w = 3 * H * ((E if fixed else E + H) + _KPAD) * 2
+    h = 2 * rows * (H + _KPAD) * 2
+    ring = 3 * rows * (E + _KPAD) * 2 + 4 * rows * 4 if fixed else 0
+    return w + h + ring
+
+
+def scan_smem(G: int, H: int, C: int = 1) -> int:
+    """Bytes of shared memory a scan block takes (``rnn_scan.cu``): C=1,
+    ``layout`` (at H=128 the ax ring for 16 rows, else Whᵀ for 8 rows);
+    C >= 2, ``cluster_layout``: the Whᵀ rows of the block's H/C units for
+    every gate, the full double-buffered bf16 h tile and, for the LSTM,
+    its units' bf16 c tiles."""
+    ldh = H + _KPAD
+    if C == 1:
+        fixed = H == 128
+        rows = 2 * _BN if fixed else _BN
+        w = 0 if fixed else G * H * ldh * 2
+        c = 2 * rows * ldh * 2 if G == 4 else 0
+        ring = 4 * rows * (G * H + _FPAD) * 4 + 4 * rows * 4 if fixed else 0
+        return w + 2 * rows * ldh * 2 + c + ring
+    hc = H // C
+    c = 2 * _BN * (hc + _KPAD) * 2 if G == 4 else 0
+    return G * hc * ldh * 2 + 2 * _BN * ldh * 2 + c
+
+
+def dh_smem(G: int, H: int, C: int = 1) -> int:
+    """Bytes of shared memory a dh-loop block takes (``gru_bwd.cu``,
+    ``lstm_bwd.cu``): the Wh rows it holds (none at H=128, where they sit
+    in registers; H/C of them in a cluster), the double-buffered bf16
+    dgates_b tile [8][G·H], and its input stages (3 at H=128, 1 for the
+    generic single block, DH_CLUSTER_STAGES in a cluster), each the
+    fp32 gates of its units, dys_t and h_{t-1} (c_{t-1}) and the mask."""
+    hc = H // C
+    ldw = G * H + _KPAD
+    stage = _BN * (G * hc + _FPAD) * 4 + 2 * _BN * (hc + _KPAD) * 2 + (hc // _WH) * _BN * 4
+    if C == 1:
+        wh, stages = (0, 3) if H == 128 else (H * ldw * 2, 1)
+    else:
+        wh, stages = hc * ldw * 2, DH_CLUSTER_STAGES
+    return wh + 2 * _BN * ldw * 2 + stages * stage
+
+
+def _refusal(kind: str, G: int, H: int, C: int) -> Optional[str]:
+    """Why the C-block instance of ``kind`` ("scan" or "dh") cannot take a
+    G-gate layer at hidden H (None: it can): H a multiple of 16·C, at most
+    the single block's thread bound (C = 1) or CLUSTER_UNITS units a block
+    (C >= 2), and the layout within _MAX_SMEM."""
+    if C not in CLUSTERS or H % (_WH * C):
+        return f"H={H} is no multiple of 16·{C}"
+    one = _ONE_BLOCK_UNITS["scan" if kind == "scan" else ("gru_dh" if G == 3 else "lstm_dh")]
+    if C == 1 and H > one:
+        return f"one block takes H <= {one}"
+    if C > 1 and H // C > CLUSTER_UNITS:
+        return f"{H // C} units a block (> {CLUSTER_UNITS})"
+    need = (scan_smem if kind == "scan" else dh_smem)(G, H, C)
+    if need > _MAX_SMEM:
+        return f"{need} B of shared memory a block (> {_MAX_SMEM})"
+    return None
+
+
+def _cluster(kind: str, G: int, H: int, most: int = CLUSTERS[-1]) -> Optional[int]:
+    """The smallest cluster size C <= most whose ``kind`` instance takes
+    hidden H (``_refusal``), or None."""
+    return next((C for C in CLUSTERS if C <= most and _refusal(kind, G, H, C) is None), None)
+
+
+class LayerPlan(NamedTuple):
+    """Where a recurrent layer runs on the card: the widths the kernels see
+    (E_p, H_p: E padded to a multiple of 16, H to one of 16·C for the
+    larger C), the forward's route ("fused": ``gru_fwd.cu``; "split": the
+    x-product on ``products.cu``, then the scan) and the cluster sizes of
+    the scan and of the backward's dh loop (1: the single-block
+    instances)."""
+
+    cell: str
+    E: int
+    H: int
+    E_p: int
+    H_p: int
+    fwd: str
+    scan_cluster: int
+    dh_cluster: int
+
+
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def _hidden_plan(G: int, H: int) -> Optional[Tuple[int, int, int]]:
+    """(H_p, scan C, dh C) for hidden H, or None beyond the kernels' reach:
+    for each bound c on the cluster (1, 2, 4, 8 in turn), H_p = H rounded
+    up to a multiple of 16·c, and the first c under which both the scan
+    and the dh loop fit."""
+    for most in CLUSTERS:
+        H_p = _ceil(H, _WH * most)
+        cs, cd = _cluster("scan", G, H_p, most), _cluster("dh", G, H_p, most)
+        if cs and cd:
+            return H_p, cs, cd
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def widest_hidden(cell: str) -> int:
+    """The widest hidden size ``layer_plan`` places for ``cell`` (any E)."""
+    G = _n_gates(cell)
+    return max(H for H in range(_WH, 64 * _WH + 1, _WH) if _hidden_plan(G, H))
+
+
+@functools.lru_cache(maxsize=None)
+def layer_plan(cell: str, E: int, H: int) -> LayerPlan:
+    """The kernel instances and padded widths of a ``cell`` layer with
+    input width E and hidden width H on the card. A pure function of the
+    shapes, like ``dw_plan``: it never reads the card, so every card and
+    rank picks the same instances and computes the same bits. Raises
+    ``ValueError`` for a width no instance takes, before any launch.
+
+    At E=H=128 it picks the fixed instances (registers hold the weights);
+    at H=256 the GRU scan takes C=2 and its dh loop C=4, the LSTM C=4 for
+    both; H=384 takes C=8; H=100 pads to 112. The GRU forward runs on
+    ``gru_fwd.cu`` where its [Wx;Wh]ᵀ fits a block (E=128: H <= 128),
+    else the x-product and the scan."""
+    G = _n_gates(cell)
+    if E < 1 or H < 1:
+        raise ValueError(f"layer_plan: {cell} widths must be positive (E={E}, H={H})")
+    hidden = _hidden_plan(G, H)
+    if hidden is None:
+        raise ValueError(
+            f"layer_plan: a {cell} layer of hidden width {H} is beyond the recurrent "
+            f"kernels' reach (no cluster of up to {CLUSTERS[-1]} blocks holds its weights in "
+            f"shared memory): the widest hidden width they take is {widest_hidden(cell)}")
+    H_p, cs, cd = hidden
+    E_p = _ceil(E, _WH)
+    fused = G == 3 and H_p <= _ONE_BLOCK_UNITS["gru_fwd"] and gru_fwd_smem(E_p, H_p) <= _MAX_SMEM
+    return LayerPlan(cell, E, H, E_p, H_p, "fused" if fused else "split", cs, cd)
+
+
+def pad_units(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t [..., m] → [..., n], zeros after the first m columns (t itself
+    where m == n)."""
+    m = t.shape[-1]
+    return t if m == n else F.pad(t, (0, n - m))
+
+
+def pad_gates(t: torch.Tensor, G: int, H_p: int) -> torch.Tensor:
+    """t [..., G·H] → [..., G·H_p]: each gate's block of H columns padded
+    with zeros to H_p (the kernels index gate g's unit u at g·H_p + u)."""
+    H = t.shape[-1] // G
+    if H == H_p:
+        return t
+    lead = t.shape[:-1]
+    return F.pad(t.reshape(*lead, G, H), (0, H_p - H)).reshape(*lead, G * H_p)
+
+
+def unpad_gates(t: torch.Tensor, G: int, H: int) -> torch.Tensor:
+    """The inverse of ``pad_gates``: [..., G·H_p] → [..., G·H]."""
+    H_p = t.shape[-1] // G
+    if H == H_p:
+        return t
+    lead = t.shape[:-1]
+    return t.reshape(*lead, G, H_p)[..., :H].reshape(*lead, G * H)
+
+
+def _pad_rows(w: torch.Tensor, n: int) -> torch.Tensor:
+    return w if w.shape[0] == n else F.pad(w, (0, 0, 0, n - w.shape[0]))
+
+
+def pad_layer(xs, wx, wh, b, G: int, E_p: int, H_p: int):
+    """A layer's operands at the kernels' widths, zero-padded: xs [T,B,E_p],
+    Wx [E_p, G·H_p], Wh [H_p, G·H_p], b [G·H_p]. A padded unit has zero
+    weights, zero bias and a zero carry, so it stays exactly 0 (GRU: h' =
+    σ(0)·0 + σ(0)·0; LSTM: c' = σ(1)·0 + σ(0)·tanh(0)) and adds exact zeros
+    to every real unit's sums, forward and backward."""
+    return (pad_units(xs, E_p), pad_gates(_pad_rows(wx, E_p), G, H_p),
+            pad_gates(_pad_rows(wh, H_p), G, H_p), pad_gates(b, G, H_p))
+
+
+def unpad_grads(dxs, dwx, dwh, db, G: int, E: int, H: int):
+    """The gradients of ``pad_layer``'s operands back at the layer's widths
+    (contiguous)."""
+    if dxs.shape[-1] == E and dwh.shape[0] == H:
+        return dxs, dwx, dwh, db
+    return tuple(t.contiguous() for t in (dxs[..., :E], unpad_gates(dwx[:E], G, H),
+                                          unpad_gates(dwh[:H], G, H), unpad_gates(db, G, H)))
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """The CUDA route: the tensor lies on a card."""
+    return t.is_cuda
+
+
 # ------------------------------------------------------------ CUDA launches
 def _check_args(kernel: str, args) -> None:
     """Raise unless every (tensor, dtype, shape) of ``args`` is on the first
@@ -163,17 +394,6 @@ def _check_args(kernel: str, args) -> None:
             )
         if t.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
-
-
-def _smem(kernel: str, fn: str, *dims: int) -> None:
-    """Raise if the kernel's shared memory (the library's ``fn(*dims)``)
-    exceeds the opt-in limit."""
-    f = getattr(_build.library(), fn)
-    f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_int] * len(dims)
-    need = f(*dims)
-    if need > _MAX_SMEM:
-        raise ValueError(f"{kernel}: {dims} needs {need} B of shared memory (> {_MAX_SMEM})")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -202,6 +422,25 @@ def fused_weight_t(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     return torch.cat([wx, wh]).t().contiguous()
 
 
+def _fits(kernel: str, need: int, what: str) -> None:
+    """Raise unless ``need`` bytes of shared memory fit one block."""
+    if need > _MAX_SMEM:
+        raise ValueError(f"{kernel}: {what} needs {need} B of shared memory a block "
+                         f"(> {_MAX_SMEM}); layer_plan pads and places such widths")
+
+
+def _cluster_of(kernel: str, kind: str, G: int, H: int, cluster: Optional[int]) -> int:
+    """The cluster size a ``kind`` ("scan" | "dh") launch at hidden H runs
+    with: ``cluster`` if given, else the smallest that takes H; raises
+    with the reasons where none does."""
+    C = _cluster(kind, G, H) if cluster is None else cluster
+    if C is None or _refusal(kind, G, H, C):
+        why = "; ".join(f"on {c}: {_refusal(kind, G, H, c)}" for c in ([C] if C else CLUSTERS))
+        raise ValueError(f"{kernel}: no instance takes H={H} ({why}); layer_plan pads and "
+                         "places such widths")
+    return C
+
+
 def gru_fwd_launch(xs, mask, wx, wh, b, wt=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``csrc/gru_fwd.cu`` on CUDA tensors (contiguous, 16-byte aligned:
     xs, wx, wh bf16; mask, b fp32) → (ys, fin). ``wt`` is
@@ -213,9 +452,11 @@ def gru_fwd_launch(xs, mask, wx, wh, b, wt=None) -> Tuple[torch.Tensor, torch.Te
     wt = fused_weight_t(wx, wh) if wt is None else wt
     _check_args("gru_fwd", {"xs": (xs, torch.bfloat16, (T, B, E)),
                             "wt": (wt, torch.bfloat16, (3 * H, E + H))})
-    if E % 16 or H % 16 or H > 512:
-        raise ValueError(f"gru_fwd: needs E, H multiples of 16 and H <= 512 (E={E}, H={H})")
-    _smem("gru_fwd", "sse_gru_fwd_smem_bytes", E, H)
+    check_widths("gru_fwd", E, H)
+    if H > _ONE_BLOCK_UNITS["gru_fwd"]:
+        raise ValueError(f"gru_fwd: H={H} is above the kernel's thread bound; "
+                         "layer_plan sends it to the split route")
+    _fits("gru_fwd", gru_fwd_smem(E, H), f"(E={E}, H={H})")
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=xs.device)
     fin = torch.empty((B, H), dtype=torch.float32, device=xs.device)
     if T == 0 or B == 0:
@@ -229,40 +470,61 @@ def gru_fwd_launch(xs, mask, wx, wh, b, wt=None) -> Tuple[torch.Tensor, torch.Te
     return ys, fin
 
 
-def lstm_fwd_launch(xs, mask, wx, wh, b, wt=None) -> Tuple[torch.Tensor, ...]:
-    """``csrc/rnn_scan.cu`` ``sse_lstm_fwd`` on CUDA tensors (contiguous,
-    16-byte aligned: xs, wx, wh bf16; mask, b fp32): the x-product, then
-    the scan, both from the rows of ``wt = fused_weight_t(wx, wh)`` (built
-    here if the caller has none). Returns (ys, fin, cs, ax [T,B,4H]
-    fp32), the last the x-product the scan consumed."""
-    _check_args("lstm_fwd", _layer_args(xs, mask, wx, wh, b, 4))
+def _count_scan(C: int) -> None:
+    launches["rnn_scan"] += 1
+    if C > 1:
+        launches["rnn_scan_cluster"] += 1
+
+
+def rnn_fwd_launch(xs, mask, wx, wh, b, cell: str = "lstm", wt=None,
+                   cluster: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """``csrc/rnn_scan.cu`` ``sse_rnn_fwd`` on CUDA tensors (contiguous,
+    16-byte aligned: xs, wx, wh bf16; mask, b fp32): the split layer
+    forward, the x-product, then the scan (on ``cluster`` blocks; the
+    smallest that fits if None), both from the rows of ``wt =
+    fused_weight_t(wx, wh)`` (built here if the caller has none). Returns
+    (ys, fin, cs | None, ax [T,B,G·H] fp32): cs the LSTM's bf16 c stream,
+    ax the x-product the scan consumed. Every LSTM forward takes it
+    (counted in ``lstm_fwd``), and the GRU where ``gru_fwd.cu`` cannot
+    hold the weights (``gru_fwd_split``)."""
+    G = _n_gates(cell)
+    name = "lstm_fwd" if G == 4 else "gru_fwd_split"
+    _check_args(name, _layer_args(xs, mask, wx, wh, b, G))
     T, B, E = xs.shape
     H = wh.shape[0]
     wt = fused_weight_t(wx, wh) if wt is None else wt
-    _check_args("lstm_fwd", {"xs": (xs, torch.bfloat16, (T, B, E)),
-                             "wt": (wt, torch.bfloat16, (4 * H, E + H))})
-    check_widths("lstm_fwd", E, H)
-    _smem("lstm_fwd", "sse_rnn_scan_smem_bytes", 4, H)
+    _check_args(name, {"xs": (xs, torch.bfloat16, (T, B, E)),
+                       "wt": (wt, torch.bfloat16, (G * H, E + H))})
+    check_widths(name, E, H)
+    C = _cluster_of(name, "scan", G, H, cluster)
     dev = xs.device
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
-    cs = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+    cs = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev) if G == 4 else None
     fin = torch.empty((B, H), dtype=torch.float32, device=dev)
-    ax = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    ax = torch.empty((T, B, G * H), dtype=torch.float32, device=dev)
     if T == 0 or B == 0:
         return ys, fin.zero_(), cs, ax
     _build.launch(
-        "sse_lstm_fwd", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4, dev,
+        "sse_rnn_fwd", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6, dev,
         xs.data_ptr(), mask.data_ptr(), wt.data_ptr(), b.data_ptr(), ax.data_ptr(),
-        ys.data_ptr(), fin.data_ptr(), cs.data_ptr(), T, B, E, H,
+        ys.data_ptr(), fin.data_ptr(), 0 if cs is None else cs.data_ptr(), T, B, E, H, G, C,
     )
-    launches["lstm_fwd"] += 1
-    launches["rnn_scan"] += 1
+    launches[name] += 1
+    _count_scan(C)
     return ys, fin, cs, ax
 
 
-def rnn_scan_launch(ax, mask, wh, cell: str = "gru") -> Tuple[torch.Tensor, torch.Tensor]:
+def lstm_fwd_launch(xs, mask, wx, wh, b, wt=None) -> Tuple[torch.Tensor, ...]:
+    """The LSTM layer forward on CUDA tensors (``rnn_fwd_launch``): (ys,
+    fin, cs, ax [T,B,4H] fp32)."""
+    return rnn_fwd_launch(xs, mask, wx, wh, b, "lstm", wt)
+
+
+def rnn_scan_launch(ax, mask, wh, cell: str = "gru",
+                    cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``csrc/rnn_scan.cu`` ``sse_rnn_scan`` on CUDA tensors (ax, mask fp32;
-    wh bf16; contiguous, 16-byte aligned) → (ys, fin)."""
+    wh bf16; contiguous, 16-byte aligned) → (ys, fin), on ``cluster``
+    blocks (the smallest that fits if None)."""
     G = _n_gates(cell)
     T, B, _ = ax.shape
     H = wh.shape[0]
@@ -273,7 +535,7 @@ def rnn_scan_launch(ax, mask, wh, cell: str = "gru") -> Tuple[torch.Tensor, torc
     })
     if H % 16:
         raise ValueError(f"rnn_scan: needs H a multiple of 16 (H={H})")
-    _smem("rnn_scan", "sse_rnn_scan_smem_bytes", G, H)
+    C = _cluster_of("rnn_scan", "scan", G, H, cluster)
     dev = ax.device
     ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
     fin = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -281,24 +543,33 @@ def rnn_scan_launch(ax, mask, wh, cell: str = "gru") -> Tuple[torch.Tensor, torc
         return ys, fin.zero_()
     wht = wh.t().contiguous()  # Whᵀ [G·H, H]: its rows are the A fragments
     _build.launch(
-        "sse_rnn_scan", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4, dev,
+        "sse_rnn_scan", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5, dev,
         ax.data_ptr(), mask.data_ptr(), wht.data_ptr(), ys.data_ptr(), fin.data_ptr(),
-        T, B, H, G,
+        T, B, H, G, C,
     )
-    launches["rnn_scan"] += 1
+    _count_scan(C)
     return ys, fin
 
 
 # ------------------------------------------------------------ forward wrappers
+def _cut(t: torch.Tensor, n: int) -> torch.Tensor:
+    """The first n columns of t's last dimension, contiguous (t itself if
+    it has n)."""
+    return t if t.shape[-1] == n else t[..., :n].contiguous()
+
+
 def _layer_fwd(xs, mask, wx, wh, b, cell, wt=None):
-    """(ys, fin, cs | None): the kernel on CUDA tensors, the plain version
-    on CPU tensors. ``wt``: ``fused_weight_t(wx, wh)``, if the caller has
-    it (both kernels take it)."""
-    if not xs.is_cuda:
+    """(ys, fin, cs | None): the plain version on CPU tensors; on CUDA
+    tensors, already at ``layer_plan``'s padded widths (where the plan
+    picks the same instances again), the route the plan picks. ``wt``:
+    ``fused_weight_t(wx, wh)``, if the caller has it (both routes take
+    it)."""
+    if not _on_card(xs):
         return _scan_reference(_x_product(xs, wx, b), mask, wh, cell)
-    if _n_gates(cell) == 3:
+    plan = layer_plan(cell, xs.shape[2], wh.shape[0])
+    if plan.fwd == "fused":
         return (*gru_fwd_launch(xs, mask, wx, wh, b, wt), None)
-    return lstm_fwd_launch(xs, mask, wx, wh, b, wt)[:3]
+    return rnn_fwd_launch(xs, mask, wx, wh, b, cell, wt, plan.scan_cluster)[:3]
 
 
 def _cast_layer(xs, mask, wx, wh, b):
@@ -312,6 +583,13 @@ def _cast_layer(xs, mask, wx, wh, b):
     )
 
 
+def _card_layer(xs, mask, wx, wh, b, cell):
+    """(plan, the cast operands at its padded widths)."""
+    plan = layer_plan(cell, xs.shape[2], wh.shape[0])
+    xs, wx, wh, b = pad_layer(xs, wx, wh, b, _n_gates(cell), plan.E_p, plan.H_p)
+    return plan, (xs, mask, wx, wh, b)
+
+
 def rnn_layer(
     xs: torch.Tensor,
     mask: torch.Tensor,
@@ -321,22 +599,33 @@ def rnn_layer(
     cell: str = "gru",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One recurrent layer forward → (ys bf16, fin fp32): the Hopper kernel
-    on CUDA tensors, the plain version on CPU tensors."""
-    return _layer_fwd(*_cast_layer(xs, mask, wx, wh, b), cell)[:2]
+    on CUDA tensors (at ``layer_plan``'s widths), the plain version on CPU
+    tensors."""
+    args = _cast_layer(xs, mask, wx, wh, b)
+    if not _on_card(args[0]):
+        return _layer_fwd(*args, cell)[:2]
+    H = args[3].shape[0]
+    ys, fin, _ = _layer_fwd(*_card_layer(*args, cell)[1], cell)
+    return _cut(ys, H), _cut(fin, H)
 
 
 def scan_layer(
     ax: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, cell: str = "gru"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 1: the recurrence over precomputed ``ax`` [T,B,G·H] fp32 →
-    (ys bf16, fin fp32); the scan kernel on CUDA tensors, the plain
-    version on CPU tensors."""
-    if not ax.is_cuda:
+    (ys bf16, fin fp32); the scan kernel on CUDA tensors (at
+    ``layer_plan``'s hidden width), the plain version on CPU tensors."""
+    if not _on_card(ax):
         return scan_layer_reference(ax, mask, wh, cell)
-    return rnn_scan_launch(
-        _aligned(ax.to(torch.float32)), _aligned(mask.to(torch.float32)),
-        _aligned(wh.to(torch.bfloat16)), cell,
+    G, H = _n_gates(cell), wh.shape[0]
+    plan = layer_plan(cell, H, H)
+    ys, fin = rnn_scan_launch(
+        _aligned(pad_gates(ax.to(torch.float32), G, plan.H_p)),
+        _aligned(mask.to(torch.float32)),
+        _aligned(pad_gates(_pad_rows(wh.to(torch.bfloat16), plan.H_p), G, plan.H_p)),
+        cell, plan.scan_cluster,
     )
+    return _cut(ys, H), _cut(fin, H)
 
 
 def rnn_encode(params, cfg, emb: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -570,10 +859,12 @@ def check_widths(kernel: str, E: int, H: int) -> None:
         raise ValueError(f"{kernel}: needs E, H positive multiples of 16 (E={E}, H={H})")
 
 
-def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None) -> Tuple[torch.Tensor, ...]:
+def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None,
+                cluster: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """``csrc/{gru,lstm}_bwd.cu`` on CUDA tensors → (dxs, dWx, dWh, db,
     gates [T,B,G·H] fp32, dgates_b [T,B,G·H] bf16). ``wt``:
-    ``fused_weight_t(wx, wh)`` where the caller has it."""
+    ``fused_weight_t(wx, wh)`` where the caller has it; ``cluster``: the
+    dh loop's blocks (the smallest that fits if None)."""
     G = _n_gates(cell)
     name = f"{cell}_bwd"
     T, B, E = xs.shape
@@ -597,7 +888,7 @@ def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None) -> Tuple[
     wt = fused_weight_t(wx, wh) if wt is None else wt
     _check_args(name, {"xs": args["xs"], "wt": (wt, torch.bfloat16, (N, E + H))})
     check_widths(name, E, H)
-    _smem(name, f"sse_{name}_smem_bytes", H)
+    C = _cluster_of(name, "dh", G, H, cluster)
     lib = _build.library()
     rows_fn = getattr(lib, f"sse_{name}_block_rows")
     rows_fn.restype = ctypes.c_int
@@ -619,26 +910,30 @@ def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None) -> Tuple[
     ptrs = [xs, ys, *([cs] if cell == "lstm" else []), mask, wt, wx, wh, b, dys, dfin,
             gates, dgb, db_part, w_part, dxs, dw, db]
     _build.launch(
-        f"sse_{name}", [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5, dev,
-        *(p.data_ptr() for p in ptrs), T, B, E, H, splits,
+        f"sse_{name}", [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6, dev,
+        *(p.data_ptr() for p in ptrs), T, B, E, H, splits, C,
     )
     launches[name] += 1
+    if C > 1:
+        launches[f"{name}_cluster"] += 1
     return dxs, dw[:E], dw[E:], db, gates, dgb
 
 
-def gru_bwd_launch(xs, ys, mask, wx, wh, b, dys, dfin, wt=None) -> Tuple[torch.Tensor, ...]:
+def gru_bwd_launch(xs, ys, mask, wx, wh, b, dys, dfin, wt=None,
+                   cluster: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """The GRU backward on CUDA tensors (contiguous, 16-byte aligned: xs,
     ys, dys, wx, wh bf16; mask, b, dfin fp32), which also returns the
     kernels' intermediates: (dxs, dWx, dWh, db, gates [T,B,3H] fp32,
     dgates_b [T,B,3H] bf16), for checks that hold each rounding point."""
-    return _bwd_launch("gru", xs, ys, None, mask, wx, wh, b, dys, dfin, wt)
+    return _bwd_launch("gru", xs, ys, None, mask, wx, wh, b, dys, dfin, wt, cluster)
 
 
-def lstm_bwd_launch(xs, ys, cs, mask, wx, wh, b, dys, dfin) -> Tuple[torch.Tensor, ...]:
+def lstm_bwd_launch(xs, ys, cs, mask, wx, wh, b, dys, dfin,
+                    cluster: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """The LSTM backward on CUDA tensors (as ``gru_bwd_launch``, plus cs
     bf16) → (dxs, dWx, dWh, db, gates [T,B,4H] fp32, dgates_b [T,B,4H]
     bf16)."""
-    return _bwd_launch("lstm", xs, ys, cs, mask, wx, wh, b, dys, dfin)
+    return _bwd_launch("lstm", xs, ys, cs, mask, wx, wh, b, dys, dfin, None, cluster)
 
 
 def rnn_layer_bwd(
@@ -658,11 +953,20 @@ def rnn_layer_bwd(
     be contiguous and 16-byte aligned: xs, ys, cs, dys, wx, wh bf16; mask,
     b, dfin fp32), the plain version on CPU tensors. ``cs`` is the LSTM's
     c stream; ``wt`` is ``fused_weight_t(wx, wh)`` where the caller has it
-    (the kernels build it otherwise). Returns (dxs bf16, dWx, dWh, db
-    fp32)."""
-    if not xs.is_cuda:
+    (the kernels build it otherwise). On the card the operands are padded
+    to ``layer_plan``'s widths and the gradients cut back. Returns (dxs
+    bf16, dWx, dWh, db fp32)."""
+    if not _on_card(xs):
         return rnn_layer_bwd_reference(xs, ys, mask, wx, wh, b, dys, dfin, cs, cell)
-    return _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt)[:4]
+    G, E, H = _n_gates(cell), xs.shape[2], wh.shape[0]
+    plan = layer_plan(cell, E, H)
+    if (plan.E_p, plan.H_p) != (E, H):
+        xs, wx, wh, b = pad_layer(xs, wx, wh, b, G, plan.E_p, plan.H_p)
+        ys, dys, dfin = (pad_units(t, plan.H_p) for t in (ys, dys, dfin))
+        cs = None if cs is None else pad_units(cs, plan.H_p)
+        wt = None
+    out = _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt, plan.dh_cluster)
+    return unpad_grads(*out[:4], G, E, H)
 
 
 class RNNLayer(torch.autograd.Function):
@@ -672,6 +976,8 @@ class RNNLayer(torch.autograd.Function):
     ``pallas_rnn.py:441-466``); the LSTM saves its bf16 c stream for the
     backward. ``fused_weight_t`` is built once per forward: the forward
     kernels take it, and it is saved for the backward's gate recompute.
+    On the card the operands are padded once, to ``layer_plan``'s widths,
+    and saved so; outputs and gradients are cut back to the layer's.
     The float32 weights are cast to bf16 inside, so their gradients come
     back in float32, unrounded; ``dxs`` is bf16 and is cast to the dtype
     ``xs`` came in; ``mask`` gets none."""
@@ -680,29 +986,41 @@ class RNNLayer(torch.autograd.Function):
     def forward(ctx, xs, mask, wx, wh, b, cell="gru"):
         ctx.xs_dtype, ctx.b_shape, ctx.cell = xs.dtype, b.shape, cell
         args = _cast_layer(xs, mask, wx, wh, b)
+        ctx.widths = (args[0].shape[2], args[3].shape[0])
+        ctx.plan = None
+        if _on_card(args[0]):
+            ctx.plan, args = _card_layer(*args, cell)
         wt = fused_weight_t(args[2], args[3])
         ys, fin, cs = _layer_fwd(*args, cell, wt)
         ctx.save_for_backward(*args, ys, cs, wt)
-        return ys, fin
+        H = ctx.widths[1]
+        return _cut(ys, H), _cut(fin, H)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dys, dfin):
         xs, mask, wx, wh, b, ys, cs, wt = ctx.saved_tensors
+        H_p = ys.shape[2]
         # an output that fed nothing (ys of a lone final-readout layer)
         if dys is None:
             dys = torch.zeros_like(ys)
         if dfin is None:
             dfin = torch.zeros(ys.shape[1:], dtype=torch.float32, device=ys.device)
-        dxs, dwx, dwh, db = rnn_layer_bwd(
-            xs, ys, mask, wx, wh, b,
-            _aligned(dys.to(torch.bfloat16)), _aligned(dfin.to(torch.float32)),
-            cs, ctx.cell, wt,
-        )
+        dys = _aligned(pad_units(dys.to(torch.bfloat16), H_p))
+        dfin = _aligned(pad_units(dfin.to(torch.float32), H_p))
+        if ctx.plan is None:
+            grads = rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin, cs, ctx.cell, wt)
+        else:
+            grads = unpad_grads(*_bwd_launch(ctx.cell, xs, ys, cs, mask, wx, wh, b, dys, dfin,
+                                             wt, ctx.plan.dh_cluster)[:4],
+                                _n_gates(ctx.cell), *ctx.widths)
+        dxs, dwx, dwh, db = grads
         return dxs.to(ctx.xs_dtype), None, dwx, dwh, db.reshape(ctx.b_shape), None
 
 
 __all__ = [
+    "CLUSTERS",
+    "LayerPlan",
     "RNNLayer",
     "bf16_matmul",
     "bwd_products",
@@ -715,10 +1033,15 @@ __all__ = [
     "gru_fwd_launch",
     "launches",
     "layer_gates",
+    "layer_plan",
     "lstm_bwd_chain",
     "lstm_bwd_launch",
     "lstm_cell",
     "lstm_fwd_launch",
+    "pad_gates",
+    "pad_layer",
+    "pad_units",
+    "rnn_fwd_launch",
     "rnn_encode",
     "rnn_layer",
     "rnn_layer_bwd",
@@ -728,4 +1051,7 @@ __all__ = [
     "scan_layer",
     "scan_layer_reference",
     "split_weights",
+    "unpad_gates",
+    "unpad_grads",
+    "widest_hidden",
 ]

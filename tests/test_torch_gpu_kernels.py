@@ -774,8 +774,11 @@ def test_lstm_bwd_rounding_points(cuda, T, B):
 
 def test_lstm_wrappers_raise_on_what_they_do_not_take(cuda):
     """No fallback: a missing c stream and a CPU weight raise; so does
-    H=176, above what the LSTM scan's generic instance (Whᵀ in shared
-    memory: 270,848 B) and the LSTM backward's (Wh: 302,304 B) take."""
+    H=512, beyond what any instance takes (ops/rnn.py layer_plan: the
+    widest H is 384, whose dh loop fills a cluster of 8 blocks; at 512 the
+    LSTM scan needs 285,184 B a block even on 8). H=176, which the single
+    blocks refused, now pads to 192 and runs on clusters of 2
+    (tests/test_torch_gpu_wide.py)."""
     from sse_tpu_torch.ops import rnn
 
     args, cs = _lstm_bwd_args(cuda, 3, 8)
@@ -783,7 +786,7 @@ def test_lstm_wrappers_raise_on_what_they_do_not_take(cuda):
         rnn.rnn_layer_bwd(*args, cell="lstm")
     with pytest.raises(ValueError, match="wh"):
         rnn.lstm_fwd_launch(args[0], args[2], args[3], args[4].cpu(), args[5])
-    T, B, E, H = 3, 8, 128, 176
+    T, B, E, H = 3, 8, 128, 512
     xs, mask = args[0], args[2]
     wx = torch.zeros((E, 4 * H), device="cuda", dtype=torch.bfloat16)
     wh = torch.zeros((H, 4 * H), device="cuda", dtype=torch.bfloat16)

@@ -1,0 +1,138 @@
+"""Where one step of the port's cluster recurrences spends its cycles, on a
+CUDA card: the share of the exchange between the blocks and of the
+cluster barrier.
+
+    python3 tools/cluster_step_phases.py        # needs one CUDA card
+
+Copies ``sse_tpu_torch`` into ``build/cluster_step_phases/`` and inserts
+``clock64()`` counters between the phases of the step loop of
+``rnn_scan_cluster_kernel`` (``csrc/rnn_scan.cu``) and of the cluster dh
+loops (``gru_bwd_dh_cluster_kernel``, ``lstm_bwd_dh_cluster_kernel``),
+builds that copy, runs each at T=50, E=128, H=256 and 384, full lengths,
+B=8, 256 and 4096, and prints the cycles a step of each phase as thread 0 of
+block 0 sees them, with the card's maximum SM clock. A phase ends when
+its last instruction issues, so a wait shows in the phase whose
+instruction first uses the result; the barrier phase holds the wait for
+the cluster's slowest block. The counters cost a few cycles each; the
+times of the unmodified kernels are chip_smoke.py's (``--costs``,
+``wide_costs``). The counters go in at fixed lines of the sources: when
+those lines change, this script stops with the line it cannot find.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORK = os.path.join(ROOT, "build", "cluster_step_phases")
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+from gru_step_phases import COUNTER, DECL, READ, insert  # noqa: E402
+
+SCAN_PHASES = ["products issue", "loads + stores", "cell", "publish + exchange", "barrier"]
+SCAN_MARKS = [
+    ("// ---------------------------------------------------------------- clusters", "before",
+     COUNTER.format(name="scan_phase")),
+    ("  load(0);\n  float h[4] = {}, c[4] = {};\n", "after", DECL),
+    ("    // while it runs: step t+1's inputs, and ys_{t-1} (cs_{t-1})\n", "before", "    PH(0)\n"),
+    ("    // the cell, staged as in rnn_scan_kernel", "before", "    PH(1)\n"),
+    ("    // masked carry; bf16(h_t) into this block's next h tile", "before", "    PH(2)\n"),
+    ("    sse::cluster_sync();  // step t's h tile complete in every block\n", "before",
+     "    PH(3)\n"),
+    ("    sse::cluster_sync();  // step t's h tile complete in every block\n", "after",
+     "    PH(4)\n"),
+    ("  if (T > 0) {\n    store_own(", "before",
+     "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
+     "    for (int i = 0; i < 16; ++i) scan_phase[i] = ph[i];\n"),
+    ('extern "C" int sse_rnn_scan_cluster_smem_bytes', "before", READ.format(name="scan_phase")),
+]
+
+DH_PHASES = ["cell backward", "publish + exchange", "barrier", "products issue",
+             "copies, stores, next step"]
+
+
+def dh_marks(name: str, smem_fn: str):
+    return [
+        ("// ---------------------------------------------------------------- clusters", "before",
+         COUNTER.format(name=name)),
+        ("  prepare(0);\n  sse::cluster_sync();  // every block running", "before", DECL),
+        ("    // the warp's dgates_b columns into every other block's tile\n", "before",
+         "    PH(0)\n"),
+        ("    sse::cluster_sync();  // the whole dgates_b tile of step t, in every block\n",
+         "before", "    PH(1)\n"),
+        ("    sse::cluster_sync();  // the whole dgates_b tile of step t, in every block\n",
+         "after", "    PH(2)\n"),
+        ("    // while they run: refill the stage just read", "before", "    PH(3)\n"),
+        ("    cur ^= 1;  // the other dgates_b tile\n", "before", "    PH(4)\n"),
+        ("  // this block's columns of its tile's db partial", "before",
+         "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
+         f"    for (int i = 0; i < 16; ++i) {name}[i] = ph[i];\n"),
+        (f'extern "C" int {smem_fn}', "before", READ.format(name=name)),
+    ]
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("cluster_step_phases: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    shutil.rmtree(WORK, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "sse_tpu_torch"), os.path.join(WORK, "sse_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    csrc = os.path.join(WORK, "sse_tpu_torch", "csrc")
+    insert(os.path.join(csrc, "rnn_scan.cu"), SCAN_MARKS)
+    insert(os.path.join(csrc, "gru_bwd.cu"), dh_marks("gru_dh_phase",
+                                                      "sse_gru_bwd_cluster_smem_bytes"))
+    insert(os.path.join(csrc, "lstm_bwd.cu"), dh_marks("lstm_dh_phase",
+                                                       "sse_lstm_bwd_cluster_smem_bytes"))
+    sys.path.insert(0, WORK)
+    from sse_tpu_torch.ops import _build, rnn
+
+    lib = _build.library()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    T, E = 50, 128
+    out = (ctypes.c_ulonglong * 16)()
+
+    def report(what: str, names) -> None:
+        per = [out[k] / T for k in range(len(names))]
+        total = sum(per)
+        print(f"{what}: cycles a step: "
+              + ", ".join(f"{n} {v:.0f} ({100.0 * v / total:.0f}%)" for n, v in zip(names, per))
+              + f"; total {total:.0f} [{card} max SM clock]", flush=True)
+
+    for cell, G in (("gru", 3), ("lstm", 4)):
+        for H in (256, 384):
+            plan = rnn.layer_plan(cell, E, H)
+            wx = (torch.randn((E, G * H), generator=gen, device="cuda") * 0.06).bfloat16()
+            wh = (torch.randn((H, G * H), generator=gen, device="cuda") * 0.06).bfloat16()
+            b = torch.randn((G * H,), generator=gen, device="cuda") * 0.05
+            for B in (8, 256, 4096):
+                ax = torch.randn((T, B, G * H), generator=gen, device="cuda")
+                mask = torch.ones((T, 1, B), device="cuda")
+                for _ in range(3):
+                    rnn.scan_layer(ax, mask, wh, cell)
+                torch.cuda.synchronize()
+                lib.sse_scan_phase(out)
+                report(f"{cell} scan T={T} B={B} H={H} on {plan.scan_cluster} blocks",
+                       SCAN_PHASES)
+                xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
+                ys, _, cs = rnn._scan_reference(rnn._x_product(xs, wx, b), mask, wh, cell)
+                dys = (torch.randn((T, B, H), generator=gen, device="cuda") * 0.1).bfloat16()
+                dfin = torch.randn((B, H), generator=gen, device="cuda")
+                for _ in range(3):
+                    rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin, cs, cell)
+                torch.cuda.synchronize()
+                getattr(lib, f"sse_{cell}_dh_phase")(out)
+                report(f"{cell} dh loop T={T} B={B} H={H} on {plan.dh_cluster} blocks", DH_PHASES)
+
+
+if __name__ == "__main__":
+    main()
