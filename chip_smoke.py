@@ -259,7 +259,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import gc
 import json
 import math
 import os
@@ -392,6 +391,55 @@ def hold_layer(name: str, got, want) -> tuple:
         e_b = max(e_b, float((g.float() - w.float()).abs().max()))
         flips += int((g != w).sum())
     return float((fin - rfin).abs().max()), e_b, flips
+
+
+MARK = "spin_kernel"  # torch.cuda._sleep's kernel: a mark on the device timeline
+
+
+def call_device_ms(calls: dict, reps: int = 10, tries: int = 4) -> dict:
+    """Mean device ms of every kernel (and copy) that one call of each of
+    ``calls`` (name → function) puts on the card, from one torch.profiler
+    session that runs them in turns, each after a mark (torch.cuda._sleep,
+    one thread for one cycle): an event counts for the call whose mark
+    last preceded it on the device timeline. A session whose marks are
+    not all there, or whose calls of one function left different numbers
+    of events, is profiled again as profiled() does; NOT_MEASURED where
+    every session lost records."""
+    names = list(calls)
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, tries + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                for fn in calls.values():
+                    torch.cuda._sleep(1)
+                    fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+        ms, seen, at = dict.fromkeys(names, 0.0), [], -1
+        for e in evs:
+            if MARK in e.name:
+                at += 1
+                seen.append(0)
+            elif at >= 0:
+                ms[names[at % len(names)]] += e.time_range.elapsed_us() / 1000.0
+                seen[at] += 1
+        if len(seen) == reps * len(names) and all(
+                len(set(seen[i::len(names)])) == 1 for i in range(len(names))):
+            return {k: v / reps for k, v in ms.items()}
+        warn(f"torch.profiler session {attempt} of {tries} of {names}: {len(seen)} marks "
+             f"(want {reps * len(names)}), events after each {seen}")
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+    warn(f"torch.profiler lost records of {names} in {tries} sessions: not measured")
+    return dict.fromkeys(names, NOT_MEASURED)
 
 
 def cudnn_lstm(wx, wh, b) -> torch.nn.LSTM:
@@ -5173,8 +5221,10 @@ def wide_fwd(card: str, cell: str, H: int, B: int, gen, T: int = 50, E: int = 12
     ``cell`` at (E, H), B rows, T=50, ragged lengths, Glorot weights
     (glorot_weights): held against the
     plain version (hold_layer); its time (CUDA events), device time by
-    part, the plain version's time, cuDNN's LSTM (LSTM only) and the
-    bound. Returns the row's readings."""
+    part, the plain version's time, cuDNN's LSTM at the same shape (the
+    LSTM's library time; beside the GRU, whose function cuDNN's GRU does
+    not compute, a yardstick only), the bound, and the scan's tile
+    (scan_tile_reading). Returns the row's readings."""
     from sse_tpu_torch.ops import rnn
 
     G = 4 if cell == "lstm" else 3
@@ -5198,21 +5248,45 @@ def wide_fwd(card: str, cell: str, H: int, B: int, gen, T: int = 50, E: int = 12
     dev = parts_ms(run, SCAN_PARTS)
     plain = cuda_ms(lambda: rnn.rnn_layer_reference(*args, cell), reps=2)
     lib = None
-    if cell == "lstm":
-        lstm = cudnn_lstm(wx, wh, b)
+    yardstick = torch.Generator(device="cuda").manual_seed(SEED + 23)  # leaves gen's draws
+    lstm = cudnn_lstm(*(glorot_weights(E, H, 4, yardstick) if cell == "gru" else (wx, wh, b)))
+
+    def cudnn_call():
         with torch.no_grad():
-            lib = cuda_ms(lambda: lstm(xs))
+            return lstm(xs)
+
+    cudnn = cuda_ms(cudnn_call)
+    calls = call_device_ms({"ours": run, "cudnn": cudnn_call})
+    if cell == "lstm":
+        lib = cudnn
+    tile = scan_tile_reading(cell, H, B, plan)
     moved = nbytes(*args, *got)
     bnd = bound(moved, 2.0 * T * B * (E + H) * G * H)
-    log(f"{cell} forward (split, scan on {plan.scan_cluster} blocks) T={T} B={B} E={E} H={H}: "
+    log(f"{cell} forward (split, scan on {tile['C']} blocks x {tile['R']} rows a cluster, "
+        f"{tile['clusters']} clusters in {tile['waves']} waves of {tile['active']}, the "
+        f"clusters the card holds at once) T={T} B={B} E={E} H={H}: "
         f"fin max_abs_err {e:.3g}, {flips} bf16 values differ (max {e_b:.3g}, one ulp); kernel "
         f"{ms:.4f} ms (device {sum(dev.values()):.4f}: scan {dev['scan']:.4f}, x-product "
-        f"{dev['x-product']:.4f}), plain {plain:.4f} ms"
-        + (f", cuDNN LSTM (full lengths) {lib:.4f} ms" if lib is not None else "")
-        + f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
+        f"{dev['x-product']:.4f}), plain {plain:.4f} ms, cuDNN LSTM (full lengths"
+        + ("" if cell == "lstm" else ", an LSTM's function: a yardstick only")
+        + f") {cudnn:.4f} ms; device time of every kernel of a call, the two in turns in one "
+        f"profiler session: ours {calls['ours']:.4f}, cuDNN {calls['cudnn']:.4f} ms; bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
     return dict(ms=ms, device_ms=sum(dev.values()), cuda_kernels=dev, plain_ms=plain,
-                library_ms=lib, max_abs_err=max(e, e_b), B=B, H=H, E=E, T=T,
-                clusters=plan.scan_cluster, **bnd)
+                library_ms=lib, cudnn_lstm_ms=cudnn, call_device_ms=calls["ours"],
+                cudnn_lstm_device_ms=calls["cudnn"], max_abs_err=max(e, e_b), B=B, H=H, E=E,
+                T=T, clusters=tile["C"], tile=tile, **bnd)
+
+
+def scan_tile_reading(cell: str, H: int, B: int, plan) -> dict:
+    """The tile the cluster scan takes for B rows at the plan's widths
+    (rnn.card_scan_tile: blocks a cluster C, rows a cluster R, clusters,
+    the card's active clusters from cudaOccupancyMaxActiveClusters, waves)."""
+    from sse_tpu_torch.ops import rnn
+
+    G = 4 if cell == "lstm" else 3
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return rnn.card_scan_tile(dev, G, plan.H_p, B, plan.scan_cluster)._asdict()
 
 
 def wide_bwd(card: str, cell: str, H: int, B: int, gen, T: int = 50, E: int = 128) -> dict:
@@ -5280,7 +5354,10 @@ def check_wide(card: str, results: dict) -> None:
     and H=384 (its ``at_384``), T=50, E=128: the GRU's split forward and
     the LSTM forward's cluster scan at B=4096 (the served bulk tier), the
     GRU backward at B=384 and the LSTM's at B=256 (the train bench's
-    target and source towers), as the H=128 rows measure them."""
+    target and source towers), as the H=128 rows measure them. The
+    forward rows carry the scan's tile and cuDNN's LSTM at the same shape;
+    the LSTM's at H=256 is logged against cuDNN's, CUDA events against
+    events and device time against device time (call_device_ms)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     t0 = time.perf_counter()
     for H in WIDE_H:
@@ -5294,8 +5371,17 @@ def check_wide(card: str, results: dict) -> None:
             else:
                 results[name][f"at_{H}"] = {k: row[k] for k in (
                     "ms", "device_ms", "plain_ms", "library_ms", "max_abs_err", "bound_ms",
-                    "bound_by", "B", "clusters")}
+                    "bound_by", "B", "clusters", *(("tile", "cudnn_lstm_ms", "call_device_ms",
+                                                     "cudnn_lstm_device_ms") if "tile" in row
+                                                    else ()))}
         torch.cuda.empty_cache()
+    row = results["rnn_scan_cluster"]
+    log(f"LSTM forward H=256 B=4096 T=50 against cuDNN's torch.nn.LSTM in this run: CUDA "
+        f"events {row['ms']:.4f} / {row['library_ms']:.4f} ms "
+        f"({row['ms'] / row['library_ms']:.2f}x); device, every kernel of a call in one "
+        f"profiler session, {row['call_device_ms']:.4f} / {row['cudnn_lstm_device_ms']:.4f} ms "
+        f"({row['call_device_ms'] / row['cudnn_lstm_device_ms']:.2f}x; our scan + x-product "
+        f"{row['device_ms']:.4f}) [{card}]")
     log(f"wide kernel checks: {time.perf_counter() - t0:.1f} s")
 
 
@@ -5324,7 +5410,12 @@ def wide_costs(card: str, Bs=(8, 256, 4096), Ts=(1, 2, 50)) -> None:
                     dfin = torch.randn((B, H), generator=gen, device="cuda")
                     dh[T] = kernel_ms(lambda: rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin,
                                                                 cs, cell), f"{cell}_bwd_dh_")
-                log(slope_line(f"{cell} scan H={H} ({plan.scan_cluster} blocks) B={B}", scan)
+                where = f"{plan.scan_cluster} blocks"
+                if plan.scan_cluster > 1:
+                    t = scan_tile_reading(cell, H, B, plan)
+                    where = (f"{t['C']} blocks x {t['R']} rows, {t['waves']} waves of "
+                             f"{t['active']}")
+                log(slope_line(f"{cell} scan H={H} ({where}) B={B}", scan)
                     + "; " + slope_line(f"dh loop ({plan.dh_cluster} blocks)", dh) + f" [{card}]")
 
 
@@ -5435,10 +5526,6 @@ def wide_chain(card: str) -> dict:
 
     tower = TowerConfig(vocab_size=8000, embed_dim=128, hidden=256, encoding_dim=128,
                         cell="lstm", num_layers=3, residual=True, dropout=0.1)
-    # train/loop.py's _GraphChain captures with the cyclic collector on
-    # (ROADMAP §3 fault 3.7): the garbage of the runs before, their CUDA
-    # graphs among it, is collected here, not in the middle of the capture
-    freed = gc.collect()
     s = bench.train_setup(tower=tower, chain=CHAIN)
     pk, args = s.packed_variants, (s.tgt_tokens, s.tgt_lens)
     with OnTheKernels():
@@ -5459,7 +5546,7 @@ def wide_chain(card: str) -> dict:
     check(all(counts[k] == v * 2 * CHAIN for k, v in per_step.items()),
           f"compositional H=256 chained: launches {counts}, want {per_step} a step")
     log(f"compositional recipe at hidden 256 chained ({CHAIN} steps a CUDA graph, B=256, L=50; "
-        f"{freed} objects of earlier runs collected first): first call {capture_s:.2f} s (warm-up, capture, replay), {start.elapsed_time(end) / (2 * CHAIN):.3f} "
+        f"the garbage of earlier runs left to the collector): first call {capture_s:.2f} s (warm-up, capture, replay), {start.elapsed_time(end) / (2 * CHAIN):.3f} "
         f"ms a step over 2 replays, loss {float(m['loss'].mean()):.4f}; launches a step "
         f"{ {k: counts[k] // (2 * CHAIN) for k in per_step} } [{card}]")
     del s

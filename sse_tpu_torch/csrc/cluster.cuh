@@ -6,6 +6,7 @@
 // memory), then the cluster meets at one barrier.
 #pragma once
 
+#include <map>
 #include <tuple>
 
 #include "hopper.cuh"
@@ -50,47 +51,75 @@ __device__ __forceinline__ void copy_to_rank(const void* p, int rank) {
                : "memory");
 }
 
+// The cluster launch of `kernel` as clusters of C blocks of `threads`
+// threads and `smem` bytes of dynamic shared memory, the kernel's dynamic
+// shared memory allowed up to the opt-in most (once per kernel and card:
+// the bytes vary with the shapes).
+template <typename... Params>
+cudaError_t cluster_config(void (*kernel)(Params...), int blocks, int threads, int smem, int C,
+                           cudaStream_t st, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (const cudaError_t err = allow_smem((const void*)kernel, 232448); err != cudaSuccess)
+    return err;
+  *cfg = {};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of C blocks of `kernel` (`threads` threads, `smem`
+// bytes) the current card holds at once, from the occupancy calculator
+// (cudaOccupancyMaxActiveClusters), asked once per (kernel, card, C,
+// threads, bytes) and kept: the first launch of a shape asks it, in the
+// eager warm-up, and a capture that follows finds it kept.
+template <typename... Params>
+cudaError_t max_active_clusters(void (*kernel)(Params...), int threads, int smem, int C, int* n) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int, int>, int> known;
+  int dev = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev); err != cudaSuccess) return err;
+  const auto key = std::make_tuple((const void*)kernel, dev, C, threads, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  if (const auto it = known.find(key); it != known.end()) {
+    *n = it->second;
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  if (const cudaError_t err = cluster_config(kernel, C, threads, smem, C, 0, &cfg, attr);
+      err != cudaSuccess)
+    return err;
+  if (const cudaError_t err = cudaOccupancyMaxActiveClusters(n, kernel, &cfg); err != cudaSuccess)
+    return err;
+  known[key] = *n;
+  return cudaSuccess;
+}
+
 // Launch `kernel` as clusters of C blocks along x (C <= kMaxCluster;
-// `blocks` a multiple of C) on `st`. The first launch on a card of a
-// (kernel, C, threads, shared memory) asks the occupancy calculator
-// whether one such cluster fits the card at all and returns
-// cudaErrorInvalidConfiguration if not, before anything runs. The
-// kernel's dynamic shared memory is allowed up to the opt-in most once
-// per (kernel, card): the bytes vary with H and C. A cluster launch on a
-// stream is captured into a CUDA graph like any other.
+// `blocks` a multiple of C) on `st`. Returns cudaErrorInvalidConfiguration,
+// before anything runs, where not one such cluster fits the card
+// (max_active_clusters). A cluster launch on a stream is captured into a
+// CUDA graph like any other.
 template <typename... Params, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(Params...), int blocks, int threads, int smem, int C,
                            cudaStream_t st, Args... args) {
-  if (const cudaError_t err = allow_smem((const void*)kernel, 232448); err != cudaSuccess)
+  int n = 0;
+  if (const cudaError_t err = max_active_clusters(kernel, threads, smem, C, &n);
+      err != cudaSuccess)
     return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
+  if (n < 1) return cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  {
-    static std::mutex mu;
-    static std::set<std::tuple<const void*, int, int, int, int>> fits;
-    int dev = 0;
-    if (const cudaError_t err = cudaGetDevice(&dev); err != cudaSuccess) return err;
-    const auto key = std::make_tuple((const void*)kernel, dev, C, threads, smem);
-    std::lock_guard<std::mutex> lock(mu);
-    if (!fits.count(key)) {
-      int n = 0;
-      if (const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-          err != cudaSuccess)
-        return err;
-      if (n < 1) return cudaErrorInvalidConfiguration;
-      fits.insert(key);
-    }
-  }
+  if (const cudaError_t err = cluster_config(kernel, blocks, threads, smem, C, st, &cfg, attr);
+      err != cudaSuccess)
+    return err;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 

@@ -52,9 +52,11 @@
 //   from global memory; shared memory caps it at H=160 (LSTM) and H=176
 //   (GRU).
 // * Wider layers take the cluster instance (rnn_scan_cluster_kernel,
-//   below): Whᵀ split over C <= 8 blocks of a thread-block cluster. The
-//   wrapper's plan (ops/rnn.py layer_plan) picks the instance and C from
-//   the shapes and checks the shared memory before launching.
+//   below): Whᵀ split over C <= 8 blocks of a thread-block cluster, a
+//   cluster carrying a tile of R batch rows. The wrapper's plan (ops/rnn.py
+//   layer_plan) picks the instance and C from the shapes and checks the
+//   shared memory before launching; the launch (scan_tile) picks R, and
+//   may widen C, from B and the clusters the card holds at once.
 //
 // The h and c carries stay fp32 in registers at the accumulators'
 // positions; bf16(h) sits in a double-buffered shared [rows][H] tile
@@ -350,37 +352,59 @@ cudaError_t launch_scan(const float* ax, const float* mask, const __nv_bfloat16*
 // ---------------------------------------------------------------- clusters
 // The cluster instance, for layers whose Whᵀ (G·H rows of H) outgrows one
 // SM's shared memory: at H=256 the GRU's is 405,504 B, the LSTM's 540,672
-// B. A cluster of C blocks owns one tile of 8 batch rows, and block r of
-// the cluster owns units [r·H/C, (r+1)·H/C) of every gate: it holds the
-// Whᵀ rows of those units (G·H/C rows of H) in its shared memory for all
-// T steps, so a block does the multiply-adds of a layer C times narrower.
-// What the blocks share is the step's B operand, the full bf16(h) tile
-// [8][H]: double-buffered in every block. Each step, each warp
-//   1. computes its 16 units' gates, ax_t + bf16(h_{t-1})·Wh, summed over
-//      k in the generic instance's order (so C=2 and C=1 give the same
-//      bits), and runs the staged cell on them;
-//   2. writes its bf16(h_t) slice into its own block's next h tile, then
-//      copies those 8 rows x 16 units (16 pieces of 16 bytes) into the
-//      next h tile of every other block of the cluster (st.shared::cluster);
+// B. A cluster of C blocks owns one tile of R batch rows (R a multiple of
+// 8, chosen at launch: ops/rnn.py scan_tile), and block r of the cluster
+// owns units [r·H/C, (r+1)·H/C) of every gate: it holds the Whᵀ rows of
+// those units (G·H/C rows of H) in its shared memory for all T steps, so
+// a block does the multiply-adds of a layer C times narrower. What the
+// blocks share is the step's B operand, the full bf16(h) tile [R][H]:
+// double-buffered in every block.
+//
+// Inside a block, warp w owns 16 units of every gate (w mod H/(16·C): G
+// m16 tiles) and one slice of the tile's rows (w div H/(16·C)): up to NJ
+// n8 groups of 8 rows. For each k16 slice a warp reads the G Whᵀ A
+// fragments of its units once and feeds each to the NJ mma's of its row
+// groups, so a fragment read from shared memory does NJ products, not
+// one; the NJ·G products of a slice are independent, and the step's chain
+// stays one pass over k. A row's sums run over k in the same order for
+// every R, slice and C (the generic single block's order), so neither
+// where a row sits in the tile nor C changes its bits. Each step, each
+// warp
+//   1. computes its units' gates for its rows, ax_t + bf16(h_{t-1})·Wh,
+//      and runs the staged cell on them;
+//   2. writes its bf16(h_t) block (its rows x 16 units) into its own
+//      block's next h tile, then copies it, 16 bytes a piece, into the
+//      next h tile of every other block of the cluster
+//      (st.shared::cluster);
 //   3. meets the whole cluster at one barrier (arrive.release, then
 //      wait.acquire).
 // One barrier a step is enough because h is double-buffered: in step t a
-// block writes only the tile that step t reads none of, and it can write
-// that tile again (step t+2) only after passing the barrier of step t+1,
-// which no block reaches before it has finished reading that tile in step
-// t+1's products. A block exits only after the last step's barrier, past
-// which nothing writes into another block, and nothing writes into a
-// block before the barrier that follows its own set-up. ys, cs and fin
-// leave from the block that owns the unit.
+// block writes only the tile that step t reads none of (any of its R
+// rows), and it can write that tile again (step t+2) only after passing
+// the barrier of step t+1, which no block reaches before every one of its
+// warps has finished reading that tile, all R rows of it, in step t+1's
+// products. A block exits only after the last step's barrier, past which
+// nothing writes into another block, and nothing writes into a block
+// before the barrier that follows its own set-up. ys, cs and fin leave
+// from the block that owns the unit.
 //
 // What bounds it: the chain over T, as for the single block, plus one
-// exchange and one cluster barrier a step. ax is read from global memory
-// one step ahead into registers.
+// exchange and one cluster barrier a step; at large B, the waves of
+// clusters over the card (one block an SM), which R cuts: an H100 80GB
+// HBM3 (700 W) holds 30 clusters of 4 blocks at once, so the LSTM at
+// H=256, B=4096 runs 3 waves of 48-row tiles where 8-row tiles took 18.
+// A warp's step grows with its row groups (the chain of its loads, mma's
+// and cell), while warps side by side cost little more than one, so a
+// tile takes the fewest groups a warp that the registers allow
+// (cluster_tile). A step's shared-memory traffic is each row slice's pass
+// over the Whᵀ slice plus each unit group's pass over the h tile. ax is
+// read from global memory one step ahead into registers (G·4·NJ floats
+// a thread).
 struct ClusterLayout {
   int hc, ldw, ldh, ldc, w, h, c, total;
 };
 
-__host__ __device__ inline ClusterLayout cluster_layout(int G, int H, int C) {
+__host__ __device__ inline ClusterLayout cluster_layout(int G, int H, int C, int R) {
   ClusterLayout L;
   L.hc = H / C;
   L.ldw = H + KPAD;
@@ -388,23 +412,49 @@ __host__ __device__ inline ClusterLayout cluster_layout(int G, int H, int C) {
   L.ldc = L.hc + KPAD;
   L.w = 0;
   L.h = L.w + G * L.hc * L.ldw * 2;
-  L.c = L.h + 2 * BN * L.ldh * 2;
-  L.total = L.c + (G == 4 ? 2 * BN * L.ldc * 2 : 0);
+  L.c = L.h + 2 * R * L.ldh * 2;
+  L.total = L.c + (G == 4 ? 2 * R * L.ldc * 2 : 0);
   return L;
 }
 
-constexpr int CL_THREADS = 256;  // 8 warps: 128 units a block at most
+// Threads a block takes at most when its warps carry NJ n8 row groups
+// each: what one SM's registers hold (a thread's registers grow with NJ:
+// measured by ptxas at most 128, 160-179 and 220-232 for NJ = 1, 2, 3)
+__host__ __device__ constexpr int cl_threads_most(int NJ) {
+  return NJ == 1 ? 512 : NJ == 2 ? 384 : 256;
+}
+// n8 row groups a warp carries at most: the LSTM's four gates spill
+// registers at four
+__host__ __device__ constexpr int cl_groups_most(int G) { return G == 4 ? 3 : 4; }
 
-template <int G>
-__global__ void __launch_bounds__(CL_THREADS, 1)
+// A tile of R rows on a block of H/C units: S row slices of at most NJ
+// groups each (the last slice may hold fewer), H/(16·C)·S warps. A step
+// costs a warp about NJ times a group's chain, and warps side by side
+// little more than one, so NJ is the fewest that cl_threads_most allows.
+// threads = 0: no split of R rows fits a block.
+struct ClusterTile {
+  int S, NJ, threads;
+};
+
+inline ClusterTile cluster_tile(int G, int H, int C, int R) {
+  const int groups = R / BN, warps = H / C / WH;
+  for (int n = 1; n <= cl_groups_most(G); ++n) {
+    const int S = cdiv(groups, n);
+    if (32 * warps * S <= cl_threads_most(n)) return {S, cdiv(groups, S), 32 * warps * S};
+  }
+  return {0, 0, 0};
+}
+
+template <int G, int NJ>
+__global__ void __launch_bounds__(cl_threads_most(NJ), 1)
 rnn_scan_cluster_kernel(const float* __restrict__ ax, const float* __restrict__ mask,
                         const __nv_bfloat16* __restrict__ wt, int ldwt,
                         __nv_bfloat16* __restrict__ ys, float* __restrict__ fin,
                         __nv_bfloat16* __restrict__ cs,  // LSTM only; may be null
-                        int T, int B, int H, int C) {
+                        int T, int B, int H, int C, int R) {
   const int N = G * H;
-  const ClusterLayout L = cluster_layout(G, H, C);
-  const int HC = L.hc;
+  const ClusterLayout L = cluster_layout(G, H, C, R);
+  const int HC = L.hc, UW = HC / WH;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
   __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + L.h);
@@ -412,10 +462,13 @@ rnn_scan_cluster_kernel(const float* __restrict__ ax, const float* __restrict__ 
   const int rank = sse::cluster_rank();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane >> 2, tig = lane & 3;
-  const int row0 = (blockIdx.x / C) * BN;
-  const int v0 = rank * HC;        // this block's first unit
-  const int ul = warp * WH + grp;  // this thread's units, local: ul and ul + 8
-  const int u0 = v0 + ul;          // ... and in the layer
+  const int uw = warp % UW, slice = warp / UW;
+  const int row0 = (blockIdx.x / C) * R;  // the cluster's first row
+  const int r0 = slice * NJ * BN;         // this warp's first row in the tile
+  const int nj = NJ == 1 ? 1 : min(NJ, R / BN - slice * NJ);  // ... and its row groups
+  const int v0 = rank * HC;          // this block's first unit
+  const int ul = uw * WH + grp;      // this thread's units, local: ul and ul + 8
+  const int u0 = v0 + ul;            // ... and in the layer
   const bool want_c = G == 4 && cs != nullptr;
 
   // the Whᵀ rows of this block's units, gate by gate: local row g·HC + j
@@ -427,32 +480,36 @@ rnn_scan_cluster_kernel(const float* __restrict__ ax, const float* __restrict__ 
     sse::cp_async16(ws + n * L.ldw + c, wt + (size_t)(g * H + v0 + j) * ldwt + c, true);
   }
   sse::cp_async_commit();
-  for (int i = tid; i < 2 * BN * L.ldh; i += blockDim.x) hs[i] = __float2bfloat16(0.f);
+  for (int i = tid; i < 2 * R * L.ldh; i += blockDim.x) hs[i] = __float2bfloat16(0.f);
   if (G == 4)
-    for (int i = tid; i < 2 * BN * L.ldc; i += blockDim.x) cts[i] = __float2bfloat16(0.f);
+    for (int i = tid; i < 2 * R * L.ldc; i += blockDim.x) cts[i] = __float2bfloat16(0.f);
   sse::cp_async_wait<0>();
   sse::cluster_sync();  // every block of the cluster set up (Whᵀ, zero tiles)
 
-  // step t's ax values and mask at this thread's fragment positions
-  float an[G][4], mn[2];
+  // step t's ax values and mask at this thread's fragment positions; row
+  // 8·j + 2·tig + (q & 1) of the warp's rows
+  float an[NJ][G][4], mn[NJ][2];
   auto load = [&](int t) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int r = row0 + 2 * tig + e;
-      mn[e] = r < B ? mask[(size_t)t * B + r] : 0.f;
-    }
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = row0 + 2 * tig + (q & 1), u = g * H + u0 + 8 * (q >> 1);
-        an[g][q] = r < B ? ax[((size_t)t * B + r) * N + u] : 0.f;
+      for (int e = 0; e < 2; ++e) {
+        const int r = row0 + r0 + 8 * j + 2 * tig + e;
+        mn[j][e] = j < nj && r < B ? mask[(size_t)t * B + r] : 0.f;
       }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = row0 + r0 + 8 * j + 2 * tig + (q & 1), u = g * H + u0 + 8 * (q >> 1);
+          an[j][g][q] = j < nj && r < B ? ax[((size_t)t * B + r) * N + u] : 0.f;
+        }
+    }
   };
   // the rows < B of this block's columns of a shared bf16 tile into out_s
   // [B, H], 16 bytes a store (c tiles hold only this block's columns)
   auto store_own = [&](__nv_bfloat16* out_s, const __nv_bfloat16* tile, int ld, int col0) {
-    for (int q = tid; q < BN * (HC / 8); q += blockDim.x) {
+    for (int q = tid; q < R * (HC / 8); q += blockDim.x) {
       const int r = q / (HC / 8), c = (q - r * (HC / 8)) * 8;
       if (row0 + r < B)
         *reinterpret_cast<uint4*>(out_s + (size_t)(row0 + r) * H + v0 + c) =
@@ -460,123 +517,205 @@ rnn_scan_cluster_kernel(const float* __restrict__ ax, const float* __restrict__ 
     }
   };
 
+  // the exchange: the warp's 8·nj rows x 16 units, two 16-byte pieces a
+  // row, to each of the C-1 other blocks
+  const unsigned pieces = 16 * nj;
+
   load(0);
-  float h[4] = {}, c[4] = {};
+  float h[NJ][4] = {}, c[NJ][4] = {};
   int cur = 0;
   for (int t = 0; t < T; ++t) {
-    const __nv_bfloat16* hc = hs + cur * BN * L.ldh;
-    float a[G][4], m[2] = {mn[0], mn[1]};
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) a[g][q] = an[g][q];
+    const __nv_bfloat16* hc = hs + cur * R * L.ldh;
 
-    // bf16(h_{t-1})·Wh for this warp's units: the chain
-    float acc[G][4] = {};
+    // bf16(h_{t-1})·Wh for this warp's units and rows: the chain. No
+    // branch inside it: a group past the warp's last (j >= nj, the short
+    // last slice) reads that last group's rows and is never published
+    float acc[NJ][G][4] = {};
+    // unrolled so that a slice's loads issue over the last one's mma's;
+    // deeper with one group a warp, where the registers allow it
+#pragma unroll (NJ == 1 ? 4 : 2)
     for (int kq = 0; kq < H / 16; ++kq) {
-      const __nv_bfloat16* p = hc + grp * L.ldh + 16 * kq + 2 * tig;
-      const uint32_t b0 = sse::ld32(p), b1 = sse::ld32(p + 8);
+      uint32_t b[NJ][2];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const __nv_bfloat16* p =
+            hc + (r0 + 8 * min(j, nj - 1) + grp) * L.ldh + 16 * kq + 2 * tig;
+        b[j][0] = sse::ld32(p);
+        b[j][1] = sse::ld32(p + 8);
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         uint32_t f[4];
         sse::frag_a(f, ws + (g * HC + ul) * L.ldw + 16 * kq + 2 * tig, L.ldw);
-        sse::mma_bf16(acc[g], f, b0, b1);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) sse::mma_bf16(acc[j][g], f, b[j][0], b[j][1]);
       }
     }
-    // while it runs: step t+1's inputs, and ys_{t-1} (cs_{t-1})
-    if (t + 1 < T) load(t + 1);
+    // ax_t into the sums
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][g][q] = an[j][g][q] + acc[j][g][q];
+    // while the cell runs: ys_{t-1} (cs_{t-1}) and, with one group a warp,
+    // step t+1's inputs (more groups load them after the cell, where
+    // fewer registers are live)
+    float m[NJ][2];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      m[j][0] = mn[j][0];
+      m[j][1] = mn[j][1];
+    }
+    if (NJ == 1 && t + 1 < T) load(t + 1);
     if (t > 0) {
       store_own(ys + (size_t)(t - 1) * B * H, hc, L.ldh, v0);
-      if (want_c) store_own(cs + (size_t)(t - 1) * B * H, cts + cur * BN * L.ldc, L.ldc, 0);
+      if (want_c) store_own(cs + (size_t)(t - 1) * B * H, cts + cur * R * L.ldc, L.ldc, 0);
     }
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[g][q] = a[g][q] + acc[g][q];
 
     // the cell, staged as in rnn_scan_kernel (the same values, bit for bit)
-    float hnew[4];
+    float hnew[NJ][4];
     if constexpr (G == 3) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[0][q] = expf(-acc[0][q]);
-        acc[1][q] = expf(-acc[1][q]);
-      }
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[0][q] = sse::sigmoid_exp(acc[0][q]);
-        acc[1][q] = sse::sigmoid_exp(acc[1][q]);
-      }
+        for (int q = 0; q < 4; ++q) {
+          acc[j][0][q] = expf(-acc[j][0][q]);
+          acc[j][1][q] = expf(-acc[j][1][q]);
+        }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float z = acc[0][q], n = tanhf(acc[2][q] * acc[1][q]);
-        hnew[q] = (1.f - z) * n + z * h[q];
-      }
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[j][0][q] = sse::sigmoid_exp(acc[j][0][q]);
+          acc[j][1][q] = sse::sigmoid_exp(acc[j][1][q]);
+        }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float z = acc[j][0][q], n = tanhf(acc[j][2][q] * acc[j][1][q]);
+          hnew[j][q] = (1.f - z) * n + z * h[j][q];
+        }
     } else {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[0][q] = expf(-acc[0][q]);
-        acc[1][q] = expf(-(acc[1][q] + 1.f));
-        acc[G - 1][q] = expf(-acc[G - 1][q]);
-      }
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[0][q] = sse::sigmoid_exp(acc[0][q]);
-        acc[1][q] = sse::sigmoid_exp(acc[1][q]);
-        acc[G - 1][q] = sse::sigmoid_exp(acc[G - 1][q]);
-      }
+        for (int q = 0; q < 4; ++q) {
+          acc[j][0][q] = expf(-acc[j][0][q]);
+          acc[j][1][q] = expf(-(acc[j][1][q] + 1.f));
+          acc[j][G - 1][q] = expf(-acc[j][G - 1][q]);
+        }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[2][q] = tanhf(acc[2][q]);
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float cp = c[q];
-        const float cnew = acc[1][q] * cp + acc[0][q] * acc[2][q];
-        hnew[q] = acc[G - 1][q] * tanhf(cnew);
-        c[q] = m[q & 1] * cnew + (1.f - m[q & 1]) * cp;
-      }
+        for (int q = 0; q < 4; ++q) {
+          acc[j][0][q] = sse::sigmoid_exp(acc[j][0][q]);
+          acc[j][1][q] = sse::sigmoid_exp(acc[j][1][q]);
+          acc[j][G - 1][q] = sse::sigmoid_exp(acc[j][G - 1][q]);
+        }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][2][q] = tanhf(acc[j][2][q]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float cp = c[j][q];
+          const float cnew = acc[j][1][q] * cp + acc[j][0][q] * acc[j][2][q];
+          hnew[j][q] = acc[j][G - 1][q] * tanhf(cnew);
+          c[j][q] = m[j][q & 1] * cnew + (1.f - m[j][q & 1]) * cp;
+        }
     }
 
     // masked carry; bf16(h_t) into this block's next h tile (and bf16(c_t)
-    // into its next c tile), then the warp's slice into every other block's
-    __nv_bfloat16* hn = hs + (cur ^ 1) * BN * L.ldh;
-    __nv_bfloat16* cn = cts + (cur ^ 1) * BN * L.ldc;
+    // into its next c tile); step t+1's inputs where the cell did not take
+    // them (the exchange, the barrier and step t+1's products give them
+    // time to land); then the warp's block of h_t into every other block's
+    // tile
+    __nv_bfloat16* hn = hs + (cur ^ 1) * R * L.ldh;
+    __nv_bfloat16* cn = cts + (cur ^ 1) * R * L.ldc;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float mq = m[q & 1];
-      h[q] = mq * hnew[q] + (1.f - mq) * h[q];
-      const int r = 2 * tig + (q & 1), du = 8 * (q >> 1);
-      hn[r * L.ldh + u0 + du] = __float2bfloat16(h[q]);
-      if (G == 4) cn[r * L.ldc + ul + du] = __float2bfloat16(c[q]);
-    }
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float mq = m[j][q & 1];
+        h[j][q] = mq * hnew[j][q] + (1.f - mq) * h[j][q];
+        const int r = r0 + 8 * j + 2 * tig + (q & 1), du = 8 * (q >> 1);
+        if (j < nj) {
+          hn[r * L.ldh + u0 + du] = __float2bfloat16(h[j][q]);
+          if (G == 4) cn[r * L.ldc + ul + du] = __float2bfloat16(c[j][q]);
+        }
+      }
+    if (NJ > 1 && t + 1 < T) load(t + 1);
     __syncwarp();
-    for (int p = lane; p < 16 * (C - 1); p += 32) {
-      const int piece = p & 15, other = p >> 4;
-      sse::copy_to_rank(hn + (piece >> 1) * L.ldh + v0 + warp * WH + (piece & 1) * 8,
+    for (unsigned p = lane; p < pieces * (C - 1); p += 32) {
+      const int other = p / pieces, piece = p - other * pieces;  // shifts where NJ = 1
+      sse::copy_to_rank(hn + (r0 + (piece >> 1)) * L.ldh + v0 + uw * WH + (piece & 1) * 8,
                         other + (other >= rank));
     }
     sse::cluster_sync();  // step t's h tile complete in every block
     cur ^= 1;
   }
   if (T > 0) {
-    store_own(ys + (size_t)(T - 1) * B * H, hs + cur * BN * L.ldh, L.ldh, v0);
-    if (want_c) store_own(cs + (size_t)(T - 1) * B * H, cts + cur * BN * L.ldc, L.ldc, 0);
+    store_own(ys + (size_t)(T - 1) * B * H, hs + cur * R * L.ldh, L.ldh, v0);
+    if (want_c) store_own(cs + (size_t)(T - 1) * B * H, cts + cur * R * L.ldc, L.ldc, 0);
   }
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int r = row0 + 2 * tig + (q & 1);
-    if (r < B) fin[(size_t)r * H + u0 + 8 * (q >> 1)] = h[q];
-  }
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = row0 + r0 + 8 * j + 2 * tig + (q & 1);
+      if (j < nj && r < B) fin[(size_t)r * H + u0 + 8 * (q >> 1)] = h[j][q];
+    }
+}
+
+// Whether a tile of R rows on C blocks runs: C a cluster size whose
+// blocks own 16·k <= 128 units, R a multiple of 8 that a block's threads
+// and shared memory hold.
+bool cluster_takes(int G, int H, int C, int R) {
+  return C >= 2 && C <= sse::kMaxCluster && H % (WH * C) == 0 && H / C <= 128 && R >= BN &&
+         R % BN == 0 && cluster_tile(G, H, C, R).threads > 0 &&
+         cluster_layout(G, H, C, R).total <= 232448;
+}
+
+template <int G, int NJ>
+cudaError_t launch_scan_cluster_nj(const float* ax, const float* mask, const __nv_bfloat16* wt,
+                                   int ldwt, __nv_bfloat16* ys, float* fin, __nv_bfloat16* cs,
+                                   int T, int B, int H, int C, int R, cudaStream_t st) {
+  return sse::launch_cluster(rnn_scan_cluster_kernel<G, NJ>, C * cdiv(B, R),
+                             cluster_tile(G, H, C, R).threads, cluster_layout(G, H, C, R).total, C,
+                             st, ax, mask, wt, ldwt, ys, fin, cs, T, B, H, C, R);
 }
 
 template <int G>
 cudaError_t launch_scan_cluster(const float* ax, const float* mask, const __nv_bfloat16* wt,
                                 int ldwt, __nv_bfloat16* ys, float* fin, __nv_bfloat16* cs,
-                                int T, int B, int H, int C, cudaStream_t st) {
-  if (C < 2 || C > sse::kMaxCluster || H % (WH * C) || H / C > CL_THREADS / 2)
-    return cudaErrorInvalidValue;
-  return sse::launch_cluster(rnn_scan_cluster_kernel<G>, C * cdiv(B, BN), 2 * (H / C),
-                             cluster_layout(G, H, C).total, C, st, ax, mask, wt, ldwt, ys, fin,
-                             cs, T, B, H, C);
+                                int T, int B, int H, int C, int R, cudaStream_t st) {
+  if (!cluster_takes(G, H, C, R)) return cudaErrorInvalidValue;
+  switch (cluster_tile(G, H, C, R).NJ) {
+    case 1: return launch_scan_cluster_nj<G, 1>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, C, R, st);
+    case 2: return launch_scan_cluster_nj<G, 2>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, C, R, st);
+    case 3: return launch_scan_cluster_nj<G, 3>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, C, R, st);
+  }
+  if constexpr (cl_groups_most(G) == 4)
+    return launch_scan_cluster_nj<G, 4>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, C, R, st);
+  return cudaErrorInvalidValue;
+}
+
+// Clusters of C blocks of the tile (G, H, C, R) the card holds at once.
+template <int G>
+cudaError_t active_clusters(int H, int C, int R, int* n) {
+  const int threads = cluster_tile(G, H, C, R).threads, smem = cluster_layout(G, H, C, R).total;
+  switch (cluster_tile(G, H, C, R).NJ) {
+    case 1: return sse::max_active_clusters(rnn_scan_cluster_kernel<G, 1>, threads, smem, C, n);
+    case 2: return sse::max_active_clusters(rnn_scan_cluster_kernel<G, 2>, threads, smem, C, n);
+    case 3: return sse::max_active_clusters(rnn_scan_cluster_kernel<G, 3>, threads, smem, C, n);
+  }
+  if constexpr (cl_groups_most(G) == 4)
+    return sse::max_active_clusters(rnn_scan_cluster_kernel<G, 4>, threads, smem, C, n);
+  return cudaErrorInvalidValue;
 }
 
 // Blocks of 8 rows, or of 16 (H=128 only) where that halves the waves of
@@ -592,12 +731,13 @@ bool two_tiles(int B) {
   return cdiv(cdiv(B, BN), sms) >= 2 * cdiv(cdiv(B, 2 * BN), sms);
 }
 
-// C >= 2: the cluster instance; C = 1: one block a tile.
+// C >= 2: the cluster instance, tiles of R rows; C = 1: one block a tile
+// (R unused).
 template <int G>
 cudaError_t scan(const float* ax, const float* mask, const __nv_bfloat16* wt, int ldwt,
                  __nv_bfloat16* ys, float* fin, __nv_bfloat16* cs, int T, int B, int H, int C,
-                 cudaStream_t st) {
-  if (C > 1) return launch_scan_cluster<G>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, C, st);
+                 int R, cudaStream_t st) {
+  if (C > 1) return launch_scan_cluster<G>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, C, R, st);
   if (H == 128)
     return two_tiles(B) ? launch_scan<G, 128, 2>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, st)
                         : launch_scan<G, 128, 1>(ax, mask, wt, ldwt, ys, fin, cs, T, B, H, st);
@@ -614,40 +754,63 @@ extern "C" int sse_rnn_scan_smem_bytes(int G, int H) {
   return layout(G, H, fixed, fixed ? 2 * BN : BN).total;
 }
 
-// The same for a block of the cluster instance on C blocks.
+// The same for a block of the cluster instance on C blocks: with tiles of
+// 8 rows (the plan's test of a width), and with tiles of R rows.
 extern "C" int sse_rnn_scan_cluster_smem_bytes(int G, int H, int C) {
-  return cluster_layout(G, H, C).total;
+  return cluster_layout(G, H, C, BN).total;
+}
+extern "C" int sse_rnn_scan_cluster_rows_smem_bytes(int G, int H, int C, int R) {
+  return cluster_layout(G, H, C, R).total;
+}
+
+// Threads a block of the cluster instance takes for tiles of R rows on C
+// blocks (0: none fits; ops/rnn.py cluster_split mirrors it).
+extern "C" int sse_rnn_scan_cluster_threads(int G, int H, int C, int R) {
+  return cluster_tile(G, H, C, R).threads;
+}
+
+// How many clusters of the tile (G, H, C, R) the current card holds at
+// once (cudaOccupancyMaxActiveClusters, kept after the first question);
+// a negative cudaError_t where the tile cannot run or the question fails.
+extern "C" int sse_rnn_scan_cluster_active(int G, int H, int C, int R) {
+  if ((G != 3 && G != 4) || !cluster_takes(G, H, C, R)) return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t err =
+      G == 3 ? active_clusters<3>(H, C, R, &n) : active_clusters<4>(H, C, R, &n);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // Kernel 1. ax [T,B,G·H] fp32, mask [T,1,B] fp32, wht = Whᵀ [G·H,H] bf16
 // → ys [T,B,H] bf16, fin [B,H] fp32 (no c stream: the scan alone has no
-// backward), on clusters of C blocks (1: one block a tile). T, B >= 1; H
-// a multiple of 16·C; every pointer 16-byte aligned.
+// backward), on clusters of C blocks carrying R rows each (C = 1: one
+// block a tile). T, B >= 1; H a multiple of 16·C; every pointer 16-byte
+// aligned.
 extern "C" int sse_rnn_scan(const void* ax, const void* mask, const void* wht, void* ys,
-                            void* fin, int T, int B, int H, int G, int C, void* stream) {
+                            void* fin, int T, int B, int H, int G, int C, int R, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const float*>(ax);
   const auto* m = static_cast<const float*>(mask);
   const auto* w = static_cast<const __nv_bfloat16*>(wht);
   auto* y = static_cast<__nv_bfloat16*>(ys);
   auto* f = static_cast<float*>(fin);
-  if (G == 3) return (int)scan<3>(a, m, w, H, y, f, nullptr, T, B, H, C, st);
-  if (G == 4) return (int)scan<4>(a, m, w, H, y, f, nullptr, T, B, H, C, st);
+  if (G == 3) return (int)scan<3>(a, m, w, H, y, f, nullptr, T, B, H, C, R, st);
+  if (G == 4) return (int)scan<4>(a, m, w, H, y, f, nullptr, T, B, H, C, R, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Kernel 3 (the LSTM layer forward, G = 4) and the GRU layer forward
 // where gru_fwd.cu cannot hold [Wx;Wh]ᵀ (G = 3): the x-product, then the
-// scan on clusters of C blocks. xs [T,B,E] bf16, mask [T,1,B] fp32,
-// wt = [Wx;Wh]ᵀ [G·H,E+H] bf16, bias [G·H] fp32; scratch ax [T·B,G·H]
-// fp32. Out: ys [T,B,H] bf16, fin [B,H] fp32 and, for the LSTM, cs
-// [T,B,H] bf16 (null for the GRU). T, B >= 1; E a multiple of 16, H of
-// 16·C; every pointer 16-byte aligned.
+// scan on clusters of C blocks carrying R rows each. xs [T,B,E] bf16,
+// mask [T,1,B] fp32, wt = [Wx;Wh]ᵀ [G·H,E+H] bf16, bias [G·H] fp32;
+// scratch ax [T·B,G·H] fp32. Out: ys [T,B,H] bf16, fin [B,H] fp32 and,
+// for the LSTM, cs [T,B,H] bf16 (null for the GRU). T, B >= 1; E a
+// multiple of 16, H of 16·C; every pointer 16-byte aligned.
 extern "C" int sse_rnn_fwd(const void* xs, const void* mask, const void* wt, const void* bias,
                            void* ax, void* ys, void* fin, void* cs, int T, int B, int E, int H,
-                           int G, int C, void* stream) {
+                           int G, int C, int R, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G != 3 && G != 4) return (int)cudaErrorInvalidValue;
+  if ((G != 3 && G != 4) || (C > 1 && !cluster_takes(G, H, C, R)))
+    return (int)cudaErrorInvalidValue;
   const int K = E + H;
   const auto* w = static_cast<const __nv_bfloat16*>(wt);
   const sse::XH x = {static_cast<const __nv_bfloat16*>(xs), nullptr, T * B, E, H, B};
@@ -658,6 +821,6 @@ extern "C" int sse_rnn_fwd(const void* xs, const void* mask, const void* wt, con
   const auto* m = static_cast<const float*>(mask);
   auto* y = static_cast<__nv_bfloat16*>(ys);
   auto* f = static_cast<float*>(fin);
-  if (G == 3) return (int)scan<3>(a, m, w + E, K, y, f, nullptr, T, B, H, C, st);
-  return (int)scan<4>(a, m, w + E, K, y, f, static_cast<__nv_bfloat16*>(cs), T, B, H, C, st);
+  if (G == 3) return (int)scan<3>(a, m, w + E, K, y, f, nullptr, T, B, H, C, R, st);
+  return (int)scan<4>(a, m, w + E, K, y, f, static_cast<__nv_bfloat16*>(cs), T, B, H, C, R, st);
 }

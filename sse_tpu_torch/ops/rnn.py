@@ -34,7 +34,9 @@ Wh (the backward's dh loop) between their shared memories, the
 smallest of 1, 2, 4, 8 whose layout fits one SM. The padding is exact
 (zero weights, bias and carry keep a padded unit at 0) and happens
 inside the CUDA route (``pad_layer``, ``unpad_grads``); the CPU route
-runs unpadded.
+runs unpadded. A cluster of the scan carries R batch rows, a tile the
+launch picks from B and the clusters the card holds at once
+(``scan_tile``); the tile changes no output bit.
 """
 
 from __future__ import annotations
@@ -174,6 +176,11 @@ def rnn_layer_reference(
 _KPAD, _FPAD, _BN, _WH = 8, 4, 8, 16
 CLUSTERS = (1, 2, 4, 8)  # blocks a cluster: 8 is the portable most
 CLUSTER_UNITS = 128  # units a cluster block owns at most: 8 warps
+# The cluster scan's blocks: threads a block takes at most when its warps
+# carry NJ n8 row groups each (what an SM's registers hold), and the most
+# groups a warp carries (G gates → groups)
+CLUSTER_THREADS = {1: 512, 2: 384, 3: 256, 4: 256}
+CLUSTER_GROUPS = {3: 4, 4: 3}
 DH_CLUSTER_STAGES = 2  # input stages of the cluster dh loop
 # Units a single-block instance takes at most: its threads' launch bound
 # (2H threads: 352 for the scan, the GRU forward and the GRU dh loop, 288
@@ -193,12 +200,12 @@ def gru_fwd_smem(E: int, H: int) -> int:
     return w + h + ring
 
 
-def scan_smem(G: int, H: int, C: int = 1) -> int:
+def scan_smem(G: int, H: int, C: int = 1, R: int = _BN) -> int:
     """Bytes of shared memory a scan block takes (``rnn_scan.cu``): C=1,
     ``layout`` (at H=128 the ax ring for 16 rows, else Whᵀ for 8 rows);
-    C >= 2, ``cluster_layout``: the Whᵀ rows of the block's H/C units for
-    every gate, the full double-buffered bf16 h tile and, for the LSTM,
-    its units' bf16 c tiles."""
+    C >= 2, ``cluster_layout`` for a tile of R batch rows: the Whᵀ rows of
+    the block's H/C units for every gate, the full double-buffered bf16 h
+    tile [R][H] and, for the LSTM, its units' bf16 c tiles [R][H/C]."""
     ldh = H + _KPAD
     if C == 1:
         fixed = H == 128
@@ -208,8 +215,8 @@ def scan_smem(G: int, H: int, C: int = 1) -> int:
         ring = 4 * rows * (G * H + _FPAD) * 4 + 4 * rows * 4 if fixed else 0
         return w + 2 * rows * ldh * 2 + c + ring
     hc = H // C
-    c = 2 * _BN * (hc + _KPAD) * 2 if G == 4 else 0
-    return G * hc * ldh * 2 + 2 * _BN * ldh * 2 + c
+    c = 2 * R * (hc + _KPAD) * 2 if G == 4 else 0
+    return G * hc * ldh * 2 + 2 * R * ldh * 2 + c
 
 
 def dh_smem(G: int, H: int, C: int = 1) -> int:
@@ -322,6 +329,96 @@ def layer_plan(cell: str, E: int, H: int) -> LayerPlan:
     E_p = _ceil(E, _WH)
     fused = G == 3 and H_p <= _ONE_BLOCK_UNITS["gru_fwd"] and gru_fwd_smem(E_p, H_p) <= _MAX_SMEM
     return LayerPlan(cell, E, H, E_p, H_p, "fused" if fused else "split", cs, cd)
+
+
+# ------------------------------------------------------------ the scan's tile
+def _cdiv(n: int, m: int) -> int:
+    return _ceil(n, m) // m
+
+
+def cluster_split(G: int, H: int, C: int, R: int) -> Optional[Tuple[int, int, int]]:
+    """How a block of the cluster scan splits a tile of R rows on C blocks
+    (``rnn_scan.cu`` ``cluster_tile``): (S row slices, NJ n8 groups a warp
+    at most, threads), with a warp for each 16 units of the block's H/C in
+    each slice; NJ the fewest (up to CLUSTER_GROUPS[G]) whose threads
+    CLUSTER_THREADS[NJ] allows, the groups spread evenly over the slices.
+    None where no split fits a block."""
+    groups, warps = R // _BN, H // C // _WH
+    for n in range(1, CLUSTER_GROUPS[G] + 1):
+        S = _cdiv(groups, n)
+        if 32 * warps * S <= CLUSTER_THREADS[n]:
+            return S, _cdiv(groups, S), 32 * warps * S
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def scan_rows_most(G: int, H: int, C: int) -> int:
+    """The most batch rows (a multiple of 8) a cluster of C blocks carries
+    at hidden H: a split of them fits a block (``cluster_split``) and its
+    layout _MAX_SMEM (the Whᵀ slice, then 2·(H+8)·2 bytes a row, and
+    2·(H/C+8)·2 more for the LSTM's c tiles). Both hold for every multiple
+    of 8 up to it."""
+    R = _BN
+    while (cluster_split(G, H, C, R + _BN) is not None
+           and scan_smem(G, H, C, R + _BN) <= _MAX_SMEM):
+        R += _BN
+    return R
+
+
+class ScanTile(NamedTuple):
+    """How a cluster scan launch covers B rows: clusters of C blocks, each
+    carrying R batch rows, ``clusters`` = ceil(B / R) of them, of which the
+    card holds ``active`` at once, so they run in ``waves`` waves."""
+
+    C: int
+    R: int
+    clusters: int
+    active: int
+    waves: int
+
+
+def scan_tile(G: int, H: int, B: int, C: int, active: int,
+              rows: Optional[int] = None) -> ScanTile:
+    """The tile of the cluster scan on C >= 2 blocks for B rows at hidden
+    H, where the card holds ``active`` such clusters at once: R, the
+    smallest multiple of 8 that covers B in the fewest waves that the
+    most rows (``scan_rows_most``) allow (``rows`` forces R). The tile
+    changes no bit: a row's sums run in one order on any R."""
+    most, n = scan_rows_most(G, H, C), max(active, 1)
+    if rows is not None and (rows < _BN or rows % _BN or rows > most):
+        raise ValueError(f"rnn_scan: a tile of {rows} rows on {C} blocks (H={H}): R must be a "
+                         f"multiple of {_BN} up to {most}")
+    waves = _cdiv(_cdiv(B, most), n)
+    R = rows if rows is not None else min(most, _ceil(_cdiv(B, waves * n), _BN))
+    clusters = _cdiv(B, R)
+    return ScanTile(C, R, clusters, n, _cdiv(clusters, n))
+
+
+@functools.lru_cache(maxsize=None)
+def active_clusters(device: torch.device, G: int, H: int, C: int) -> int:
+    """The clusters of C blocks of the scan at hidden H, each carrying its
+    most rows, that the card ``device`` holds at once: the library's
+    ``cudaOccupancyMaxActiveClusters``, asked once a (card, G, H, C) and
+    kept, so the eager warm-up before a capture asks it, never the
+    capture."""
+    fn = _build.library().sse_rnn_scan_cluster_active
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    with torch.cuda.device(device):
+        n = fn(G, H, C, scan_rows_most(G, H, C))
+    if n < 0:
+        _build._check(-n, "sse_rnn_scan_cluster_active")
+    return n
+
+
+def card_scan_tile(device: torch.device, G: int, H: int, B: int, C: int,
+                   rows: Optional[int] = None, active: Optional[int] = None) -> ScanTile:
+    """The tile a cluster scan launch of B rows on C blocks of ``device``
+    takes (``scan_tile``), with the card's active clusters; ``rows``
+    forces R and ``active`` the card's count (private to the tests and
+    the measurements)."""
+    n = active if active is not None else active_clusters(device, G, H, C)
+    return scan_tile(G, H, B, C, n, rows)
 
 
 def pad_units(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -477,16 +574,19 @@ def _count_scan(C: int) -> None:
 
 
 def rnn_fwd_launch(xs, mask, wx, wh, b, cell: str = "lstm", wt=None,
-                   cluster: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                   cluster: Optional[int] = None, *, _rows: Optional[int] = None,
+                   _active: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """``csrc/rnn_scan.cu`` ``sse_rnn_fwd`` on CUDA tensors (contiguous,
     16-byte aligned: xs, wx, wh bf16; mask, b fp32): the split layer
-    forward, the x-product, then the scan (on ``cluster`` blocks; the
-    smallest that fits if None), both from the rows of ``wt =
-    fused_weight_t(wx, wh)`` (built here if the caller has none). Returns
-    (ys, fin, cs | None, ax [T,B,G·H] fp32): cs the LSTM's bf16 c stream,
-    ax the x-product the scan consumed. Every LSTM forward takes it
-    (counted in ``lstm_fwd``), and the GRU where ``gru_fwd.cu`` cannot
-    hold the weights (``gru_fwd_split``)."""
+    forward, the x-product, then the scan (on ``cluster`` blocks, the
+    smallest that fits if None, in tiles of R rows: ``card_scan_tile``),
+    both from the rows of ``wt = fused_weight_t(wx, wh)`` (built here if
+    the caller has none). Returns (ys, fin, cs | None, ax [T,B,G·H] fp32):
+    cs the LSTM's bf16 c stream, ax the x-product the scan consumed. Every
+    LSTM forward takes it (counted in ``lstm_fwd``), and the GRU where
+    ``gru_fwd.cu`` cannot hold the weights (``gru_fwd_split``). ``_rows``
+    and ``_active`` force the tile's R and the card's active clusters (for
+    tests and measurements; not a user setting)."""
     G = _n_gates(cell)
     name = "lstm_fwd" if G == 4 else "gru_fwd_split"
     _check_args(name, _layer_args(xs, mask, wx, wh, b, G))
@@ -504,10 +604,11 @@ def rnn_fwd_launch(xs, mask, wx, wh, b, cell: str = "lstm", wt=None,
     ax = torch.empty((T, B, G * H), dtype=torch.float32, device=dev)
     if T == 0 or B == 0:
         return ys, fin.zero_(), cs, ax
+    R = 0 if C == 1 else card_scan_tile(dev, G, H, B, C, _rows, _active).R
     _build.launch(
-        "sse_rnn_fwd", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6, dev,
+        "sse_rnn_fwd", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7, dev,
         xs.data_ptr(), mask.data_ptr(), wt.data_ptr(), b.data_ptr(), ax.data_ptr(),
-        ys.data_ptr(), fin.data_ptr(), 0 if cs is None else cs.data_ptr(), T, B, E, H, G, C,
+        ys.data_ptr(), fin.data_ptr(), 0 if cs is None else cs.data_ptr(), T, B, E, H, G, C, R,
     )
     launches[name] += 1
     _count_scan(C)
@@ -520,11 +621,13 @@ def lstm_fwd_launch(xs, mask, wx, wh, b, wt=None) -> Tuple[torch.Tensor, ...]:
     return rnn_fwd_launch(xs, mask, wx, wh, b, "lstm", wt)
 
 
-def rnn_scan_launch(ax, mask, wh, cell: str = "gru",
-                    cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def rnn_scan_launch(ax, mask, wh, cell: str = "gru", cluster: Optional[int] = None, *,
+                    _rows: Optional[int] = None,
+                    _active: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``csrc/rnn_scan.cu`` ``sse_rnn_scan`` on CUDA tensors (ax, mask fp32;
     wh bf16; contiguous, 16-byte aligned) → (ys, fin), on ``cluster``
-    blocks (the smallest that fits if None)."""
+    blocks (the smallest that fits if None), in tiles of R rows, as
+    ``rnn_fwd_launch`` runs its scan (the same private keywords)."""
     G = _n_gates(cell)
     T, B, _ = ax.shape
     H = wh.shape[0]
@@ -542,10 +645,11 @@ def rnn_scan_launch(ax, mask, wh, cell: str = "gru",
     if T == 0 or B == 0:
         return ys, fin.zero_()
     wht = wh.t().contiguous()  # Whᵀ [G·H, H]: its rows are the A fragments
+    R = 0 if C == 1 else card_scan_tile(dev, G, H, B, C, _rows, _active).R
     _build.launch(
-        "sse_rnn_scan", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5, dev,
+        "sse_rnn_scan", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, dev,
         ax.data_ptr(), mask.data_ptr(), wht.data_ptr(), ys.data_ptr(), fin.data_ptr(),
-        T, B, H, G, C,
+        T, B, H, G, C, R,
     )
     _count_scan(C)
     return ys, fin
@@ -1022,9 +1126,13 @@ __all__ = [
     "CLUSTERS",
     "LayerPlan",
     "RNNLayer",
+    "ScanTile",
+    "active_clusters",
     "bf16_matmul",
     "bwd_products",
+    "card_scan_tile",
     "check_widths",
+    "cluster_split",
     "dw_plan",
     "fused_weight_t",
     "gru_bwd_chain",
@@ -1050,6 +1158,8 @@ __all__ = [
     "rnn_scan_launch",
     "scan_layer",
     "scan_layer_reference",
+    "scan_rows_most",
+    "scan_tile",
     "split_weights",
     "unpad_gates",
     "unpad_grads",

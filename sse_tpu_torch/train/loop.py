@@ -54,6 +54,7 @@ their leaves in JAX's flattening order (sorted dict keys).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import time
 from contextlib import nullcontext
@@ -601,7 +602,8 @@ class _GraphChain:
     the state buffers, so the state a replay returns is those buffers.
 
     Capture follows PyTorch's whole-network recipe: one warm-up step on a
-    side stream, then capture. A capture that fails raises."""
+    side stream, then capture, with Python's cyclic collector off (as
+    ``utils/graphs.py`` captures). A capture that fails raises."""
 
     def __init__(self, packed_step, k: int, seed: int, sampled: bool, dropout: bool,
                  state: TrainState, packed_k, tgt_tokens, tgt_lens, cache) -> None:
@@ -626,11 +628,17 @@ class _GraphChain:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self._steps(1)  # warm-up: the captured code once, eagerly; dropped
-        torch.cuda.current_stream(dev).wait_stream(side)
-        with self.launches.capturing(), torch.cuda.graph(self.graph):
-            final, self.metrics = self._steps(k)
-            for buf, x in zip(self.leaves, _state_leaves(final)):
-                buf.copy_(x)
+        collecting = gc.isenabled()
+        gc.disable()  # a graph or buffer the collector frees here would end the capture
+        try:
+            torch.cuda.current_stream(dev).wait_stream(side)
+            with self.launches.capturing(), torch.cuda.graph(self.graph):
+                final, self.metrics = self._steps(k)
+                for buf, x in zip(self.leaves, _state_leaves(final)):
+                    buf.copy_(x)
+        finally:
+            if collecting:
+                gc.enable()
 
     def _steps(self, n: int):
         state = _with_leaves(self.template, self.leaves, 0)

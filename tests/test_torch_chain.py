@@ -359,3 +359,66 @@ def test_chain_refuses_what_it_cannot_take():
         chain(state, torch.zeros((2, 8, 13), dtype=torch.int32),
               torch.from_numpy(np.asarray(tspace.tokens)),
               torch.from_numpy(np.asarray(tspace.lengths)))
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_chain_captures_with_the_collector_off(monkeypatch, on):
+    """A chain's capture (``_GraphChain``, with torch.cuda's graph, streams
+    and capture replaced by stand-ins that record the collector's state)
+    runs with Python's cyclic collector off, as ``utils/graphs.py``'s
+    captures do: a collection there could free an earlier CUDA graph and
+    end the capture. Afterwards the collector is as it was, also after a
+    capture that fails."""
+    import contextlib
+    import gc
+
+    seen = []
+
+    class Graph:
+        def register_generator_state(self, g):
+            pass
+
+    class Stream:
+        def __init__(self, *args, **kw):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+    @contextlib.contextmanager
+    def capture(graph, *args, **kw):
+        seen.append(gc.isenabled())
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *args: Stream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", capture)
+    model, cfg = CASES["merged-scan-shared-inbatch"]
+    state = tloop.init_train_state(model, cfg, device="cpu")
+    tspace, _ = _corpus()
+    tokens = torch.from_numpy(np.asarray(tspace.tokens))
+    lengths = torch.from_numpy(np.asarray(tspace.lengths))
+    calls = []
+
+    def step(state, packed, tokens, lengths, cache, draws):
+        calls.append(gc.isenabled())
+        if len(calls) == 3 and fail:
+            raise RuntimeError("not capturable")
+        return state, {"loss": torch.zeros(())}
+
+    was = gc.isenabled()
+    (gc.enable if on else gc.disable)()
+    try:
+        for fail in (False, True):
+            calls.clear()
+            with pytest.raises(RuntimeError) if fail else contextlib.nullcontext():
+                tloop._GraphChain(step, K, 0, False, False, state,
+                                  torch.zeros((K, 8, 13), dtype=torch.int32), tokens, lengths,
+                                  None)
+            assert calls[:3] == [on, False, False]  # the warm-up, then the capture's steps
+            assert gc.isenabled() == on
+        assert seen == [False, False]
+    finally:
+        (gc.enable if was else gc.disable)()

@@ -15,6 +15,9 @@ graph and replays it.
   uploaded from pinned memory.
 - A step that cannot be captured raises; the injected negatives hook is
   refused.
+- The capture runs with Python's cyclic collector off: garbage cycles
+  holding CUDA graphs, dropped during the capture under
+  ``gc.set_threshold(1)``, do not end it.
 Run on the card with ``python -m pytest --noconftest tests/test_torch_gpu_chain.py``."""
 
 import pytest
@@ -68,7 +71,6 @@ def _bitwise(a, b) -> bool:
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_replay_matches_eager_steps(cuda, cell):
-    import chip_smoke
     from sse_tpu_torch import ops
 
     s = _setup(cell)
@@ -84,6 +86,15 @@ def test_replay_matches_eager_steps(cuda, cell):
     g, gm = run(s.chain_fn)
     torch.cuda.synchronize()
     assert ops.launch_counts() == eager_counts
+    _held_against_eager(cell, g, gm, e1, e2, m1)
+
+
+def _held_against_eager(cell, g, gm, e1, e2, m1):
+    """A replay's state and metrics against eager steps': bit for bit where
+    two eager runs (e1, e2) are, else as chip_smoke.held_state holds a
+    state."""
+    import chip_smoke
+
     assert g.step == e1.step == K
     g = _copy(g)
     if _bitwise(e1, e2):
@@ -95,6 +106,53 @@ def test_replay_matches_eager_steps(cuda, cell):
         held = chip_smoke.held_state(f"{cell} replay against eager", g, e1)
         print(f"{cell}: eager against eager {drift}; replay against eager {held}")
         torch.testing.assert_close(gm["loss"], m1["loss"], rtol=2e-4, atol=0)
+
+
+def test_capture_with_garbage_cycles_held_by_the_collector(cuda, monkeypatch):
+    """A chain captures with Python's cyclic collector off: garbage cycles
+    that hold CUDA graphs and their buffers, one dropped at each step of
+    the warm-up and of the capture, under a collector that runs at every
+    allocation (gc.set_threshold(1)). A collection inside the capture
+    would free a graph and end it; the chain captures, and its replay
+    equals eager steps. The collector's thresholds are restored."""
+    import gc
+
+    from sse_tpu_torch.train import loop
+
+    s = _setup("gru")
+    eager = _eager(s)
+    pk = s.packed_variants[1]
+    e1, m1 = eager(s.state, pk, s.tgt_tokens, s.tgt_lens)
+    e2, _ = eager(s.state, pk, s.tgt_tokens, s.tgt_lens)
+
+    def held_graph():
+        x = torch.ones(1 << 20, device="cuda")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = x * 2
+        cycle = [graph, x, y]
+        cycle.append(cycle)
+        return cycle
+
+    pending = [held_graph() for _ in range(2 * (K + 1))]
+    real = loop._Draws
+
+    def dropping(*args, **kw):
+        if pending:
+            pending.pop()  # garbage now: only the collector frees a cycle
+        return real(*args, **kw)
+
+    monkeypatch.setattr(loop, "_Draws", dropping)
+    thresholds = gc.get_threshold()
+    try:
+        gc.set_threshold(1)
+        s.chain_fn(s.state, s.packed_variants[0], s.tgt_tokens, s.tgt_lens)  # capture
+        g, gm = s.chain_fn(s.state, pk, s.tgt_tokens, s.tgt_lens)
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert len(pending) < K + 2 and gc.isenabled()
+    _held_against_eager("gru", g, gm, e1, e2, m1)
 
 
 def test_replays_sync_nothing(cuda):

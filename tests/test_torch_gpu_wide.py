@@ -20,10 +20,15 @@
 - C=2 against C=1, bit for bit, where both fit: the cluster instance
   sums in the single block's order.
 - Each layout mirror of ops/rnn.py against the library's
-  ``sse_*_smem_bytes``.
+  ``sse_*_smem_bytes``; the cluster scan's tile mirrors (bytes and
+  threads for R rows, the card's active clusters).
+- The cluster scan's tiles (R rows a cluster, chosen from B and the
+  card's active clusters): the same bits on every tile forced (8 rows and
+  the plan's R, one active cluster and the card's count, every cluster
+  size that takes H) at B=4096, H=256 and 384, both cells.
 - ``RNNLayer`` at widths that pad or split against the plain version; an
-  H=256 layer replayed from a CUDA graph against eager, bit for bit; the
-  cluster kernels on every card.
+  H=256 layer, at B=64 and B=4096, replayed from a CUDA graph against
+  eager, bit for bit; the cluster kernels on every card.
 """
 
 import ctypes
@@ -65,11 +70,12 @@ WIDE = [("gru", 192), ("gru", 256), ("gru", 384), ("lstm", 176), ("lstm", 256), 
 
 
 @pytest.mark.parametrize("T", [1, 20])
-@pytest.mark.parametrize("B", [1, 8, 300, 2304])
+@pytest.mark.parametrize("B", [1, 8, 256, 300, 2304, 4096])
 @pytest.mark.parametrize("cell,H", WIDE)
 def test_cluster_forward_matches_plain(cuda, cell, H, B, T):
     """The split layer forward (x-product, then the cluster scan) and the
-    scan alone over the same ax, against the plain versions."""
+    scan alone over the same ax, against the plain versions, on the tile
+    each launch picks (B=4096: many rows a cluster)."""
     from sse_tpu_torch.ops import rnn
 
     xs, mask, wx, wh, b, _, _ = _layer(cuda, cell, T, B, 128, H, _dead(B))
@@ -215,6 +221,63 @@ def test_layout_mirrors_match_the_library(cuda):
             assert rnn.gru_fwd_smem(E, H) == _lib_int("sse_gru_fwd_smem_bytes", E, H), (E, H)
 
 
+def test_tile_mirrors_match_the_library(cuda):
+    """ops/rnn.py's mirrors of the cluster scan's tile against the
+    library's: shared memory and threads a block for R rows, and the card's
+    active clusters of each plan's shape (at least one)."""
+    from sse_tpu_torch.ops import rnn
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for H in range(32, 385, 16):
+        for G in (3, 4):
+            for C in rnn.CLUSTERS[1:]:
+                if H % (16 * C) or H // C > rnn.CLUSTER_UNITS:
+                    continue
+                for R in range(8, 257, 8):
+                    assert rnn.scan_smem(G, H, C, R) == _lib_int(
+                        "sse_rnn_scan_cluster_rows_smem_bytes", G, H, C, R), (G, H, C, R)
+                    split = rnn.cluster_split(G, H, C, R)
+                    assert (split[2] if split else 0) == _lib_int(
+                        "sse_rnn_scan_cluster_threads", G, H, C, R), (G, H, C, R)
+    for cell, H in WIDE:
+        G = 3 if cell == "gru" else 4
+        plan = rnn.layer_plan(cell, 128, H)
+        n = rnn.active_clusters(dev, G, plan.H_p, plan.scan_cluster)
+        assert n >= 1 and n == _lib_int("sse_rnn_scan_cluster_active", G, plan.H_p,
+                                        plan.scan_cluster,
+                                        rnn.scan_rows_most(G, plan.H_p, plan.scan_cluster))
+
+
+@pytest.mark.parametrize("cell,H", [("gru", 256), ("lstm", 256), ("gru", 384), ("lstm", 384)])
+def test_tiles_keep_the_bits(cuda, cell, H):
+    """The split forward and the scan at B=4096 on every tile the tests
+    can force: 8 rows a cluster and the plan's R, one active cluster and
+    the card's count, and each cluster size that takes H: the bits of the
+    launch's own choice (ys, fin, cs and ax)."""
+    from sse_tpu_torch.ops import rnn
+
+    G = 3 if cell == "gru" else 4
+    B = 4096
+    xs, mask, wx, wh, b, _, _ = _layer(cuda, cell, 6, B, 128, H, _dead(B))
+    plan = rnn.layer_plan(cell, 128, H)
+    tile = rnn.card_scan_tile(xs.device, G, H, B, plan.scan_cluster)
+    assert tile.R > 8 and tile.waves == -(-tile.clusters // tile.active)
+    want = rnn.rnn_fwd_launch(xs, mask, wx, wh, b, cell, cluster=plan.scan_cluster)
+    scanned = rnn.rnn_scan_launch(want[3], mask, wh, cell, plan.scan_cluster)
+    sizes = [c for c in rnn.CLUSTERS if c >= plan.scan_cluster
+             and rnn._refusal("scan", G, H, c) is None]
+    forced = ([dict(_rows=8), dict(_rows=tile.R), dict(_active=1), dict(_active=tile.active)]
+              + [dict(cluster=c) for c in sizes])
+    for kw in forced:
+        kw = {"cluster": plan.scan_cluster, **kw}
+        got = rnn.rnn_fwd_launch(xs, mask, wx, wh, b, cell, **kw)
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w), kw
+        got = rnn.rnn_scan_launch(want[3], mask, wh, cell, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, scanned)), kw
+    assert torch.equal(scanned[0], want[0]) and torch.equal(scanned[1], want[1])
+
+
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("E,H", [(256, 128), (128, 256), (256, 256), (100, 100)])
 def test_rnn_layer_function_at_other_widths(cuda, cell, E, H):
@@ -239,9 +302,21 @@ def test_rnn_layer_function_at_other_widths(cuda, cell, E, H):
 def test_graph_replay_of_a_wide_layer_equals_eager(cuda, cell):
     """An H=256 layer, forward and backward, captured in a CUDA graph and
     replayed on new inputs: the same bits as eager calls."""
+    _replay_equals_eager(cuda, cell, 64)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_graph_replay_of_a_wide_batch_equals_eager(cuda, cell):
+    """The same at B=4096, where the scan carries many rows a cluster: the
+    eager warm-up asks the card's active clusters, the capture finds them
+    kept."""
+    _replay_equals_eager(cuda, cell, 4096)
+
+
+def _replay_equals_eager(gen, cell, B):
     from sse_tpu_torch.ops import rnn
 
-    args = _layer(cuda, cell, 20, 64, 128, 256, (5,))
+    args = _layer(gen, cell, 20, B, 128, 256, (5,))
     static = [t.clone() for t in args]
 
     def run():
@@ -257,7 +332,7 @@ def test_graph_replay_of_a_wide_layer_equals_eager(cuda, cell):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = run()
-    fresh = _layer(torch.Generator(device="cuda").manual_seed(7), cell, 20, 64, 128, 256, (9,))
+    fresh = _layer(torch.Generator(device="cuda").manual_seed(7), cell, 20, B, 128, 256, (9,))
     for s, f in zip(static, fresh):
         s.copy_(f)
     graph.replay()

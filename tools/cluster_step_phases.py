@@ -9,8 +9,9 @@ Copies ``sse_tpu_torch`` into ``build/cluster_step_phases/`` and inserts
 ``rnn_scan_cluster_kernel`` (``csrc/rnn_scan.cu``) and of the cluster dh
 loops (``gru_bwd_dh_cluster_kernel``, ``lstm_bwd_dh_cluster_kernel``),
 builds that copy, runs each at T=50, E=128, H=256 and 384, full lengths,
-B=8, 256 and 4096, and prints the cycles a step of each phase as thread 0 of
-block 0 sees them, with the card's maximum SM clock. A phase ends when
+B=8, 256 and 4096 (the scan on the tile its launch picks: blocks a
+cluster, rows a cluster, waves), and prints the cycles a step of each
+phase as thread 0 of block 0 sees them, with the card's maximum SM clock. A phase ends when
 its last instruction issues, so a wait shows in the phase whose
 instruction first uses the result; the barrier phase holds the wait for
 the cluster's slowest block. The counters cost a few cycles each; the
@@ -33,12 +34,12 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 from gru_step_phases import COUNTER, DECL, READ, insert  # noqa: E402
 
-SCAN_PHASES = ["products issue", "loads + stores", "cell", "publish + exchange", "barrier"]
+SCAN_PHASES = ["products issue", "ax + stores", "cell", "publish + loads + exchange", "barrier"]
 SCAN_MARKS = [
     ("// ---------------------------------------------------------------- clusters", "before",
      COUNTER.format(name="scan_phase")),
-    ("  load(0);\n  float h[4] = {}, c[4] = {};\n", "after", DECL),
-    ("    // while it runs: step t+1's inputs, and ys_{t-1} (cs_{t-1})\n", "before", "    PH(0)\n"),
+    ("  load(0);\n  float h[NJ][4] = {}, c[NJ][4] = {};\n", "after", DECL),
+    ("    // ax_t into the sums\n", "before", "    PH(0)\n"),
     ("    // the cell, staged as in rnn_scan_kernel", "before", "    PH(1)\n"),
     ("    // masked carry; bf16(h_t) into this block's next h tile", "before", "    PH(2)\n"),
     ("    sse::cluster_sync();  // step t's h tile complete in every block\n", "before",
@@ -121,8 +122,9 @@ def main() -> None:
                     rnn.scan_layer(ax, mask, wh, cell)
                 torch.cuda.synchronize()
                 lib.sse_scan_phase(out)
-                report(f"{cell} scan T={T} B={B} H={H} on {plan.scan_cluster} blocks",
-                       SCAN_PHASES)
+                tile = rnn.card_scan_tile(ax.device, G, H, B, plan.scan_cluster)
+                report(f"{cell} scan T={T} B={B} H={H} on {tile.C} blocks, {tile.R} rows a "
+                       f"cluster, {tile.waves} waves of {tile.active}", SCAN_PHASES)
                 xs = torch.randn((T, B, E), generator=gen, device="cuda").bfloat16()
                 ys, _, cs = rnn._scan_reference(rnn._x_product(xs, wx, b), mask, wh, cell)
                 dys = (torch.randn((T, B, H), generator=gen, device="cuda") * 0.1).bfloat16()
