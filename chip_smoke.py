@@ -228,16 +228,19 @@ commits compare in one run, taken in turns.
 13. The recurrent widths beyond E=H=128 (``ops/rnn.py`` ``layer_plan``):
    check_wide, in phase 2, holds the cluster instances against their
    plain versions at T=50, H=256 and 384 (the split GRU forward and the
-   LSTM forward's cluster scan at B=4096, the GRU backward at B=384, the
-   LSTM's at B=256; Glorot weights; fin, ys and the backward as phase 2
-   bounds them) with their times, cuDNN's LSTM beside the LSTM rows and
-   the bounds; wide_slice, among the runs, trains the ranking preset at
+   LSTM forward's cluster scan at B=4096, the GRU backward at B=384 and
+   4096, the LSTM's at B=256 and 4096; Glorot weights; fin, ys and the
+   backward as phase 2 bounds them) with their times, each cluster
+   launch's tile (blocks, rows a cluster, waves), cuDNN's LSTM beside the
+   LSTM rows (forward and backward, CUDA events and the device time of
+   every kernel of a call) and the bounds; wide_slice, among the runs,
+   trains the ranking preset at
    hidden 256 (50 steps through train(), then a query served and
    replayed), chains the compositional recipe at hidden 256, and trains
    the ranking preset at embed_dim 256 and at hidden 100, each with the
    plain recurrent layer barred from the card (OnTheKernels) and its
    instances' counters > 0. ``--costs`` ends with wide_costs (µs a step
-   at H=256 beside H=128).
+   at H=256 beside H=128, with each cluster launch's tile).
 Each kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
 operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8) is computed from
@@ -625,13 +628,16 @@ def ptxas_report(log_text: str, pattern: str) -> list:
 
 def check_products_ptxas(log_text: str) -> None:
     """Log every ptxas C7515 (wgmma serialized) line, and fail if one names
-    a kernel of the product engine or if one of those spills."""
+    a kernel of the product engine or if one of those spills; fail too if
+    a cluster dh loop's instance spills (its threads a block,
+    dh_cluster.cuh kThreadsMost, are set where none does)."""
     for line in log_text.splitlines():
         if "C7515" in line:
             log(f"ptxas: {line.strip()}")
             check("product_kernel" not in line, f"a product kernel's wgmma is serialized: {line}")
-    for line in ptxas_report(log_text, "product_kernel"):
-        check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"a product kernel spills: {line}")
+    for pattern in ("product_kernel", "bwd_dh_cluster_kernel"):
+        for line in ptxas_report(log_text, pattern):
+            check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"a kernel spills: {line}")
 
 
 def check_gru(card: str, results: dict) -> None:
@@ -5295,7 +5301,10 @@ def wide_bwd(card: str, cell: str, H: int, B: int, gen, T: int = 50, E: int = 12
     holds it end to end (dWx, dWh, db to 1e-3 of max-abs; dxs to one ulp
     plus 1e-4 of max-abs at the loop's first step, 1e-2 over all steps);
     its time, device time by kernel, the plain version's, cuDNN's LSTM
-    backward (LSTM only) and the bound. Returns the row's readings."""
+    backward (LSTM only: CUDA events, and the device time of every kernel
+    of a call of each, the two in turns in one profiler session), the
+    bound and the dh loop's tile (dh_tile_reading). Returns the row's
+    readings."""
     from sse_tpu_torch.ops import rnn
 
     lstm = cell == "lstm"
@@ -5331,22 +5340,44 @@ def wide_bwd(card: str, cell: str, H: int, B: int, gen, T: int = 50, E: int = 12
     ms = cuda_ms(run)
     split = bwd_split(run, cell)
     plain = cuda_ms(lambda: rnn.rnn_layer_bwd_reference(*args, cs, cell), reps=2)
-    lib = None
+    lib = calls = None
     if lstm:
         lstm_mod = cudnn_lstm(wx, wh, b)
         x_l = xs.clone().requires_grad_(True)
         y_l, _ = lstm_mod(x_l)
         inputs = [x_l, *lstm_mod.parameters()]
-        lib = cuda_ms(lambda: torch.autograd.grad(y_l, inputs, dys, retain_graph=True))
+        cudnn = lambda: torch.autograd.grad(y_l, inputs, dys, retain_graph=True)  # noqa: E731
+        lib = cuda_ms(cudnn)
+        calls = call_device_ms({"ours": run, "cudnn": cudnn})
+    tile = dh_tile_reading(cell, H, B, plan)
     bnd = bound(nbytes(*args, *([cs] if lstm else []), *got), 2.0 * T * B * G * H * 3 * (E + H))
-    log(f"{cell} backward (dh loop on {plan.dh_cluster} blocks) T={T} B={B} E={E} H={H}: "
-        + ", ".join(f"{k} {v:.2g} of max-abs" for k, v in rels.items())
+    log(f"{cell} backward (dh loop on {tile['C']} blocks x {tile['R']} rows a cluster, "
+        f"{tile['clusters']} clusters in {tile['waves']} waves of {tile['active']}) T={T} B={B} "
+        f"E={E} H={H}: " + ", ".join(f"{k} {v:.2g} of max-abs" for k, v in rels.items())
         + f"; kernel {ms:.4f} ms (device by kernel {json.dumps(split)}), plain {plain:.4f} ms"
-        + (f", cuDNN LSTM backward (full lengths) {lib:.4f} ms" if lib is not None else "")
+        + (f", cuDNN LSTM backward (full lengths) {lib:.4f} ms; device time of every kernel of "
+           f"a call, the two in turns in one profiler session: ours {calls['ours']:.4f}, cuDNN "
+           f"{calls['cudnn']:.4f} ms" if lib is not None else "")
         + f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
     return dict(ms=ms, device_ms=sum(split.values()), cuda_kernels=split, plain_ms=plain,
-                library_ms=lib, max_abs_err=err, rel_err=rels, B=B, H=H, E=E, T=T,
-                clusters=plan.dh_cluster, **bnd)
+                library_ms=lib, cudnn_lstm_ms=lib,
+                call_device_ms=calls["ours"] if calls else None,
+                cudnn_lstm_device_ms=calls["cudnn"] if calls else None, max_abs_err=err,
+                rel_err=rels, B=B, H=H, E=E, T=T, clusters=plan.dh_cluster, tile=tile, **bnd)
+
+
+def dh_tile_reading(cell: str, H: int, B: int, plan) -> dict:
+    """The tile the cluster dh loop takes for B rows at the plan's widths
+    (rnn.card_dh_tile, as scan_tile_reading gives the scan's)."""
+    from sse_tpu_torch.ops import rnn
+
+    G = 4 if cell == "lstm" else 3
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return rnn.card_dh_tile(dev, G, plan.H_p, B, plan.dh_cluster)._asdict()
+
+
+WIDE_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "max_abs_err", "bound_ms", "bound_by",
+             "B", "clusters", "tile", "cudnn_lstm_ms", "call_device_ms", "cudnn_lstm_device_ms")
 
 
 def check_wide(card: str, results: dict) -> None:
@@ -5354,10 +5385,12 @@ def check_wide(card: str, results: dict) -> None:
     and H=384 (its ``at_384``), T=50, E=128: the GRU's split forward and
     the LSTM forward's cluster scan at B=4096 (the served bulk tier), the
     GRU backward at B=384 and the LSTM's at B=256 (the train bench's
-    target and source towers), as the H=128 rows measure them. The
-    forward rows carry the scan's tile and cuDNN's LSTM at the same shape;
-    the LSTM's at H=256 is logged against cuDNN's, CUDA events against
-    events and device time against device time (call_device_ms)."""
+    target and source towers; at B=4096 too, the backwards' ``at_4096``
+    and ``at_384_4096``), as the H=128 rows measure them. Each row carries
+    its cluster launch's tile (C, R, waves) and the LSTM's cuDNN's LSTM at
+    the same shape; the LSTM's at H=256 are logged against cuDNN's, CUDA
+    events against events and device time against device time
+    (call_device_ms)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     t0 = time.perf_counter()
     for H in WIDE_H:
@@ -5365,15 +5398,16 @@ def check_wide(card: str, results: dict) -> None:
                 "rnn_scan_cluster": wide_fwd(card, "lstm", H, 4096, gen),
                 "gru_bwd_cluster": wide_bwd(card, "gru", H, 384, gen),
                 "lstm_bwd_cluster": wide_bwd(card, "lstm", H, 256, gen)}
+        bulk = {"gru_bwd_cluster": wide_bwd(card, "gru", H, 4096, gen),
+                "lstm_bwd_cluster": wide_bwd(card, "lstm", H, 4096, gen)}
+        at = "" if H == WIDE_H[0] else f"_{H}"
         for name, row in rows.items():
             if H == WIDE_H[0]:
                 results[name].update(row)
             else:
-                results[name][f"at_{H}"] = {k: row[k] for k in (
-                    "ms", "device_ms", "plain_ms", "library_ms", "max_abs_err", "bound_ms",
-                    "bound_by", "B", "clusters", *(("tile", "cudnn_lstm_ms", "call_device_ms",
-                                                     "cudnn_lstm_device_ms") if "tile" in row
-                                                    else ()))}
+                results[name][f"at{at}"] = {k: row[k] for k in WIDE_KEYS if k in row}
+        for name, row in bulk.items():
+            results[name][f"at{at}_4096"] = {k: row[k] for k in WIDE_KEYS if k in row}
         torch.cuda.empty_cache()
     row = results["rnn_scan_cluster"]
     log(f"LSTM forward H=256 B=4096 T=50 against cuDNN's torch.nn.LSTM in this run: CUDA "
@@ -5382,6 +5416,14 @@ def check_wide(card: str, results: dict) -> None:
         f"profiler session, {row['call_device_ms']:.4f} / {row['cudnn_lstm_device_ms']:.4f} ms "
         f"({row['call_device_ms'] / row['cudnn_lstm_device_ms']:.2f}x; our scan + x-product "
         f"{row['device_ms']:.4f}) [{card}]")
+    bwd = results["lstm_bwd_cluster"]
+    for label, row in (("B=256", bwd), ("B=4096", bwd["at_4096"])):
+        log(f"LSTM backward H=256 {label} T=50 against cuDNN's torch.nn.LSTM backward in this "
+            f"run: CUDA events {row['ms']:.4f} / {row['cudnn_lstm_ms']:.4f} ms "
+            f"({row['ms'] / row['cudnn_lstm_ms']:.2f}x); device, every kernel of a call in one "
+            f"profiler session, {row['call_device_ms']:.4f} / {row['cudnn_lstm_device_ms']:.4f} "
+            f"ms ({row['call_device_ms'] / row['cudnn_lstm_device_ms']:.2f}x; our kernels by "
+            f"name {row['device_ms']:.4f}) [{card}]")
     log(f"wide kernel checks: {time.perf_counter() - t0:.1f} s")
 
 
@@ -5390,7 +5432,7 @@ def wide_costs(card: str, Bs=(8, 256, 4096), Ts=(1, 2, 50)) -> None:
     H=128 (the fixed ones), from the kernels' torch.profiler device time
     at T=1, 2, 50 (slope_line): the scan of each cell (scan_layer over a
     precomputed ax) and each cell's dh loop (the backward's dh kernel
-    alone), full lengths, E=128."""
+    alone), full lengths, E=128, each cluster launch with its tile."""
     from sse_tpu_torch.ops import rnn
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
@@ -5410,13 +5452,17 @@ def wide_costs(card: str, Bs=(8, 256, 4096), Ts=(1, 2, 50)) -> None:
                     dfin = torch.randn((B, H), generator=gen, device="cuda")
                     dh[T] = kernel_ms(lambda: rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin,
                                                                 cs, cell), f"{cell}_bwd_dh_")
-                where = f"{plan.scan_cluster} blocks"
+                where, dh_where = f"{plan.scan_cluster} blocks", f"{plan.dh_cluster} blocks"
                 if plan.scan_cluster > 1:
                     t = scan_tile_reading(cell, H, B, plan)
                     where = (f"{t['C']} blocks x {t['R']} rows, {t['waves']} waves of "
                              f"{t['active']}")
+                if plan.dh_cluster > 1:
+                    t = dh_tile_reading(cell, H, B, plan)
+                    dh_where = (f"{t['C']} blocks x {t['R']} rows, {t['waves']} waves of "
+                                f"{t['active']}")
                 log(slope_line(f"{cell} scan H={H} ({where}) B={B}", scan)
-                    + "; " + slope_line(f"dh loop ({plan.dh_cluster} blocks)", dh) + f" [{card}]")
+                    + "; " + slope_line(f"dh loop ({dh_where})", dh) + f" [{card}]")
 
 
 class OnTheKernels:

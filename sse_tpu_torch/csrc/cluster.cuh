@@ -3,7 +3,8 @@
 // split the hidden units, each holds the weight rows of its own units in
 // its shared memory, and each step every block writes its slice of the
 // step's operand into every block's shared memory (distributed shared
-// memory), then the cluster meets at one barrier.
+// memory), then the cluster meets at one barrier (the scan) or each block
+// waits for its bytes on an mbarrier (the dh loops, dh_cluster.cuh).
 #pragma once
 
 #include <map>
@@ -37,6 +38,43 @@ __device__ __forceinline__ void cluster_sync() {
   cluster_wait();
 }
 
+// 16 bytes `v` to the offset of this block's shared memory at `p` in the
+// shared memory of block `rank` of the cluster (every block has the same
+// layout), as st.async: the store completes on the mbarrier at `bar`'s
+// offset in block `rank` (its transaction count drops by 16), which gives
+// the store release semantics at cluster scope; the sender does not wait.
+__device__ __forceinline__ void put_async_to_rank(const void* p, const uint4& v,
+                                                  const uint64_t* bar, int rank) {
+  uint32_t remote, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(rbar)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(remote),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(rbar)
+      : "memory");
+}
+// Wait for the completion of the phase of parity `parity` of this block's
+// mbarrier `bar`, acquiring at cluster scope what other blocks' st.async
+// released on it (mbar_wait's trap after 2^24 polls: a broken protocol
+// fails the launch instead of hanging the card).
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 // 16 bytes from this block's shared memory at `p` to the same offset in
 // the shared memory of block `rank` of the cluster (every block has the
 // same layout).

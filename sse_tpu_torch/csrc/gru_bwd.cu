@@ -56,10 +56,11 @@
 //
 // Widths: H=128 holds Wh in registers; other H up to 176 take a generic
 // instance with Wh in shared memory; wider layers (Wh at H=256 is 405,504
-// B) take the cluster instance, gru_bwd_dh_cluster_kernel, which splits
-// Wh's rows over C <= 8 blocks. The wrapper's plan (ops/rnn.py
-// layer_plan) picks the instance and C.
-#include "cluster.cuh"
+// B) take the cluster instance, gru_bwd_dh_cluster_kernel<THREADS>
+// (dh_cluster.cuh), which splits Wh's rows over C <= 8 blocks, a cluster
+// carrying R batch rows. The wrapper's plan (ops/rnn.py layer_plan) picks
+// the instance and C, the launch R.
+#include "dh_cluster.cuh"
 #include "products.cuh"
 
 namespace {
@@ -327,7 +328,8 @@ cudaError_t launch_dh(const float* gates, const __nv_bfloat16* ys, const float* 
                       __nv_bfloat16* dgb, float* db_part, int T, int B, int H, cudaStream_t st) {
   const int smem = dh_smem(H);
   auto* kernel = gru_bwd_dh_kernel<KH>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // once a (kernel, card), at the opt-in most: the bytes vary with H
+  const cudaError_t err = sse::allow_smem((const void*)kernel, sse::dh::kSmemMost);
   if (err != cudaSuccess) return err;
   kernel<<<cdiv(B, BN), 32 * (H / WH), smem, st>>>(gates, ys, mask, wh, dys, dfin, dgb, db_part,
                                                    T, B, H);
@@ -335,239 +337,69 @@ cudaError_t launch_dh(const float* gates, const __nv_bfloat16* ys, const float* 
 }
 
 // ---------------------------------------------------------------- clusters
-// The dh loop split over a cluster of C blocks, for widths whose Wh
-// [H, 3H] outgrows one SM. The cluster owns one tile of 8 batch rows;
-// block r owns units [r·H/C, (r+1)·H/C) and holds their Wh rows [H/C,
-// 3H] in shared memory. Each step, each warp
-//   1. runs the cell backward for its 16 units from its own gates, dys_t,
-//      h_{t-1} and the mask (its units' columns only, staged by cp.async
-//      DH_CL_STAGES steps ahead), as the generic instance does;
-//   2. writes its dgates_b columns {g·H + its units} into its own block's
-//      current dgates_b tile [8][3H], then copies them (3 x 16 pieces of
-//      16 bytes) into the same tile of every other block of the cluster;
-//   3. meets the cluster at one barrier, after which every block holds
-//      the step's whole dgates_b tile;
-//   4. computes dh = base + Wh·dgates_bᵀ for its units over all 3H
-//      columns, in the generic instance's k order (C=2 gives C=1's bits).
-// One barrier a step suffices because the dgates_b tile is
-// double-buffered (the argument of rnn_scan.cu's cluster instance). The
-// db partials of a block cover its own columns of its tile's row of
-// db_part, so the fixed-order reduce is unchanged.
-constexpr int DH_CL_STAGES = 2;
-constexpr int DH_CL_THREADS = 256;  // 128 units a block at most
+// The dh loop on clusters of C blocks carrying R rows each
+// (dh_cluster.cuh: the tile, the exchange, the barriers and the
+// product); here the GRU's cell, the same values as gru_bwd_dh_kernel's
+// bit for bit. Factors: σ(z), σ(r), n_pre, dys_t, h_{t-1}, n =
+// tanh(r·n_pre).
+struct GruCell {
+  static constexpr int G = 3;
 
-struct DhClusterLayout {
-  int hc, ldw, ldg, ldv, wh, dg, st, g, dy, hp, m, stage, total;
+  __device__ __forceinline__ static void prepare(const float (&g)[3][4],
+                                                 const unsigned short (&v)[2][4],
+                                                 float (&f)[6][4]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      f[0][c] = expf(-g[0][c]);
+      f[1][c] = expf(-g[1][c]);
+      f[2][c] = g[2][c];
+      f[3][c] = sse::dh::bf16_bits(v[0][c]);
+      f[4][c] = sse::dh::bf16_bits(v[1][c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      f[0][c] = sse::sigmoid_exp(f[0][c]);
+      f[1][c] = sse::sigmoid_exp(f[1][c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) f[5][c] = tanhf(f[2][c] * f[1][c]);
+  }
+
+  __device__ __forceinline__ static void step(const float (&f)[6][4], const float (&m)[2],
+                                              float (&dh)[4], float (&)[4], float (&dg)[3][4],
+                                              float (&db)[3][2], float (&base)[4]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float mc = m[c & 1];
+      const float dh_t = dh[c] + f[3][c];
+      const float g = mc * dh_t;
+      const float zc = f[0][c], rc = f[1][c], nc = f[5][c];
+      const float dnn = g * (1.f - zc);
+      const float dtanh = dnn * (1.f - nc * nc);
+      dg[0][c] = g * (f[4][c] - nc) * zc * (1.f - zc);
+      dg[1][c] = dtanh * f[2][c] * rc * (1.f - rc);
+      dg[2][c] = dtanh * rc;
+      base[c] = (1.f - mc) * dh_t + g * zc;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) db[k][c >> 1] += dg[k][c];
+    }
+  }
 };
 
-__host__ __device__ inline DhClusterLayout dh_cluster_layout(int H, int C) {
-  DhClusterLayout L;
-  L.hc = H / C;
-  L.ldw = 3 * H + KPAD;
-  L.ldg = 3 * L.hc + GPAD;
-  L.ldv = L.hc + KPAD;
-  L.wh = 0;
-  L.dg = L.wh + L.hc * L.ldw * 2;
-  L.st = L.dg + 2 * BN * L.ldw * 2;
-  L.g = 0;  // offsets inside a stage
-  L.dy = L.g + BN * L.ldg * 4;
-  L.hp = L.dy + BN * L.ldv * 2;
-  L.m = L.hp + BN * L.ldv * 2;
-  L.stage = L.m + (L.hc / WH) * BN * 4;
-  L.total = L.st + DH_CL_STAGES * L.stage;
-  return L;
-}
-
-__global__ void __launch_bounds__(DH_CL_THREADS, 1)
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, 1)
 gru_bwd_dh_cluster_kernel(const float* __restrict__ gates, const __nv_bfloat16* __restrict__ ys,
                           const float* __restrict__ mask, const __nv_bfloat16* __restrict__ wh,
                           const __nv_bfloat16* __restrict__ dys, const float* __restrict__ dfin,
                           __nv_bfloat16* __restrict__ dgb, float* __restrict__ db_part, int T,
-                          int B, int H, int C) {
-  const int N = 3 * H;
-  const DhClusterLayout L = dh_cluster_layout(H, C);
-  const int HC = L.hc;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* whs = reinterpret_cast<__nv_bfloat16*>(smem + L.wh);  // this block's Wh rows
-  __nv_bfloat16* dgs = reinterpret_cast<__nv_bfloat16*>(smem + L.dg);
-  const int rank = sse::cluster_rank();
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int tile = blockIdx.x / C, row0 = tile * BN;
-  const int v0 = rank * HC;        // this block's first unit
-  const int col0 = warp * WH;      // this warp's first unit, local
-  const int ul = col0 + grp;       // this thread's units, local: ul and ul + 8
-  const int u0 = v0 + ul;          // ... and in the layer
-
-  // The copies of one step, as in gru_bwd_dh_kernel, at this block's
-  // columns: three 16-byte pieces a lane of the warp's fp32 z, r, n_pre;
-  // one piece of dys_t (lanes < 16) or h_{t-1} (the others); the mask.
-  constexpr int GP = BN * 12 / 32;
-  int g_s[GP], g_g[GP];
-  unsigned g_ok = 0;
-#pragma unroll
-  for (int j = 0; j < GP; ++j) {
-    const int q = lane + 32 * j, r = q / 12, rem = q - 12 * r;
-    const int g = rem >> 2, piece = (rem & 3) * 4;
-    g_s[j] = r * L.ldg + g * HC + col0 + piece;
-    g_g[j] = (row0 + r) * N + g * H + v0 + col0 + piece;
-    g_ok |= (row0 + r < B ? 1u : 0u) << j;
-  }
-  const bool is_hp = lane >= 16;
-  const int v_r = (lane & 15) >> 1, v_col = col0 + (lane & 1) * 8;
-  const int v_s = (is_hp ? L.hp : L.dy) / 2 + v_r * L.ldv + v_col;
-  const int v_g = (row0 + v_r) * H + v0 + v_col;
-  const bool v_ok = row0 + v_r < B, m_ok = lane < BN && row0 + lane < B;
-  auto fetch = [&](int i) {
-    const int s = T - 1 - i;
-    if (s >= 0) {
-      unsigned char* st = smem + L.st + (i % DH_CL_STAGES) * L.stage;
-      float* sg = reinterpret_cast<float*>(st + L.g);
-      const float* gs = gates + (size_t)s * B * N;
-#pragma unroll
-      for (int j = 0; j < GP; ++j) {
-        const bool v = (g_ok >> j) & 1u;
-        sse::cp_async16(sg + g_s[j], gs + (v ? g_g[j] : 0), v);
-      }
-      const __nv_bfloat16* src = is_hp ? ys + (size_t)(s > 0 ? s - 1 : 0) * B * H
-                                       : dys + (size_t)s * B * H;
-      sse::cp_async16(reinterpret_cast<__nv_bfloat16*>(st) + v_s, src + (v_ok ? v_g : 0),
-                      v_ok && (!is_hp || s > 0));
-      if (lane < BN)
-        sse::cp_async4(reinterpret_cast<float*>(st + L.m) + warp * BN + lane,
-                       mask + (size_t)s * B + (m_ok ? row0 + lane : 0), m_ok);
-    }
-    sse::cp_async_commit();
-  };
-
-  // this block's Wh rows, with the first stage's copies
-  for (int i = tid; i < HC * (N / 8); i += blockDim.x) {
-    const int j = i / (N / 8), c = (i - j * (N / 8)) * 8;
-    sse::cp_async16(whs + j * L.ldw + c, wh + (size_t)(v0 + j) * N + c, true);
-  }
-#pragma unroll
-  for (int i = 0; i < DH_CL_STAGES; ++i) fetch(i);
-
-  float dh[4], dbs[3][2] = {};
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int r = row0 + 2 * tig + (c & 1);
-    dh[c] = r < B ? dfin[(size_t)r * H + u0 + 8 * (c >> 1)] : 0.f;
-  }
-
-  // step i's inputs from its stage and the nonlinearities that need no dh
-  float z[4], rg[4], n[4], npre[4], dyv[4], hprev[4], m[2];
-  auto prepare = [&](int i) {
-    sse::cp_async_wait<DH_CL_STAGES - 1>();
-    __syncwarp();
-    const unsigned char* st = smem + L.st + (i % DH_CL_STAGES) * L.stage;
-    const float* sg = reinterpret_cast<const float*>(st + L.g);
-    const __nv_bfloat16* sdy = reinterpret_cast<const __nv_bfloat16*>(st + L.dy);
-    const __nv_bfloat16* shp = reinterpret_cast<const __nv_bfloat16*>(st + L.hp);
-    const float* sm = reinterpret_cast<const float*>(st + L.m) + warp * BN;
-    m[0] = sm[2 * tig];
-    m[1] = sm[2 * tig + 1];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int r = 2 * tig + (c & 1), u = ul + 8 * (c >> 1);
-      z[c] = expf(-sg[r * L.ldg + u]);
-      rg[c] = expf(-sg[r * L.ldg + HC + u]);
-      npre[c] = sg[r * L.ldg + 2 * HC + u];
-      dyv[c] = __bfloat162float(sdy[r * L.ldv + u]);
-      hprev[c] = __bfloat162float(shp[r * L.ldv + u]);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      z[c] = sse::sigmoid_exp(z[c]);
-      rg[c] = sse::sigmoid_exp(rg[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) n[c] = tanhf(npre[c] * rg[c]);
-  };
-
-  prepare(0);
-  sse::cluster_sync();  // every block running, and this block's Wh rows in place
-  int cur = 0;
-  for (int it = 0; it < T; ++it) {
-    const int t = T - 1 - it;
-    __nv_bfloat16* dg = dgs + cur * BN * L.ldw;
-    float base[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float mc = m[c & 1];
-      const float dh_t = dh[c] + dyv[c];
-      const float g = mc * dh_t;
-      const float zc = z[c], rc = rg[c], nc = n[c];
-      const float dnn = g * (1.f - zc);
-      const float dz = g * (hprev[c] - nc) * zc * (1.f - zc);
-      const float dtanh = dnn * (1.f - nc * nc);
-      const float dn = dtanh * rc;
-      const float dr = dtanh * npre[c] * rc * (1.f - rc);
-      base[c] = (1.f - mc) * dh_t + g * zc;
-      dbs[0][c >> 1] += dz;
-      dbs[1][c >> 1] += dr;
-      dbs[2][c >> 1] += dn;
-      __nv_bfloat16* ds = dg + (2 * tig + (c & 1)) * L.ldw + u0 + 8 * (c >> 1);
-      ds[0] = __float2bfloat16(dz);
-      ds[H] = __float2bfloat16(dr);
-      ds[2 * H] = __float2bfloat16(dn);
-    }
-    // the warp's dgates_b columns into every other block's tile
-    __syncwarp();
-    for (int p = lane; p < 48 * (C - 1); p += 32) {
-      const int piece = p % 48, other = p / 48, q = piece & 15;
-      sse::copy_to_rank(dg + (q >> 1) * L.ldw + (piece >> 4) * H + v0 + col0 + (q & 1) * 8,
-                        other + (other >= rank));
-    }
-    sse::cluster_sync();  // the whole dgates_b tile of step t, in every block
-
-    float acc[3][4] = {};
-    for (int g = 0; g < 3; ++g)
-      for (int kq = 0; kq < H / 16; ++kq) {
-        const int k = g * H + 16 * kq;
-        const __nv_bfloat16* p = dg + grp * L.ldw + k + 2 * tig;
-        uint32_t f[4];
-        sse::frag_a(f, whs + ul * L.ldw + k + 2 * tig, L.ldw);
-        sse::mma_bf16(acc[g], f, sse::ld32(p), sse::ld32(p + 8));
-      }
-    // while they run: refill the stage just read, store this block's
-    // dgates_b columns of step t, prepare the next step
-    fetch(it + DH_CL_STAGES);
-    for (int q = tid; q < BN * 3 * (HC / 8); q += blockDim.x) {
-      const int r = q / (3 * (HC / 8)), rem = q - r * 3 * (HC / 8);
-      const int c = (rem / (HC / 8)) * H + v0 + (rem % (HC / 8)) * 8;
-      if (row0 + r < B)
-        *reinterpret_cast<uint4*>(dgb + ((size_t)t * B + row0 + r) * N + c) =
-            *reinterpret_cast<const uint4*>(dg + r * L.ldw + c);
-    }
-    if (it + 1 < T) prepare(it + 1);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dh[c] = base[c] + ((acc[0][c] + acc[1][c]) + acc[2][c]);
-    cur ^= 1;  // the other dgates_b tile
-  }
-
-  // this block's columns of its tile's db partial (the same shuffle tree)
-#pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float v = dbs[g][j];
-      v += __shfl_xor_sync(sse::kFull, v, 1);
-      v += __shfl_xor_sync(sse::kFull, v, 2);
-      if (tig == 0) db_part[(size_t)tile * N + g * H + u0 + 8 * j] = v;
-    }
+                          int B, int H, int C, int R) {
+  sse::dh::cluster_loop<GruCell>(gates, ys, mask, wh, dys, dfin, dgb, db_part, T, B, H, C, R);
 }
 
-cudaError_t launch_dh_cluster(const float* gates, const __nv_bfloat16* ys, const float* mask,
-                              const __nv_bfloat16* wh, const __nv_bfloat16* dys,
-                              const float* dfin, __nv_bfloat16* dgb, float* db_part, int T, int B,
-                              int H, int C, cudaStream_t st) {
-  if (C < 2 || C > sse::kMaxCluster || H % (WH * C) || H / C > DH_CL_THREADS / 2)
-    return cudaErrorInvalidValue;
-  return sse::launch_cluster(gru_bwd_dh_cluster_kernel, C * cdiv(B, BN), 2 * (H / C),
-                             dh_cluster_layout(H, C).total, C, st, gates, ys, mask, wh, dys, dfin,
-                             dgb, db_part, T, B, H, C);
-}
+template <int THREADS>
+struct GruDh {
+  static auto kernel() { return &gru_bwd_dh_cluster_kernel<THREADS>; }
+};
 
 }  // namespace
 
@@ -575,9 +407,25 @@ cudaError_t launch_dh_cluster(const float* gates, const __nv_bfloat16* ys, const
 // 232,448-byte opt-in limit before launching.
 extern "C" int sse_gru_bwd_smem_bytes(int H) { return dh_smem(H); }
 
-// The same for a block of the cluster instance on C blocks.
+// The same for a block of the cluster instance on C blocks: with tiles of
+// kPlanRows rows (the plan's test of a width), and with tiles of R rows;
+// its threads for R rows (0: more than a block takes); and how many
+// clusters of the tile the current card holds at once
+// (cudaOccupancyMaxActiveClusters, kept after the first question; a
+// negative cudaError_t where the tile cannot run or the question fails).
 extern "C" int sse_gru_bwd_cluster_smem_bytes(int H, int C) {
-  return dh_cluster_layout(H, C).total;
+  return sse::dh::layout(3, H, C, sse::dh::kPlanRows).total;
+}
+extern "C" int sse_gru_bwd_cluster_rows_smem_bytes(int H, int C, int R) {
+  return sse::dh::layout(3, H, C, R).total;
+}
+extern "C" int sse_gru_bwd_cluster_threads(int H, int C, int R) {
+  return sse::dh::threads(H, C, R);
+}
+extern "C" int sse_gru_bwd_cluster_active(int H, int C, int R) {
+  int n = 0;
+  const cudaError_t err = sse::dh::active<3, GruDh>(H, C, R, &n);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // Rows of the batch one dh block owns (the db partials come one per block).
@@ -588,16 +436,18 @@ extern "C" int sse_gru_bwd_block_rows() { return BN; }
 // wt = [Wx;Wh]ᵀ [3H,E+H] bf16. Scratch from the wrapper: gates [T·B,3H]
 // fp32, dgb [T·B,3H] bf16, db_part [ceil(B/8),3H] and w_part
 // [splits,E+H,3H] fp32. Out: dxs [T,B,E] bf16, dw [E+H,3H] (dWx over
-// dWh) and db [3H] fp32. The dh loop runs on clusters of C blocks (1: one
-// block a tile). T, B >= 1; E a multiple of 16, H of 16·C.
+// dWh) and db [3H] fp32. The dh loop runs on clusters of C blocks carrying
+// R rows each (C = 1: one block a tile, R unused). T, B >= 1; E a
+// multiple of 16, H of 16·C.
 extern "C" int sse_gru_bwd(const void* xs, const void* ys, const void* mask,
                            const void* wt, const void* wx, const void* wh,
                            const void* bias, const void* dys, const void* dfin,
                            void* gates, void* dgb, void* db_part, void* w_part,
                            void* dxs, void* dw, void* db, int T, int B, int E, int H,
-                           int splits, int C, void* stream) {
+                           int splits, int C, int R, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int N = 3 * H;
+  if (C > 1 && !sse::dh::takes(3, H, C, R)) return (int)cudaErrorInvalidValue;
   const auto* xs_b = static_cast<const __nv_bfloat16*>(xs);
   const auto* ys_b = static_cast<const __nv_bfloat16*>(ys);
   const sse::XH xh = {xs_b, ys_b, T * B, E, H, B};  // [xs ; h_prev] over T·B rows
@@ -616,8 +466,8 @@ extern "C" int sse_gru_bwd(const void* xs, const void* ys, const void* mask,
   const auto* dfin_f = static_cast<const float*>(dfin);
   auto* dgb_b = static_cast<__nv_bfloat16*>(dgb);
   auto* dbp_f = static_cast<float*>(db_part);
-  err = C > 1      ? launch_dh_cluster(g_f, ys_b, m_f, wh_b, dys_b, dfin_f, dgb_b, dbp_f, T, B, H,
-                                       C, st)
+  err = C > 1      ? sse::dh::launch<3, GruDh>(B, H, C, R, st, g_f, ys_b, m_f, wh_b, dys_b, dfin_f,
+                                                dgb_b, dbp_f, T, B, H, C, R)
         : H == 128 ? launch_dh<128>(g_f, ys_b, m_f, wh_b, dys_b, dfin_f, dgb_b, dbp_f, T, B, H, st)
                    : launch_dh<0>(g_f, ys_b, m_f, wh_b, dys_b, dfin_f, dgb_b, dbp_f, T, B, H, st);
   if (err != cudaSuccess) return (int)err;

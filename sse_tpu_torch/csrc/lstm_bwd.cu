@@ -42,11 +42,12 @@
 //     stores while the product runs.
 // Other widths take a generic instance: Wh in shared memory, one input
 // stage (H <= 144, what shared memory allows), and wider ones the cluster
-// instance, lstm_bwd_dh_cluster_kernel (Wh's rows split over C <= 8
-// blocks; the plan in ops/rnn.py layer_plan picks the instance and C).
+// instance, lstm_bwd_dh_cluster_kernel<THREADS> (dh_cluster.cuh: Wh's rows
+// split over C <= 8 blocks, a cluster carrying R batch rows; the plan in
+// ops/rnn.py layer_plan picks the instance and C, the launch R).
 // The products are ~4/3 of the GRU's FLOPs on the same engine
 // (products.cu); the gates buffer costs 2·T·B·4H·4 bytes of traffic.
-#include "cluster.cuh"
+#include "dh_cluster.cuh"
 #include "products.cuh"
 
 namespace {
@@ -303,7 +304,8 @@ cudaError_t launch_dh(const float* gates, const __nv_bfloat16* cs, const float* 
                       __nv_bfloat16* dgb, float* db_part, int T, int B, int H, cudaStream_t st) {
   const int smem = dh_smem(H);
   auto* kernel = lstm_bwd_dh_kernel<KH>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // once a (kernel, card), at the opt-in most: the bytes vary with H
+  const cudaError_t err = sse::allow_smem((const void*)kernel, sse::dh::kSmemMost);
   if (err != cudaSuccess) return err;
   kernel<<<cdiv(B, BN), 32 * (H / WH), smem, st>>>(gates, cs, mask, wh, dys, dfin, dgb, db_part,
                                                    T, B, H);
@@ -311,230 +313,74 @@ cudaError_t launch_dh(const float* gates, const __nv_bfloat16* cs, const float* 
 }
 
 // ---------------------------------------------------------------- clusters
-// The dh/dc loop split over a cluster of C blocks, as gru_bwd.cu's
-// gru_bwd_dh_cluster_kernel (see there for the exchange and why one
-// barrier a step suffices): block r holds the Wh rows [H/C, 4H] of its
-// units and carries their dh and dc; each step it writes its dgates_b
-// columns {g·H + its units} into every block's double-buffered [8][4H]
-// tile, the cluster meets at one barrier, and each block computes dh for
-// its units over all 4H columns in the generic instance's k order. At
-// H=384, C=8 a block holds 148,224 B of Wh rows and 49,408 B of dgates_b
-// tiles.
-constexpr int DH_CL_STAGES = 2;
-constexpr int DH_CL_THREADS = 256;  // 128 units a block at most
+// The dh/dc loop on clusters of C blocks carrying R rows each
+// (dh_cluster.cuh: the tile, the exchange, the barriers and the
+// product); here the LSTM's cell, the same values as lstm_bwd_dh_kernel's
+// bit for bit. Factors: σ(i), σ(f+1), tanh(g̃), σ(o), dys_t, c_{t-1},
+// tanh(c_new).
+struct LstmCell {
+  static constexpr int G = 4;
 
-struct DhClusterLayout {
-  int hc, ldw, ldg, ldv, wh, dg, st, g, dy, cp, m, stage, total;
+  __device__ __forceinline__ static void prepare(const float (&g)[4][4],
+                                                 const unsigned short (&v)[2][4],
+                                                 float (&f)[7][4]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      f[0][c] = expf(-g[0][c]);
+      f[1][c] = expf(-(g[1][c] + 1.f));
+      f[2][c] = g[2][c];
+      f[3][c] = expf(-g[3][c]);
+      f[4][c] = sse::dh::bf16_bits(v[0][c]);
+      f[5][c] = sse::dh::bf16_bits(v[1][c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      f[0][c] = sse::sigmoid_exp(f[0][c]);
+      f[1][c] = sse::sigmoid_exp(f[1][c]);
+      f[3][c] = sse::sigmoid_exp(f[3][c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) f[2][c] = tanhf(f[2][c]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) f[6][c] = tanhf(f[1][c] * f[5][c] + f[0][c] * f[2][c]);
+  }
+
+  __device__ __forceinline__ static void step(const float (&f)[7][4], const float (&m)[2],
+                                              float (&dh)[4], float (&dc)[4], float (&dg)[4][4],
+                                              float (&db)[4][2], float (&base)[4]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float si = f[0][c], sf = f[1][c], tg = f[2][c], so = f[3][c], tc = f[6][c];
+      const float mc = m[c & 1];
+      const float dh_t = dh[c] + f[4][c];
+      const float g = mc * dh_t;
+      const float dcn = mc * dc[c] + g * so * (1.f - tc * tc);
+      dg[3][c] = g * tc * so * (1.f - so);
+      dg[1][c] = dcn * f[5][c] * sf * (1.f - sf);
+      dg[0][c] = dcn * tg * si * (1.f - si);
+      dg[2][c] = dcn * si * (1.f - tg * tg);
+      base[c] = (1.f - mc) * dh_t;
+      dc[c] = (1.f - mc) * dc[c] + dcn * sf;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) db[k][c >> 1] += dg[k][c];
+    }
+  }
 };
 
-__host__ __device__ inline DhClusterLayout dh_cluster_layout(int H, int C) {
-  DhClusterLayout L;
-  L.hc = H / C;
-  L.ldw = 4 * H + KPAD;
-  L.ldg = 4 * L.hc + GPAD;
-  L.ldv = L.hc + KPAD;
-  L.wh = 0;
-  L.dg = L.wh + L.hc * L.ldw * 2;
-  L.st = L.dg + 2 * BN * L.ldw * 2;
-  L.g = 0;  // offsets inside a stage
-  L.dy = L.g + BN * L.ldg * 4;
-  L.cp = L.dy + BN * L.ldv * 2;
-  L.m = L.cp + BN * L.ldv * 2;
-  L.stage = L.m + (L.hc / WH) * BN * 4;
-  L.total = L.st + DH_CL_STAGES * L.stage;
-  return L;
-}
-
-__global__ void __launch_bounds__(DH_CL_THREADS, 1)
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, 1)
 lstm_bwd_dh_cluster_kernel(const float* __restrict__ gates, const __nv_bfloat16* __restrict__ cs,
                            const float* __restrict__ mask, const __nv_bfloat16* __restrict__ wh,
                            const __nv_bfloat16* __restrict__ dys, const float* __restrict__ dfin,
                            __nv_bfloat16* __restrict__ dgb, float* __restrict__ db_part, int T,
-                           int B, int H, int C) {
-  const int N = 4 * H;
-  const DhClusterLayout L = dh_cluster_layout(H, C);
-  const int HC = L.hc;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* whs = reinterpret_cast<__nv_bfloat16*>(smem + L.wh);  // this block's Wh rows
-  __nv_bfloat16* dgs = reinterpret_cast<__nv_bfloat16*>(smem + L.dg);
-  const int rank = sse::cluster_rank();
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int tile = blockIdx.x / C, row0 = tile * BN;
-  const int v0 = rank * HC;        // this block's first unit
-  const int col0 = warp * WH;      // this warp's first unit, local
-  const int ul = col0 + grp;       // this thread's units, local: ul and ul + 8
-  const int u0 = v0 + ul;          // ... and in the layer
-
-  // The copies of one step, as in lstm_bwd_dh_kernel, at this block's
-  // columns: four 16-byte pieces a lane of the warp's fp32 i, f, g, o;
-  // one piece of dys_t (lanes < 16) or c_{t-1} = cs[t-1]; the mask.
-  const bool is_cp = lane >= 16;
-  const int v_r = (lane & 15) >> 1, v_col = col0 + (lane & 1) * 8;
-  const int v_s = (is_cp ? L.cp : L.dy) / 2 + v_r * L.ldv + v_col;
-  const bool v_ok = row0 + v_r < B, m_ok = lane < BN && row0 + lane < B;
-  auto fetch = [&](int i) {
-    const int s = T - 1 - i;
-    if (s >= 0) {
-      unsigned char* st = smem + L.st + (i % DH_CL_STAGES) * L.stage;
-      float* sg = reinterpret_cast<float*>(st + L.g);
-      const float* gs = gates + (size_t)s * B * N;
-#pragma unroll
-      for (int j = 0; j < BN * 16 / 32; ++j) {
-        const int q = lane + 32 * j, r = q >> 4, rem = q & 15;
-        const int g = rem >> 2, piece = (rem & 3) * 4;
-        const bool v = row0 + r < B;
-        sse::cp_async16(sg + r * L.ldg + g * HC + col0 + piece,
-                        gs + (v ? (size_t)(row0 + r) * N + g * H + v0 + col0 + piece : 0), v);
-      }
-      const __nv_bfloat16* src = is_cp ? cs + (size_t)(s > 0 ? s - 1 : 0) * B * H
-                                       : dys + (size_t)s * B * H;
-      sse::cp_async16(reinterpret_cast<__nv_bfloat16*>(st) + v_s,
-                      src + (v_ok ? (size_t)(row0 + v_r) * H + v0 + v_col : 0),
-                      v_ok && (!is_cp || s > 0));
-      if (lane < BN)
-        sse::cp_async4(reinterpret_cast<float*>(st + L.m) + warp * BN + lane,
-                       mask + (size_t)s * B + (m_ok ? row0 + lane : 0), m_ok);
-    }
-    sse::cp_async_commit();
-  };
-
-  // this block's Wh rows, with the first stage's copies
-  for (int i = tid; i < HC * (N / 8); i += blockDim.x) {
-    const int j = i / (N / 8), c = (i - j * (N / 8)) * 8;
-    sse::cp_async16(whs + j * L.ldw + c, wh + (size_t)(v0 + j) * N + c, true);
-  }
-#pragma unroll
-  for (int i = 0; i < DH_CL_STAGES; ++i) fetch(i);
-
-  float dh[4], dc[4] = {}, dbs[4][2] = {};
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int r = row0 + 2 * tig + (c & 1);
-    dh[c] = r < B ? dfin[(size_t)r * H + u0 + 8 * (c >> 1)] : 0.f;
-  }
-
-  // step i's inputs from its stage and the factors that need no dh
-  float si[4], sf[4], tg[4], so[4], tc[4], cprev[4], dyv[4], m[2];
-  auto prepare = [&](int i) {
-    sse::cp_async_wait<DH_CL_STAGES - 1>();
-    __syncwarp();
-    const unsigned char* st = smem + L.st + (i % DH_CL_STAGES) * L.stage;
-    const float* sg = reinterpret_cast<const float*>(st + L.g);
-    const __nv_bfloat16* sdy = reinterpret_cast<const __nv_bfloat16*>(st + L.dy);
-    const __nv_bfloat16* scp = reinterpret_cast<const __nv_bfloat16*>(st + L.cp);
-    const float* sm = reinterpret_cast<const float*>(st + L.m) + warp * BN;
-    m[0] = sm[2 * tig];
-    m[1] = sm[2 * tig + 1];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int r = 2 * tig + (c & 1), u = ul + 8 * (c >> 1);
-      const float* gr = sg + r * L.ldg + u;
-      si[c] = expf(-gr[0]);
-      sf[c] = expf(-(gr[HC] + 1.f));
-      tg[c] = gr[2 * HC];
-      so[c] = expf(-gr[3 * HC]);
-      dyv[c] = __bfloat162float(sdy[r * L.ldv + u]);
-      cprev[c] = __bfloat162float(scp[r * L.ldv + u]);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      si[c] = sse::sigmoid_exp(si[c]);
-      sf[c] = sse::sigmoid_exp(sf[c]);
-      so[c] = sse::sigmoid_exp(so[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) tg[c] = tanhf(tg[c]);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) tc[c] = tanhf(sf[c] * cprev[c] + si[c] * tg[c]);
-  };
-
-  prepare(0);
-  sse::cluster_sync();  // every block running, and this block's Wh rows in place
-  int cur = 0;
-  for (int it = 0; it < T; ++it) {
-    const int t = T - 1 - it;
-    __nv_bfloat16* dg = dgs + cur * BN * L.ldw;
-    float base[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float mc = m[c & 1];
-      const float dh_t = dh[c] + dyv[c];
-      const float g = mc * dh_t;
-      const float dcn = mc * dc[c] + g * so[c] * (1.f - tc[c] * tc[c]);
-      const float d_o = g * tc[c] * so[c] * (1.f - so[c]);
-      const float d_f = dcn * cprev[c] * sf[c] * (1.f - sf[c]);
-      const float d_i = dcn * tg[c] * si[c] * (1.f - si[c]);
-      const float d_g = dcn * si[c] * (1.f - tg[c] * tg[c]);
-      base[c] = (1.f - mc) * dh_t;
-      dc[c] = (1.f - mc) * dc[c] + dcn * sf[c];
-      dbs[0][c >> 1] += d_i;
-      dbs[1][c >> 1] += d_f;
-      dbs[2][c >> 1] += d_g;
-      dbs[3][c >> 1] += d_o;
-      __nv_bfloat16* ds = dg + (2 * tig + (c & 1)) * L.ldw + u0 + 8 * (c >> 1);
-      ds[0] = __float2bfloat16(d_i);
-      ds[H] = __float2bfloat16(d_f);
-      ds[2 * H] = __float2bfloat16(d_g);
-      ds[3 * H] = __float2bfloat16(d_o);
-    }
-    // the warp's dgates_b columns into every other block's tile
-    __syncwarp();
-    for (int p = lane; p < 64 * (C - 1); p += 32) {
-      const int piece = p & 63, other = p >> 6, q = piece & 15;
-      sse::copy_to_rank(dg + (q >> 1) * L.ldw + (piece >> 4) * H + v0 + col0 + (q & 1) * 8,
-                        other + (other >= rank));
-    }
-    sse::cluster_sync();  // the whole dgates_b tile of step t, in every block
-
-    float acc[4][4] = {};
-    for (int g = 0; g < 4; ++g)
-      for (int kq = 0; kq < H / 16; ++kq) {
-        const int k = g * H + 16 * kq;
-        const __nv_bfloat16* p = dg + grp * L.ldw + k + 2 * tig;
-        uint32_t f[4];
-        sse::frag_a(f, whs + ul * L.ldw + k + 2 * tig, L.ldw);
-        sse::mma_bf16(acc[g], f, sse::ld32(p), sse::ld32(p + 8));
-      }
-    // while they run: refill the stage just read, store this block's
-    // dgates_b columns of step t, prepare the next step
-    fetch(it + DH_CL_STAGES);
-    for (int q = tid; q < BN * 4 * (HC / 8); q += blockDim.x) {
-      const int r = q / (4 * (HC / 8)), rem = q - r * 4 * (HC / 8);
-      const int c = (rem / (HC / 8)) * H + v0 + (rem % (HC / 8)) * 8;
-      if (row0 + r < B)
-        *reinterpret_cast<uint4*>(dgb + ((size_t)t * B + row0 + r) * N + c) =
-            *reinterpret_cast<const uint4*>(dg + r * L.ldw + c);
-    }
-    if (it + 1 < T) prepare(it + 1);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      dh[c] = base[c] + (((acc[0][c] + acc[1][c]) + acc[2][c]) + acc[3][c]);
-    cur ^= 1;  // the other dgates_b tile
-  }
-
-  // this block's columns of its tile's db partial (the same shuffle tree)
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float v = dbs[g][j];
-      v += __shfl_xor_sync(sse::kFull, v, 1);
-      v += __shfl_xor_sync(sse::kFull, v, 2);
-      if (tig == 0) db_part[(size_t)tile * N + g * H + u0 + 8 * j] = v;
-    }
+                           int B, int H, int C, int R) {
+  sse::dh::cluster_loop<LstmCell>(gates, cs, mask, wh, dys, dfin, dgb, db_part, T, B, H, C, R);
 }
 
-cudaError_t launch_dh_cluster(const float* gates, const __nv_bfloat16* cs, const float* mask,
-                              const __nv_bfloat16* wh, const __nv_bfloat16* dys,
-                              const float* dfin, __nv_bfloat16* dgb, float* db_part, int T, int B,
-                              int H, int C, cudaStream_t st) {
-  if (C < 2 || C > sse::kMaxCluster || H % (WH * C) || H / C > DH_CL_THREADS / 2)
-    return cudaErrorInvalidValue;
-  return sse::launch_cluster(lstm_bwd_dh_cluster_kernel, C * cdiv(B, BN), 2 * (H / C),
-                             dh_cluster_layout(H, C).total, C, st, gates, cs, mask, wh, dys, dfin,
-                             dgb, db_part, T, B, H, C);
-}
+template <int THREADS>
+struct LstmDh {
+  static auto kernel() { return &lstm_bwd_dh_cluster_kernel<THREADS>; }
+};
 
 }  // namespace
 
@@ -542,9 +388,25 @@ cudaError_t launch_dh_cluster(const float* gates, const __nv_bfloat16* cs, const
 // 232,448-byte opt-in limit before launching (H > 144 among them).
 extern "C" int sse_lstm_bwd_smem_bytes(int H) { return dh_smem(H); }
 
-// The same for a block of the cluster instance on C blocks.
+// The same for a block of the cluster instance on C blocks: with tiles of
+// kPlanRows rows (the plan's test of a width), and with tiles of R rows;
+// its threads for R rows (0: more than a block takes); and how many
+// clusters of the tile the current card holds at once
+// (cudaOccupancyMaxActiveClusters, kept after the first question; a
+// negative cudaError_t where the tile cannot run or the question fails).
 extern "C" int sse_lstm_bwd_cluster_smem_bytes(int H, int C) {
-  return dh_cluster_layout(H, C).total;
+  return sse::dh::layout(4, H, C, sse::dh::kPlanRows).total;
+}
+extern "C" int sse_lstm_bwd_cluster_rows_smem_bytes(int H, int C, int R) {
+  return sse::dh::layout(4, H, C, R).total;
+}
+extern "C" int sse_lstm_bwd_cluster_threads(int H, int C, int R) {
+  return sse::dh::threads(H, C, R);
+}
+extern "C" int sse_lstm_bwd_cluster_active(int H, int C, int R) {
+  int n = 0;
+  const cudaError_t err = sse::dh::active<4, LstmDh>(H, C, R, &n);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // Rows of the batch one dh block owns (the db partials come one per block).
@@ -555,16 +417,18 @@ extern "C" int sse_lstm_bwd_block_rows() { return BN; }
 // wt = [Wx;Wh]ᵀ [4H,E+H] bf16. Scratch from the wrapper: gates [T·B,4H]
 // fp32, dgb [T·B,4H] bf16, db_part [ceil(B/8),4H] and w_part
 // [splits,E+H,4H] fp32. Out: dxs [T,B,E] bf16, dw [E+H,4H] (dWx over
-// dWh) and db [4H] fp32. The dh loop runs on clusters of C blocks (1: one
-// block a tile). T, B >= 1; E a multiple of 16, H of 16·C.
+// dWh) and db [4H] fp32. The dh loop runs on clusters of C blocks carrying
+// R rows each (C = 1: one block a tile, R unused). T, B >= 1; E a
+// multiple of 16, H of 16·C.
 extern "C" int sse_lstm_bwd(const void* xs, const void* ys, const void* cs, const void* mask,
                             const void* wt, const void* wx, const void* wh,
                             const void* bias, const void* dys, const void* dfin,
                             void* gates, void* dgb, void* db_part, void* w_part,
                             void* dxs, void* dw, void* db, int T, int B, int E, int H,
-                            int splits, int C, void* stream) {
+                            int splits, int C, int R, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int N = 4 * H;
+  if (C > 1 && !sse::dh::takes(4, H, C, R)) return (int)cudaErrorInvalidValue;
   const sse::XH xh = {static_cast<const __nv_bfloat16*>(xs), static_cast<const __nv_bfloat16*>(ys),
                       T * B, E, H, B};  // [xs ; h_prev] over T·B rows
   cudaError_t err;
@@ -583,8 +447,8 @@ extern "C" int sse_lstm_bwd(const void* xs, const void* ys, const void* cs, cons
   const auto* dfin_f = static_cast<const float*>(dfin);
   auto* dgb_b = static_cast<__nv_bfloat16*>(dgb);
   auto* dbp_f = static_cast<float*>(db_part);
-  err = C > 1      ? launch_dh_cluster(g_f, cs_b, m_f, wh_b, dys_b, dfin_f, dgb_b, dbp_f, T, B, H,
-                                       C, st)
+  err = C > 1      ? sse::dh::launch<4, LstmDh>(B, H, C, R, st, g_f, cs_b, m_f, wh_b, dys_b, dfin_f,
+                                                 dgb_b, dbp_f, T, B, H, C, R)
         : H == 128 ? launch_dh<128>(g_f, cs_b, m_f, wh_b, dys_b, dfin_f, dgb_b, dbp_f, T, B, H, st)
                    : launch_dh<0>(g_f, cs_b, m_f, wh_b, dys_b, dfin_f, dgb_b, dbp_f, T, B, H, st);
   if (err != cudaSuccess) return (int)err;

@@ -34,9 +34,10 @@ Wh (the backward's dh loop) between their shared memories, the
 smallest of 1, 2, 4, 8 whose layout fits one SM. The padding is exact
 (zero weights, bias and carry keep a padded unit at 0) and happens
 inside the CUDA route (``pad_layer``, ``unpad_grads``); the CPU route
-runs unpadded. A cluster of the scan carries R batch rows, a tile the
-launch picks from B and the clusters the card holds at once
-(``scan_tile``); the tile changes no output bit.
+runs unpadded. A cluster of the scan, and of the dh loop, carries R
+batch rows, a tile the launch picks from B and the clusters the card
+holds at once (``scan_tile``, ``dh_tile``); the tile changes no output
+bit.
 """
 
 from __future__ import annotations
@@ -181,7 +182,12 @@ CLUSTER_UNITS = 128  # units a cluster block owns at most: 8 warps
 # groups a warp carries (G gates → groups)
 CLUSTER_THREADS = {1: 512, 2: 384, 3: 256, 4: 256}
 CLUSTER_GROUPS = {3: 4, 4: 3}
-DH_CLUSTER_STAGES = 2  # input stages of the cluster dh loop
+# The cluster dh loop's blocks (csrc/dh_cluster.cuh kThreadsMost): one n8
+# row group a warp, threads a block at most
+DH_CLUSTER_THREADS = 512
+# The rows whose tile the plan's test of a dh cluster width holds in
+# shared memory (dh_cluster.cuh kPlanRows): three n8 groups
+DH_PLAN_ROWS = 24
 # Units a single-block instance takes at most: its threads' launch bound
 # (2H threads: 352 for the scan, the GRU forward and the GRU dh loop, 288
 # for the LSTM dh loop)
@@ -219,28 +225,31 @@ def scan_smem(G: int, H: int, C: int = 1, R: int = _BN) -> int:
     return G * hc * ldh * 2 + 2 * R * ldh * 2 + c
 
 
-def dh_smem(G: int, H: int, C: int = 1) -> int:
-    """Bytes of shared memory a dh-loop block takes (``gru_bwd.cu``,
-    ``lstm_bwd.cu``): the Wh rows it holds (none at H=128, where they sit
-    in registers; H/C of them in a cluster), the double-buffered bf16
-    dgates_b tile [8][G·H], and its input stages (3 at H=128, 1 for the
-    generic single block, DH_CLUSTER_STAGES in a cluster), each the
-    fp32 gates of its units, dys_t and h_{t-1} (c_{t-1}) and the mask."""
-    hc = H // C
+def dh_smem(G: int, H: int, C: int = 1, R: int = DH_PLAN_ROWS) -> int:
+    """Bytes of shared memory a dh-loop block takes. C=1 (``gru_bwd.cu``,
+    ``lstm_bwd.cu``): the Wh rows (none at H=128, where they sit in
+    registers), the double-buffered bf16 dgates_b tile [8][G·H] and its
+    input stages (3 at H=128, else 1), each the fp32 gates of its units,
+    dys_t and h_{t-1} (c_{t-1}) and the mask. C >= 2 (``dh_cluster.cuh``
+    ``layout``), for a tile of R batch rows: the Wh rows of the block's
+    H/C units, then the bf16 dgates_b tile [R][G·H], two of them where
+    they fit, else one (the step inputs sit in registers), and an 8-byte
+    mbarrier for each; the default R is the plan's test of a width."""
     ldw = G * H + _KPAD
-    stage = _BN * (G * hc + _FPAD) * 4 + 2 * _BN * (hc + _KPAD) * 2 + (hc // _WH) * _BN * 4
     if C == 1:
+        stage = _BN * (G * H + _FPAD) * 4 + 2 * _BN * (H + _KPAD) * 2 + (H // _WH) * _BN * 4
         wh, stages = (0, 3) if H == 128 else (H * ldw * 2, 1)
-    else:
-        wh, stages = hc * ldw * 2, DH_CLUSTER_STAGES
-    return wh + 2 * _BN * ldw * 2 + stages * stage
+        return wh + 2 * _BN * ldw * 2 + stages * stage
+    wh, tile = H // C * ldw * 2, R * ldw * 2
+    return wh + (2 if wh + 2 * (tile + 8) <= _MAX_SMEM else 1) * (tile + 8)
 
 
 def _refusal(kind: str, G: int, H: int, C: int) -> Optional[str]:
     """Why the C-block instance of ``kind`` ("scan" or "dh") cannot take a
     G-gate layer at hidden H (None: it can): H a multiple of 16·C, at most
     the single block's thread bound (C = 1) or CLUSTER_UNITS units a block
-    (C >= 2), and the layout within _MAX_SMEM."""
+    (C >= 2), and the layout within _MAX_SMEM (a cluster's at its test
+    tile: 8 rows for the scan, DH_PLAN_ROWS for the dh loop)."""
     if C not in CLUSTERS or H % (_WH * C):
         return f"H={H} is no multiple of 16·{C}"
     one = _ONE_BLOCK_UNITS["scan" if kind == "scan" else ("gru_dh" if G == 3 else "lstm_dh")]
@@ -351,30 +360,66 @@ def cluster_split(G: int, H: int, C: int, R: int) -> Optional[Tuple[int, int, in
     return None
 
 
-@functools.lru_cache(maxsize=None)
-def scan_rows_most(G: int, H: int, C: int) -> int:
+def dh_threads(G: int, H: int, C: int, R: int) -> Optional[int]:
+    """The threads of a cluster dh-loop block for a tile of R rows on C
+    blocks (``dh_cluster.cuh`` ``threads``): a warp for each 16 units and
+    each 8 rows, None beyond DH_CLUSTER_THREADS."""
+    n = 32 * (H // C // _WH) * (R // _BN)
+    return n if n <= DH_CLUSTER_THREADS else None
+
+
+def _rows_most(threads, smem, G: int, H: int, C: int) -> int:
     """The most batch rows (a multiple of 8) a cluster of C blocks carries
-    at hidden H: a split of them fits a block (``cluster_split``) and its
-    layout _MAX_SMEM (the Whᵀ slice, then 2·(H+8)·2 bytes a row, and
-    2·(H/C+8)·2 more for the LSTM's c tiles). Both hold for every multiple
-    of 8 up to it."""
+    at hidden H: ``threads`` takes them on a block (not None) and ``smem``
+    is within _MAX_SMEM. Both hold for every multiple of 8 up to it."""
     R = _BN
-    while (cluster_split(G, H, C, R + _BN) is not None
-           and scan_smem(G, H, C, R + _BN) <= _MAX_SMEM):
+    while threads(G, H, C, R + _BN) is not None and smem(G, H, C, R + _BN) <= _MAX_SMEM:
         R += _BN
     return R
 
 
+@functools.lru_cache(maxsize=None)
+def scan_rows_most(G: int, H: int, C: int) -> int:
+    """The most rows a cluster of the scan carries (``_rows_most``: the
+    Whᵀ slice, then 2·(H+8)·2 bytes a row, and 2·(H/C+8)·2 more for the
+    LSTM's c tiles)."""
+    return _rows_most(cluster_split, scan_smem, G, H, C)
+
+
+@functools.lru_cache(maxsize=None)
+def dh_rows_most(G: int, H: int, C: int) -> int:
+    """The most rows a cluster of the dh loop carries (``_rows_most``:
+    the Wh rows, then (G·H+8)·2 bytes a row for each of the one or two
+    dgates_b tiles)."""
+    return _rows_most(dh_threads, dh_smem, G, H, C)
+
+
 class ScanTile(NamedTuple):
-    """How a cluster scan launch covers B rows: clusters of C blocks, each
-    carrying R batch rows, ``clusters`` = ceil(B / R) of them, of which the
-    card holds ``active`` at once, so they run in ``waves`` waves."""
+    """How a cluster launch (the scan, or the dh loop) covers B rows:
+    clusters of C blocks, each carrying R batch rows, ``clusters`` =
+    ceil(B / R) of them, of which the card holds ``active`` at once, so
+    they run in ``waves`` waves."""
 
     C: int
     R: int
     clusters: int
     active: int
     waves: int
+
+
+def _tile(kernel: str, most: int, H: int, B: int, C: int, active: int,
+          rows: Optional[int]) -> ScanTile:
+    """R, the smallest multiple of 8 that covers B rows in the fewest
+    waves of ``active`` clusters that ``most`` rows a cluster allow
+    (``rows`` forces R, and raises where the kernel takes no such tile)."""
+    n = max(active, 1)
+    if rows is not None and (rows < _BN or rows % _BN or rows > most):
+        raise ValueError(f"{kernel}: a tile of {rows} rows on {C} blocks (H={H}): R must be a "
+                         f"multiple of {_BN} up to {most}")
+    waves = _cdiv(_cdiv(B, most), n)
+    R = rows if rows is not None else min(most, _ceil(_cdiv(B, waves * n), _BN))
+    clusters = _cdiv(B, R)
+    return ScanTile(C, R, clusters, n, _cdiv(clusters, n))
 
 
 def scan_tile(G: int, H: int, B: int, C: int, active: int,
@@ -384,30 +429,38 @@ def scan_tile(G: int, H: int, B: int, C: int, active: int,
     smallest multiple of 8 that covers B in the fewest waves that the
     most rows (``scan_rows_most``) allow (``rows`` forces R). The tile
     changes no bit: a row's sums run in one order on any R."""
-    most, n = scan_rows_most(G, H, C), max(active, 1)
-    if rows is not None and (rows < _BN or rows % _BN or rows > most):
-        raise ValueError(f"rnn_scan: a tile of {rows} rows on {C} blocks (H={H}): R must be a "
-                         f"multiple of {_BN} up to {most}")
-    waves = _cdiv(_cdiv(B, most), n)
-    R = rows if rows is not None else min(most, _ceil(_cdiv(B, waves * n), _BN))
-    clusters = _cdiv(B, R)
-    return ScanTile(C, R, clusters, n, _cdiv(clusters, n))
+    return _tile("rnn_scan", scan_rows_most(G, H, C), H, B, C, active, rows)
+
+
+def dh_tile(G: int, H: int, B: int, C: int, active: int,
+            rows: Optional[int] = None) -> ScanTile:
+    """The tile of the cluster dh loop on C >= 2 blocks for B rows, as
+    ``scan_tile`` picks the scan's, up to ``dh_rows_most`` rows. The tile
+    changes no bit, and the db partials stay one row of db_part for each
+    8 rows."""
+    return _tile(f"{'lstm' if G == 4 else 'gru'}_bwd", dh_rows_most(G, H, C), H, B, C, active,
+                 rows)
 
 
 @functools.lru_cache(maxsize=None)
-def active_clusters(device: torch.device, G: int, H: int, C: int) -> int:
-    """The clusters of C blocks of the scan at hidden H, each carrying its
-    most rows, that the card ``device`` holds at once: the library's
-    ``cudaOccupancyMaxActiveClusters``, asked once a (card, G, H, C) and
-    kept, so the eager warm-up before a capture asks it, never the
-    capture."""
-    fn = _build.library().sse_rnn_scan_cluster_active
+def active_clusters(device: torch.device, G: int, H: int, C: int, kind: str = "scan") -> int:
+    """The clusters of C blocks of ``kind`` ("scan" | "dh") at hidden H,
+    each carrying its most rows, that the card ``device`` holds at once:
+    the library's ``cudaOccupancyMaxActiveClusters``, asked once a (card,
+    kind, G, H, C) and kept, so the eager warm-up before a capture asks
+    it, never the capture."""
+    if kind == "scan":
+        name, args = "sse_rnn_scan_cluster_active", (G, H, C, scan_rows_most(G, H, C))
+    else:
+        name = f"sse_{'lstm' if G == 4 else 'gru'}_bwd_cluster_active"
+        args = (H, C, dh_rows_most(G, H, C))
+    fn = getattr(_build.library(), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4
+    fn.argtypes = [ctypes.c_int] * len(args)
     with torch.cuda.device(device):
-        n = fn(G, H, C, scan_rows_most(G, H, C))
+        n = fn(*args)
     if n < 0:
-        _build._check(-n, "sse_rnn_scan_cluster_active")
+        _build._check(-n, name)
     return n
 
 
@@ -419,6 +472,14 @@ def card_scan_tile(device: torch.device, G: int, H: int, B: int, C: int,
     the measurements)."""
     n = active if active is not None else active_clusters(device, G, H, C)
     return scan_tile(G, H, B, C, n, rows)
+
+
+def card_dh_tile(device: torch.device, G: int, H: int, B: int, C: int,
+                 rows: Optional[int] = None, active: Optional[int] = None) -> ScanTile:
+    """The tile a cluster dh loop launch of B rows takes (``dh_tile``),
+    as ``card_scan_tile`` gives the scan's."""
+    n = active if active is not None else active_clusters(device, G, H, C, "dh")
+    return dh_tile(G, H, B, C, n, rows)
 
 
 def pad_units(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -964,11 +1025,16 @@ def check_widths(kernel: str, E: int, H: int) -> None:
 
 
 def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None,
-                cluster: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                cluster: Optional[int] = None, *, _rows: Optional[int] = None,
+                _active: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """``csrc/{gru,lstm}_bwd.cu`` on CUDA tensors → (dxs, dWx, dWh, db,
     gates [T,B,G·H] fp32, dgates_b [T,B,G·H] bf16). ``wt``:
     ``fused_weight_t(wx, wh)`` where the caller has it; ``cluster``: the
-    dh loop's blocks (the smallest that fits if None)."""
+    dh loop's blocks (the smallest that fits if None), in tiles of R rows
+    (``card_dh_tile``); ``_rows`` and ``_active`` force the tile's R and
+    the card's active clusters (for tests and measurements; not a user
+    setting). The db partials come one row for each 8 rows of B, on every
+    tile."""
     G = _n_gates(cell)
     name = f"{cell}_bwd"
     T, B, E = xs.shape
@@ -1008,14 +1074,15 @@ def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None,
         return dxs, dw[:E].zero_(), dw[E:].zero_(), db.zero_(), gates, dgb
     nblk = -(-B // rows_fn())
     splits = dw_plan(M, E, H, N)[0]
+    R = 0 if C == 1 else card_dh_tile(dev, G, H, B, C, _rows, _active).R
     # scratch: the db and dW partial sums
     db_part = torch.empty((nblk, N), dtype=torch.float32, device=dev)
     w_part = torch.empty((splits, E + H, N), dtype=torch.float32, device=dev)
     ptrs = [xs, ys, *([cs] if cell == "lstm" else []), mask, wt, wx, wh, b, dys, dfin,
             gates, dgb, db_part, w_part, dxs, dw, db]
     _build.launch(
-        f"sse_{name}", [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6, dev,
-        *(p.data_ptr() for p in ptrs), T, B, E, H, splits, C,
+        f"sse_{name}", [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 7, dev,
+        *(p.data_ptr() for p in ptrs), T, B, E, H, splits, C, R,
     )
     launches[name] += 1
     if C > 1:
@@ -1024,20 +1091,25 @@ def _bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, wt=None,
 
 
 def gru_bwd_launch(xs, ys, mask, wx, wh, b, dys, dfin, wt=None,
-                   cluster: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                   cluster: Optional[int] = None, *, _rows: Optional[int] = None,
+                   _active: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """The GRU backward on CUDA tensors (contiguous, 16-byte aligned: xs,
     ys, dys, wx, wh bf16; mask, b, dfin fp32), which also returns the
     kernels' intermediates: (dxs, dWx, dWh, db, gates [T,B,3H] fp32,
-    dgates_b [T,B,3H] bf16), for checks that hold each rounding point."""
-    return _bwd_launch("gru", xs, ys, None, mask, wx, wh, b, dys, dfin, wt, cluster)
+    dgates_b [T,B,3H] bf16), for checks that hold each rounding point.
+    ``_rows``, ``_active``: as ``_bwd_launch``."""
+    return _bwd_launch("gru", xs, ys, None, mask, wx, wh, b, dys, dfin, wt, cluster,
+                       _rows=_rows, _active=_active)
 
 
 def lstm_bwd_launch(xs, ys, cs, mask, wx, wh, b, dys, dfin,
-                    cluster: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                    cluster: Optional[int] = None, *, _rows: Optional[int] = None,
+                    _active: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """The LSTM backward on CUDA tensors (as ``gru_bwd_launch``, plus cs
     bf16) → (dxs, dWx, dWh, db, gates [T,B,4H] fp32, dgates_b [T,B,4H]
     bf16)."""
-    return _bwd_launch("lstm", xs, ys, cs, mask, wx, wh, b, dys, dfin, None, cluster)
+    return _bwd_launch("lstm", xs, ys, cs, mask, wx, wh, b, dys, dfin, None, cluster,
+                       _rows=_rows, _active=_active)
 
 
 def rnn_layer_bwd(
@@ -1130,9 +1202,13 @@ __all__ = [
     "active_clusters",
     "bf16_matmul",
     "bwd_products",
+    "card_dh_tile",
     "card_scan_tile",
     "check_widths",
     "cluster_split",
+    "dh_rows_most",
+    "dh_threads",
+    "dh_tile",
     "dw_plan",
     "fused_weight_t",
     "gru_bwd_chain",

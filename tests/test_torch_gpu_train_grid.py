@@ -3,8 +3,9 @@ torch sees no card, the distinct-card ones below two cards). Run on the
 card with ``python -m pytest --noconftest tests/test_torch_gpu_train_grid.py``.
 
 A grid spanning cards runs the recurrent kernels, forward and backward,
-on every data replica's card. Their shared-memory allowance is set on
-every launch and they launch on the current stream of the tensor's own
+on every data replica's card. Their shared-memory allowance is set once
+a (kernel, card) (the backward's dh loops through ``hopper.cuh``
+``allow_smem``) and they launch on the current stream of the tensor's own
 card; these tests pin that on each card: the GRU and LSTM layer forwards
 (kernels 2 and 3, the LSTM's through the scan, kernel 1) and both
 backwards (kernel 4) against their plain versions there, at

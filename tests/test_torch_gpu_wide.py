@@ -20,12 +20,15 @@
 - C=2 against C=1, bit for bit, where both fit: the cluster instance
   sums in the single block's order.
 - Each layout mirror of ops/rnn.py against the library's
-  ``sse_*_smem_bytes``; the cluster scan's tile mirrors (bytes and
-  threads for R rows, the card's active clusters).
+  ``sse_*_smem_bytes``; the cluster scan's and the cluster dh loop's tile
+  mirrors (bytes and threads for R rows, the card's active clusters).
 - The cluster scan's tiles (R rows a cluster, chosen from B and the
   card's active clusters): the same bits on every tile forced (8 rows and
   the plan's R, one active cluster and the card's count, every cluster
-  size that takes H) at B=4096, H=256 and 384, both cells.
+  size that takes H) at B=4096, H=256 and 384, both cells. The cluster
+  dh loop's tiles likewise: every R it takes, forced, gives the launch's
+  own bits in dxs, dWx, dWh, db and dgates_b, at B=300 and 4096, ragged
+  lengths and dead rows.
 - ``RNNLayer`` at widths that pad or split against the plain version; an
   H=256 layer, at B=64 and B=4096, replayed from a CUDA graph against
   eager, bit for bit; the cluster kernels on every card.
@@ -103,12 +106,13 @@ def k_hold(got, want):
 
 
 @pytest.mark.parametrize("T", [1, 20])
-@pytest.mark.parametrize("B", [1, 8, 300, 2304])
+@pytest.mark.parametrize("B", [1, 8, 256, 300, 384, 2304, 4096])
 @pytest.mark.parametrize("cell,H", WIDE)
 def test_cluster_backward_matches_plain(cuda, cell, H, B, T):
-    """The backward whose dh loop runs on the cluster instance, fed the
-    kernels' forward, against the plain backward; rows masked at every
-    step get no input gradient."""
+    """The backward whose dh loop runs on the cluster instance, on the
+    tile its launch picks (B=256 and 384: the train bench's towers; 4096:
+    many rows a cluster), fed the kernels' forward, against the plain
+    backward; rows masked at every step get no input gradient."""
     from sse_tpu_torch.ops import rnn
 
     xs, mask, wx, wh, b, dys, dfin = _layer(cuda, cell, T, B, 128, H, _dead(B))
@@ -170,7 +174,8 @@ def _forward(rnn, xs, mask, wx, wh, b, cell):
 def test_two_blocks_equal_one(cuda, cell, H):
     """C=2 against C=1 bit for bit: ys, fin, cs of the split forward and
     of the scan; dgates_b, dxs, dW and db of the backward where the
-    single block's dh loop fits (the LSTM's only at H=128)."""
+    single block's dh loop fits (the LSTM's only at H=128), the cluster
+    dh loop on 8 rows a cluster and on its most."""
     from sse_tpu_torch.ops import rnn
 
     xs, mask, wx, wh, b, dys, dfin = _layer(cuda, cell, 20, 300, 128, H, _dead(300))
@@ -189,9 +194,11 @@ def test_two_blocks_equal_one(cuda, cell, H):
     launch = rnn.lstm_bwd_launch if cell == "lstm" else rnn.gru_bwd_launch
     extra = (cs,) if cell == "lstm" else ()
     b1 = launch(xs, ys, *extra, mask, wx, wh, b, dys, dfin, cluster=1)
-    b2 = launch(xs, ys, *extra, mask, wx, wh, b, dys, dfin, cluster=2)
-    for name, g, w in zip(("dxs", "dwx", "dwh", "db", "gates", "dgates_b"), b2, b1):
-        assert torch.equal(g, w), name
+    G = 3 if cell == "gru" else 4
+    for R in (8, rnn.dh_rows_most(G, H, 2)):
+        b2 = launch(xs, ys, *extra, mask, wx, wh, b, dys, dfin, cluster=2, _rows=R)
+        for name, g, w in zip(("dxs", "dwx", "dwh", "db", "gates", "dgates_b"), b2, b1):
+            assert torch.equal(g, w), (name, R)
 
 
 def _lib_int(name, *args):
@@ -222,14 +229,15 @@ def test_layout_mirrors_match_the_library(cuda):
 
 
 def test_tile_mirrors_match_the_library(cuda):
-    """ops/rnn.py's mirrors of the cluster scan's tile against the
-    library's: shared memory and threads a block for R rows, and the card's
-    active clusters of each plan's shape (at least one)."""
+    """ops/rnn.py's mirrors of the cluster scan's and the cluster dh
+    loop's tiles against the library's: shared memory and threads a block
+    for R rows, and the card's active clusters of each plan's shape (at
+    least one); a dh cluster size that is no power of two is refused."""
     from sse_tpu_torch.ops import rnn
 
     dev = torch.device("cuda", torch.cuda.current_device())
     for H in range(32, 385, 16):
-        for G in (3, 4):
+        for G, cell in ((3, "gru"), (4, "lstm")):
             for C in rnn.CLUSTERS[1:]:
                 if H % (16 * C) or H // C > rnn.CLUSTER_UNITS:
                     continue
@@ -239,6 +247,10 @@ def test_tile_mirrors_match_the_library(cuda):
                     split = rnn.cluster_split(G, H, C, R)
                     assert (split[2] if split else 0) == _lib_int(
                         "sse_rnn_scan_cluster_threads", G, H, C, R), (G, H, C, R)
+                    assert rnn.dh_smem(G, H, C, R) == _lib_int(
+                        f"sse_{cell}_bwd_cluster_rows_smem_bytes", H, C, R), (G, H, C, R)
+                    assert (rnn.dh_threads(G, H, C, R) or 0) == _lib_int(
+                        f"sse_{cell}_bwd_cluster_threads", H, C, R), (G, H, C, R)
     for cell, H in WIDE:
         G = 3 if cell == "gru" else 4
         plan = rnn.layer_plan(cell, 128, H)
@@ -246,6 +258,15 @@ def test_tile_mirrors_match_the_library(cuda):
         assert n >= 1 and n == _lib_int("sse_rnn_scan_cluster_active", G, plan.H_p,
                                         plan.scan_cluster,
                                         rnn.scan_rows_most(G, plan.H_p, plan.scan_cluster))
+        C = plan.dh_cluster
+        n = rnn.active_clusters(dev, G, plan.H_p, C, "dh")
+        assert n >= 1 and n == _lib_int(f"sse_{cell}_bwd_cluster_active", plan.H_p, C,
+                                        rnn.dh_rows_most(G, plan.H_p, C))
+    # the dh loop's exchange picks ranks modulo a power of two: the library
+    # refuses any other cluster size (cudaErrorInvalidValue)
+    for cell in ("gru", "lstm"):
+        for C in (3, 5, 6, 7):
+            assert _lib_int(f"sse_{cell}_bwd_cluster_active", 48 * C, C, 8) == -1, (cell, C)
 
 
 @pytest.mark.parametrize("cell,H", [("gru", 256), ("lstm", 256), ("gru", 384), ("lstm", 384)])
@@ -278,6 +299,37 @@ def test_tiles_keep_the_bits(cuda, cell, H):
     assert torch.equal(scanned[0], want[0]) and torch.equal(scanned[1], want[1])
 
 
+@pytest.mark.parametrize("B", [300, 4096])
+@pytest.mark.parametrize("cell,H", [("gru", 256), ("lstm", 256), ("gru", 384), ("lstm", 384)])
+def test_dh_tiles_keep_the_bits(cuda, cell, H, B):
+    """The backward at B rows, ragged lengths and dead rows, on every tile
+    its cluster dh loop takes, forced (each R from 8 to the most, one
+    active cluster and the card's count): the bits of the launch's own
+    choice in dxs, dWx, dWh, db and dgates_b (and the recomputed gates)."""
+    from sse_tpu_torch.ops import rnn
+
+    G = 3 if cell == "gru" else 4
+    xs, mask, wx, wh, b, dys, dfin = _layer(cuda, cell, 6, B, 128, H, _dead(B))
+    ys, _, cs = _forward(rnn, xs, mask, wx, wh, b, cell)
+    plan = rnn.layer_plan(cell, 128, H)
+    C = plan.dh_cluster
+    tile = rnn.card_dh_tile(xs.device, G, H, B, C)
+    most = rnn.dh_rows_most(G, H, C)
+    assert tile.R > 8 and tile.waves == -(-tile.clusters // tile.active)
+    launch = rnn.lstm_bwd_launch if cell == "lstm" else rnn.gru_bwd_launch
+    extra = (cs,) if cell == "lstm" else ()
+    want = launch(xs, ys, *extra, mask, wx, wh, b, dys, dfin, cluster=C)
+    forced = ([dict(_rows=R) for R in range(8, most + 1, 8)]
+              + [dict(_active=1), dict(_active=tile.active)])
+    for kw in forced:
+        got = launch(xs, ys, *extra, mask, wx, wh, b, dys, dfin, cluster=C, **kw)
+        for name, g, w in zip(("dxs", "dwx", "dwh", "db", "gates", "dgates_b"), got, want):
+            assert torch.equal(g, w), (name, kw)
+    assert not want[0][:, _dead(B)].float().abs().any()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        launch(xs, ys, *extra, mask, wx, wh, b, dys, dfin, cluster=C, _rows=most + 8)
+
+
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("E,H", [(256, 128), (128, 256), (256, 256), (100, 100)])
 def test_rnn_layer_function_at_other_widths(cuda, cell, E, H):
@@ -307,9 +359,9 @@ def test_graph_replay_of_a_wide_layer_equals_eager(cuda, cell):
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_graph_replay_of_a_wide_batch_equals_eager(cuda, cell):
-    """The same at B=4096, where the scan carries many rows a cluster: the
-    eager warm-up asks the card's active clusters, the capture finds them
-    kept."""
+    """The same at B=4096, where the scan and the dh loop carry many rows
+    a cluster: the eager warm-up asks the card's active clusters, the
+    capture finds them kept."""
     _replay_equals_eager(cuda, cell, 4096)
 
 
@@ -346,7 +398,8 @@ def _replay_equals_eager(gen, cell, B):
 def test_cluster_kernels_on_every_card(cuda):
     """The cluster forward and backward at H=256 on each card of the
     process: one draw of inputs, copied to every card, gives card 0's bits
-    there, and card 0's are held against the plain versions (the forward
+    there, on the tile the launch picks and on the dh loop's most rows a
+    cluster, and card 0's are held against the plain versions (the forward
     as above, the backward end to end and at every rounding point). The
     same draw on every card, because a draw's end-to-end dW bound belongs
     to the draw, not to the card: the LSTM draw of seed 1 misses 1e-3 of
@@ -362,6 +415,11 @@ def test_cluster_kernels_on_every_card(cuda):
                 ys, fin, cs = _forward(rnn, xs, mask, wx, wh, b, cell)
                 got = rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin, cs, cell)
                 assert got[1].device == torch.device("cuda", i)
+                G = 3 if cell == "gru" else 4
+                C = rnn.layer_plan(cell, 128, 256).dh_cluster
+                most = rnn._bwd_launch(cell, xs, ys, cs, mask, wx, wh, b, dys, dfin, None, C,
+                                       _rows=rnn.dh_rows_most(G, 256, C))
+                assert all(torch.equal(g, w) for g, w in zip(most[:4], got))
                 outs = [t.cpu() for t in (ys, fin, *got)]
             if first is None:
                 first = outs

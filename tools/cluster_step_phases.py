@@ -7,11 +7,12 @@ cluster barrier.
 Copies ``sse_tpu_torch`` into ``build/cluster_step_phases/`` and inserts
 ``clock64()`` counters between the phases of the step loop of
 ``rnn_scan_cluster_kernel`` (``csrc/rnn_scan.cu``) and of the cluster dh
-loops (``gru_bwd_dh_cluster_kernel``, ``lstm_bwd_dh_cluster_kernel``),
-builds that copy, runs each at T=50, E=128, H=256 and 384, full lengths,
-B=8, 256 and 4096 (the scan on the tile its launch picks: blocks a
-cluster, rows a cluster, waves), and prints the cycles a step of each
-phase as thread 0 of block 0 sees them, with the card's maximum SM clock. A phase ends when
+loops (``gru_bwd_dh_cluster_kernel``, ``lstm_bwd_dh_cluster_kernel``:
+their shared loop in ``csrc/dh_cluster.cuh``), builds that copy, runs
+each at T=50, E=128, H=256 and 384, full lengths, B=8, 256 and 4096 (on
+the tile each launch picks: blocks a cluster, rows a cluster, waves), and
+prints the cycles a step of each phase as thread 0 of block 0 sees them,
+with the card's maximum SM clock. A phase ends when
 its last instruction issues, so a wait shows in the phase whose
 instruction first uses the result; the barrier phase holds the wait for
 the cluster's slowest block. The counters cost a few cycles each; the
@@ -52,28 +53,31 @@ SCAN_MARKS = [
     ('extern "C" int sse_rnn_scan_cluster_smem_bytes', "before", READ.format(name="scan_phase")),
 ]
 
-DH_PHASES = ["cell backward", "publish + exchange", "barrier", "products issue",
-             "copies, stores, next step"]
+DH_PHASES = ["cell backward", "tile free + publish + exchange + stores", "the tile's wait",
+             "products issue", "next step, dh update"]
+# the loop of both cells (dh_cluster.cuh): one counter array a source
+DH_MARKS = [
+    ("template <class Cell>\n__device__ __forceinline__ void cluster_loop(", "before",
+     "namespace {\n" + COUNTER.format(name="dh_phase") + "}\n"),
+    ("  int cur = 0;\n  for (int it = 0; it < T; ++it) {\n", "before", DECL),
+    ("    if (one) cluster_wait();  // every block's reads of the tile done", "before",
+     "    PH(0)\n"),
+    ("    __syncthreads();  // the tile's columns of this block\n", "before", "    PH(1)\n"),
+    ("  // ... and of the others\n", "after", "    PH(2)\n"),
+    ("    // this thread's reads of the tile done (a release waits", "before",
+     "    PH(3)\n"),
+    ("    if (!one) cur ^= 1;  // the other dgates_b tile", "before", "    PH(4)\n"),
+    ("  // the group's db partial: its row of db_part", "before",
+     "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
+     "    for (int i = 0; i < 16; ++i) dh_phase[i] = ph[i];\n"),
+]
 
 
-def dh_marks(name: str, smem_fn: str):
-    return [
-        ("// ---------------------------------------------------------------- clusters", "before",
-         COUNTER.format(name=name)),
-        ("  prepare(0);\n  sse::cluster_sync();  // every block running", "before", DECL),
-        ("    // the warp's dgates_b columns into every other block's tile\n", "before",
-         "    PH(0)\n"),
-        ("    sse::cluster_sync();  // the whole dgates_b tile of step t, in every block\n",
-         "before", "    PH(1)\n"),
-        ("    sse::cluster_sync();  // the whole dgates_b tile of step t, in every block\n",
-         "after", "    PH(2)\n"),
-        ("    // while they run: refill the stage just read", "before", "    PH(3)\n"),
-        ("    cur ^= 1;  // the other dgates_b tile\n", "before", "    PH(4)\n"),
-        ("  // this block's columns of its tile's db partial", "before",
-         "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
-         f"    for (int i = 0; i < 16; ++i) {name}[i] = ph[i];\n"),
-        (f'extern "C" int {smem_fn}', "before", READ.format(name=name)),
-    ]
+def dh_read(cell: str):
+    """The reading entry point of one source's copy of the counters."""
+    return [(f'extern "C" int sse_{cell}_bwd_cluster_smem_bytes', "before",
+             f'extern "C" int sse_{cell}_dh_phase(unsigned long long* out) '
+             "{ return (int)cudaMemcpyFromSymbol(out, sse::dh::dh_phase, 128); }\n")]
 
 
 def main() -> None:
@@ -87,10 +91,9 @@ def main() -> None:
                     ignore=shutil.ignore_patterns("__pycache__"))
     csrc = os.path.join(WORK, "sse_tpu_torch", "csrc")
     insert(os.path.join(csrc, "rnn_scan.cu"), SCAN_MARKS)
-    insert(os.path.join(csrc, "gru_bwd.cu"), dh_marks("gru_dh_phase",
-                                                      "sse_gru_bwd_cluster_smem_bytes"))
-    insert(os.path.join(csrc, "lstm_bwd.cu"), dh_marks("lstm_dh_phase",
-                                                       "sse_lstm_bwd_cluster_smem_bytes"))
+    insert(os.path.join(csrc, "dh_cluster.cuh"), DH_MARKS)
+    insert(os.path.join(csrc, "gru_bwd.cu"), dh_read("gru"))
+    insert(os.path.join(csrc, "lstm_bwd.cu"), dh_read("lstm"))
     sys.path.insert(0, WORK)
     from sse_tpu_torch.ops import _build, rnn
 
@@ -133,7 +136,9 @@ def main() -> None:
                     rnn.rnn_layer_bwd(xs, ys, mask, wx, wh, b, dys, dfin, cs, cell)
                 torch.cuda.synchronize()
                 getattr(lib, f"sse_{cell}_dh_phase")(out)
-                report(f"{cell} dh loop T={T} B={B} H={H} on {plan.dh_cluster} blocks", DH_PHASES)
+                tile = rnn.card_dh_tile(xs.device, G, H, B, plan.dh_cluster)
+                report(f"{cell} dh loop T={T} B={B} H={H} on {tile.C} blocks, {tile.R} rows a "
+                       f"cluster, {tile.waves} waves of {tile.active}", DH_PHASES)
 
 
 if __name__ == "__main__":
