@@ -2757,7 +2757,7 @@ def sharded_slice(card: str) -> dict:
                 same(f"{label}: replay against eager", got, eager)
                 same(f"{label}: the capture's warm-up against eager", first, eager)
                 check(fn.stats.counts() == {"graph_captures": len(cards),
-                                            "graph_replays": len(cards)},
+                                            "graph_replays": len(cards), "graph_eager": 0},
                       f"{label}: {fn.stats.counts()} for {len(cards)} distinct cards")
                 data, s = shape
                 two = (variant == "packed" and b // data >= ops.topk.TWOPHASE_MIN_BATCH
@@ -2900,7 +2900,8 @@ def sharded_build(card: str, meshes) -> None:
         used = {mesh.column_devices(lo // t_local)[0] for lo in range(0, t, 16384)}
         chunks = len(want)
         check(calls == want and stats.counts() == {"graph_captures": len(used),
-                                                   "graph_replays": chunks - len(used)},
+                                                   "graph_replays": chunks - len(used),
+                                                   "graph_eager": 0},
               f"grid build {shape}: {stats.counts()}, progress {calls[:3]}...")
         log(f"sharded build {shape} ({t:,} targets, bf16, {chunks} chunks of 64 x 256): rows == "
             f"the one-card build's bit for bit, padding zero; {len(used)} captures ("
@@ -2939,7 +2940,8 @@ def sharded_engines(cfg, params, meshes) -> dict:
     cards = len(mesh.entries_by_device())
     shapes = len(engine._batch_tiers()) * len(engine._bucket_widths())
     check(engine.captures_graphs and engine.graph_counts() == {
-        "graph_captures": shapes * cards, "graph_replays": 0, "graphs_cached": shapes * cards},
+        "graph_captures": shapes * cards, "graph_replays": 0, "graph_eager": 0,
+        "graphs_cached": shapes * cards},
           f"sharded (2, 2) warmup: {engine.graph_counts()}, want {shapes} x {cards} captures")
     log(f"sharded (2, 2) engine warmup: {warm_s:.2f} s, {shapes * cards} captures ({shapes} "
         f"shapes x {cards} distinct cards): "
@@ -4238,7 +4240,8 @@ def process_serving(card: str, n: int) -> dict:
             eager = uncounted(lambda: fn.run(params, emb, toks, lens, SHARDED_ROWS))
             same(f"{label}: replay against eager", got, eager)
             same(f"{label}: the capture's warm-up against eager", first, eager)
-            check(fn.stats.counts() == {"graph_captures": i + 1, "graph_replays": 1 + 7 * i},
+            check(fn.stats.counts() == {"graph_captures": i + 1, "graph_replays": 1 + 7 * i,
+                                        "graph_eager": 0},
                   f"{label}: {fn.stats.counts()}")
             torch.save((got[0].cpu().clone(), got[1].cpu().clone()),
                        os.path.join(PROCESS_DIR, f"n{n}_rank{rank}_{name}_b{b}.pt"))
@@ -4852,6 +4855,7 @@ def graphs_slice(card: str, corpus=None) -> tuple:
         engine.warmup()
         shapes = len(engine._batch_tiers()) * len(engine._bucket_widths())
         check(engine.graph_counts() == {"graph_captures": shapes, "graph_replays": 0,
+                                        "graph_eager": 0,
                                         "graphs_cached": shapes}, f"{label}: warmup "
               f"{engine.graph_counts()}, want {shapes} captures")
         want = "gru_fwd" if kind == "gru" else ("wg_blockmax" if b >= 1024 else "wg_stream")
@@ -5008,7 +5012,7 @@ def index_run(card: str, label: str, cfg, params, tspace) -> dict:
     chunks = -(-t // 16384)
     check(torch.equal(idx.emb, want.emb) and not idx.emb[t:].any(),
           f"{label}: index replayed != eager")
-    check(stats.counts() == {"graph_captures": 1, "graph_replays": chunks - 1}
+    check(stats.counts() == {"graph_captures": 1, "graph_replays": chunks - 1, "graph_eager": 0}
           and calls == [(min(hi, t), t) for hi in range(16384, t + 16384, 16384)],
           f"{label}: {stats.counts()}, progress {calls[:3]}...")
     check(bool(torch.isfinite(idx.emb[:t].float()).all()), f"{label}: non-finite rows")

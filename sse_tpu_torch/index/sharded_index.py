@@ -45,6 +45,7 @@ from sse_tpu_torch.parallel import distributed
 from sse_tpu_torch.parallel.mesh import Mesh, RowShards, replicate
 from sse_tpu_torch.utils import graphs
 from sse_tpu_torch.utils.graphs import GraphPool, GraphStats, Program
+from sse_tpu_torch.utils.profiling import span
 
 INT8_SCALE = 127  # L2-normalized rows live in [-1, 1]; symmetric int8
 
@@ -513,12 +514,15 @@ class _ChunkEncoder:
 
         self.program = Program(encode_chunk, pool, graph_stats, (s, eff_bs, length))
 
-    def __call__(self, tb: np.ndarray, lb: np.ndarray) -> torch.Tensor:
-        """The rows of one padded chunk's tokens (host arrays), which go
-        up once (pinned, asynchronously, on a card)."""
+    def stage(self, tb: np.ndarray, lb: np.ndarray) -> None:
+        """One padded chunk's tokens (host arrays) into the buffers, up
+        once (pinned, asynchronously, on a card)."""
         for buf_in, a in ((self.tok_in, tb), (self.len_in, lb)):
             host = torch.from_numpy(np.ascontiguousarray(a)).view(buf_in.shape)
             buf_in.copy_(host.pin_memory() if self.pinned else host, non_blocking=self.pinned)
+
+    def __call__(self) -> torch.Tensor:
+        """The rows of the staged chunk."""
         return self.program()
 
 
@@ -529,19 +533,25 @@ def _encode_chunks(toks, lens, chunk_docs: int, progress,
     the tail chunk padded with zero tokens and length 1; each chunk goes
     through ``encoder_for(lo, hi)`` (None: no block of this process holds
     it), and its real rows to ``write(lo, rows)``. ``progress(hi, T)``
-    once a chunk, as JAX calls it."""
+    once a chunk, as JAX calls it. Spans: ``index.stage`` (a chunk's host
+    arrays sliced, padded and uploaded), ``index.encode`` (the chunk
+    program's call and the rows' write)."""
     t, l = toks.shape
     with torch.no_grad():
         for lo in range(0, t, chunk_docs):
             hi = min(lo + chunk_docs, t)
             encoder = encoder_for(lo, hi)
             if encoder is not None:
-                tb, lb = np.asarray(toks[lo:hi], np.int32), np.asarray(lens[lo:hi], np.int32)
-                if hi - lo < chunk_docs:  # pad the tail chunk
-                    pad = chunk_docs - (hi - lo)
-                    tb = np.concatenate([tb, np.zeros((pad, l), np.int32)])
-                    lb = np.concatenate([lb, np.ones((pad,), np.int32)])
-                write(lo, encoder(tb, lb)[: hi - lo])  # the padding rows stay zero
+                with span("index.stage"):
+                    tb = np.asarray(toks[lo:hi], np.int32)
+                    lb = np.asarray(lens[lo:hi], np.int32)
+                    if hi - lo < chunk_docs:  # pad the tail chunk
+                        pad = chunk_docs - (hi - lo)
+                        tb = np.concatenate([tb, np.zeros((pad, l), np.int32)])
+                        lb = np.concatenate([lb, np.ones((pad,), np.int32)])
+                    encoder.stage(tb, lb)
+                with span("index.encode"):
+                    write(lo, encoder()[: hi - lo])  # the padding rows stay zero
             if progress:
                 progress(hi, t)
 
@@ -570,7 +580,9 @@ def build_index(
     smaller than a full chunk takes fewer sub-batches), the tail chunk
     padded with zero tokens and length 1; rows in ``[num_targets, T_pad)``
     stay zero, the tail chunk's padding rows too. ``progress(hi, T)`` is
-    called once a chunk.
+    called once a chunk. Host spans (``utils.profiling.span``):
+    ``index.build`` the call, ``index.stage`` and ``index.encode`` each
+    chunk's, ``index.publish`` the ``ShardedIndex`` made.
 
     Encoding a chunk is one fixed-shape program, the counterpart of JAX's
     ``encode_chunk``: the sub-batches' target-tower encodes and the
@@ -600,85 +612,88 @@ def build_index(
     token width padded to a multiple of the shards; the encoded rows are
     then written into the index, on ``mesh`` where there is one, so the two
     placements compose (``sse_tpu/index/sharded_index.py:614-646``)."""
-    device = _params_device(params)
-    if model_cfg.mode == NetworkMode.SOURCE_ENCODER_ONLY:
-        with torch.no_grad():
-            emb = sse.target_embeddings(params, model_cfg)
-        return from_embeddings(
-            emb[: target_space.num_targets], target_space.ids, target_space.texts,
-            dtype=dtype, capacity=capacity, device=device, mesh=mesh,
-        )
-    toks, lens = target_space.tokens, target_space.lengths
-    t = toks.shape[0]
-    rows = _padded_rows(t, capacity, _shard_count(mesh))
-    eff_bs = min(batch_size, _round_up(t, 8))
-    s = max(1, min(chunk_batches, -(-t // eff_bs)))
-    chunk_docs = s * eff_bs
-    d = model_cfg.encoding_dim
-    if mesh is not None:
-        shards = mesh.shape["model"]
-        blocks = [
-            {dev: torch.zeros((rows // shards, d), dtype=dtype, device=dev)
-             for dev in mesh.column_devices(c)}
-            for c in range(shards)
-        ]
-        buf = RowShards(mesh, blocks, (rows, d), dtype)
-    else:
-        buf = torch.zeros((rows, d), dtype=dtype, device=device)
-    if cp_shards <= 1:
-        copies = {device: params} if mesh is None else replicate(params, mesh)
-        encoders = {}
+    with span("index.build"):
+        device = _params_device(params)
+        if model_cfg.mode == NetworkMode.SOURCE_ENCODER_ONLY:
+            with torch.no_grad():
+                emb = sse.target_embeddings(params, model_cfg)
+            return from_embeddings(
+                emb[: target_space.num_targets], target_space.ids, target_space.texts,
+                dtype=dtype, capacity=capacity, device=device, mesh=mesh,
+            )
+        toks, lens = target_space.tokens, target_space.lengths
+        t = toks.shape[0]
+        rows = _padded_rows(t, capacity, _shard_count(mesh))
+        eff_bs = min(batch_size, _round_up(t, 8))
+        s = max(1, min(chunk_batches, -(-t // eff_bs)))
+        chunk_docs = s * eff_bs
+        d = model_cfg.encoding_dim
+        if mesh is not None:
+            shards = mesh.shape["model"]
+            blocks = [
+                {dev: torch.zeros((rows // shards, d), dtype=dtype, device=dev)
+                 for dev in mesh.column_devices(c)}
+                for c in range(shards)
+            ]
+            buf = RowShards(mesh, blocks, (rows, d), dtype)
+        else:
+            buf = torch.zeros((rows, d), dtype=dtype, device=device)
+        if cp_shards <= 1:
+            copies = {device: params} if mesh is None else replicate(params, mesh)
+            encoders = {}
 
-        def encoder_for(lo: int, hi: int) -> Optional[_ChunkEncoder]:
-            dev = device
-            if mesh is not None:
-                t_local = buf.rows_per_shard
-                mine = [c for c in range(lo // t_local, -(-hi // t_local)) if buf.blocks[c]]
-                if not mine:
-                    return None
-                dev = mesh.column_devices(mine[0])[0]
-            if dev not in encoders:
-                encoders[dev] = _ChunkEncoder(copies[dev], model_cfg, dev, s, eff_bs,
-                                              toks.shape[1], dtype,
-                                              graphs.pool_for(dev, capture), graph_stats)
-            return encoders[dev]
-
-        def write(lo: int, out: torch.Tensor) -> None:
-            if mesh is None:
-                buf[lo : lo + out.shape[0]].copy_(out)
-            else:
-                _write_rows(buf, lo, out)
-
-        _encode_chunks(toks, lens, chunk_docs, progress, encoder_for, write)
-        return ShardedIndex(emb=buf, num_real=t, ids=list(target_space.ids),
-                            texts=list(target_space.texts), mesh=mesh)
-    from sse_tpu_torch.parallel.context import local_cp_mesh, make_cp_encoder
-
-    tower = "tgt_tower" if model_cfg.mode == NetworkMode.DUAL_ENCODER else "src_tower"
-    cp_enc = make_cp_encoder(getattr(model_cfg, tower), local_cp_mesh(cp_shards, device))
-    l_cp = -(-toks.shape[1] // cp_shards) * cp_shards  # token width a shard count divides
-    with torch.no_grad():
-        for lo in range(0, t, batch_size):
-            hi = min(lo + batch_size, t)
-            dev = device
-            mine = True
-            if mesh is not None:
-                t_local = buf.rows_per_shard
-                mine = [c for c in range(lo // t_local, -(-hi // t_local)) if buf.blocks[c]]
-                if mine:
+            def encoder_for(lo: int, hi: int) -> Optional[_ChunkEncoder]:
+                dev = device
+                if mesh is not None:
+                    t_local = buf.rows_per_shard
+                    mine = [c for c in range(lo // t_local, -(-hi // t_local)) if buf.blocks[c]]
+                    if not mine:
+                        return None
                     dev = mesh.column_devices(mine[0])[0]
-            if mine:
-                tb = torch.from_numpy(np.ascontiguousarray(toks[lo:hi])).to(dev)
-                lb = torch.from_numpy(np.ascontiguousarray(lens[lo:hi])).to(dev)
-                tb = torch.nn.functional.pad(tb, (0, l_cp - tb.shape[1]))
-                out = quantize_rows(cp_enc(params[tower], tb, lb).to(dev), dtype)
+                if dev not in encoders:
+                    encoders[dev] = _ChunkEncoder(copies[dev], model_cfg, dev, s, eff_bs,
+                                                  toks.shape[1], dtype,
+                                                  graphs.pool_for(dev, capture), graph_stats)
+                return encoders[dev]
+
+            def write(lo: int, out: torch.Tensor) -> None:
                 if mesh is None:
-                    buf[lo:hi] = out
+                    buf[lo : lo + out.shape[0]].copy_(out)
                 else:
                     _write_rows(buf, lo, out)
-            if progress and (hi == t or hi % chunk_docs == 0):  # the chunks' ends
-                progress(hi, t)
-    return ShardedIndex(
-        emb=buf, num_real=t, ids=list(target_space.ids), texts=list(target_space.texts),
-        mesh=mesh,
-    )
+
+            _encode_chunks(toks, lens, chunk_docs, progress, encoder_for, write)
+            with span("index.publish"):
+                return ShardedIndex(emb=buf, num_real=t, ids=list(target_space.ids),
+                                    texts=list(target_space.texts), mesh=mesh)
+        from sse_tpu_torch.parallel.context import local_cp_mesh, make_cp_encoder
+
+        tower = "tgt_tower" if model_cfg.mode == NetworkMode.DUAL_ENCODER else "src_tower"
+        cp_enc = make_cp_encoder(getattr(model_cfg, tower), local_cp_mesh(cp_shards, device))
+        l_cp = -(-toks.shape[1] // cp_shards) * cp_shards  # token width a shard count divides
+        with torch.no_grad():
+            for lo in range(0, t, batch_size):
+                hi = min(lo + batch_size, t)
+                dev = device
+                mine = True
+                if mesh is not None:
+                    t_local = buf.rows_per_shard
+                    mine = [c for c in range(lo // t_local, -(-hi // t_local)) if buf.blocks[c]]
+                    if mine:
+                        dev = mesh.column_devices(mine[0])[0]
+                if mine:
+                    tb = torch.from_numpy(np.ascontiguousarray(toks[lo:hi])).to(dev)
+                    lb = torch.from_numpy(np.ascontiguousarray(lens[lo:hi])).to(dev)
+                    tb = torch.nn.functional.pad(tb, (0, l_cp - tb.shape[1]))
+                    out = quantize_rows(cp_enc(params[tower], tb, lb).to(dev), dtype)
+                    if mesh is None:
+                        buf[lo:hi] = out
+                    else:
+                        _write_rows(buf, lo, out)
+                if progress and (hi == t or hi % chunk_docs == 0):  # the chunks' ends
+                    progress(hi, t)
+        with span("index.publish"):
+            return ShardedIndex(
+                emb=buf, num_real=t, ids=list(target_space.ids), texts=list(target_space.texts),
+                mesh=mesh,
+            )

@@ -32,10 +32,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
-from torch.profiler import record_function
 
 from sse_tpu_torch.ops import rnn
 from sse_tpu_torch.ops.rnn import bf16_matmul, gru_cell, lstm_cell, split_weights
+from sse_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 
@@ -486,7 +486,7 @@ def _rnn_features(params: Params, cfg: TowerConfig, emb: torch.Tensor,
             final, xs = fin, ys
     if cfg.readout == "final":
         return final  # [B, H] fp32: the state at each row's own length
-    with record_function("sse.tower.readout"):
+    with span("tower.readout"):
         states = xs.transpose(0, 1).float()  # [B, L, H]
         if cfg.readout == "mean":
             return _masked_mean(states, valid)
@@ -527,7 +527,7 @@ def encode_features(
     _check_supported(cfg)
     train = dropout_generator is not None and cfg.dropout > 0.0
     L = tokens.shape[1]
-    with record_function("sse.tower.embed"):
+    with span("tower.embed"):
         emb = _embed(params["embed"], tokens.long(), cfg.embed_grad)  # [B, L, E] fp32
         if train:
             emb = _dropout(emb, cfg.dropout, dropout_generator)
@@ -538,9 +538,9 @@ def encode_features(
     else:
         states = emb
         if cfg.cell == "transformer":
-            with record_function("sse.tower.transformer"):
+            with span("tower.transformer"):
                 states = _transformer_encode(params, cfg, emb, valid)
-        with record_function("sse.tower.readout"):
+        with span("tower.readout"):
             feats = _masked_mean(states, valid)
             if cfg.readout == "attention":
                 feats = _attention_readout(params, states, valid, feats)

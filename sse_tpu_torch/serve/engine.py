@@ -79,6 +79,7 @@ from sse_tpu_torch.parallel.mesh import Mesh, RowShards, replicate
 from sse_tpu_torch.parallel.topk import lift, merge
 from sse_tpu_torch.train.loop import tree_leaves
 from sse_tpu_torch.utils.graphs import Captured, GraphStats, PerCard, agree
+from sse_tpu_torch.utils.profiling import span
 
 # graphs one query function keeps; an engine needs tiers x buckets (8 with
 # a bulk tier and max_seq_length 50)
@@ -229,9 +230,13 @@ class QueryGraph:
         return self.captured.take_first()
 
     def __call__(self, tokens: torch.Tensor, lengths: torch.Tensor, nr):
-        self.load(tokens, lengths, nr)
-        out = self.captured.replay().clone()
-        return out[0].view(torch.float32), out[1]
+        with span("engine.load"):
+            self.load(tokens, lengths, nr)
+        with span("engine.replay"):
+            out = self.captured.replay()
+        with span("engine.out"):
+            out = out.clone()
+            return out[0].view(torch.float32), out[1]
 
 
 class CapturedQuery:
@@ -264,29 +269,40 @@ class CapturedQuery:
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
 
     def __call__(self, params, emb, tokens, lengths, nr=None):
-        nr = self.num_real if nr is None else nr
-        if not emb.is_cuda:
-            return self.run(params, emb, tokens, lengths, nr)
-        return self.replay(params, emb, tokens, lengths, nr, adopt=False)
+        with span("engine.call"):
+            nr = self.num_real if nr is None else nr
+            if not emb.is_cuda:
+                return self.run(params, emb, tokens, lengths, nr)
+            return self.replay(params, emb, tokens, lengths, nr, adopt=False)
 
     def replay(self, params, emb, tokens, lengths, nr, adopt: bool = True):
         """The call through the graph of its key: a replay, or on a miss
         the capture, whose warm-up is this call's dispatch. ``emb`` becomes
         the buffer the graphs belong to unless ``adopt`` is false and the
         function already has one: then a call on another buffer runs
-        ``run`` eagerly."""
-        key = (tuple(tokens.shape), tokens.dtype, tuple(lengths.shape), lengths.dtype,
-               tuple(id(x) for x in tree_leaves(params)))
-        with self.cache.lock:
-            stale = not adopt and self.cache.emb is not None and emb is not self.cache.emb
-            if not stale:
-                graph = self.cache.get(emb, key, lambda: self._capture(params, emb, tokens,
-                                                                       lengths, nr))
+        ``run`` eagerly (``stats`` counts it)."""
+        lock = self.cache.lock
+        with span("engine.key"):
+            key = (tuple(tokens.shape), tokens.dtype, tuple(lengths.shape), lengths.dtype,
+                   tuple(id(x) for x in tree_leaves(params)))
+            lock.acquire()
+            try:
+                stale = not adopt and self.cache.emb is not None and emb is not self.cache.emb
+                graph = None if stale else self.cache.get(
+                    emb, key, lambda: self._capture(params, emb, tokens, lengths, nr))
+            except BaseException:
+                lock.release()
+                raise
+        try:
+            if graph is not None:
                 first = graph.take_first()
                 if first is not None:
                     return first
                 out = graph(tokens, lengths, nr)
-        if stale:
+        finally:
+            lock.release()
+        if graph is None:
+            self.stats.ran_eagerly()
             return self.run(params, emb, tokens, lengths, nr)
         self.stats.replayed()
         return out
@@ -490,6 +506,7 @@ class GridQuery:
                 # merged while the lock holds the graphs' outputs
                 out = self._merge(outs, emb, tokens.shape[0])
         if stale:
+            self.stats.ran_eagerly()
             return self.run(params, emb, tokens, lengths, nr)
         return out
 

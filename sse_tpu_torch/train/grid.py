@@ -99,7 +99,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from sse_tpu_torch.models import towers
 from sse_tpu_torch.models.sse import NetworkMode, SSEConfig
@@ -131,6 +130,7 @@ from sse_tpu_torch.train.loop import (
     step_plan,
 )
 from sse_tpu_torch.utils import graphs
+from sse_tpu_torch.utils.profiling import span
 
 
 # ------------------------------------------------------------- placement
@@ -596,7 +596,7 @@ def make_grid_step(
                     parts.extend(rt.call(at, block, slices[d], inputs[d][2], inputs[d][4]))
 
                 def combine(labels, weight, *ps):
-                    with record_function("sse.train.combine"):
+                    with span("train.combine"):
                         logp, arg = losses_lib.combine_blocks(
                             [ps[i : i + 4] for i in range(0, len(ps), 4)])
                     return logp * weight, (arg == labels).float() * weight
@@ -608,7 +608,7 @@ def make_grid_step(
             def full_loss(weight_g, *th):
                 n = len(th) // 2
                 denom = torch.clamp(weight_g.sum(), min=1.0)
-                with record_function("sse.train.loss"):
+                with span("train.loss"):
                     loss = -cat(*th[:n]).sum() / denom
                     acc = cat(*th[n:]).sum() / denom
                 return loss, acc.detach()
@@ -623,7 +623,7 @@ def make_grid_step(
         src_emb, *mined_of = rt.call(lead, project_src, *src_feats)
         hard_g = None
         if mine:
-            with record_function("sse.train.mine"):
+            with span("train.mine"):
                 hard = [rt.call(dev[d], lambda e, cc, labels, lm: losses_lib.mine_hard_negative_rows(
                     e, cc, labels, loss_cfg.num_hard_negatives, labels_multi=lm),
                     e, _at(cache, dev[d]), inputs[d][2], inputs[d][4])
@@ -675,15 +675,15 @@ def make_grid_step(
         if draws is None:  # else a captured chain's position: its generators, its step
             draws = eager_draws(rt, state.step)
         batch = (src, src_len, labels, weight, labels_multi)
-        with record_function("sse.train.forward"):
+        with span("train.forward"):
             loss, acc = loss_fn(rt, views, params.get("target_table"), batch, tgt_tokens,
                                 tgt_lens, tgt_emb_cache, draws)
-        with record_function("sse.train.backward"):
+        with span("train.backward"):
             grads = rt.grads(loss, req, flat.devices, lead)
         with torch.no_grad():
-            with record_function("sse.train.grad_sum"):
+            with span("train.grad_sum"):
                 grads, totals = _sum_over_data(rt, flat, grads, multi, whole)
-            with record_function("sse.train.update"):
+            with span("train.update"):
                 new_state, gnorm = _update(rt, state, flat, grads, totals, cfg, lead, draws)
         metrics = {"loss": loss.detach(), "accuracy": acc, "grad_norm": gnorm}
         return new_state, metrics

@@ -62,7 +62,6 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sse_tpu_torch.data.batching import Batch, BatchIterator
 from sse_tpu_torch.data.corpus import EncodedPairs, TargetSpace
@@ -73,6 +72,7 @@ from sse_tpu_torch.parallel import distributed
 from sse_tpu_torch.train import losses as losses_lib
 from sse_tpu_torch.train.losses import LossConfig
 from sse_tpu_torch.utils import graphs
+from sse_tpu_torch.utils.profiling import span
 
 Tree = Any
 
@@ -462,7 +462,7 @@ def make_train_step(
         # candidates = batch positives ∪ mined hard negatives ∪ K uniform rows
         cand_rows = labels
         if loss_cfg.num_hard_negatives > 0 and tgt_emb_cache is not None:
-            with record_function("sse.train.mine"):
+            with span("train.mine"):
                 hard = losses_lib.mine_hard_negative_rows(
                     src_emb, tgt_emb_cache, labels, loss_cfg.num_hard_negatives,
                     labels_multi=labels_multi,
@@ -489,16 +489,16 @@ def make_train_step(
             draws = eager_draws(state.step, src.device)
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
         params = _unflatten(state.params, leaves)
-        with record_function("sse.train.forward"):
+        with span("train.forward"):
             loss, acc = loss_fn(
                 params, src, src_len, labels, weight, tgt_tokens, tgt_lens,
                 draws, tgt_emb_cache, labels_multi,
             )
-        with record_function("sse.train.backward"):
+        with span("train.backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         grads = _unflatten(state.params, grads)
-        with torch.no_grad(), record_function("sse.train.update"):
+        with torch.no_grad(), span("train.update"):
             updates, opt_state, g_norm = tx.update(grads, state.opt_state)
             if cfg.norm_metric == "update":
                 gnorm = global_norm(updates)

@@ -26,7 +26,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
-from torch.profiler import record_function
+
+from sse_tpu_torch.utils.profiling import span
 
 _MASKED = torch.finfo(torch.float32).min
 # logits a column chunk of block_softmax holds (128 MiB of float32)
@@ -281,7 +282,7 @@ def similarity_loss(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch on cfg.kind → (loss, train_accuracy), inside the profiler
     range ``sse.train.loss``."""
-    with record_function("sse.train.loss"):
+    with span("train.loss"):
         if cfg.kind == "full":
             if tgt_all is None:
                 raise ValueError("full softmax needs tgt_all")

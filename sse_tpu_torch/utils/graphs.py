@@ -38,16 +38,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from sse_tpu_torch.ops import GraphLaunches
+from sse_tpu_torch.utils.profiling import span
 
 
 class GraphStats:
-    """Captures and replays of an owner's graphs, and the readings of the
-    last captures (shape, seconds, MiB reserved). Thread-safe."""
+    """Captures and replays of an owner's graphs, the calls it ran eagerly
+    on the card instead (a served query on an index buffer that a delete
+    replaced), and the readings of the last captures (shape, seconds, MiB
+    reserved). Thread-safe."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.captures = 0
         self.replays = 0
+        self.eager = 0
         self.log: collections.deque = collections.deque(maxlen=64)
 
     def captured(self, reading: dict) -> None:
@@ -59,9 +63,14 @@ class GraphStats:
         with self._lock:
             self.replays += 1
 
+    def ran_eagerly(self) -> None:
+        with self._lock:
+            self.eager += 1
+
     def counts(self) -> Dict[str, int]:
         with self._lock:
-            return {"graph_captures": self.captures, "graph_replays": self.replays}
+            return {"graph_captures": self.captures, "graph_replays": self.replays,
+                    "graph_eager": self.eager}
 
 
 def abandon_capture(graph: torch.cuda.CUDAGraph, dev: torch.device, pool) -> None:
@@ -126,34 +135,35 @@ class Captured:
 
     def __init__(self, run: Callable[[], Any], dev: torch.device, pool,
                  side: torch.cuda.Stream, pack: Optional[Callable] = None) -> None:
-        t0 = time.perf_counter()
-        self.launches = GraphLaunches()
-        self.graph = torch.cuda.CUDAGraph()
-        cur = torch.cuda.current_stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self.first = run()
-        cur.wait_stream(side)
-        for x in _tensors(self.first):  # the caller reads it on its own stream
-            x.record_stream(cur)
-        reserved = torch.cuda.memory_reserved(dev)
-        collecting = gc.isenabled()
-        gc.disable()  # a graph or buffer the collector frees here would end the capture
-        try:
-            with self.launches.capturing(), torch.cuda.stream(side):
-                self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    out = run()
-                    self.out = out if pack is None else pack(out)
-                except BaseException:
-                    abandon_capture(self.graph, dev, pool)
-                    raise
-                self.graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-        self.mib = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
-        self.seconds = time.perf_counter() - t0
+        with span("graphs.capture"):
+            t0 = time.perf_counter()
+            self.launches = GraphLaunches()
+            self.graph = torch.cuda.CUDAGraph()
+            cur = torch.cuda.current_stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self.first = run()
+            cur.wait_stream(side)
+            for x in _tensors(self.first):  # the caller reads it on its own stream
+                x.record_stream(cur)
+            reserved = torch.cuda.memory_reserved(dev)
+            collecting = gc.isenabled()
+            gc.disable()  # a graph or buffer the collector frees here would end the capture
+            try:
+                with self.launches.capturing(), torch.cuda.stream(side):
+                    self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                    try:
+                        out = run()
+                        self.out = out if pack is None else pack(out)
+                    except BaseException:
+                        abandon_capture(self.graph, dev, pool)
+                        raise
+                    self.graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
+            self.mib = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+            self.seconds = time.perf_counter() - t0
 
     def take_first(self):
         """The warm-up's result, once: the capturing call's."""

@@ -1,21 +1,119 @@
-"""Profiler trace of a run, a live profiler endpoint and a steps/sec
-timer (port of ``sse_tpu/utils/profiling.py``: ``trace``, which ``train
---profile_dir`` uses, ``start_profiler_server`` and ``StepTimer``).
-``trace`` is a ``torch.profiler`` context that writes a Chrome trace (open
-it in Perfetto or chrome://tracing) into a directory."""
+"""Profiler trace of a run, a live profiler endpoint, a steps/sec timer
+(port of ``sse_tpu/utils/profiling.py``: ``trace``, which ``train
+--profile_dir`` uses, ``start_profiler_server`` and ``StepTimer``) and
+the program's named host spans (``span``). ``trace`` is a
+``torch.profiler`` context that writes a Chrome trace (open it in
+Perfetto or chrome://tracing) into a directory.
+
+``span(name)`` names a part of the program's host path. While a torch
+profiler runs (``trace``, ``/profile``, any ``torch.profiler.profile``)
+or a ``record_spans()`` block is open, it opens the profiler range
+``"sse." + name`` (on the profiler's clock, beside the kernels it
+launched) and adds its duration and self time to per-name totals,
+``span_totals()``. A span's duration leaves out its own bookkeeping; its
+self time also leaves out what its child spans cover, their bookkeeping
+included, so it holds only the span's own code. Otherwise it costs
+a flag check: one shared no-op context, no allocation and no torch op.
+The stack of open spans is a thread's own; the outermost span of a call
+carries the call's sequence number as its range's argument (a trace that
+records shapes shows it as the range's "Concrete Inputs"), and the spans
+of that call nest inside it on its thread."""
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import threading
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Iterator
+from typing import Any, Dict, Iterator, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._autograd import _record_function_with_args_enter, _record_function_with_args_exit
+
+_OFF = contextlib.nullcontext()
+_recording = 0  # open record_spans() blocks, all threads
+_totals: Dict[str, list] = {}  # range name -> [count, total ns, self ns]
+_totals_lock = threading.Lock()
+_local = threading.local()  # .stack: this thread's open spans
+_calls = itertools.count()
+
+
+class _Span:
+    """One recorded span: a user-scope profiler range (``record_function``'s
+    kind, entered through the binding that takes the call's number as an
+    int, which a trace with ``record_shapes=True`` shows among the range's
+    inputs) and its share of the totals."""
+
+    __slots__ = ("name", "range", "opened", "t0", "children")
+
+    def __init__(self, name: str) -> None:
+        self.name = "sse." + name
+
+    def __enter__(self) -> "_Span":
+        self.opened = time.perf_counter_ns()
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        if stack:
+            self.range = _record_function_with_args_enter(self.name)
+        else:
+            self.range = _record_function_with_args_enter(self.name, next(_calls))
+        self.children = 0
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        took = time.perf_counter_ns() - self.t0
+        stack = _local.stack
+        stack.pop()
+        _record_function_with_args_exit(self.range)
+        with _totals_lock:
+            got = _totals.setdefault(self.name, [0, 0, 0])
+            got[0] += 1
+            got[1] += took
+            got[2] += took - self.children
+        if stack:  # the parent's self time leaves out this span and what it cost
+            stack[-1].children += time.perf_counter_ns() - self.opened
+
+
+def span(name: str):
+    """The host span ``"sse." + name`` as a context manager: recorded
+    while a torch profiler runs or a ``record_spans()`` block is open,
+    else a shared no-op context."""
+    if _recording or _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
+
+
+@contextlib.contextmanager
+def record_spans() -> Iterator[None]:
+    """Record spans (ranges and totals) without a profiler."""
+    global _recording
+    with _totals_lock:
+        _recording += 1
+    try:
+        yield
+    finally:
+        with _totals_lock:
+            _recording -= 1
+
+
+def span_totals() -> Dict[str, Tuple[int, float, float]]:
+    """{range name: (count, total seconds, self seconds)} of the spans
+    recorded since the last ``reset_spans()``."""
+    with _totals_lock:
+        return {k: (c, t / 1e9, s / 1e9) for k, (c, t, s) in _totals.items()}
+
+
+def reset_spans() -> None:
+    with _totals_lock:
+        _totals.clear()
 
 
 @contextlib.contextmanager

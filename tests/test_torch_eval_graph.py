@@ -103,7 +103,7 @@ def test_top_rows_equal_jax(mode, sample):
     emb = tev.encode_targets(tp).clone()
     assert emb.shape == (t, 16)
     np.testing.assert_array_equal(tev.top_rows(tp, emb), want)
-    assert tev.graph_stats.counts() == {"graph_captures": 0, "graph_replays": 0}
+    assert tev.graph_stats.counts() == {"graph_captures": 0, "graph_replays": 0, "graph_eager": 0}
 
 
 class _Captured:
@@ -167,7 +167,8 @@ def test_evaluator_graph_policy(stand_in, mode, sample):
     for i, params in enumerate((tp, other, tp)):
         np.testing.assert_array_equal(ev.top_rows(params), eager.top_rows(params))
         assert ev.graph_stats.counts() == {"graph_captures": want_captures,
-                                           "graph_replays": batches * (i + 1) - want_captures}
+                                           "graph_replays": batches * (i + 1) - want_captures,
+                                           "graph_eager": 0}
         own = ev._programs.own
         for name in own:  # the programs read copies of the caller's towers
             for mine, theirs in zip(jax.tree.leaves(own[name]), jax.tree.leaves(params[name])):
@@ -175,7 +176,7 @@ def test_evaluator_graph_policy(stand_in, mode, sample):
     assert {c.pool for c in stand_in.made} == {0} and len(stand_in.made) == want_captures
     assert [r["shape"][0] for r in ev.graph_stats.log] == (["topk"] if seo else
                                                            ["encode", "topk"])
-    assert eager.graph_stats.counts() == {"graph_captures": 0, "graph_replays": 0}
+    assert eager.graph_stats.counts() == {"graph_captures": 0, "graph_replays": 0, "graph_eager": 0}
 
 
 def test_evaluator_capture_failure_caches_nothing(stand_in):
@@ -185,7 +186,7 @@ def test_evaluator_capture_failure_caches_nothing(stand_in):
     stand_in.fail = True
     with pytest.raises(RuntimeError, match="capture failed"):
         ev.evaluate(tp)
-    assert ev.graph_stats.counts() == {"graph_captures": 0, "graph_replays": 0}
+    assert ev.graph_stats.counts() == {"graph_captures": 0, "graph_replays": 0, "graph_eager": 0}
     assert ev._programs.encode.graph is None and ev._programs.topk.graph is None
     want = trecall.Evaluator(tm, pairs, tspace, batch_size=BS, capture=False).top_rows(tp)
     np.testing.assert_array_equal(ev.top_rows(tp), want)
@@ -273,9 +274,10 @@ def test_stale_buffer_runs_eagerly_and_drops_nothing(query_stand_in):
     assert _same(got, fused.run(tp, old, toks, lens, 40))
     fused.replay(tp, old, toks[:, :6], lens, 40, adopt=False)  # a new shape: still eager
     assert fused.cache.emb is emb and len(fused.cache.graphs) == 1
-    assert fused.stats.counts() == {"graph_captures": 1, "graph_replays": 0}
+    # each eager call on the stale buffer is counted
+    assert fused.stats.counts() == {"graph_captures": 1, "graph_replays": 0, "graph_eager": 2}
     fused.replay(tp, emb, toks, lens, 40, adopt=False)  # the adopted buffer replays
-    assert fused.stats.counts() == {"graph_captures": 1, "graph_replays": 1}
+    assert fused.stats.counts() == {"graph_captures": 1, "graph_replays": 1, "graph_eager": 2}
 
 
 def test_delete_race_keeps_the_new_graphs(query_stand_in, monkeypatch):
@@ -309,7 +311,7 @@ def test_delete_race_keeps_the_new_graphs(query_stand_in, monkeypatch):
     assert new_emb is not stale_emb and fn.cache.emb is new_emb
     assert len(fn.cache.graphs) == shapes
     assert eng.graph_counts() == {"graph_captures": 2 * shapes, "graph_replays": 0,
-                                  "graphs_cached": shapes}
+                                  "graph_eager": 1, "graphs_cached": shapes}
     assert _same(stale[0], fn.run(tp, stale_emb, toks, lens, stale_nr))
     monkeypatch.setattr(fn, "replay", real)
     fn.replay(tp, new_emb, toks, lens, eng.index.num_real, adopt=False)

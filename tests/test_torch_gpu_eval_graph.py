@@ -162,7 +162,8 @@ def test_build_index_replays_equal_eager(cuda, cell, dtype, monkeypatch):
                                     progress=lambda *a: calls.append(a), **kw)
     want = sharded_index.build_index(params, cfg, tspace, capture=False, **kw)
     assert torch.equal(got.emb, want.emb) and not got.emb[T:].any()
-    assert stats.counts() == {"graph_captures": 1, "graph_replays": 2}  # 3 chunks of 1,024
+    # 3 chunks of 1,024
+    assert stats.counts() == {"graph_captures": 1, "graph_replays": 2, "graph_eager": 0}
     assert calls == [(1024, T), (2048, T), (T, T)]
     program = _Recording.made[0]
     ops.reset_launch_counts()
@@ -223,7 +224,7 @@ def test_delete_race_keeps_the_new_graphs(cuda, monkeypatch):
     new_emb, nr = eng.index.pub[:2]
     assert fn.cache.emb is new_emb and len(fn.cache.graphs) == shapes
     assert eng.graph_counts() == {"graph_captures": 2 * shapes, "graph_replays": 0,
-                                  "graphs_cached": shapes}
+                                  "graph_eager": 1, "graphs_cached": shapes}
     want = fn.run(params, stale_emb, tokens, lengths, stale_nr)
     assert torch.equal(stale[0][0], want[0]) and torch.equal(stale[0][1], want[1])
     got = fn(params, new_emb, tokens, lengths, nr)

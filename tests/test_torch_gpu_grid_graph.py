@@ -121,7 +121,8 @@ def test_grid_replay_equals_eager(cuda, shape, dtype, b, variant):
     assert all(replayed[n] == data * model for n in route), replayed
     assert sum(replayed[n] for n in ops.topk.KERNELS) == len(route) * data * model
     assert replayed["gru_fwd"] == sum(len({d for d, _ in e}) for e in cards.values())
-    assert fn.stats.counts() == {"graph_captures": len(cards), "graph_replays": len(cards)}
+    assert fn.stats.counts() == {"graph_captures": len(cards), "graph_replays": len(cards),
+                                 "graph_eager": 0}
 
 
 def test_back_to_back_calls_get_their_own_rows(cuda):
@@ -194,7 +195,7 @@ def test_grid_on_two_cards(two_cards):
         fn(params, emb, toks, lens)
         toks, lens = _tokens(two_cards, b)
         assert _same(fn(params, emb, toks, lens), fn.run(params, emb, toks, lens, NR))
-    assert fn.stats.counts() == {"graph_captures": 4, "graph_replays": 4}
+    assert fn.stats.counts() == {"graph_captures": 4, "graph_replays": 4, "graph_eager": 0}
 
 
 def _engine(gen, shape=(1, 2), n: int = 4090, capacity: int = 8192):
@@ -221,7 +222,7 @@ def test_engine_warmup_add_delete_on_a_grid(cuda, shape):
     eng.warmup()
     shapes = len(eng._batch_tiers()) * len(eng._bucket_widths())
     assert eng.graph_counts() == {"graph_captures": shapes * cards, "graph_replays": 0,
-                                  "graphs_cached": shapes * cards}
+                                  "graph_eager": 0, "graphs_cached": shapes * cards}
     texts = ["w1 w2 w3", "w4 w5"]
     eng.query(texts)
     # an add across the blocks' boundary (rows 4090..4099, 4096) with k
@@ -280,4 +281,5 @@ def test_grid_build_equals_one_card_build(cuda, shape, dtype):
     assert calls == [(min(hi, t), t) for hi in range(2048, t + 2048, 2048)]
     used = {mesh.column_devices(lo // grid.emb.rows_per_shard)[0]
             for lo in range(0, t, 2048)}
-    assert stats.counts() == {"graph_captures": len(used), "graph_replays": 5 - len(used)}
+    assert stats.counts() == {"graph_captures": len(used), "graph_replays": 5 - len(used),
+                              "graph_eager": 0}

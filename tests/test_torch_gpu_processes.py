@@ -70,7 +70,7 @@ def test_grid_query_across_processes_replays_as_eager(pair):
     fn = build_fused_query_fn(cfg, 10, rows - 100)
     for r in (r0, r1):
         assert r["exchange"]
-        assert r["counts"] == {"graph_captures": 2, "graph_replays": 2}
+        assert r["counts"] == {"graph_captures": 2, "graph_replays": 2, "graph_eager": 0}
     for b in (8, 64):
         gen = torch.Generator(device="cuda").manual_seed(b)
         toks = bench._random_tokens(gen, (b, 20), 8000, "cuda")

@@ -107,7 +107,7 @@ def test_replay_equals_eager_every_bucket(cuda, dtype, variant, b):
         route = "twophase_p1" if (variant == "packed" and b >= 1024) else (
             "topk_exact" if variant == "exact" else "topk_stream")
         assert replayed[route] == 1 and replayed["gru_fwd"] == 1, replayed
-    assert fused.stats.counts() == {"graph_captures": 4, "graph_replays": 8}
+    assert fused.stats.counts() == {"graph_captures": 4, "graph_replays": 8, "graph_eager": 0}
 
 
 @pytest.mark.parametrize("b", [8, 4096])
@@ -226,7 +226,7 @@ def test_k_growth_captures_before_publishing(cuda):
     assert eng.k == 5 and eng.graph_counts()["graph_captures"] == 8
     eng.add_documents([f"n{i}" for i in range(10)], [f"w{i} w{i + 1}" for i in range(10)])
     assert eng.k == 10 and eng._fused is not old
-    assert eng.graph_counts() == {"graph_captures": 16, "graph_replays": 0,
+    assert eng.graph_counts() == {"graph_captures": 16, "graph_replays": 0, "graph_eager": 0,
                                   "graphs_cached": 8}
     assert len(eng.query(["w3 w4"])[0]) == 10
     assert eng.graph_counts()["graph_captures"] == 16 == eng.graph_counts()["graph_replays"] + 15

@@ -220,7 +220,8 @@ def test_replay_per_device_matches_eager_and_unsharded(model, stand_in, spy, nam
         assert spy["topk"] - before_topk == data * shards
         assert _same(got, fn.run(params, sidx.emb, toks, lens, 200))
         assert _same(got, unsharded(tparams, uidx.emb, toks, lens))
-    assert fn.stats.counts() == {"graph_captures": len(cards), "graph_replays": 2 * len(cards)}
+    assert fn.stats.counts() == {"graph_captures": len(cards), "graph_replays": 2 * len(cards),
+                                 "graph_eager": 0}
     assert [c.dev for c in stand_in.made] == list(cards)
     assert len({c.pool for c in stand_in.made}) == len(cards)  # a pool a device
     assert [r["card"] for r in fn.stats.log] == [str(dev) for dev in cards]
@@ -240,14 +241,14 @@ def test_per_device_keys(model, stand_in):
     toks, lens = _tokens(8)
     fn.replay(params, sidx.emb, toks, lens, 200)
     fn.replay(params, sidx.emb, toks, lens, 200)
-    assert fn.stats.counts() == {"graph_captures": 2, "graph_replays": 2}
+    assert fn.stats.counts() == {"graph_captures": 2, "graph_replays": 2, "graph_eager": 0}
     fn.replay(params, sidx.emb, toks[:, :6].contiguous(), lens, 200)  # another width
     assert fn.stats.counts()["graph_captures"] == 4
     dev1 = torch.device("cpu", 1)
     other = tpar.Replicated(params)
     other[dev1] = jax.tree.map(lambda x: x.clone(), params[dev1])  # same values, new tensors
     got = fn.replay(other, sidx.emb, toks, lens, 200)
-    assert fn.stats.counts() == {"graph_captures": 5, "graph_replays": 3}
+    assert fn.stats.counts() == {"graph_captures": 5, "graph_replays": 3, "graph_eager": 0}
     assert stand_in.made[-1].dev == dev1
     assert _same(got, fn.run(params, sidx.emb, toks, lens, 200))
     cards = mesh.entries_by_device()
@@ -256,7 +257,7 @@ def test_per_device_keys(model, stand_in):
         assert key[0] in ((8, 8), (8, 6))
         assert key[-1] == tuple(id(sidx.emb.block(s, dev)) for s in {s for _, s in cards[dev]})
     fn.replay(other, sidx.emb, toks, lens, 200)
-    assert fn.stats.counts() == {"graph_captures": 5, "graph_replays": 5}
+    assert fn.stats.counts() == {"graph_captures": 5, "graph_replays": 5, "graph_eager": 0}
 
 
 def test_failed_capture_raises_and_keeps_no_warm_up(model, stand_in):
@@ -274,12 +275,12 @@ def test_failed_capture_raises_and_keeps_no_warm_up(model, stand_in):
     with pytest.raises(RuntimeError, match="capture failed"):
         fn.replay(params, sidx.emb, *_tokens(8, seed=1), 200)
     assert [key[1] for key in fn.cache.graphs] == [dev0]
-    assert fn.stats.counts() == {"graph_captures": 1, "graph_replays": 0}
+    assert fn.stats.counts() == {"graph_captures": 1, "graph_replays": 0, "graph_eager": 0}
     stand_in.fail = None
     toks, lens = _tokens(8, seed=2)
     got = fn.replay(params, sidx.emb, toks, lens, 200)
     assert _same(got, fn.run(params, sidx.emb, toks, lens, 200))
-    assert fn.stats.counts() == {"graph_captures": 2, "graph_replays": 1}
+    assert fn.stats.counts() == {"graph_captures": 2, "graph_replays": 1, "graph_eager": 0}
     assert [c.dev for c in stand_in.made] == [dev0, dev1]
 
 
@@ -298,7 +299,7 @@ def test_stale_row_shards_run_eagerly_and_drop_nothing(model, stand_in):
     got = fn.replay(params, new, toks, lens, 199, adopt=False)
     assert _same(got, fn.run(params, new, toks, lens, 199))
     assert fn.cache.emb is not new and len(fn.cache.graphs) == 2
-    assert fn.stats.counts() == {"graph_captures": 2, "graph_replays": 0}
+    assert fn.stats.counts() == {"graph_captures": 2, "graph_replays": 0, "graph_eager": 1}
     fn.replay(params, new, toks, lens, 199)  # the engine's warmup adopts it
     assert fn.cache.emb is new and fn.stats.counts()["graph_captures"] == 4
     assert len(fn.cache.graphs) == 2
@@ -330,6 +331,7 @@ def test_grid_engine_warmup_add_delete(model, stand_in, monkeypatch, name):
     shapes = len(grid._bucket_widths())
     grid.warmup()
     assert grid.graph_counts() == {"graph_captures": shapes * cards, "graph_replays": 0,
+                                   "graph_eager": 0,
                                    "graphs_cached": shapes * cards}
     texts = ["a b", "c"]
     assert grid.query(texts) == one.query(texts)
@@ -456,4 +458,4 @@ def test_grid_build_matches_jax_and_the_one_device_build(model, stand_in, shape,
     used = [mesh.column_devices(lo // t_local)[0] for lo in range(0, t, chunk)]
     assert [c.dev for c in stand_in.made] == list(dict.fromkeys(used))
     assert stats.counts() == {"graph_captures": len(set(used)),
-                              "graph_replays": len(used) - len(set(used))}
+                              "graph_replays": len(used) - len(set(used)), "graph_eager": 0}

@@ -328,5 +328,6 @@ def test_stand_in_grid_query_exchanges_inside_the_body(stand_in):
     want = [vals.tolist(), rows.tolist()]
     for r in stand_in.values():
         q = r["query"]
-        assert q["exchange"] and q["counts"] == {"graph_captures": 1, "graph_replays": 1}
+        assert q["exchange"] and q["counts"] == {"graph_captures": 1, "graph_replays": 1,
+                                                 "graph_eager": 0}
         assert q["first"] == q["replay"] == q["eager"] == want

@@ -268,7 +268,8 @@ def test_engine_query_add_delete(setup):
     assert eng.warmup() >= 0.0
     # the plain versions run eagerly on the CPU: no graph is captured
     assert not eng.captures_graphs and eng.last_warmup["captures"] == 0
-    assert eng.graph_counts() == {"graph_captures": 0, "graph_replays": 0, "graphs_cached": 0}
+    assert eng.graph_counts() == {"graph_captures": 0, "graph_replays": 0,
+                                  "graph_eager": 0, "graphs_cached": 0}
 
 
 def test_engine_k_grows_with_the_index(setup):
@@ -279,7 +280,8 @@ def test_engine_k_grows_with_the_index(setup):
     assert eng.k == 3 and len(eng.query(["x"])[0]) == 3
     eng.add_documents(["d", "e", "f"], ["one", "two", "three"])
     assert eng.k == 5 and len(eng.query(["x"])[0]) == 5
-    assert eng.graph_counts() == {"graph_captures": 0, "graph_replays": 0, "graphs_cached": 0}
+    assert eng.graph_counts() == {"graph_captures": 0, "graph_replays": 0,
+                                  "graph_eager": 0, "graphs_cached": 0}
 
 
 def _free_port():

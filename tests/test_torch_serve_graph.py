@@ -38,7 +38,7 @@ from sse_tpu_torch.ops import topk as ttopk
 from sse_tpu_torch.serve import QueryEngine, engine as tengine
 
 L = 12
-NO_GRAPHS = {"graph_captures": 0, "graph_replays": 0, "graphs_cached": 0}
+NO_GRAPHS = {"graph_captures": 0, "graph_replays": 0, "graph_eager": 0, "graphs_cached": 0}
 
 
 @pytest.fixture(scope="module")
@@ -166,7 +166,7 @@ def test_fused_fn_num_real_int_or_tensor_matches_jax(setup, dtype, variant):
         _held_rows(qq, temb.double() * scale, ji, ti, variant == "exact")
         np.testing.assert_allclose(as_int[0].numpy()[:, :min(nr, 5)],
                                    np.asarray(jv)[:, :min(nr, 5)], atol=5e-3)
-    assert fused.stats.counts() == {"graph_captures": 0, "graph_replays": 0}
+    assert fused.stats.counts() == {"graph_captures": 0, "graph_replays": 0, "graph_eager": 0}
 
 
 # ------------------------------------------------------- the graph cache
@@ -223,7 +223,7 @@ def test_graph_cache_policy(monkeypatch):
         cache.get(b, ((256, 8),), broken)
     assert list(cache.graphs) == [((8, 8),)] and stats.captures == 6
     assert stats.log[-1] == {"shape": (8, 8), "seconds": 0.1, "mib": 2.0}
-    assert stats.counts() == {"graph_captures": 6, "graph_replays": 0}
+    assert stats.counts() == {"graph_captures": 6, "graph_replays": 0, "graph_eager": 0}
 
 
 def test_captured_query_keys_with_a_stand_in(setup, monkeypatch):
@@ -247,7 +247,7 @@ def test_captured_query_keys_with_a_stand_in(setup, monkeypatch):
     lens = torch.full((4,), 8, dtype=torch.int32)
     want = fused.run(tparams, emb, toks, lens, 40)
     assert _same(fused(tparams, emb, toks, lens), want)  # CPU: eager
-    assert fused.stats.counts() == {"graph_captures": 0, "graph_replays": 0}
+    assert fused.stats.counts() == {"graph_captures": 0, "graph_replays": 0, "graph_eager": 0}
 
     assert _same(fused.replay(tparams, emb, toks, lens, 40), want)
     assert _same(fused.replay(tparams, emb, toks, lens, _nr(40)), want)
@@ -262,7 +262,7 @@ def test_captured_query_keys_with_a_stand_in(setup, monkeypatch):
     new_emb = emb.clone()
     assert _same(fused.replay(tparams, new_emb, toks, lens, 40), want)
     assert len(fused.cache.graphs) == 1 and _Graph.made[-1].pool == 1
-    assert fused.stats.counts() == {"graph_captures": 5, "graph_replays": 2}
+    assert fused.stats.counts() == {"graph_captures": 5, "graph_replays": 2, "graph_eager": 0}
 
 
 # ------------------------------------------------------------ the engine
