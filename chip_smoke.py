@@ -15,6 +15,7 @@ CLI.
     python3 chip_smoke.py --evals    # only the Evaluator / index-build graphs phase (11.)
     python3 chip_smoke.py --processes  # only the grids across processes over NCCL (12.)
     python3 chip_smoke.py --wide     # only the recurrent widths beyond E=H=128 (13.)
+    python3 chip_smoke.py --embed-grad  # only the embedding table's gradient (14.)
 
 ``--costs`` (gru_fwd_costs, lstm_fwd_costs, rnn_bwd_costs for either
 cell: each backward's kernels by part, and the products of
@@ -241,6 +242,18 @@ commits compare in one run, taken in turns.
    plain recurrent layer barred from the card (OnTheKernels) and its
    instances' counters > 0. ``--costs`` ends with wide_costs (µs a step
    at H=256 beside H=128, with each cluster launch's tile).
+14. The embedding table's gradient (embed_grad_slice, ``ops/embed.py``
+   ``table_grad`` → ``csrc/embed_grad.cu``): at the ``qna-train`` cell's
+   shapes (a step's 2,304 target rows and 128 questions of 50 tokens, pad
+   id 0 past each length: passages 5-50, questions 5-30) and at the
+   ``ranking`` preset's (the same rows, every token a uniform id), the
+   kernel's table gradient against its plain mirror bit for bit and
+   against PyTorch's ``index_put_(accumulate=True)`` (autograd's backward
+   of ``table[tokens]``) within float32 rounding; the device ms a call of
+   the kernels alone (ids sorted beforehand), of ``table_grad`` (with the
+   sort) and of ``index_put_``, each beside the byte bound (the cotangent
+   read once, the table gradient written once). Prints {"embed_grad":
+   {...}} (before the encode line in the full run).
 Each kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its tensor-core
 operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8) is computed from
@@ -5625,6 +5638,85 @@ def wide_slice(card: str) -> dict:
     return runs
 
 
+def embed_grad_tokens(kind: str, rows: int, gen) -> torch.Tensor:
+    """[rows, 50] int64 ids on the card: "passages" (lengths of the qna
+    corpus, lognormal median 90, sigma 0.5, cut to 5-50) or "questions"
+    (5-30) of uniform ids in [2, 8000) with pad id 0 after each length;
+    "uniform" every token a uniform id in [0, 8000)."""
+    length = 50
+    if kind == "uniform":
+        return torch.randint(0, 8000, (rows, length), generator=gen, device="cuda")
+    if kind == "passages":
+        normal = torch.randn((rows,), generator=gen, device="cuda")
+        lens = torch.exp(math.log(90) + 0.5 * normal).clamp(5, length).long()
+    else:
+        lens = torch.randint(5, 31, (rows,), generator=gen, device="cuda")
+    toks = torch.randint(2, 8000, (rows, length), generator=gen, device="cuda")
+    return torch.where(torch.arange(length, device="cuda") < lens[:, None], toks, 0)
+
+
+def embed_grad_slice(card: str) -> dict:
+    """Phase 14: the table gradient at the qna step's and the ranking
+    preset's shapes, checked, then timed by device ms a call beside
+    index_put_ and the byte bound."""
+    import ctypes
+
+    from sse_tpu_torch.configs import preset
+    from sse_tpu_torch.ops import _build, embed
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    task = preset("ranking")
+    cands = task.batch_size * (1 + task.num_hard_negatives) + task.num_negatives
+    shapes = {  # name → (tokens, E)
+        "qna targets": (embed_grad_tokens("passages", cands, gen), 128),
+        "qna questions": (embed_grad_tokens("questions", task.batch_size, gen), 128),
+        "ranking uniform": (embed_grad_tokens("uniform", cands, gen), task.embed_dim),
+    }
+    vocab, out = 8000, {}
+    for name, (tokens, E) in shapes.items():
+        dy = torch.randn((*tokens.shape, E), generator=gen, device="cuda")
+        tok, dy2 = tokens.reshape(-1), dy.reshape(-1, E)
+        N = tok.numel()
+        got = embed.table_grad(tokens, dy, vocab)
+        want = embed.table_grad_reference(tokens.cpu(), dy.cpu(), vocab)
+        torch.cuda.synchronize()
+        check(torch.equal(got.cpu(), want), f"embed_grad {name}: the kernel differs from its mirror")
+        lib = torch.zeros((vocab, E), device="cuda").index_put_((tok,), dy2, accumulate=True)
+        err = float((got - lib).abs().max())
+        scale = float(torch.zeros((vocab, E), device="cuda").index_put_(
+            (tok,), dy2.abs(), accumulate=True).max())
+        check(err <= 2.0**-24 * N * scale, f"embed_grad {name}: {err} from index_put_")
+        ids, order = torch.sort(tok.to(torch.int32), stable=True)
+        dt = torch.empty((vocab, E), device="cuda")
+        part = torch.empty((-(-N // embed.CHUNK), 2, E), device="cuda")
+
+        def kernels():
+            _build.launch("sse_embed_grad", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3,
+                          dy.device, ids.data_ptr(), order.data_ptr(), dy2.data_ptr(),
+                          dt.data_ptr(), part.data_ptr(), N, E, vocab)
+
+        calls = {"kernels": kernels, "with_sort": lambda: embed.table_grad(tokens, dy, vocab),
+                 "index_put": lambda: torch.zeros((vocab, E), device="cuda").index_put_(
+                     (tok,), dy2, accumulate=True)}
+        device = call_device_ms(calls)
+        events = {k: cuda_ms(fn, reps=20) for k, fn in calls.items()}
+        lim = bound(nbytes(dy) + vocab * E * 4, 0.0)
+        pads = int((tok == 0).sum())
+        longest = int(torch.unique_consecutive(ids, return_counts=True)[1].max())
+        out[name] = {"tokens": N, "E": E, "pad_tokens": pads, "longest_run": longest,
+                     "max_abs_err_vs_index_put": err,
+                     "device_ms": device, "events_ms": events, **lim,
+                     "roofline_pct": {k: (100 * lim["bound_ms"] / v if v == v else None)
+                                      for k, v in device.items()}}
+        log(f"embed_grad {name}: N={N} E={E} pads {pads} longest run {longest}; device ms "
+            f"kernels {device['kernels']:.4f}, with sort {device['with_sort']:.4f}, "
+            f"index_put_ {device['index_put']:.4f}; events ms {events}; bound "
+            f"{lim['bound_ms']:.4f} [{card}]")
+    log(f"embed_grad phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "gru_fwd": ("sse_tpu_torch/csrc/gru_fwd.cu", "sse_tpu/ops/pallas_rnn.py:337"),
     "gru_bwd": ("sse_tpu_torch/csrc/gru_bwd.cu", "sse_tpu/ops/pallas_rnn.py:384"),
@@ -5743,6 +5835,9 @@ def main() -> None:
         check(not missing, f"kernels never launched on the evals phase's path: {missing}")
         print(json.dumps({"evals": no_nan(readings)}, allow_nan=False))
         return
+    if "--embed-grad" in sys.argv[1:]:
+        print(json.dumps({"embed_grad": no_nan(embed_grad_slice(card))}, allow_nan=False))
+        return
     if "--encode" in sys.argv[1:]:
         _, counts, readings = encode_slice(card)
         missing = [n for n in ENCODE_KERNELS if counts.get(n, 0) < 1]
@@ -5762,6 +5857,7 @@ def main() -> None:
     check_topk_exact(card, results)
     check_transformer(card)
     transformer_costs(card)
+    embed_grad_readings = embed_grad_slice(card)
 
     corpus, encode_counts, encode_readings = encode_slice(card)
     width = dict(vocab_size=8000, embed_dim=128, hidden=128, num_layers=1, encoding_dim=128)
@@ -5841,6 +5937,7 @@ def main() -> None:
     for k in kernels:
         check(all(key in k for key in keys), f"kernel line misses a key: {k}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check")
+    print(json.dumps({"embed_grad": no_nan(embed_grad_readings)}, allow_nan=False))
     print(json.dumps({"encode": no_nan(encode_readings)}, allow_nan=False))
     print(json.dumps({"graphs": no_nan(graph_readings)}, allow_nan=False))
     print(json.dumps({"evals": no_nan(eval_readings)}, allow_nan=False))

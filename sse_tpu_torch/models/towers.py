@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from sse_tpu_torch.ops import rnn
+from sse_tpu_torch.ops import embed, rnn
 from sse_tpu_torch.ops.rnn import bf16_matmul, gru_cell, lstm_cell, split_weights
 from sse_tpu_torch.utils.profiling import span
 
@@ -250,6 +250,8 @@ class _EmbedLookup(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         (tokens,) = ctx.saved_tensors
+        if ctx.impl == "take":
+            return embed.table_grad(tokens, dy, ctx.vocab), None, None
         tok = tokens.reshape(-1)
         dy2 = dy.reshape(-1, dy.shape[-1])
         shape = (ctx.vocab, dy2.shape[1])
@@ -265,8 +267,13 @@ class _EmbedLookup(torch.autograd.Function):
 
 
 def _embed(table: torch.Tensor, tokens: torch.Tensor, impl: str) -> torch.Tensor:
-    """[B, L] ids → [B, L, E] rows of ``table`` (``towers.py:597-600``)."""
+    """[B, L] ids → [B, L, E] rows of ``table`` (``towers.py:597-600``).
+    ``take`` is the gather with autograd's own backward, except where a
+    table on the card takes a gradient: there its cotangent is
+    ``ops.embed.table_grad``'s deterministic segmented sum."""
     if impl == "take":
+        if table.is_cuda and table.requires_grad and torch.is_grad_enabled():
+            return _EmbedLookup.apply(table, tokens, impl)
         return table[tokens]
     if impl == "presorted_cost" and torch.is_grad_enabled() and table.requires_grad:
         raise ValueError("embed_grad='presorted_cost' is measurement-only: its table "

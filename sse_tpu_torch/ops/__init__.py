@@ -5,7 +5,7 @@ is compiled on the first launch (``sse_tpu_torch.ops._build``)."""
 import contextlib
 from collections import Counter
 
-from sse_tpu_torch.ops import rnn, topk
+from sse_tpu_torch.ops import embed, rnn, topk
 from sse_tpu_torch.ops.rnn import (
     RNNLayer,
     rnn_layer,
@@ -23,12 +23,14 @@ from sse_tpu_torch.ops.topk import (
 
 def launch_counts() -> dict:
     """Launches of every kernel wrapper since the last reset."""
-    return {**rnn.launches, **{name: topk.launch_total(name) for name in topk.KERNELS}}
+    return {**rnn.launches, **embed.launches,
+            **{name: topk.launch_total(name) for name in topk.KERNELS}}
 
 
 def reset_launch_counts() -> None:
-    for name in rnn.launches:
-        rnn.launches[name] = 0
+    for counts in (rnn.launches, embed.launches):
+        for name in counts:
+            counts[name] = 0
     topk.launches.clear()
 
 
@@ -43,6 +45,7 @@ class GraphLaunches:
 
     def __init__(self) -> None:
         self.rnn: dict = {}
+        self.embed: dict = {}
         self.topk: Counter = Counter()
         self.collectives: Counter = Counter()
 
@@ -50,15 +53,17 @@ class GraphLaunches:
     def capturing(self):
         from sse_tpu_torch.parallel import distributed  # not at import: parallel imports ops
 
-        rnn0, topk0 = dict(rnn.launches), Counter(topk.launches)
+        rnn0, embed0, topk0 = dict(rnn.launches), dict(embed.launches), Counter(topk.launches)
         coll0 = Counter(distributed.collectives)
         try:
             yield self
         finally:
             self.rnn = {k: rnn.launches[k] - rnn0[k] for k in rnn0}
+            self.embed = {k: embed.launches[k] - embed0[k] for k in embed0}
             self.topk = topk.launches - topk0
             self.collectives = distributed.collectives - coll0
             rnn.launches.update(rnn0)
+            embed.launches.update(embed0)
             topk.launches.clear()
             topk.launches.update(topk0)
             distributed.collectives.clear()
@@ -67,8 +72,9 @@ class GraphLaunches:
     def replayed(self) -> None:
         from sse_tpu_torch.parallel import distributed
 
-        for name, n in self.rnn.items():
-            rnn.launches[name] += n
+        for counts, made in ((rnn.launches, self.rnn), (embed.launches, self.embed)):
+            for name, n in made.items():
+                counts[name] += n
         topk.launches.update(self.topk)
         distributed.collectives.update(self.collectives)
 

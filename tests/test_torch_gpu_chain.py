@@ -4,11 +4,12 @@ graph and replays it.
 
 - A replay from a state against 8 eager steps from the same state, for
   the bench's GRU and the compositional LSTM stack with dropout (B=256,
-  L=50, 128 negatives): bit for bit where two eager runs are bit for bit
-  on the card; where they are not (the embedding backward's atomics sum
-  in any order), held as ``chip_smoke.held_state`` holds a state, with
-  the eager-vs-eager drift printed beside it. The launch counters count
-  a replay's kernels as the eager steps'.
+  L=50, 128 negatives) and the ``qna`` preset on pad-heavy batches: bit
+  for bit where two eager runs are bit for bit on the card; where they
+  are not (a backward that sums with atomics in any order), held as
+  ``chip_smoke.held_state`` holds a state, with the eager-vs-eager drift
+  printed beside it. The launch counters count a replay's kernels as the
+  eager steps'.
 - Replays sync nothing: they run under
   ``torch.cuda.set_sync_debug_mode("error")``, both from the state the
   last replay returned and from another state (copied in), with the chunk
@@ -87,6 +88,60 @@ def test_replay_matches_eager_steps(cuda, cell):
     torch.cuda.synchronize()
     assert ops.launch_counts() == eager_counts
     _held_against_eager(cell, g, gm, e1, e2, m1)
+
+
+def test_qna_preset_replay_matches_eager_steps(cuda):
+    """The ``qna`` preset as shipped (dual LSTM towers with the attention
+    readout, 16 mined and 128 uniform negatives, EMA) on pad-heavy
+    questions (5-30 tokens padded to 50) and passages of which some are
+    short: a replay against 8 eager steps from the same state, as above.
+    Both towers' tables take ``embed_grad``'s kernel, once a table a step,
+    eager and replayed."""
+    import dataclasses
+
+    from sse_tpu_torch import configs, ops
+    from sse_tpu_torch.models import sse
+    from sse_tpu_torch.train import loop
+
+    task = configs.preset("qna")
+    n, b, length = 4096, task.batch_size, task.max_seq_length
+    model_cfg = task.model_config(8000, n)
+    train_cfg = dataclasses.replace(task.train_config(), steps_per_dispatch=K)
+    state = loop.init_train_state(model_cfg, train_cfg, torch.Generator().manual_seed(0), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    pos = torch.arange(length, device="cuda")
+
+    def padded(rows: int, lo: int, hi: int):
+        lens = torch.randint(lo, hi + 1, (rows,), generator=gen, device="cuda", dtype=torch.int32)
+        toks = torch.randint(2, 8000, (rows, length), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        return torch.where(pos < lens[:, None], toks, 0), lens
+
+    tgt_tokens, tgt_lens = padded(n, 5, length)
+    with torch.no_grad():
+        cache = sse.target_embeddings(state.params, model_cfg, tokens=tgt_tokens,
+                                      lengths=tgt_lens)
+    weight = torch.ones((b,), dtype=torch.float32, device="cuda").view(torch.int32)
+    batches = []
+    for _ in range(K):
+        src, lens = padded(b, 5, 30)
+        labels = torch.randint(0, n, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        batches.append(torch.cat([src, lens[:, None], labels[:, None], weight[:, None]], 1))
+    pk = torch.stack(batches)
+    chain = loop.make_train_step(model_cfg, train_cfg, packed_width=length, chain=K)
+    eager = loop._eager_chain(loop.make_train_step(model_cfg, train_cfg, packed_width=length), K)
+    run = lambda fn: fn(state, pk, tgt_tokens, tgt_lens, tgt_emb_cache=cache)  # noqa: E731
+    ops.reset_launch_counts()
+    e1, m1 = run(eager)
+    eager_counts = ops.launch_counts()
+    assert eager_counts["embed_grad"] == 2 * K
+    e2, _ = run(eager)
+    run(chain)  # capture
+    ops.reset_launch_counts()
+    g, gm = run(chain)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == eager_counts
+    _held_against_eager("qna", g, gm, e1, e2, m1)
 
 
 def _held_against_eager(cell, g, gm, e1, e2, m1):

@@ -650,17 +650,18 @@ def test_stream_plan_fits_and_walks_every_tile_once(dtype, d):
 def test_launch_counts_sum_the_per_batch_counter(monkeypatch):
     """The top-k wrappers count launches by (kernel, B) in one counter:
     ops.launch_counts() reports each kernel's sum over B beside the
-    recurrent kernels' counts, and reset_launch_counts empties it."""
+    recurrent and the embedding kernels' counts, and reset_launch_counts
+    empties it."""
     from collections import Counter
 
     from sse_tpu_torch import ops
-    from sse_tpu_torch.ops import rnn
+    from sse_tpu_torch.ops import embed, rnn
 
     monkeypatch.setattr(rnn, "launches", dict.fromkeys(rnn.launches, 1))
     monkeypatch.setattr(ttopk, "launches", Counter(
         {("topk_stream", 8): 3, ("topk_stream", 256): 2, ("twophase_p1", 1024): 1}))
     counts = ops.launch_counts()
-    assert counts.keys() == set(rnn.launches) | set(ttopk.KERNELS)
+    assert counts.keys() == set(rnn.launches) | set(embed.launches) | set(ttopk.KERNELS)
     assert (counts["topk_stream"], counts["topk_exact"], counts["twophase_p1"]) == (5, 0, 1)
     assert ttopk.launch_total("twophase_p2") == 0 and counts["gru_fwd"] == 1
     ops.reset_launch_counts()
